@@ -1,36 +1,48 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 5]
+    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 5] [--tile-reps 5]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the four kernels of csrc/ for sm_90a (one nvcc each,
+2. build   — builds the eight kernels of csrc/ for sm_90a (one nvcc each,
              all started together).
-3. kernels — runs K1-K4 against their plain torch versions on the card, at
+3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
-             17.28 M rows, C = 1 and C = 10, span 16) and on edge cases
-             (shuffled ids, NULLs, +-inf/NaN, all-masked blocks, ts ties,
-             a ragged tail); every kernel runs twice and must give
-             byte-identical results; times kernel, plain version and the
-             nearest single PyTorch call with CUDA events.
+             17.28 M rows, C = 1, 5 and 10, span 16, G = 4096 x 12; the
+             groupby-orderby-limit and lastpoint selections) and on edge
+             cases (shuffled ids, NULLs, +-inf/NaN, all-masked blocks, ts
+             ties, a ragged tail; block maxima at powers of two +-1 ulp,
+             half-way values, mixed magnitudes; +-0/NaN/null sort keys;
+             subnormal and NaN f64 words); every kernel runs twice and must
+             give byte-identical results; times kernel, plain version and
+             the nearest single PyTorch call with CUDA events.
 4. slice   — TSBS cpu-only at --hosts x --hours (10 s scrape, 10 metrics),
              written through the port's Database at its storage defaults
              with the WAL on, flushed to Parquet, then the 15 TSBS
-             queries through Database.sql: once cold and --reps times
-             warm on the device path.  Each result is held against the
-             port's CPU (Arrow) backend — keys, counts, min, max, last
-             exactly; sum/avg within rel 1e-12 — and double-groupby-1
-             also against a numpy ground truth built during ingest.  Per query it asserts that the
-             lowered-query counter advanced and that every kernel of the
-             query's path launched.
-5. kernels line, then the last line {"ok": true, "device": {...}}.
+             queries through Database.sql on the table-fed path (tile
+             cache off): once cold and --reps times warm.  Each result is
+             held against the port's CPU (Arrow) backend — keys, counts,
+             min, max, last exactly; sum/avg within rel 1e-12 — and
+             double-groupby-1 also against a numpy ground truth built
+             during ingest.  Per query it asserts that the lowered-query
+             counter advanced and that every kernel of the query's path
+             (EXPECTED_PATH) launched.
+5. tile    — the same 15 queries on the tile path (device-resident
+             super-tiles) over the same region: once cold (plane build,
+             upload and K5 quantize split out) and --tile-reps times warm
+             (p50 per stage).  Every run must advance `tile_dispatches`
+             and leave `tile_declined` alone, launch the kernels of
+             EXPECTED_TILE_PATH, and match phase 4's CPU-backend result
+             (sum/avg within rel 1e-7, the limb verdict's bound).
+6. the kernels line, then the last line {"ok": true, "device": {...}}.
 
-It imports neither jax nor the reference package (greptimedb_tpu).  It
-exits non-zero, printing no result, when no CUDA device is present or when
-it runs outside a checkout of the repository.
+The launch counts are set to 0 just before phases 4 and 5 and read just
+after each.  It imports neither jax nor the reference package
+(greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
+device is present or when it runs outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -62,8 +74,9 @@ H3600 = 3600_000
 class Tsbs:
     """Windows, hosts and the 15 queries of the TSBS cpu-only family."""
 
-    def __init__(self, n_hosts: int, hours: int):
+    def __init__(self, n_hosts: int, hours: int, n_metrics: int = len(METRICS)):
         self.n_hosts, self.hours = n_hosts, hours
+        self.metrics = METRICS[:n_metrics]
         self.end = T0 + hours * H3600
         self.w12 = (self.end - 12 * H3600, self.end)
         self.w8 = (self.end - 8 * H3600, self.end)
@@ -73,7 +86,7 @@ class Tsbs:
 
     def _q(self, window, metrics_n, hosts=None, bucket="1h", funcs="max"):
         lo, hi = window
-        cols = ", ".join(f"{funcs}({m}) AS {funcs}_{m}" for m in METRICS[:metrics_n])
+        cols = ", ".join(f"{funcs}({m}) AS {funcs}_{m}" for m in self.metrics[:metrics_n])
         where = f"ts >= {lo} AND ts < {hi}"
         if hosts is not None:
             where += (
@@ -132,6 +145,7 @@ class Tsbs:
 # buckets over whole hosts fail it (K3 reruns); scans under 2^16 rows go
 # straight to K3.
 _BLOCKED, _SCATTER, _LAST = "segment_reduce_blocked", "segment_reduce_scatter", "segment_last"
+TILE_KERNELS = ("quantize_limbs", "limb_segment_sums", "topk_select", "pack_result")
 EXPECTED_PATH = {
     "double-groupby-1": {_BLOCKED},
     "double-groupby-5": {_BLOCKED},
@@ -151,6 +165,33 @@ EXPECTED_PATH = {
 }
 
 
+# The kernels each query launches on the tile path at the default size,
+# reasoned from the planes' layout and checked on the card: one region,
+# one super-tile of 17.28 M rows in (hostname, ts) order, two chunks of
+# at most 2^24 rows.  Host-major hourly groups pass the blocked guard
+# (K6 for avg, limb planes quantized by K5 in each double-groupby's cold
+# run; K2 for max); minute buckets fail it (K3 after K2); ORDER BY + LIMIT
+# and lastpoint's compaction run K7; K8 packs every result.
+_QUANT, _LIMB, _TOPK, _PACK = TILE_KERNELS
+EXPECTED_TILE_PATH = {
+    "double-groupby-1": {_QUANT, _LIMB, _PACK},
+    "double-groupby-5": {_QUANT, _LIMB, _PACK},
+    "double-groupby-all": {_QUANT, _LIMB, _PACK},
+    "cpu-max-all-1": {_BLOCKED, _PACK},
+    "cpu-max-all-8": {_BLOCKED, _PACK},
+    "single-groupby-1-1-1": {_BLOCKED, _SCATTER, _PACK},
+    "single-groupby-1-1-12": {_BLOCKED, _SCATTER, _PACK},
+    "single-groupby-1-8-1": {_BLOCKED, _SCATTER, _PACK},
+    "single-groupby-5-1-1": {_BLOCKED, _SCATTER, _PACK},
+    "single-groupby-5-1-12": {_BLOCKED, _SCATTER, _PACK},
+    "single-groupby-5-8-1": {_BLOCKED, _SCATTER, _PACK},
+    "groupby-orderby-limit": {_BLOCKED, _SCATTER, _TOPK, _PACK},
+    "lastpoint": {_BLOCKED, _LAST, _TOPK, _PACK},
+    "high-cpu-all": {_BLOCKED, _PACK},
+    "high-cpu-1": {_BLOCKED, _PACK},
+}
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj, separators=(",", ":")), flush=True)
 
@@ -158,7 +199,8 @@ def emit(obj: dict) -> None:
 # ---- kernel registry ----------------------------------------------------------
 
 def kernel_table():
-    """name -> (wrapper with .launches, source, reference kernel it replaces)."""
+    """name -> (wrapper with .launches, source, reference kernel it replaces).
+    K1-K4 serve the table-fed path and the tile path, K5-K8 the tile path."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
 
@@ -172,6 +214,14 @@ def kernel_table():
                                    "greptimedb_tpu/ops/aggregate.py:598"),
         "segment_last": (agg.segment_last, src + "segment_last.cu",
                          "greptimedb_tpu/ops/aggregate.py:792"),
+        "quantize_limbs": (agg.quantize_limbs, src + "quantize_limbs.cu",
+                           "greptimedb_tpu/ops/aggregate.py:259"),
+        "limb_segment_sums": (agg.limb_segment_sums, src + "limb_segment_sums.cu",
+                              "greptimedb_tpu/ops/aggregate.py:291"),
+        "topk_select": (agg.topk_group_select, src + "topk_select.cu",
+                        "greptimedb_tpu/ops/aggregate.py:1031"),
+        "pack_result": (agg.pack_result, src + "pack_result.cu",
+                        "greptimedb_tpu/parallel/tile_cache.py:3119"),
     }
 
 
@@ -384,11 +434,24 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     gm, mm = flt.mask_gids(valid, [(ts, "<", hi - 1800_000)], [], [], (ts, T0, 60_000, n_min), n_min - 1)
     ok, _st, _b = agg.segment_reduce_blocked(vals[:1], gm, [mm], mm, n_min, ("max",))
     assert not ok, "minute buckets over the host-major layout must fail the blocked guard"
+    nb = -(-n // 4096)
+    # the failing guard reads ids and base mask once and writes the bases;
+    # a min and a max compare per row
+    gf_bound, gf_by = bound(n * (4 + 1) + nb * 4, n * 2)
+    # K3 on the same inputs: ids, mask and values read once, [G] maxima
+    # written; one compare per row; scatter_reduce_ is the library call
+    sm_bound, sm_by = bound(n * (4 + 1 + 8) + n_min * 8, n)
+    safe_m = torch.where(mm, gm, n_min).to(torch.int64)
     out["segment_reduce_blocked"]["guard_fail"] = dict(
         ms=_timed(lambda: agg.segment_reduce_blocked(vals[:1], gm, [mm], mm, n_min, ("max",)), reps),
+        bound_ms=gf_bound, bound_by=gf_by,
         scatter_ms=_timed(lambda: agg.segment_reduce_scatter(vals[:1], gm, [mm], mm, n_min, ("max",)), reps),
+        scatter_bound_ms=sm_bound, scatter_bound_by=sm_by,
+        scatter_library_ms=_timed(
+            lambda: torch.full((n_min + 1,), -np.inf, dtype=torch.float64, device=dev)
+            .scatter_reduce_(0, safe_m, vals[0], "amax"), reps),
     )
-    del gm, mm
+    del gm, mm, safe_m
 
     # K4 at the lastpoint shape: group by hostname only
     gl, ml = flt.mask_gids(valid, [], [], [(codes, card)], None, card - 1)
@@ -491,6 +554,271 @@ def run_edge_cases(dev) -> None:
     _compare(km, pm, True, "edge mask_gids not in")
 
 
+# ---- phase 3b: the tile path's kernels K5-K8 against their plain versions -------
+
+def _padded(t, n_pad, fill):
+    import torch
+
+    out = torch.full((n_pad,), fill, dtype=t.dtype, device=t.device)
+    out[: t.shape[0]] = t
+    return out
+
+
+def _compare_bytes(a, b, what: str) -> None:
+    import torch
+
+    a = a.contiguous().view(torch.uint8) if a.dtype != torch.uint8 else a
+    b = b.contiguous().view(torch.uint8) if b.dtype != torch.uint8 else b
+    if a.shape != b.shape or not torch.equal(a, b):
+        bad = int((a != b).sum()) if a.shape == b.shape else -1
+        raise AssertionError(f"{what}: {bad} bytes differ from the plain version")
+
+
+def _check_limb_sums(k, p, what: str) -> float:
+    """K6 against its plain version: sums/errs within rel 1e-12 (fold
+    order), counts and presence exact."""
+    err = 0.0
+    for name, a, b in zip(("sums", "errs", "counts", "presence"), k, p):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}.{name}: present in one result only")
+        if a is not None:
+            err = max(err, _compare(a, b, exact=(name in ("counts", "presence")),
+                                    what=f"{what}.{name}"))
+    return err
+
+
+def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
+    """Phase 3b: K5-K8 at the tile path's shapes — the (hostname, ts)
+    planes padded to a multiple of 4096 rows as the super-tile holds them.
+    Returns name -> metrics for the kernels line."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+
+    dev = torch.device("cuda", 0)
+    n, codes, ts, valid, vals = tsbs_planes(n_hosts, hours, 10, dev)
+    npad = pad_rows(n)
+    nb = npad // agg.BLOCK_ROWS
+    codes, ts = _padded(codes, npad, 0), _padded(ts, npad, 0)
+    valid = _padded(valid, npad, False)
+    vals = [_padded(v, npad, 0.0) for v in vals]
+    card = 1 << (max(n_hosts, 1) - 1).bit_length()
+    G = card * hours
+    lo, hi = T0, T0 + hours * H3600
+    gids, mask = flt.mask_gids(valid, [(ts, ">=", lo), (ts, "<", hi)], [], [(codes, card)],
+                               (ts, T0, H3600, hours), G - 1)
+    out: dict[str, dict] = {}
+
+    # K5 on one full-length column
+    kl = _twice_identical(lambda: agg.quantize_limbs(vals[0]), "quantize_limbs")
+    pl = agg.quantize_limbs_plain(vals[0])
+    _compare_bytes(kl[0], pl[0], "quantize_limbs.limbs")
+    _compare_bytes(kl[1], pl[1], "quantize_limbs.scale")
+    # 8 B read and 8 B of digits written per row, 8 B of scale per block;
+    # per row about 6 operations (abs/max, multiply, round, 4 digit shifts)
+    k5_bound, k5_by = bound(npad * 16 + nb * 8, npad * 6)
+    out["quantize_limbs"] = dict(
+        max_abs_err=0.0, rows=npad,
+        ms=_timed(lambda: agg.quantize_limbs(vals[0]), reps),
+        plain_ms=_timed(lambda: agg.quantize_limbs_plain(vals[0]), 1),
+        bound_ms=k5_bound, bound_by=k5_by, library_ms=None,
+    )
+
+    # K6 at C = 1, 5 and 10 over host-clustered ids; index_add_ of the raw
+    # sums is the library yardstick
+    lcols = [agg.quantize_limbs(v) for v in vals]
+    k6 = {}
+    k6_states = None
+    for C in (1, 5, 10):
+        k = _twice_identical(lambda: agg.limb_segment_sums(lcols[:C], gids, mask, G), f"limb C={C}")
+        p = agg.limb_segment_sums_plain(lcols[:C], gids, mask, G)
+        err = _check_limb_sums(k, p, f"limb_segment_sums C={C}")
+        stacked = torch.stack(vals[:C], dim=1)
+        safe = torch.where(mask, gids, G).to(torch.int64)
+        lib = _timed(lambda: torch.zeros((G + 1, C), dtype=torch.float64, device=dev)
+                     .index_add_(0, safe, stacked), reps)
+        del stacked
+        # ids, mask and 8 B of digits per column read once; sums, errs
+        # [C, G] f64 and presence [G] written; 4 digit adds per row and column
+        kb, kby = bound(npad * (4 + 1 + 8 * C) + C * G * 16 + G * 4, npad * C * 4)
+        k6[C] = dict(
+            max_abs_err=err,
+            ms=_timed(lambda: agg.limb_segment_sums(lcols[:C], gids, mask, G), reps),
+            plain_ms=_timed(lambda: agg.limb_segment_sums_plain(lcols[:C], gids, mask, G), 1),
+            bound_ms=kb, bound_by=kby, library_ms=lib,
+        )
+        if C == 10:
+            k6_states = k
+    # minute buckets over the host-major layout fail the guard: the
+    # dequantize + K3 branch
+    n_min = hours * 60
+    gm, mm = flt.mask_gids(valid, [(ts, "<", hi - 1800_000)], [], [], (ts, T0, 60_000, n_min),
+                           n_min - 1)
+    k = agg.limb_segment_sums(lcols[:1], gm, mm, n_min)
+    _check_limb_sums(k, agg.limb_segment_sums_plain(lcols[:1], gm, mm, n_min), "limb guard fails")
+    guard_fail = dict(ms=_timed(lambda: agg.limb_segment_sums(lcols[:1], gm, mm, n_min), reps))
+    del gm, mm
+    out["limb_segment_sums"] = dict(k6[10], c1=k6[1], c5=k6[5], guard_fail=guard_fail)
+
+    # K7 at groupby-orderby-limit's shape (minute buckets, one int key,
+    # descending, cap 5) and lastpoint's (hosts, no key, cap ~ hosts)
+    from greptimedb_tpu_torch.parallel.tile_planner import quantize_soft
+
+    Gm = quantize_soft(n_min)
+    surv = torch.arange(Gm, device=dev) < n_min - 30
+    bucket_key = torch.arange(Gm, dtype=torch.int64, device=dev)
+    keys = [(bucket_key, None, False, True)]
+    ks, kn = _twice_identical(lambda: agg.topk_group_select(surv, keys, 5), "topk keyed")
+    ps, pn = agg.topk_group_select_plain(surv, keys, 5)
+    _compare(ks, ps, True, "topk keyed.sel")
+    _compare(kn, pn, True, "topk keyed.n_out")
+    fkey = vals[0][:Gm].contiguous()
+    lib7 = _timed(lambda: torch.topk(fkey, 5), reps)
+    k7b, k7by = bound(Gm * (1 + 8) + 5 * 4 + 4, Gm * 10 * 11 / 2)  # bitonic compare-exchanges
+    cap_l = quantize_soft(n_hosts)
+    surv_l = torch.arange(card, device=dev) < n_hosts
+    ks2, kn2 = _twice_identical(lambda: agg.topk_group_select(surv_l, [], cap_l), "topk compact")
+    ps2, pn2 = agg.topk_group_select_plain(surv_l, [], cap_l)
+    _compare(ks2, ps2, True, "topk compact.sel")
+    _compare(kn2, pn2, True, "topk compact.n_out")
+    k7cb, k7cby = bound(card + cap_l * 4 + 4, card)
+    out["topk_select"] = dict(
+        max_abs_err=0.0,
+        ms=_timed(lambda: agg.topk_group_select(surv, keys, 5), reps),
+        plain_ms=_timed(lambda: agg.topk_group_select_plain(surv, keys, 5), reps),
+        bound_ms=k7b, bound_by=k7by, library_ms=lib7,
+        compact=dict(
+            ms=_timed(lambda: agg.topk_group_select(surv_l, [], cap_l), reps),
+            plain_ms=_timed(lambda: agg.topk_group_select_plain(surv_l, [], cap_l), reps),
+            bound_ms=k7cb, bound_by=k7cby,
+        ),
+    )
+
+    # K8 dense at G = 4096 x 12: bit-packed presence, 10 f32 avg rows, the
+    # verdict over 10 limb columns (double-groupby-all's layout); compact
+    # at lastpoint's: presence and one f64 row gathered by K7's selection
+    sums, errs, _c, presence = k6_states
+    dense = ([presence], [(sums[c], presence) for c in range(10)], [], True)
+    verdict = [(errs[c], sums[c]) for c in range(10)]
+    kd = _twice_identical(lambda: agg.pack_result(*dense, verdict_rows=verdict), "pack dense")
+    pd = agg.pack_result_plain(*dense, verdict_rows=verdict)
+    _compare_bytes(kd[0], pd[0], "pack_result dense.buf")
+    lv = vals[1][:card].contiguous()
+    pres_l = surv_l.to(torch.int32)
+    comp = ([pres_l], [], [("value", lv)], False)
+    kc = _twice_identical(lambda: agg.pack_result(*comp, sel=ks2, n_out=kn2), "pack compact")
+    pc_ = agg.pack_result_plain(*comp, sel=ks2, n_out=kn2)
+    _compare_bytes(kc[0], pc_[0], "pack_result compact.buf")
+    # dense: presence (4 B) + 10 x (sums 8 B + counts shared) + errs read;
+    # buf written (1 bit + 10 x 4 B per group)
+    k8b, k8by = bound(G * (4 + 10 * 16) + G // 8 + G * 40 + 1, G * 10 * 3)
+    out["pack_result"] = dict(
+        max_abs_err=0.0,
+        ms=_timed(lambda: agg.pack_result(*dense, verdict_rows=verdict), reps),
+        plain_ms=_timed(lambda: agg.pack_result_plain(*dense, verdict_rows=verdict), reps),
+        bound_ms=k8b, bound_by=k8by, library_ms=None,
+        compact=dict(
+            ms=_timed(lambda: agg.pack_result(*comp, sel=ks2, n_out=kn2), reps),
+            plain_ms=_timed(lambda: agg.pack_result_plain(*comp, sel=ks2, n_out=kn2), reps),
+        ),
+    )
+    del vals, lcols, codes, ts, valid, gids, mask, k6_states, sums, errs, presence
+    torch.cuda.empty_cache()
+    run_tile_edge_cases(dev)
+    return out
+
+
+def run_tile_edge_cases(dev) -> None:
+    """K5-K8 on the inputs that make them hard, against their plain
+    versions, twice each: NaN/+-inf/all-zero blocks, amax at powers of two
+    and +-1 ulp, half-way values; shuffled ids (the slow branch), null
+    gated counts, a mixed-magnitude block; ties, +-0, NaN, +-inf and
+    nulls in sort keys; NaN and subnormals in f64 words."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    nb = 96
+    v = rng.normal(0, 1, nb * 4096) * np.repeat(np.exp(rng.uniform(-60, 60, nb)), 4096)
+    for i, k in enumerate(rng.integers(-95, 1000, 40)):
+        blk = v[i * 4096:(i + 1) * 4096]
+        blk[:] = rng.uniform(-1, 1, 4096) * 2.0**k
+        p = 2.0**k
+        blk[7] = [p, np.nextafter(p, 0), np.nextafter(p, np.inf), -p][i % 4]
+    v[40 * 4096:41 * 4096] = 0.0
+    v[41 * 4096 + 5], v[41 * 4096 + 9], v[42 * 4096 + 3] = np.nan, np.inf, -np.inf
+    v[43 * 4096:44 * 4096] = np.arange(4096) + 0.5
+    v[44 * 4096:45 * 4096] = (np.arange(4096) - 2048) * 0.25
+    v[45 * 4096:46 * 4096] = np.where(np.arange(4096) % 2, 1e9, 1.0)
+    x = t(v)
+    kq = _twice_identical(lambda: agg.quantize_limbs(x), "edge quantize")
+    pq = agg.quantize_limbs_plain(x)
+    _compare_bytes(kq[0], pq[0], "edge quantize.limbs")
+    _compare_bytes(kq[1], pq[1], "edge quantize.scale")
+    n = nb * 4096
+    G = 512
+    sorted_g = np.sort(rng.integers(0, G, n)).astype(np.int32)
+    mask = t(rng.random(n) < 0.9)
+    c01 = t(rng.random(n) < 0.8)
+    y = t(rng.uniform(-1e6, 1e6, n))
+    cols = [kq, agg.quantize_limbs(y)]
+    for name, g in (("clustered", t(sorted_g)), ("shuffled", t(rng.permutation(sorted_g)))):
+        k = _twice_identical(lambda: agg.limb_segment_sums(cols, g, mask, G, [None, c01]),
+                             f"edge limb {name}")
+        _check_limb_sums(k, agg.limb_segment_sums_plain(cols, g, mask, G, [None, c01]),
+                         f"edge limb {name}")
+    # more null-gated count planes than one combine pass covers (16 per
+    # 256 threads, 32 per chunk)
+    g = t(sorted_g)
+    for n_counted in (17, 40):
+        many = [t(rng.random(n) < rng.uniform(0.1, 0.9)) for _ in range(n_counted)]
+        lc = [cols[i % 2] for i in range(n_counted)]
+        k = _twice_identical(lambda: agg.limb_segment_sums(lc, g, mask, G, many),
+                             f"edge limb {n_counted} counted")
+        _check_limb_sums(k, agg.limb_segment_sums_plain(lc, g, mask, G, many),
+                         f"edge limb {n_counted} counted")
+    Gk = 3000
+    m = t(rng.random(Gk) > 0.3)
+    fv = rng.integers(0, 5, Gk).astype(np.float64)
+    for val, cnt in ((np.nan, 20), (-0.0, 10), (np.inf, 10), (-np.inf, 10)):
+        fv[rng.choice(Gk, cnt, replace=False)] = val
+    isn = t(rng.random(Gk) < 0.1)
+    iv = t(rng.integers(-3, 3, Gk).astype(np.int64))
+    for asc in (True, False):
+        for nf in (True, False):
+            keys = [(t(fv), isn, asc, nf), (iv, None, not asc, False)]
+            for cap in (1, 7, 512):
+                ks = _twice_identical(lambda: agg.topk_group_select(m, keys, cap), "edge topk")
+                ps = agg.topk_group_select_plain(m, keys, cap)
+                _compare(ks[0], ps[0], True, f"edge topk asc={asc} nf={nf} cap={cap}")
+                _compare(ks[1], ps[1], True, "edge topk n_out")
+    for cap in (5, Gk):
+        ks = agg.topk_group_select(m, [], cap)
+        ps = agg.topk_group_select_plain(m, [], cap)
+        _compare(ks[0], ps[0], True, f"edge topk compact cap={cap}")
+    w = np.array([5e-324, -5e-324, 1e-310, np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5,
+                  -2.2250738585072014e-308, 123.456] * 250)
+    wv = t(w)
+    pres = t(rng.integers(0, 3, w.size).astype(np.int32))
+    sel = t(rng.permutation(w.size)[:700].astype(np.int32))
+    nout = t(np.array([650], np.int32))
+    for args, kw in (
+        (([pres], [(wv, pres)], [("value", wv), ("avg", wv, pres)], False), {}),
+        (([pres], [(wv, pres)], [("value", wv), ("avg", wv, pres)], True),
+         {"verdict_rows": [(wv.abs(), wv)]}),
+        (([pres], [(wv, pres)], [("value", wv), ("avg", wv, pres)], False),
+         {"sel": sel, "n_out": nout, "verdict_rows": [(wv.abs() * 1e-9, wv)]}),
+    ):
+        kp = _twice_identical(lambda: agg.pack_result(*args, **kw), "edge pack")
+        pp = agg.pack_result_plain(*args, **kw)
+        for a, b in zip(kp, pp):
+            _compare_bytes(a, b, "edge pack_result")
+
+
 # ---- phase 4: the slice ------------------------------------------------------------
 
 def _sorted_rows(table, keys):
@@ -502,10 +830,12 @@ def _sorted_rows(table, keys):
     return table
 
 
-def compare_tables(dev_t, cpu_t, query: str) -> float:
+def compare_tables(dev_t, cpu_t, query: str, tol: float = 1e-12) -> float:
     """Device result vs CPU-backend result: same columns and rows; exact
-    except sum/avg columns (rel 1e-12: only the f64 addition order
-    differs).  Returns the max relative error of the inexact columns."""
+    except sum/avg columns, within relative `tol` (1e-12 on the f64 paths,
+    where only the addition order differs; 1e-7 on the limb path, the
+    bound its verdict enforces).  Returns the max relative error of the
+    inexact columns."""
     if dev_t.column_names != cpu_t.column_names:
         raise AssertionError(f"{query}: columns {dev_t.column_names} != {cpu_t.column_names}")
     if dev_t.num_rows != cpu_t.num_rows:
@@ -531,8 +861,8 @@ def compare_tables(dev_t, cpu_t, query: str) -> float:
         rel = np.abs(x[ok] - y[ok]) / np.maximum(np.abs(y[ok]), 1e-300)
         if rel.size:
             worst = max(worst, float(rel.max()))
-            if float(rel.max()) > 1e-12:
-                raise AssertionError(f"{query}: column {c}: rel err {rel.max()} > 1e-12")
+            if float(rel.max()) > tol:
+                raise AssertionError(f"{query}: column {c}: rel err {rel.max()} > {tol}")
     return worst
 
 
@@ -541,7 +871,7 @@ def ingest(db, tsbs: Tsbs) -> tuple[int, dict]:
     Returns (rows, double-groupby-1 ground truth {(host, hour): [sum, n]})."""
     import pyarrow as pa
 
-    cols_sql = ", ".join(f"{m} DOUBLE" for m in METRICS)
+    cols_sql = ", ".join(f"{m} DOUBLE" for m in tsbs.metrics)
     db.sql(
         f"CREATE TABLE cpu (hostname STRING, {cols_sql}, ts TIMESTAMP(3) TIME INDEX, "
         f"PRIMARY KEY (hostname)) WITH (append_mode = 'true')"
@@ -558,11 +888,11 @@ def ingest(db, tsbs: Tsbs) -> tuple[int, dict]:
         ts = T0 + (start + np.arange(ticks, dtype=np.int64))[:, None] * (SCRAPE_S * 1000)
         ts = np.broadcast_to(ts, (ticks, n_hosts)).reshape(-1)
         hs = np.broadcast_to(hosts_arr[None, :], (ticks, n_hosts)).reshape(-1)
-        vals = {m: rng.uniform(0.0, 100.0, ticks * n_hosts) for m in METRICS}
+        vals = {m: rng.uniform(0.0, 100.0, ticks * n_hosts) for m in tsbs.metrics}
         batch = pa.table({
             "hostname": pa.array(hs),
             "ts": pa.array(ts, pa.timestamp("ms")),
-            **{m: pa.array(vals[m], pa.float64()) for m in METRICS},
+            **{m: pa.array(vals[m], pa.float64()) for m in tsbs.metrics},
         })
         db.write("cpu", batch)
         n_rows += ticks * n_hosts
@@ -582,7 +912,7 @@ def ingest(db, tsbs: Tsbs) -> tuple[int, dict]:
     return n_rows, gt
 
 
-def check_ground_truth(table, gt: dict, tsbs: Tsbs) -> None:
+def check_ground_truth(table, gt: dict, tsbs: Tsbs, tol: float = 1e-12) -> None:
     hosts = table["hostname"].to_pylist()
     tbs = table["tb"].cast("int64").to_pylist()
     avgs = table["avg_usage_user"].to_pylist()
@@ -591,19 +921,23 @@ def check_ground_truth(table, gt: dict, tsbs: Tsbs) -> None:
     for h, tb, a in zip(hosts, tbs, avgs):
         key = int(h[5:]) * 100 + (tb - tsbs.w12[0]) // H3600
         s, c = gt[key]
-        if abs(a - s / c) > 1e-12 * abs(s / c):
+        if abs(a - s / c) > tol * abs(s / c):
             raise AssertionError(f"double-groupby-1 {h} {tb}: {a} vs ground truth {s / c}")
 
 
-def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) -> dict:
-    """Phase 4 on `device` ("cuda" on the card; "cpu" to rehearse the
-    control flow with the plain versions).  Returns the slice record."""
+def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
+              tile_reps: int | None = None) -> dict:
+    """Phases 4 and 5 on `device` ("cuda" on the card; "cpu" to rehearse
+    the control flow with the plain versions): ingest, the table-fed path
+    (tile cache off), then the tile path on the same region.  Returns the
+    slice record."""
     from greptimedb_tpu_torch import Database
 
     tsbs = Tsbs(n_hosts, hours)
     # the storage defaults (64 MiB region / 512 MiB global write buffer,
     # two flush-encode threads): the load flushes as it goes, into many SSTs
     db = Database(data_home, device=device)
+    db.config.query.tile_cache_enable = False  # phase 4 is the table-fed path
     is_cuda = device.startswith("cuda")
     if is_cuda:
         import torch
@@ -615,8 +949,9 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) 
           "seconds": ingest_s, "rows_per_s": n_rows / ingest_s, "ssts": ssts})
 
     per_query = {}
+    cpu_results = {}
     full_size = n_hosts == 4000 and hours == 12
-    reset_counts()  # the main path's run starts here
+    reset_counts()  # the table-fed path's run starts here
     for name, sql in tsbs.queries():
         before = launch_counts()
         lowered0 = db.query_engine.stats["lowered"]
@@ -647,6 +982,7 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) 
         cpu_t = db.sql_one(sql)
         cpu_ms = (time.perf_counter() - t1) * 1e3
         db.config.query.backend = "torch"
+        cpu_results[name] = cpu_t
         rel = compare_tables(result, cpu_t, name + " " + sql)
         if name == "double-groupby-1":
             check_ground_truth(result, gt, tsbs)
@@ -668,9 +1004,91 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) 
     totals = launch_counts()
     if db.query_engine.stats["declined"]:
         raise AssertionError(f"{db.query_engine.stats['declined']} queries declined by try_lower")
+    tile = run_tile_phase(db, tsbs, reps if tile_reps is None else tile_reps, cpu_results, gt,
+                          is_cuda, full_size)
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
-            "launches": totals}
+            "launches": totals, "tile": tile}
+
+
+def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cuda: bool,
+                   full_size: bool) -> dict:
+    """Phase 5: the tile path (super-tiles resident on the device) on the
+    region phase 4 ingested: per query one cold run (plane build, upload
+    and K5 quantize included, split out) and `reps` warm runs (p50 per
+    stage: plan, dispatch through the last sync, readback, decode).  Every
+    run must be answered by the tile path; each result is held against the
+    CPU backend's (phase 4) — keys, counts, min, max, last exactly, sum and
+    avg within rel 1e-7, the limb verdict's bound."""
+    eng = db.query_engine
+    db.config.query.tile_cache_enable = True
+    if is_cuda:
+        import torch
+    per_query = {}
+    reset_counts()  # the tile path's run starts here
+    for name, sql in tsbs.queries():
+        before = launch_counts()
+        d0, x0 = eng.stats["tile_dispatches"], eng.stats["tile_declined"]
+        times, stages = [], []
+        result = None
+        for _ in range(1 + reps):
+            t1 = time.perf_counter()
+            result = db.sql_one(sql)
+            if is_cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            if eng.last_path != "tile":
+                raise AssertionError(f"{name}: answered by the {eng.last_path!r} path, not the tile path")
+            stages.append(dict(eng.last_timings))
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if eng.stats["tile_dispatches"] - d0 != 1 + reps or eng.stats["tile_declined"] != x0:
+            raise AssertionError(f"{name}: tile_dispatches +{eng.stats['tile_dispatches'] - d0}, "
+                                 f"tile_declined +{eng.stats['tile_declined'] - x0}")
+        if is_cuda:
+            ran = {k for k, d in delta.items() if d > 0}
+            need = {"mask_gids"} | (EXPECTED_TILE_PATH[name] if full_size else {_PACK})
+            if not need <= ran:
+                raise AssertionError(f"{name}: tile path launched {sorted(ran)}, needs {sorted(need)}")
+        rel = compare_tables(result, cpu_results[name], name + " " + sql, tol=1e-7)
+        if name == "double-groupby-1":
+            check_ground_truth(result, gt, tsbs, tol=1e-7)
+        warm = stages[1:] if reps else stages
+        keys = sorted({k for st in warm for k in st})
+        per_query[name] = {
+            "rows_out": result.num_rows,
+            "cold_ms": times[0],
+            "cold_stage_ms": stages[0],
+            "warm_p50_ms": float(np.median(times[1:] if reps else times)),
+            "warm_stage_p50_ms": {k: float(np.median([st.get(k, 0.0) for st in warm])) for k in keys},
+            "max_rel_err": rel,
+            "launches": {k: v for k, v in delta.items() if v},
+        }
+        emit({"phase": "tile_query", "name": name, **per_query[name]})
+    totals = launch_counts()  # the main path's launches end here
+    run_tile_edge_queries(db, tsbs, is_cuda)
+    return {"queries": per_query, "launches": totals,
+            "cache": eng.tile_cache.stats(), "limb_reruns": eng.tile_executor().limb_reruns}
+
+
+def run_tile_edge_queries(db, tsbs: Tsbs, is_cuda: bool) -> None:
+    """Queries off the TSBS family whose plans meet a kernel's limits: more
+    ORDER BY keys than K7 takes (the Sort replays on the host) must still
+    answer on the tile path and equal the CPU backend."""
+    eng = db.query_engine
+    lo, hi = tsbs.w12
+    for keys in (("a", "b", "c", "hostname"), ("a", "b", "c", "hostname", "tb")):
+        sql = (f"SELECT hostname, time_bucket('1h', ts) AS tb, max(usage_user) AS a, "
+               f"min(usage_system) AS b, max(usage_idle) AS c FROM cpu "
+               f"WHERE ts >= {lo} AND ts < {hi} GROUP BY hostname, tb "
+               f"ORDER BY {', '.join(keys)} LIMIT 5")
+        got = db.sql_one(sql)
+        if eng.last_path != "tile":
+            raise AssertionError(f"edge query: answered by the {eng.last_path!r} path")
+        db.config.query.backend = "cpu"
+        want = db.sql_one(sql)
+        db.config.query.backend = "torch"
+        compare_tables(got, want, sql, tol=1e-7)
+        emit({"phase": "tile_edge_query", "order_keys": len(keys), "rows_out": got.num_rows})
 
 
 # ---- main ------------------------------------------------------------------------------
@@ -679,7 +1097,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=12)
     ap.add_argument("--hosts", type=int, default=4000)
-    ap.add_argument("--reps", type=int, default=5, help="warm runs per query")
+    ap.add_argument("--reps", type=int, default=5, help="warm runs per query, table-fed path")
+    ap.add_argument("--tile-reps", type=int, default=5, help="warm runs per query, tile path")
     ap.add_argument("--kernel-reps", type=int, default=10, help="timed launches per kernel")
     args = ap.parse_args(argv)
 
@@ -711,30 +1130,38 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     kstats = run_kernel_phase(args.hosts, args.hours, args.kernel_reps)
+    kstats.update(run_tile_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
 
     work = os.path.join(HERE, "build", "chip_smoke")  # listed in .gitignore
     shutil.rmtree(work, ignore_errors=True)
     try:
         t0 = time.perf_counter()
-        sl = run_slice("cuda", args.hosts, args.hours, args.reps, os.path.join(work, "db"))
+        sl = run_slice("cuda", args.hosts, args.hours, args.reps, os.path.join(work, "db"),
+                       tile_reps=args.tile_reps)
         emit({"phase": "slice", "seconds": time.perf_counter() - t0, "rows": sl["rows"],
-              "card": smi, "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in sl["queries"].items()}})
+              "card": smi, "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in sl["queries"].items()},
+              "tile_warm_p50_ms": {k: v["warm_p50_ms"]
+                                   for k, v in sl["tile"]["queries"].items()},
+              "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for name, (_fn, source, replaces) in kernel_table().items():
         s = kstats[name]
-        launches = sl["launches"][name]
-        if launches == 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
+        # K1-K4: their launches on the table-fed path (phase 4); every
+        # kernel: its launches on the tile path (phase 5)
+        tile_launches = sl["tile"]["launches"][name]
+        launches = tile_launches if name in TILE_KERNELS else sl["launches"][name]
+        if launches == 0 or tile_launches == 0:
+            raise AssertionError(f"kernel {name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"],
-            **{k: s[k] for k in ("c1", "guard_fail") if k in s},
+            "library_ms": s["library_ms"], "tile_launches": tile_launches,
+            **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact") if k in s},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -2,8 +2,10 @@
 
 Counterpart of `greptimedb_tpu/database.py`, reduced to what the TSBS SQL
 slice runs: catalog + TimeSeriesEngine (WAL -> memtable -> Parquet SSTs)
-+ QueryEngine, with rows routed to regions by the table's partition rule.
-Statements: CREATE DATABASE, CREATE TABLE, INSERT ... VALUES, SELECT.
++ QueryEngine, with rows routed to regions by the table's partition rule,
+and the per-table tag dictionaries (data_home/dicts/) the device tile
+cache encodes with.  Statements: CREATE DATABASE, CREATE TABLE,
+DROP TABLE, INSERT ... VALUES, SELECT.
 Everything else the reference's facade does (ALTER/DELETE/COPY, views,
 flows, the metric engine, information_schema, sessions and admission,
 PromQL) is cut and listed in ROADMAP.md.
@@ -32,10 +34,12 @@ from .query.logical_plan import TableScan
 from .query.sql_parser import (
     CreateDatabaseStmt,
     CreateTableStmt,
+    DropStmt,
     InsertStmt,
     SelectStmt,
     parse_sql,
 )
+from .storage.dictionary import DictionaryRegistry
 from .storage.engine import TimeSeriesEngine
 from .storage.sst import ScanPredicate
 from .utils.config import Config
@@ -58,6 +62,7 @@ class Database:
             self.config.storage.sst_dir = ""
         self.storage = TimeSeriesEngine(self.config.storage)
         self.catalog = Catalog(os.path.join(self.config.storage.data_home, "catalog.json"))
+        self.dicts = DictionaryRegistry(os.path.join(self.config.storage.data_home, "dicts"))
         self.ddl_lock = threading.RLock()
         self.current_database = DEFAULT_SCHEMA
         self.query_engine = QueryEngine(
@@ -66,6 +71,7 @@ class Database:
             region_scan_provider=self._region_scan,
             time_bounds_provider=self._time_bounds,
             config=self.config.query,
+            tile_context_provider=self._tile_context,
         )
         self._reopen_regions()
 
@@ -96,6 +102,8 @@ class Database:
             return None
         if isinstance(stmt, InsertStmt):
             return self._insert(stmt)
+        if isinstance(stmt, DropStmt) and stmt.kind == "table":
+            return self._drop_table(stmt)
         raise UnsupportedError(f"unsupported statement: {type(stmt).__name__}")
 
     # ---- DDL --------------------------------------------------------------
@@ -124,6 +132,19 @@ class Database:
                 for rid in m.region_ids
             ],
         )
+        return None
+
+    def _drop_table(self, stmt: DropStmt):
+        db_name = stmt.database or self.current_database
+        if stmt.if_exists and not self.catalog.has_table(stmt.name, db_name):
+            return None
+        meta = self.catalog.drop_table(stmt.name, db_name)
+        cache = self.query_engine.tile_cache
+        for rid in meta.region_ids:
+            self.storage.drop_region(rid)
+            if cache is not None:
+                cache.invalidate_region(rid, set())
+        self.dicts.drop(f"{db_name}.{stmt.name}")
         return None
 
     # ---- writes -----------------------------------------------------------
@@ -193,6 +214,26 @@ class Database:
         if not tables:
             return meta.schema.to_arrow().empty_table()
         return pa.concat_tables(tables, promote_options="permissive")
+
+    def _tile_context(self, scan: TableScan):
+        """TileContext of a scan for the device tile cache, or None when the
+        scan has no table to tile."""
+        from .parallel.tile_planes import TileContext
+
+        if not scan.table:
+            return None
+        database = scan.database or self.current_database
+        if not self.catalog.has_table(scan.table, database):
+            return None
+        meta = self.catalog.table(scan.table, database)
+        regions = [self.storage.region(rid) for rid in meta.region_ids]
+        key = f"{database}.{scan.table}"
+        return TileContext(
+            table_key=key,
+            dictionary=self.dicts.get(key),
+            regions=regions,
+            append_mode=any(r.append_mode for r in regions),
+        )
 
     def _time_bounds(self, table: str, database: str) -> tuple[int, int]:
         """Min/max time over a table, from SST metadata + memtable ranges."""

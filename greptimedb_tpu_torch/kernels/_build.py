@@ -26,6 +26,10 @@ KERNEL_SOURCES = (
     "segment_reduce_blocked",
     "segment_reduce_scatter",
     "segment_last",
+    "quantize_limbs",
+    "limb_segment_sums",
+    "topk_select",
+    "pack_result",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,6 +124,10 @@ _EXPORTS = {
     "segment_reduce_blocked": ("gt_blocked_partials", "gt_blocked_fold"),
     "segment_reduce_scatter": ("gt_scatter_reduce",),
     "segment_last": ("gt_last_partials", "gt_last_fold", "gt_last_sorted"),
+    "quantize_limbs": ("gt_quantize_limbs",),
+    "limb_segment_sums": ("gt_limb_partials", "gt_limb_fold", "gt_limb_dequant"),
+    "topk_select": ("gt_topk_round", "gt_topk_compact"),
+    "pack_result": ("gt_pack_result",),
 }
 
 
@@ -129,3 +137,17 @@ def launch(name: str, fn: str, args: ctypes.Structure, stream: int) -> None:
     err = getattr(load(name), fn)(ctypes.byref(args), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {err}")
+
+
+def upload_table(raw, dev):
+    """A small descriptor table (a list of int64 values, or the bytes of a
+    ctypes array) on `dev` without a host sync: staged in pinned memory
+    and copied on the current stream.  PyTorch's caching host allocator
+    keeps the staging buffer until that copy has run."""
+    import torch
+
+    if isinstance(raw, list):
+        host = torch.tensor(raw, dtype=torch.int64)
+    else:
+        host = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    return host.pin_memory().to(dev, non_blocking=True)

@@ -11,6 +11,18 @@ on a CUDA tile, and by their plain torch versions on a CPU tile:
 * K4 `segment_last` (csrc/segment_last.cu): last_value by (ts, row), in a
   blocked form and a sorted-run form.
 
+The tile path adds four more (each again beside its plain version):
+
+* K5 `quantize_limbs` (csrc/quantize_limbs.cu): per-block fixed-point
+  encode of a value column into four base-256 bfloat16 digits;
+* K6 `limb_segment_sums` (csrc/limb_segment_sums.cu): exact integer
+  digit sums per group with a per-group error bound; its slow branch and
+  `segment_sums_scatter` run on K3;
+* K7 `topk_group_select` (csrc/topk_select.cu): ORDER BY / LIMIT and
+  empty-group compaction over finalized [G] states;
+* K8 `pack_result` (csrc/pack_result.cu): finalize and pack a query's
+  outputs into the one buffer the host reads back.
+
 `segment_aggregate` / `segment_aggregate_multi` choose between them the
 way the reference does: under 2^16 rows the scatter kernel; otherwise K2,
 whose per-block guard (masked ids in range, span < 16) decides whether
@@ -28,6 +40,9 @@ Group ids are dense ints computed from time buckets and tag codes:
 from __future__ import annotations
 
 import ctypes
+import decimal
+import functools
+import math
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -481,7 +496,6 @@ def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None)
 
 segment_last.launches = 0
 
-KERNELS = (segment_reduce_blocked, segment_reduce_scatter, segment_last)
 
 
 # ---- kernel plumbing ----------------------------------------------------------
@@ -515,8 +529,10 @@ def _column_tables(values, masks, base_mask, n: int, dev):
         else:
             _check_rows(m, torch.bool, n, dev)
             mptrs.append(m.data_ptr())
-    # one host-to-device copy for both tables
-    ptrs = torch.tensor([v.data_ptr() for v in vals] + mptrs, dtype=torch.int64).to(dev)
+    from ..kernels._build import upload_table
+
+    # one host-to-device copy for both tables, no host sync
+    ptrs = upload_table([v.data_ptr() for v in vals] + mptrs, dev)
     vt, mt = ptrs[: len(vals)], ptrs[len(vals):]
     return (vals, ptrs), vt, mt
 
@@ -674,3 +690,694 @@ def finalize(state: AggState, aggs: tuple[str, ...], counts=None) -> dict[str, t
             extreme = _DBL_MAX if probe is state.mins else -_DBL_MAX
             out["non_empty"] = probe != extreme
     return out
+
+
+# ---- K5: limb quantization ------------------------------------------------------
+#
+# The tile path's default sum/avg accumulation (query.tile_acc_dtype =
+# "limb"): every value is encoded per 4096-row block as q = round(v / s)
+# + 2^29 with a power-of-two-sized scale s, split into four base-256
+# digits that bfloat16 holds exactly.  Per-(block, group) digit sums are
+# then exact integers (K6), and the only error is quantization: at most
+# s / 2 per row, which K6 bounds per group so the tile program can rerun
+# in exact f64 when the bound is too loose for a group's sum.
+
+N_LIMBS = 4
+_LIMB_Q_EXP = 29
+# the block exponent e = ceil(log2(max(amax, 1e-30))) ranges over these
+_E_MIN, _E_MAX = -99, 1024
+_LN2 = math.log(2.0)
+_LN2_HI = 6.93147180369123816490e-01  # 32 significant bits: k * hi is exact
+_LN2_LO = 1.90821492927058770002e-10
+_INV_LN2 = 1.0 / _LN2
+
+
+@functools.lru_cache(maxsize=None)
+def _exp2_tables() -> tuple[np.ndarray, np.ndarray]:
+    """(2^(29 - e), 2^(e - 29)) for every e, as the reference computes
+    them: its exp2(x) is exp(log 2 * x) (not an exact power of two), so
+    the table holds the correctly rounded exp of the rounded product —
+    the values the reference's exp gives at these points."""
+    ctx = decimal.Context(prec=60)
+
+    def exp2(x: float) -> float:
+        return float(ctx.exp(decimal.Decimal(_LN2 * x)))
+
+    es = range(_E_MIN, _E_MAX + 1)
+    inv = np.array([exp2(float(_LIMB_Q_EXP - e)) for e in es], np.float64)
+    scale = np.array([exp2(float(e - _LIMB_Q_EXP)) for e in es], np.float64)
+    return inv, scale
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(dev: str) -> tuple[torch.Tensor, torch.Tensor]:
+    inv, scale = _exp2_tables()
+    return torch.from_numpy(inv).to(dev), torch.from_numpy(scale).to(dev)
+
+
+def _tables(dev) -> tuple[torch.Tensor, torch.Tensor]:
+    return _device_tables(str(dev))
+
+
+def limb_exponent(amax: torch.Tensor) -> torch.Tensor:
+    """The reference's ceil(log(a) * (1 / log 2)) for a >= 1e-30, as int64.
+
+    Away from a power of two the rounded log cannot reach an integer and
+    the answer is the frexp exponent; within 2^-30 of 2^k the correctly
+    rounded log is k * ln2_hi + (k * ln2_lo + log1p(d)), every operation
+    rounded on its own, as in csrc/quantize_limbs.cu."""
+    m, E = torch.frexp(amax)
+    near_lo = m < 0.75
+    k = torch.where(near_lo, E - 1, E).to(torch.float64)
+    d = torch.where(near_lo, 2.0 * m - 1.0, m - 1.0)
+    l1p = d - (0.5 * d) * d
+    L = k * _LN2_HI + (k * _LN2_LO + l1p)
+    e_near = torch.ceil(L * _INV_LN2)
+    return torch.where(d.abs() < 2.0**-30, e_near, E.to(torch.float64)).to(torch.int64)
+
+
+def quantize_limbs_plain(values: torch.Tensor):
+    """Torch-op version of K5: (limbs bfloat16 [nb, 4096, 4], scale f64 [nb])."""
+    n = values.shape[0]
+    if n % BLOCK_ROWS:
+        raise ValueError(f"quantize_limbs needs a multiple of {BLOCK_ROWS} rows, got {n}")
+    nb = n // BLOCK_ROWS
+    vv = _f64(values).reshape(nb, BLOCK_ROWS)
+    vv = torch.nan_to_num(vv, nan=0.0, posinf=1e308, neginf=-1e308)
+    amax = vv.abs().amax(dim=1) if nb else vv.new_zeros(0)
+    e = limb_exponent(torch.clamp(amax, min=1e-30)) - _E_MIN
+    inv_t, scale_t = _tables(values.device)
+    q = torch.round(vv * inv_t[e][:, None]).to(torch.int32) + (1 << _LIMB_Q_EXP)
+    limbs = torch.stack(
+        [((q >> (8 * j)) & 0xFF).to(torch.bfloat16) for j in range(N_LIMBS)], dim=-1
+    )
+    return limbs, scale_t[e]
+
+
+class _QuantizeArgs(ctypes.Structure):
+    _fields_ = [
+        ("nb", ctypes.c_int64), ("values", ctypes.c_void_p),
+        ("inv_tab", ctypes.c_void_p), ("scale_tab", ctypes.c_void_p),
+        ("limbs", ctypes.c_void_p), ("scale", ctypes.c_void_p),
+    ]
+
+
+def quantize_limbs(values: torch.Tensor):
+    """K5: per-block fixed-point encode of one value column (length a
+    multiple of 4096).  Returns (limbs bfloat16 [nb, 4096, 4], scale f64
+    [nb]).  A CUDA tensor launches csrc/quantize_limbs.cu; a CPU tensor
+    runs `quantize_limbs_plain`."""
+    if values.device.type == "cpu":
+        return quantize_limbs_plain(values)
+    from ..kernels._build import launch
+
+    dev = values.device
+    n = int(values.shape[0])
+    if n % BLOCK_ROWS:
+        raise ValueError(f"quantize_limbs needs a multiple of {BLOCK_ROWS} rows, got {n}")
+    nb = n // BLOCK_ROWS
+    x = _f64(values).contiguous()
+    _check_rows(x, torch.float64, n, dev)
+    inv_t, scale_t = _tables(dev)
+    limbs = torch.empty((nb, BLOCK_ROWS, N_LIMBS), dtype=torch.bfloat16, device=dev)
+    scale = torch.empty(nb, dtype=torch.float64, device=dev)
+    a = _QuantizeArgs(nb, x.data_ptr(), inv_t.data_ptr(), scale_t.data_ptr(),
+                      limbs.data_ptr(), scale.data_ptr())
+    quantize_limbs.launches += 1
+    launch("quantize_limbs", "gt_quantize_limbs", a, torch.cuda.current_stream(dev).cuda_stream)
+    return limbs, scale
+
+
+quantize_limbs.launches = 0
+
+
+# ---- K6: limb segment sums -------------------------------------------------------
+
+
+def _limb_q(limbs: torch.Tensor) -> torch.Tensor:
+    """The int32 q of every row from its four digits ([nb, 4096])."""
+    q = torch.zeros(limbs.shape[:2], dtype=torch.int32, device=limbs.device)
+    for j in range(N_LIMBS):
+        q = q + (limbs[:, :, j].to(torch.int32) << (8 * j))
+    return q
+
+
+def dequantize_limbs_plain(limbs: torch.Tensor, scale: torch.Tensor):
+    """(v-hat f64 [n], half step f64 [n]): the values the digits encode,
+    (q - 2^29) * s, and each row's error bound s / 2."""
+    vhat = (_limb_q(limbs) - (1 << _LIMB_Q_EXP)).to(torch.float64) * scale[:, None]
+    half = (scale * 0.5)[:, None].expand(limbs.shape[:2])
+    return vhat.reshape(-1), half.reshape(-1).contiguous()
+
+
+def _counted_rows(values, gids, mask, num_groups: int, count01, presence):
+    """[C, G] int32 counts on K3: the null-gated count of every column with
+    a `count01` entry, the presence row for the others; None without
+    `count01`."""
+    if count01 is None:
+        return None
+    counted = [i for i, c in enumerate(count01) if c is not None]
+    rows = [presence] * len(values)
+    if counted:
+        cst = segment_reduce_scatter(
+            [values[i] for i in counted], gids, [mask & count01[i] for i in counted], mask,
+            num_groups, (COUNT,))
+        for j, i in enumerate(counted):
+            rows[i] = cst.counts[j]
+    return torch.stack(rows)
+
+
+def _limb_slow(limb_cols, gids, mask, num_groups: int, count01, dequant):
+    """The guard failed: aggregate the dequantized values on K3 (or its
+    plain version) — sums, error bounds, counts and presence."""
+    C = len(limb_cols)
+    vals, halves = [], []
+    for limbs, scale in limb_cols:
+        vhat, half = dequant(limbs, scale)
+        vals.append(vhat)
+        halves.append(half)
+    st = segment_reduce_scatter(vals + halves, gids, [mask] * (2 * C), mask, num_groups,
+                                (SUM, COUNT))
+    presence = st.counts[0]
+    counts = _counted_rows(vals, gids, mask, num_groups, count01, presence)
+    return st.sums[:C], st.sums[C:], counts, presence
+
+
+def limb_segment_sums_plain(limb_cols, gids, mask, num_groups: int, count01=None):
+    """Torch-op version of K6 (see `limb_segment_sums`)."""
+    G = int(num_groups)
+    ok, base = block_guard_plain(gids, mask, G)
+    if not ok:
+        return _limb_slow(limb_cols, gids, mask, G, count01, dequantize_limbs_plain)
+    nb = base.shape[0]
+    L, K = BLOCK_ROWS, BLOCK_SPAN
+    dev = gids.device
+    g = gids.to(torch.int64).reshape(nb, L)
+    mb = mask.reshape(nb, L)
+    blk = torch.arange(nb, device=dev, dtype=torch.int64)[:, None]
+    slot = torch.where(mb, blk * K + g - base.to(torch.int64)[:, None], nb * K).reshape(-1)
+    window = (base.to(torch.int64)[:, None] + torch.arange(K, device=dev)).reshape(-1)
+
+    def slot_sum(x):  # [n] int -> [nb * K] int64 exact
+        p = torch.zeros(nb * K + 1, dtype=torch.int64, device=dev)
+        return p.index_add_(0, slot, x.reshape(-1).to(torch.int64))[:-1]
+
+    def fold(p):  # [nb * K] -> [G], blocks added in block order
+        acc = torch.zeros(G + K, dtype=p.dtype, device=dev)
+        return acc.index_add_(0, window, p)[:G]
+
+    pres_b = slot_sum(mb)
+    presence = fold(pres_b.to(torch.int32))
+    counts = None
+    if count01 is not None:
+        counts = torch.stack([
+            presence if c01 is None else fold(slot_sum(mb & c01.reshape(nb, L)).to(torch.int32))
+            for c01 in count01
+        ])
+    pres64 = pres_b.to(torch.float64)
+    sums, errs = [], []
+    for limbs, scale in limb_cols:
+        acc = -pres64 * float(1 << _LIMB_Q_EXP)
+        for j in range(N_LIMBS):
+            acc = acc + slot_sum(limbs[:, :, j].to(torch.int32)).to(torch.float64) * float(1 << (8 * j))
+        sc = scale.repeat_interleave(K)
+        sums.append(fold(acc * sc))
+        errs.append(fold(pres64 * (sc * 0.5)))
+    return torch.stack(sums), torch.stack(errs), counts, presence
+
+
+class _LimbArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int64), ("nb", ctypes.c_int64),
+        ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+        ("limbs", ctypes.c_void_p), ("scales", ctypes.c_void_p),
+        ("count01", ctypes.c_void_p),
+        ("base_out", ctypes.c_void_p), ("verdict", ctypes.c_void_p),
+        ("ppres", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
+        ("psum", ctypes.c_void_p), ("perr", ctypes.c_void_p),
+        ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
+        ("n_counted", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+class _LimbFoldArgs(ctypes.Structure):
+    _fields_ = [
+        ("sbase", ctypes.c_void_p), ("order", ctypes.c_void_p),
+        ("ppres", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
+        ("psum", ctypes.c_void_p), ("perr", ctypes.c_void_p),
+        ("presence", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p), ("errs", ctypes.c_void_p),
+        ("nb", ctypes.c_int64),
+        ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
+        ("n_counted", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+class _DequantArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int64), ("limbs", ctypes.c_void_p), ("scale", ctypes.c_void_p),
+        ("vhat", ctypes.c_void_p), ("half", ctypes.c_void_p),
+    ]
+
+
+def dequantize_limbs(limbs: torch.Tensor, scale: torch.Tensor):
+    """(v-hat, half step) of `dequantize_limbs_plain`; on a CUDA tensor the
+    `gt_limb_dequant` entry of K6's source computes them."""
+    if limbs.device.type == "cpu":
+        return dequantize_limbs_plain(limbs, scale)
+    from ..kernels._build import launch
+
+    dev = limbs.device
+    n = int(limbs.shape[0]) * BLOCK_ROWS
+    vhat = torch.empty(n, dtype=torch.float64, device=dev)
+    half = torch.empty(n, dtype=torch.float64, device=dev)
+    a = _DequantArgs(n, limbs.data_ptr(), scale.data_ptr(), vhat.data_ptr(), half.data_ptr())
+    launch("limb_segment_sums", "gt_limb_dequant", a, torch.cuda.current_stream(dev).cuda_stream)
+    return vhat, half
+
+
+def limb_segment_sums(limb_cols, gids, mask, num_groups: int, count01=None):
+    """K6: segmented sum + count of C limb-encoded columns.
+
+    limb_cols: C (limbs bfloat16 [nb, 4096, 4], scale f64 [nb]) from K5;
+    gids int32 [n] and mask bool [n] with n = nb * 4096; count01: optional
+    C-list of bool [n] non-null indicators (None entries count presence).
+    Returns (sums [C, G] f64, errs [C, G] f64 — the per-group worst-case
+    quantization error, counts [C, G] int32 or None, presence [G] int32).
+    When the layout guard (masked ids in range, block span < 16) fails,
+    the digits are dequantized and aggregated on K3 — both branches share
+    the quantized values, so the result does not depend on the branch.
+    A CUDA tile launches csrc/limb_segment_sums.cu; reading its guard
+    verdict is one host sync.  A CPU tile runs `limb_segment_sums_plain`."""
+    if gids.device.type == "cpu":
+        return limb_segment_sums_plain(limb_cols, gids, mask, num_groups, count01)
+    from ..kernels._build import launch, upload_table
+
+    dev = gids.device
+    n = int(gids.shape[0])
+    if n % BLOCK_ROWS or not limb_cols:
+        raise ValueError("limb_segment_sums needs a multiple of 4096 rows and a column")
+    nb = n // BLOCK_ROWS
+    C, G = len(limb_cols), int(num_groups)
+    _check_rows(gids, torch.int32, n, dev)
+    _check_rows(mask, torch.bool, n, dev)
+    for limbs, scale in limb_cols:
+        if (limbs.device != dev or limbs.dtype != torch.bfloat16
+                or tuple(limbs.shape) != (nb, BLOCK_ROWS, N_LIMBS) or not limbs.is_contiguous()
+                or scale.dtype != torch.float64 or tuple(scale.shape) != (nb,)):
+            raise ValueError("limb planes must be K5 outputs of this tile's length")
+    counted = [] if count01 is None else [i for i, c in enumerate(count01) if c is not None]
+    for i in counted:
+        _check_rows(count01[i], torch.bool, n, dev)
+    ptrs = upload_table(
+        [lb.data_ptr() for lb, _s in limb_cols] + [s.data_ptr() for _l, s in limb_cols]
+        + [count01[i].data_ptr() for i in counted],
+        dev,
+    )
+    Cc = len(counted)
+    base = torch.empty(nb, dtype=torch.int32, device=dev)
+    verdict = torch.zeros(1, dtype=torch.int32, device=dev)
+    ppres = torch.empty((nb, BLOCK_SPAN), dtype=torch.int32, device=dev)
+    pcnt = torch.empty((nb, max(Cc, 1), BLOCK_SPAN), dtype=torch.int32, device=dev)
+    psum = torch.empty((nb, C, BLOCK_SPAN), dtype=torch.float64, device=dev)
+    perr = torch.empty((nb, C, BLOCK_SPAN), dtype=torch.float64, device=dev)
+    a = _LimbArgs(
+        n, nb, gids.data_ptr(), mask.data_ptr(), ptrs.data_ptr(),
+        ptrs.data_ptr() + 8 * C, ptrs.data_ptr() + 16 * C,
+        base.data_ptr(), verdict.data_ptr(), ppres.data_ptr(), pcnt.data_ptr(),
+        psum.data_ptr(), perr.data_ptr(), G, C, Cc, 0,
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    limb_segment_sums.launches += 1
+    launch("limb_segment_sums", "gt_limb_partials", a, stream)
+    if int(verdict.item()) != 0:  # the one host sync: the layout guard
+        return _limb_slow(limb_cols, gids, mask, G, count01, dequantize_limbs)
+    sbase, order = torch.sort(base, stable=True)
+    presence = torch.empty(G, dtype=torch.int32, device=dev)
+    cnts = torch.empty((max(Cc, 1), G), dtype=torch.int32, device=dev)
+    sums = torch.empty((C, G), dtype=torch.float64, device=dev)
+    errs = torch.empty((C, G), dtype=torch.float64, device=dev)
+    f = _LimbFoldArgs(
+        sbase.data_ptr(), order.data_ptr(), ppres.data_ptr(), pcnt.data_ptr(),
+        psum.data_ptr(), perr.data_ptr(), presence.data_ptr(), cnts.data_ptr(),
+        sums.data_ptr(), errs.data_ptr(), nb, G, C, Cc, 0,
+    )
+    launch("limb_segment_sums", "gt_limb_fold", f, stream)
+    counts = None
+    if count01 is not None:
+        rows = [presence] * C
+        for j, i in enumerate(counted):
+            rows[i] = cnts[j]
+        counts = torch.stack(rows)
+    del ptrs
+    return sums, errs, counts, presence
+
+
+limb_segment_sums.launches = 0
+
+
+def segment_sums_scatter(values_list, gids, mask, num_groups: int, count01=None):
+    """The small-source companion of `limb_segment_sums` (memtable tails,
+    chunks below the limb geometry): the same (sums, errs, counts,
+    presence) tuple over the RAW values, exact (errs = 0), on K3."""
+    C = len(values_list)
+    st = segment_reduce_scatter(list(values_list), gids, [mask] * C, mask, num_groups,
+                                (SUM, COUNT))
+    presence = st.counts[0]
+    counts = _counted_rows(values_list, gids, mask, num_groups, count01, presence)
+    return st.sums, torch.zeros_like(st.sums), counts, presence
+
+
+# ---- f64 words -------------------------------------------------------------------
+
+
+_DBL_MIN = float(np.finfo(np.float64).tiny)
+
+
+def pack_f64_bits(x: torch.Tensor) -> torch.Tensor:
+    """IEEE-754 bits of float64 values as two int32 words (..., [hi, lo]),
+    with the reference's canonicalization: every NaN becomes the quiet NaN
+    with its sign kept, subnormals become a zero of their sign."""
+    xf = _f64(x)
+    bits = xf.contiguous().view(torch.int64)
+    sign = bits & _I64_MIN
+    qnan = sign | 0x7FF8000000000000
+    bits = torch.where(torch.isnan(xf), qnan, bits)
+    bits = torch.where(xf.abs() < _DBL_MIN, sign, bits)
+    hi = (bits >> 32).to(torch.int32)
+    lo = (bits & 0xFFFFFFFF).to(torch.int32)  # wraps into int32
+    return torch.stack([hi, lo], dim=-1)
+
+
+def unpack_f64_bits(hilo) -> np.ndarray:
+    """Host inverse of `pack_f64_bits`: (..., [hi, lo]) int32 -> float64."""
+    arr = np.asarray(hilo, dtype=np.int32)
+    hi = arr[..., 0].astype(np.uint32).astype(np.uint64)
+    lo = arr[..., 1].astype(np.uint32).astype(np.uint64)
+    bits = np.ascontiguousarray((hi << np.uint64(32)) | lo)
+    return bits.view(np.float64)
+
+
+# ---- K7: top-k over finalized states ---------------------------------------------
+
+TOPK_MAX_KEYS = 4
+# keyed selection keeps `cap` of every 1024-candidate chunk per round
+TOPK_MAX_KEYED_CAP = 512
+_I64_MAX = int(np.iinfo(np.int64).max)
+
+
+def _order_key(values: torch.Tensor, isnull, ascending: bool) -> torch.Tensor:
+    """Int64 whose signed order is lax.sort's order of the key column
+    (floats canonicalized: -0.0 == 0.0, one NaN above +inf; descending
+    is -v, wrapping for int64)."""
+    if values.is_floating_point():
+        v = _f64(values)
+        if isnull is not None:
+            v = torch.where(isnull, 0.0, v)
+        v = v if ascending else -v
+        bits = v.contiguous().view(torch.int64)
+        ordered = torch.where(bits >= 0, bits, bits ^ _I64_MAX)
+        ordered = torch.where(v == 0, 0, ordered)
+        return torch.where(torch.isnan(v), 0x7FF8000000000000, ordered)
+    v = values.to(torch.int64)
+    if isnull is not None:
+        v = torch.where(isnull, 0, v)
+    return v if ascending else -v  # torch int64 negation wraps
+
+
+def topk_group_select_plain(mask, order_keys, cap: int):
+    """Torch-op version of K7: stable sorts, least significant key first."""
+    G = mask.shape[0]
+    dev = mask.device
+    keys = [torch.where(mask, 0, 1).to(torch.int64)]
+    for values, isnull, ascending, nulls_first in order_keys:
+        if isnull is not None:
+            keys.append(torch.where(isnull, -1 if nulls_first else 1, 0).to(torch.int64))
+        keys.append(_order_key(values, isnull, ascending))
+    perm = torch.arange(G, dtype=torch.int64, device=dev)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm[:cap].to(torch.int32), mask.sum().to(torch.int32).reshape(1)
+
+
+class _TopkKeys(ctypes.Structure):
+    _fields_ = [
+        ("mask", ctypes.c_void_p),
+        ("values", ctypes.c_void_p * TOPK_MAX_KEYS),
+        ("isnull", ctypes.c_void_p * TOPK_MAX_KEYS),
+        ("is_float", ctypes.c_int32 * TOPK_MAX_KEYS),
+        ("ascending", ctypes.c_int32 * TOPK_MAX_KEYS),
+        ("nulls_first", ctypes.c_int32 * TOPK_MAX_KEYS),
+        ("n_keys", ctypes.c_int32), ("num_groups", ctypes.c_int32),
+    ]
+
+
+class _TopkRound(ctypes.Structure):
+    _fields_ = [
+        ("keys", _TopkKeys), ("cand", ctypes.c_void_p), ("n_cand", ctypes.c_int64),
+        ("out", ctypes.c_void_p), ("n_out", ctypes.c_void_p),
+        ("cap", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+class _CompactArgs(ctypes.Structure):
+    _fields_ = [
+        ("mask", ctypes.c_void_p), ("sel", ctypes.c_void_p), ("n_out", ctypes.c_void_p),
+        ("num_groups", ctypes.c_int64), ("cap", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+_TOPK_CHUNK = 1024
+
+
+def topk_group_select(mask: torch.Tensor, order_keys: list, cap: int):
+    """K7: the first `cap` groups ordered survivors first, then by each
+    key (values [G], isnull [G] bool or None, ascending, nulls_first) with
+    an explicit null bucket, ties broken by group id ascending — the order
+    of the reference's multi-operand lax.sort.  Returns (sel int32 [cap],
+    n_out int32 [1], the survivor count).  A CUDA tensor launches
+    csrc/topk_select.cu (keyed caps above TOPK_MAX_KEYED_CAP raise); a CPU
+    tensor runs `topk_group_select_plain`."""
+    if mask.device.type == "cpu":
+        return topk_group_select_plain(mask, order_keys, cap)
+    from ..kernels._build import launch
+
+    dev = mask.device
+    G = int(mask.shape[0])
+    cap = int(cap)
+    if not 0 < cap <= G:
+        raise ValueError(f"topk cap {cap} outside (0, {G}]")
+    _check_rows(mask, torch.bool, G, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sel = torch.empty(cap, dtype=torch.int32, device=dev)
+    n_out = torch.zeros(1, dtype=torch.int32, device=dev)
+    if not order_keys:
+        a = _CompactArgs(mask.data_ptr(), sel.data_ptr(), n_out.data_ptr(), G, cap, 0)
+        topk_group_select.launches += 1
+        launch("topk_select", "gt_topk_compact", a, stream)
+        return sel, n_out
+    if len(order_keys) > TOPK_MAX_KEYS or cap > TOPK_MAX_KEYED_CAP:
+        raise ValueError(
+            f"topk_select takes at most {TOPK_MAX_KEYS} keys and a keyed cap of "
+            f"{TOPK_MAX_KEYED_CAP}; got {len(order_keys)} keys, cap {cap}"
+        )
+    keep = []
+    K = _TopkKeys()
+    K.mask = mask.data_ptr()
+    for i, (values, isnull, ascending, nulls_first) in enumerate(order_keys):
+        v = values.to(torch.float64 if values.is_floating_point() else torch.int64).contiguous()
+        _check_rows(v, v.dtype, G, dev)
+        keep.append(v)
+        K.values[i] = v.data_ptr()
+        if isnull is not None:
+            _check_rows(isnull, torch.bool, G, dev)
+            K.isnull[i] = isnull.data_ptr()
+        K.is_float[i] = int(v.is_floating_point())
+        K.ascending[i] = int(bool(ascending))
+        K.nulls_first[i] = int(bool(nulls_first))
+    K.n_keys = len(order_keys)
+    K.num_groups = G
+    cand, n_cand, first = None, G, True
+    topk_group_select.launches += 1  # one per call, however many rounds
+    while True:
+        chunks = -(-n_cand // _TOPK_CHUNK)
+        out = torch.empty(chunks * cap, dtype=torch.int32, device=dev)
+        r = _TopkRound(K, 0 if cand is None else cand.data_ptr(), n_cand, out.data_ptr(),
+                       n_out.data_ptr() if first else 0, cap, 0)
+        launch("topk_select", "gt_topk_round", r, stream)
+        keep.append(out)
+        cand, n_cand, first = out, chunks * cap, False
+        if chunks == 1:
+            break
+    sel.copy_(cand[:cap])
+    del keep
+    return sel, n_out
+
+
+topk_group_select.launches = 0
+
+
+# ---- K8: finalize + pack ---------------------------------------------------------
+
+_PACK = {"int32": 0, "bits": 1, "avg_f32": 2, "f64_words": 3, "avg_f64_words": 4,
+         "raw_int32": 5, "f64_dense": 6, "avg_f64_dense": 7, "scalar_int32": 8, "verdict": 9}
+
+
+def _avg(sums, counts):
+    return sums / torch.clamp(counts, min=1)
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8).reshape(-1)
+
+
+def pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None,
+                      n_out=None, verdict_rows=None):
+    """Torch-op version of K8 (see `pack_result`)."""
+
+    def pick(row):
+        return row if sel is None else row[sel.to(torch.int64)]
+
+    def value(spec):
+        return spec[1] if spec[0] == "value" else _avg(spec[1], spec[2])
+
+    parts = []
+    if bit_packed:
+        for row in int_rows:
+            g = row.shape[0]
+            gp = -(-g // 8) * 8
+            bits = torch.zeros(gp, dtype=torch.int32, device=row.device)
+            bits[:g] = (row > 0).to(torch.int32)
+            w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=row.device)
+            parts.append((bits.reshape(-1, 8) * w).sum(dim=1).to(torch.uint8))
+    else:
+        parts.extend(_as_bytes(pick(row.to(torch.int32))) for row in int_rows)
+    parts.extend(_as_bytes(pick(_avg(s, c)).to(torch.float32)) for s, c in acc32_rows)
+    if sel is not None:
+        parts.append(_as_bytes(sel.to(torch.int32)))
+        parts.append(_as_bytes(n_out.to(torch.int32).reshape(1)))
+        parts.extend(_as_bytes(pack_f64_bits(pick(value(spec)))) for spec in acc64_rows)
+    if verdict_rows is not None:
+        ok = torch.ones((), dtype=torch.bool, device=parts[0].device)
+        for err, s in verdict_rows:
+            lim = torch.maximum(s.abs() * 1e-7, torch.full_like(s, 1e-12))
+            ok = ok & (err <= lim).all()
+        parts.append(ok.to(torch.uint8).reshape(1))
+    buf = torch.cat(parts) if len(parts) > 1 else parts[0]
+    if sel is not None:
+        return (buf,)
+    G = int_rows[0].shape[0]
+    if acc64_rows:
+        accs64 = torch.stack([_f64(value(spec)) for spec in acc64_rows])
+    else:
+        accs64 = torch.zeros((0, G), dtype=torch.float64, device=buf.device)
+    return buf, accs64
+
+
+class _PackRow(ctypes.Structure):
+    _fields_ = [
+        ("kind", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("a", ctypes.c_void_p), ("b", ctypes.c_void_p), ("out", ctypes.c_int64),
+    ]
+
+
+class _PackArgs(ctypes.Structure):
+    _fields_ = [
+        ("rows", ctypes.c_void_p), ("sel", ctypes.c_void_p), ("buf", ctypes.c_void_p),
+        ("accs64", ctypes.c_void_p), ("len", ctypes.c_int64), ("num_groups", ctypes.c_int64),
+        ("n_rows", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_out=None,
+                verdict_rows=None):
+    """K8: finalize merged [G] states into the tile program's result.
+
+    int_rows: int32 [G] rows (presence, null-gated counts), shipped as
+    int32 or, with `bit_packed`, as 1 bit per group MSB-first;
+    acc32_rows: (sums f64 [G], counts int32 [G]) shipped as f32 averages;
+    acc64_rows: ("value", f64 [G]) or ("avg", sums, counts) f64 rows;
+    sel/n_out: K7's selection (the compact path: every row is gathered by
+    `sel`, the f64 rows join the byte buffer as [hi, lo] int32 words);
+    verdict_rows: (errs [G], sums [G]) of the limb columns, appending one
+    byte, 1 iff every err <= max(|sum| * 1e-7, 1e-12).
+    Returns (buf uint8,) on the compact path, else (buf, accs64 [K, G]).
+    A CUDA tensor launches csrc/pack_result.cu; a CPU tensor runs
+    `pack_result_plain`."""
+    first = int_rows[0]
+    if first.device.type == "cpu":
+        return pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed, sel, n_out,
+                                 verdict_rows)
+    from ..kernels._build import launch, upload_table
+
+    dev = first.device
+    G = int(first.shape[0])
+    compact = sel is not None
+    n = int(sel.shape[0]) if compact else G
+    if compact and bit_packed:
+        raise ValueError("the compact result is never bit-packed")
+    rows, keep = [], []
+
+    def src(t, dtype):
+        t = t.to(dtype).contiguous()
+        _check_rows(t, dtype, G, dev)
+        keep.append(t)
+        return t.data_ptr()
+
+    off = 0
+    for row in int_rows:
+        if bit_packed:
+            rows.append((_PACK["bits"], src(row, torch.int32), 0, off))
+            off += -(-G // 8)
+        else:
+            rows.append((_PACK["int32"], src(row, torch.int32), 0, off))
+            off += 4 * n
+    for s, c in acc32_rows:
+        rows.append((_PACK["avg_f32"], src(s, torch.float64), src(c, torch.int32), off))
+        off += 4 * n
+    if compact:
+        sel_t = sel.to(torch.int32).contiguous()
+        keep.append(sel_t)
+        rows.append((_PACK["raw_int32"], sel_t.data_ptr(), 0, off))
+        off += 4 * n
+        nt = n_out.to(torch.int32).contiguous()
+        keep.append(nt)
+        rows.append((_PACK["scalar_int32"], nt.data_ptr(), 0, off))
+        off += 4
+    for i, spec in enumerate(acc64_rows):
+        if spec[0] == "value":
+            kind = "f64_words" if compact else "f64_dense"
+            a_ptr, b_ptr = src(spec[1], torch.float64), 0
+        else:
+            kind = "avg_f64_words" if compact else "avg_f64_dense"
+            a_ptr, b_ptr = src(spec[1], torch.float64), src(spec[2], torch.int32)
+        rows.append((_PACK[kind], a_ptr, b_ptr, off if compact else i))
+        if compact:
+            off += 8 * n
+    verdict_at = None
+    if verdict_rows is not None:
+        verdict_at = off
+        for err, s in verdict_rows:
+            rows.append((_PACK["verdict"], src(err, torch.float64), src(s, torch.float64), off))
+        off += 1
+    buf = torch.empty(off, dtype=torch.uint8, device=dev)
+    if verdict_at is not None:
+        buf[verdict_at] = 1  # verdict rows clear it where a bound fails
+    accs64 = None
+    if not compact:
+        accs64 = torch.empty((len(acc64_rows), G), dtype=torch.float64, device=dev)
+    table = (_PackRow * len(rows))(*[_PackRow(k, 0, a, b, o) for k, a, b, o in rows])
+    table_t = upload_table(table, dev)
+    args = _PackArgs(
+        table_t.data_ptr(), sel_t.data_ptr() if compact else 0, buf.data_ptr(),
+        0 if accs64 is None or accs64.numel() == 0 else accs64.data_ptr(),
+        n, G, len(rows), 0,
+    )
+    pack_result.launches += 1
+    launch("pack_result", "gt_pack_result", args, torch.cuda.current_stream(dev).cuda_stream)
+    del keep, table_t
+    return (buf,) if compact else (buf, accs64)
+
+
+pack_result.launches = 0
+

@@ -160,7 +160,7 @@ def mask_gids(valid, filters, gates, tags, bucket, pad_gid):
 
 
 def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid):
-    from ..kernels._build import launch
+    from ..kernels._build import launch, upload_table
 
     dev = valid.device
     n = int(valid.shape[0])
@@ -215,7 +215,7 @@ def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid):
         args.n_buckets = int(n_buckets)
     else:
         args.ts = None
-    lit_t = torch.tensor(lits or [0], dtype=torch.int64).to(dev)
+    lit_t = upload_table(lits or [0], dev)
     keep.append(lit_t)
     args.lits = lit_t.data_ptr()
     gids = torch.empty(n, dtype=torch.int32, device=dev)

@@ -10,10 +10,13 @@ it was:
   - quantize tag cardinalities to powers of two (`_quantize_card`);
   - decode finalized group ids back to (tags..., bucket timestamp) rows.
 
-`compute_partial_states` is the lower/state stage: K1 (mask + group ids)
-then K2/K3/K4 (segment reductions), f64 accumulation, with the
-reference's count-pass sharing and presence fusing.  It has no `perm`
-(time-major), no limb quantization and no hash table.
+`compute_partial_states` is the lower/state stage shared with the tile
+program (parallel/tile_program.py): K1 (mask + group ids) then K2/K3/K4
+(segment reductions), with the reference's count-pass sharing and
+presence fusing; with `plan.acc_dtype == "limb"` sum/avg columns ride
+K5/K6 (limb digit planes) instead, and a hierarchical layout folds its
+states down to the group tags.  It has no `perm` (time-major) and no
+hash table.
 """
 
 from __future__ import annotations
@@ -27,10 +30,16 @@ import pyarrow.compute as pc
 import torch
 
 from ..ops.aggregate import (
+    BLOCK_ROWS,
+    _FAST_MIN_ROWS,
     AggState,
     finalize,
+    limb_segment_sums,
+    quantize_limbs,
+    reduce_state_axes,
     segment_aggregate,
     segment_aggregate_multi,
+    segment_sums_scatter,
 )
 from ..ops.filter import mask_gids
 from ..ops.tiles import TileBatch, tiles_from_table
@@ -65,12 +74,32 @@ class DistGroupByPlan:
     # nullable filter columns whose present-mask must gate the row mask
     # (SQL: NULL never satisfies a predicate)
     filter_null_cols: tuple[str, ...] = ()
+    # "float64" (K2/K3) or "limb" (sum/avg through K5/K6, the tile path)
+    acc_dtype: str = "float64"
+    # Hierarchical grouping: when the group tags are not a primary-key
+    # prefix in pk order, ids are composed over this pk prefix (+ bucket
+    # last), which the (pk, ts) sort keeps clustered, and the states fold
+    # down to `group_tags` (ops/aggregate.py reduce_state_axes).
+    layout_tags: tuple[str, ...] | None = None
+    layout_cards: tuple[int, ...] = ()
 
     @property
     def num_groups(self) -> int:
         """Output group-space size (the [G] the caller sees)."""
         g = 1
         for c in self.tag_cards:
+            g *= c
+        if self.bucket_col is not None:
+            g *= self.n_buckets
+        return g
+
+    @property
+    def internal_groups(self) -> int:
+        """Stage-1 group-space size (= num_groups unless hierarchical)."""
+        if self.layout_tags is None:
+            return self.num_groups
+        g = 1
+        for c in self.layout_cards:
             g *= c
         if self.bucket_col is not None:
             g *= self.n_buckets
@@ -91,34 +120,58 @@ def _quantize_card(n: int) -> int:
     return p
 
 
-def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls):
+def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=None,
+                           count_cols=None, limbs=None):
     """Lower/state stage on one tile: mask -> group ids -> partial AggStates.
 
     `columns`/`nulls` map names to [n] tensors on one device, `valid` is
-    the bool row mask.  Returns {value col: AggState, "__presence":
-    AggState(counts=...)}."""
-    n_groups = plan.num_groups
+    the bool row mask.  `dyn` optionally carries the runtime literals
+    {'filter_values', 'bucket_origin', 'bucket_interval'} (the tile path:
+    `plan.filters` then holds only their structure).  `count_cols` fixes
+    which columns carry their own null-gated count, so every source of a
+    multi-source program emits states of one structure (None: decide from
+    this tile's nulls).  `limbs` optionally supplies cached K5 planes per
+    column (col -> (limbs, scale)); a limb column without one is
+    quantized here from its f64 plane.  Returns {value col: AggState,
+    "__presence": AggState(counts=...)} plus, in limb mode,
+    "__limb_err:<col>" states holding each column's error bound."""
+    n_internal = plan.internal_groups
     gates = [nulls[c] for c in plan.filter_null_cols if c in nulls]
+    if dyn is not None:
+        filters = [(columns[name], op, v)
+                   for (name, op, _arity), v in zip(plan.filters, dyn["filter_values"])]
+        origin, interval = dyn["bucket_origin"], dyn["bucket_interval"]
+    else:
+        filters = [(columns[name], op, v) for name, op, v in plan.filters]
+        origin, interval = plan.bucket_origin, plan.bucket_interval
     bucket = None
     if plan.bucket_col is not None:
-        bucket = (
-            columns[plan.bucket_col], plan.bucket_origin, plan.bucket_interval,
-            plan.n_buckets,
-        )
+        bucket = (columns[plan.bucket_col], int(origin), int(interval), plan.n_buckets)
+    if plan.layout_tags is not None:
+        tags = list(zip(plan.layout_tags, plan.layout_cards))
+    else:
+        tags = list(zip(plan.group_tags, plan.tag_cards))
     # K1: padding rows get the max id so they never break clustering;
     # their mask keeps them out of every reduction
     gids, mask = mask_gids(
-        valid,
-        [(columns[name], op, v) for name, op, v in plan.filters],
-        gates,
-        [(columns[t], card) for t, card in zip(plan.group_tags, plan.tag_cards)],
-        bucket,
-        n_groups - 1,
+        valid, filters, gates, [(columns[t], card) for t, card in tags], bucket, n_internal - 1,
     )
 
     ts = None
     if plan.ts_col is not None and plan.ts_col in columns:
         ts = columns[plan.ts_col]
+
+    if plan.layout_tags is not None:
+        fold_cards = plan.layout_cards + ((plan.n_buckets,) if plan.bucket_col is not None else ())
+        keep_axes = tuple(plan.layout_tags.index(t) for t in plan.group_tags) + (
+            (len(plan.layout_tags),) if plan.bucket_col is not None else ()
+        )
+
+        def fold(state: AggState) -> AggState:
+            return reduce_state_axes(state, fold_cards, keep_axes)
+    else:
+        def fold(state: AggState) -> AggState:
+            return state
 
     per_col_aggs: dict[str, set] = {}
     for func, col in plan.agg_specs:
@@ -126,22 +179,28 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls):
     states: dict[str, AggState] = {}
     groups: dict[tuple, list[str]] = {}
     last_presence: str | None = None
+    n_rows = valid.shape[0]
+    # limb routing is decided from the PLAN (every source of a program
+    # must emit states of one structure); sources too small for the limb
+    # geometry take segment_sums_scatter, which yields the same tuple
+    limb_mode = plan.acc_dtype == "limb"
+    limb_fits = n_rows >= _FAST_MIN_ROWS and n_rows % BLOCK_ROWS == 0
+    limb_batch: list[tuple[str, bool]] = []  # (col, counted)
     for col, aggs in per_col_aggs.items():
         if "last" in aggs:
             key = tuple(sorted(aggs | {"count"}))
             col_mask = mask & nulls[col] if col in nulls else mask
             if col not in nulls:
                 last_presence = col  # its count IS the presence count
-            states[col] = segment_aggregate(
-                columns[col], gids, n_groups, key,
-                mask=col_mask, ts=ts,
-            )
+            states[col] = fold(segment_aggregate(
+                columns[col], gids, n_internal, key, mask=col_mask, ts=ts,
+            ))
             continue
         # Count-pass sharing: a column with NO null mask counts exactly the
         # group presence, so it skips its own count pass.
         if col == COUNT_STAR:
             continue  # presence covers it
-        null_gated = col in nulls
+        null_gated = (col in count_cols) if count_cols is not None else (col in nulls)
         kernel_aggs = set()
         if "sum" in aggs or "avg" in aggs:
             kernel_aggs.add("sum")
@@ -153,27 +212,34 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls):
             kernel_aggs.add("count")
         elif not kernel_aggs:
             continue  # count(col) on a non-null column: presence covers it
-        groups.setdefault(tuple(sorted(kernel_aggs)), []).append(col)
+        if limb_mode and "sum" in kernel_aggs:
+            # sum + null-gated count ride the limb batch; min/max keep K2/K3
+            limb_batch.append((col, null_gated))
+            kernel_aggs -= {"sum", "count"}
+        if kernel_aggs:
+            groups.setdefault(tuple(sorted(kernel_aggs)), []).append(col)
     # Presence fusing: a NON-null-gated value column counts exactly the
     # base-mask rows, which IS the group presence — ride its kernel pass.
+    # The limb batch carries presence itself.
     presence_from: str | None = None
-    for key in list(groups):
-        if "count" in key:
-            continue
-        cols = groups[key]
-        rep = cols[0]
-        if len(cols) == 1:
-            del groups[key]
-        else:
-            groups[key] = cols[1:]
-        groups.setdefault(tuple(sorted(set(key) | {"count"})), []).insert(0, rep)
-        presence_from = rep
-        break
-    if presence_from is None and last_presence is not None:
-        presence_from = last_presence
-    if presence_from is None:
-        # pseudo-column whose "values" are the mask itself
-        groups.setdefault(("count",), []).append("__presence")
+    if not limb_batch:
+        for key in list(groups):
+            if "count" in key:
+                continue
+            cols = groups[key]
+            rep = cols[0]
+            if len(cols) == 1:
+                del groups[key]
+            else:
+                groups[key] = cols[1:]
+            groups.setdefault(tuple(sorted(set(key) | {"count"})), []).insert(0, rep)
+            presence_from = rep
+            break
+        if presence_from is None and last_presence is not None:
+            presence_from = last_presence
+        if presence_from is None:
+            # pseudo-column whose "values" are the mask itself
+            groups.setdefault(("count",), []).append("__presence")
     for key, cols in groups.items():
         vals = [
             mask if c in ("__presence", COUNT_STAR) else columns[c]
@@ -181,11 +247,36 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls):
         ]
         col_masks = [mask & nulls[c] if c in nulls else mask for c in cols]
         multi = segment_aggregate_multi(
-            vals, gids, n_groups, key, col_masks, mask
+            vals, gids, n_internal, key, col_masks, mask
         )
         for i, c in enumerate(cols):
-            states[c] = multi.row(i)
-    if presence_from is not None:
+            states[c] = fold(multi.row(i))
+    if limb_batch:
+        count01 = [nulls[c] if (counted and c in nulls) else None for c, counted in limb_batch]
+        c01 = count01 if any(counted for _c, counted in limb_batch) else None
+        if limb_fits:
+            limb_inputs = [
+                limbs[c] if limbs is not None and c in limbs else quantize_limbs(columns[c])
+                for c, _counted in limb_batch
+            ]
+            lsums, lerrs, lcounts, lpresence = limb_segment_sums(
+                limb_inputs, gids, mask, n_internal, count01=c01,
+            )
+        else:
+            lsums, lerrs, lcounts, lpresence = segment_sums_scatter(
+                [columns[c] for c, _counted in limb_batch], gids, mask, n_internal, count01=c01,
+            )
+        for i, (c, counted) in enumerate(limb_batch):
+            st = fold(AggState(sums=lsums[i], counts=lcounts[i] if counted else None))
+            prev = states.get(c)
+            if prev is not None:  # min/max part from K2/K3
+                st = AggState(sums=st.sums, counts=st.counts, mins=prev.mins, maxs=prev.maxs)
+            states[c] = st
+            # worst-case quantization error per group: merges by addition
+            # and folds like a sum; the tile program checks it against |sum|
+            states["__limb_err:" + c] = fold(AggState(sums=lerrs[i]))
+        states["__presence"] = fold(AggState(counts=lpresence))
+    elif presence_from is not None:
         states["__presence"] = AggState(counts=states[presence_from].counts)
     return states
 

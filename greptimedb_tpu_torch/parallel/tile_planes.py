@@ -1,0 +1,594 @@
+"""Device-resident per-region super-tiles: the tile cache's planes.
+
+Counterpart of the cache half of `greptimedb_tpu/parallel/tile_cache.py`
+(`TileContext`, `_FileHostTiles`, `_SuperTiles`, `TileCacheManager`,
+`ensure_limbs`, `_encode_host_tiles`, `_chunk_bounds`).  Each region's
+flushed SSTs are encoded once — tag strings to stable per-table
+dictionary codes (storage/dictionary.py), timestamps to int64, values to
+float — globally re-sorted by (pk..., ts) so primary-key runs stay long
+and the blocked kernels (K2, K6) see the layout they want, padded, cut
+into chunks of `tile_chunk_rows` (2^24) rows and uploaded to the card:
+the "super-tile".  A warm query then skips the Parquet rescan, the
+encode and the upload.  Host-side per-file encodes are cached too, so a
+rebuild after a flush re-reads only the new files.
+
+What the port keeps and what it drops:
+
+* invalidation: a flush or compaction advances the region's manifest
+  version; the next query's `invalidate_region_if_changed` sweep drops
+  the stale entry (and host encodes of removed files) and the entry is
+  rebuilt — the reference does the same with its incremental pass off;
+* dictionary growth after planes are built: the reference repairs the
+  device codes with one gather (`repair_super`, not ported); the port
+  drops such entries (`drop_stale`) and rebuilds them from the repaired
+  host encodes, which yields the same codes by a longer route;
+* limb planes (K5) are cached per column and evicted first under budget
+  pressure, then whole entries;
+* not ported: persistence of consolidated encodes, time-major copies,
+  window tiles, the dedup keep plane, the sorted host copies of the host
+  fast path, multi-device placement, the pipelined build.  Limb-only
+  columns keep their f64 plane (the reference skips that upload).
+
+Padding keeps the port's rule (`ops/tiles.py::pad_rows`, a multiple of
+4096, not the reference's next power of two); chunks are cut at the same
+2^24-row bounds, so the rows and 4096-row blocks of every chunk are the
+reference's and partials merge in the same order.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+import torch
+
+from ..ops.aggregate import BLOCK_ROWS, _FAST_MIN_ROWS, quantize_limbs
+from ..ops.tiles import pad_rows
+from ..storage.dictionary import TableDictionary
+from ..storage.region import Region
+from ..storage.sst import FileMeta
+
+TILE_CHUNK_ROWS = 1 << 24
+
+
+def _chunk_bounds(pad: int, chunk_rows: int = TILE_CHUNK_ROWS) -> list[tuple[int, int]]:
+    if pad <= chunk_rows:
+        return [(0, pad)]
+    return [(o, min(o + chunk_rows, pad)) for o in range(0, pad, chunk_rows)]
+
+
+@dataclass
+class TileContext:
+    """What the Database hands the tile executor for one table scan."""
+
+    table_key: str
+    dictionary: TableDictionary
+    regions: list[Region]
+    append_mode: bool = False
+
+
+@dataclass
+class _FileHostTiles:
+    """Host-side encoded columns of one SST file (the build cache the
+    super-tile consolidates from).  `absent` lists value columns the file
+    predates; consolidation NULL-fills them."""
+
+    cols: dict[str, np.ndarray] = field(default_factory=dict)
+    nulls: dict[str, np.ndarray] = field(default_factory=dict)
+    epochs: dict[str, int] = field(default_factory=dict)
+    absent: set[str] = field(default_factory=set)
+    num_rows: int = 0
+    nbytes: int = 0
+
+
+@dataclass
+class _SuperTiles:
+    """One region's consolidated device planes, rows in (pk..., ts) order,
+    stored as lists of chunk tensors."""
+
+    region_id: int
+    file_ids: tuple[str, ...]
+    num_rows: int  # real rows (sum of file rows)
+    pad: int  # padded total length (a multiple of 4096)
+    order: np.ndarray | None = None  # (pk, ts) sort of the file concat
+    cols: dict[str, list] = field(default_factory=dict)
+    nulls: dict[str, list] = field(default_factory=dict)
+    epochs: dict[str, int] = field(default_factory=dict)  # tag col -> dict epoch
+    valid: list | None = None
+    # cached K5 planes per value column: per chunk (limbs, scale)
+    limb_cols: dict[str, list] = field(default_factory=dict)
+    nbytes: int = 0
+
+
+def _nbytes(chunks) -> int:
+    return sum(int(x.numel()) * x.element_size() for x in chunks)
+
+
+def _limb_nbytes(chunks) -> int:
+    return sum(_nbytes((lb, s)) for lb, s in chunks)
+
+
+def device_budget(config_mb: int, device: torch.device) -> int:
+    """The cache's byte budget: the configured size, capped on a card at
+    80 % of the device memory free when the cache is created."""
+    budget = int(config_mb) << 20
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        budget = min(budget, int(free * 0.8))
+    return budget
+
+
+class TileCacheManager:
+    """Device-resident per-region super-tiles + host-side per-file encode
+    cache, both LRU-bounded."""
+
+    def __init__(
+        self,
+        budget_bytes: int = 8 << 30,
+        chunk_rows: int = TILE_CHUNK_ROWS,
+        device: str | torch.device = "cuda",
+    ):
+        self.budget = budget_bytes
+        self.host_budget = budget_bytes * 2  # host encodes of the SST files
+        self.chunk_rows = chunk_rows
+        self.device = torch.device(device)
+        self._lock = threading.RLock()
+        self._super: OrderedDict[int, _SuperTiles] = OrderedDict()
+        self._host: OrderedDict[tuple[int, str], _FileHostTiles] = OrderedDict()
+        self._used = 0
+        self._host_used = 0
+        self._region_versions: dict[int, int] = {}
+        # files that can never join a super-tile (missing tag/ts column,
+        # row-count mismatch): queries whose window touches them decline
+        self._bad_files: set[tuple[int, str]] = set()
+        # counters: entries built, warm hits, host file decodes, evictions
+        self.stats_counts = {"builds": 0, "hits": 0, "decodes": 0, "evictions": 0}
+
+    # ---- bookkeeping -------------------------------------------------------
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "regions": len(self._super),
+                "bytes": self._used,
+                "host_files": len(self._host),
+                "host_bytes": self._host_used,
+                **self.stats_counts,
+            }
+
+    def invalidate_region(self, region_id: int, keep_file_ids: set[str] | None = None):
+        """Drop host tiles of files no longer in the region's manifest and
+        the region's super-tile when its file set changed."""
+        with self._lock:
+            for key in list(self._host):
+                if key[0] == region_id and (keep_file_ids is None or key[1] not in keep_file_ids):
+                    self._host_used -= self._host.pop(key).nbytes
+            for key in list(self._bad_files):
+                if key[0] == region_id and (keep_file_ids is None or key[1] not in keep_file_ids):
+                    self._bad_files.discard(key)
+            entry = self._super.get(region_id)
+            if entry is not None and (
+                keep_file_ids is None or not set(entry.file_ids) <= keep_file_ids
+            ):
+                self._used -= self._super.pop(region_id).nbytes
+            self._region_versions.pop(region_id, None)
+
+    def invalidate_region_if_changed(
+        self, region_id: int, keep_file_ids: set[str], manifest_version: int
+    ):
+        """Version-gated sweep: runs only when the region's manifest
+        advanced since the last query."""
+        with self._lock:
+            if self._region_versions.get(region_id) == manifest_version:
+                return
+        self.invalidate_region(region_id, keep_file_ids)
+        with self._lock:
+            self._region_versions[region_id] = manifest_version
+
+    def drop_stale(self, entries: list[_SuperTiles], dictionary: TableDictionary) -> list[int]:
+        """Drop entries whose device tag codes predate a dictionary growth
+        that moved codes (the reference repairs them in place with one
+        gather); returns the dropped region ids, which the caller rebuilds."""
+        dropped = []
+        with self._lock:
+            for entry in entries:
+                stale = any(
+                    dictionary.perm_since(tag, epoch) is not None
+                    for tag, epoch in entry.epochs.items()
+                )
+                if stale:
+                    if self._super.get(entry.region_id) is entry:
+                        self._used -= self._super.pop(entry.region_id).nbytes
+                    dropped.append(entry.region_id)
+                else:
+                    for tag in entry.epochs:
+                        entry.epochs[tag] = dictionary.epoch
+        return dropped
+
+    def _reserve_locked(self, est: int, pinned_regions: set[int]):
+        """Make room for `est` bytes about to allocate on the device."""
+        if est and self._used > self.budget - est:
+            saved, self.budget = self.budget, max(self.budget - est, 0)
+            try:
+                self._evict_locked(pinned_regions)
+            finally:
+                self.budget = saved
+
+    def release_unneeded(self, entry: _SuperTiles, keep_cols: set[str]) -> int:
+        """Drop this entry's planes of columns the current query does not
+        touch (whole-entry eviction cannot help a one-entry deployment)."""
+        with self._lock:
+            freed = 0
+            for d in (entry.cols, entry.nulls):
+                for name in list(d):
+                    if name not in keep_cols:
+                        freed += _nbytes(d.pop(name))
+                        entry.epochs.pop(name, None)
+            for name in list(entry.limb_cols):
+                if name not in keep_cols:
+                    freed += _limb_nbytes(entry.limb_cols.pop(name))
+            entry.nbytes -= freed
+            if self._super.get(entry.region_id) is entry:
+                self._used -= freed
+            return freed
+
+    def _evict_locked(self, pinned_regions: set[int]):
+        # limb planes first (a quantize pass rebuilds them), then whole
+        # unpinned entries (a Parquet decode rebuilds those)
+        for entry in list(self._super.values()):
+            for key in list(entry.limb_cols):
+                if self._used <= self.budget:
+                    break
+                freed = _limb_nbytes(entry.limb_cols.pop(key))
+                entry.nbytes -= freed
+                self._used -= freed
+        while self._used > self.budget and len(self._super) > len(pinned_regions):
+            for rid in list(self._super):
+                if rid not in pinned_regions:
+                    self._used -= self._super.pop(rid).nbytes
+                    self.stats_counts["evictions"] += 1
+                    break
+            else:
+                break
+        while self._host_used > self.host_budget and self._host:
+            _key, entry = next(iter(self._host.items()))
+            self._host_used -= entry.nbytes
+            del self._host[_key]
+
+    # ---- host-side per-file encode cache -----------------------------------
+    def _file_host_tiles(
+        self,
+        region: Region,
+        dictionary: TableDictionary,
+        meta: FileMeta,
+        columns: list[str],
+        tag_cols: list[str],
+        ts_col: str | None,
+    ) -> _FileHostTiles | None:
+        key = (region.region_id, meta.file_id)
+        with self._lock:
+            entry = self._host.get(key)
+            if entry is not None:
+                self._host.move_to_end(key)
+        if entry is None:
+            entry = _FileHostTiles(num_rows=meta.num_rows)
+        missing = [c for c in columns if c not in entry.cols and c not in entry.absent]
+        if missing:
+            self.stats_counts["decodes"] += 1
+            table = region.sst_reader.read(meta, None, columns=missing)
+            if table.num_rows != meta.num_rows:
+                with self._lock:
+                    self._bad_files.add(key)
+                return None
+            present = [c for c in missing if c in table.column_names]
+            for name in missing:
+                if name in table.column_names:
+                    continue
+                # the file predates the column: a value column NULL-fills,
+                # a missing tag/ts column cannot be represented
+                if name in tag_cols or name == ts_col:
+                    with self._lock:
+                        self._bad_files.add(key)
+                    return None
+                entry.absent.add(name)
+            built = _encode_host_tiles(dictionary, table, present, tag_cols, ts_col)
+            if built is None:
+                with self._lock:
+                    self._bad_files.add(key)
+                return None
+            cols, nulls, epochs, nbytes = built
+            entry.cols.update(cols)
+            entry.nulls.update(nulls)
+            entry.epochs.update(epochs)
+            entry.nbytes += nbytes
+            with self._lock:
+                old = self._host.pop(key, None)
+                if old is not None and old is not entry:
+                    self._host_used -= old.nbytes
+                self._host[key] = entry
+                self._host_used += nbytes
+        return entry
+
+    def _repair_host_locked(self, entry: _FileHostTiles, dictionary: TableDictionary):
+        """Bring a host tile's tag codes to the current dictionary epoch
+        with one numpy gather per stale column."""
+        for tag, epoch in list(entry.epochs.items()):
+            perm = dictionary.perm_since(tag, epoch)
+            if perm is not None:
+                codes = entry.cols[tag]
+                ok = (codes >= 0) & (codes < len(perm))
+                entry.cols[tag] = np.where(
+                    ok, perm[np.clip(codes, 0, len(perm) - 1)], -1
+                ).astype(np.int32)
+            entry.epochs[tag] = dictionary.epoch
+
+    # ---- super-tile build / fetch -----------------------------------------
+    def super_tiles(
+        self,
+        region: Region,
+        dictionary: TableDictionary,
+        metas: list[FileMeta],
+        tag_cols: list[str],
+        ts_col: str | None,
+        value_cols: list[str],
+        pinned_regions: set[int],
+        pk_cols: list[str],
+        timings: dict | None = None,
+    ) -> tuple[_SuperTiles | None, list[FileMeta]]:
+        """Cached (or freshly consolidated and uploaded) planes of one
+        region's SST set.  Returns (entry, excluded): `excluded` lists files
+        that cannot join the super-tile — the caller declines when any of
+        them intersects the query window.  `pk_cols` + `ts_col` define the
+        global sort order.  `timings` (optional) accumulates host ms of the
+        "build" (decode, encode, sort, consolidate) and "upload" stages."""
+        need = list(dict.fromkeys(tag_cols + ([ts_col] if ts_col else []) + value_cols))
+        sort_cols = list(dict.fromkeys(pk_cols + ([ts_col] if ts_col else [])))
+        host_need = list(dict.fromkeys(sort_cols + need))
+        # the first consolidation reads Parquet anyway: host-decode every
+        # numeric field column in that pass (device upload stays lazy)
+        eager = [c.name for c in region.schema.field_columns() if c.data_type.is_numeric()]
+        host_need = list(dict.fromkeys(host_need + eager))
+        rid = region.region_id
+        t_start = time.perf_counter()
+        for _attempt in range(len(metas) + 1):
+            with self._lock:
+                included = [m for m in metas if (rid, m.file_id) not in self._bad_files]
+            excluded = [m for m in metas if m not in included]
+            if not included:
+                return None, excluded
+            ids = tuple(m.file_id for m in included)
+            with self._lock:
+                entry = self._super.get(rid)
+                if entry is not None:
+                    self._super.move_to_end(rid)
+                    if entry.file_ids != ids:
+                        # the file set changed: full rebuild
+                        self._used -= self._super.pop(rid).nbytes
+                        entry = None
+            if entry is None:
+                total = sum(m.num_rows for m in included)
+                entry = _SuperTiles(region_id=rid, file_ids=ids, num_rows=total,
+                                    pad=pad_rows(max(total, 1)))
+            missing = [c for c in need if c not in entry.cols]
+            if not missing and entry.valid is not None:
+                self.stats_counts["hits"] += 1
+                return entry, excluded
+
+            host_tiles: list[_FileHostTiles] = []
+            for meta in included:
+                ht = self._file_host_tiles(region, dictionary, meta, host_need,
+                                           tag_cols + pk_cols, ts_col)
+                if ht is None:
+                    break  # newly discovered bad file: retry without it
+                host_tiles.append(ht)
+            if len(host_tiles) != len(included):
+                continue
+            with self._lock:
+                for ht in host_tiles:
+                    self._repair_host_locked(ht, dictionary)
+            if entry.order is None:
+                # global (pk, ts) sort of the concatenation (lexsort keys
+                # minor to major); code repair preserves relative order,
+                # so `order` stays valid across dictionary growth
+                cats = {
+                    name: np.concatenate([ht.cols[name] for ht in host_tiles])
+                    for name in sort_cols
+                }
+                if cats:
+                    entry.order = np.lexsort(
+                        [cats[name] for name in reversed(sort_cols)]
+                    ).astype(np.int64)
+                else:
+                    entry.order = np.arange(entry.num_rows, dtype=np.int64)
+
+            est = 0
+            for name in missing:
+                src0 = next((ht.cols[name] for ht in host_tiles if name in ht.cols), None)
+                item = src0.dtype.itemsize if src0 is not None else 8
+                nullable = any(name in ht.nulls or name in ht.absent for ht in host_tiles)
+                est += entry.pad * (item + (1 if nullable else 0))
+            with self._lock:
+                self._reserve_locked(est, pinned_regions | {rid})
+
+            bounds = _chunk_bounds(entry.pad, self.chunk_rows)
+            acc = [0, 0.0]  # device bytes landed, upload seconds
+            if entry.valid is None:
+                v = np.zeros(entry.pad, bool)
+                v[: entry.num_rows] = True
+                t0 = time.perf_counter()
+                entry.valid = self._up_chunks(v, bounds)
+                acc[0] += v.nbytes
+                acc[1] += time.perf_counter() - t0
+            self._upload_missing(entry, missing, host_tiles, bounds, acc, tag_cols, pk_cols,
+                                 dictionary)
+            added, t_up = acc
+            entry.nbytes += added
+            with self._lock:
+                old = self._super.pop(rid, None)
+                if old is not None and old is not entry:
+                    self._used -= old.nbytes
+                self._super[rid] = entry
+                self._used += added
+                self._evict_locked(pinned_regions | {rid})
+            self.stats_counts["builds"] += 1
+            if timings is not None:
+                total_ms = (time.perf_counter() - t_start) * 1e3
+                timings["upload"] = timings.get("upload", 0.0) + t_up * 1e3
+                timings["build"] = timings.get("build", 0.0) + total_ms - t_up * 1e3
+            return entry, excluded
+        return None, list(metas)
+
+    def _consolidate_column(self, entry: _SuperTiles, name, host_tiles):
+        """Host-side assembly of one column's consolidated (sorted, padded)
+        buffer + optional present-mask plane."""
+        src = next((ht.cols[name] for ht in host_tiles if name in ht.cols), None)
+        dtype = src.dtype if src is not None else np.float64
+        cat = np.concatenate([
+            ht.cols[name] if name in ht.cols else np.zeros(ht.num_rows, dtype)
+            for ht in host_tiles
+        ])
+        buf = np.zeros(entry.pad, dtype=cat.dtype)
+        buf[: entry.num_rows] = cat[entry.order]
+        nbuf = None
+        if any(name in ht.nulls or name in ht.absent for ht in host_tiles):
+            ncat = np.concatenate([
+                ht.nulls[name] if name in ht.nulls else np.full(ht.num_rows, name not in ht.absent)
+                for ht in host_tiles
+            ])
+            nbuf = np.zeros(entry.pad, bool)
+            nbuf[: entry.num_rows] = ncat[entry.order]
+        return buf, nbuf
+
+    def _land_column(self, entry: _SuperTiles, name, buf, nbuf, bounds, acc: list,
+                     tag_cols, pk_cols, dictionary):
+        """Upload one consolidated column (+ its present-mask plane) and
+        stamp the dictionary epoch of a tag column."""
+        t0 = time.perf_counter()
+        entry.cols[name] = self._up_chunks(buf, bounds)
+        acc[0] += buf.nbytes
+        if nbuf is not None:
+            entry.nulls[name] = self._up_chunks(nbuf, bounds)
+            acc[0] += nbuf.nbytes
+        acc[1] += time.perf_counter() - t0
+        if name in tag_cols or name in pk_cols:
+            entry.epochs[name] = dictionary.epoch
+
+    def _upload_missing(self, entry: _SuperTiles, missing, host_tiles, bounds, acc: list,
+                        tag_cols, pk_cols, dictionary):
+        """Consolidate + upload the missing columns of an entry, one column
+        at a time (the reference's pipelined form is not ported)."""
+        for name in missing:
+            buf, nbuf = self._consolidate_column(entry, name, host_tiles)
+            self._land_column(entry, name, buf, nbuf, bounds, acc, tag_cols, pk_cols,
+                              dictionary)
+
+    def _up_chunks(self, buf: np.ndarray, bounds) -> list:
+        """Upload a consolidated host buffer chunk by chunk."""
+        t = torch.from_numpy(buf)
+        return [t[a:b].to(self.device).contiguous() if self.device.type != "cpu"
+                else t[a:b].clone() for a, b in bounds]
+
+    def ensure_limbs(
+        self,
+        entry: _SuperTiles,
+        cols_needed: list[str],
+        pinned_regions: set[int] = frozenset(),
+    ) -> dict[str, list]:
+        """Cached K5 planes for the given value columns, quantized on the
+        device from the resident f64 plane once per (region, file set);
+        returns col -> per-chunk (limbs, scale).  Columns with a chunk below
+        the limb geometry (a multiple of 4096, at least 2^16 rows) are
+        skipped: those sources take the exact scatter path."""
+        out: dict[str, list] = {}
+        to_build = []
+        with self._lock:
+            for c in cols_needed:
+                if c in entry.limb_cols:
+                    out[c] = entry.limb_cols[c]
+                    continue
+                chunks = entry.cols.get(c)
+                if chunks is None or any(
+                    x.shape[0] % BLOCK_ROWS or x.shape[0] < _FAST_MIN_ROWS for x in chunks
+                ):
+                    continue
+                to_build.append((c, chunks))
+        if not to_build:
+            return out
+        # 4 bf16 digits (8 B) per row and 8 B of scale per block
+        est = sum(x.shape[0] * 8 + (x.shape[0] // BLOCK_ROWS) * 8
+                  for _c, chunks in to_build for x in chunks)
+        with self._lock:
+            self._reserve_locked(est, pinned_regions | {entry.region_id})
+        built = [(c, [quantize_limbs(x) for x in chunks]) for c, chunks in to_build]
+        added = 0
+        with self._lock:
+            for c, planes in built:
+                if c in entry.limb_cols:
+                    out[c] = entry.limb_cols[c]
+                    continue
+                entry.limb_cols[c] = planes
+                out[c] = planes
+                added += _limb_nbytes(planes)
+            if added:
+                entry.nbytes += added
+                if self._super.get(entry.region_id) is entry:
+                    self._used += added
+                self._evict_locked(pinned_regions | {entry.region_id})
+        return out
+
+
+def _encode_host_tiles(
+    dictionary: TableDictionary,
+    table: pa.Table,
+    columns: list[str],
+    tag_cols: list[str],
+    ts_col: str | None,
+):
+    """Shared host encode for SST files and memtable tails: tag strings ->
+    dictionary codes (growing the dictionary), ts -> int64, values ->
+    numeric.  Returns (cols, nulls, epochs, nbytes) of unpadded numpy
+    arrays, or None when a column cannot tile."""
+    cols: dict[str, np.ndarray] = {}
+    nulls: dict[str, np.ndarray] = {}
+    epochs: dict[str, int] = {}
+    nbytes = 0
+    for name in columns:
+        col = table[name]
+        if name in tag_cols:
+            dictionary.update(name, col)
+            np_arr = dictionary.encode(name, col)
+            epochs[name] = dictionary.epoch
+        elif name == ts_col:
+            np_arr = np.asarray(pc.cast(col, pa.int64()).to_numpy(zero_copy_only=False))
+        else:
+            np_arr = _value_to_numpy(col)
+            if np_arr is None:
+                return None
+            if col.null_count:
+                present = np.asarray(pc.is_valid(col).to_numpy(zero_copy_only=False), bool)
+                nulls[name] = present
+                nbytes += present.nbytes
+        cols[name] = np.ascontiguousarray(np_arr)
+        nbytes += np_arr.nbytes
+    return cols, nulls, epochs, nbytes
+
+
+def _value_to_numpy(col) -> np.ndarray | None:
+    t = col.type
+    if pa.types.is_dictionary(t):
+        col = pc.cast(col, t.value_type)
+        t = t.value_type
+    if not (pa.types.is_floating(t) or pa.types.is_integer(t) or pa.types.is_boolean(t)):
+        return None
+    arr = col.to_numpy(zero_copy_only=False)
+    if arr.dtype == object:
+        arr = np.array([0 if v is None else v for v in arr], dtype=np.float64)
+    elif np.issubdtype(arr.dtype, np.floating):
+        arr = np.nan_to_num(arr, nan=0.0)
+    elif arr.dtype == bool:
+        arr = arr.astype(np.float32)
+    return arr

@@ -1,0 +1,190 @@
+"""The tile program: one query's sources in, one packed result out.
+
+Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `_tile_program`
+(`run_all`, `_partial`, the merge, `_device_select`, `_final`).  Per
+source (a super-tile chunk or a memtable tail) `compute_partial_states`
+runs K1 and K2-K6; the partial states merge pairwise in source order
+(chunk order, then the tails), are finalized, optionally top-k selected
+on the card (K7) and packed by K8 into the reference's result layout:
+
+* dense path: (buf, accs64) — buf holds the int rows (int32, or 1 bit
+  per group when G >= 2^14 and no output consumes an exact count), the
+  f32 avg rows (G >= 2^14) and the limb verdict byte; accs64 [K, G] the
+  f64 rows;
+* compact path (a DeviceFinalizeSpec): (buf,) — int rows, f32 rows, the
+  selected group ids, the survivor count, the f64 rows as [hi, lo] int32
+  words, the verdict byte; every row gathered by the selection.
+
+There is no jit: PyTorch runs eagerly and the kernels are compiled once
+per process (kernels/_build.py), so a "program" is the layout plus the
+loop.  Programs are cached per (plan, nullable columns, spec) as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..ops.aggregate import finalize, merge_states, pack_result, topk_group_select
+from .executor import COUNT_STAR, DistGroupByPlan, _FUNC_TO_KERNEL, compute_partial_states
+
+
+def limb_sum_cols(plan: DistGroupByPlan) -> list[str]:
+    """Value columns whose sum/avg rides the limb kernels (K5/K6)."""
+    if plan.acc_dtype != "limb":
+        return []
+    per: dict[str, set] = {}
+    for f, c in plan.agg_specs:
+        per.setdefault(c, set()).add(_FUNC_TO_KERNEL[f])
+    return [
+        c for c, aggs in per.items()
+        if c != COUNT_STAR and "last" not in aggs and aggs & {"sum", "avg"}
+    ]
+
+
+class TileProgram:
+    """Layouts of one (plan, nullable columns, spec) and its `run_all`."""
+
+    def __init__(self, plan: DistGroupByPlan, nullable_cols: tuple[str, ...], spec=None):
+        self.plan = plan
+        self.nullable_cols = nullable_cols
+        self.spec = spec
+        per_col_aggs: dict[str, set] = {}
+        for func, col in plan.agg_specs:
+            per_col_aggs.setdefault(col, set()).add(_FUNC_TO_KERNEL[func])
+        self.per_col_aggs = per_col_aggs
+        pack_bytes = plan.num_groups >= 1 << 14 and spec is None
+        int_layout: list[tuple[str, str]] = [("__presence", "count")]
+        acc32_layout: list[tuple[str, str]] = []
+        acc64_layout: list[tuple[str, str]] = []
+        for col, aggs in per_col_aggs.items():
+            for agg in sorted(aggs):
+                if agg == "count":
+                    continue  # count rides the int rows (or presence)
+                target = acc32_layout if (pack_bytes and agg == "avg") else acc64_layout
+                target.append((col, agg))
+            # a per-column count row ships only when the column carries its
+            # own null-gated count; otherwise presence substitutes exactly
+            if col in nullable_cols and col != COUNT_STAR:
+                int_layout.append((col, "count"))
+        needs_exact_counts = any(_FUNC_TO_KERNEL[f] == "count" for f, _c in plan.agg_specs)
+        self.int_layout = tuple(int_layout)
+        self.acc32_layout = tuple(acc32_layout)
+        self.acc64_layout = tuple(acc64_layout)
+        self.bit_packed = pack_bytes and not needs_exact_counts
+        # columns whose sums carry a quantization-error bound: the result
+        # ends in a verdict byte, and the caller reruns in f64 on 0
+        self.limb_err_cols = limb_sum_cols(plan)
+        # avg is computed by K8; before it only for an ORDER BY key of K7
+        self.key_avg_cols = frozenset(
+            ref[1] for ref, _asc, _nf in (spec.order if spec is not None else ())
+            if ref[0] != "dim" and ref[2] == "avg"
+        )
+
+    # -- the pieces ----------------------------------------------------------
+    def partial(self, cols, valid, nulls, dyn, limbs):
+        return compute_partial_states(
+            self.plan, cols, valid, nulls, dyn=dyn, count_cols=self.nullable_cols, limbs=limbs,
+        )
+
+    @staticmethod
+    def merge(a: dict, b: dict) -> dict:
+        return {k: merge_states(a[k], b[k]) for k in a}
+
+    def _counts_of(self, merged, col, presence):
+        st = merged.get(col)
+        return st.counts if st is not None and st.counts is not None else presence
+
+    def device_select(self, merged, outs, presence):
+        """ORDER BY keys over the finalized states -> K7.  Returns
+        (sel int32 [cap], n_out int32 [1])."""
+        plan, spec = self.plan, self.spec
+        g = presence.shape[0]
+        gid = torch.arange(g, dtype=torch.int64, device=presence.device)
+        dims = list(plan.tag_cards)
+        if plan.bucket_col is not None:
+            dims.append(plan.n_buckets)
+
+        def ref_val(ref):
+            """-> (value [G], isnull [G] | None).  Dim refs decode from the
+            group id (tag codes are value-sorted, NULL last, so code order
+            is SQL-default order); agg refs read the finalized outputs with
+            the count > 0 NULL gate the host applies."""
+            if ref[0] == "dim":
+                i = ref[1]
+                div = 1
+                for c in dims[i + 1:]:
+                    div *= c
+                return (gid // div) % dims[i], None
+            _kind, col, agg = ref
+            if col == COUNT_STAR or col not in merged:
+                return presence, None
+            if agg == "count":
+                cc = merged[col].counts
+                return (cc if cc is not None else presence), None
+            counts = merged[col].counts
+            isnull = (counts == 0) if counts is not None else None
+            v = outs[col][agg]
+            if v.is_floating_point():
+                # the host masks NaN outputs to NULL: same bucket here
+                nan = torch.isnan(v)
+                isnull = nan if isnull is None else (isnull | nan)
+            return v, isnull
+
+        order_keys = []
+        for ref, asc, nulls_first in spec.order:
+            v, isn = ref_val(ref)
+            order_keys.append((v, isn, asc, nulls_first))
+        return topk_group_select(presence > 0, order_keys, spec.cap)
+
+    def final(self, merged):
+        presence = merged["__presence"].counts
+        outs = {"__presence": {"count": presence}}
+        for col, aggs in self.per_col_aggs.items():
+            if col in merged:
+                if col not in self.key_avg_cols:
+                    aggs = aggs - {"avg"}
+                outs[col] = finalize(merged[col], tuple(sorted(aggs)), counts=presence)
+        sel = n_out = None
+        if self.spec is not None:
+            sel, n_out = self.device_select(merged, outs, presence)
+
+        def int_row(col):
+            return presence if col == "__presence" else merged[col].counts
+
+        def f64_row(col, agg):
+            if agg == "avg":
+                return ("avg", merged[col].sums, self._counts_of(merged, col, presence))
+            return ("value", outs[col][agg])
+
+        verdict = None
+        if self.limb_err_cols:
+            verdict = [
+                (merged["__limb_err:" + c].sums, merged[c].sums) for c in self.limb_err_cols
+            ]
+        return pack_result(
+            [int_row(col) for col, _agg in self.int_layout],
+            [(merged[col].sums, self._counts_of(merged, col, presence))
+             for col, _agg in self.acc32_layout],
+            [f64_row(col, agg) for col, agg in self.acc64_layout],
+            self.bit_packed, sel=sel, n_out=n_out, verdict_rows=verdict,
+        )
+
+    def run_all(self, sources, dyn):
+        """sources: (cols, valid, nulls, limbs) per chunk/tail, merged in
+        order; dyn: the runtime literals and bucket geometry."""
+        pdyn = {k: dyn[k] for k in ("filter_values", "bucket_origin", "bucket_interval")}
+        merged = None
+        for cols, valid, nulls, limbs in sources:
+            states = self.partial(cols, valid, nulls, pdyn, limbs)
+            merged = states if merged is None else self.merge(merged, states)
+        if merged is None:
+            raise ValueError("tile program received no sources")
+        return self.final(merged)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_program(plan: DistGroupByPlan, nullable_cols: tuple[str, ...], spec=None) -> TileProgram:
+    return TileProgram(plan, nullable_cols, spec)

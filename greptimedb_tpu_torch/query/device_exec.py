@@ -9,7 +9,12 @@ lowerable returns None and the CPU executor runs it.  Post-aggregation
 operators (HAVING / projection arithmetic / ORDER BY / LIMIT) replay on
 the CPU executor over the small aggregated result.
 
-The super-tile cache path (`try_tile`), device-side HAVING/top-k and
+With a tile executor wired in (the device-resident super-tile cache,
+parallel/tile_executor.py) `try_tile` is tried first: a warm query skips
+the Parquet scan, the re-encode and the upload and runs one tile program
+over the cached planes.  ORDER BY / LIMIT the program consumed on the
+card (`Lowering.post_done`) are skipped by the host replay.  When the
+tile path declines, the table-fed path runs.  Device-side HAVING and
 distributed state shipping are not ported (ROADMAP.md).
 """
 
@@ -48,6 +53,8 @@ class Lowering:
     post_ops: list[LogicalPlan] = field(default_factory=list)  # outer-first
     group_exprs: list[Expr] = field(default_factory=list)
     agg_exprs: list[Expr] = field(default_factory=list)
+    # post_ops indices the tile program finalized on the card
+    post_done: frozenset = frozenset()
 
 
 def _post_has_subquery(node) -> bool:
@@ -162,19 +169,45 @@ def try_lower(plan: LogicalPlan, schema: Schema) -> Lowering | None:
 class DeviceExecutor:
     """Executes lowered plans on one torch device; post-ops on the CPU."""
 
-    def __init__(self, region_scan_provider, device):
+    def __init__(self, region_scan_provider, device, tile_executor=None,
+                 tile_context_provider=None):
         # region_scan_provider(scan: TableScan) -> list[pa.Table], one per region
         self.region_scan = region_scan_provider
         self.device = device
-        # host wall ms per stage of the last execute(): scan, tile,
-        # device, readback, post (decode + post-ops)
+        self.tile_executor = tile_executor
+        self.tile_context_provider = tile_context_provider
+        # host wall ms per stage of the last execute(): on the table-fed
+        # path scan, tile, device, readback, post; on the tile path the
+        # tile executor's stages and post
         self.timings: dict[str, float] = {}
+        # which path answered the last execute(): "tile" or "table"
+        self.path = ""
+
+    def try_tile(self, lowering: Lowering, schema: Schema, time_bounds) -> pa.Table | None:
+        """The super-tile path: the finished result table, or None when the
+        tile executor does not apply."""
+        if self.tile_executor is None or self.tile_context_provider is None:
+            return None
+        ctx = self.tile_context_provider(lowering.scan)
+        if ctx is None:
+            return None
+        table = self.tile_executor.execute(lowering, schema, time_bounds, ctx)
+        if table is None:
+            return None
+        t0 = time.perf_counter()
+        out = self._shape_output(table, lowering, schema)
+        self.timings = {**self.tile_executor.timings, "post": (time.perf_counter() - t0) * 1e3}
+        self.path = "tile"
+        return out
 
     def execute(self, lowering: Lowering, schema: Schema, time_bounds) -> pa.Table:
         """time_bounds: callback () -> (min_ts, max_ts) over the scanned data,
         used when the query has no explicit time range."""
         from ..parallel.executor import distributed_groupby
 
+        table = self.try_tile(lowering, schema, time_bounds)
+        if table is not None:
+            return table
         scan = lowering.scan
         if lowering.bucket is not None:
             ts_col, interval, origin_hint = lowering.bucket
@@ -213,6 +246,7 @@ class DeviceExecutor:
             "scan": (t1 - t0) * 1e3, **result.timings,
             "post": (time.perf_counter() - t2) * 1e3,
         }
+        self.path = "table"
         return out
 
     def _shape_output(self, table: pa.Table, lowering: Lowering, schema: Schema) -> pa.Table:
@@ -261,11 +295,16 @@ class DeviceExecutor:
 
     def _run_post_ops(self, table: pa.Table, lowering: Lowering) -> pa.Table:
         """Replay Having/Project/Sort/Limit over the aggregated table with
-        the CPU executor (the small, frontend-side upper plan)."""
-        if not lowering.post_ops:
+        the CPU executor (the small, frontend-side upper plan), skipping
+        the operators the tile program already finalized on the card
+        (always an inner prefix modulo pass-through Projects)."""
+        remaining = [
+            op for i, op in enumerate(lowering.post_ops) if i not in lowering.post_done
+        ]
+        if not remaining:
             return table
         plan: LogicalPlan = TableScan(table="__device_result")
-        for op in reversed(lowering.post_ops):
+        for op in reversed(remaining):
             if isinstance(op, Having):
                 plan = Having(plan, op.predicate)
             elif isinstance(op, Project):

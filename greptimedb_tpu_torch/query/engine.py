@@ -10,9 +10,17 @@ A device-path failure (a kernel build or launch, a malformed operand)
 raises: a lowered query is never served from the CPU executor instead,
 so a broken device path cannot hide behind correct CPU answers.
 
-`stats` counts, per engine: `lowered` (queries answered on the device)
-and `declined` (queries try_lower declined); `last_timings` holds the
-per-stage host wall ms of the last lowered query.
+With `query.tile_cache_enable` (the default) and a tile context
+provider, a lowered query tries the device-resident super-tile path first
+(parallel/tile_executor.py); the cache and its executor live on the
+engine's device and are built at the first such query.
+
+`stats` counts, per engine: `lowered` (queries answered on the device,
+by either path), `declined` (queries try_lower declined),
+`tile_dispatches` (lowered queries the tile path answered) and
+`tile_declined` (lowered queries it declined, answered by the table-fed
+path); `last_timings` holds the per-stage host wall ms of the last
+lowered query and `last_path` which path answered it.
 """
 
 from __future__ import annotations
@@ -36,12 +44,14 @@ class QueryEngine:
         region_scan_provider,
         time_bounds_provider,
         config: QueryConfig | None = None,
+        tile_context_provider=None,
     ):
         """
         schema_provider(table, database) -> Schema
         scan_provider(scan: TableScan) -> pa.Table           (merged regions)
         region_scan_provider(scan) -> list[pa.Table]         (one per region)
         time_bounds_provider(table, database) -> (min_ts, max_ts)
+        tile_context_provider(scan) -> TileContext | None    (the tile path)
         """
         self.config = config or QueryConfig()
         if self.config.backend not in ("torch", "cpu"):
@@ -52,9 +62,33 @@ class QueryEngine:
         self.cpu = CpuExecutor(scan_provider)
         self._region_scan = region_scan_provider
         self._time_bounds = time_bounds_provider
-        self.stats = {"lowered": 0, "declined": 0}
+        self._tile_ctx = tile_context_provider
+        self.tile_cache = None
+        self._tile_executor = None
+        self.stats = {"lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0}
         # per-stage host wall ms of the last lowered query (DeviceExecutor)
         self.last_timings: dict[str, float] = {}
+        self.last_path = ""
+
+    def tile_executor(self):
+        """The engine's tile executor (built on first use), or None when the
+        tile cache is off or there is no context provider."""
+        if not self.config.tile_cache_enable or self._tile_ctx is None:
+            return None
+        if self._tile_executor is None:
+            import torch
+
+            from ..parallel.tile_executor import TileExecutor
+            from ..parallel.tile_planes import TileCacheManager, device_budget
+
+            device = torch.device(self.config.device)
+            self.tile_cache = TileCacheManager(
+                device_budget(self.config.tile_cache_mb, device),
+                chunk_rows=self.config.tile_chunk_rows,
+                device=device,
+            )
+            self._tile_executor = TileExecutor(self.tile_cache, self.config)
+        return self._tile_executor
 
     def execute_select(self, stmt: SelectStmt, database: str = "public") -> pa.Table:
         plan, schema = plan_query(stmt, self.schema_of, database)
@@ -68,14 +102,19 @@ class QueryEngine:
             self.stats["declined"] += 1
             return self.cpu.execute(plan)
         scan = lowering.scan
-        device = DeviceExecutor(self._region_scan, self.config.device)
+        tile = self.tile_executor()
+        device = DeviceExecutor(self._region_scan, self.config.device, tile_executor=tile,
+                                tile_context_provider=self._tile_ctx)
         table = device.execute(
             lowering,
             schema,
             time_bounds=lambda: self._time_bounds(scan.table, scan.database),
         )
         self.stats["lowered"] += 1
+        if tile is not None:
+            self.stats["tile_dispatches" if device.path == "tile" else "tile_declined"] += 1
         self.last_timings = device.timings
+        self.last_path = device.path
         return table
 
     def explain(self, stmt: SelectStmt, database: str = "public") -> pa.Table:

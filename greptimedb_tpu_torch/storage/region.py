@@ -541,6 +541,28 @@ class Region:
         with self._lock:
             return list(self.manifest_mgr.manifest.files.values())
 
+    # ---- tile-cache support ------------------------------------------------
+    def pin_scan(self):
+        """Hold the deferred-purge refcount open while the device tile cache
+        reads SST files outside `scan()` (compaction must not delete files
+        under it)."""
+        with self._lock:
+            self._active_scans += 1
+
+    def unpin_scan(self):
+        with self._lock:
+            self._active_scans -= 1
+            self._purge_garbage_locked()
+
+    def tile_snapshot(self) -> tuple[list[FileMeta], list[Memtable], int]:
+        """Consistent (files, memtables, manifest_version) snapshot for the
+        tile executor.  Caller must hold pin_scan() around use."""
+        with self._lock:
+            files = list(self.manifest_mgr.manifest.files.values())
+            mems = list(self._frozen_memtables) + [self.memtable]
+            version = self.manifest_mgr.manifest.manifest_version
+        return files, mems, version
+
 
 def _undict(table: pa.Table) -> pa.Table:
     """Decode dictionary columns back to plain values for cross-file concat."""

@@ -11,6 +11,12 @@ that matter:
   (the authoritative Arrow executor).
 * There is no `fallback_to_cpu`: a device-path failure raises instead of
   being served silently from the CPU executor.
+* The tile-cache knobs (`tile_cache_enable` .. `agg_strategy`) are the
+  reference's, at the configuration the port implements: the passes it
+  has not ported do not exist (`query/passes.py`) and behave as disabled,
+  and `agg_strategy` is "sort" — "hash" and "auto" raise `ConfigError`
+  until the hash group-by is ported.  Persistence of super-tiles, the
+  streamed spill, batching and the mesh have no knobs here.
 
 The TOML/env layering, the other sections and the JAX probe are cut
 (listed in ROADMAP.md).
@@ -47,6 +53,44 @@ class QueryConfig:
     backend: str = "torch"  # "torch" = lowered device path, "cpu" = Arrow executor
     # the torch device the lowered path runs on
     device: str = "cuda"
+    # device-resident super-tiles (parallel/tile_planes.py): warm queries
+    # run over planes cached on the card instead of rescanning Parquet
+    tile_cache_enable: bool = True
+    tile_cache_mb: int = 8192
+    # rows per device chunk (a multiple of the 4096-row kernel block)
+    tile_chunk_rows: int = 1 << 24
+    # sum/avg accumulation on the tile path: "limb" (K5/K6 fixed-point
+    # digits, a per-group error bound, exact f64 rerun when it fails) or
+    # "float64" (K2/K3 directly)
+    tile_acc_dtype: str = "limb"
+    # Sort/LIMIT and empty-group compaction on the card (K7), so the one
+    # readback is O(rows_out); False ships the whole [G] result
+    device_topk: bool = True
+    # named passes of query/passes.py to switch off
+    disabled_passes: tuple = ()
+    # device group-by strategy: only the dense "sort" path is ported
+    agg_strategy: str = "sort"
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        from .errors import ConfigError
+
+        if self.agg_strategy != "sort":
+            raise ConfigError(
+                f"query.agg_strategy={self.agg_strategy!r}: only 'sort' is "
+                "ported (the hash group-by is not)"
+            )
+        if self.tile_acc_dtype not in ("limb", "float64"):
+            raise ConfigError(
+                f"query.tile_acc_dtype={self.tile_acc_dtype!r}: use 'limb' or 'float64'"
+            )
+        if self.tile_chunk_rows <= 0 or self.tile_chunk_rows % 4096:
+            raise ConfigError(
+                f"query.tile_chunk_rows={self.tile_chunk_rows}: a positive "
+                "multiple of 4096"
+            )
 
 
 @dataclasses.dataclass

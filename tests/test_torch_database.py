@@ -1,8 +1,9 @@
 """The slice as a whole: the 15 TSBS cpu-only queries through the port's
 Database.sql (device path on device="cpu") against the reference
-Database (tile cache off: the table-fed device path), on the same seeded
-data written through each package.  The port also reopens a data home
-the reference wrote, and recovers an unflushed write from its own WAL.
+Database, both with the tile cache off (the table-fed device path; the
+tile path has tests/test_torch_tile.py), on the same seeded data written
+through each package.  The port also reopens a data home the reference
+wrote, and recovers an unflushed write from its own WAL.
 
 Tolerances: keys, counts, min, max and last_value exact; avg within rel
 1e-12 (chip_smoke.compare_tables)."""
@@ -67,6 +68,7 @@ def homes(tmp_path_factory):
     finally:
         jdb.close()
     port = Database(str(tmp_path_factory.mktemp("port_home")), device="cpu")
+    port.config.query.tile_cache_enable = False
     _rows, gt = chip_smoke.ingest(port, TSBS)
     yield ref, jax_home, port, gt
     port.close()
@@ -89,6 +91,7 @@ def test_query_matches_reference(homes, name):
 def reopened(homes):
     _ref, jax_home, _port, _gt = homes
     db = Database(jax_home, device="cpu")
+    db.config.query.tile_cache_enable = False
     yield db
     db.close()
 
@@ -134,7 +137,9 @@ def test_cpu_backend_and_declined_plans_are_counted(tmp_path):
     # arithmetic over an aggregate is not lowerable: the CPU executor runs it
     out = db.sql_one("SELECT k, max(v) * 2 AS d FROM m GROUP BY k ORDER BY k")
     assert out.to_pylist() == [{"k": "x", "d": 7.0}, {"k": "y", "d": 5.0}]
-    assert db.query_engine.stats == {"lowered": 0, "declined": 1}
+    assert db.query_engine.stats == {
+        "lowered": 0, "declined": 1, "tile_dispatches": 0, "tile_declined": 0,
+    }
     db.config.query.backend = "cpu"
     assert db.sql_one("SELECT count(*) AS n FROM m").to_pylist() == [{"n": 3}]
     assert db.query_engine.stats["lowered"] == 0
@@ -159,5 +164,7 @@ def test_device_failure_raises_unless_fallback_is_on(tmp_path, monkeypatch):
     for _ in range(2):
         with pytest.raises(RuntimeError, match="kernel launch failed"):
             db.sql_one("SELECT k, max(v) AS m FROM m GROUP BY k")
-    assert db.query_engine.stats == {"lowered": 0, "declined": 0}
+    assert db.query_engine.stats == {
+        "lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0,
+    }
     db.close()
