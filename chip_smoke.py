@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 5] [--tile-reps 5]
+    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 3] [--tile-reps 5] [--tql-reps 5]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the eight kernels of csrc/ for sm_90a (one nvcc each,
+2. build   — builds the twelve kernels of csrc/ for sm_90a (one nvcc each,
              all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
@@ -37,10 +37,26 @@ Phases, each printing one JSON line:
              and leave `tile_declined` alone, launch the kernels of
              EXPECTED_TILE_PATH, and match phase 4's CPU-backend result
              (sum/avg within rel 1e-7, the limb verdict's bound).
-6. the kernels line, then the last line {"ok": true, "device": {...}}.
+   3c (TQL kernels) — K9-K12 against their plain versions at the TQL main
+             path's shapes (17.28 M rows in two chunks, S_pad 4096, W_pad
+             1024, k = 8 and 64, NaN values, NULLs, invalid rows) and on
+             edge cases (two tags, matcher masks, ns/us units with an
+             offset, odd chunk lengths, several regions), twice each.
+6. tql     — two Prometheus metrics (a gauge and a counter with restarts,
+             GreptimeDB's remote-write layout, not append_mode) at --hosts x
+             --hours, flushed, a remote-write retry overlapping the last
+             SST; the dashboard T1-T7 through `TQL EVAL` on the warm tile
+             path over the whole load at '60s' (one cold run with plane
+             build, upload and dedup keep plane split out, --tql-reps warm
+             runs; each query must launch EXPECTED_TQL_PATH); the same
+             queries over the last hour at '15s' on the legacy path
+             (tql.tile off: K9-K11) held against the tile path; T1 of a
+             few hosts against a numpy twin; the legacy hour again on the
+             CPU backend (plain versions), held against the card.
+7. the kernels line, then the last line {"ok": true, "device": {...}}.
 
-The launch counts are set to 0 just before phases 4 and 5 and read just
-after each.  It imports neither jax nor the reference package
+The launch counts are set to 0 just before phases 4, 5 and 6's tile and
+legacy runs and read just after each.  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
 device is present or when it runs outside a checkout of the repository.
 """
@@ -200,9 +216,11 @@ def emit(obj: dict) -> None:
 
 def kernel_table():
     """name -> (wrapper with .launches, source, reference kernel it replaces).
-    K1-K4 serve the table-fed path and the tile path, K5-K8 the tile path."""
+    K1-K4 serve the table-fed path and the tile path, K5-K8 the tile path,
+    K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route)."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops import rate
 
     src = "greptimedb_tpu_torch/csrc/"
     return {
@@ -222,6 +240,14 @@ def kernel_table():
                         "greptimedb_tpu/ops/aggregate.py:1031"),
         "pack_result": (agg.pack_result, src + "pack_result.cu",
                         "greptimedb_tpu/parallel/tile_cache.py:3119"),
+        "strip_counter_resets": (rate.strip_counter_resets, src + "strip_counter_resets.cu",
+                                 "greptimedb_tpu/ops/rate.py:46"),
+        "range_windows": (rate.range_windows, src + "range_windows.cu",
+                          "greptimedb_tpu/ops/rate.py:145"),
+        "range_finalize": (rate.range_finalize, src + "range_finalize.cu",
+                           "greptimedb_tpu/ops/rate.py:263"),
+        "series_fold": (rate.series_fold, src + "series_fold.cu",
+                        "greptimedb_tpu/query/promql/tile_exec.py:180"),
     }
 
 
@@ -658,7 +684,11 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
                            n_min - 1)
     k = agg.limb_segment_sums(lcols[:1], gm, mm, n_min)
     _check_limb_sums(k, agg.limb_segment_sums_plain(lcols[:1], gm, mm, n_min), "limb guard fails")
-    guard_fail = dict(ms=_timed(lambda: agg.limb_segment_sums(lcols[:1], gm, mm, n_min), reps))
+    # the failing call reads ids, mask, digits and scales once and writes
+    # [G] sums, errs and presence; 4 digit adds per row
+    gf_b, gf_by = bound(npad * (4 + 1 + 8) + nb * 8 + n_min * (8 + 8 + 4), npad * 4)
+    guard_fail = dict(ms=_timed(lambda: agg.limb_segment_sums(lcols[:1], gm, mm, n_min), reps),
+                      bound_ms=gf_b, bound_by=gf_by)
     del gm, mm
     out["limb_segment_sums"] = dict(k6[10], c1=k6[1], c5=k6[5], guard_fail=guard_fail)
 
@@ -684,6 +714,8 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     _compare(ks2, ps2, True, "topk compact.sel")
     _compare(kn2, pn2, True, "topk compact.n_out")
     k7cb, k7cby = bound(card + cap_l * 4 + 4, card)
+    # the same compaction as one PyTorch call: the survivors' indices
+    lib7c = _timed(lambda: torch.nonzero(surv_l), reps)
     out["topk_select"] = dict(
         max_abs_err=0.0,
         ms=_timed(lambda: agg.topk_group_select(surv, keys, 5), reps),
@@ -692,7 +724,7 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         compact=dict(
             ms=_timed(lambda: agg.topk_group_select(surv_l, [], cap_l), reps),
             plain_ms=_timed(lambda: agg.topk_group_select_plain(surv_l, [], cap_l), reps),
-            bound_ms=k7cb, bound_by=k7cby,
+            bound_ms=k7cb, bound_by=k7cby, library_ms=lib7c,
         ),
     )
 
@@ -714,6 +746,10 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # dense: presence (4 B) + 10 x (sums 8 B + counts shared) + errs read;
     # buf written (1 bit + 10 x 4 B per group)
     k8b, k8by = bound(G * (4 + 10 * 16) + G // 8 + G * 40 + 1, G * 10 * 3)
+    # compact: the selection and n_out read, each selected group's presence
+    # (4 B) and f64 value read once; ids, presence and the value's two
+    # words written
+    k8cb, k8cby = bound(cap_l * 4 + 4 + cap_l * (4 + 8) + cap_l * (4 + 4 + 8) + 8, cap_l * 2)
     out["pack_result"] = dict(
         max_abs_err=0.0,
         ms=_timed(lambda: agg.pack_result(*dense, verdict_rows=verdict), reps),
@@ -722,6 +758,7 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         compact=dict(
             ms=_timed(lambda: agg.pack_result(*comp, sel=ks2, n_out=kn2), reps),
             plain_ms=_timed(lambda: agg.pack_result_plain(*comp, sel=ks2, n_out=kn2), reps),
+            bound_ms=k8cb, bound_by=k8cby,
         ),
     )
     del vals, lcols, codes, ts, valid, gids, mask, k6_states, sums, errs, presence
@@ -1091,15 +1128,605 @@ def run_tile_edge_queries(db, tsbs: Tsbs, is_cuda: bool) -> None:
         emit({"phase": "tile_edge_query", "order_keys": len(keys), "rows_out": got.num_rows})
 
 
+# ---- the TQL (PromQL) slice --------------------------------------------------------
+
+# Two Prometheus metrics in GreptimeDB's remote-write layout (one table per
+# metric, labels as the primary key, not append_mode: GreptimeDB dedups
+# remote writes on (labels, ts)), from the same seeded TSBS hosts: the
+# TSBS gauge usage_user and a counter like TSBS devops' net.bytes_recv.
+PROM_GAUGE, PROM_COUNTER = "cpu_usage_user", "net_bytes_recv"
+_STRIP, _WIN, _FIN, _FOLD = TQL_KERNELS = (
+    "strip_counter_resets", "range_windows", "range_finalize", "series_fold")
+EXPECTED_TQL_PATH = {
+    "T1": {_STRIP, _WIN, _FIN},
+    "T2": {_STRIP, _WIN, _FIN, _FOLD},
+    "T3": {_STRIP, _WIN, _FIN},
+    "T4": {_WIN, _FIN},
+    "T5": {_WIN, _FIN, _FOLD},
+    "T6": {_WIN, _FIN},
+    "T7": {_WIN, _FIN},
+}
+# the counter queries: the legacy path's reset strip and the tile path's
+# agree to the last ulp only on series with a reset (rel 1e-12); every
+# other result is held exact
+TQL_ULP = {"T1", "T2", "T3"}
+# hosts whose counter the numpy twin recomputes from the generator
+TWIN_HOSTS = (0, 1, 16, 42, 703)
+
+
+def tql_queries(n_hosts: int) -> list[tuple[str, str]]:
+    """A Grafana dashboard's PromQL over the two metrics."""
+    one = f"host_{42 % n_hosts}"
+    return [
+        ("T1", f"rate({PROM_COUNTER}[5m])"),
+        ("T2", f"sum(rate({PROM_COUNTER}[5m]))"),
+        ("T3", f"increase({PROM_COUNTER}[1h])"),
+        ("T4", f"avg_over_time({PROM_GAUGE}[5m])"),
+        ("T5", f"max(max_over_time({PROM_GAUGE}[10m]))"),
+        ("T6", f'{PROM_GAUGE}{{hostname=~"host_1.*"}}'),
+        ("T7", f'count_over_time({PROM_GAUGE}{{hostname="{one}"}}[5m])'),
+    ]
+
+
+def tql(promql: str, lo_ms: int, hi_ms: int, step: str) -> str:
+    return f"TQL EVAL ({lo_ms // 1000}, {hi_ms // 1000}, '{step}') {promql}"
+
+
+def ingest_prom(db, tsbs: Tsbs) -> tuple[int, dict]:
+    """Both metrics through Database.write (WAL on), one pass over the
+    ticks, then flush.  Every scrape adds a seeded positive increment to
+    each host's counter; one host in 16 restarts once (its counter drops
+    to a small value).  Then a remote-write retry re-sends the counter's
+    last half hour, identical samples in a new SST that overlaps the last
+    one (the dedup keep plane serves it).  Returns (rows written, the
+    counter samples of TWIN_HOSTS: host -> (ts, values))."""
+    import pyarrow as pa
+
+    for name in (PROM_GAUGE, PROM_COUNTER):
+        db.sql(f"CREATE TABLE {name} (hostname STRING, greptime_value DOUBLE, "
+               "greptime_timestamp TIMESTAMP(3) TIME INDEX, PRIMARY KEY (hostname))")
+    n_hosts = tsbs.n_hosts
+    rng = np.random.default_rng(SEED + 1)
+    ticks_total = tsbs.hours * 3600 // SCRAPE_S
+    chunk_ticks = max(1, 2_000_000 // n_hosts)
+    hosts_arr = np.array([f"host_{i}" for i in range(n_hosts)])
+    level = rng.uniform(1e6, 1e9, n_hosts)  # counter value before the first scrape
+    restart = np.where(np.arange(n_hosts) % 16 == 5, rng.integers(1, ticks_total, n_hosts), -1)
+    twin_rows = [h for h in TWIN_HOSTS if h < n_hosts]
+    twin = {h: ([], []) for h in twin_rows}
+    last_batch = None
+    n_rows = 0
+    for start in range(0, ticks_total, chunk_ticks):
+        ticks = min(chunk_ticks, ticks_total - start)
+        tick = start + np.arange(ticks)
+        ts = T0 + tick.astype(np.int64) * (SCRAPE_S * 1000)
+        incr = rng.uniform(0.0, 2e5, (ticks, n_hosts))
+        counter = level[None, :] + np.cumsum(incr, axis=0)
+        hit = (restart[None, :] >= tick[:, None]) & (restart[None, :] < tick[0] + ticks)
+        for h in np.nonzero(hit.any(axis=0))[0]:
+            at = restart[h] - tick[0]
+            counter[at:, h] -= counter[at, h] - rng.uniform(0.0, 1e4)
+        level = counter[-1].copy()
+        gauge = rng.uniform(0.0, 100.0, (ticks, n_hosts))
+        ts_rows = np.repeat(ts, n_hosts)
+        hs = np.broadcast_to(hosts_arr[None, :], (ticks, n_hosts)).reshape(-1)
+        for name, vals in ((PROM_GAUGE, gauge), (PROM_COUNTER, counter)):
+            batch = pa.table({
+                "hostname": pa.array(hs),
+                "greptime_value": pa.array(vals.reshape(-1), pa.float64()),
+                "greptime_timestamp": pa.array(ts_rows, pa.timestamp("ms")),
+            })
+            db.write(name, batch)
+            if name == PROM_COUNTER:
+                last_batch = batch
+        for h in twin_rows:
+            twin[h][0].append(ts)
+            twin[h][1].append(counter[:, h])
+        n_rows += 2 * ticks * n_hosts
+    db.flush()
+    retry_from = T0 + ticks_total * SCRAPE_S * 1000 - 1800_000
+    tcol = last_batch["greptime_timestamp"].cast("int64").to_numpy()
+    retry = last_batch.filter(pa.array(tcol >= retry_from))
+    db.write(PROM_COUNTER, retry)
+    db.flush()
+    n_rows += retry.num_rows
+    return n_rows, {h: (np.concatenate(t), np.concatenate(v)) for h, (t, v) in twin.items()}
+
+
+def numpy_rate_twin(ts, vals, start, end, step, rng_ms) -> dict:
+    """Prometheus rate() per eval step of one series, from raw samples
+    (resets stripped with a sequential sum), after
+    tests/test_tql_tile.py:174."""
+    out = {}
+    keep = (ts >= start - rng_ms) & (ts <= end)
+    ts, vals = ts[keep], vals[keep]
+    adj = vals.copy()
+    acc = 0.0
+    for i in range(1, len(adj)):
+        if vals[i] < vals[i - 1]:
+            acc += vals[i - 1]
+        adj[i] = vals[i] + acc
+    for t1 in range(start, end + 1, step):
+        w = (ts > t1 - rng_ms) & (ts <= t1)
+        if w.sum() < 2:
+            continue
+        wts, wv = ts[w], adj[w]
+        si = float(wts[-1] - wts[0])
+        avg = si / (len(wts) - 1)
+        d_s, d_e = float(wts[0] - (t1 - rng_ms)), float(t1 - wts[-1])
+        ext_s = d_s if d_s < avg * 1.1 else avg / 2.0
+        ext_e = d_e if d_e < avg * 1.1 else avg / 2.0
+        result = wv[-1] - wv[0]
+        if result > 0 and wv[0] >= 0:
+            zero_dur = si * (wv[0] / result)
+            if 0 <= zero_dur < ext_s:
+                ext_s = zero_dur
+        out[t1] = result * ((si + ext_s + ext_e) / si) / (rng_ms / 1000.0)
+    return out
+
+
+def compare_tql(got, want, what: str, rtol: float) -> float:
+    """Two TQL results: the same columns and rows (labels and ts exact),
+    values exact or within relative `rtol`.  Returns the max rel error."""
+    if got.column_names != want.column_names:
+        raise AssertionError(f"{what}: columns {got.column_names} != {want.column_names}")
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.num_rows} rows != {want.num_rows}")
+    if got.num_rows == 0:
+        raise AssertionError(f"{what}: empty result")
+    keys = [c for c in got.column_names if c != "value"]
+    g, w = _sorted_rows(got, keys), _sorted_rows(want, keys)
+    for c in keys:
+        if g[c].to_pylist() != w[c].to_pylist():
+            raise AssertionError(f"{what}: column {c} differs")
+    x = g["value"].to_numpy(zero_copy_only=False)
+    y = w["value"].to_numpy(zero_copy_only=False)
+    rel = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+    worst = float(rel.max())
+    if (rtol == 0.0 and not np.array_equal(x, y)) or worst > rtol:
+        raise AssertionError(f"{what}: max rel err {worst} (allowed {rtol})")
+    return worst
+
+
+def _tql_run(db, sql: str, is_cuda: bool):
+    """(result, host ms through the last sync, stage ms, counter deltas)."""
+    eng = db.query_engine
+    before = dict(eng.stats)
+    t1 = time.perf_counter()
+    out = db.sql_one(sql)
+    if is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    return out, ms, dict(eng.last_tql_timings), {k: eng.stats[k] - before[k] for k in before}
+
+
+def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) -> dict:
+    """Phase 6: TQL on `device` ("cuda" on the card; "cpu" rehearses the
+    control flow with the plain versions).  Ingest both metrics, then:
+
+    tile    T1-T7 over the whole load at '60s' on the warm tile path: one
+            cold run (plane build, upload and dedup keep plane split out)
+            and `reps` warm runs; every run one tile dispatch and no
+            decline; on the card each query launches EXPECTED_TQL_PATH
+            (counts set to 0 before this run, read after it);
+    legacy  T1-T7 over the last hour at '15s' with tql.tile off (region
+            scan, upload, K9-K11 on the card, host folds), each held
+            against the tile path on the same window;
+    twin    T1 of TWIN_HOSTS at the whole load against a numpy twin;
+    cpu     the legacy hour again through Database(device="cpu"), the plain
+            versions, held against the card's legacy results."""
+    from greptimedb_tpu_torch import Database
+
+    tsbs = Tsbs(n_hosts, hours)
+    is_cuda = device.startswith("cuda")
+    db = Database(data_home, device=device)
+    t0 = time.perf_counter()
+    n_rows, twin = ingest_prom(db, tsbs)
+    ingest_s = time.perf_counter() - t0
+    emit({"phase": "tql_ingest", "rows": n_rows, "seconds": ingest_s,
+          "rows_per_s": n_rows / ingest_s})
+    lo12, hi = tsbs.end - hours * H3600, tsbs.end
+    full_size = n_hosts == 4000 and hours == 12
+    eng = db.query_engine
+
+    # -- tile, the whole load at '60s' (the main path) --
+    per_query = {}
+    results12 = {}
+    reset_counts()
+    for name, promql in tql_queries(n_hosts):
+        sql = tql(promql, lo12, hi, "60s")
+        before = launch_counts()
+        runs = []
+        for _ in range(1 + reps):
+            out, ms, stages, delta = _tql_run(db, sql, is_cuda)
+            if delta["tql_tile_dispatches"] != 1 or delta["tql_tile_declined"] or delta["tql_legacy"]:
+                raise AssertionError(f"{name}: not one warm tile dispatch: {delta}")
+            runs.append((ms, stages))
+        results12[name] = out
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+        if is_cuda:
+            ran = set(launched)
+            if ran != EXPECTED_TQL_PATH[name]:
+                raise AssertionError(f"{name}: launched {sorted(ran)}, path is "
+                                     f"{sorted(EXPECTED_TQL_PATH[name])}")
+        warm = runs[1:] if reps else runs
+        keys = sorted({k for _m, st in warm for k in st})
+        per_query[name] = {
+            "promql": promql, "rows_out": out.num_rows,
+            "cold_ms": runs[0][0], "cold_stage_ms": runs[0][1],
+            "warm_p50_ms": float(np.median([m for m, _s in warm])),
+            "warm_stage_p50_ms": {k: float(np.median([st.get(k, 0.0) for _m, st in warm]))
+                                  for k in keys},
+            "launches": launched,
+        }
+        if out.num_rows == 0 or not np.isfinite(out["value"].to_numpy()).all():
+            raise AssertionError(f"{name}: empty or non-finite result")
+        emit({"phase": "tql_tile_query", "name": name, **per_query[name]})
+    tile_launches = launch_counts()  # the main path's launches end here
+
+    # -- numpy twin of T1 on a few hosts over the whole load --
+    t1_rows = results12["T1"]
+    hosts = t1_rows["hostname"].to_pylist()
+    tss = t1_rows["ts"].cast("int64").to_pylist()
+    vals = t1_rows["value"].to_pylist()
+    twin_err = 0.0
+    for h, (hts, hv) in twin.items():
+        want = numpy_rate_twin(hts, hv, lo12, hi, 60_000, 300_000)
+        got = {t: v for hh, t, v in zip(hosts, tss, vals) if hh == f"host_{h}"}
+        if set(got) != set(want):
+            raise AssertionError(f"T1 twin host_{h}: {len(got)} steps, twin {len(want)}")
+        for t, v in want.items():
+            err = abs(got[t] - v) / max(abs(v), 1e-300)
+            twin_err = max(twin_err, err)
+            if err > 1e-9:
+                raise AssertionError(f"T1 twin host_{h} at {t}: {got[t]} vs {v}")
+    emit({"phase": "tql_twin", "hosts": sorted(twin), "max_rel_err": twin_err})
+
+    # -- legacy on the card over the last hour at '15s', against the tile path --
+    lo1 = hi - H3600
+    legacy = {}
+    legacy_launches = {k: 0 for k in launch_counts()}
+    for name, promql in tql_queries(n_hosts):
+        sql = tql(promql, lo1, hi, "15s")
+        db.config.tql.tile = False
+        before = launch_counts()
+        try:
+            out, ms, stages, delta = _tql_run(db, sql, is_cuda)
+        finally:
+            db.config.tql.tile = True
+        for k, v in launch_counts().items():
+            legacy_launches[k] += v - before[k]
+        if delta["tql_legacy"] != 1 or delta["tql_tile_dispatches"] or delta["tql_tile_declined"]:
+            raise AssertionError(f"{name}: not one legacy evaluation: {delta}")
+        tile_out, tile_ms, _st, tdelta = _tql_run(db, sql, is_cuda)
+        if tdelta["tql_tile_dispatches"] != 1:
+            raise AssertionError(f"{name} (1 h): the tile path did not answer")
+        rel = compare_tql(out, tile_out, f"{name} legacy vs tile",
+                          1e-12 if name in TQL_ULP else 0.0)
+        legacy[name] = {"result": out, "ms": ms, "stages": stages, "tile_ms": tile_ms,
+                        "max_rel_err_vs_tile": rel}
+        emit({"phase": "tql_legacy_query", "name": name, "rows_out": out.num_rows,
+              "ms": ms, "stage_ms": stages, "tile_ms": tile_ms, "max_rel_err_vs_tile": rel})
+    if is_cuda and (not all(legacy_launches[k] for k in (_STRIP, _WIN, _FIN))
+                    or legacy_launches[_FOLD]):
+        raise AssertionError(f"the legacy path did not launch K9-K11: {legacy_launches}")
+    cache = eng.tile_cache.stats()
+    db.close()
+    del db
+
+    # -- the CPU backend (plain versions) over the same hour --
+    cpu_db = Database(data_home, device="cpu")
+    cpu_db.config.tql.tile = False
+    cpu = {}
+    try:
+        for name, promql in tql_queries(n_hosts):
+            out, ms, _st, delta = _tql_run(cpu_db, tql(promql, lo1, hi, "15s"), False)
+            if delta["tql_legacy"] != 1:
+                raise AssertionError(f"{name} (cpu): not one legacy evaluation")
+            rel = compare_tql(legacy[name]["result"], out, f"{name} card vs cpu",
+                              1e-12 if name in TQL_ULP else 0.0)
+            cpu[name] = {"ms": ms, "max_rel_err": rel}
+            emit({"phase": "tql_cpu_query", "name": name, "ms": ms, "max_rel_err": rel})
+    finally:
+        cpu_db.close()
+    return {
+        "rows": n_rows, "ingest_s": ingest_s, "queries": per_query,
+        "launches": tile_launches, "legacy_launches": legacy_launches,
+        "legacy": {k: {kk: vv for kk, vv in v.items() if kk != "result"}
+                   for k, v in legacy.items()},
+        "cpu": cpu, "twin_max_rel_err": twin_err, "cache": cache,
+        "full_size": full_size,
+    }
+
+
+def prom_planes(n_hosts: int, hours: int, dev, seed: int = SEED):
+    """Super-tile planes of the counter table as the tile path reads them:
+    hostname codes, ts, counter values with resets (one host in 16), NaN
+    values and NULLs, invalid rows (dedup losers), padded to a multiple of
+    4096 rows and cut into 2^24-row chunks."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+
+    ticks = hours * 3600 // SCRAPE_S
+    n = n_hosts * ticks
+    npad = pad_rows(n)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.arange(n_hosts, dtype=torch.int32, device=dev).repeat_interleave(ticks)
+    ts = T0 + torch.arange(ticks, dtype=torch.int64, device=dev).repeat(n_hosts) * (SCRAPE_S * 1000)
+    incr = torch.rand((n_hosts, ticks), generator=g, dtype=torch.float64, device=dev) * 2e5
+    vals = torch.cumsum(incr, dim=1)
+    at = ticks // 3
+    vals[5::16, at:] -= vals[5::16, at:at + 1] - 100.0
+    vals = vals.reshape(-1)
+    vals[torch.rand(n, generator=g, device=dev) < 1e-3] = float("nan")
+    present = torch.rand(n, generator=g, device=dev) >= 5e-3
+    valid = torch.rand(n, generator=g, device=dev) >= 2e-2
+    chunk = 1 << 24
+
+    def chunks(x, fill):
+        x = _padded(x, npad, fill)
+        return [x[o:o + chunk].contiguous() for o in range(0, npad, chunk)]
+
+    return n, npad, chunks(codes, 0), chunks(ts, 0), chunks(vals, 0.0), chunks(present, False), \
+        chunks(valid, False)
+
+
+def run_tql_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
+    """Phase 3c: K9-K12 against their plain versions on the card at the TQL
+    main path's shapes — 17.28 M rows in two chunks, S_pad 4096, W_pad 1024,
+    721 real steps, k = 8 (5m) and 64 (1h) — with NaN values, NULLs and
+    invalid rows; each twice with identical bytes, timed (CUDA events)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import rate as R
+
+    dev = torch.device("cuda", 0)
+    n, npad, codes, ts, vals, present, valid = prom_planes(n_hosts, hours, dev)
+    s_pad = 1 << (max(n_hosts, 1) - 1).bit_length()
+    steps = hours * 60 + 1
+    w_pad = 1 << (steps - 1).bit_length()
+    start, end = T0, T0 + hours * H3600
+
+    def source(range_ms):
+        return R.RowSource(ts=ts, values=vals, num_series=s_pad, codes=(codes,),
+                           radices=(s_pad,), nulls=present, valid=valid,
+                           lo=start - range_ms, hi=end + 1)
+
+    def grid(range_ms, k):
+        return R.RangeGrid(start, 60_000, range_ms, w_pad, k, s_pad, steps)
+
+    out: dict[str, dict] = {}
+    src5 = source(300_000)
+    sid, ts_ms, vf, inf = R.source_rows(src5)
+
+    # K9
+    def k9():
+        return R.strip_counter_resets(src5)
+
+    adj, layout = _twice_identical_masked(k9, inf, "strip_counter_resets")
+    adj_p = R.strip_counter_resets_plain(sid, vf, inf)
+    e9 = _compare(adj[inf], adj_p[inf], True, "strip_counter_resets")
+    # valid, ts, code, value and present read once per row; adjusted value written
+    b9, b9by = bound(npad * (1 + 8 + 4 + 8 + 1) + npad * 8, npad * 4)
+    out[_STRIP] = dict(max_abs_err=e9, ms=_timed(k9, reps),
+                       plain_ms=_timed(lambda: R.strip_counter_resets_plain(sid, vf, inf), 1),
+                       bound_ms=b9, bound_by=b9by, library_ms=None)
+
+    # K10 at k = 8 (5m, rate's counter values) and k = 64 (1h)
+    k10 = {}
+    stats5 = None
+    for range_ms, k, values in ((300_000, 8, adj), (3_600_000, 64, None)):
+        src, gr = source(range_ms), grid(range_ms, k)
+        sid_r, ts_r, vf_r, inf_r = R.source_rows(src)
+
+        def run():
+            return R.range_windows(src, gr, values=values)
+
+        st, pres = _twice_identical_stats(run, f"range_windows k={k}")
+        st_p = R.range_windows_plain(sid_r, ts_r, vf_r if values is None else adj_p, inf_r,
+                                     gr.start, gr.step, gr.range_, gr.n_steps, gr.k,
+                                     gr.num_series, gr.n_steps_actual)
+        err = 0.0
+        for f in R.WindowStats.FIELDS:
+            err = max(err, _compare(getattr(st, f), getattr(st_p, f), True, f"range_windows.{f}"))
+        if not torch.equal(pres, R.series_presence_plain(sid_r, inf_r, s_pad)):
+            raise AssertionError("range_windows presence differs")
+        cells = s_pad * w_pad
+        visits = int(st.count.sum())
+        # per row: valid, ts, code, value, present read once; per cell 60 B
+        # of statistics written; ~8 operations per (sample, window) visit
+        kb, kby = bound(npad * 22 + cells * 60, visits * 8 + npad * 10)
+        k10[k] = dict(
+            max_abs_err=err, visits=visits,
+            ms=_timed(run, reps),
+            plain_ms=_timed(lambda: R.range_windows_plain(
+                sid_r, ts_r, vf_r, inf_r, gr.start, gr.step, gr.range_, gr.n_steps, gr.k,
+                gr.num_series, gr.n_steps_actual), 1),
+            bound_ms=kb, bound_by=kby, library_ms=None,
+        )
+        if k == 8:
+            stats5 = st
+    out[_WIN] = dict(k10[8], k64=k10[64])
+
+    # K11 over the 5m stats: every function equal to the plain version byte
+    # for byte; rate timed
+    g5 = grid(300_000, 8)
+    for func in R.FUNC_CODES:
+        a = R.range_finalize([stats5], g5, func)
+        b = R.range_finalize_plain([stats5], g5, func)
+        _same_f64(a, b, f"range_finalize {func}")
+    _twice_identical(lambda: R.range_finalize([stats5], g5, "rate"), "range_finalize")
+    cells = s_pad * w_pad
+    # rate reads count, first/last ts and first/last value (36 B) and writes
+    # 8 B per cell; ~20 f64 operations per cell
+    b11, b11by = bound(cells * (36 + 8), cells * 20)
+    out[_FIN] = dict(max_abs_err=0.0,
+                     ms=_timed(lambda: R.range_finalize([stats5], g5, "rate"), reps),
+                     plain_ms=_timed(lambda: R.range_finalize_plain([stats5], g5, "rate"), 1),
+                     bound_ms=b11, bound_by=b11by, library_ms=None)
+
+    # K12: sum (T2's G = 1) and max by nothing, and sum by hostname (G = S)
+    mat = R.range_finalize([stats5], g5, "rate").view(s_pad, w_pad)
+    folds = {}
+    for keep in ((), (0,)):
+        offsets, members = (torch.from_numpy(x).to(dev) for x in R.group_csr((s_pad,), keep))
+        G = int(offsets.shape[0]) - 1
+        for op in ("sum", "max", "avg", "count"):
+            a = _twice_identical(lambda: R.series_fold(mat, offsets, members, op), f"fold {op}")
+            _same_f64(a, R.series_fold_plain(mat, offsets, members, op), f"series_fold {op}")
+        gid = torch.from_numpy(R.gid_map((s_pad,), keep)).to(dev)
+        zeroed = torch.nan_to_num(mat, nan=0.0)
+        lib = _timed(lambda: torch.zeros((G, w_pad), dtype=torch.float64, device=dev)
+                     .index_add_(0, gid, zeroed), reps)
+        # the [S, W] matrix read once, [G, W] written, the CSR read
+        b12, b12by = bound(cells * 8 + G * w_pad * 8 + (G + 1 + s_pad) * 8, cells * 2)
+        folds[G] = dict(max_abs_err=0.0,
+                        ms=_timed(lambda: R.series_fold(mat, offsets, members, "sum"), reps),
+                        plain_ms=_timed(lambda: R.series_fold_plain(mat, offsets, members, "sum"),
+                                        1),
+                        bound_ms=b12, bound_by=b12by, library_ms=lib)
+    out[_FOLD] = dict(folds[1], by_series=folds[s_pad])
+    del codes, ts, vals, present, valid, sid, ts_ms, vf, inf, adj, adj_p, stats5, mat
+    torch.cuda.empty_cache()
+    run_tql_edge_cases(dev)
+    return out
+
+
+def _same_f64(a, b, what: str) -> None:
+    """Byte for byte, except that any NaN equals any NaN (the payload of a
+    NaN that arithmetic produces is the card's, not the function's)."""
+    import torch
+
+    nan = torch.isnan(a)
+    if a.shape != b.shape or not torch.equal(nan, torch.isnan(b)) \
+            or not torch.equal(a[~nan].view(torch.int64), b[~nan].view(torch.int64)):
+        raise AssertionError(f"{what}: differs from the plain version")
+
+
+def _twice_identical_masked(fn, mask, what: str):
+    """K9 twice: the bytes of every fetched row identical (rows that are not
+    fetched carry no value)."""
+    import torch
+
+    a, layout = fn()
+    b, _l = fn()
+    torch.cuda.synchronize()
+    if not _same_bytes(a[mask], b[mask]):
+        raise AssertionError(f"{what}: two runs differ in their bytes")
+    return a, layout
+
+
+def _twice_identical_stats(fn, what: str):
+    import torch
+
+    a, pa_ = fn()
+    b, pb = fn()
+    torch.cuda.synchronize()
+    for x, y in zip(a.tensors() + (pa_,), b.tensors() + (pb,)):
+        if not _same_bytes(x, y):
+            raise AssertionError(f"{what}: two runs differ in their bytes")
+    return a, pa_
+
+
+def run_tql_edge_cases(dev) -> None:
+    """K9-K12 on small inputs that make them hard, against their plain
+    versions: equal timestamps in a window, NaN/+-inf values, a series
+    that is all NULL, matcher masks, two tags, chunks that are not a power
+    of two, ns and us time units with an offset, several regions merged."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import rate as R
+
+    rng = np.random.default_rng(SEED)
+    ca, cb = 5, 7
+    rows = []
+    for a in range(ca):
+        for b in range(cb):
+            m = int(rng.integers(0, 90))
+            t = np.sort(rng.integers(0, 1200, m)) * 1000 + 5_000_000
+            v = np.cumsum(rng.uniform(0, 3, m))
+            if m > 10:
+                v[m // 2:] -= v[m // 2] - 0.25
+                v[rng.integers(0, m)] = np.nan
+                v[rng.integers(0, m)] = np.inf
+            rows.append((np.full(m, a), np.full(m, b), t, v))
+    a_codes = np.concatenate([r[0] for r in rows]).astype(np.int32)
+    b_codes = np.concatenate([r[1] for r in rows]).astype(np.int32)
+    t_ms = np.concatenate([r[2] for r in rows]).astype(np.int64)
+    v = np.concatenate([r[3] for r in rows])
+    n = t_ms.shape[0]
+    valid = rng.random(n) < 0.9
+    present = rng.random(n) < 0.95
+    present[(a_codes == 2) & (b_codes == 3)] = False  # an all-NULL series
+    radices = (8, 8)
+    s_pad = 64
+    for unit_ns, chunk, regions in ((1_000_000, 3000, 1), (1_000, 4096, 2), (1, 1 << 20, 3)):
+        ts_nat = t_ms * 1_000_000 // unit_ns
+
+        def chunks(x, dt):
+            t = torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(dev)
+            return [t[o:o + chunk].contiguous() for o in range(0, n, chunk)]
+
+        start, step, rng_ms, offset = 5_300_000, 25_000, 120_000, 30_000
+        steps = (6_200_000 - start) // step + 1
+        w_pad = 1 << (steps - 1).bit_length()
+        mask_b = torch.from_numpy(np.array([1, 1, 0, 1, 1, 1, 0, 1], bool)).to(dev)
+        srcs = []
+        for r in range(regions):
+            vr = valid & ((a_codes % regions) == r)
+            srcs.append(R.RowSource(
+                ts=chunks(ts_nat, np.int64), values=chunks(v, np.float64), num_series=s_pad,
+                codes=(chunks(a_codes, np.int32), chunks(b_codes, np.int32)), radices=radices,
+                masks=((1, mask_b),), nulls=chunks(present, bool), valid=chunks(vr, bool),
+                lo=(start - rng_ms - offset) * 1_000_000 // unit_ns,
+                hi=(6_200_000 - offset) * 1_000_000 // unit_ns + 1,
+                unit_ns=unit_ns, offset=offset))
+        for k in (8, 16):
+            gr = R.RangeGrid(start, step, rng_ms, w_pad, k, s_pad, steps)
+            for func in ("rate", "delta", "sum_over_time", "last_over_time", "__last_ts"):
+                stats_k, stats_p = [], []
+                for src in srcs:
+                    sid, ts_ms, vf, inf = R.source_rows(src)
+                    adj_k = layout = None
+                    vals_p = vf
+                    if func == "rate":
+                        adj_k, layout = R.strip_counter_resets(src)
+                        vals_p = R.strip_counter_resets_plain(sid, vf, inf)
+                        _compare(adj_k[inf], vals_p[inf], True, "edge strip")
+                    st, pres = R.range_windows(src, gr, values=adj_k, layout=layout)
+                    sp = R.range_windows_plain(sid, ts_ms, vals_p, inf, gr.start, gr.step,
+                                               gr.range_, gr.n_steps, gr.k, gr.num_series,
+                                               gr.n_steps_actual)
+                    for f in R.WindowStats.FIELDS:
+                        _compare(getattr(st, f), getattr(sp, f), True, f"edge range_windows.{f}")
+                    if not torch.equal(pres, R.series_presence_plain(sid, inf, s_pad)):
+                        raise AssertionError("edge presence differs")
+                    stats_k.append(st)
+                    stats_p.append(sp)
+                fk = R.range_finalize(stats_k, gr, func)
+                _same_f64(fk, R.range_finalize_plain(stats_p, gr, func), f"edge {func}")
+                mat = fk.view(s_pad, w_pad)
+                for keep in ((), (0,), (1, 0)):
+                    off, mem = (torch.from_numpy(x).to(dev) for x in R.group_csr(radices, keep))
+                    for op in ("sum", "min", "count"):
+                        _same_f64(R.series_fold(mat, off, mem, op),
+                                  R.series_fold_plain(mat, off, mem, op), f"edge fold {op}")
+    emit({"phase": "tql_edge_cases", "ok": True})
+
+
 # ---- main ------------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=12)
     ap.add_argument("--hosts", type=int, default=4000)
-    ap.add_argument("--reps", type=int, default=5, help="warm runs per query, table-fed path")
+    ap.add_argument("--reps", type=int, default=3, help="warm runs per query, table-fed path")
     ap.add_argument("--tile-reps", type=int, default=5, help="warm runs per query, tile path")
     ap.add_argument("--kernel-reps", type=int, default=10, help="timed launches per kernel")
+    ap.add_argument("--tql-reps", type=int, default=5, help="warm runs per TQL query, tile path")
     args = ap.parse_args(argv)
 
     import torch
@@ -1131,6 +1758,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kstats = run_kernel_phase(args.hosts, args.hours, args.kernel_reps)
     kstats.update(run_tile_kernel_phase(args.hosts, args.hours, args.kernel_reps))
+    kstats.update(run_tql_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
 
     work = os.path.join(HERE, "build", "chip_smoke")  # listed in .gitignore
@@ -1144,14 +1772,44 @@ def main(argv=None) -> int:
               "tile_warm_p50_ms": {k: v["warm_p50_ms"]
                                    for k, v in sl["tile"]["queries"].items()},
               "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"]})
+        import gc
+
+        import torch
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tq = run_tql_slice("cuda", args.hosts, args.hours, args.tql_reps,
+                           os.path.join(work, "tql"))
+        emit({"phase": "tql", "seconds": time.perf_counter() - t0, "rows": tq["rows"],
+              "card": smi,
+              "tile_warm_p50_ms": {k: v["warm_p50_ms"] for k, v in tq["queries"].items()},
+              "tile_cold_ms": {k: v["cold_ms"] for k, v in tq["queries"].items()},
+              "legacy_ms": {k: v["ms"] for k, v in tq["legacy"].items()},
+              "cpu_ms": {k: v["ms"] for k, v in tq["cpu"].items()},
+              "twin_max_rel_err": tq["twin_max_rel_err"], "tile_cache": tq["cache"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for name, (_fn, source, replaces) in kernel_table().items():
         s = kstats[name]
-        # K1-K4: their launches on the table-fed path (phase 4); every
-        # kernel: its launches on the tile path (phase 5)
+        if name in TQL_KERNELS:
+            # K9-K12: their launches on the TQL tile path (phase 6); K9-K11
+            # also on the TQL legacy path (its own runs only)
+            launches = tq["launches"][name]
+            if launches == 0 or (name != _FOLD and tq["legacy_launches"][name] == 0):
+                raise AssertionError(f"kernel {name} never launched on its path")
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                "library_ms": s["library_ms"], "legacy_launches": tq["legacy_launches"][name],
+                **{k: s[k] for k in ("k64", "by_series") if k in s},
+            })
+            continue
+        # K1-K4: their launches on the table-fed path (phase 4); K1-K8: on
+        # the tile path (phase 5)
         tile_launches = sl["tile"]["launches"][name]
         launches = tile_launches if name in TILE_KERNELS else sl["launches"][name]
         if launches == 0 or tile_launches == 0:

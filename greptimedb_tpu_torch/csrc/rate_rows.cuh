@@ -1,0 +1,146 @@
+// Row access and the row prologue shared by K9 (strip_counter_resets.cu)
+// and K10 (range_windows.cu).
+//
+// A source's rows are sorted by (series, ts) and stored as chunk lists of
+// one length (the last may be shorter), addressed through device tables of
+// chunk pointers (ops/rate.py::_row_planes), so the 2^24-row super-tile
+// chunks are read in place.  The prologue is the one of the reference's
+// `_region_stats` (greptimedb_tpu/query/promql/tile_exec.py:122-158): a
+// row is fetched when it is valid, its ts (native unit) lies in [lo, hi),
+// its tag codes are >= 0 and its matcher masks hold; its series id is the
+// mixed radix of its codes (or the legacy scan's id plane).
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+
+struct RowPlanes {
+  int64_t n;                     // rows over all chunks
+  int64_t chunk_rows;            // rows per chunk (every chunk but the last)
+  int64_t chunk_shift;           // log2(chunk_rows) when a power of two, else -1
+  const int64_t* const* ts;      // [chunks] native unit
+  const double* const* vals;     // [chunks]
+  const uint8_t* const* nulls;   // [chunks] present masks, or nullptr
+  const uint8_t* const* valid;   // [chunks], or nullptr (every row valid)
+  const int32_t* const* sid;     // [chunks] series ids, or nullptr
+  const int32_t* const* codes;   // [n_tags * chunks], tag-major
+  const int64_t* radices;        // [n_tags]
+  const uint8_t* const* masks;   // [n_tags]; nullptr = no matcher on the tag
+  const int64_t* mask_len;       // [n_tags] padded cardinality of each mask
+  int64_t lo, hi;                // fetch bound [lo, hi), native unit
+  int64_t unit_ns, offset;       // native -> ms, then the offset modifier
+  int32_t n_tags, has_range;
+};
+
+struct SeriesLayout {
+  uint8_t* in_fetch;  // [n]
+  int64_t* first;     // [S] first fetched row, INT64_MAX when none
+  int64_t* last;      // [S] last fetched row, -1 when none
+  uint8_t* presence;  // [S]
+  int64_t num_series;
+};
+
+struct LayoutArgs {
+  RowPlanes rows;
+  SeriesLayout out;
+};
+
+constexpr int64_t kInt64Max = 0x7fffffffffffffffLL;
+
+__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+// Chunk and offset of global row r (a shift and a mask for the 2^24-row
+// super-tile chunks and for a single chunk; a division otherwise).
+__device__ __forceinline__ void row_at(const RowPlanes& p, int64_t r, int64_t& c, int64_t& o) {
+  if (p.chunk_shift >= 0) {
+    c = r >> p.chunk_shift;
+    o = r & ((1LL << p.chunk_shift) - 1);
+  } else {
+    c = r / p.chunk_rows;
+    o = r - c * p.chunk_rows;
+  }
+}
+
+// The legacy fetch's native -> ms conversion (floor division), then the
+// offset; a millisecond column skips the multiply.
+__device__ __forceinline__ int64_t ts_ms_of(const RowPlanes& p, int64_t r) {
+  int64_t c, o;
+  row_at(p, r, c, o);
+  const int64_t t = p.ts[c][o];
+  if (p.unit_ns == 1000000) return t + p.offset;
+  return floor_div(t * p.unit_ns, 1000000) + p.offset;
+}
+
+// A row's value; an absent (NULL) value reads as NaN.
+__device__ __forceinline__ double value_of(const RowPlanes& p, int64_t r) {
+  int64_t c, o;
+  row_at(p, r, c, o);
+  if (p.nulls != nullptr && p.nulls[c][o] == 0) return __longlong_as_double(0x7ff8000000000000LL);
+  return p.vals[c][o];
+}
+
+// Bound on the H100: bytes — valid, ts and the code planes read once per
+// row, in_fetch written.  Each series' first/last fetched row is a 64-bit
+// integer atomicMin/atomicMax (the result does not depend on order),
+// issued only by the lanes where a run of one series starts or ends in
+// the warp, so a series costs two atomics per warp it touches, not per row.
+__global__ void __launch_bounds__(256) series_layout_kernel(const LayoutArgs a) {
+  const RowPlanes& p = a.rows;
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t chunks = (p.n + p.chunk_rows - 1) / p.chunk_rows;
+  // warp-uniform loop: every lane takes part in the shuffles
+  for (int64_t r0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); r0 < p.n;
+       r0 += stride) {
+    const int64_t r = r0 + lane;
+    bool ok = r < p.n;
+    int64_t s = -1;
+    if (ok) {
+      int64_t c, o;
+      row_at(p, r, c, o);
+      ok = p.valid == nullptr || p.valid[c][o] != 0;
+      if (p.has_range) {
+        const int64_t t = p.ts[c][o];
+        ok = ok && t >= p.lo && t < p.hi;
+      }
+      int64_t sid = 0;
+      if (p.sid != nullptr) {
+        sid = p.sid[c][o];
+      } else {
+        int64_t mult = 1;
+        for (int t = p.n_tags - 1; t >= 0; --t) {
+          const int64_t code = p.codes[(int64_t)t * chunks + c][o];
+          ok = ok && code >= 0;
+          const uint8_t* m = p.masks[t];
+          if (m != nullptr) ok = ok && code < p.mask_len[t] && m[code < 0 ? 0 : code] != 0;
+          sid += code * mult;
+          mult *= p.radices[t];
+        }
+      }
+      ok = ok && sid >= 0 && sid < a.out.num_series;
+      a.out.in_fetch[r] = ok ? 1 : 0;
+      if (ok) s = sid;
+    }
+    const int64_t prev = __shfl_up_sync(0xffffffffu, s, 1);
+    const int64_t next = __shfl_down_sync(0xffffffffu, s, 1);
+    if (s >= 0) {
+      if (lane == 0 || prev != s) atomicMin((long long*)(a.out.first + s), (long long)r);
+      if (lane == 31 || next != s) {
+        atomicMax((long long*)(a.out.last + s), (long long)r);
+        a.out.presence[s] = 1;
+      }
+    }
+  }
+}
+
+static inline int launch_series_layout(const LayoutArgs* args, cudaStream_t stream) {
+  if (args->rows.n <= 0) return (int)cudaSuccess;
+  const int64_t blocks = (args->rows.n + 255) / 256;
+  series_layout_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, stream>>>(*args);
+  return (int)cudaGetLastError();
+}

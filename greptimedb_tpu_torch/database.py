@@ -5,10 +5,10 @@ slice runs: catalog + TimeSeriesEngine (WAL -> memtable -> Parquet SSTs)
 + QueryEngine, with rows routed to regions by the table's partition rule,
 and the per-table tag dictionaries (data_home/dicts/) the device tile
 cache encodes with.  Statements: CREATE DATABASE, CREATE TABLE,
-DROP TABLE, INSERT ... VALUES, SELECT.
-Everything else the reference's facade does (ALTER/DELETE/COPY, views,
-flows, the metric engine, information_schema, sessions and admission,
-PromQL) is cut and listed in ROADMAP.md.
+DROP TABLE, INSERT ... VALUES, SELECT, and TQL EVAL (PromQL,
+query/promql/).  Everything else the reference's facade does
+(ALTER/DELETE/COPY, views, flows, the metric engine, information_schema,
+sessions and admission) is cut and listed in ROADMAP.md.
 
 `device` names the torch device of the lowered query path: "cuda" (the
 default) or "cpu".  `Database(..., device="cuda")` on a machine without a
@@ -37,6 +37,7 @@ from .query.sql_parser import (
     DropStmt,
     InsertStmt,
     SelectStmt,
+    TqlStmt,
     parse_sql,
 )
 from .storage.dictionary import DictionaryRegistry
@@ -104,7 +105,22 @@ class Database:
             return self._insert(stmt)
         if isinstance(stmt, DropStmt) and stmt.kind == "table":
             return self._drop_table(stmt)
+        if isinstance(stmt, TqlStmt):
+            return self._tql(stmt)
         raise UnsupportedError(f"unsupported statement: {type(stmt).__name__}")
+
+    # ---- TQL (PromQL-in-SQL) ----------------------------------------------
+    def _tql(self, stmt: TqlStmt):
+        from .query.promql.engine import PromqlEngine
+
+        self.query_engine.last_tql_timings = {}
+        engine = PromqlEngine(self)
+        return engine.query_range(
+            stmt.query,
+            start_ms=int(stmt.start * 1000),
+            end_ms=int(stmt.end * 1000),
+            step_ms=int(stmt.step * 1000),
+        )
 
     # ---- DDL --------------------------------------------------------------
     def _create_table(self, stmt: CreateTableStmt):

@@ -30,6 +30,10 @@ KERNEL_SOURCES = (
     "limb_segment_sums",
     "topk_select",
     "pack_result",
+    "strip_counter_resets",
+    "range_windows",
+    "range_finalize",
+    "series_fold",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,7 +66,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha1()
-    for fn in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -128,6 +133,10 @@ _EXPORTS = {
     "limb_segment_sums": ("gt_limb_partials", "gt_limb_fold", "gt_limb_dequant"),
     "topk_select": ("gt_topk_round", "gt_topk_compact"),
     "pack_result": ("gt_pack_result",),
+    "strip_counter_resets": ("gt_strip_layout", "gt_strip_counter_resets"),
+    "range_windows": ("gt_range_layout", "gt_range_windows"),
+    "range_finalize": ("gt_range_finalize",),
+    "series_fold": ("gt_series_fold",),
 }
 
 

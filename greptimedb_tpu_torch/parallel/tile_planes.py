@@ -24,9 +24,15 @@ What the port keeps and what it drops:
   host encodes, which yields the same codes by a longer route;
 * limb planes (K5) are cached per column and evicted first under budget
   pressure, then whole entries;
+* the dedup keep plane (`ensure_dedup_keep`): the last-write-wins keep
+  mask of a non-append region whose SSTs overlap, built on the host from
+  the sorted host copies of the (pk..., ts) columns kept beside each
+  entry, then uploaded; the TQL path serves such regions through it
+  (the SQL path still declines overlapping files);
+* the fold CSRs of the fused TQL aggregations (`group_csr`), kept per
+  (radices, kept tags);
 * not ported: persistence of consolidated encodes, time-major copies,
-  window tiles, the dedup keep plane, the sorted host copies of the host
-  fast path, multi-device placement, the pipelined build.  Limb-only
+  window tiles, multi-device placement, the pipelined build.  Limb-only
   columns keep their f64 plane (the reference skips that upload).
 
 Padding keeps the port's rule (`ops/tiles.py::pad_rows`, a multiple of
@@ -48,6 +54,7 @@ import pyarrow.compute as pc
 import torch
 
 from ..ops.aggregate import BLOCK_ROWS, _FAST_MIN_ROWS, quantize_limbs
+from ..ops.rate import group_csr
 from ..ops.tiles import pad_rows
 from ..storage.dictionary import TableDictionary
 from ..storage.region import Region
@@ -96,10 +103,14 @@ class _SuperTiles:
     num_rows: int  # real rows (sum of file rows)
     pad: int  # padded total length (a multiple of 4096)
     order: np.ndarray | None = None  # (pk, ts) sort of the file concat
+    # the (pk..., ts) columns in `order`, on the host (the keep plane's input)
+    sorted_host: dict[str, np.ndarray] = field(default_factory=dict)
     cols: dict[str, list] = field(default_factory=dict)
     nulls: dict[str, list] = field(default_factory=dict)
     epochs: dict[str, int] = field(default_factory=dict)  # tag col -> dict epoch
     valid: list | None = None
+    # last-write-wins keep plane (valid and not superseded), per chunk
+    valid_dedup: list | None = None
     # cached K5 planes per value column: per chunk (limbs, scale)
     limb_cols: dict[str, list] = field(default_factory=dict)
     nbytes: int = 0
@@ -146,6 +157,8 @@ class TileCacheManager:
         # files that can never join a super-tile (missing tag/ts column,
         # row-count mismatch): queries whose window touches them decline
         self._bad_files: set[tuple[int, str]] = set()
+        # the fused TQL folds' device CSRs, per (radices, kept tags)
+        self._group_csrs: OrderedDict[tuple, tuple] = OrderedDict()
         # counters: entries built, warm hits, host file decodes, evictions
         self.stats_counts = {"builds": 0, "hits": 0, "decodes": 0, "evictions": 0}
 
@@ -404,6 +417,7 @@ class TileCacheManager:
                     ).astype(np.int64)
                 else:
                     entry.order = np.arange(entry.num_rows, dtype=np.int64)
+                entry.sorted_host = {name: cats[name][entry.order] for name in sort_cols}
 
             est = 0
             for name in missing:
@@ -491,6 +505,49 @@ class TileCacheManager:
         t = torch.from_numpy(buf)
         return [t[a:b].to(self.device).contiguous() if self.device.type != "cpu"
                 else t[a:b].clone() for a, b in bounds]
+
+    def ensure_dedup_keep(self, entry: _SuperTiles) -> bool:
+        """Build (once per file set) the last-write-wins keep plane from the
+        sorted host copies: a row survives unless the next row holds the
+        same (pk..., ts) — the stable lexsort orders duplicates by flush
+        sequence, so the newest version sits last in its run.  Returns
+        False when the entry lacks its sorted host copies."""
+        with self._lock:
+            if entry.valid_dedup is not None:
+                return True
+            if not entry.sorted_host or entry.order is None:
+                return False
+            n = entry.num_rows
+            keep = np.zeros(entry.pad, bool)
+            keep[:n] = True
+            if n > 1:
+                same = np.ones(n - 1, bool)
+                for arr in entry.sorted_host.values():
+                    same &= arr[:-1] == arr[1:]
+                keep[: n - 1] &= ~same
+            entry.valid_dedup = self._up_chunks(keep, _chunk_bounds(entry.pad, self.chunk_rows))
+            entry.nbytes += entry.pad
+            if self._super.get(entry.region_id) is entry:
+                self._used += entry.pad
+            return True
+
+    def group_csr(self, radices: tuple, keep_idx: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device CSR (offsets, members) of a fused TQL fold's series ->
+        group map (ops/rate.py::group_csr), built once per (radices, kept
+        tags) and kept (the 16 most recent)."""
+        key = (tuple(radices), tuple(keep_idx))
+        with self._lock:
+            hit = self._group_csrs.get(key)
+            if hit is not None:
+                self._group_csrs.move_to_end(key)
+                return hit
+        offsets, members = group_csr(radices, keep_idx)
+        csr = (torch.from_numpy(offsets).to(self.device), torch.from_numpy(members).to(self.device))
+        with self._lock:
+            self._group_csrs[key] = csr
+            while len(self._group_csrs) > 16:
+                self._group_csrs.popitem(last=False)
+        return csr
 
     def ensure_limbs(
         self,

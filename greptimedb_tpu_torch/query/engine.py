@@ -21,6 +21,13 @@ by either path), `declined` (queries try_lower declined),
 `tile_declined` (lowered queries it declined, answered by the table-fed
 path); `last_timings` holds the per-stage host wall ms of the last
 lowered query and `last_path` which path answered it.
+
+PromQL (query/promql/) counts its range evaluations here too:
+`tql_tile_dispatches` (answered by the warm tile program),
+`tql_tile_declined` (the tile path declined a shape and the legacy path
+answered) and `tql_legacy` (evaluations on the legacy path, declined or
+with `tql.tile` off); `last_tql_timings` holds the host ms per stage of
+the last TQL statement.
 """
 
 from __future__ import annotations
@@ -65,10 +72,15 @@ class QueryEngine:
         self._tile_ctx = tile_context_provider
         self.tile_cache = None
         self._tile_executor = None
-        self.stats = {"lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0}
+        self.stats = {
+            "lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0,
+            "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
+        }
         # per-stage host wall ms of the last lowered query (DeviceExecutor)
         self.last_timings: dict[str, float] = {}
         self.last_path = ""
+        # per-stage host wall ms of the last TQL statement (query/promql/)
+        self.last_tql_timings: dict[str, float] = {}
 
     def tile_executor(self):
         """The engine's tile executor (built on first use), or None when the

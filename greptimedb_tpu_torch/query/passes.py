@@ -19,6 +19,9 @@ PASSES = {
                      "quantize, K6 integer segment sums) with a per-group error bound",
     "device_finalize": "run ORDER BY / LIMIT and result compaction on the card over the "
                        "finalized [G] states (K7) so the one readback is O(rows_out)",
+    "tql_tile": "evaluate PromQL range functions (rate/increase/delta, *_over_time, the "
+                "by-label sum/avg/min/max/count fold) as one program (K9-K12) over the "
+                "resident super-tile planes, with a compacted [series_out, steps] readback",
 }
 
 

@@ -1,0 +1,523 @@
+"""Warm TQL path: PromQL range-vector evaluation over the device-resident
+super-tile planes.
+
+Counterpart of `greptimedb_tpu/query/promql/tile_exec.py` on one device.
+The legacy `PromqlEngine._fetch` rescans the region, re-encodes and
+re-uploads the samples on every query; here a query over a table whose
+planes (tag codes, ts, value, present mask, valid or dedup keep plane) are
+resident runs one program (`tql_program`):
+
+  per region  K9 (rate/increase) and K10 over the planes in place — the
+              row prologue (fetch bound, matcher code masks, mixed-radix
+              series id, native unit -> ms + offset) fused in;
+  then        K11: the selection merge of the series-disjoint regions and
+              the range function, NaN where undefined;
+  then        K12 when a by-label sum/avg/min/max/count is fused in;
+
+and reads back only the [series_out, steps] or [groups, steps] result.
+
+Routing (the `tql_tile` pass, switch `tql.tile`):
+
+  warm     every region's needed planes are resident -> one program;
+  cold     the planes build synchronously first (the port has no fused
+           background build: the reference with `tile.fused_build` off);
+  decline  a shape the tile path does not express — memtable rows in the
+           fetch window, tombstones, a file that cannot tile, the
+           `tql.max_cells` bound, last_non_null merge mode, an empty grid
+           — goes to the legacy path (which also runs on the card) and is
+           counted in `tql_tile_declined`.  Anything else raises: unlike
+           the reference (`except Exception` -> legacy), a kernel, build or
+           launch failure is never hidden behind the legacy answer.
+
+Non-append tables (GreptimeDB dedups Prometheus remote-write tables on
+(labels, ts)) whose SSTs overlap in time are served through the dedup
+keep plane (`TileCacheManager.ensure_dedup_keep`).  A dictionary growth
+that moved codes drops and rebuilds the entry (the reference repairs it
+with `repair_super`, not ported).
+
+Parity with the legacy path: per-series *_over_time, delta, instant
+vectors, matchers and the by-label folds equal it on one-region tables
+(same kernels, same sample sequence, same f64 order: K12 and the host
+`np.add.at` fold both add series in dictionary-code order); rate and
+increase over series with counter resets, and float sums folded across
+regions, within the last ulp.
+
+Not ported: the mesh programs (`_mesh_dispatch`, `_partial_program`,
+`_merge_program`), the fused and cold-serve builds, the flight recorder,
+tracing spans, fault points and the degrade counters.
+"""
+
+from __future__ import annotations
+
+import re
+import time
+
+import numpy as np
+import torch
+
+from ...ops.rate import (
+    RangeGrid,
+    RowSource,
+    range_finalize,
+    range_windows,
+    series_fold,
+    strip_counter_resets,
+)
+from .. import passes
+from ..logical_plan import TableScan
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+class _Ineligible(Exception):
+    """A query or table shape the tile path does not express: the legacy
+    path answers it."""
+
+
+def tql_program(sources: list[RowSource], grid: RangeGrid, func: str, agg_op=None,
+                fold=None):
+    """The warm program: per region K9 (rate/increase) and K10, then K11
+    over all regions, then K12 when `agg_op` is fused (`fold` = the
+    group CSR (offsets, members)).  Returns ([S, W] or [G, W] f64, the
+    per-region [S] presence bools)."""
+    stats, presence = [], []
+    for src in sources:
+        adjusted = layout = None
+        if func in ("rate", "increase"):
+            adjusted, layout = strip_counter_resets(src)
+        st, pres = range_windows(src, grid, values=adjusted, layout=layout)
+        stats.append(st)
+        presence.append(pres)
+    mat = range_finalize(stats, grid, func).view(grid.num_series, grid.n_steps)
+    if agg_op is not None:
+        offsets, members = fold
+        mat = series_fold(mat, offsets, members, agg_op)
+    return mat, presence
+
+
+class TqlTileExecutor:
+    """Routes one range-function evaluation through the device tile cache.
+    Built per PromqlEngine (cheap); the planes live in the query engine's
+    tile cache, the group CSRs of the fused folds on the cache."""
+
+    def __init__(self, db):
+        self.db = db
+        self.qe = db.query_engine
+        self.cache = self.qe.tile_executor().cache
+
+    # ---- public entry ------------------------------------------------------
+    def try_range_eval(self, func, sel, range_ms, start, end, step, agg=None):
+        """Evaluate `func` over sel[range_ms] on the grid start..end@step
+        (ms) from the resident planes; `agg` fuses a by-label aggregation
+        (op, by_labels|None, without_labels|None).  Returns an engine
+        Matrix, or None when the tile path declines (the legacy path then
+        answers)."""
+        if not self.db.config.tql.tile:
+            return None
+        if not passes.enabled("tql_tile", self.db.config.query):
+            return None
+        try:
+            out = self._attempt(func, sel, range_ms, start, end, step, agg)
+        except _Ineligible:
+            self.qe.stats["tql_tile_declined"] += 1
+            return None
+        self.qe.stats["tql_tile_dispatches"] += 1
+        return out
+
+    def _add_ms(self, stage: str, t0: float) -> None:
+        timings = self.qe.last_tql_timings
+        timings[stage] = timings.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    # ---- attempt -----------------------------------------------------------
+    def _attempt(self, func, sel, range_ms, start, end, step, agg):
+        t0 = time.perf_counter()
+        db = self.db
+        meta = db.catalog.table(sel.metric, db.current_database)
+        schema = meta.schema
+        if schema.time_index is None:
+            raise _Ineligible("metric table has no time index")
+        ts_name = schema.time_index.name
+        tags = [c.name for c in schema.tag_columns()]
+        fields = schema.field_columns()
+        value_col = None
+        for cand in ("greptime_value", "value", "val"):
+            if any(f.name == cand for f in fields):
+                value_col = cand
+                break
+        if value_col is None:
+            if len(fields) != 1:
+                raise _Ineligible(f"metric has {len(fields)} fields; expected one")
+            value_col = fields[0].name
+
+        steps = np.arange(start, end + 1, step, dtype=np.int64)
+        if len(steps) == 0:
+            raise _Ineligible("empty evaluation grid")
+
+        # matcher split — the legacy `_fetch` semantics, on dictionary-code
+        # masks
+        eq_matchers, regex_matchers = [], []
+        for mt in sel.matchers:
+            if mt.label not in tags:
+                if mt.op in ("=", "=~"):
+                    # legacy: equality on a non-existent label matches no series
+                    return _empty_matrix(tags, agg, steps)
+                continue  # != / !~ on a missing label: matches everything
+            (eq_matchers if mt.op in ("=", "!=") else regex_matchers).append(mt)
+
+        ctx = db._tile_context(TableScan(table=sel.metric, database=db.current_database))
+        if ctx is None:
+            raise _Ineligible("table source cannot tile")
+        if not ctx.regions:
+            raise _Ineligible("no regions")
+        if any(getattr(r, "merge_mode", "last_row") == "last_non_null"
+               for r in ctx.regions) and not ctx.append_mode:
+            raise _Ineligible("last_non_null merge mode")
+
+        # fetch bounds: the scan's time_range semantics in the native unit
+        unit_ns = schema.time_index.data_type.timestamp_unit_ns()
+        offset = sel.offset_ms
+        lo_nat = (start - range_ms - offset) * 1_000_000 // unit_ns
+        hi_nat = (end - offset) * 1_000_000 // unit_ns + 1
+
+        dictionary = ctx.dictionary
+        pinned = []
+        with dictionary.table_lock:
+            try:
+                items = self._acquire_regions(ctx, lo_nat, hi_nat, ts_name, pinned)
+                self._add_ms("acquire", t0)
+                if not all(self._warm_entry(s, tags, ts_name, value_col) for s in items):
+                    # cold (or stale after a flush): build synchronously
+                    self._build_sync(ctx, schema, items, value_col, ts_name, lo_nat, hi_nat)
+                    items = self._acquire_regions(ctx, lo_nat, hi_nat, ts_name, pinned)
+                    if not all(self._warm_entry(s, tags, ts_name, value_col) for s in items):
+                        raise _Ineligible("planes did not build")
+                # entries whose codes a dictionary growth moved: rebuild
+                # them from the repaired host encodes
+                dropped = set(self.cache.drop_stale([s["entry"] for s in items], dictionary))
+                if dropped:
+                    for s in items:
+                        if s["region"].region_id in dropped:
+                            s["entry"] = None
+                    self._build_sync(ctx, schema, items, value_col, ts_name, lo_nat, hi_nat)
+                return self._dispatch(
+                    func, agg, items, dictionary, tags, ts_name, value_col, unit_ns,
+                    offset, lo_nat, hi_nat, start, step, steps, range_ms,
+                    eq_matchers, regex_matchers,
+                )
+            finally:
+                for r in pinned:
+                    r.unpin_scan()
+
+    # ---- region acquisition ------------------------------------------------
+    def _acquire_regions(self, ctx, lo_nat, hi_nat, ts_name, pinned):
+        """Per region: snapshot, eligibility gates and the cached entry for
+        the current file set.  Returns [{region, metas, entry|None,
+        dedup}]; raises _Ineligible on shapes the tile path must not
+        serve."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        from ...storage.region import OP_COL
+
+        out = []
+        for region in ctx.regions:
+            if region not in pinned:
+                region.pin_scan()
+                pinned.append(region)
+            metas, mems, version = region.tile_snapshot()
+            self.cache.invalidate_region_if_changed(
+                region.region_id, {m.file_id for m in metas}, version)
+            ranges = []
+            for m in metas:
+                flo, fhi = m.time_range
+                if fhi >= lo_nat and flo < hi_nat:
+                    if m.num_deletes != 0:
+                        raise _Ineligible("tombstones in the fetch window")
+                    ranges.append((flo, fhi))
+            # memtable rows in the fetch window: the legacy scan would merge
+            # them; the planes cover flushed files only
+            for mem in mems:
+                mem_table = mem.scan(None, dedup=not ctx.append_mode)
+                if mem_table.num_rows == 0:
+                    continue
+                if ts_name not in mem_table.column_names:
+                    raise _Ineligible("memtable rows without a time index")
+                ts_i = pc.cast(mem_table[ts_name], pa.int64())
+                mlo, mhi = pc.min(ts_i).as_py(), pc.max(ts_i).as_py()
+                if mhi >= lo_nat and mlo < hi_nat:
+                    raise _Ineligible("memtable rows in the fetch window")
+                if OP_COL in mem_table.column_names:
+                    raise _Ineligible("memtable delete markers")
+            dedup = (not ctx.append_mode) and not _disjoint_ranges(ranges)
+            entry = self.cache._super.get(region.region_id)
+            if entry is not None and set(entry.file_ids) != {m.file_id for m in metas}:
+                entry = None
+            out.append({"region": region, "metas": metas, "entry": entry, "dedup": dedup})
+        return out
+
+    def _warm_entry(self, item, tags, ts_name, value_col) -> bool:
+        """True when every plane this query needs is resident."""
+        entry = item["entry"]
+        if entry is None or entry.valid is None:
+            return False
+        if any(c not in entry.cols for c in list(tags) + [ts_name, value_col]):
+            return False
+        return not (item["dedup"] and entry.valid_dedup is None)
+
+    def _build_sync(self, ctx, schema, items, value_col, ts_name, lo_nat, hi_nat):
+        """Build (or complete) each region's planes and, where its files
+        overlap, the dedup keep plane; host ms go to `build`, `upload` and
+        `keep`."""
+        pk = [c.name for c in schema.tag_columns()]
+        pinned_ids = {r.region_id for r in ctx.regions}
+        for item in items:
+            if self._warm_entry(item, pk, ts_name, value_col):
+                continue
+            timings: dict[str, float] = {}
+            entry, excluded = self.cache.super_tiles(
+                item["region"], ctx.dictionary, item["metas"], pk, ts_name,
+                [value_col], pinned_ids, pk, timings=timings,
+            )
+            for stage, ms in timings.items():
+                self.qe.last_tql_timings[stage] = self.qe.last_tql_timings.get(stage, 0.0) + ms
+            if entry is None or any(
+                fhi >= lo_nat and flo < hi_nat for flo, fhi in (m.time_range for m in excluded)
+            ):
+                raise _Ineligible("region cannot tile")
+            if item["dedup"]:
+                t0 = time.perf_counter()
+                if not self.cache.ensure_dedup_keep(entry):
+                    raise _Ineligible("dedup keep plane unavailable")
+                self._add_ms("keep", t0)
+            item["entry"] = entry
+
+    # ---- dispatch ----------------------------------------------------------
+    def _dispatch(self, func, agg, items, dictionary, tags, ts_name, value_col, unit_ns,
+                  offset, lo_nat, hi_nat, start, step, steps, range_ms,
+                  eq_matchers, regex_matchers):
+        t0 = time.perf_counter()
+        cfg = self.db.config
+        for item in items:
+            if not self._warm_entry(item, tags, ts_name, value_col):
+                raise _Ineligible("needed planes not resident")
+
+        # --- geometry (pow2, as the reference's shape buckets) ---
+        cards = [max(dictionary.cardinality(t), 1) for t in tags]
+        radices = tuple(_pow2(c) for c in cards)
+        s_pad = 1
+        for r in radices:
+            s_pad *= r
+        w = len(steps)
+        w_pad = _pow2(w)
+        k = _pow2(max(-(-range_ms // step), 1))
+        if s_pad * w_pad > int(cfg.tql.max_cells):
+            raise _Ineligible(f"series*steps cells {s_pad}x{w_pad} exceed tql.max_cells")
+
+        # --- matcher masks ([card_pad] bools per filtered tag) ---
+        mask_arrays: dict[int, np.ndarray] = {}
+
+        def mask_for(ti):
+            if ti not in mask_arrays:
+                m = np.zeros(radices[ti], dtype=bool)
+                m[: cards[ti]] = True
+                mask_arrays[ti] = m
+            return mask_arrays[ti]
+
+        for mt in eq_matchers:
+            ti = tags.index(mt.label)
+            m = mask_for(ti)
+            code = dictionary.code_of(mt.label, mt.value)
+            if mt.op == "=":
+                sel_mask = np.zeros(len(m), dtype=bool)
+                if code >= 0:
+                    sel_mask[code] = True
+                mask_arrays[ti] = m & sel_mask
+            else:  # != — scan-filter semantics: null rows do not match
+                if code >= 0:
+                    m[code] = False
+                nc = _null_code(dictionary, mt.label)
+                if nc >= 0:
+                    m[nc] = False
+        for mt in regex_matchers:
+            ti = tags.index(mt.label)
+            m = mask_for(ti)
+            pat = re.compile(mt.value)
+            values = dictionary.values(mt.label)
+            rx = np.zeros(len(m), dtype=bool)
+            for code, v in enumerate(values):
+                rx[code] = bool(pat.fullmatch(v if v is not None else ""))
+            if mt.op == "!~":
+                rx[: len(values)] = ~rx[: len(values)]
+            mask_arrays[ti] = m & rx
+
+        # --- fused aggregation structure ---
+        agg_op = None
+        keep: list[str] = []
+        keep_idx: list[int] = []
+        if agg is not None:
+            agg_op, by, without = agg
+            if by is not None:
+                keep = [lbl for lbl in by if lbl in tags]
+            elif without is not None:
+                keep = [lbl for lbl in tags if lbl not in without]
+            keep_idx = [tags.index(lbl) for lbl in keep]
+
+        # --- device sources: the resident planes, read in place ---
+        dev = self.cache.device
+        masks = tuple((ti, torch.from_numpy(mask_arrays[ti]).to(dev))
+                      for ti in sorted(mask_arrays))
+        sources = []
+        for item in items:
+            entry = item["entry"]
+            sources.append(RowSource(
+                ts=entry.cols[ts_name], values=entry.cols[value_col], num_series=s_pad,
+                codes=tuple(entry.cols[t] for t in tags), radices=radices, masks=masks,
+                nulls=entry.nulls.get(value_col),
+                valid=entry.valid_dedup if item["dedup"] else entry.valid,
+                lo=lo_nat, hi=hi_nat, unit_ns=unit_ns, offset=offset,
+            ))
+        grid = RangeGrid(start, step, range_ms, n_steps=w_pad, k=k, num_series=s_pad,
+                         n_steps_actual=w)
+        fold = self.cache.group_csr(radices, tuple(keep_idx)) if agg_op is not None else None
+        self._add_ms("plan", t0)
+
+        t0 = time.perf_counter()
+        mat, pres = tql_program(sources, grid, func, agg_op, fold)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self._add_ms("dispatch", t0)
+        np_mat, np_pres, pregathered = self._readback(mat, pres, cfg, compact_ok=agg_op is None)
+        t0 = time.perf_counter()
+        try:
+            return self._assemble(np_mat, np_pres, dictionary, tags, steps, w, agg_op, keep,
+                                  radices, keep_idx, pregathered)
+        finally:
+            self._add_ms("assemble", t0)
+
+    def _readback(self, mat, pres, cfg, compact_ok=True):
+        """Device -> host.  Past `tql.compact_readback_kb` a per-series
+        result comes back in two trips: the presence bits, then only the
+        present rows, gathered on the card.  Folded [G, W] results and
+        small ones come back in one."""
+        t0 = time.perf_counter()
+        threshold = int(cfg.tql.compact_readback_kb) << 10
+        pregathered = None
+        np_pres = [p.cpu().numpy() for p in pres]
+        if compact_ok and mat.numel() * 8 > threshold:
+            pregathered = _legacy_order(np_pres)
+            if pregathered:
+                sel = torch.as_tensor(np.asarray(pregathered, np.int64), device=mat.device)
+                np_mat = mat.index_select(0, sel).cpu().numpy()
+            else:
+                np_mat = np.zeros((0, mat.shape[1]))
+        else:
+            np_mat = mat.cpu().numpy()
+        self._add_ms("readback", t0)
+        return np_mat, np_pres, pregathered
+
+    # ---- host assembly -----------------------------------------------------
+    def _assemble(self, np_mat, np_pres, dictionary, tags, steps, w,
+                  agg_op, keep, radices, keep_idx, pregathered=None):
+        from .engine import Matrix
+
+        # legacy series order: regions in scan order, dictionary-code
+        # (= pk-sorted) order within each region, first appearance wins
+        order = pregathered if pregathered is not None else _legacy_order(np_pres)
+        value_lists = [dictionary.values(t) for t in tags]
+
+        def decode(code_id, rads, vals_lists):
+            codes = []
+            stride = 1
+            for r in reversed(rads):
+                codes.append((code_id // stride) % r)
+                stride *= r
+            codes.reverse()
+            return tuple(vals[c] if c < len(vals) else None
+                         for c, vals in zip(codes, vals_lists))
+
+        if agg_op is None:
+            label_values = [decode(s, radices, value_lists) for s in order]
+            if pregathered is not None:
+                values = np_mat[:, :w] if order else np.zeros((0, w))
+            else:
+                values = (np_mat[np.asarray(order, dtype=np.int64)][:, :w]
+                          if order else np.zeros((0, w)))
+            return Matrix(list(tags), label_values, values, steps)
+
+        # grouped result: legacy group order = first appearance of each group
+        # key along the legacy series order
+        g_order: list[int] = []
+        g_seen: set[int] = set()
+        for s in order:
+            g = _gid_of(s, radices, keep_idx)
+            if g not in g_seen:
+                g_seen.add(g)
+                g_order.append(g)
+        kept_lists = [value_lists[i] for i in keep_idx]
+        kept_radices = [radices[i] for i in keep_idx]
+        label_values = [decode(g, kept_radices, kept_lists) for g in g_order]
+        values = (np_mat[np.asarray(g_order, dtype=np.int64)][:, :w]
+                  if g_order else np.zeros((0, w)))
+        return Matrix(list(keep), label_values, values, steps)
+
+
+# ---- helpers ---------------------------------------------------------------
+
+
+def _legacy_order(np_pres) -> list[int]:
+    """The legacy scan's series order: regions in scan order, pk-sorted
+    (= dictionary-code ascending) within a region, first appearance wins."""
+    order: list[int] = []
+    seen: set[int] = set()
+    for p in np_pres:
+        for sid in np.nonzero(p)[0]:
+            s = int(sid)
+            if s not in seen:
+                seen.add(s)
+                order.append(s)
+    return order
+
+
+def _gid_of(sid: int, radices, keep_idx) -> int:
+    """Group id of one series id (mixed radix over the kept tag subset, in
+    keep order): the scalar form of `ops/rate.py::gid_map`."""
+    codes = []
+    stride = 1
+    for r in reversed(radices):
+        codes.append((sid // stride) % r)
+        stride *= r
+    codes.reverse()
+    gid = 0
+    g_stride = 1
+    for i in reversed(keep_idx):
+        gid += codes[i] * g_stride
+        g_stride *= radices[i]
+    return gid
+
+
+def _null_code(dictionary, name) -> int:
+    cd = dictionary._cols.get(name)
+    return cd.null_code if cd is not None else -1
+
+
+def _disjoint_ranges(ranges) -> bool:
+    if len(ranges) <= 1:
+        return True
+    s = sorted(ranges)
+    return all(s[i][1] < s[i + 1][0] for i in range(len(s) - 1))
+
+
+def _empty_matrix(tags, agg, steps):
+    from .engine import Matrix
+
+    if agg is not None:
+        _op, by, without = agg
+        if by is not None:
+            keep = [lbl for lbl in by if lbl in tags]
+        elif without is not None:
+            keep = [lbl for lbl in tags if lbl not in without]
+        else:
+            keep = []
+        return Matrix(keep, [], np.zeros((0, len(steps))), steps)
+    return Matrix(list(tags), [], np.zeros((0, len(steps))), steps)

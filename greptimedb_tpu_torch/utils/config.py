@@ -1,7 +1,7 @@
 """Configuration for the port: storage, query and the device.
 
 Counterpart of `greptimedb_tpu/utils/config.py`, reduced to the sections
-this slice runs (`Config`, `StorageConfig`, `QueryConfig`).  Differences
+the port runs (`Config`, `StorageConfig`, `QueryConfig`, `TqlConfig`).  Differences
 that matter:
 
 * `QueryConfig.device` names the torch device the lowered query path runs on
@@ -94,6 +94,28 @@ class QueryConfig:
 
 
 @dataclasses.dataclass
+class TqlConfig:
+    """The warm TQL path (query/promql/tile_exec.py, the `tql_tile` pass):
+    PromQL range-vector evaluation — rate/increase/delta, *_over_time and
+    the by-label sum/avg/min/max/count fold — as one program (K9-K12)
+    over the resident super-tile planes.  `tile = False` evaluates every
+    query on the legacy path (region scan, upload, K9-K11, host folds).
+    Unlike the reference, a failure on the tile path raises: only shape
+    declines (memtable rows in the window, `max_cells`, last_non_null
+    merge mode, an empty grid) go to the legacy path."""
+
+    tile: bool = True
+    # Upper bound on padded series x padded steps cells per evaluation
+    # ([S, W] window statistics live on the card); beyond it the query
+    # takes the legacy path.
+    max_cells: int = 1 << 22
+    # Per-series results larger than this fetch in two round-trips:
+    # presence first, then a gather of only the present rows on the card.
+    compact_readback_kb: int = 1024
+
+
+@dataclasses.dataclass
 class Config:
     storage: StorageConfig = dataclasses.field(default_factory=StorageConfig)
     query: QueryConfig = dataclasses.field(default_factory=QueryConfig)
+    tql: TqlConfig = dataclasses.field(default_factory=TqlConfig)
