@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 3] [--tile-reps 5] [--tql-reps 5]
+    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 2] [--tile-reps 5] [--tql-reps 5]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the twelve kernels of csrc/ for sm_90a (one nvcc each,
+2. build   — builds the sixteen kernels of csrc/ for sm_90a (one nvcc each,
              all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
@@ -32,11 +32,35 @@ Phases, each printing one JSON line:
              (EXPECTED_PATH) launched.
 5. tile    — the same 15 queries on the tile path (device-resident
              super-tiles) over the same region: once cold (plane build,
-             upload and K5 quantize split out) and --tile-reps times warm
-             (p50 per stage).  Every run must advance `tile_dispatches`
-             and leave `tile_declined` alone, launch the kernels of
-             EXPECTED_TILE_PATH, and match phase 4's CPU-backend result
-             (sum/avg within rel 1e-7, the limb verdict's bound).
+             upload, time-major permutation and copies, K5 quantize split
+             out) and --tile-reps times warm (p50 per stage).  The nine
+             bucket-only queries take time-major plans (the first one's
+             cold run launches K14 and K15, warm runs neither).  Every run
+             must advance `tile_dispatches` and leave `tile_declined`
+             alone, launch the kernels of EXPECTED_TILE_PATH, and match
+             phase 4's CPU-backend result (sum/avg within rel 1e-7, the
+             limb verdict's bound).  Edge queries: more ORDER BY keys
+             than K7 takes, a bucket-only avg/sum (limbs over the
+             time-major copies), and a minute-bucket query with the
+             time_major pass off (K2's guard fails, K3 on the tile path).
+5b. live   — on phase 5's resident region: 30 more minutes for the 4000
+             hosts and 96 new ones (737,280 rows through Database.write,
+             WAL on, flushed; the new names move the host codes).  The
+             next query must extend the cached entry in place
+             (`delta_extends` +1, `builds` +0, K15 remap and K16); then
+             the 15 queries with their windows moved to the new end and
+             two HAVING queries (consumed on the card: K13), cold and
+             warm, against the CPU backend; then the extended entry's
+             planes, order and sorted host copies against a from-scratch
+             rebuild of the same files, byte for byte, with the delta's
+             host and device ms and the rebuild's ms.
+   3d (plane kernels) — K13-K16 against their plain versions at the main
+             path's shapes (K14 over the 17.28 M-row entry's ts, K15
+             gathers of an f64, an int32 and a bool plane by it and the
+             host-code remap of the live append, K16 merging its 737,280
+             rows at the front, the back and interleaved, K13 at G = 4096
+             x 16 with every op, NULL and NaN), K14-K16 byte for byte and
+             K13 exactly, and on edge cases, twice each.
    3c (TQL kernels) — K9-K12 against their plain versions at the TQL main
              path's shapes (17.28 M rows in two chunks, S_pad 4096, W_pad
              1024, k = 8 and 64, NaN values, NULLs, invalid rows) and on
@@ -55,8 +79,8 @@ Phases, each printing one JSON line:
              CPU backend (plain versions), held against the card.
 7. the kernels line, then the last line {"ok": true, "device": {...}}.
 
-The launch counts are set to 0 just before phases 4, 5 and 6's tile and
-legacy runs and read just after each.  It imports neither jax nor the reference package
+The launch counts are set to 0 just before phases 4, 5, 5b and 6's tile
+and legacy runs and read just after each.  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
 device is present or when it runs outside a checkout of the repository.
 """
@@ -90,10 +114,12 @@ H3600 = 3600_000
 class Tsbs:
     """Windows, hosts and the 15 queries of the TSBS cpu-only family."""
 
-    def __init__(self, n_hosts: int, hours: int, n_metrics: int = len(METRICS)):
+    def __init__(self, n_hosts: int, hours: int, n_metrics: int = len(METRICS),
+                 end: int | None = None):
         self.n_hosts, self.hours = n_hosts, hours
         self.metrics = METRICS[:n_metrics]
-        self.end = T0 + hours * H3600
+        # the queries' windows end here (the end of the load by default)
+        self.end = T0 + hours * H3600 if end is None else end
         self.w12 = (self.end - 12 * H3600, self.end)
         self.w8 = (self.end - 8 * H3600, self.end)
         self.w1 = (self.end - H3600, self.end)
@@ -186,22 +212,39 @@ EXPECTED_PATH = {
 # one super-tile of 17.28 M rows in (hostname, ts) order, two chunks of
 # at most 2^24 rows.  Host-major hourly groups pass the blocked guard
 # (K6 for avg, limb planes quantized by K5 in each double-groupby's cold
-# run; K2 for max); minute buckets fail it (K3 after K2); ORDER BY + LIMIT
-# and lastpoint's compaction run K7; K8 packs every result.
+# run; K2 for max).  The nine bucket-only queries take time-major plans:
+# their planes are ts-ascending copies, whose 4096-row blocks span one or
+# two buckets, so K2's guard passes (the first one's cold run sorts the
+# permutation, K14, and gathers the copies, K15; warm runs launch
+# neither).  ORDER BY + LIMIT and lastpoint's compaction run K7; K8 packs
+# every result.
 _QUANT, _LIMB, _TOPK, _PACK = TILE_KERNELS
+_HAVING, _ARGSORT, _GATHER, _PATCH = PLANE_KERNELS = (
+    "having_mask", "ts_argsort", "gather_planes", "delta_patch")
+# the main-path phases each of K13-K16 must launch in: the cold time-major
+# runs of phase 5 (K14, K15 gathers); the live phase's delta route (K15
+# remap, K16), its rebuilt permutation and copies, and its HAVING (K13)
+PLANE_PHASES = {
+    _HAVING: ("live",), _ARGSORT: ("tile", "live"), _GATHER: ("tile", "live"), _PATCH: ("live",),
+}
+TIME_MAJOR = (
+    "cpu-max-all-1", "cpu-max-all-8", "single-groupby-1-1-1", "single-groupby-1-1-12",
+    "single-groupby-1-8-1", "single-groupby-5-1-1", "single-groupby-5-1-12",
+    "single-groupby-5-8-1", "groupby-orderby-limit",
+)
 EXPECTED_TILE_PATH = {
     "double-groupby-1": {_QUANT, _LIMB, _PACK},
     "double-groupby-5": {_QUANT, _LIMB, _PACK},
     "double-groupby-all": {_QUANT, _LIMB, _PACK},
     "cpu-max-all-1": {_BLOCKED, _PACK},
     "cpu-max-all-8": {_BLOCKED, _PACK},
-    "single-groupby-1-1-1": {_BLOCKED, _SCATTER, _PACK},
-    "single-groupby-1-1-12": {_BLOCKED, _SCATTER, _PACK},
-    "single-groupby-1-8-1": {_BLOCKED, _SCATTER, _PACK},
-    "single-groupby-5-1-1": {_BLOCKED, _SCATTER, _PACK},
-    "single-groupby-5-1-12": {_BLOCKED, _SCATTER, _PACK},
-    "single-groupby-5-8-1": {_BLOCKED, _SCATTER, _PACK},
-    "groupby-orderby-limit": {_BLOCKED, _SCATTER, _TOPK, _PACK},
+    "single-groupby-1-1-1": {_BLOCKED, _PACK},
+    "single-groupby-1-1-12": {_BLOCKED, _PACK},
+    "single-groupby-1-8-1": {_BLOCKED, _PACK},
+    "single-groupby-5-1-1": {_BLOCKED, _PACK},
+    "single-groupby-5-1-12": {_BLOCKED, _PACK},
+    "single-groupby-5-8-1": {_BLOCKED, _PACK},
+    "groupby-orderby-limit": {_BLOCKED, _TOPK, _PACK},
     "lastpoint": {_BLOCKED, _LAST, _TOPK, _PACK},
     "high-cpu-all": {_BLOCKED, _PACK},
     "high-cpu-1": {_BLOCKED, _PACK},
@@ -217,9 +260,11 @@ def emit(obj: dict) -> None:
 def kernel_table():
     """name -> (wrapper with .launches, source, reference kernel it replaces).
     K1-K4 serve the table-fed path and the tile path, K5-K8 the tile path,
-    K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route)."""
+    K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route),
+    K13-K16 the tile path's HAVING and plane maintenance."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops import permute as perm
     from greptimedb_tpu_torch.ops import rate
 
     src = "greptimedb_tpu_torch/csrc/"
@@ -248,6 +293,14 @@ def kernel_table():
                            "greptimedb_tpu/ops/rate.py:263"),
         "series_fold": (rate.series_fold, src + "series_fold.cu",
                         "greptimedb_tpu/query/promql/tile_exec.py:180"),
+        "having_mask": (agg.having_mask, src + "having_mask.cu",
+                        "greptimedb_tpu/ops/aggregate.py:1076"),
+        "ts_argsort": (perm.ts_argsort, src + "ts_argsort.cu",
+                       "greptimedb_tpu/parallel/tile_cache.py:2680"),
+        "gather_planes": (perm.gather_planes, src + "gather_planes.cu",
+                          "greptimedb_tpu/parallel/tile_cache.py:2161"),
+        "delta_patch": (perm.delta_patch, src + "delta_patch.cu",
+                        "greptimedb_tpu/parallel/tile_cache.py:292"),
     }
 
 
@@ -856,6 +909,282 @@ def run_tile_edge_cases(dev) -> None:
             _compare_bytes(a, b, "edge pack_result")
 
 
+# ---- phase 3d: the plane kernels K13-K16 against their plain versions ----------
+
+# the live phase's append: 30 more minutes at the 10 s scrape, for the 4000
+# hosts and 96 new ones (host_4000 .. host_4095)
+LIVE_MINUTES = 30
+LIVE_NEW_HOSTS = 96
+
+
+def _chunked(t, chunk_rows: int) -> list:
+    return [t[o:o + chunk_rows].contiguous() for o in range(0, t.shape[0], chunk_rows)]
+
+
+def _same_chunks(a, b, what: str) -> None:
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} chunks != {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        _compare_bytes(x, y, f"{what} chunk {i}")
+
+
+def _twice_identical_chunks(fn, what: str):
+    import torch
+
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    _same_chunks(a, b, what + " (two runs)")
+    return a
+
+
+def growth_perm(n_old: int, n_new: int):
+    """The dictionary permutation old code -> new code when hosts
+    host_<n_old> .. host_<n_new - 1> join host_0 .. host_<n_old - 1>
+    (codes are the ranks of the sorted names)."""
+    new = sorted(f"host_{i}" for i in range(n_new))
+    rank = {h: i for i, h in enumerate(new)}
+    old = sorted(f"host_{i}" for i in range(n_old))
+    return np.array([rank[h] for h in old], np.int32)
+
+
+def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
+    """Phase 3d: K13-K16 against their plain versions on the card, at the
+    main path's shapes (the super-tile of --hosts x --hours in (hostname,
+    ts) order, padded and cut into 2^24-row chunks; the live phase's
+    delta; G = 4096 x 16 HAVING states), then on edge cases; every kernel
+    twice with identical bytes.  K13 exact, K14-K16 byte for byte."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import permute as P
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+    from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
+
+    dev = torch.device("cuda", 0)
+    n, codes, ts, valid, vals = tsbs_planes(n_hosts, hours, 1, dev)
+    npad = pad_rows(n)
+    ts_c = _chunked(_padded(ts, npad, 0), TILE_CHUNK_ROWS)
+    valid_c = _chunked(_padded(valid, npad, False), TILE_CHUNK_ROWS)
+    codes_c = _chunked(_padded(codes, npad, 0), TILE_CHUNK_ROWS)
+    f64_c = _chunked(_padded(vals[0], npad, 0.0), TILE_CHUNK_ROWS)
+    del ts, valid, codes, vals
+    out: dict[str, dict] = {}
+
+    # K14 over the entry's ts: every scrape's 4000 hosts tie
+    perm = _twice_identical(lambda: P.ts_argsort(ts_c, valid_c), "ts_argsort")
+    _compare_bytes(perm, P.ts_argsort_plain(ts_c, valid_c), "ts_argsort")
+    key = torch.where(torch.cat(valid_c), torch.cat(ts_c), P.INT64_MAX)
+    # ts (8 B) and valid (1 B) read, the int32 perm written, once a row
+    k14b, k14by = bound(npad * (8 + 1 + 4), npad)
+    out["ts_argsort"] = dict(
+        max_abs_err=0.0, rows=npad,
+        ms=_timed(lambda: P.ts_argsort(ts_c, valid_c), reps),
+        plain_ms=_timed(lambda: P.ts_argsort_plain(ts_c, valid_c), 1),
+        bound_ms=k14b, bound_by=k14by,
+        library_ms=_timed(lambda: torch.argsort(key, stable=True), reps),
+    )
+    del key
+
+    # K15 gather: an f64, an int32 and a bool plane by that perm
+    for name, planes in (("f64", f64_c), ("int32", codes_c), ("bool", valid_c)):
+        k = _twice_identical_chunks(lambda: P.gather_planes(planes, perm), f"gather {name}")
+        _same_chunks(k, P.gather_planes_plain(planes, perm), f"gather_planes {name}")
+    flat = torch.cat(f64_c)
+    perm64 = perm.to(torch.int64)
+    # per f64 plane: the index (4 B) and the value (8 B) read, 8 B written
+    k15b, k15by = bound(npad * (4 + 8 + 8), 0)
+    # K15 remap: the 4000-code plane through the growth permutation
+    table = torch.from_numpy(growth_perm(n_hosts, n_hosts + LIVE_NEW_HOSTS)).to(dev)
+    k = _twice_identical_chunks(lambda: P.gather_planes(codes_c, table, remap=True), "remap")
+    _same_chunks(k, P.gather_planes_plain(codes_c, table, remap=True), "gather_planes remap")
+    flat_codes = torch.cat(codes_c).to(torch.int64)
+    k15rb, k15rby = bound(npad * (4 + 4) + table.numel() * 4, 0)
+    out["gather_planes"] = dict(
+        max_abs_err=0.0,
+        ms=_timed(lambda: P.gather_planes(f64_c, perm), reps),
+        plain_ms=_timed(lambda: P.gather_planes_plain(f64_c, perm), 1),
+        bound_ms=k15b, bound_by=k15by,
+        library_ms=_timed(lambda: torch.index_select(flat, 0, perm64), reps),
+        remap=dict(
+            ms=_timed(lambda: P.gather_planes(codes_c, table, remap=True), reps),
+            plain_ms=_timed(lambda: P.gather_planes_plain(codes_c, table, remap=True), 1),
+            bound_ms=k15rb, bound_by=k15rby,
+            library_ms=_timed(lambda: torch.take(table, flat_codes), reps),
+        ),
+    )
+    del flat, perm64, flat_codes, perm
+
+    # K16: the live phase's delta merged into the entry, at the front, the
+    # back and interleaved, and an empty delta
+    n_delta = LIVE_MINUTES * 6 * (n_hosts + LIVE_NEW_HOSTS)
+    new_pad = pad_rows(n + n_delta)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    dv = torch.rand(n_delta, generator=g, dtype=torch.float64, device=dev)
+    db_ = torch.rand(n_delta, generator=g, device=dev) < 0.5
+    di = torch.randint(0, 1 << 30, (n_delta,), generator=g, dtype=torch.int32, device=dev)
+    spread = torch.sort(torch.randint(0, n + 1, (n_delta,), generator=g, device=dev)).values
+    positions = {
+        "front": torch.zeros(n_delta, dtype=torch.int32, device=dev),
+        "back": torch.full((n_delta,), n, dtype=torch.int32, device=dev),
+        "interleaved": spread.to(torch.int32),
+    }
+    for where, pos in positions.items():
+        for name, planes, d in (("f64", f64_c, dv), ("int32", codes_c, di), ("bool", valid_c, db_)):
+            args = (planes, n, d, pos, new_pad, TILE_CHUNK_ROWS)
+            k = _twice_identical_chunks(lambda: P.delta_patch(*args), f"patch {where} {name}")
+            _same_chunks(k, P.delta_patch_plain(*args), f"delta_patch {where} {name}")
+    empty = (f64_c, n, dv[:0], positions["front"][:0], npad, TILE_CHUNK_ROWS)
+    _same_chunks(P.delta_patch(*empty), P.delta_patch_plain(*empty), "delta_patch empty")
+    patch = (f64_c, n, dv, positions["interleaved"], new_pad, TILE_CHUNK_ROWS)
+    # per f64 plane: old rows read, the delta and its positions read, the
+    # new plane written
+    k16b, k16by = bound(n * 8 + n_delta * (8 + 4) + new_pad * 8, 0)
+    out["delta_patch"] = dict(
+        max_abs_err=0.0, rows=new_pad, delta_rows=n_delta,
+        ms=_timed(lambda: P.delta_patch(*patch), reps),
+        plain_ms=_timed(lambda: P.delta_patch_plain(*patch), 1),
+        bound_ms=k16b, bound_by=k16by, library_ms=None,
+    )
+    del patch, positions, spread, dv, db_, di, f64_c, codes_c, valid_c, ts_c
+
+    # K13 at G = 4096 x 16 with every op, NULL and NaN
+    G = 4096 * 16
+    tree, refs, lits, presence = having_case(G, dev, SEED)
+    k = _twice_identical(lambda: agg.having_mask(tree, refs, lits, presence), "having_mask")
+    _compare(k, agg.having_mask_plain(tree, refs, lits, presence), True, "having_mask")
+    planes = {id(t): t for r in refs.values() for t in (r.values, r.counts) if t is not None}
+    k13b, k13by = bound(sum(t.numel() * t.element_size() for t in planes.values())
+                        + presence.numel() * 4 + G, G * 12)
+    out["having_mask"] = dict(
+        max_abs_err=0.0, groups=G,
+        ms=_timed(lambda: agg.having_mask(tree, refs, lits, presence), reps),
+        plain_ms=_timed(lambda: agg.having_mask_plain(tree, refs, lits, presence), reps),
+        bound_ms=k13b, bound_by=k13by, library_ms=None,
+    )
+    torch.cuda.empty_cache()
+    run_plane_edge_cases(dev)
+    return out
+
+
+def having_case(G: int, dev, seed: int):
+    """A HAVING tree using every op over max / avg / count / dim refs of G
+    groups, with empty groups (presence 0), NULL counts, NaN outputs and
+    ties at the literals; returns (tree, refs, literals, presence)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.aggregate import HavingRef
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    presence = rng.integers(0, 4, G).astype(np.int32)
+    cnt = np.where(rng.random(G) < 0.2, 0, presence).astype(np.int32)
+    mx = np.round(rng.uniform(90, 100, G), 1)
+    av = rng.uniform(0, 100, G)
+    av[rng.random(G) < 0.05] = np.nan
+    edge = [99.5, np.nan, 99.0, -0.0, np.inf, -np.inf, 99.5, 0.0]
+    mx[: min(G, 8)] = edge[: min(G, 8)]
+    refs = {
+        ("agg", "u", "max"): HavingRef(values=t(mx), counts=t(cnt), nan_null=True),
+        ("agg", "s", "avg"): HavingRef(values=t(av), nan_null=True),
+        ("agg", "__count_star", "count"): HavingRef(values=t(presence)),
+        ("dim", 0): HavingRef(div=16, card=4096),
+        ("dim", 1): HavingRef(div=1, card=16),
+    }
+    mu, asys, n = ("agg", "u", "max"), ("agg", "s", "avg"), ("agg", "__count_star", "count")
+    tree = ("or",
+            ("and", ("cmp", ">", mu, 0), ("not", ("cmp", ">=", asys, 1))),
+            ("or",
+             ("and", ("cmp", "<", n, 2), ("isnull", asys, False)),
+             ("and", ("cmpref", "<=", asys, mu),
+              ("and", ("isnull", mu, True),
+               ("or", ("cmp", "=", ("dim", 1), 3),
+                ("and", ("cmp", "!=", ("dim", 0), 5), ("cmp", "=", mu, 4)))))))
+    lits = t(np.array([99.5, 60.0, 2.0, 3.0, np.nan, 5.0]))
+    return tree, refs, lits, t(presence)
+
+
+def run_plane_edge_cases(dev) -> None:
+    """K13-K16 on the inputs that make them hard, against their plain
+    versions, twice each: keys with ties, negatives, INT64_MIN/MAX and
+    interleaved invalid rows over two uneven chunks (up to 8 radix
+    passes), no valid row; element sizes 1/4/8 gathered over small
+    chunks; codes in [-n-2, n+2) remapped; deltas at the edges of chunks
+    and of the old rows; a HAVING tree of one node of each kind."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import permute as P
+
+    rng = np.random.default_rng(29)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    imax, imin = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    cases = {
+        "ties": rng.integers(-5, 5, 3 * 4096),
+        "wide": rng.integers(imin, imax, 3 * 4096, dtype=np.int64),
+        "edges": np.array([imax, imin, 0, -1, imax, imin + 1, imax - 1] * 1755 + [7] * 3),
+        "one": np.array([42] * 4096),
+    }
+    for name, ts_np in cases.items():
+        ts_np = ts_np.astype(np.int64)
+        for p_valid in (1.0, 0.7, 0.0):
+            v_np = rng.random(ts_np.size) < p_valid
+            for chunk in (4096, 8192, 1 << 24):
+                ts_c, v_c = _chunked(t(ts_np), chunk), _chunked(t(v_np), chunk)
+                k = _twice_identical(lambda: P.ts_argsort(ts_c, v_c), f"edge argsort {name}")
+                _compare_bytes(k, P.ts_argsort_plain(ts_c, v_c),
+                               f"edge ts_argsort {name} valid={p_valid} chunk={chunk}")
+    n = 3 * 4096 + 1000
+    perm = t(rng.permutation(n).astype(np.int32))
+    for dtype in (np.float64, np.int32, np.int64, np.bool_, np.uint8):
+        x = t(rng.integers(0, 200, n).astype(dtype))
+        for chunk in (4096, 1 << 24):
+            xc = _chunked(x, chunk)
+            k = _twice_identical_chunks(lambda: P.gather_planes(xc, perm), "edge gather")
+            _same_chunks(k, P.gather_planes_plain(xc, perm), f"edge gather {dtype.__name__}")
+    m = 4000
+    table = t(rng.permutation(m + 96)[:m].astype(np.int32))
+    codes = t(rng.integers(-m - 2, m + 2, n).astype(np.int32))
+    for chunk in (4096, 1 << 24):
+        cc = _chunked(codes, chunk)
+        k = _twice_identical_chunks(lambda: P.gather_planes(cc, table, remap=True), "edge remap")
+        _same_chunks(k, P.gather_planes_plain(cc, table, remap=True), "edge remap")
+    empty_table = t(np.zeros(0, np.int32))
+    _same_chunks(P.gather_planes(_chunked(codes, 4096), empty_table, remap=True),
+                 P.gather_planes_plain(_chunked(codes, 4096), empty_table, remap=True),
+                 "edge remap empty table")
+    for old_n in (1, 4096, 8191, 3 * 4096 + 5):
+        old = t(rng.uniform(-1, 1, old_n + 7))
+        for n_delta in (0, 1, 4095, 5000):
+            d = t(rng.uniform(-1, 1, n_delta))
+            for kind in ("random", "front", "back", "boundary"):
+                if kind == "random":
+                    p = np.sort(rng.integers(0, old_n + 1, n_delta))
+                elif kind == "front":
+                    p = np.zeros(n_delta, np.int64)
+                elif kind == "back":
+                    p = np.full(n_delta, old_n, np.int64)
+                else:
+                    p = np.sort(rng.choice([0, 1, 4095, 4096, old_n], n_delta)).clip(0, old_n)
+                pos = t(p.astype(np.int32))
+                new_pad = -(-(old_n + n_delta) // 4096) * 4096 + 4096
+                for chunk in (4096, 1 << 24):
+                    args = (_chunked(old, chunk), old_n, d, pos, new_pad, chunk)
+                    k = _twice_identical_chunks(lambda: P.delta_patch(*args), "edge patch")
+                    _same_chunks(k, P.delta_patch_plain(*args),
+                                 f"edge delta_patch old={old_n} delta={n_delta} {kind}")
+    for G in (1, 255, 257, 5000):
+        tree, refs, lits, presence = having_case(G, dev, G)
+        subtrees = [tree, tree[1], tree[2], tree[1][2], tree[2][1][2],
+                    ("and", ("isnull", ("agg", "s", "avg"), False),
+                     ("isnull", ("agg", "s", "avg"), False))]
+        for sub in subtrees:
+            k = _twice_identical(lambda: agg.having_mask(sub, refs, lits, presence), "edge having")
+            _compare(k, agg.having_mask_plain(sub, refs, lits, presence), True,
+                     f"edge having_mask G={G}")
+    emit({"phase": "plane_edge_cases", "ok": True})
+
+
 # ---- phase 4: the slice ------------------------------------------------------------
 
 def _sorted_rows(table, keys):
@@ -867,17 +1196,17 @@ def _sorted_rows(table, keys):
     return table
 
 
-def compare_tables(dev_t, cpu_t, query: str, tol: float = 1e-12) -> float:
+def compare_tables(dev_t, cpu_t, query: str, tol: float = 1e-12, inexact=()) -> float:
     """Device result vs CPU-backend result: same columns and rows; exact
     except sum/avg columns, within relative `tol` (1e-12 on the f64 paths,
     where only the addition order differs; 1e-7 on the limb path, the
-    bound its verdict enforces).  Returns the max relative error of the
-    inexact columns."""
+    bound its verdict enforces); `inexact` names further sum/avg columns
+    by alias.  Returns the max relative error of the inexact columns."""
     if dev_t.column_names != cpu_t.column_names:
         raise AssertionError(f"{query}: columns {dev_t.column_names} != {cpu_t.column_names}")
     if dev_t.num_rows != cpu_t.num_rows:
         raise AssertionError(f"{query}: {dev_t.num_rows} rows != {cpu_t.num_rows}")
-    inexact = [c for c in dev_t.column_names if c.startswith(("avg", "sum"))]
+    inexact = [c for c in dev_t.column_names if c.startswith(("avg", "sum")) or c in inexact]
     keys = [c for c in dev_t.column_names if c in ("hostname", "tb", "minute")]
     if "ORDER BY" not in query:
         dev_t, cpu_t = _sorted_rows(dev_t, keys), _sorted_rows(cpu_t, keys)
@@ -964,10 +1293,10 @@ def check_ground_truth(table, gt: dict, tsbs: Tsbs, tol: float = 1e-12) -> None:
 
 def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
               tile_reps: int | None = None) -> dict:
-    """Phases 4 and 5 on `device` ("cuda" on the card; "cpu" to rehearse
-    the control flow with the plain versions): ingest, the table-fed path
-    (tile cache off), then the tile path on the same region.  Returns the
-    slice record."""
+    """Phases 4, 5 and 5b on `device` ("cuda" on the card; "cpu" to
+    rehearse the control flow with the plain versions): ingest, the
+    table-fed path (tile cache off), the tile path on the same region,
+    then the live append on it.  Returns the slice record."""
     from greptimedb_tpu_torch import Database
 
     tsbs = Tsbs(n_hosts, hours)
@@ -1043,31 +1372,35 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
         raise AssertionError(f"{db.query_engine.stats['declined']} queries declined by try_lower")
     tile = run_tile_phase(db, tsbs, reps if tile_reps is None else tile_reps, cpu_results, gt,
                           is_cuda, full_size)
+    live = run_live_phase(db, tsbs, is_cuda, full_size)
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
-            "launches": totals, "tile": tile}
+            "launches": totals, "tile": tile, "live": live}
 
 
 def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cuda: bool,
                    full_size: bool) -> dict:
     """Phase 5: the tile path (super-tiles resident on the device) on the
-    region phase 4 ingested: per query one cold run (plane build, upload
-    and K5 quantize included, split out) and `reps` warm runs (p50 per
-    stage: plan, dispatch through the last sync, readback, decode).  Every
-    run must be answered by the tile path; each result is held against the
-    CPU backend's (phase 4) — keys, counts, min, max, last exactly, sum and
-    avg within rel 1e-7, the limb verdict's bound."""
+    region phase 4 ingested: per query one cold run (plane build, upload,
+    time-major permutation and copies, K5 quantize included, split out)
+    and `reps` warm runs (p50 per stage: plan, dispatch through the last
+    sync, readback, decode).  Every run must be answered by the tile path;
+    each result is held against the CPU backend's (phase 4) — keys, counts,
+    min, max, last exactly, sum and avg within rel 1e-7, the limb
+    verdict's bound."""
     eng = db.query_engine
     db.config.query.tile_cache_enable = True
     if is_cuda:
         import torch
     per_query = {}
+    first_tm = next(name for name, _sql in tsbs.queries() if name in TIME_MAJOR)
     reset_counts()  # the tile path's run starts here
     for name, sql in tsbs.queries():
         before = launch_counts()
         d0, x0 = eng.stats["tile_dispatches"], eng.stats["tile_declined"]
         times, stages = [], []
         result = None
+        cold = None
         for _ in range(1 + reps):
             t1 = time.perf_counter()
             result = db.sql_one(sql)
@@ -1077,7 +1410,12 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
             if eng.last_path != "tile":
                 raise AssertionError(f"{name}: answered by the {eng.last_path!r} path, not the tile path")
             stages.append(dict(eng.last_timings))
-        delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if cold is None:
+                cold = launch_counts()
+        after = launch_counts()
+        delta = {k: v - before[k] for k, v in after.items()}
+        warm_delta = {k: v - cold[k] for k, v in after.items()}
+        cold_delta = {k: cold[k] - before[k] for k in after}
         if eng.stats["tile_dispatches"] - d0 != 1 + reps or eng.stats["tile_declined"] != x0:
             raise AssertionError(f"{name}: tile_dispatches +{eng.stats['tile_dispatches'] - d0}, "
                                  f"tile_declined +{eng.stats['tile_declined'] - x0}")
@@ -1086,6 +1424,18 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
             need = {"mask_gids"} | (EXPECTED_TILE_PATH[name] if full_size else {_PACK})
             if not need <= ran:
                 raise AssertionError(f"{name}: tile path launched {sorted(ran)}, needs {sorted(need)}")
+            if name in TIME_MAJOR:
+                if reps and (warm_delta[_ARGSORT] or warm_delta[_GATHER]):
+                    raise AssertionError(f"{name}: a warm time-major run sorted or gathered planes")
+                if name == first_tm and not (cold_delta[_ARGSORT] and cold_delta[_GATHER]):
+                    raise AssertionError(f"{name}: the first time-major run built no permutation "
+                                         "or copies")
+                if full_size and delta[_SCATTER]:
+                    # K2's guard failed on the time-major copies (a block
+                    # spans more than 16 ids, or a masked id lies outside
+                    # the block's window) and K3 reran the reduction
+                    emit({"phase": "guard_fail", "name": name, "k3_launches": delta[_SCATTER],
+                          "why": "K2's guard failed over the time-major copies; K3 reran"})
         rel = compare_tables(result, cpu_results[name], name + " " + sql, tol=1e-7)
         if name == "double-groupby-1":
             check_ground_truth(result, gt, tsbs, tol=1e-7)
@@ -1093,6 +1443,7 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
         keys = sorted({k for st in warm for k in st})
         per_query[name] = {
             "rows_out": result.num_rows,
+            "time_major": name in TIME_MAJOR,
             "cold_ms": times[0],
             "cold_stage_ms": stages[0],
             "warm_p50_ms": float(np.median(times[1:] if reps else times)),
@@ -1102,30 +1453,247 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
         }
         emit({"phase": "tile_query", "name": name, **per_query[name]})
     totals = launch_counts()  # the main path's launches end here
-    run_tile_edge_queries(db, tsbs, is_cuda)
-    return {"queries": per_query, "launches": totals,
+    edge = run_tile_edge_queries(db, tsbs, is_cuda)
+    return {"queries": per_query, "launches": totals, "edge_launches": edge,
             "cache": eng.tile_cache.stats(), "limb_reruns": eng.tile_executor().limb_reruns}
 
 
-def run_tile_edge_queries(db, tsbs: Tsbs, is_cuda: bool) -> None:
-    """Queries off the TSBS family whose plans meet a kernel's limits: more
-    ORDER BY keys than K7 takes (the Sort replays on the host) must still
-    answer on the tile path and equal the CPU backend."""
+def _tile_against_cpu(db, sql: str, what: str, tol: float = 1e-7, inexact=()):
+    """One query on the tile path and on the CPU backend; returns (tile
+    table, its stage ms, max rel err)."""
     eng = db.query_engine
+    got = db.sql_one(sql)
+    if db.device.startswith("cuda"):
+        import torch
+
+        torch.cuda.synchronize()
+    if eng.last_path != "tile":
+        raise AssertionError(f"{what}: answered by the {eng.last_path!r} path")
+    stages = dict(eng.last_timings)
+    db.config.query.backend = "cpu"
+    try:
+        want = db.sql_one(sql)
+    finally:
+        db.config.query.backend = "torch"
+    return got, stages, compare_tables(got, want, what + " " + sql, tol=tol, inexact=inexact)
+
+
+def run_tile_edge_queries(db, tsbs: Tsbs, is_cuda: bool) -> dict:
+    """Queries off the TSBS family whose plans meet a kernel's limits or
+    route: more ORDER BY keys than K7 takes (the Sort replays on the
+    host); a bucket-only avg and sum (limb planes quantized over the
+    time-major copies, K5/K6); and a minute-bucket query with the
+    time_major pass off, whose (hostname, ts) layout fails K2's guard so
+    that K3 takes the tile route.  Each answers on the tile path and equals
+    the CPU backend.  Returns the launches of these runs."""
     lo, hi = tsbs.w12
+    reset_counts()
     for keys in (("a", "b", "c", "hostname"), ("a", "b", "c", "hostname", "tb")):
         sql = (f"SELECT hostname, time_bucket('1h', ts) AS tb, max(usage_user) AS a, "
                f"min(usage_system) AS b, max(usage_idle) AS c FROM cpu "
                f"WHERE ts >= {lo} AND ts < {hi} GROUP BY hostname, tb "
                f"ORDER BY {', '.join(keys)} LIMIT 5")
-        got = db.sql_one(sql)
-        if eng.last_path != "tile":
-            raise AssertionError(f"edge query: answered by the {eng.last_path!r} path")
-        db.config.query.backend = "cpu"
-        want = db.sql_one(sql)
-        db.config.query.backend = "torch"
-        compare_tables(got, want, sql, tol=1e-7)
+        got, _st, _rel = _tile_against_cpu(db, sql, "edge query")
         emit({"phase": "tile_edge_query", "order_keys": len(keys), "rows_out": got.num_rows})
+    sql = (f"SELECT time_bucket('1h', ts) AS tb, avg(usage_user) AS avg_usage_user, "
+           f"sum(usage_system) AS sum_usage_system FROM cpu WHERE ts >= {lo} AND ts < {hi} "
+           f"GROUP BY tb")
+    before = launch_counts()
+    got, st, rel = _tile_against_cpu(db, sql, "time-major limbs")
+    ran = {k for k, v in launch_counts().items() if v > before[k]}
+    if is_cuda and not {_LIMB} <= ran:
+        raise AssertionError(f"time-major avg: launched {sorted(ran)}, needs K6")
+    emit({"phase": "tile_edge_query", "what": "time-major limbs", "rows_out": got.num_rows,
+          "max_rel_err": rel, "launched": sorted(ran), "stage_ms": st})
+    saved = db.config.query.disabled_passes
+    db.config.query.disabled_passes = tuple(saved) + ("time_major",)
+    try:
+        sql = dict(tsbs.queries())["single-groupby-1-1-12"].replace(
+            f" AND hostname = '{tsbs.host1}'", "")
+        before = launch_counts()
+        got, st, rel = _tile_against_cpu(db, sql, "time_major off")
+        ran = {k for k, v in launch_counts().items() if v > before[k]}
+    finally:
+        db.config.query.disabled_passes = saved
+    if is_cuda and not {_BLOCKED, _SCATTER} <= ran:
+        raise AssertionError(f"time_major off: launched {sorted(ran)}, needs K2 then K3")
+    emit({"phase": "tile_edge_query", "what": "time_major off (K2 guard fails, K3)",
+          "rows_out": got.num_rows, "launched": sorted(ran), "stage_ms": st})
+    return launch_counts()
+
+
+# ---- phase 5b: live ingest on the resident region --------------------------------------
+
+def live_append(db, tsbs: Tsbs, new_hosts: int) -> int:
+    """LIVE_MINUTES more minutes at the 10 s scrape after the load's end,
+    for the load's hosts and `new_hosts` new ones (host_<n> ..), through
+    Database.write with the WAL on, then flush.  Returns the rows."""
+    import pyarrow as pa
+
+    hosts = np.array([f"host_{i}" for i in range(tsbs.n_hosts + new_hosts)])
+    ticks = LIVE_MINUTES * 60 // SCRAPE_S
+    rng = np.random.default_rng(SEED + 1)
+    ts = tsbs.end + np.arange(ticks, dtype=np.int64)[:, None] * (SCRAPE_S * 1000)
+    ts = np.broadcast_to(ts, (ticks, hosts.size)).reshape(-1)
+    n = ts.size
+    db.write("cpu", pa.table({
+        "hostname": pa.array(np.broadcast_to(hosts[None, :], (ticks, hosts.size)).reshape(-1)),
+        "ts": pa.array(ts, pa.timestamp("ms")),
+        **{m: pa.array(rng.uniform(0.0, 100.0, n), pa.float64()) for m in tsbs.metrics},
+    }))
+    db.flush()
+    return n
+
+
+def having_queries(tsbs: Tsbs) -> list[tuple[str, str]]:
+    lo, hi = tsbs.w12
+    base = (f"SELECT hostname, time_bucket('1h', ts) AS tb, max(usage_user) AS mu, "
+            f"avg(usage_system) AS asys FROM cpu WHERE ts >= {lo} AND ts < {hi} "
+            f"GROUP BY hostname, tb ")
+    return [
+        ("having-and-not", base + "HAVING max(usage_user) > 99.5 AND NOT (avg(usage_system) >= 60)"),
+        ("having-or-orderby-limit",
+         base + "HAVING max(usage_user) > 99 OR count(*) < 300 ORDER BY mu DESC LIMIT 10"),
+    ]
+
+
+def _same_planes(a, b, what: str) -> None:
+    if (a is None) != (b is None):
+        raise AssertionError(f"{what}: present in one entry only")
+    if a is not None:
+        _same_chunks(a, b, what)
+
+
+def check_against_rebuild(db, table_key: str, tag_cols: list, ts_col: str,
+                          is_cuda: bool) -> dict:
+    """The (delta-extended) entry of a one-region table against a
+    from-scratch rebuild of the same file set on the same device (a fresh
+    cache: Parquet decode, encode, lexsort, upload): every resident
+    column, its present mask, `valid`, `order` and the sorted host copies,
+    byte for byte.  Returns the rebuild's ms."""
+    from greptimedb_tpu_torch.parallel.tile_planes import TileCacheManager
+
+    cache = db.query_engine.tile_cache
+    (rid, entry), = list(cache._super.items())
+    region = db.storage.region(rid)
+    dictionary = db.dicts.get(table_key)
+    fresh = TileCacheManager(8 << 30, chunk_rows=cache.chunk_rows, device=cache.device,
+                             config=cache.config, tile_config=cache.tile_config)
+    value_cols = sorted(c for c in entry.cols if c not in tag_cols and c != ts_col)
+    t0 = time.perf_counter()
+    rebuilt, excluded = fresh.super_tiles(region, dictionary, region.files(), list(tag_cols),
+                                          ts_col, value_cols, {rid}, list(tag_cols))
+    if is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    if rebuilt is None or excluded or rebuilt.file_ids != entry.file_ids:
+        raise AssertionError("the rebuild did not cover the extended entry's files")
+    if rebuilt.num_rows != entry.num_rows or rebuilt.pad != entry.pad:
+        raise AssertionError(f"rows {entry.num_rows}/{entry.pad} vs rebuilt "
+                             f"{rebuilt.num_rows}/{rebuilt.pad}")
+    if set(rebuilt.cols) != set(entry.cols) or set(rebuilt.nulls) != set(entry.nulls):
+        raise AssertionError("the rebuild holds other planes")
+    for name in entry.cols:
+        _same_planes(entry.cols[name], rebuilt.cols[name], f"rebuild {name}")
+    for name in entry.nulls:
+        _same_planes(entry.nulls[name], rebuilt.nulls[name], f"rebuild nulls {name}")
+    _same_planes(entry.valid, rebuilt.valid, "rebuild valid")
+    if not np.array_equal(entry.order, rebuilt.order):
+        raise AssertionError("rebuild: order differs")
+    for name, arr in entry.sorted_host.items():
+        if not np.array_equal(arr, rebuilt.sorted_host[name]):
+            raise AssertionError(f"rebuild: sorted host {name} differs")
+    del fresh, rebuilt
+    return {"rebuild_ms": rebuild_ms, "planes": sorted(entry.cols), "entry_rows": entry.num_rows}
+
+
+def run_live_phase(db, tsbs: Tsbs, is_cuda: bool, full_size: bool,
+                   new_hosts: int = LIVE_NEW_HOSTS) -> dict:
+    """Phase 5b, on phase 5's resident region: LIVE_MINUTES more minutes
+    for the hosts and `new_hosts` new ones, written and flushed; the next
+    tile query must extend the entry in place (delta_extends +1, builds
+    +0; K15 remaps the moved host codes, K16 patches every plane).  Then
+    the 15 queries with their windows moved to the new end and two HAVING
+    queries (consumed on the card: K13), each once cold and once warm on
+    the tile path against the CPU backend (rel 1e-7 for sum/avg); then
+    the extended entry against a from-scratch rebuild, byte for byte."""
+    from greptimedb_tpu_torch.parallel import tile_planner
+
+    eng = db.query_engine
+    if is_cuda:
+        import torch
+    t0 = time.perf_counter()
+    rows = live_append(db, tsbs, new_hosts)
+    append_s = time.perf_counter() - t0
+    live = Tsbs(tsbs.n_hosts, tsbs.hours, len(tsbs.metrics), end=tsbs.end + LIVE_MINUTES * 60_000)
+    specs = []
+    real_plan = tile_planner.plan_device_finalize
+
+    def spy(*args, **kwargs):
+        specs.append(real_plan(*args, **kwargs))
+        return specs[-1]
+
+    per_query = {}
+    delta = None
+    tile_planner.plan_device_finalize = spy
+    reset_counts()  # the live phase's run starts here
+    try:
+        for i, (name, sql) in enumerate(live.queries() + having_queries(live)):
+            stats0 = eng.tile_cache.stats()
+            before = launch_counts()
+            specs.clear()
+            t1 = time.perf_counter()
+            first = db.sql_one(sql)
+            if is_cuda:
+                torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t1) * 1e3
+            if eng.last_path != "tile":
+                raise AssertionError(f"live {name}: answered by the {eng.last_path!r} path")
+            cold_stages = dict(eng.last_timings)
+            ran = {k for k, v in launch_counts().items() if v > before[k]}
+            if is_cuda and full_size and _SCATTER in ran:
+                emit({"phase": "guard_fail", "name": f"live {name}",
+                      "why": "a blocked guard (K2 or K6) failed over the (hostname, ts) planes, "
+                             "whose blocks now hold the new hosts' short runs; K3 reran"})
+            if i == 0:
+                stats1 = eng.tile_cache.stats()
+                delta = {
+                    "delta_extends": stats1["delta_extends"] - stats0["delta_extends"],
+                    "builds": stats1["builds"] - stats0["builds"],
+                    "delta_host_ms": cold_stages.get("delta_host"),
+                    "delta_device_ms": cold_stages.get("delta_device"),
+                    "query_ms": cold_ms, "launched": sorted(ran),
+                }
+                if delta["delta_extends"] != 1 or delta["builds"] != 0:
+                    raise AssertionError(f"live {name}: not the delta route: {delta}")
+                if is_cuda and not {_GATHER, _PATCH} <= ran:
+                    raise AssertionError(f"live {name}: launched {sorted(ran)}, the delta route "
+                                         "needs K15 (remap) and K16")
+            if name.startswith("having"):
+                if not specs or specs[-1] is None or specs[-1].having is None:
+                    raise AssertionError(f"live {name}: HAVING not consumed on the device")
+                if is_cuda and _HAVING not in ran:
+                    raise AssertionError(f"live {name}: K13 did not launch")
+            got, stages, rel = _tile_against_cpu(db, sql, f"live {name}", inexact=("asys",))
+            if not got.equals(first):
+                raise AssertionError(f"live {name}: the warm run differs from the cold run")
+            if got.num_rows == 0 and not name.startswith("having"):
+                raise AssertionError(f"live {name}: empty result")
+            per_query[name] = {"rows_out": got.num_rows, "cold_ms": cold_ms,
+                               "cold_stage_ms": cold_stages, "warm_stage_ms": stages,
+                               "max_rel_err": rel,
+                               "launched": sorted(ran)}
+            emit({"phase": "live_query", "name": name, **per_query[name]})
+    finally:
+        tile_planner.plan_device_finalize = real_plan
+    totals = launch_counts()  # the live phase's launches end here
+    rebuild = check_against_rebuild(db, "public.cpu", ["hostname"], "ts", is_cuda)
+    out = {"rows": rows, "append_s": append_s, "delta": delta, **rebuild,
+           "seconds": time.perf_counter() - t0, "queries": per_query, "launches": totals}
+    emit({"phase": "live", **{k: v for k, v in out.items() if k != "queries"}})
+    return out
 
 
 # ---- the TQL (PromQL) slice --------------------------------------------------------
@@ -1723,7 +2291,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=12)
     ap.add_argument("--hosts", type=int, default=4000)
-    ap.add_argument("--reps", type=int, default=3, help="warm runs per query, table-fed path")
+    ap.add_argument("--reps", type=int, default=2, help="warm runs per query, table-fed path")
     ap.add_argument("--tile-reps", type=int, default=5, help="warm runs per query, tile path")
     ap.add_argument("--kernel-reps", type=int, default=10, help="timed launches per kernel")
     ap.add_argument("--tql-reps", type=int, default=5, help="warm runs per TQL query, tile path")
@@ -1759,6 +2327,7 @@ def main(argv=None) -> int:
     kstats = run_kernel_phase(args.hosts, args.hours, args.kernel_reps)
     kstats.update(run_tile_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     kstats.update(run_tql_kernel_phase(args.hosts, args.hours, args.kernel_reps))
+    kstats.update(run_plane_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
 
     work = os.path.join(HERE, "build", "chip_smoke")  # listed in .gitignore
@@ -1771,7 +2340,8 @@ def main(argv=None) -> int:
               "card": smi, "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in sl["queries"].items()},
               "tile_warm_p50_ms": {k: v["warm_p50_ms"]
                                    for k, v in sl["tile"]["queries"].items()},
-              "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"]})
+              "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"],
+              "live": {k: v for k, v in sl["live"].items() if k not in ("queries", "launches")}})
         import gc
 
         import torch
@@ -1808,9 +2378,29 @@ def main(argv=None) -> int:
                 **{k: s[k] for k in ("k64", "by_series") if k in s},
             })
             continue
+        if name in PLANE_KERNELS:
+            # K13-K16: their launches on the tile path (phase 5: K14, K15
+            # gather) and on the live phase (5b: K13, K15 remap, K16)
+            tile_launches = sl["tile"]["launches"][name]
+            live_launches = sl["live"]["launches"][name]
+            counted = {"tile": tile_launches, "live": live_launches}
+            if any(counted[phase] == 0 for phase in PLANE_PHASES[name]):
+                raise AssertionError(f"kernel {name} never launched on its path: {counted}")
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": tile_launches + live_launches, "max_abs_err": s["max_abs_err"],
+                "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                "tile_launches": tile_launches, "live_launches": live_launches,
+                **{k: s[k] for k in ("remap",) if k in s},
+            })
+            continue
         # K1-K4: their launches on the table-fed path (phase 4); K1-K8: on
-        # the tile path (phase 5)
+        # the tile path (phase 5), K3's from the tile edge query with the
+        # time_major pass off (the TSBS queries no longer fail K2's guard)
         tile_launches = sl["tile"]["launches"][name]
+        if name == _SCATTER:
+            tile_launches = sl["tile"]["edge_launches"][name]
         launches = tile_launches if name in TILE_KERNELS else sl["launches"][name]
         if launches == 0 or tile_launches == 0:
             raise AssertionError(f"kernel {name} never launched on its path")

@@ -77,3 +77,26 @@ __device__ __forceinline__ int64_t lower_bound_i32(const int32_t* a, int64_t n, 
   }
   return lo;
 }
+
+// A plane cut into chunks at uniform bounds (every chunk but the last
+// holds `chunk_rows` rows): row i lives at ptr[i / chunk_rows][i %
+// chunk_rows].  The tile cache's planes are stored this way
+// (ops/tiles.py `chunk_bounds`).
+constexpr int kMaxChunks = 64;
+struct ChunkTable {
+  const void* ptr[kMaxChunks];
+  int64_t chunk_rows;
+  int32_t n_chunks;
+  int32_t reserved;
+};
+
+template <typename T>
+__device__ __forceinline__ T chunk_load(const ChunkTable& t, int64_t i) {
+  const int64_t c = i / t.chunk_rows;
+  return ((const T*)t.ptr[c])[i - c * t.chunk_rows];
+}
+template <typename T>
+__device__ __forceinline__ void chunk_store(const ChunkTable& t, int64_t i, T v) {
+  const int64_t c = i / t.chunk_rows;
+  ((T*)t.ptr[c])[i - c * t.chunk_rows] = v;
+}

@@ -73,6 +73,7 @@ class Database:
             time_bounds_provider=self._time_bounds,
             config=self.config.query,
             tile_context_provider=self._tile_context,
+            tile_config=self.config.tile,
         )
         self._reopen_regions()
 

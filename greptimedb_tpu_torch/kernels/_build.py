@@ -34,6 +34,10 @@ KERNEL_SOURCES = (
     "range_windows",
     "range_finalize",
     "series_fold",
+    "having_mask",
+    "ts_argsort",
+    "gather_planes",
+    "delta_patch",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -137,6 +141,10 @@ _EXPORTS = {
     "range_windows": ("gt_range_layout", "gt_range_windows"),
     "range_finalize": ("gt_range_finalize",),
     "series_fold": ("gt_series_fold",),
+    "having_mask": ("gt_having_mask",),
+    "ts_argsort": ("gt_argsort_range", "gt_argsort_passes"),
+    "gather_planes": ("gt_gather_plane", "gt_remap_codes"),
+    "delta_patch": ("gt_delta_patch",),
 }
 
 

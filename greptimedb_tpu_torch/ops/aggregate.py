@@ -1381,3 +1381,243 @@ def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_
 
 pack_result.launches = 0
 
+
+
+# ---- K13: HAVING on the card -------------------------------------------------------
+
+
+@dataclass(eq=False)
+class HavingRef:
+    """What a HAVING tree's ref reads, per group: an aggregate output
+    `values` [G] (NULL where `counts` [G] is 0 and, with `nan_null`, where
+    the value is NaN), or, with `values` None, the group's dimension
+    coordinate (gid // div) % card."""
+
+    values: torch.Tensor | None = None
+    counts: torch.Tensor | None = None
+    nan_null: bool = False
+    div: int = 1
+    card: int = 1
+
+    def resolve(self, g: int, dev):
+        """(value [G], isnull [G] | None) over G groups on `dev`."""
+        if self.values is None:
+            gid = torch.arange(g, dtype=torch.int64, device=dev)
+            return (gid // self.div) % self.card, None
+        isnull = None if self.counts is None else self.counts == 0
+        if self.nan_null and self.values.is_floating_point():
+            nan = torch.isnan(self.values)
+            isnull = nan if isnull is None else isnull | nan
+        return self.values, isnull
+
+
+def having_refs(tree) -> list:
+    """The refs of an encoded HAVING tree, in order of first use."""
+    out: list = []
+
+    def walk(node):
+        kind = node[0]
+        if kind in ("and", "or", "not"):
+            for child in node[1:]:
+                walk(child)
+            return
+        found = {"cmp": node[2:3], "cmpref": node[2:4], "isnull": node[1:2]}[kind]
+        out.extend(r for r in found if r not in out)
+
+    walk(tree)
+    return out
+
+
+_HAVING_CMP = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
+_HAVING_MAX_REFS, _HAVING_MAX_CODE, _HAVING_MAX_STACK = 16, 64, 16
+
+
+def having_mask_plain(tree, refs: dict, values: torch.Tensor, presence: torch.Tensor):
+    """Torch-op version of K13: the reference's Kleene evaluation of the
+    encoded tree (ops/aggregate.py `having_mask`) ANDed with presence > 0.
+    `refs` maps each ref of the tree to its HavingRef; `values` holds the
+    comparison literals by slot (f64)."""
+    g = int(presence.shape[0])
+    dev = presence.device
+    ones = torch.ones(g, dtype=torch.bool, device=dev)
+
+    def ev(node):
+        kind = node[0]
+        if kind in ("cmp", "cmpref"):
+            if kind == "cmp":
+                _k, op, ref, slot = node
+                x, xnull = refs[ref].resolve(g, dev)
+                y, ynull = values[slot], None
+            else:
+                _k, op, ref1, ref2 = node
+                x, xnull = refs[ref1].resolve(g, dev)
+                y, ynull = refs[ref2].resolve(g, dev)
+            x = x.to(torch.float64)
+            y = y.to(torch.float64)
+            v = {
+                "=": lambda: x == y, "!=": lambda: x != y, "<": lambda: x < y,
+                "<=": lambda: x <= y, ">": lambda: x > y, ">=": lambda: x >= y,
+            }[op]()
+            valid = ones
+            if xnull is not None:
+                valid = valid & ~xnull
+            if ynull is not None:
+                valid = valid & ~ynull
+            return v, valid
+        if kind == "isnull":
+            _k, ref, neg = node
+            _v, isn = refs[ref].resolve(g, dev)
+            isn = torch.zeros(g, dtype=torch.bool, device=dev) if isn is None else isn
+            return (~isn if neg else isn), ones
+        if kind == "not":
+            v, valid = ev(node[1])
+            return ~v, valid
+        av, avalid = ev(node[1])
+        bv, bvalid = ev(node[2])
+        if kind == "and":
+            return av & bv, (avalid & bvalid) | (avalid & ~av) | (bvalid & ~bv)
+        return av | bv, (avalid & bvalid) | (avalid & av) | (bvalid & bv)
+
+    v, valid = ev(tree)
+    return v & valid & (presence > 0)
+
+
+class _HavingRefC(ctypes.Structure):
+    _fields_ = [
+        ("values", ctypes.c_void_p), ("counts", ctypes.c_void_p), ("vtype", ctypes.c_int32),
+        ("ctype", ctypes.c_int32), ("nan_null", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("div", ctypes.c_int64), ("card", ctypes.c_int64),
+    ]
+
+
+class _HavingProgram(ctypes.Structure):
+    _fields_ = [
+        ("refs", _HavingRefC * _HAVING_MAX_REFS),
+        ("code", (ctypes.c_int32 * 4) * _HAVING_MAX_CODE),
+        ("n_code", ctypes.c_int32), ("n_refs", ctypes.c_int32),
+    ]
+
+
+class _HavingArgs(ctypes.Structure):
+    _fields_ = [
+        ("prog", ctypes.c_void_p), ("literals", ctypes.c_void_p), ("presence", ctypes.c_void_p),
+        ("ptype", ctypes.c_int32), ("reserved", ctypes.c_int32), ("out", ctypes.c_void_p),
+        ("num_groups", ctypes.c_int64),
+    ]
+
+
+_HAVING_VTYPE = {torch.float64: 0, torch.float32: 1, torch.int32: 2, torch.int64: 3,
+                 torch.bool: 4, torch.uint8: 4}
+
+
+def _having_program(tree) -> tuple[list, list]:
+    """Postfix code [(op, a, b, c)] and the refs it indexes, in order of
+    first use; raises when the tree exceeds the kernel's fixed tables."""
+    order = having_refs(tree)
+    ref_index = order.index
+    code: list = []
+
+    def depth_of(node) -> int:
+        if node[0] in ("cmp", "cmpref", "isnull"):
+            return 1
+        if node[0] == "not":
+            return depth_of(node[1])
+        return max(depth_of(node[1]), 1 + depth_of(node[2]))
+
+    def emit(node):
+        kind = node[0]
+        if kind == "cmp":
+            code.append((0, _HAVING_CMP[node[1]], ref_index(node[2]), int(node[3])))
+        elif kind == "cmpref":
+            code.append((1, _HAVING_CMP[node[1]], ref_index(node[2]), ref_index(node[3])))
+        elif kind == "isnull":
+            code.append((2, ref_index(node[1]), int(bool(node[2])), 0))
+        elif kind == "not":
+            emit(node[1])
+            code.append((3, 0, 0, 0))
+        elif kind in ("and", "or"):
+            emit(node[1])
+            emit(node[2])
+            code.append((4 if kind == "and" else 5, 0, 0, 0))
+        else:
+            raise ValueError(f"unknown HAVING node {kind!r}")
+
+    emit(tree)
+    if len(code) > _HAVING_MAX_CODE or len(order) > _HAVING_MAX_REFS \
+            or depth_of(tree) > _HAVING_MAX_STACK:
+        raise ValueError(
+            f"HAVING program of {len(code)} ops over {len(order)} refs exceeds K13's "
+            f"tables ({_HAVING_MAX_CODE} ops, {_HAVING_MAX_REFS} refs, stack "
+            f"{_HAVING_MAX_STACK})"
+        )
+    return code, order
+
+
+def having_fits(tree) -> bool:
+    """Whether K13's fixed tables hold the tree (the planner leaves a
+    larger HAVING to the host)."""
+    try:
+        _having_program(tree)
+    except ValueError:
+        return False
+    return True
+
+
+def having_mask(tree, refs: dict, values: torch.Tensor, presence: torch.Tensor):
+    """K13: bool [G] keep mask of the encoded HAVING tree (the reference's
+    query/device_finalize.py encoding: cmp / cmpref / isnull / not / and /
+    or) with SQL's three-valued logic, ANDed with presence > 0 — the
+    survivor mask K7 takes.  `refs` maps each ref to a HavingRef; `values`
+    holds the literals by slot.  A CUDA tensor launches
+    csrc/having_mask.cu with the tree as a postfix program; a CPU tensor
+    runs `having_mask_plain`."""
+    if presence.device.type == "cpu":
+        return having_mask_plain(tree, refs, values, presence)
+    from ..kernels._build import launch, upload_table
+
+    dev = presence.device
+    g = int(presence.shape[0])
+    code, order = _having_program(tree)
+    prog = _HavingProgram()
+    keep = []
+    for i, ref in enumerate(order):
+        r = refs[ref]
+        c = prog.refs[i]
+        c.div, c.card = int(r.div), max(int(r.card), 1)
+        if r.values is None:
+            continue
+        v = r.values.contiguous()
+        _check_rows(v, v.dtype, g, dev)
+        if v.dtype not in _HAVING_VTYPE:
+            raise ValueError(f"HAVING ref of dtype {v.dtype}")
+        c.values, c.vtype, c.nan_null = v.data_ptr(), _HAVING_VTYPE[v.dtype], int(bool(r.nan_null))
+        keep.append(v)
+        if r.counts is not None:
+            n = r.counts.contiguous()
+            _check_rows(n, n.dtype, g, dev)
+            if n.dtype not in (torch.int32, torch.int64):
+                raise ValueError(f"HAVING count plane of dtype {n.dtype}")
+            c.counts, c.ctype = n.data_ptr(), _HAVING_VTYPE[n.dtype]
+            keep.append(n)
+    for i, ins in enumerate(code):
+        for j, w in enumerate(ins):
+            prog.code[i][j] = w
+    prog.n_code, prog.n_refs = len(code), len(order)
+    if presence.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"presence of dtype {presence.dtype}")
+    presence = presence.contiguous()
+    _check_rows(presence, presence.dtype, g, dev)
+    lits = values.to(device=dev, dtype=torch.float64).contiguous()
+    if lits.numel() == 0:
+        lits = torch.zeros(1, dtype=torch.float64, device=dev)
+    prog_t = upload_table(prog, dev)
+    out = torch.empty(g, dtype=torch.uint8, device=dev)
+    a = _HavingArgs(prog_t.data_ptr(), lits.data_ptr(), presence.data_ptr(),
+                    _HAVING_VTYPE[presence.dtype], 0, out.data_ptr(), g)
+    having_mask.launches += 1
+    launch("having_mask", "gt_having_mask", a, torch.cuda.current_stream(dev).cuda_stream)
+    del keep, prog_t
+    return out.view(torch.bool)
+
+
+having_mask.launches = 0

@@ -1,0 +1,309 @@
+"""Row permutations of the tile cache's planes: kernels K14-K16.
+
+Counterpart of the device halves of the reference's plane maintenance in
+`greptimedb_tpu/parallel/tile_cache.py`: the ts-ascending permutation of
+a super-tile (`ensure_perm`), its time-major copies (`ensure_time_major`),
+the dictionary-growth repair of the tag code planes (`repair_super`) and
+the patch that merges a flushed delta into resident planes
+(`_delta_patch`).  Each wrapper launches its hand-written CUDA kernel for
+CUDA tensors and runs its plain torch version for CPU tensors; there is
+no fallback from one to the other.
+
+* K14 `ts_argsort` (csrc/ts_argsort.cu): the stable argsort of
+  `where(valid, ts, INT64_MAX)` over a chunked entry, int32 [pad];
+* K15 `gather_planes` (csrc/gather_planes.cu): a chunked plane gathered
+  through that permutation (gather mode), or an int32 code plane mapped
+  through a dictionary permutation with JAX's `take(mode="fill",
+  fill_value=-1)` semantics (remap mode);
+* K16 `delta_patch` (csrc/delta_patch.cu): old rows and a sorted delta
+  run merged into new padded chunks by the merge positions.
+
+Planes are lists of chunk tensors cut at uniform bounds (every chunk but
+the last has the first chunk's length), as `ops/tiles.py::chunk_bounds`
+cuts them.  Each wrapper's `.launches` counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .tiles import chunk_bounds
+
+INT64_MAX = (1 << 63) - 1
+_MAX_CHUNKS = 64
+
+
+class _ChunkTable(ctypes.Structure):
+    _fields_ = [
+        ("ptr", ctypes.c_void_p * _MAX_CHUNKS), ("chunk_rows", ctypes.c_int64),
+        ("n_chunks", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+def _rows(chunks) -> int:
+    return sum(int(c.shape[0]) for c in chunks)
+
+
+def _chunk_table(chunks, dtype, dev) -> _ChunkTable:
+    """The kernel's view of a chunked plane; raises on what the kernel
+    does not take (another device or dtype, a non-contiguous chunk,
+    uneven bounds, too many chunks)."""
+    if not chunks or len(chunks) > _MAX_CHUNKS:
+        raise ValueError(f"a chunked plane needs 1..{_MAX_CHUNKS} chunks, got {len(chunks)}")
+    first = int(chunks[0].shape[0])
+    for i, c in enumerate(chunks):
+        if c.device != dev or c.dtype != dtype or c.dim() != 1 or not c.is_contiguous():
+            raise ValueError(
+                f"chunk {i} must be a contiguous 1-d {dtype} tensor on {dev}; got "
+                f"{c.dtype} {tuple(c.shape)} on {c.device}"
+            )
+        n = int(c.shape[0])
+        if (i < len(chunks) - 1 and n != first) or n > first:
+            raise ValueError("chunks must share the first chunk's length (the last may be shorter)")
+    t = _ChunkTable()
+    for i, c in enumerate(chunks):
+        t.ptr[i] = c.data_ptr()
+    t.chunk_rows = max(first, 1)
+    t.n_chunks = len(chunks)
+    return t
+
+
+def _split_like(full: torch.Tensor, like) -> list:
+    out, o = [], 0
+    for c in like:
+        n = int(c.shape[0])
+        out.append(full[o:o + n].clone())
+        o += n
+    return out
+
+
+def _empty_like_chunks(chunks, dtype, dev) -> list:
+    return [torch.empty(int(c.shape[0]), dtype=dtype, device=dev) for c in chunks]
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---- K14: the stable ts argsort ----------------------------------------------------
+
+
+def ts_argsort_plain(ts_chunks, valid_chunks) -> torch.Tensor:
+    """Torch-op version of K14: a stable argsort of the padded key."""
+    key = torch.where(torch.cat(valid_chunks), torch.cat(ts_chunks), INT64_MAX)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+class _RangeArgs(ctypes.Structure):
+    _fields_ = [
+        ("ts", _ChunkTable), ("valid", _ChunkTable), ("n", ctypes.c_int64),
+        ("range", ctypes.c_void_p),
+    ]
+
+
+class _PassArgs(ctypes.Structure):
+    _fields_ = [
+        ("ts", _ChunkTable), ("valid", _ChunkTable), ("n", ctypes.c_int64),
+        ("keys", ctypes.c_void_p * 2), ("idx", ctypes.c_void_p * 2), ("hist", ctypes.c_void_p),
+        ("seg_sums", ctypes.c_void_p), ("out", ctypes.c_void_p), ("lo", ctypes.c_int64),
+        ("fill", ctypes.c_uint64), ("n_passes", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+def ts_argsort(ts_chunks, valid_chunks) -> torch.Tensor:
+    """K14: int32 [n] ts-ascending permutation of a chunked entry (n = its
+    padded rows), stable, with invalid rows after every valid one — the
+    reference's `jnp.argsort(jnp.where(valid, ts, INT64_MAX))`.  CUDA
+    chunks launch csrc/ts_argsort.cu (one range pass, whose min and max
+    the host reads to pick the number of 8-bit radix passes, then the
+    passes); CPU chunks run `ts_argsort_plain`."""
+    if ts_chunks[0].device.type == "cpu":
+        return ts_argsort_plain(ts_chunks, valid_chunks)
+    from ..kernels._build import launch
+
+    dev = ts_chunks[0].device
+    n = _rows(ts_chunks)
+    if _rows(valid_chunks) != n:
+        raise ValueError("ts and valid planes differ in rows")
+    if n >= 1 << 31:
+        raise ValueError(f"ts_argsort takes fewer than 2^31 rows, got {n}")
+    ts_t = _chunk_table(ts_chunks, torch.int64, dev)
+    valid_t = _chunk_table(valid_chunks, torch.bool, dev)
+    stream = _stream(dev)
+    rng = torch.empty(2, dtype=torch.int64, device=dev)
+    ts_argsort.launches += 1
+    launch("ts_argsort", "gt_argsort_range", _RangeArgs(ts_t, valid_t, n, rng.data_ptr()), stream)
+    lo, hi = (int(v) for v in rng.cpu())
+    if lo > hi:  # no valid row: every key is INT64_MAX
+        lo, fill, span = 0, 0, 0
+    else:
+        span = hi - lo if hi == INT64_MAX else hi - lo + 1
+        fill = span
+    n_passes = -(-span.bit_length() // 8)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    hist_len = 256 * -(-n // 4096)
+    hist = torch.empty(hist_len, dtype=torch.int32, device=dev)
+    seg_sums = torch.empty(-(-hist_len // 8192), dtype=torch.int32, device=dev)
+    a = _PassArgs(ts_t, valid_t, n, (ctypes.c_void_p * 2)(*(k.data_ptr() for k in keys)),
+                  (ctypes.c_void_p * 2)(*(i.data_ptr() for i in idx)), hist.data_ptr(),
+                  seg_sums.data_ptr(), out.data_ptr(), lo, fill, n_passes, 0)
+    launch("ts_argsort", "gt_argsort_passes", a, stream)
+    # the scratch is freed into the caching allocator and reused only by
+    # work queued after these launches on the same stream
+    del keys, idx, hist, seg_sums
+    return out
+
+
+ts_argsort.launches = 0
+
+
+# ---- K15: gather / remap ---------------------------------------------------------
+
+
+def gather_planes_plain(chunks, index: torch.Tensor, remap: bool = False) -> list:
+    """Torch-op version of K15.  Gather: the concatenated plane indexed by
+    `index` (the permutation, one entry per row), cut like `chunks`.
+    Remap: `take(index, code, mode="fill", fill_value=-1)` of each code,
+    a negative code in [-n, -1] counting from the end as JAX does."""
+    if not remap:
+        return _split_like(torch.cat(chunks)[index.to(torch.int64)], chunks)
+    n = int(index.shape[0])
+    out = []
+    for c in chunks:
+        i = c.to(torch.int64)
+        i = torch.where(i < 0, i + n, i)
+        ok = (i >= 0) & (i < n)
+        safe = torch.clamp(i, 0, max(n - 1, 0))
+        picked = index[safe] if n else torch.zeros_like(c)
+        out.append(torch.where(ok, picked, -1).to(torch.int32))
+    return out
+
+
+class _GatherArgs(ctypes.Structure):
+    _fields_ = [
+        ("src", _ChunkTable), ("dst", _ChunkTable), ("perm", ctypes.c_void_p),
+        ("n", ctypes.c_int64), ("esize", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+class _RemapArgs(ctypes.Structure):
+    _fields_ = [
+        ("codes", _ChunkTable), ("dst", _ChunkTable), ("table", ctypes.c_void_p),
+        ("n_table", ctypes.c_int64), ("n", ctypes.c_int64),
+    ]
+
+
+def gather_planes(chunks, index: torch.Tensor, remap: bool = False) -> list:
+    """K15: a new chunked plane cut like `chunks`.  Gather mode (B13):
+    row i is row index[i] of the concatenated plane (elements of 1, 4 or
+    8 bytes; `index` int32, one entry per row).  Remap mode (B12): an
+    int32 code plane mapped through the int32 table `index` with JAX's
+    fill semantics.  CUDA chunks launch csrc/gather_planes.cu, one launch
+    per plane; CPU chunks run `gather_planes_plain`."""
+    if chunks[0].device.type == "cpu":
+        return gather_planes_plain(chunks, index, remap)
+    from ..kernels._build import launch
+
+    dev = chunks[0].device
+    n = _rows(chunks)
+    if index.device != dev or index.dtype != torch.int32 or not index.is_contiguous():
+        raise ValueError(f"gather_planes index must be contiguous int32 on {dev}")
+    dtype = chunks[0].dtype
+    src = _chunk_table(chunks, dtype, dev)
+    out = _empty_like_chunks(chunks, dtype, dev)
+    dst = _chunk_table(out, dtype, dev)
+    stream = _stream(dev)
+    gather_planes.launches += 1
+    if remap:
+        if dtype != torch.int32:
+            raise ValueError(f"remap takes int32 code planes, got {dtype}")
+        a = _RemapArgs(src, dst, index.data_ptr(), int(index.shape[0]), n)
+        launch("gather_planes", "gt_remap_codes", a, stream)
+        return out
+    if int(index.shape[0]) != n:
+        raise ValueError(f"gather index has {int(index.shape[0])} rows, the plane {n}")
+    esize = chunks[0].element_size()
+    if esize not in (1, 4, 8):
+        raise ValueError(f"gather_planes takes 1, 4 or 8 byte elements, got {esize}")
+    launch("gather_planes", "gt_gather_plane",
+           _GatherArgs(src, dst, index.data_ptr(), n, esize, 0), stream)
+    return out
+
+
+gather_planes.launches = 0
+
+
+# ---- K16: the delta patch ----------------------------------------------------------
+
+
+def delta_patch_plain(old_chunks, old_n: int, delta: torch.Tensor, pos: torch.Tensor,
+                      new_pad: int, chunk_rows: int) -> list:
+    """Torch-op version of K16, the reference's `_delta_patch`: old row i
+    to i + searchsorted(pos, i, right), delta row j to pos[j] + j, zeros
+    past the merged rows; returned in chunks of `chunk_rows`."""
+    full = torch.cat(old_chunks)[:old_n]
+    dev = full.device
+    p = pos.to(torch.int64)
+    n_delta = int(p.shape[0])
+    iota_old = torch.arange(old_n, dtype=torch.int64, device=dev)
+    idx_old = iota_old + torch.searchsorted(p, iota_old, right=True)
+    idx_new = p + torch.arange(n_delta, dtype=torch.int64, device=dev)
+    out = torch.zeros(new_pad, dtype=full.dtype, device=dev)
+    out[idx_old] = full
+    out[idx_new] = delta.to(full.dtype)
+    return [out[a:b].clone() for a, b in chunk_bounds(new_pad, chunk_rows)]
+
+
+class _PatchArgs(ctypes.Structure):
+    _fields_ = [
+        ("old_rows", _ChunkTable), ("dst", _ChunkTable), ("delta", ctypes.c_void_p),
+        ("pos", ctypes.c_void_p), ("old_n", ctypes.c_int64), ("n_delta", ctypes.c_int64),
+        ("new_pad", ctypes.c_int64), ("esize", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+def delta_patch(old_chunks, old_n: int, delta: torch.Tensor, pos: torch.Tensor,
+                new_pad: int, chunk_rows: int) -> list:
+    """K16: merge the sorted delta run `delta` ([n_delta], the plane's
+    dtype) into the first `old_n` rows of the chunked plane `old_chunks`
+    at the merge positions `pos` (int32 [n_delta], non-decreasing: the
+    old rows before each delta row).  Returns the new plane in chunks of
+    `chunk_rows` over `new_pad` rows, zero past old_n + n_delta.  CUDA
+    tensors launch csrc/delta_patch.cu; CPU tensors run
+    `delta_patch_plain`."""
+    if delta.device.type == "cpu":
+        return delta_patch_plain(old_chunks, old_n, delta, pos, new_pad, chunk_rows)
+    from ..kernels._build import launch
+
+    dev = delta.device
+    dtype = old_chunks[0].dtype
+    n_delta = int(delta.shape[0])
+    if delta.dtype != dtype or not delta.is_contiguous() or delta.dim() != 1:
+        raise ValueError(f"delta must be a contiguous 1-d {dtype} tensor")
+    if pos.device != dev or pos.dtype != torch.int32 or tuple(pos.shape) != (n_delta,) \
+            or not pos.is_contiguous():
+        raise ValueError(f"pos must be a contiguous int32 [{n_delta}] on {dev}")
+    if not 0 <= old_n <= _rows(old_chunks) or old_n + n_delta > new_pad:
+        raise ValueError(f"old_n {old_n} + delta {n_delta} do not fit: old plane "
+                         f"{_rows(old_chunks)} rows, new pad {new_pad}")
+    if new_pad >= 1 << 31:
+        raise ValueError(f"delta_patch takes fewer than 2^31 rows, got {new_pad}")
+    esize = old_chunks[0].element_size()
+    if esize not in (1, 4, 8):
+        raise ValueError(f"delta_patch takes 1, 4 or 8 byte elements, got {esize}")
+    old_t = _chunk_table(old_chunks, dtype, dev)
+    out = [torch.empty(b - a, dtype=dtype, device=dev)
+           for a, b in chunk_bounds(new_pad, chunk_rows)]
+    dst = _chunk_table(out, dtype, dev)
+    a = _PatchArgs(old_t, dst, delta.data_ptr(), pos.data_ptr(), int(old_n), n_delta,
+                   int(new_pad), esize, 0)
+    delta_patch.launches += 1
+    launch("delta_patch", "gt_delta_patch", a, _stream(dev))
+    return out
+
+
+delta_patch.launches = 0

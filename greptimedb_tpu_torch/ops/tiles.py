@@ -30,6 +30,15 @@ def pad_rows(n: int) -> int:
     return max(-(-n // BLOCK_ROWS), 1) * BLOCK_ROWS
 
 
+def chunk_bounds(pad: int, chunk_rows: int) -> list[tuple[int, int]]:
+    """The (start, stop) rows of each chunk of a `pad`-row plane cut every
+    `chunk_rows` rows (the tile cache's planes, and K14-K16's chunk
+    tables)."""
+    if pad <= chunk_rows:
+        return [(0, pad)]
+    return [(o, min(o + chunk_rows, pad)) for o in range(0, pad, chunk_rows)]
+
+
 @dataclass
 class TileBatch:
     """A padded, device-resident batch of columns.

@@ -15,8 +15,9 @@ program (parallel/tile_program.py): K1 (mask + group ids) then K2/K3/K4
 (segment reductions), with the reference's count-pass sharing and
 presence fusing; with `plan.acc_dtype == "limb"` sum/avg columns ride
 K5/K6 (limb digit planes) instead, and a hierarchical layout folds its
-states down to the group tags.  It has no `perm` (time-major) and no
-hash table.
+states down to the group tags.  It has no `perm` and no hash table: a
+time-major plan (`plan.time_major`) is handed the ts-ascending copies of
+its planes, which the tile cache gathered once.
 """
 
 from __future__ import annotations
@@ -82,6 +83,10 @@ class DistGroupByPlan:
     # down to `group_tags` (ops/aggregate.py reduce_state_axes).
     layout_tags: tuple[str, ...] | None = None
     layout_cards: tuple[int, ...] = ()
+    # Bucket-only group-bys on the tile path reduce over ts-ascending
+    # copies of the planes (tile_planes.py `ensure_time_major`), whose
+    # 4096-row blocks each span about one bucket
+    time_major: bool = False
 
     @property
     def num_groups(self) -> int:

@@ -6,25 +6,30 @@ Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor`:
 `_decode_result` and the `_assemble_*` helpers, for the configuration
 the port implements (one device, the dense "sort" strategy, no host fast
 path, no cold host serve, no fused or batched builds, no dedup plane, no
-window tiles, no time-major copies, no streamed spill).  A query:
+window tiles, no streamed spill).  A query:
 
   1. snapshots each region's (files, memtables) and checks that the
      tile path may aggregate raw file rows (append-mode table, or
      pairwise-disjoint sources; no delete tombstones in the window);
   2. updates the table dictionary with the memtable tails, fetches (or
-     builds and uploads) each region's super-tile, and rebuilds entries
-     whose codes a dictionary growth moved;
+     builds and uploads, or extends by a flushed delta) each region's
+     super-tile, and repairs the code planes a dictionary growth moved
+     (`repair_super`);
   3. builds the plan and its runtime values (parallel/tile_planner.py);
-  4. runs one tile program over every chunk and tail
-     (parallel/tile_program.py) and reads the packed result back once;
+  4. runs one tile program over every chunk and tail — of the
+     time-major copies for a bucket-only group-by — (parallel/
+     tile_program.py) and reads the packed result back once;
   5. decodes it on the host.  A limb verdict of 0 (a group's
      quantization bound above 1e-7 of its sum) reruns the query with
      exact f64 accumulation.
 
 `execute` returns None when the query does not apply, and the caller
 takes the table-fed path.  `timings` holds the host ms per stage of the
-last call: build and upload (cold entries only), quantize (K5, through a
-sync; near zero once the limb planes are cached), plan (everything else
+last call: build and upload (cold entries only), delta_host and
+delta_device (a flushed delta merged into a cached entry: host encode
+and merge, then the K16 patches through a sync), time_major (K14 and
+the K15 copies through a sync; near zero once cached), quantize (K5,
+through a sync; near zero once the limb planes are cached), plan (everything else
 before the dispatch), dispatch (the program through its last sync),
 readback, decode.
 """
@@ -218,13 +223,9 @@ class TileExecutor:
         for region, metas, _mems in region_sources:
             if metas and not fetch(region, metas):
                 return None
-        # entries whose codes a later growth moved are rebuilt from the
-        # (repaired) host encodes; the dictionary is final by now
-        for rid in self.cache.drop_stale(list(entries.values()), ctx.dictionary):
-            region, metas, _m = next(rs for rs in region_sources if rs[0].region_id == rid)
-            del entries[rid]
-            if not fetch(region, metas):
-                return None
+        # the dictionary is final for this query: repair the code planes a
+        # later growth moved, with one K15 remap each
+        self.cache.repair_super(list(entries.values()), ctx.dictionary, all_tag_cols)
         if not entries and not any(ms for _r, _f, ms in region_sources):
             return None
 
@@ -240,24 +241,32 @@ class TileExecutor:
         need_cols = plan_cols(plan)
         limb_need = limb_sum_cols(plan)
         device_sources = []
-        q_ms = 0.0
+        q_ms = tm_ms = 0.0
         for region, _metas, mem_tables in region_sources:
             s = entries.get(region.region_id)
             if s is not None:
                 if s.nbytes > self.cache.budget // 2:
                     self.cache.release_unneeded(s, need_cols)
+                if plan.time_major:
+                    t0 = time.perf_counter()
+                    cols, valid, nulls = self.cache.ensure_time_major(s, use_ts, need_cols)
+                    self._sync()
+                    tm_ms += (time.perf_counter() - t0) * 1e3
+                else:
+                    cols = {k: v for k, v in s.cols.items() if k in need_cols}
+                    valid = s.valid
+                    nulls = {k: v for k, v in s.nulls.items() if k in need_cols}
                 t0 = time.perf_counter()
-                limbs = self.cache.ensure_limbs(s, limb_need, pinned_ids) if limb_need else {}
+                limbs = (self.cache.ensure_limbs(s, limb_need, plan.time_major, pinned_ids)
+                         if limb_need else {})
                 self._sync()
                 q_ms += (time.perf_counter() - t0) * 1e3
                 if any(c not in limbs and c not in s.cols for c in limb_need):
                     return None
-                cols = {k: v for k, v in s.cols.items() if k in need_cols}
-                nulls = {k: v for k, v in s.nulls.items() if k in need_cols}
-                for i in range(len(s.valid)):
+                for i in range(len(valid)):
                     device_sources.append((
                         {k: v[i] for k, v in cols.items()},
-                        s.valid[i],
+                        valid[i],
                         {k: v[i] for k, v in nulls.items()},
                         {k: v[i] for k, v in limbs.items()},
                     ))
@@ -283,8 +292,11 @@ class TileExecutor:
             "filter_values": tuple(dyn_host["filter_values"]),
             "bucket_origin": int(dyn_host["bucket_origin"]),
             "bucket_interval": int(dyn_host["bucket_interval"]),
+            "having_values": tuple(dyn_host.get("having_values", ())),
         }
         self.timings.update(build_t, quantize=q_ms)
+        if plan.time_major:
+            self.timings["time_major"] = tm_ms
         self.timings["plan"] = (time.perf_counter() - t_start) * 1e3 - sum(self.timings.values())
 
         # 5. one program, one readback; a failed limb verdict reruns in f64

@@ -2,26 +2,40 @@
 
 Counterpart of the cache half of `greptimedb_tpu/parallel/tile_cache.py`
 (`TileContext`, `_FileHostTiles`, `_SuperTiles`, `TileCacheManager`,
-`ensure_limbs`, `_encode_host_tiles`, `_chunk_bounds`).  Each region's
-flushed SSTs are encoded once — tag strings to stable per-table
-dictionary codes (storage/dictionary.py), timestamps to int64, values to
-float — globally re-sorted by (pk..., ts) so primary-key runs stay long
-and the blocked kernels (K2, K6) see the layout they want, padded, cut
-into chunks of `tile_chunk_rows` (2^24) rows and uploaded to the card:
-the "super-tile".  A warm query then skips the Parquet rescan, the
-encode and the upload.  Host-side per-file encodes are cached too, so a
-rebuild after a flush re-reads only the new files.
+`ensure_limbs`, `ensure_perm`, `ensure_time_major`, `repair_super`,
+`_delta_extend`, `_lex_merge_positions`, `_entry_device_bytes`,
+`_encode_host_tiles`; `_chunk_bounds` is `ops/tiles.py::chunk_bounds`).  Each region's flushed SSTs are
+encoded once — tag strings to stable per-table dictionary codes
+(storage/dictionary.py), timestamps to int64, values to float — globally
+re-sorted by (pk..., ts) so primary-key runs stay long and the blocked
+kernels (K2, K6) see the layout they want, padded, cut into chunks of
+`tile_chunk_rows` (2^24) rows and uploaded to the card: the
+"super-tile".  A warm query then skips the Parquet rescan, the encode
+and the upload.  Host-side per-file encodes are cached too.
 
-What the port keeps and what it drops:
+Keeping the planes current, as the reference does at its defaults:
 
-* invalidation: a flush or compaction advances the region's manifest
-  version; the next query's `invalidate_region_if_changed` sweep drops
-  the stale entry (and host encodes of removed files) and the entry is
-  rebuilt — the reference does the same with its incremental pass off;
-* dictionary growth after planes are built: the reference repairs the
-  device codes with one gather (`repair_super`, not ported); the port
-  drops such entries (`drop_stale`) and rebuilds them from the repaired
-  host encodes, which yields the same codes by a longer route;
+* a flush that APPENDS files extends the entry in place
+  (`_delta_extend`, the `incremental_tile` pass, `tile.incremental`):
+  only the new files are host-encoded, their (pk, ts)-sorted run is
+  merged into the cached order by binary search
+  (`_lex_merge_positions`, ties to the old run, so the result is the
+  stable lexsort a rebuild computes), and every resident plane is
+  patched on the card by K16 (`ops/permute.py::delta_patch`), reading
+  the old chunks through a chunk table.  Re-derivable planes (time-major
+  copies, the permutation, limb planes, the dedup keep plane) are dropped
+  and rebuild lazily.  Any other change of the file set (a removal) drops
+  the entry and the next query rebuilds it; a failing patch raises (the
+  reference's catch-all that rebuilds instead is not carried over);
+* a dictionary growth that moved codes is repaired in place
+  (`repair_super`): one K15 remap per stale tag code plane on the card,
+  a numpy gather over the sorted host copies.  Unlike the reference, a
+  tag's time-major copy is dropped only when its codes moved;
+* time-major plans (bucket-only group-bys) read ts-ascending copies of
+  the planes they need: the stable ts permutation is sorted on the card
+  once per file set (K14, `ensure_perm`) and each copy gathered once
+  (K15, `ensure_time_major`); limb planes are quantized over the copies
+  (`ensure_limbs(..., time_major=True)`, keyed "tm:<column>");
 * limb planes (K5) are cached per column and evicted first under budget
   pressure, then whole entries;
 * the dedup keep plane (`ensure_dedup_keep`): the last-write-wins keep
@@ -31,9 +45,10 @@ What the port keeps and what it drops:
   (the SQL path still declines overlapping files);
 * the fold CSRs of the fused TQL aggregations (`group_csr`), kept per
   (radices, kept tags);
-* not ported: persistence of consolidated encodes, time-major copies,
-  window tiles, multi-device placement, the pipelined build.  Limb-only
-  columns keep their f64 plane (the reference skips that upload).
+* not ported: persistence of consolidated encodes, window tiles,
+  multi-device placement (of chunks and of time-major copies), the
+  pipelined and fused builds.  Limb-only columns keep their f64 plane
+  (the reference skips that upload).
 
 Padding keeps the port's rule (`ops/tiles.py::pad_rows`, a multiple of
 4096, not the reference's next power of two); chunks are cut at the same
@@ -54,8 +69,10 @@ import pyarrow.compute as pc
 import torch
 
 from ..ops.aggregate import BLOCK_ROWS, _FAST_MIN_ROWS, quantize_limbs
+from ..ops.permute import delta_patch, gather_planes, ts_argsort
 from ..ops.rate import group_csr
-from ..ops.tiles import pad_rows
+from ..ops.tiles import chunk_bounds, pad_rows
+from ..query import passes
 from ..storage.dictionary import TableDictionary
 from ..storage.region import Region
 from ..storage.sst import FileMeta
@@ -63,10 +80,43 @@ from ..storage.sst import FileMeta
 TILE_CHUNK_ROWS = 1 << 24
 
 
-def _chunk_bounds(pad: int, chunk_rows: int = TILE_CHUNK_ROWS) -> list[tuple[int, int]]:
-    if pad <= chunk_rows:
-        return [(0, pad)]
-    return [(o, min(o + chunk_rows, pad)) for o in range(0, pad, chunk_rows)]
+def _lex_merge_positions(old_keys: list[np.ndarray], new_keys: list[np.ndarray]) -> np.ndarray:
+    """Merge positions of two lexicographically sorted runs: for each row
+    of the (sorted) delta run, the number of old-run rows that precede it
+    in the merged order.  Ties place the old run first (side='right'),
+    which is flush order, so merging with these positions gives the
+    stable lexsort of the full concatenation a rebuild performs.  Keys
+    are listed major-first.  A vectorized binary search over the old run:
+    O(delta * keys * log old), no re-sort of the whole."""
+    n_old = len(old_keys[0]) if old_keys else 0
+    n_new = len(new_keys[0]) if new_keys else 0
+    if n_new == 0:
+        return np.zeros(0, np.int64)
+    lo = np.zeros(n_new, np.int64)
+    if n_old == 0:
+        return lo
+    hi = np.full(n_new, n_old, np.int64)
+    while True:
+        active = lo < hi
+        if not active.any():
+            break
+        mid = (lo + hi) >> 1
+        # settled lanes (lo == hi) may sit at n_old: clip the index, their
+        # comparison is discarded by `active`
+        safe = np.minimum(mid, n_old - 1)
+        # lexicographic old[mid] <= new: ties fall through to the next key
+        gt = np.zeros(n_new, bool)
+        decided = np.zeros(n_new, bool)
+        for a, b in zip(old_keys, new_keys):
+            av = a[safe]
+            lt_k = ~decided & (av < b)
+            gt_k = ~decided & (av > b)
+            gt |= gt_k
+            decided |= lt_k | gt_k
+        le = ~gt
+        lo = np.where(active & le, mid + 1, lo)
+        hi = np.where(active & ~le, mid, hi)
+    return lo
 
 
 @dataclass
@@ -103,17 +153,28 @@ class _SuperTiles:
     num_rows: int  # real rows (sum of file rows)
     pad: int  # padded total length (a multiple of 4096)
     order: np.ndarray | None = None  # (pk, ts) sort of the file concat
-    # the (pk..., ts) columns in `order`, on the host (the keep plane's input)
+    # the (pk..., ts) columns in `order`, on the host (the keep plane's and
+    # the delta merge's input), and the dictionary epoch of their codes
     sorted_host: dict[str, np.ndarray] = field(default_factory=dict)
+    host_epochs: dict[str, int] = field(default_factory=dict)
     cols: dict[str, list] = field(default_factory=dict)
     nulls: dict[str, list] = field(default_factory=dict)
     epochs: dict[str, int] = field(default_factory=dict)  # tag col -> dict epoch
     valid: list | None = None
     # last-write-wins keep plane (valid and not superseded), per chunk
     valid_dedup: list | None = None
-    # cached K5 planes per value column: per chunk (limbs, scale)
+    # the stable ts-ascending permutation (K14), int32 [pad], and the
+    # time-major copies gathered through it (K15), per chunk
+    perm: torch.Tensor | None = None
+    tm_cols: dict[str, list] = field(default_factory=dict)
+    tm_nulls: dict[str, list] = field(default_factory=dict)
+    tm_valid: list | None = None
+    # cached K5 planes per value column, keyed "" | "tm:" + column for the
+    # two row orders: per chunk (limbs, scale)
     limb_cols: dict[str, list] = field(default_factory=dict)
     nbytes: int = 0
+    # in-place delta merges absorbed since the entry was built
+    delta_extends: int = 0
 
 
 def _nbytes(chunks) -> int:
@@ -122,6 +183,23 @@ def _nbytes(chunks) -> int:
 
 def _limb_nbytes(chunks) -> int:
     return sum(_nbytes((lb, s)) for lb, s in chunks)
+
+
+def _entry_device_bytes(entry: _SuperTiles) -> int:
+    """An entry's resident device bytes, recomputed from its live planes
+    (the delta merge swaps whole plane sets)."""
+    total = 0
+    for d in (entry.cols, entry.nulls, entry.tm_cols, entry.tm_nulls):
+        for chunks in d.values():
+            total += _nbytes(chunks)
+    for planes in (entry.valid, entry.valid_dedup, entry.tm_valid):
+        if planes is not None:
+            total += _nbytes(planes)
+    if entry.perm is not None:
+        total += _nbytes((entry.perm,))
+    for chunks in entry.limb_cols.values():
+        total += _limb_nbytes(chunks)
+    return total
 
 
 def device_budget(config_mb: int, device: torch.device) -> int:
@@ -143,7 +221,13 @@ class TileCacheManager:
         budget_bytes: int = 8 << 30,
         chunk_rows: int = TILE_CHUNK_ROWS,
         device: str | torch.device = "cuda",
+        config=None,
+        tile_config=None,
     ):
+        # the query config (its disabled passes) and the tile lifecycle
+        # config (`incremental`), read at each decision
+        self.config = config
+        self.tile_config = tile_config
         self.budget = budget_bytes
         self.host_budget = budget_bytes * 2  # host encodes of the SST files
         self.chunk_rows = chunk_rows
@@ -170,6 +254,7 @@ class TileCacheManager:
                 "bytes": self._used,
                 "host_files": len(self._host),
                 "host_bytes": self._host_used,
+                "delta_extends": sum(e.delta_extends for e in self._super.values()),
                 **self.stats_counts,
             }
 
@@ -202,25 +287,43 @@ class TileCacheManager:
         with self._lock:
             self._region_versions[region_id] = manifest_version
 
-    def drop_stale(self, entries: list[_SuperTiles], dictionary: TableDictionary) -> list[int]:
-        """Drop entries whose device tag codes predate a dictionary growth
-        that moved codes (the reference repairs them in place with one
-        gather); returns the dropped region ids, which the caller rebuilds."""
-        dropped = []
+    def repair_super(self, entries: list[_SuperTiles], dictionary: TableDictionary,
+                     tag_cols) -> None:
+        """Dictionary-growth repair: one K15 remap on the card per stale
+        tag code plane, a numpy gather per stale sorted host copy.  Runs
+        after every source of the query has updated the dictionary;
+        serialized under the cache lock so a permutation never applies
+        twice.  The device remap reproduces JAX's take(mode="fill"): a
+        code in [-n, -1] counts from the end.  No negative code reaches a
+        device plane (padding holds 0, encodes are repaired on the host
+        first); the host half maps every negative code to -1."""
         with self._lock:
             for entry in entries:
-                stale = any(
-                    dictionary.perm_since(tag, epoch) is not None
-                    for tag, epoch in entry.epochs.items()
-                )
-                if stale:
-                    if self._super.get(entry.region_id) is entry:
-                        self._used -= self._super.pop(entry.region_id).nbytes
-                    dropped.append(entry.region_id)
-                else:
-                    for tag in entry.epochs:
-                        entry.epochs[tag] = dictionary.epoch
-        return dropped
+                for tag in tag_cols:
+                    if tag not in entry.epochs:
+                        continue
+                    perm = dictionary.perm_since(tag, entry.epochs[tag])
+                    if perm is not None:
+                        table = torch.from_numpy(np.ascontiguousarray(perm, np.int32)).to(
+                            self.device)
+                        entry.cols[tag] = gather_planes(entry.cols[tag], table, remap=True)
+                        # the time-major copy holds the old codes
+                        dropped = entry.tm_cols.pop(tag, None)
+                        if dropped is not None:
+                            freed = _nbytes(dropped)
+                            entry.nbytes -= freed
+                            if self._super.get(entry.region_id) is entry:
+                                self._used -= freed
+                    entry.epochs[tag] = dictionary.epoch
+                for tag, epoch in list(entry.host_epochs.items()):
+                    perm = dictionary.perm_since(tag, epoch)
+                    if perm is not None:
+                        codes = entry.sorted_host[tag]
+                        ok = (codes >= 0) & (codes < len(perm))
+                        entry.sorted_host[tag] = np.where(
+                            ok, perm[np.clip(codes, 0, len(perm) - 1)], -1
+                        ).astype(codes.dtype)
+                    entry.host_epochs[tag] = dictionary.epoch
 
     def _reserve_locked(self, est: int, pinned_regions: set[int]):
         """Make room for `est` bytes about to allocate on the device."""
@@ -241,9 +344,13 @@ class TileCacheManager:
                     if name not in keep_cols:
                         freed += _nbytes(d.pop(name))
                         entry.epochs.pop(name, None)
-            for name in list(entry.limb_cols):
-                if name not in keep_cols:
-                    freed += _limb_nbytes(entry.limb_cols.pop(name))
+            for d in (entry.tm_cols, entry.tm_nulls):
+                for name in list(d):
+                    if name not in keep_cols:
+                        freed += _nbytes(d.pop(name))
+            for key in list(entry.limb_cols):
+                if key.split(":", 1)[-1] not in keep_cols:
+                    freed += _limb_nbytes(entry.limb_cols.pop(key))
             entry.nbytes -= freed
             if self._super.get(entry.region_id) is entry:
                 self._used -= freed
@@ -378,10 +485,34 @@ class TileCacheManager:
                 entry = self._super.get(rid)
                 if entry is not None:
                     self._super.move_to_end(rid)
-                    if entry.file_ids != ids:
-                        # the file set changed: full rebuild
-                        self._used -= self._super.pop(rid).nbytes
-                        entry = None
+            if entry is not None and entry.file_ids != ids:
+                # a flush appended files: extend the cached entry in place
+                # (delta encode, merge of the sorted runs, K16 plane patch);
+                # any other change of the file set rebuilds
+                extended = None
+                if not getattr(self.tile_config, "incremental", True):
+                    why = "tile.incremental off: full rebuild"
+                elif not passes.enabled("incremental_tile", self.config):
+                    why = "pass disabled: full rebuild"
+                elif not (len(ids) > len(entry.file_ids)
+                          and ids[: len(entry.file_ids)] == entry.file_ids):
+                    why = "file set not an append of the cached one (removal): full rebuild"
+                elif entry.order is None:
+                    why = "cached entry has no sort order yet: full rebuild"
+                else:
+                    why = "delta could not merge: full rebuild"
+                    extended = self._delta_extend(
+                        region, dictionary, entry, included, ids, host_need,
+                        tag_cols + pk_cols, ts_col, sort_cols, pinned_regions, timings,
+                    )
+                if extended is None:
+                    passes.note("incremental_tile", False, why, region=rid)
+                    with self._lock:
+                        if self._super.get(rid) is entry:
+                            self._used -= self._super.pop(rid).nbytes
+                    entry = None
+                else:
+                    entry = extended
             if entry is None:
                 total = sum(m.num_rows for m in included)
                 entry = _SuperTiles(region_id=rid, file_ids=ids, num_rows=total,
@@ -418,6 +549,9 @@ class TileCacheManager:
                 else:
                     entry.order = np.arange(entry.num_rows, dtype=np.int64)
                 entry.sorted_host = {name: cats[name][entry.order] for name in sort_cols}
+                entry.host_epochs = {
+                    name: dictionary.epoch for name in sort_cols if name != ts_col
+                }
 
             est = 0
             for name in missing:
@@ -428,7 +562,7 @@ class TileCacheManager:
             with self._lock:
                 self._reserve_locked(est, pinned_regions | {rid})
 
-            bounds = _chunk_bounds(entry.pad, self.chunk_rows)
+            bounds = chunk_bounds(entry.pad, self.chunk_rows)
             acc = [0, 0.0]  # device bytes landed, upload seconds
             if entry.valid is None:
                 v = np.zeros(entry.pad, bool)
@@ -455,6 +589,174 @@ class TileCacheManager:
                 timings["build"] = timings.get("build", 0.0) + total_ms - t_up * 1e3
             return entry, excluded
         return None, list(metas)
+
+    def _delta_extend(self, region, dictionary, entry: _SuperTiles, included, ids,
+                      host_need, tag_like, ts_col, sort_cols, pinned_regions,
+                      timings) -> _SuperTiles | None:
+        """Extend a cached entry in place after a flush appended files:
+        host-encode only the delta files, merge their (pk, ts)-sorted run
+        into the cached order (`_lex_merge_positions`, no re-sort of the
+        whole), and patch every resident plane on the card with K16, so
+        only the positions and the delta values cross to the device.
+        Re-derivable planes (time-major copies, the permutation, limb
+        planes, the dedup keep plane) drop and rebuild lazily.  Returns
+        the entry, or None when the delta cannot merge (the caller
+        rebuilds, the reference's semantics); a device failure raises.
+        `timings` gains "delta_host" (encode + merge) and "delta_device"
+        (the patches, through a sync) in ms.
+
+        The merged (order, sorted_host) equal a rebuild's stable lexsort
+        of the whole concatenation, since both runs were stably sorted and
+        ties go to the old run (flush order)."""
+        rid = entry.region_id
+        old_ids = entry.file_ids
+        delta_metas = included[len(old_ids):]
+        delta_rows = sum(m.num_rows for m in delta_metas)
+        if delta_rows == 0:
+            return None
+        if any(c not in entry.sorted_host for c in sort_cols):
+            return None  # the entry predates a sort column: the rebuild owns it
+        t_start = time.perf_counter()
+
+        # 1. host-encode the delta files only; resident planes must be
+        # patchable, so the decode covers them too
+        resident = sorted(set(entry.cols) | set(entry.nulls))
+        need = list(dict.fromkeys(list(host_need) + resident))
+        delta_tiles: list[_FileHostTiles] = []
+        for meta in delta_metas:
+            ht = self._file_host_tiles(region, dictionary, meta, need, tag_like, ts_col)
+            if ht is None:
+                return None  # a bad delta file: the rebuild path gates it
+            delta_tiles.append(ht)
+
+        # 2. one dictionary epoch for every code before keys are compared:
+        # the delta encode may have grown the dictionary
+        with self._lock:
+            for ht in delta_tiles:
+                self._repair_host_locked(ht, dictionary)
+        self.repair_super([entry], dictionary, sorted(entry.epochs))
+
+        # 3. sort the delta, merge the two sorted runs
+        old_n = entry.num_rows
+        total = old_n + delta_rows
+        new_pad = pad_rows(max(total, 1))
+        delta_cats = {c: np.concatenate([ht.cols[c] for ht in delta_tiles]) for c in sort_cols}
+        if sort_cols:
+            delta_order = np.lexsort([delta_cats[c] for c in reversed(sort_cols)]).astype(np.int64)
+        else:
+            delta_order = np.arange(delta_rows, dtype=np.int64)
+        delta_sorted = {c: delta_cats[c][delta_order] for c in sort_cols}
+        old_sorted = {c: entry.sorted_host[c] for c in sort_cols}
+        pos = _lex_merge_positions([old_sorted[c] for c in sort_cols],
+                                   [delta_sorted[c] for c in sort_cols])
+        shift = np.searchsorted(pos, np.arange(old_n), side="right")
+        old_global = np.arange(old_n, dtype=np.int64) + shift
+        delta_global = pos + np.arange(delta_rows, dtype=np.int64)
+        new_order = np.empty(total, np.int64)
+        new_order[old_global] = entry.order
+        new_order[delta_global] = old_n + delta_order
+        new_sorted: dict[str, np.ndarray] = {}
+        for c in sort_cols:
+            arr = np.empty(total, old_sorted[c].dtype)
+            arr[old_global] = old_sorted[c]
+            arr[delta_global] = delta_sorted[c].astype(old_sorted[c].dtype)
+            new_sorted[c] = arr
+        host_ms = (time.perf_counter() - t_start) * 1e3
+
+        # 4. patch the resident planes on the card (K16): old rows read
+        # through the old chunk table, each plane written into new chunks
+        t_dev = time.perf_counter()
+        patched_cols: dict[str, list] = {}
+        patched_nulls: dict[str, list] = {}
+        new_valid = None
+        if entry.valid is not None:
+            est = new_pad  # the valid plane
+            for chunks in entry.cols.values():
+                est += new_pad * chunks[0].element_size()
+            est += (len(entry.nulls) + len(entry.cols)) * new_pad  # nulls
+            with self._lock:
+                self._reserve_locked(est, pinned_regions | {rid})
+            pos_dev = torch.from_numpy(pos.astype(np.int32)).to(self.device)
+
+            def up(arr: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+            def delta_col(name, dtype):
+                cat = np.concatenate([
+                    ht.cols[name] if name in ht.cols else np.zeros(ht.num_rows, dtype)
+                    for ht in delta_tiles
+                ])
+                return up(cat[delta_order].astype(dtype, copy=False))
+
+            def delta_null(name):
+                if not any(name in ht.nulls or name in ht.absent for ht in delta_tiles):
+                    return None
+                ncat = np.concatenate([
+                    ht.nulls[name] if name in ht.nulls
+                    else np.full(ht.num_rows, name not in ht.absent)
+                    for ht in delta_tiles
+                ])
+                return ncat[delta_order]
+
+            def patch(chunks, dv):
+                return delta_patch(chunks, old_n, dv, pos_dev, new_pad, self.chunk_rows)
+
+            for name, chunks in entry.cols.items():
+                np_dtype = torch.empty(0, dtype=chunks[0].dtype).numpy().dtype
+                patched_cols[name] = patch(chunks, delta_col(name, np_dtype))
+                dn = delta_null(name)
+                if name in entry.nulls:
+                    if dn is None:
+                        dn = np.ones(delta_rows, bool)
+                    patched_nulls[name] = patch(entry.nulls[name], up(dn))
+                elif dn is not None and not dn.all():
+                    # the delta brings the column's first nulls: the old
+                    # rows are all present
+                    ones = [torch.ones(old_n, dtype=torch.bool, device=self.device)]
+                    patched_nulls[name] = patch(ones, up(dn))
+            new_valid = patch(entry.valid, up(np.ones(delta_rows, bool)))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        dev_ms = (time.perf_counter() - t_dev) * 1e3
+
+        # 5. commit: nothing above changed the entry
+        with self._lock:
+            if (self._super.get(rid) is not entry or entry.file_ids != old_ids
+                    or entry.num_rows != old_n):
+                return None  # evicted or changed meanwhile: the rebuild owns it
+            old_dev = entry.nbytes
+            entry.file_ids = ids
+            entry.num_rows = total
+            entry.pad = new_pad
+            entry.order = new_order
+            entry.sorted_host = new_sorted
+            entry.host_epochs = {c: dictionary.epoch for c in sort_cols if c != ts_col}
+            entry.valid_dedup = None
+            if new_valid is not None:
+                entry.cols = patched_cols
+                entry.nulls = patched_nulls
+                entry.valid = new_valid
+            else:
+                entry.cols, entry.nulls, entry.valid, entry.epochs = {}, {}, None, {}
+            # re-derivable planes rebuild lazily from the patched planes
+            entry.tm_cols, entry.tm_nulls, entry.tm_valid = {}, {}, None
+            entry.perm = None
+            entry.limb_cols = {}
+            entry.nbytes = _entry_device_bytes(entry)
+            self._used += entry.nbytes - old_dev
+            self._evict_locked(pinned_regions | {rid})
+        entry.delta_extends += 1
+        if timings is not None:
+            timings["delta_host"] = timings.get("delta_host", 0.0) + host_ms
+            timings["delta_device"] = timings.get("delta_device", 0.0) + dev_ms
+        passes.note(
+            "incremental_tile", True,
+            f"{delta_rows} delta rows merged into the cached super-tile "
+            "(sorted-run merge + on-device plane patch)",
+            region=rid, delta_rows=delta_rows, total_rows=total,
+            ms=round((time.perf_counter() - t_start) * 1e3, 1),
+        )
+        return entry
 
     def _consolidate_column(self, entry: _SuperTiles, name, host_tiles):
         """Host-side assembly of one column's consolidated (sorted, padded)
@@ -525,7 +827,7 @@ class TileCacheManager:
                 for arr in entry.sorted_host.values():
                     same &= arr[:-1] == arr[1:]
                 keep[: n - 1] &= ~same
-            entry.valid_dedup = self._up_chunks(keep, _chunk_bounds(entry.pad, self.chunk_rows))
+            entry.valid_dedup = self._up_chunks(keep, chunk_bounds(entry.pad, self.chunk_rows))
             entry.nbytes += entry.pad
             if self._super.get(entry.region_id) is entry:
                 self._used += entry.pad
@@ -549,25 +851,82 @@ class TileCacheManager:
                 self._group_csrs.popitem(last=False)
         return csr
 
+    def ensure_perm(self, entry: _SuperTiles, ts_name: str) -> torch.Tensor:
+        """The stable ts-ascending permutation of the entry (K14), built
+        once per file set and cached; padding rows sort last.  Build and
+        budget accounting run under the lock, so the sort never runs
+        twice and bytes are charged only while the entry is cached."""
+        with self._lock:
+            if entry.perm is None:
+                # the sort's working set, as the reference reserves it
+                self._reserve_locked(entry.pad * 24, {entry.region_id})
+                entry.perm = ts_argsort(entry.cols[ts_name], entry.valid)
+                entry.nbytes += entry.pad * 4
+                if self._super.get(entry.region_id) is entry:
+                    self._used += entry.pad * 4
+            return entry.perm
+
+    def ensure_time_major(self, entry: _SuperTiles, ts_name: str, cols_needed):
+        """ts-ascending copies of the needed planes (one K15 gather each,
+        once per (entry, file set, column)), so time-major dispatches
+        gather nothing.  Returns (cols, valid, nulls) views limited to
+        `cols_needed`."""
+        perm = self.ensure_perm(entry, ts_name)
+        added = 0
+        with self._lock:
+            est = 0
+            for c in cols_needed:
+                if c in entry.cols and c not in entry.tm_cols:
+                    est += _nbytes(entry.cols[c])
+                if c in entry.nulls and c not in entry.tm_nulls:
+                    est += entry.pad
+            if entry.tm_valid is None:
+                est += entry.pad
+            self._reserve_locked(est, {entry.region_id})
+            if entry.tm_valid is None:
+                entry.tm_valid = gather_planes(entry.valid, perm)
+                added += entry.pad
+            for c in cols_needed:
+                if c in entry.cols and c not in entry.tm_cols:
+                    entry.tm_cols[c] = gather_planes(entry.cols[c], perm)
+                    added += _nbytes(entry.tm_cols[c])
+                if c in entry.nulls and c not in entry.tm_nulls:
+                    entry.tm_nulls[c] = gather_planes(entry.nulls[c], perm)
+                    added += entry.pad
+            if added:
+                entry.nbytes += added
+                if self._super.get(entry.region_id) is entry:
+                    self._used += added
+            return (
+                {c: entry.tm_cols[c] for c in cols_needed if c in entry.tm_cols},
+                entry.tm_valid,
+                {c: entry.tm_nulls[c] for c in cols_needed if c in entry.tm_nulls},
+            )
+
     def ensure_limbs(
         self,
         entry: _SuperTiles,
         cols_needed: list[str],
+        time_major: bool = False,
         pinned_regions: set[int] = frozenset(),
     ) -> dict[str, list]:
-        """Cached K5 planes for the given value columns, quantized on the
-        device from the resident f64 plane once per (region, file set);
-        returns col -> per-chunk (limbs, scale).  Columns with a chunk below
-        the limb geometry (a multiple of 4096, at least 2^16 rows) are
-        skipped: those sources take the exact scatter path."""
+        """Cached K5 planes for the given value columns in the requested
+        row order (the (pk, ts) planes, or the time-major copies, which
+        `ensure_time_major` must have built), quantized on the device once
+        per (region, file set); returns col -> per-chunk (limbs, scale).
+        Columns with a chunk below the limb geometry (a multiple of 4096,
+        at least 2^16 rows) are skipped: those sources take the exact
+        scatter path."""
+        src = entry.tm_cols if time_major else entry.cols
+        prefix = "tm:" if time_major else ""
         out: dict[str, list] = {}
         to_build = []
         with self._lock:
             for c in cols_needed:
-                if c in entry.limb_cols:
-                    out[c] = entry.limb_cols[c]
+                if prefix + c in entry.limb_cols:
+                    out[c] = entry.limb_cols[prefix + c]
                     continue
-                chunks = entry.cols.get(c)
+                chunks = src.get(c)
                 if chunks is None or any(
                     x.shape[0] % BLOCK_ROWS or x.shape[0] < _FAST_MIN_ROWS for x in chunks
                 ):
@@ -584,10 +943,10 @@ class TileCacheManager:
         added = 0
         with self._lock:
             for c, planes in built:
-                if c in entry.limb_cols:
-                    out[c] = entry.limb_cols[c]
+                if prefix + c in entry.limb_cols:
+                    out[c] = entry.limb_cols[prefix + c]
                     continue
-                entry.limb_cols[c] = planes
+                entry.limb_cols[prefix + c] = planes
                 out[c] = planes
                 added += _limb_nbytes(planes)
             if added:

@@ -10,11 +10,9 @@ copied as functions of the query config.  Differences:
 * the group-by strategy is always the dense "sort" path, so
   `_choose_agg_strategy` has no counterpart (the hash path, B18, is not
   ported; `QueryConfig.validate` refuses "hash" and "auto");
-* time-major plans do not exist (the pass is not ported): a bucket-only
-  group-by aggregates over the (pk, ts) layout, where K2/K6's guard
-  fails and K3 runs, as in the reference with `time_major` disabled;
 * the blocked kernels' span is fixed at 16 (the reference sizes it per
-  plan): where the reference's wider span would pass, the port's guard
+  plan, and the port only records its estimate in the `time_major`
+  note): where the reference's wider span would pass, the port's guard
   fails and the scatter path gives the same values;
 * a keyed ORDER BY whose cap or number of keys exceeds K7's keyed
   limits is not consumed (the host replays the Sort), so the program
@@ -27,7 +25,7 @@ import numpy as np
 import pyarrow as pa
 
 from ..datatypes.coercion import coerce_string_scalar
-from ..ops.aggregate import TOPK_MAX_KEYED_CAP, TOPK_MAX_KEYS
+from ..ops.aggregate import BLOCK_ROWS, TOPK_MAX_KEYED_CAP, TOPK_MAX_KEYS, having_fits
 from ..query import passes
 from ..storage.dictionary import TableDictionary
 from .executor import COUNT_STAR, DistGroupByPlan, _quantize_card
@@ -202,8 +200,29 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
     needs_ts_order = any(f == "last_value" for f, _ in norm_specs)
     pk = [c.name for c in schema.tag_columns()]
     layout_tags = choose_layout(pk, tag_cols, bucket_col is not None)
+    time_major = (
+        bucket_col is not None
+        and not tag_cols
+        and layout_tags is None
+        and passes.enabled("time_major", config)
+    )
+    if time_major:
+        # window rows spread over n_buckets (out-of-window rows are masked):
+        # the distinct ids a 4096-row block of the copies touches, which
+        # the reference sizes its span by; the port's stays 16
+        est_rows = sum(r.approx_rows() for r in ctx.regions)
+        per_group = max(est_rows // max(n_buckets, 1), 1)
+        passes.note(
+            "time_major", True,
+            "bucket-only group-by reduces over a time-major permutation",
+            span_est=-(-BLOCK_ROWS // per_group) + 2,
+        )
+    elif bucket_col is not None and not tag_cols:
+        passes.note("time_major", False, "time-major disabled or layout claims the sort order")
     if layout_tags is not None and needs_ts_order and set(tag_cols) != set(layout_tags):
         return None  # LAST states only permute, never fold away an axis
+    if time_major and needs_ts_order:
+        return None  # LAST states need the (pk, ts) order
     filter_null_cols = tuple(sorted({
         name for name, _op, _v in enc_filters
         if name not in tag_names and name != ts_name
@@ -225,6 +244,7 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
         layout_cards=() if layout_tags is None else tuple(
             _quantize_card(d.cardinality(t)) for t in layout_tags
         ),
+        time_major=time_major,
     )
     dyn_host = {
         "filter_values": filter_vals,
@@ -237,7 +257,7 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
 
 def plan_device_finalize(config, lowering, schema, ctx, plan, dyn_host, n_buckets_real):
     """The device-finalize spec, or None.  Engages when the device can
-    consume Sort/Limit, when the real group bound is at most half the
+    consume HAVING/Sort/Limit, when the real group bound is at most half the
     padded group space (compaction alone pays), and always for last_value
     plans.  With no LIMIT `cap` bounds the non-empty groups, so the compact
     fetch never overflows."""
@@ -260,15 +280,19 @@ def plan_device_finalize(config, lowering, schema, ctx, plan, dyn_host, n_bucket
         return min(plan.num_groups, quantize_soft(real_groups))
 
     cap = cap_of(post)
-    if post.order and (cap > TOPK_MAX_KEYED_CAP or len(post.order) > TOPK_MAX_KEYS):
+    if (post.order and (cap > TOPK_MAX_KEYED_CAP or len(post.order) > TOPK_MAX_KEYS)) or (
+        post.having is not None and not having_fits(post.having)
+    ):
         # K7's keyed selection stops at TOPK_MAX_KEYS keys and a cap of
-        # TOPK_MAX_KEYED_CAP: leave the Sort (and everything outward) to
-        # the host, keep the compaction
+        # TOPK_MAX_KEYED_CAP, K13's program at its fixed tables: leave the
+        # post-plan to the host, keep the compaction
         post = DevicePost()
         cap = cap_of(post)
     has_last = any(f == "last_value" for f, _c in plan.agg_specs)
     if cap <= 0 or not (post.consumed or cap * 2 <= plan.num_groups or has_last):
         return None
     dyn_host["post_consumed"] = post.consumed
-    return DeviceFinalizeSpec(order=post.order, limit=post.limit, offset=post.offset,
-                              cap=int(cap))
+    dyn_host["having_values"] = tuple(post.having_values)
+    return DeviceFinalizeSpec(order=post.order, having=post.having,
+                              n_having_values=len(post.having_values), limit=post.limit,
+                              offset=post.offset, cap=int(cap))

@@ -4,8 +4,9 @@ Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `_tile_program`
 (`run_all`, `_partial`, the merge, `_device_select`, `_final`).  Per
 source (a super-tile chunk or a memtable tail) `compute_partial_states`
 runs K1 and K2-K6; the partial states merge pairwise in source order
-(chunk order, then the tails), are finalized, optionally top-k selected
-on the card (K7) and packed by K8 into the reference's result layout:
+(chunk order, then the tails), are finalized, optionally filtered by
+HAVING (K13) and top-k selected on the card (K7) and packed by K8 into
+the reference's result layout:
 
 * dense path: (buf, accs64) — buf holds the int rows (int32, or 1 bit
   per group when G >= 2^14 and no output consumes an exact count), the
@@ -27,7 +28,15 @@ import functools
 
 import torch
 
-from ..ops.aggregate import finalize, merge_states, pack_result, topk_group_select
+from ..ops.aggregate import (
+    HavingRef,
+    finalize,
+    having_mask,
+    having_refs,
+    merge_states,
+    pack_result,
+    topk_group_select,
+)
 from .executor import COUNT_STAR, DistGroupByPlan, _FUNC_TO_KERNEL, compute_partial_states
 
 
@@ -78,9 +87,12 @@ class TileProgram:
         # ends in a verdict byte, and the caller reruns in f64 on 0
         self.limb_err_cols = limb_sum_cols(plan)
         # avg is computed by K8; before it only for an ORDER BY key of K7
+        # or a HAVING ref of K13
+        refs = [ref for ref, _asc, _nf in (spec.order if spec is not None else ())]
+        if spec is not None and spec.having is not None:
+            refs += having_refs(spec.having)
         self.key_avg_cols = frozenset(
-            ref[1] for ref, _asc, _nf in (spec.order if spec is not None else ())
-            if ref[0] != "dim" and ref[2] == "avg"
+            ref[1] for ref in refs if ref[0] != "dim" and ref[2] == "avg"
         )
 
     # -- the pieces ----------------------------------------------------------
@@ -97,49 +109,48 @@ class TileProgram:
         st = merged.get(col)
         return st.counts if st is not None and st.counts is not None else presence
 
-    def device_select(self, merged, outs, presence):
-        """ORDER BY keys over the finalized states -> K7.  Returns
-        (sel int32 [cap], n_out int32 [1])."""
+    def device_select(self, merged, outs, presence, having_values=()):
+        """HAVING (K13) ANDed with presence > 0, then ORDER BY keys over
+        the finalized states -> K7.  Returns (sel int32 [cap], n_out
+        int32 [1])."""
         plan, spec = self.plan, self.spec
         g = presence.shape[0]
-        gid = torch.arange(g, dtype=torch.int64, device=presence.device)
         dims = list(plan.tag_cards)
         if plan.bucket_col is not None:
             dims.append(plan.n_buckets)
 
-        def ref_val(ref):
-            """-> (value [G], isnull [G] | None).  Dim refs decode from the
-            group id (tag codes are value-sorted, NULL last, so code order
-            is SQL-default order); agg refs read the finalized outputs with
-            the count > 0 NULL gate the host applies."""
+        def ref_planes(ref) -> HavingRef:
+            """What a HAVING or ORDER BY ref reads.  Dim refs decode from
+            the group id (tag codes are value-sorted, NULL last, so code
+            order is SQL-default order); agg refs read the finalized
+            outputs with the count > 0 NULL gate the host applies, and the
+            host's NULL for a NaN output."""
             if ref[0] == "dim":
-                i = ref[1]
                 div = 1
-                for c in dims[i + 1:]:
+                for c in dims[ref[1] + 1:]:
                     div *= c
-                return (gid // div) % dims[i], None
+                return HavingRef(div=div, card=dims[ref[1]])
             _kind, col, agg = ref
             if col == COUNT_STAR or col not in merged:
-                return presence, None
-            if agg == "count":
-                cc = merged[col].counts
-                return (cc if cc is not None else presence), None
+                return HavingRef(values=presence)
             counts = merged[col].counts
-            isnull = (counts == 0) if counts is not None else None
-            v = outs[col][agg]
-            if v.is_floating_point():
-                # the host masks NaN outputs to NULL: same bucket here
-                nan = torch.isnan(v)
-                isnull = nan if isnull is None else (isnull | nan)
-            return v, isnull
+            if agg == "count":
+                return HavingRef(values=counts if counts is not None else presence)
+            return HavingRef(values=outs[col][agg], counts=counts, nan_null=True)
 
+        if spec.having is not None:
+            refs = {ref: ref_planes(ref) for ref in having_refs(spec.having)}
+            hv = torch.tensor(having_values or (0.0,), dtype=torch.float64)
+            mask = having_mask(spec.having, refs, hv, presence)
+        else:
+            mask = presence > 0
         order_keys = []
         for ref, asc, nulls_first in spec.order:
-            v, isn = ref_val(ref)
+            v, isn = ref_planes(ref).resolve(g, presence.device)
             order_keys.append((v, isn, asc, nulls_first))
-        return topk_group_select(presence > 0, order_keys, spec.cap)
+        return topk_group_select(mask, order_keys, spec.cap)
 
-    def final(self, merged):
+    def final(self, merged, having_values=()):
         presence = merged["__presence"].counts
         outs = {"__presence": {"count": presence}}
         for col, aggs in self.per_col_aggs.items():
@@ -149,7 +160,7 @@ class TileProgram:
                 outs[col] = finalize(merged[col], tuple(sorted(aggs)), counts=presence)
         sel = n_out = None
         if self.spec is not None:
-            sel, n_out = self.device_select(merged, outs, presence)
+            sel, n_out = self.device_select(merged, outs, presence, having_values)
 
         def int_row(col):
             return presence if col == "__presence" else merged[col].counts
@@ -182,7 +193,7 @@ class TileProgram:
             merged = states if merged is None else self.merge(merged, states)
         if merged is None:
             raise ValueError("tile program received no sources")
-        return self.final(merged)
+        return self.final(merged, dyn.get("having_values", ()))
 
 
 @functools.lru_cache(maxsize=256)

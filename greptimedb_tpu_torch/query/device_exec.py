@@ -12,10 +12,10 @@ the CPU executor over the small aggregated result.
 With a tile executor wired in (the device-resident super-tile cache,
 parallel/tile_executor.py) `try_tile` is tried first: a warm query skips
 the Parquet scan, the re-encode and the upload and runs one tile program
-over the cached planes.  ORDER BY / LIMIT the program consumed on the
-card (`Lowering.post_done`) are skipped by the host replay.  When the
-tile path declines, the table-fed path runs.  Device-side HAVING and
-distributed state shipping are not ported (ROADMAP.md).
+over the cached planes.  HAVING / ORDER BY / LIMIT the program consumed
+on the card (`Lowering.post_done`) are skipped by the host replay.  When
+the tile path declines, the table-fed path runs.  Distributed state
+shipping is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ from __future__ import annotations
 import pyarrow as pa
 
 from ..datatypes.schema import Schema
-from ..utils.config import QueryConfig
+from ..utils.config import QueryConfig, TileConfig
 from .cpu_exec import CpuExecutor
 from .device_exec import DeviceExecutor, try_lower
 from .logical_plan import LogicalPlan
@@ -52,6 +52,7 @@ class QueryEngine:
         time_bounds_provider,
         config: QueryConfig | None = None,
         tile_context_provider=None,
+        tile_config: TileConfig | None = None,
     ):
         """
         schema_provider(table, database) -> Schema
@@ -61,6 +62,7 @@ class QueryEngine:
         tile_context_provider(scan) -> TileContext | None    (the tile path)
         """
         self.config = config or QueryConfig()
+        self.tile_config = tile_config or TileConfig()
         if self.config.backend not in ("torch", "cpu"):
             raise ValueError(
                 f"query backend {self.config.backend!r}: use 'torch' or 'cpu'"
@@ -98,6 +100,8 @@ class QueryEngine:
                 device_budget(self.config.tile_cache_mb, device),
                 chunk_rows=self.config.tile_chunk_rows,
                 device=device,
+                config=self.config,
+                tile_config=self.tile_config,
             )
             self._tile_executor = TileExecutor(self.tile_cache, self.config)
         return self._tile_executor

@@ -3,22 +3,36 @@ switchable.
 
 Counterpart of `greptimedb_tpu/query/passes.py`, holding only the passes
 the port implements and whose decision points consult `enabled()`.  A
-pass the reference has and the port does not (time-major, window tiles,
-incremental planes, the host fast path, the fused build, the mesh, ...)
-does not exist here, so `enabled()` reports it off: the port behaves as
-the reference does with that pass in `query.disabled_passes`.  The
-per-query decision trace of the reference (EXPLAIN ANALYZE) is not
-ported.
+pass the reference has and the port does not (window tiles, the dedup
+plane on the SQL path, the host fast path, the fused build, the mesh,
+...) does not exist here, so `enabled()` reports it off: the port
+behaves as the reference does with that pass in
+`query.disabled_passes`.
+
+`note()` records a decision (a pass taken or declined, and why) into
+the trace of the current context, when a caller opened one with
+`use_trace`; the reference renders these in EXPLAIN ANALYZE, which is
+not ported.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+from dataclasses import dataclass, field
 
 # name -> what the pass does, in run order
 PASSES = {
     "limb_quantize": "accumulate sum/avg through fixed-point base-256 digit planes (K5 "
                      "quantize, K6 integer segment sums) with a per-group error bound",
-    "device_finalize": "run ORDER BY / LIMIT and result compaction on the card over the "
-                       "finalized [G] states (K7) so the one readback is O(rows_out)",
+    "incremental_tile": "extend an existing super-tile IN PLACE when a flush appends files: "
+                        "delta encode + merge of sorted runs + on-device plane patch (K16), "
+                        "so post-flush cold cost is O(delta rows) instead of a full rebuild",
+    "device_finalize": "run HAVING (K13), ORDER BY / LIMIT and result compaction on the card "
+                       "over the finalized [G] states (K7) so the one readback is "
+                       "O(rows_out)",
+    "time_major": "permute value planes time-major (K14 sort, K15 gathers) so bucket-only "
+                  "group-bys reduce over contiguous runs",
     "tql_tile": "evaluate PromQL range functions (rate/increase/delta, *_over_time, the "
                 "by-label sum/avg/min/max/count fold) as one program (K9-K12) over the "
                 "resident super-tile planes, with a compacted [series_out, steps] readback",
@@ -30,3 +44,41 @@ def enabled(name: str, config=None) -> bool:
     if name not in PASSES:
         return False
     return config is None or name not in (getattr(config, "disabled_passes", ()) or ())
+
+
+@dataclass
+class PassDecision:
+    name: str
+    fired: bool
+    why: str
+    attrs: dict = field(default_factory=dict)
+
+
+@dataclass
+class PassTrace:
+    """The decisions of one query, in the order they were taken."""
+
+    decisions: list = field(default_factory=list)
+
+
+_trace: contextvars.ContextVar[PassTrace | None] = contextvars.ContextVar(
+    "pass_trace", default=None
+)
+
+
+@contextlib.contextmanager
+def use_trace(t: PassTrace):
+    """Record the decisions taken inside the block into `t`."""
+    token = _trace.set(t)
+    try:
+        yield t
+    finally:
+        _trace.reset(token)
+
+
+def note(name: str, fired: bool, why: str, **attrs) -> None:
+    """Record a pass decision; one context-variable read when no trace is
+    open."""
+    t = _trace.get()
+    if t is not None:
+        t.decisions.append(PassDecision(name, fired, why, attrs))

@@ -31,9 +31,10 @@ Routing (the `tql_tile` pass, switch `tql.tile`):
 
 Non-append tables (GreptimeDB dedups Prometheus remote-write tables on
 (labels, ts)) whose SSTs overlap in time are served through the dedup
-keep plane (`TileCacheManager.ensure_dedup_keep`).  A dictionary growth
-that moved codes drops and rebuilds the entry (the reference repairs it
-with `repair_super`, not ported).
+keep plane (`TileCacheManager.ensure_dedup_keep`).  A flush that appends
+files extends the entry in place (K16), and a dictionary growth that
+moved codes is repaired in place (`repair_super`, K15 remap), as on the
+SQL tile path.
 
 Parity with the legacy path: per-series *_over_time, delta, instant
 vectors, matchers and the by-label folds equal it on one-region tables
@@ -192,14 +193,8 @@ class TqlTileExecutor:
                     items = self._acquire_regions(ctx, lo_nat, hi_nat, ts_name, pinned)
                     if not all(self._warm_entry(s, tags, ts_name, value_col) for s in items):
                         raise _Ineligible("planes did not build")
-                # entries whose codes a dictionary growth moved: rebuild
-                # them from the repaired host encodes
-                dropped = set(self.cache.drop_stale([s["entry"] for s in items], dictionary))
-                if dropped:
-                    for s in items:
-                        if s["region"].region_id in dropped:
-                            s["entry"] = None
-                    self._build_sync(ctx, schema, items, value_col, ts_name, lo_nat, hi_nat)
+                # the code planes a dictionary growth moved: one K15 remap each
+                self.cache.repair_super([s["entry"] for s in items], dictionary, tags)
                 return self._dispatch(
                     func, agg, items, dictionary, tags, ts_name, value_col, unit_ns,
                     offset, lo_nat, hi_nat, start, step, steps, range_ms,

@@ -541,6 +541,14 @@ class Region:
         with self._lock:
             return list(self.manifest_mgr.manifest.files.values())
 
+    def approx_rows(self) -> int:
+        """Row-count estimate (manifest stats + memtables) for the tile
+        planner's decisions."""
+        with self._lock:
+            rows = sum(m.num_rows for m in self.manifest_mgr.manifest.files.values())
+            rows += sum(m.num_rows for m in [*self._frozen_memtables, self.memtable])
+        return rows
+
     # ---- tile-cache support ------------------------------------------------
     def pin_scan(self):
         """Hold the deferred-purge refcount open while the device tile cache

@@ -1,7 +1,8 @@
 """Configuration for the port: storage, query and the device.
 
 Counterpart of `greptimedb_tpu/utils/config.py`, reduced to the sections
-the port runs (`Config`, `StorageConfig`, `QueryConfig`, `TqlConfig`).  Differences
+the port runs (`Config`, `StorageConfig`, `QueryConfig`, `TileConfig`,
+`TqlConfig`).  Differences
 that matter:
 
 * `QueryConfig.device` names the torch device the lowered query path runs on
@@ -17,6 +18,9 @@ that matter:
   and `agg_strategy` is "sort" — "hash" and "auto" raise `ConfigError`
   until the hash group-by is ported.  Persistence of super-tiles, the
   streamed spill, batching and the mesh have no knobs here.
+* `TileConfig` holds only `incremental` (delta maintenance of the
+  planes on flush); the prewarm, pipelined and fused builds are not
+  ported.
 
 The TOML/env layering, the other sections and the JAX probe are cut
 (listed in ROADMAP.md).
@@ -94,6 +98,20 @@ class QueryConfig:
 
 
 @dataclasses.dataclass
+class TileConfig:
+    """Super-tile lifecycle: what happens to the resident planes when the
+    region's files change."""
+
+    # Incremental (delta) super-tile maintenance: when a flush APPENDS
+    # files to a region's set, merge only the new rows into the existing
+    # entry — delta encode, merge of two sorted runs (not a re-sort),
+    # on-device patch of resident planes (K16) — so post-flush cold cost
+    # is O(delta rows), not O(total rows).  Off restores the
+    # invalidate-and-rebuild-from-scratch path bit-for-bit.
+    incremental: bool = True
+
+
+@dataclasses.dataclass
 class TqlConfig:
     """The warm TQL path (query/promql/tile_exec.py, the `tql_tile` pass):
     PromQL range-vector evaluation — rate/increase/delta, *_over_time and
@@ -119,3 +137,4 @@ class Config:
     storage: StorageConfig = dataclasses.field(default_factory=StorageConfig)
     query: QueryConfig = dataclasses.field(default_factory=QueryConfig)
     tql: TqlConfig = dataclasses.field(default_factory=TqlConfig)
+    tile: TileConfig = dataclasses.field(default_factory=TileConfig)

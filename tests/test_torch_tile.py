@@ -7,10 +7,11 @@ agg_strategy "sort", no tile persistence — on the same writes.
 * the shapes of the reference's tests/test_tile_cache.py and
   tests/test_device_finalize.py that fall inside the slice (tag/value
   filters, NULL tags and values, hierarchical and bucket-only layouts,
-  last_value, windows, ORDER BY / LIMIT / OFFSET on the card, HAVING
-  replayed on the host), as cases of parametrised tests;
-* a write after a warm query (memtable tail, flush, a new tag value that
-  moves dictionary codes) changes the next answer;
+  last_value, windows, ORDER BY / LIMIT / OFFSET and HAVING on the
+  card), as cases of parametrised tests;
+* a write after a warm query (memtable tail, flush — the delta route —,
+  a new tag value that moves dictionary codes — repaired in place)
+  changes the next answer;
 * a mixed-magnitude block fails the limb verdict and reruns in f64.
 
 Every port query must be answered by the tile path, and the reference by
@@ -33,9 +34,10 @@ from greptimedb_tpu_torch.utils.config import QueryConfig
 from greptimedb_tpu_torch.utils.errors import ConfigError
 
 # the reference's passes the port has not ported: its configuration here
+# (time_major and incremental_tile run on both sides, at their defaults)
 UNPORTED_PASSES = (
-    "cold_host_serve", "fused_build", "pipelined_build", "incremental_tile", "window_tile",
-    "time_major", "dedup_plane", "stream_spill", "chunk_placement", "mesh_dispatch",
+    "cold_host_serve", "fused_build", "pipelined_build", "window_tile",
+    "dedup_plane", "stream_spill", "chunk_placement", "mesh_dispatch",
     "streamed_readback", "host_fast_path", "cost_route",
 )
 TSBS = chip_smoke.Tsbs(40, 12, n_metrics=3)
@@ -209,7 +211,7 @@ SHAPE_QUERIES = [
     "SELECT host, count(v) AS cv, sum(v) AS sv FROM t GROUP BY host",
     # ungrouped aggregate and a value filter
     "SELECT count(*) AS c, sum(u) AS su, max(v) AS mv FROM t WHERE v > 3.0",
-    # bucket-only group-by (time-major is not ported: the (pk, ts) layout)
+    # bucket-only group-by (a time-major plan on both sides)
     "SELECT time_bucket('10s', ts) AS tb, max(u) AS mu, avg(s) AS a FROM t GROUP BY tb",
     # last_value on a pk-prefix group
     "SELECT host, last_value(u) AS lu, last_value(v) AS lv FROM t GROUP BY host",
@@ -243,8 +245,9 @@ ORDERBY_LIMIT_QUERIES = [
     " ORDER BY tb DESC, host ASC",
 ]
 
-# tests/test_device_finalize.py HAVING_QUERIES: HAVING is not consumed on
-# the card by the port; it replays on the host over the compact result
+# tests/test_device_finalize.py HAVING_QUERIES: HAVING is consumed on the
+# card (K13) by both packages; what follows an unconsumable operator
+# replays on the host over the compact result
 HAVING_QUERIES = [
     "SELECT host, avg(u) AS au FROM t GROUP BY host HAVING avg(u) > 6.0",
     "SELECT host, avg(u) AS au, count(*) AS c FROM t GROUP BY host"
@@ -317,9 +320,22 @@ def test_order_keys_beyond_the_device_limit_sort_on_the_host(t_pair, monkeypatch
 
 
 @pytest.mark.parametrize("sql", HAVING_QUERIES)
-def test_having_replays_on_host_and_matches(t_pair, sql):
+def test_having_replays_on_host_and_matches(t_pair, monkeypatch, sql):
+    """Each HAVING folds into the device program (the spec carries its
+    tree); the port's answer equals the reference's."""
+    from greptimedb_tpu_torch.parallel import tile_planner
+
+    specs = []
+    real = tile_planner.plan_device_finalize
+
+    def spy(*args, **kwargs):
+        specs.append(real(*args, **kwargs))
+        return specs[-1]
+
+    monkeypatch.setattr(tile_planner, "plan_device_finalize", spy)
     port, ref = t_pair
     got, want = _run_pair(port, ref, sql)
+    assert specs and specs[-1] is not None and specs[-1].having is not None
     _assert_same(got, want, sql, ordered="ORDER BY" in sql)
 
 

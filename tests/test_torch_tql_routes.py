@@ -8,7 +8,8 @@ Database with `tql.tile = False` (its legacy path), on the same writes:
   one tile dispatch;
 * memtable rows in the fetch window routing to the legacy path, and back
   to the tile path after a flush;
-* a dictionary growth that moves every code (the entry is rebuilt);
+* a dictionary growth that moves every code (the entry is extended in
+  place and its codes repaired);
 * a microsecond time index;
 * rate() against an independent numpy twin (tests/test_tql_tile.py:174).
 
@@ -211,14 +212,20 @@ def test_memtable_rows_route_to_legacy(tmp_path_factory):
 
 
 def test_label_churn_rebuilds_the_planes(tmp_path_factory):
-    """A new host that sorts before the others moves every code: the entry
-    is dropped and rebuilt, and the warm result equals the reference."""
+    """A new host that sorts before the others moves every code: the flush
+    extends the cached entry in place (the delta merge) and `repair_super`
+    remaps the resident host codes (K15's remap mode) instead of a
+    rebuild, and the warm result equals the reference."""
     pair = _Pair(tmp_path_factory, "churn")
     try:
         rng = np.random.default_rng(17)
         _load_counter(pair, rng, hosts=3, ticks=24)
         q = "TQL EVAL (60, 540, '30s') sum by (host) (avg_over_time(tq[2m]))"
         pair.run(q)
+        cache = pair.port.query_engine.tile_cache
+        (entry,) = cache._super.values()
+        before = entry.cols["host"][0][: entry.num_rows].clone()
+        builds = cache.stats_counts["builds"]
         pair.sql("INSERT INTO tq VALUES " + ",".join(
             f"('aa', {rng.uniform(0, 9):.4f}, {t * 15000})" for t in range(24)))
         pair.flush()
@@ -226,6 +233,14 @@ def test_label_churn_rebuilds_the_planes(tmp_path_factory):
         assert delta["tql_tile_dispatches"] == 1
         _assert_same(got, want, q)
         assert {r[0] for r in _rows(got)} == {"aa", "h0", "h1", "h2"}
+        (after,) = cache._super.values()
+        assert after is entry and entry.delta_extends == 1
+        assert cache.stats_counts["builds"] == builds
+        # every old row's code moved up by one ("aa" took code 0), and the
+        # new rows hold code 0
+        codes = entry.cols["host"][0][: entry.num_rows]
+        assert int((codes == 0).sum()) == 24
+        assert sorted((codes[codes > 0] - 1).tolist()) == sorted(before.tolist())
     finally:
         pair.close()
 
