@@ -2,13 +2,14 @@
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 2] [--tile-reps 5] [--tql-reps 5]
+                          [--container-hours 6] [--container-reps 3]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the sixteen kernels of csrc/ for sm_90a (one nvcc each,
-             all started together).
+2. build   — builds the seventeen kernels of csrc/ for sm_90a (one nvcc
+             each, all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
              17.28 M rows, C = 1, 5 and 10, span 16, G = 4096 x 12; the
@@ -77,10 +78,33 @@ Phases, each printing one JSON line:
              (tql.tile off: K9-K11) held against the tile path; T1 of a
              few hosts against a numpy twin; the legacy hour again on the
              CPU backend (plain versions), held against the card.
-7. the kernels line, then the last line {"ok": true, "device": {...}}.
+   3e (hash kernels) — at H1's shape (phase 7: 5.76 M rows in (namespace,
+             pod, container, ts) order, 2^24 slots): K1's int64 ids, K17
+             `hash_group_slots` and K3 over the slot ids, each byte for byte
+             against its plain version and twice; K17's time includes the
+             refill of its table; K17 edge cases (threaded sources, masked
+             rows, overflow, shared home positions, ids 0 and 2^62 - 1), K1
+             int64 past 2^31, K8's overflow byte.
+7. containers — the hash group-by (agg_strategy auto) on a high-cardinality
+             table: per-container memory from cAdvisor as kube-prometheus
+             scrapes it (container_memory_working_set_bytes, Prometheus
+             remote-write layout, append_mode): 100 namespaces x 40 pods x 2
+             containers = 8000 series, 30 s scrape over --container-hours
+             (5.76 M rows at 6 h) through Database.write, flushed.  H1 the
+             per-container 5-minute panel (hash), H2 one namespace over the
+             last hour (hash), H3 per-pod count and peak (sort; and forced
+             hash, which must give the same bytes), H4 the top 10 container
+             5-minute peaks (hash; Sort/LIMIT replay on the host): cold and
+             --container-reps warm on the tile path, each against the CPU
+             backend (avg within rel 1e-7: f32 rows for G >= 2^14), the
+             strategy asserted from `stats`, the hash queries launching K1,
+             K17, K3 and K8 and none of K2, K5, K6.  Then a forced-hash query
+             whose 4096-slot table overflows: `agg_hash_overflow` +1, the
+             table-fed path answers, against the CPU backend.
+8. the kernels line, then the last line {"ok": true, "device": {...}}.
 
-The launch counts are set to 0 just before phases 4, 5, 5b and 6's tile
-and legacy runs and read just after each.  It imports neither jax nor the reference package
+The launch counts are set to 0 just before phases 4, 5, 5b, 6's tile and
+legacy runs and 7's H1-H4, and read just after each.  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
 device is present or when it runs outside a checkout of the repository.
 """
@@ -261,7 +285,8 @@ def kernel_table():
     """name -> (wrapper with .launches, source, reference kernel it replaces).
     K1-K4 serve the table-fed path and the tile path, K5-K8 the tile path,
     K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route),
-    K13-K16 the tile path's HAVING and plane maintenance."""
+    K13-K16 the tile path's HAVING and plane maintenance, K17 its hash
+    group-by."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
     from greptimedb_tpu_torch.ops import permute as perm
@@ -301,6 +326,8 @@ def kernel_table():
                           "greptimedb_tpu/parallel/tile_cache.py:2161"),
         "delta_patch": (perm.delta_patch, src + "delta_patch.cu",
                         "greptimedb_tpu/parallel/tile_cache.py:292"),
+        "hash_group_slots": (agg.hash_group_slots, src + "hash_group_slots.cu",
+                             "greptimedb_tpu/ops/aggregate.py:118"),
     }
 
 
@@ -350,6 +377,7 @@ def _same_bytes(a, b) -> bool:
 
     if a is None or b is None:
         return a is b
+    a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)  # 0-dim counts too
     return bool(torch.equal(a.view(torch.uint8) if a.dtype != torch.bool else a,
                             b.view(torch.uint8) if b.dtype != torch.bool else b))
 
@@ -398,6 +426,33 @@ def _check_state(k_st, p_st, what: str) -> float:
         if a is not None:
             err = max(err, _compare(a, b, exact=(name != "sums"), what=f"{what}.{name}"))
     return err
+
+
+def _moved(x, dev):
+    """x with every tensor in it (lists, tuples, AggStates) moved to dev."""
+    import dataclasses
+
+    import torch
+
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_moved(y, dev) for y in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _moved(getattr(x, f.name), dev)
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+def _plain_on_host(fn, *args):
+    """fn (a plain version) over host copies of args, its tensors moved back
+    to the card.  The card's index_add_ adds in another order on every run,
+    and a reference that changes between runs cannot hold a signed sum that
+    cancels to near zero within rel 1e-12; the host adds in row order."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    return _moved(fn(*_moved(args, torch.device("cpu"))), dev)
 
 
 def _twice_identical(fn, what: str):
@@ -587,7 +642,8 @@ def run_edge_cases(dev) -> None:
         ok, k_st, base = _twice_identical(
             lambda: agg.segment_reduce_blocked([v, v2], g, [colmask, mask], mask, G, aggs),
             f"edge {name} blocked")
-        okp, p_st, _ = agg.segment_reduce_blocked_plain([v, v2], g, [colmask, mask], mask, G, aggs)
+        okp, p_st, _ = _plain_on_host(agg.segment_reduce_blocked_plain, [v, v2], g,
+                                      [colmask, mask], mask, G, aggs)
         if ok != okp:
             raise AssertionError(f"edge {name}: guard verdicts differ ({ok} vs {okp})")
         if name == "shuffled" and ok:
@@ -604,7 +660,8 @@ def run_edge_cases(dev) -> None:
         s_st = _twice_identical(
             lambda: agg.segment_reduce_scatter([v, v2], g, [colmask, mask], mask, G, aggs),
             f"edge {name} scatter")
-        _check_state(s_st, agg.segment_reduce_scatter_plain([v, v2], g, [colmask, mask], mask, G, aggs),
+        _check_state(s_st, _plain_on_host(agg.segment_reduce_scatter_plain, [v, v2], g,
+                                          [colmask, mask], mask, G, aggs),
                      f"edge {name} scatter")
         kl = _twice_identical(lambda: agg.segment_last(v, ts, g, colmask, G), f"edge {name} last sorted")
         pl = agg.segment_last_plain(v, ts, g, colmask, G)
@@ -646,8 +703,9 @@ def _padded(t, n_pad, fill):
 def _compare_bytes(a, b, what: str) -> None:
     import torch
 
-    a = a.contiguous().view(torch.uint8) if a.dtype != torch.uint8 else a
-    b = b.contiguous().view(torch.uint8) if b.dtype != torch.uint8 else b
+    a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)  # 0-dim counts too
+    a = a.view(torch.uint8) if a.dtype != torch.uint8 else a
+    b = b.view(torch.uint8) if b.dtype != torch.uint8 else b
     if a.shape != b.shape or not torch.equal(a, b):
         bad = int((a != b).sum()) if a.shape == b.shape else -1
         raise AssertionError(f"{what}: {bad} bytes differ from the plain version")
@@ -1185,6 +1243,268 @@ def run_plane_edge_cases(dev) -> None:
     emit({"phase": "plane_edge_cases", "ok": True})
 
 
+# ---- phase 3e: the hash group-by's kernels at H1's shape ---------------------------
+
+# The container-metrics configuration of phase 7 (cAdvisor's
+# container_memory_working_set_bytes at the 30 s interval of
+# kube-prometheus's kubelet ServiceMonitor).  The cluster shape — 100
+# namespaces, 40 pods each, 2 containers per pod drawn from 20 names — and
+# the 6 h window are assumed, not taken from a published deployment
+CM_NAMESPACES, CM_PODS_PER_NS, CM_CONTAINERS_PER_POD, CM_CONTAINER_NAMES = 100, 40, 2, 20
+CM_SCRAPE_S, CM_HOURS, CM_BUCKET_MS = 30, 6, 300_000
+CM_TABLE = "container_memory_working_set_bytes"
+CM_KEYS = ("namespace", "pod", "container", "tb")
+
+
+def container_series(seed: int = SEED):
+    """(namespace index, pod index, container name index) of each of the
+    8000 series, in (namespace, pod, container) order, which is the order
+    of their codes: names are zero-padded, so code order is name order."""
+    rng = np.random.default_rng(seed)
+    n_pods = CM_NAMESPACES * CM_PODS_PER_NS
+    pods = np.repeat(np.arange(n_pods), CM_CONTAINERS_PER_POD)
+    conts = np.sort(np.stack([rng.choice(CM_CONTAINER_NAMES, CM_CONTAINERS_PER_POD, replace=False)
+                              for _ in range(n_pods)]), axis=1).reshape(-1)
+    return pods // CM_PODS_PER_NS, pods, conts
+
+
+def container_planes(hours: int, dev):
+    """Device planes of the container table as the super-tile holds them
+    ((namespace, pod, container, ts) order, padded to a multiple of 4096
+    rows): namespace, pod and container codes, ts, valid."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+
+    ns, pod, cont = container_series()
+    ticks = hours * 3600 // CM_SCRAPE_S
+    n = ns.size * ticks
+    npad = pad_rows(n)
+
+    def per_row(a):
+        t = torch.from_numpy(a.astype(np.int32)).to(dev).repeat_interleave(ticks)
+        return _padded(t, npad, 0)
+
+    ts = T0 + torch.arange(ticks, dtype=torch.int64, device=dev).repeat(ns.size) * (CM_SCRAPE_S * 1000)
+    valid = _padded(torch.ones(n, dtype=torch.bool, device=dev), npad, False)
+    return n, per_row(ns), per_row(pod), per_row(cont), _padded(ts, npad, 0), valid
+
+
+def h1_group_ids(hours: int, dev):
+    """K1's int64 inputs of H1 over the planes: the window filter, the three
+    tags at their quantized cards and the 5-minute bucket."""
+    import torch
+
+    from greptimedb_tpu_torch.parallel.tile_planner import quantize_soft
+
+    n, ns, pod, cont, ts, valid = container_planes(hours, dev)
+    n_buckets = quantize_soft(hours * 3600_000 // CM_BUCKET_MS)
+    card = lambda k: 1 << (k - 1).bit_length()  # noqa: E731
+    hi = T0 + hours * H3600
+    args = (valid, [(ts, ">=", T0), (ts, "<", hi)], [],
+            [(ns, card(CM_NAMESPACES)), (pod, card(CM_NAMESPACES * CM_PODS_PER_NS)),
+             (cont, card(CM_CONTAINER_NAMES))],
+            (ts, T0, CM_BUCKET_MS, n_buckets), None, torch.int64)
+    return n, args
+
+
+def run_hash_kernel_phase(reps: int) -> dict:
+    """Phase 3e: K1's int64 mode, K17, K3 over slot ids and K8 over the
+    slot rows at H1's shape (5.76 M rows, 2^24 slots), each against its
+    plain version byte for byte (K3's sums within rel 1e-12) and twice;
+    then the edge cases.  Returns name -> metrics for
+    the kernels line."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+
+    dev = torch.device("cuda", 0)
+    n, k1_args = h1_group_ids(CM_HOURS, dev)
+    npad = k1_args[0].shape[0]
+    H = 1 << 24
+    out: dict[str, dict] = {}
+
+    gids, mask = _twice_identical(lambda: flt.mask_gids(*k1_args), "mask_gids int64")
+    pg, pm = flt.mask_gids_plain(*k1_args)
+    _compare_bytes(gids, pg, "mask_gids int64.gids")
+    _compare_bytes(mask, pm, "mask_gids int64.mask")
+    # valid, ts and three code planes read once, an 8-byte id and the mask
+    # written; ~12 operations a row (2 compares, the floor division, 4
+    # clipped mixed-radix steps)
+    b1, b1_by = bound(npad * (1 + 8 + 3 * 4) + npad * (8 + 1), npad * 12)
+    out["mask_gids_int64"] = dict(
+        max_abs_err=0.0, ms=_timed(lambda: flt.mask_gids(*k1_args), reps),
+        plain_ms=_timed(lambda: flt.mask_gids_plain(*k1_args), 1),
+        bound_ms=b1, bound_by=b1_by, library_ms=None, rows=npad,
+    )
+
+    table = torch.empty(H, dtype=torch.int64, device=dev)
+
+    def k17():
+        return agg.hash_group_slots(table.fill_(agg.HASH_EMPTY), gids, mask)
+
+    kt, ks, ko = _twice_identical(k17, "hash_group_slots")
+    rounds = agg.hash_group_slots.last_rounds
+    pt, ps, po = agg.hash_group_slots_plain(
+        torch.full((H,), agg.HASH_EMPTY, dtype=torch.int64, device=dev), gids, mask)
+    _compare_bytes(kt, pt, "hash_group_slots.table")
+    _compare_bytes(ks, ps, "hash_group_slots.slots")
+    _compare_bytes(ko, po, "hash_group_slots.overflow")
+    if int(ko) != 0:
+        raise AssertionError(f"hash_group_slots: {int(ko)} rows overflowed 2^24 slots at H1")
+    occupied = int((kt != agg.HASH_EMPTY).sum())
+    # ids (8 B) and mask (1 B) read, slots (4 B) written, the table read and
+    # written once; per row and round a multiply, a shift, a compare and
+    # the claim (~8 operations)
+    b17, b17_by = bound(npad * (8 + 1 + 4) + H * 16, npad * rounds * 8)
+    out["hash_group_slots"] = dict(
+        max_abs_err=0.0, ms=_timed(k17, reps),
+        plain_ms=_timed(lambda: agg.hash_group_slots_plain(
+            torch.full((H,), agg.HASH_EMPTY, dtype=torch.int64, device=dev), gids, mask), 1),
+        bound_ms=b17, bound_by=b17_by, library_ms=None, rows=npad, slots=H, rounds=rounds,
+        occupied=occupied,
+        # the timed call includes refilling the [2^24] table, as each query does
+        fill_ms=_timed(lambda: table.fill_(agg.HASH_EMPTY), reps),
+    )
+
+    # K3 over the slot ids: avg and max of one value column over [2^24]
+    vals = torch.rand(npad, generator=torch.Generator(device=dev).manual_seed(SEED),
+                      dtype=torch.float64, device=dev) * 2e9
+    aggs = ("count", "max", "sum")
+    s_st = _twice_identical(
+        lambda: agg.segment_reduce_scatter([vals], ks, [mask], mask, H, aggs), "scatter over slots")
+    e3 = _check_state(s_st, agg.segment_reduce_scatter_plain([vals], ks, [mask], mask, H, aggs),
+                      "segment_reduce_scatter over slots")
+    safe = torch.where(mask, ks, H).to(torch.int64)
+    # slot ids, mask and values read once, [H] sums, counts and maxima written
+    b3, b3_by = bound(npad * (4 + 1 + 8) + H * (8 + 4 + 8), npad * len(aggs))
+    out["scatter_hash_slots"] = dict(
+        max_abs_err=e3, ms=_timed(lambda: agg.segment_reduce_scatter([vals], ks, [mask], mask, H, aggs),
+                                  reps),
+        plain_ms=_timed(lambda: agg.segment_reduce_scatter_plain([vals], ks, [mask], mask, H, aggs), 1),
+        bound_ms=b3, bound_by=b3_by,
+        library_ms=_timed(lambda: torch.zeros(H + 1, dtype=torch.float64, device=dev)
+                          .index_add_(0, safe, vals), reps),
+    )
+    # K8 over the [2^24] slot rows as H1's program hands them: bit-packed
+    # presence, the value's (sums, counts) shipped as f32 averages, its f64
+    # max, and the overflow row
+    pres = s_st.counts[0]
+    packed = ([pres], [(s_st.sums[0], pres)], [("value", s_st.maxs[0])], True)
+    k8 = _twice_identical(lambda: agg.pack_result(*packed, overflow=ko), "pack_result hash")
+    p8 = agg.pack_result_plain(*packed, overflow=ko)
+    _compare_bytes(k8[0], p8[0], "pack_result hash.buf")
+    _compare_bytes(k8[1], p8[1], "pack_result hash.accs64")
+    # presence (4 B), sums (8 B) and maxima (8 B) read, the overflow count;
+    # presence bits, f32 averages (4 B) and the f64 row (8 B) written
+    b8, b8_by = bound(H * (4 + 8 + 8) + 4 + H // 8 + H * (4 + 8) + 1, H * 3)
+    out["pack_hash_slots"] = dict(
+        max_abs_err=0.0, ms=_timed(lambda: agg.pack_result(*packed, overflow=ko), reps),
+        plain_ms=_timed(lambda: agg.pack_result_plain(*packed, overflow=ko), 1),
+        bound_ms=b8, bound_by=b8_by, library_ms=None,
+    )
+    emit({"phase": "hash_kernels", "rows": n, "slots": H, "rounds": rounds, "occupied": occupied,
+          **{k: {m: v for m, v in d.items() if m in ("ms", "plain_ms", "bound_ms", "library_ms")}
+             for k, d in out.items()}})
+    del gids, mask, table, kt, ks, pt, ps, vals, safe, k1_args, s_st, pres, packed, k8, p8
+    torch.cuda.empty_cache()
+    run_hash_edge_cases(dev)
+    return out
+
+
+def run_hash_edge_cases(dev) -> None:
+    """K17 against its plain version on the card, byte for byte and twice:
+    seeded ids at H = 1024 and 2^16, a table threaded through three
+    sources, masked rows, a table that overflows, ids that share a home
+    position, ids 0 and 2^62 - 1; K1's int64 mode with out-of-range codes
+    and a space past 2^31; K3's sparse dispatch; K8's overflow byte."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+
+    rng = np.random.default_rng(SEED)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    home = agg._hash_home(torch.arange(2_000_000, dtype=torch.int64, device=dev), 1024)
+    cand = torch.arange(2_000_000, dtype=torch.int64, device=dev)
+    shared = torch.cat([cand[home == 17][:60], cand[home == 1000][:40], cand[home == 1023][:30]])
+    extreme = t(np.array([0, (1 << 62) - 1, (1 << 62) - 2, 1, 0, (1 << 62) - 1, 1 << 61, 5]))
+    cases = {
+        "seeded_1024": (1024, [(t(rng.integers(0, 400, 3000)), t(rng.random(3000) < 0.9))]),
+        "seeded_65536": (1 << 16, [(t(rng.integers(0, 1 << 40, 40_000)),
+                                    torch.ones(40_000, dtype=torch.bool, device=dev))]),
+        "three_sources": (4096, [(t(rng.integers(0, 1800, m)), t(rng.random(m) < 0.8))
+                                 for m in (5000, 1234, 7000)]),
+        "masked": (1024, [(t(rng.integers(0, 50, 2000)), t(rng.random(2000) < 0.3))]),
+        "overflow": (8, [(torch.arange(40, dtype=torch.int64, device=dev) * 7919,
+                          torch.ones(40, dtype=torch.bool, device=dev))]),
+        "shared_home": (1024, [(shared.repeat(3), torch.ones(3 * shared.numel(), dtype=torch.bool,
+                                                             device=dev))]),
+        "extreme_ids": (1024, [(extreme, torch.ones(8, dtype=torch.bool, device=dev)),
+                               (extreme.flip(0).contiguous(),
+                                torch.ones(8, dtype=torch.bool, device=dev))]),
+    }
+    for name, (h, sources) in cases.items():
+        kt = torch.full((h,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+        pt = kt.clone()
+        for i, (g, a) in enumerate(sources):
+            before = kt.clone()
+            ks2 = _twice_identical(
+                lambda: agg.hash_group_slots(kt.copy_(before), g, a)[1:], f"edge K17 {name}")
+            _kt, ks, ko = agg.hash_group_slots(kt.copy_(before), g, a)
+            _pt, ps, po = agg.hash_group_slots_plain(pt, g, a)
+            _compare_bytes(kt, pt, f"edge K17 {name} source {i} table")
+            _compare_bytes(ks, ps, f"edge K17 {name} source {i} slots")
+            _compare_bytes(ko, po, f"edge K17 {name} source {i} overflow")
+            _compare_bytes(ks2[0], ks, f"edge K17 {name} source {i} rerun")
+        if name == "overflow" and int(ko) != 32:
+            raise AssertionError(f"edge K17 overflow: {int(ko)} unplaced rows, expected 32")
+    n = 10_017
+    valid = t(np.arange(n) < n - 33)
+    for cards in ((128, 8), (1 << 16, 1 << 12)):
+        codes = [t(rng.integers(-1, c + 2, n).astype(np.int32)) for c in cards]
+        ts = t((T0 + rng.integers(-10**8, 10**9, n)).astype(np.int64))
+        args = (valid, [], [], list(zip(codes, cards)), (ts, T0, 3_600_000, 300), None,
+                torch.int64)
+        kg, km = _twice_identical(lambda: flt.mask_gids(*args), "edge mask_gids int64")
+        pg, pm = flt.mask_gids_plain(*args)
+        _compare_bytes(kg, pg, f"edge mask_gids int64 {cards}")
+        _compare_bytes(km, pm, f"edge mask_gids int64 {cards} mask")
+    # K3's sparse dispatch (G > n / 32): runs of 1 to ~9000 rows over 300
+    # ids spread across 2^20 groups (0 and G - 1 among them), shuffled;
+    # NaN/inf values, a column mask, masked rows
+    n, G = 20_000, 1 << 20
+    ids = np.concatenate([[0, G - 1], rng.choice(np.arange(1, G - 1), 298, replace=False)])
+    g = t(ids[rng.zipf(1.6, n) % ids.size].astype(np.int32))
+    v_np = rng.uniform(-50, 50, n)
+    v_np[rng.choice(n, 30, replace=False)] = np.nan
+    v_np[rng.choice(n, 30, replace=False)] = np.inf
+    v, v2 = t(v_np), t(rng.uniform(0, 1, n))
+    mask = t(rng.random(n) < 0.9)
+    colmask = mask & t(rng.random(n) < 0.8)
+    aggs = ("count", "max", "min", "sum")
+    s_st = _twice_identical(
+        lambda: agg.segment_reduce_scatter([v, v2], g, [colmask, mask], mask, G, aggs),
+        "edge sparse scatter")
+    _check_state(s_st, _plain_on_host(agg.segment_reduce_scatter_plain, [v, v2], g,
+                                      [colmask, mask], mask, G, aggs), "edge sparse scatter")
+    G = 4096
+    pres = t(rng.integers(0, 3, G).astype(np.int32))
+    for count in (0, 5):
+        ov = torch.tensor([count], dtype=torch.int32, device=dev)
+        value = t(rng.uniform(0, 1, G))
+        k = _twice_identical(
+            lambda: agg.pack_result([pres], [], [("value", value)], True, overflow=ov),
+            "edge pack_result")
+        p = agg.pack_result_plain([pres], [], [("value", value)], True, overflow=ov)
+        _compare_bytes(k[0], p[0], f"edge pack_result overflow={count}")
+        _compare_bytes(k[1], p[1], f"edge pack_result overflow={count} accs64")
+        if int(k[0][-1]) != int(count > 0):
+            raise AssertionError("edge pack_result: wrong overflow byte")
+    emit({"phase": "hash_edge_cases", "ok": True})
+
+
 # ---- phase 4: the slice ------------------------------------------------------------
 
 def _sorted_rows(table, keys):
@@ -1196,18 +1516,20 @@ def _sorted_rows(table, keys):
     return table
 
 
-def compare_tables(dev_t, cpu_t, query: str, tol: float = 1e-12, inexact=()) -> float:
+def compare_tables(dev_t, cpu_t, query: str, tol: float = 1e-12, inexact=(),
+                   keys=("hostname", "tb", "minute")) -> float:
     """Device result vs CPU-backend result: same columns and rows; exact
     except sum/avg columns, within relative `tol` (1e-12 on the f64 paths,
     where only the addition order differs; 1e-7 on the limb path, the
     bound its verdict enforces); `inexact` names further sum/avg columns
-    by alias.  Returns the max relative error of the inexact columns."""
+    by alias.  Without an ORDER BY both sides are sorted by the `keys`
+    they have.  Returns the max relative error of the inexact columns."""
     if dev_t.column_names != cpu_t.column_names:
         raise AssertionError(f"{query}: columns {dev_t.column_names} != {cpu_t.column_names}")
     if dev_t.num_rows != cpu_t.num_rows:
         raise AssertionError(f"{query}: {dev_t.num_rows} rows != {cpu_t.num_rows}")
     inexact = [c for c in dev_t.column_names if c.startswith(("avg", "sum")) or c in inexact]
-    keys = [c for c in dev_t.column_names if c in ("hostname", "tb", "minute")]
+    keys = [c for c in dev_t.column_names if c in keys]
     if "ORDER BY" not in query:
         dev_t, cpu_t = _sorted_rows(dev_t, keys), _sorted_rows(cpu_t, keys)
     worst = 0.0
@@ -2285,6 +2607,195 @@ def run_tql_edge_cases(dev) -> None:
     emit({"phase": "tql_edge_cases", "ok": True})
 
 
+# ---- phase 7: the hash group-by on a high-cardinality container table ------------------
+
+# the kernels a hash plan launches, and those it must not (the dense blocked
+# path and the limb planes)
+HASH_PATH = ("mask_gids", "hash_group_slots", _SCATTER, _PACK)
+NOT_HASH_PATH = (_BLOCKED, _QUANT, _LIMB)
+
+
+def container_queries(hours: int) -> list[tuple[str, str, str]]:
+    """(name, expected strategy under auto, sql) of the container panel."""
+    lo, hi = T0, T0 + hours * H3600
+    t = CM_TABLE
+    h1 = (f"SELECT namespace, pod, container, time_bucket('5m', ts) AS tb, "
+          f"avg(greptime_value) AS a, max(greptime_value) AS m FROM {t} "
+          f"WHERE ts >= {lo} AND ts < {hi} GROUP BY namespace, pod, container, tb")
+    h2 = h1.replace(f"ts >= {lo} AND", f"ts >= {hi - H3600} AND namespace = 'ns-007' AND")
+    h3 = (f"SELECT namespace, pod, count(*) AS n, max(greptime_value) AS m FROM {t} "
+          f"WHERE ts >= {lo} AND ts < {hi} GROUP BY namespace, pod")
+    h4 = (f"SELECT namespace, pod, container, time_bucket('5m', ts) AS tb, "
+          f"max(greptime_value) AS m FROM {t} WHERE ts >= {lo} AND ts < {hi} "
+          f"GROUP BY namespace, pod, container, tb ORDER BY m DESC LIMIT 10")
+    return [("H1", "hash", h1), ("H2", "hash", h2), ("H3", "sort", h3), ("H4", "hash", h4)]
+
+
+def container_overflow_query() -> str:
+    return (f"SELECT pod, container, count(*) AS n, max(greptime_value) AS m FROM {CM_TABLE} "
+            f"GROUP BY pod, container")
+
+
+def ingest_containers(db, hours: int) -> int:
+    """The container table through Database.write (WAL on), then a flush:
+    8000 series, a sample every 30 s, whole-byte values of a seeded random
+    walk that stays inside 1e7..2e9 bytes."""
+    import pyarrow as pa
+
+    db.sql(f"CREATE TABLE {CM_TABLE} (namespace STRING, pod STRING, container STRING, "
+           f"ts TIMESTAMP(3) TIME INDEX, greptime_value DOUBLE, "
+           f"PRIMARY KEY (namespace, pod, container)) WITH (append_mode = 'true')")
+    ns, pod, cont = container_series()
+    names = (np.array([f"ns-{i:03d}" for i in ns]), np.array([f"pod-{i:04d}" for i in pod]),
+             np.array([f"c-{i:02d}" for i in cont]))
+    rng = np.random.default_rng(SEED)
+    level = rng.uniform(2e8, 1.5e9, ns.size)
+    ticks_total = hours * 3600 // CM_SCRAPE_S
+    chunk = max(1, 2_000_000 // ns.size)
+    n_rows = 0
+    for start in range(0, ticks_total, chunk):
+        ticks = min(chunk, ticks_total - start)
+        steps = rng.normal(0.0, 1e6, (ticks, ns.size))
+        walk = level[None, :] + np.cumsum(steps, axis=0)
+        level = walk[-1]
+        ts = T0 + (start + np.arange(ticks, dtype=np.int64))[:, None] * (CM_SCRAPE_S * 1000)
+        db.write(CM_TABLE, pa.table({
+            **{k: pa.array(np.broadcast_to(v[None, :], (ticks, ns.size)).reshape(-1))
+               for k, v in zip(("namespace", "pod", "container"), names)},
+            "ts": pa.array(np.broadcast_to(ts, (ticks, ns.size)).reshape(-1), pa.timestamp("ms")),
+            "greptime_value": pa.array(np.clip(np.round(walk), 1e7, 2e9).reshape(-1)),
+        }))
+        n_rows += ticks * ns.size
+    db.flush()
+    return n_rows
+
+
+def _ipc_bytes(table) -> bytes:
+    import io
+
+    import pyarrow as pa
+
+    sink = io.BytesIO()
+    with pa.ipc.new_stream(sink, table.schema) as w:
+        w.write_table(table)
+    return sink.getvalue()
+
+
+def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> dict:
+    """Phase 7: the container table, then H1-H4 on the tile path (cold and
+    `reps` warm), each against the CPU backend: keys, counts and max
+    exact, avg within rel 1e-7 (f32 avg rows for G >= 2^14, as the
+    reference ships them).  The auto verdict of each query is asserted
+    from `stats`, and the launches of the hash queries (K1, K17, K3, K8;
+    no K2, K5 or K6).  H3 forced to hash equals H3 under sort byte for
+    byte.  Then the overflow query: forced hash into 4096 slots for 8000
+    keys overflows, the dense rerun is past max_internal_groups too, so
+    the table-fed path answers, against the CPU backend."""
+    from greptimedb_tpu_torch import Database
+    from greptimedb_tpu_torch.ops.aggregate import hash_group_slots
+
+    is_cuda = device.startswith("cuda")
+    if is_cuda:
+        import torch
+    db = Database(data_home, device=device)
+    eng = db.query_engine
+    t0 = time.perf_counter()
+    n_rows = ingest_containers(db, hours)
+    ingest_s = time.perf_counter() - t0
+    emit({"phase": "container_ingest", "rows": n_rows, "series": n_rows * CM_SCRAPE_S // (hours * 3600),
+          "seconds": ingest_s, "rows_per_s": n_rows / ingest_s})
+
+    def run(sql):
+        t1 = time.perf_counter()
+        out = db.sql_one(sql)
+        if is_cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    def cpu(sql):
+        db.config.query.backend = "cpu"
+        try:
+            return run(sql)
+        finally:
+            db.config.query.backend = "torch"
+
+    per_query = {}
+    results = {}
+    reset_counts()  # the main path's run starts here
+    for name, strategy, sql in container_queries(hours):
+        before = launch_counts()
+        s0 = dict(eng.stats)
+        times, stages, readback = [], [], []
+        result = None
+        for _ in range(1 + reps):
+            result, ms = run(sql)
+            times.append(ms)
+            if eng.last_path != "tile":
+                raise AssertionError(f"{name}: answered by the {eng.last_path!r} path")
+            stages.append(dict(eng.last_timings))
+            readback.append(eng.tile_executor().last_readback_bytes)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        got = {k: eng.stats[k] - s0[k] for k in ("agg_hash", "agg_sort", "tile_dispatches")}
+        if got["agg_" + strategy] != 1 + reps or got["tile_dispatches"] != 1 + reps:
+            raise AssertionError(f"{name}: expected {strategy} on the tile path, stats moved {got}")
+        if is_cuda:
+            ran = {k for k, d in delta.items() if d > 0}
+            if strategy == "hash" and (not set(HASH_PATH) <= ran or ran & set(NOT_HASH_PATH)):
+                raise AssertionError(f"{name}: launched {sorted(ran)}; a hash plan needs "
+                                     f"{HASH_PATH} and none of {NOT_HASH_PATH}")
+        cpu_t, cpu_ms = cpu(sql)
+        rel = compare_tables(result, cpu_t, f"{name} {sql}", tol=1e-7, inexact=("a",),
+                             keys=CM_KEYS)
+        results[name] = result
+        warm = stages[1:] if reps else stages
+        keys = sorted({k for st in warm for k in st})
+        per_query[name] = {
+            "strategy": strategy, "rows_out": result.num_rows, "cold_ms": times[0],
+            "cold_stage_ms": stages[0],
+            "warm_p50_ms": float(np.median(times[1:] if reps else times)),
+            "warm_stage_p50_ms": {k: float(np.median([st.get(k, 0.0) for st in warm])) for k in keys},
+            "readback_bytes": readback[-1], "cpu_backend_ms": cpu_ms, "max_rel_err": rel,
+            "k17_rounds": hash_group_slots.last_rounds,
+            "launches": {k: v for k, v in delta.items() if v},
+        }
+        emit({"phase": "container_query", "name": name, **per_query[name]})
+    totals = launch_counts()  # the main path's launches end here
+
+    # H3 forced to hash: the same bytes as its sort plan (count and max are exact)
+    h3 = dict((n, s) for n, _st, s in container_queries(hours))["H3"]
+    db.config.query.agg_strategy = "hash"
+    try:
+        h0 = eng.stats["agg_hash"]
+        forced, forced_ms = run(h3)
+        if eng.stats["agg_hash"] != h0 + 1 or eng.last_path != "tile":
+            raise AssertionError("H3 forced to hash did not run a hash plan on the tile path")
+    finally:
+        db.config.query.agg_strategy = "auto"
+    if _ipc_bytes(forced) != _ipc_bytes(results["H3"]):
+        raise AssertionError("H3: the hash plan's result differs from the sort plan's bytes")
+    emit({"phase": "container_query", "name": "H3 forced hash", "ms": forced_ms,
+          "stage_ms": dict(eng.last_timings), "same_bytes_as_sort": True})
+
+    # the overflow ladder: hash into 4096 slots, no dense rerun, the table path
+    q = container_overflow_query()
+    saved = (db.config.query.agg_strategy, db.config.query.max_internal_groups)
+    db.config.query.agg_strategy, db.config.query.max_internal_groups = "hash", 4096
+    try:
+        s0 = dict(eng.stats)
+        over, over_ms = run(q)
+    finally:
+        db.config.query.agg_strategy, db.config.query.max_internal_groups = saved
+    moved = {k: eng.stats[k] - s0[k] for k in ("agg_hash", "agg_hash_overflow", "tile_declined")}
+    if moved != {"agg_hash": 1, "agg_hash_overflow": 1, "tile_declined": 1} or eng.last_path != "table":
+        raise AssertionError(f"overflow query: stats moved {moved}, path {eng.last_path}")
+    cpu_t, _ms = cpu(q)
+    compare_tables(over, cpu_t, "overflow " + q, tol=0.0, keys=CM_KEYS)
+    emit({"phase": "container_overflow", "ms": over_ms, "rows_out": over.num_rows, **moved})
+    db.close()
+    return {"rows": n_rows, "ingest_s": ingest_s, "queries": per_query, "launches": totals,
+            "overflow_ms": over_ms}
+
+
 # ---- main ------------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2295,6 +2806,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-reps", type=int, default=5, help="warm runs per query, tile path")
     ap.add_argument("--kernel-reps", type=int, default=10, help="timed launches per kernel")
     ap.add_argument("--tql-reps", type=int, default=5, help="warm runs per TQL query, tile path")
+    ap.add_argument("--container-hours", type=int, default=CM_HOURS,
+                    help="hours of the container table (phase 7)")
+    ap.add_argument("--container-reps", type=int, default=3,
+                    help="warm runs per container query, tile path")
     args = ap.parse_args(argv)
 
     import torch
@@ -2328,6 +2843,11 @@ def main(argv=None) -> int:
     kstats.update(run_tile_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     kstats.update(run_tql_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     kstats.update(run_plane_kernel_phase(args.hosts, args.hours, args.kernel_reps))
+    hstats = run_hash_kernel_phase(args.kernel_reps)
+    kstats["hash_group_slots"] = hstats["hash_group_slots"]
+    kstats["mask_gids"]["int64"] = hstats["mask_gids_int64"]
+    kstats["segment_reduce_scatter"]["hash_slots"] = hstats["scatter_hash_slots"]
+    kstats["pack_result"]["hash_slots"] = hstats["pack_hash_slots"]
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
 
     work = os.path.join(HERE, "build", "chip_smoke")  # listed in .gitignore
@@ -2358,12 +2878,35 @@ def main(argv=None) -> int:
               "legacy_ms": {k: v["ms"] for k, v in tq["legacy"].items()},
               "cpu_ms": {k: v["ms"] for k, v in tq["cpu"].items()},
               "twin_max_rel_err": tq["twin_max_rel_err"], "tile_cache": tq["cache"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cm = run_container_slice("cuda", args.container_hours, args.container_reps,
+                                 os.path.join(work, "containers"))
+        emit({"phase": "containers", "seconds": time.perf_counter() - t0, "rows": cm["rows"],
+              "card": smi, "ingest_s": cm["ingest_s"],
+              "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in cm["queries"].items()},
+              "cold_ms": {k: v["cold_ms"] for k, v in cm["queries"].items()},
+              "overflow_ms": cm["overflow_ms"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
+    for name in HASH_PATH:
+        if cm["launches"][name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the hash path (phase 7)")
     for name, (_fn, source, replaces) in kernel_table().items():
         s = kstats[name]
+        if name == "hash_group_slots":
+            # K17: its launches on phase 7's H1-H4
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": cm["launches"][name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                "library_ms": s["library_ms"],
+                **{k: s[k] for k in ("rows", "slots", "rounds", "occupied", "fill_ms")},
+            })
+            continue
         if name in TQL_KERNELS:
             # K9-K12: their launches on the TQL tile path (phase 6); K9-K11
             # also on the TQL legacy path (its own runs only)
@@ -2409,7 +2952,9 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "tile_launches": tile_launches,
-            **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact") if k in s},
+            "hash_launches": cm["launches"][name],
+            **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots")
+               if k in s},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

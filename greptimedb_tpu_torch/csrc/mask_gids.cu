@@ -23,6 +23,13 @@
 //  * codes outside [0, card) (e.g. -1 for a literal the dictionary never
 //    saw) are clipped into range and flagged out of the mask, never
 //    redirected, so the id order of a sorted scan stays intact.
+//  * ids in two widths (the kernel is templated on the id type):
+//    int32 for the dense strategy, composed with int32 wrapping, padding
+//    rows set to pad_gid; int64 for the hash strategy (ops/aggregate.py:55
+//    `raw_group_ids(dtype=int64)`, parallel/executor.py:299-312): every
+//    component widened to int64 first (the bucket after its int32 cast),
+//    composed with int64 wrapping, and no padding rule.  The planner keeps
+//    the padded int64 space under 2^62, so nothing wraps there.
 #include <type_traits>
 
 #include "common.cuh"
@@ -42,7 +49,7 @@ struct MaskGidsArgs {
   const uint8_t* valid;
   const int64_t* ts;        // nullptr: no time bucket component
   const int64_t* lits;      // literal bits (f64 literals as their bit pattern)
-  int32_t* gids_out;
+  void* gids_out;           // int32 [n], or int64 [n] with id64
   uint8_t* mask_out;
   const void* fplane[kMaxFilters];
   const uint8_t* gate[kMaxGates];
@@ -57,7 +64,7 @@ struct MaskGidsArgs {
   int32_t n_tags;
   int32_t n_buckets;
   int32_t pad_gid;          // id of padding rows (internal groups - 1)
-  int32_t reserved;
+  int32_t id64;             // 1: int64 ids, no padding rule
 };
 
 template <typename T>
@@ -93,6 +100,9 @@ __device__ __forceinline__ bool eval_filter(T x, const int64_t* lits, int op, in
   return cmp<T>(x, y, op);
 }
 
+// IdT: int32_t or int64_t; UT its unsigned twin, in which the mixed-radix
+// composition wraps as XLA's integer arithmetic does
+template <typename IdT, typename UT>
 __global__ void __launch_bounds__(256) mask_gids_kernel(const MaskGidsArgs a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
@@ -114,26 +124,31 @@ __global__ void __launch_bounds__(256) mask_gids_kernel(const MaskGidsArgs a) {
     }
     for (int k = 0; k < a.n_gates; ++k) m = m && (a.gate[k][i] != 0);
 
-    // mixed-radix group id in int32 with XLA's wrapping arithmetic
-    uint32_t gid = 0;
+    // mixed-radix group id with XLA's wrapping arithmetic in IdT
+    UT gid = 0;
     bool in_range = true;
     for (int k = 0; k < a.n_tags; ++k) {
-      const int32_t c = a.tag[k][i], card = a.card[k];
+      const IdT c = (IdT)a.tag[k][i], card = (IdT)a.card[k];
       in_range = in_range && c >= 0 && c < card;
-      const int32_t cc = c < 0 ? 0 : (c > card - 1 ? card - 1 : c);
-      gid = gid * (uint32_t)card + (uint32_t)cc;
+      const IdT cc = c < 0 ? 0 : (c > card - 1 ? card - 1 : c);
+      gid = gid * (UT)card + (UT)cc;
     }
     if (a.ts != nullptr) {
       const int64_t d = (int64_t)((uint64_t)a.ts[i] - (uint64_t)a.origin);
       int64_t q = d / a.interval;
       if ((d % a.interval != 0) && ((d < 0) != (a.interval < 0))) q -= 1;  // floor
-      const int32_t b = (int32_t)(uint32_t)(uint64_t)q;                    // astype(int32)
-      const int32_t card = a.n_buckets;
+      const IdT b = (IdT)(int32_t)(uint32_t)(uint64_t)q;                   // astype(int32)
+      const IdT card = (IdT)a.n_buckets;
       in_range = in_range && b >= 0 && b < card;
-      const int32_t bb = b < 0 ? 0 : (b > card - 1 ? card - 1 : b);
-      gid = gid * (uint32_t)card + (uint32_t)bb;
+      const IdT bb = b < 0 ? 0 : (b > card - 1 ? card - 1 : b);
+      gid = gid * (UT)card + (UT)bb;
     }
-    a.gids_out[i] = valid ? (int32_t)gid : a.pad_gid;
+    IdT* out = (IdT*)a.gids_out;
+    if constexpr (sizeof(IdT) == 8) {
+      out[i] = (IdT)gid;  // the hash ids have no padding rule
+    } else {
+      out[i] = valid ? (IdT)gid : (IdT)a.pad_gid;
+    }
     a.mask_out[i] = (m && in_range) ? 1 : 0;
   }
 }
@@ -143,6 +158,10 @@ GT_EXPORT int gt_mask_gids(const MaskGidsArgs* args, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   int64_t blocks = (n + 255) / 256;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond 32 CTAs per SM
-  mask_gids_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(*args);
+  if (args->id64) {
+    mask_gids_kernel<int64_t, uint64_t><<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(*args);
+  } else {
+    mask_gids_kernel<int32_t, uint32_t><<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(*args);
+  }
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,10 @@
 //   int rows (int32, or 1 bit per group MSB-first in uint8 when no exact
 //   count is needed and G >= 2^14), f32 avg rows, then on the compact path
 //   the selected group ids, the survivor count and the f64 rows as
-//   [hi, lo] int32 words, and last the limb verdict byte (1 iff every
-//   group's error bound err <= max(|sum| * 1e-7, 1e-12)).
+//   [hi, lo] int32 words, then the limb verdict byte (1 iff every
+//   group's error bound err <= max(|sum| * 1e-7, 1e-12)) and, for a hash
+//   plan, the overflow byte (1 iff some row found no slot; the trailing
+//   byte of tile_cache.py:3197-3203).
 // The f64 words are a bit copy with the reference's canonicalization:
 // every NaN becomes the quiet NaN with its sign kept, and subnormals
 // become a zero of their sign (the reference composes the words
@@ -35,6 +37,7 @@ enum PackKind : int32_t {
   kAvgF64Dense = 7,  // a, b as kAvgF32                   -> accs64 row
   kScalarInt32 = 8,  // a: int32 [1]                      -> int32
   kVerdict = 9,      // a: f64 errs [G], b: f64 sums [G]  -> clears the byte
+  kOverflow = 10,    // a: int32 [1] unplaced rows        -> 1 byte, count > 0
 };
 
 struct PackRow {
@@ -92,6 +95,9 @@ __global__ void __launch_bounds__(256) pack_kernel(const PackArgs a) {
     }
     case kScalarInt32:
       if (i == 0) store4(a.buf + r.out, (uint32_t)((const int32_t*)r.a)[0]);
+      return;
+    case kOverflow:
+      if (i == 0) a.buf[r.out] = ((const int32_t*)r.a)[0] > 0 ? 1 : 0;
       return;
     case kVerdict: {
       if (i >= a.num_groups) return;

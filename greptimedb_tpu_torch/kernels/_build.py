@@ -38,6 +38,7 @@ KERNEL_SOURCES = (
     "ts_argsort",
     "gather_planes",
     "delta_patch",
+    "hash_group_slots",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -145,6 +146,7 @@ _EXPORTS = {
     "ts_argsort": ("gt_argsort_range", "gt_argsort_passes"),
     "gather_planes": ("gt_gather_plane", "gt_remap_codes"),
     "delta_patch": ("gt_delta_patch",),
+    "hash_group_slots": ("gt_hash_init", "gt_hash_round"),
 }
 
 

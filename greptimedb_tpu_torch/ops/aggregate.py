@@ -23,6 +23,11 @@ The tile path adds four more (each again beside its plain version):
 * K8 `pack_result` (csrc/pack_result.cu): finalize and pack a query's
   outputs into the one buffer the host reads back.
 
+The hash strategy adds K17 `hash_group_slots` (csrc/hash_group_slots.cu):
+insert-or-find of int64 group ids in a linear-probing slot table threaded
+through a query's sources; its states then reduce over the slot ids on K3
+(`force_scatter`).
+
 `segment_aggregate` / `segment_aggregate_multi` choose between them the
 way the reference does: under 2^16 rows the scatter kernel; otherwise K2,
 whose per-block guard (masked ids in range, span < 16) decides whether
@@ -35,6 +40,8 @@ and `finalize` are torch ops over [G]-sized states.
 
 Group ids are dense ints computed from time buckets and tag codes:
     gid = ((tag0 * card1 + tag1) * ... ) * n_buckets + time_bucket
+(int32 on the dense path; int64 on the hash path, where only the slots of
+the ids that occur are materialized).
 """
 
 from __future__ import annotations
@@ -547,10 +554,14 @@ def segment_aggregate(
     aggs: tuple[str, ...],
     mask: torch.Tensor | None = None,
     ts: torch.Tensor | None = None,
+    force_scatter: bool = False,
 ) -> AggState:
     """Per-shard partial aggregation of one column (the lower/state
-    stage), float64 accumulation.  Under 2^16 rows the scatter kernels; otherwise K2, whose guard picks the blocked result or
-    a K3 rerun.  LAST takes K4 in the matching form."""
+    stage), float64 accumulation.  Under 2^16 rows, or with
+    `force_scatter` (hash slot ids, which are never clustered: the guard
+    and its sync are skipped), the scatter kernels; otherwise K2, whose
+    guard picks the blocked result or a K3 rerun.  LAST takes K4 in the
+    matching form."""
     if mask is None:
         mask = gids < num_groups
     n = values.shape[0]
@@ -559,7 +570,7 @@ def segment_aggregate(
         raise ValueError("LAST aggregation requires ts")
     base = None
     state = None
-    if n >= _FAST_MIN_ROWS:
+    if n >= _FAST_MIN_ROWS and not force_scatter:
         ok, st, b = segment_reduce_blocked(
             [values], gids, [mask], mask, num_groups, other or (COUNT,)
         )
@@ -588,15 +599,17 @@ def segment_aggregate_multi(
     aggs: tuple[str, ...],
     masks: list,
     base_mask: torch.Tensor,
+    force_scatter: bool = False,
 ) -> AggState:
     """C value columns sharing ONE layout guard and one kernel launch:
     arrays in the result are [C, G].  `masks[c]` must be a subset of
-    `base_mask` (the guard runs on the base mask).  LAST is not supported
-    here (callers route last_value per column)."""
+    `base_mask` (the guard runs on the base mask); `force_scatter` skips
+    the guard for K3 (hash slot ids).  LAST is not supported here
+    (callers route last_value per column)."""
     if LAST in aggs:
         raise ValueError("segment_aggregate_multi does not support LAST")
     n = values[0].shape[0]
-    if n >= _FAST_MIN_ROWS:
+    if n >= _FAST_MIN_ROWS and not force_scatter:
         ok, st, _base = segment_reduce_blocked(
             values, gids, masks, base_mask, num_groups, aggs
         )
@@ -690,6 +703,124 @@ def finalize(state: AggState, aggs: tuple[str, ...], counts=None) -> dict[str, t
             extreme = _DBL_MAX if probe is state.mins else -_DBL_MAX
             out["non_empty"] = probe != extreme
     return out
+
+
+# ---- K17: the hash group-by's slot table ------------------------------------------
+#
+# The alternative to the dense mixed-radix group space: when the padded
+# group space G = prod(tag_cards) * n_buckets dwarfs the groups that occur,
+# dense [G] states waste memory, readback and finalize work, and past the
+# dense bound the sort path refuses outright.  The planner then sizes a
+# slot table at about twice the distinct keys and the states reduce over
+# [H] slot ids.
+
+HASH_EMPTY = -1  # table sentinel; real gids are >= 0
+_HASH_MULT = 0x9E3779B97F4A7C15
+_I64_MAX = (1 << 63) - 1
+
+
+def _hash_home(gids: torch.Tensor, h: int) -> torch.Tensor:
+    """int32 home position of each gid: the top `bits` bits of the
+    wrapping uint64 product gid * 0x9E3779B97F4A7C15, clamped to h - 1.
+    int64 arithmetic wraps like uint64; the shift is logical via a mask."""
+    bits = max(int(h).bit_length() - 1, 1)
+    prod = gids.to(torch.int64) * (_HASH_MULT - (1 << 64))
+    h0 = ((prod >> (64 - bits)) & ((1 << bits) - 1)).to(torch.int32)
+    return torch.clamp(h0, max=h - 1)
+
+
+def hash_group_slots_plain(table_keys, gids, active):
+    """Torch-op version of K17, line for line the reference's rounds
+    (see `hash_group_slots`)."""
+    h = table_keys.shape[0]
+    h0 = _hash_home(gids, h)
+    n = gids.shape[0]
+    dev = gids.device
+    max_rounds = min(2 * h, 1024)
+    table = table_keys.clone()
+    slots = torch.full((n,), h, dtype=torch.int32, device=dev)
+    probe = torch.zeros(n, dtype=torch.int32, device=dev)
+    act = active.clone()
+    rounds = 0
+    while bool(act.any()) and rounds < max_rounds:
+        pos = (h0 + probe) & (h - 1)
+        safe_pos = torch.where(act, pos, 0).to(torch.int64)
+        claim = torch.full((h,), _I64_MAX, dtype=torch.int64, device=dev).scatter_reduce_(
+            0, safe_pos, torch.where(act, gids, _I64_MAX), "amin", include_self=True
+        )
+        table = torch.where((table == HASH_EMPTY) & (claim != _I64_MAX), claim, table)
+        found = act & (table[pos.to(torch.int64)] == gids)
+        slots = torch.where(found, pos, slots)
+        act = act & ~found
+        probe = torch.where(act, probe + 1, probe)
+        rounds += 1
+    hash_group_slots.last_rounds = rounds
+    table_keys.copy_(table)
+    return table_keys, slots, act.sum(dtype=torch.int32)
+
+
+class _HashArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int64), ("h", ctypes.c_int64), ("table", ctypes.c_void_p),
+        ("gids", ctypes.c_void_p), ("active", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+        ("probe", ctypes.c_void_p), ("claim", ctypes.c_void_p), ("n_active", ctypes.c_void_p),
+        ("bits", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+def hash_group_slots(table_keys: torch.Tensor, gids: torch.Tensor, active: torch.Tensor):
+    """K17: insert-or-find every active row's group id in a linear-probing
+    slot table.
+
+    table_keys: int64 [H], HASH_EMPTY where unoccupied; updated IN PLACE
+                (the reference returns a new array) and returned
+    gids:       int64 [n] raw group ids (>= 0, below 2^62)
+    active:     bool [n] rows that participate
+
+    Returns (table_keys, slots int32 [n], overflow int32 []): slot H for
+    masked rows and for rows that found no slot within min(2H, 1024)
+    probe rounds, and overflow the count of the latter.  Deterministic:
+    per round the smallest gid claiming a position wins it, so threading
+    one table through a query's sources gives every gid one slot.  A CUDA
+    tensor launches csrc/hash_group_slots.cu (one launch per round, the
+    host reading the active count between rounds); a CPU tensor runs
+    `hash_group_slots_plain`.  `last_rounds` holds the last call's rounds."""
+    if gids.device.type == "cpu":
+        return hash_group_slots_plain(table_keys, gids, active)
+    from ..kernels._build import launch
+
+    dev = gids.device
+    n, h = int(gids.shape[0]), int(table_keys.shape[0])
+    if not 1 <= h < (1 << 31):
+        raise ValueError(f"hash table size {h} outside [1, 2^31)")
+    _check_rows(table_keys, torch.int64, h, dev)
+    _check_rows(gids, torch.int64, n, dev)
+    _check_rows(active, torch.bool, n, dev)
+    slots = torch.empty(n, dtype=torch.int32, device=dev)
+    probe = torch.empty(n, dtype=torch.int32, device=dev)
+    claim = torch.empty(h, dtype=torch.int64, device=dev)
+    n_active = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = _HashArgs(n, h, table_keys.data_ptr(), gids.data_ptr(), active.data_ptr(),
+                     slots.data_ptr(), probe.data_ptr(), claim.data_ptr(),
+                     n_active.data_ptr(), max(h.bit_length() - 1, 1), 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rounds = 0
+    if n:
+        hash_group_slots.launches += 1
+        launch("hash_group_slots", "gt_hash_init", args, stream)
+        # the reference tests for an active row before each round; a round
+        # with none changes nothing, so the first one runs unconditionally
+        while rounds < min(2 * h, 1024):
+            launch("hash_group_slots", "gt_hash_round", args, stream)
+            rounds += 1
+            if int(n_active.item()) == 0:
+                break
+    hash_group_slots.last_rounds = rounds
+    return table_keys, slots, n_active.reshape(())
+
+
+hash_group_slots.launches = 0
+hash_group_slots.last_rounds = 0
 
 
 # ---- K5: limb quantization ------------------------------------------------------
@@ -1220,7 +1351,8 @@ topk_group_select.launches = 0
 # ---- K8: finalize + pack ---------------------------------------------------------
 
 _PACK = {"int32": 0, "bits": 1, "avg_f32": 2, "f64_words": 3, "avg_f64_words": 4,
-         "raw_int32": 5, "f64_dense": 6, "avg_f64_dense": 7, "scalar_int32": 8, "verdict": 9}
+         "raw_int32": 5, "f64_dense": 6, "avg_f64_dense": 7, "scalar_int32": 8, "verdict": 9,
+         "overflow": 10}
 
 
 def _avg(sums, counts):
@@ -1232,7 +1364,7 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None,
-                      n_out=None, verdict_rows=None):
+                      n_out=None, verdict_rows=None, overflow=None):
     """Torch-op version of K8 (see `pack_result`)."""
 
     def pick(row):
@@ -1263,6 +1395,8 @@ def pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=No
             lim = torch.maximum(s.abs() * 1e-7, torch.full_like(s, 1e-12))
             ok = ok & (err <= lim).all()
         parts.append(ok.to(torch.uint8).reshape(1))
+    if overflow is not None:
+        parts.append((overflow.reshape(1) > 0).to(torch.uint8))
     buf = torch.cat(parts) if len(parts) > 1 else parts[0]
     if sel is not None:
         return (buf,)
@@ -1290,7 +1424,7 @@ class _PackArgs(ctypes.Structure):
 
 
 def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_out=None,
-                verdict_rows=None):
+                verdict_rows=None, overflow=None):
     """K8: finalize merged [G] states into the tile program's result.
 
     int_rows: int32 [G] rows (presence, null-gated counts), shipped as
@@ -1300,14 +1434,16 @@ def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_
     sel/n_out: K7's selection (the compact path: every row is gathered by
     `sel`, the f64 rows join the byte buffer as [hi, lo] int32 words);
     verdict_rows: (errs [G], sums [G]) of the limb columns, appending one
-    byte, 1 iff every err <= max(|sum| * 1e-7, 1e-12).
+    byte, 1 iff every err <= max(|sum| * 1e-7, 1e-12);
+    overflow: the hash plan's int32 [1] count of rows that found no slot,
+    appending one byte, 1 iff it is > 0.
     Returns (buf uint8,) on the compact path, else (buf, accs64 [K, G]).
     A CUDA tensor launches csrc/pack_result.cu; a CPU tensor runs
     `pack_result_plain`."""
     first = int_rows[0]
     if first.device.type == "cpu":
         return pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed, sel, n_out,
-                                 verdict_rows)
+                                 verdict_rows, overflow)
     from ..kernels._build import launch, upload_table
 
     dev = first.device
@@ -1359,6 +1495,11 @@ def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_
         verdict_at = off
         for err, s in verdict_rows:
             rows.append((_PACK["verdict"], src(err, torch.float64), src(s, torch.float64), off))
+        off += 1
+    if overflow is not None:
+        ov = overflow.to(torch.int32).reshape(1).contiguous()
+        keep.append(ov)
+        rows.append((_PACK["overflow"], ov.data_ptr(), 0, off))
         off += 1
     buf = torch.empty(off, dtype=torch.uint8, device=dev)
     if verdict_at is not None:

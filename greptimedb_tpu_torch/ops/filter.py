@@ -8,6 +8,11 @@ the reference those were separate jnp expressions that XLA fused; here
 they are one hand-written CUDA pass (csrc/mask_gids.cu) on a CUDA tensor,
 and `mask_gids_plain` — the same arithmetic in torch ops — on a CPU
 tensor.  The plain version is also what the kernel is checked against.
+
+Ids come in two widths, as the reference's `raw_group_ids(dtype=...)`:
+int32 for the dense strategy (padding rows get the pad id), and int64
+for the hash strategy, whose sparse group space may pass 2^31 (no pad
+rule there: the mask keeps padding rows out of the slot table).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ class _MaskGidsArgs(ctypes.Structure):
         ("n_tags", ctypes.c_int32),
         ("n_buckets", ctypes.c_int32),
         ("pad_gid", ctypes.c_int32),
-        ("reserved", ctypes.c_int32),
+        ("id64", ctypes.c_int32),
     ]
 
 
@@ -88,7 +93,7 @@ def time_bucket(ts: torch.Tensor, origin: int, interval: int) -> torch.Tensor:
     return torch.div(ts - origin, interval, rounding_mode="floor").to(torch.int32)
 
 
-def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid):
+def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32):
     """Torch-op version of K1 (see `mask_gids` for the arguments)."""
     mask = valid.clone()
     for plane, op, value in filters:
@@ -102,14 +107,15 @@ def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid):
     if bucket is not None:
         ts, origin, interval, n_buckets = bucket
         components.append((time_bucket(ts, origin, interval), n_buckets))
-    gid = torch.zeros(valid.shape, dtype=torch.int32, device=valid.device)
+    gid = torch.zeros(valid.shape, dtype=dtype, device=valid.device)
     in_range = torch.ones(valid.shape, dtype=torch.bool, device=valid.device)
     for comp, card in components:
-        c = comp.to(torch.int32)
+        c = comp.to(dtype)
         in_range = in_range & (c >= 0) & (c < card)
         gid = gid * card + torch.clamp(c, 0, card - 1)
     mask = mask & in_range
-    gid = torch.where(valid, gid, torch.full_like(gid, pad_gid))
+    if dtype == torch.int32:
+        gid = torch.where(valid, gid, torch.full_like(gid, pad_gid))
     return gid, mask
 
 
@@ -141,7 +147,7 @@ def _normalize_filter(plane: torch.Tensor, op: str, value):
 # ---- the kernel --------------------------------------------------------------
 
 
-def mask_gids(valid, filters, gates, tags, bucket, pad_gid):
+def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32):
     """Predicate mask and mixed-radix group ids over one tile.
 
     valid:   bool [n], False for padding rows
@@ -150,16 +156,21 @@ def mask_gids(valid, filters, gates, tags, bucket, pad_gid):
     tags:    [(int32 codes [n], card)] group components, major first
     bucket:  None or (int64 ts [n], origin, interval, n_buckets), the last
              (minor) component
-    pad_gid: the id padding rows get (internal group count - 1)
+    pad_gid: the id padding rows get (internal group count - 1); unused
+             with int64 ids (pass None)
+    dtype:   torch.int32 (dense ids, wrapping like XLA's int32) or
+             torch.int64 (hash ids: composed in int64, no pad rule)
 
-    Returns (gids int32 [n], mask bool [n]).  A CUDA tile runs kernel K1
-    (csrc/mask_gids.cu); a CPU tile runs `mask_gids_plain`."""
+    Returns (gids [n] of `dtype`, mask bool [n]).  A CUDA tile runs kernel
+    K1 (csrc/mask_gids.cu); a CPU tile runs `mask_gids_plain`."""
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"mask_gids ids are int32 or int64, not {dtype}")
     if valid.device.type == "cpu":
-        return mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid)
-    return _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid)
+        return mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype)
+    return _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype)
 
 
-def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid):
+def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype):
     from ..kernels._build import launch, upload_table
 
     dev = valid.device
@@ -218,11 +229,12 @@ def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid):
     lit_t = upload_table(lits or [0], dev)
     keep.append(lit_t)
     args.lits = lit_t.data_ptr()
-    gids = torch.empty(n, dtype=torch.int32, device=dev)
+    gids = torch.empty(n, dtype=dtype, device=dev)
     mask = torch.empty(n, dtype=torch.bool, device=dev)
     args.gids_out = gids.data_ptr()
     args.mask_out = mask.data_ptr()
-    args.pad_gid = int(pad_gid)
+    args.id64 = int(dtype == torch.int64)
+    args.pad_gid = 0 if args.id64 else int(pad_gid)
     mask_gids.launches += 1
     launch("mask_gids", "gt_mask_gids", args, torch.cuda.current_stream(dev).cuda_stream)
     return gids, mask

@@ -1,9 +1,8 @@
 """Group-by execution over region tables on one torch device.
 
-Counterpart of `greptimedb_tpu/parallel/executor.py`, sort (dense)
-strategy on a single device: there is no mesh, no shard_map and no
-cross-device merge (multi-GPU is later work).  The host side is kept as
-it was:
+Counterpart of `greptimedb_tpu/parallel/executor.py` on a single device:
+there is no mesh, no shard_map and no cross-device merge (multi-GPU is
+later work).  The host side is kept as it was:
   - union tag dictionaries across region tables, in order of first
     appearance, so codes — hence group ids and row order — match the
     reference;
@@ -15,9 +14,12 @@ program (parallel/tile_program.py): K1 (mask + group ids) then K2/K3/K4
 (segment reductions), with the reference's count-pass sharing and
 presence fusing; with `plan.acc_dtype == "limb"` sum/avg columns ride
 K5/K6 (limb digit planes) instead, and a hierarchical layout folds its
-states down to the group tags.  It has no `perm` and no hash table: a
-time-major plan (`plan.time_major`) is handed the ts-ascending copies of
-its planes, which the tile cache gathered once.
+states down to the group tags.  A hash plan (`plan.agg_strategy ==
+"hash"`) composes int64 ids (K1's int64 mode), places them in the slot
+table threaded through the query's sources (K17) and reduces over the
+[hash_slots] slot ids on K3.  It has no `perm`: a time-major plan
+(`plan.time_major`) is handed the ts-ascending copies of its planes,
+which the tile cache gathered once.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..ops.aggregate import (
     _FAST_MIN_ROWS,
     AggState,
     finalize,
+    hash_group_slots,
     limb_segment_sums,
     quantize_limbs,
     reduce_state_axes,
@@ -87,6 +90,14 @@ class DistGroupByPlan:
     # copies of the planes (tile_planes.py `ensure_time_major`), whose
     # 4096-row blocks each span about one bucket
     time_major: bool = False
+    # Device group-by strategy (the `agg_strategy` planner pass): "sort" =
+    # the dense mixed-radix path above (states are [G]); "hash" = int64
+    # group ids placed in a `hash_slots`-sized table (K17) threaded through
+    # every source of the query, states are [hash_slots] and the host
+    # decodes slot -> group key from the table — the dense [G] space never
+    # materializes, so group spaces far past the dense bound still run.
+    agg_strategy: str = "sort"
+    hash_slots: int = 0
 
     @property
     def num_groups(self) -> int:
@@ -126,7 +137,7 @@ def _quantize_card(n: int) -> int:
 
 
 def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=None,
-                           count_cols=None, limbs=None):
+                           count_cols=None, limbs=None, hash_table=None):
     """Lower/state stage on one tile: mask -> group ids -> partial AggStates.
 
     `columns`/`nulls` map names to [n] tensors on one device, `valid` is
@@ -139,8 +150,13 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
     column (col -> (limbs, scale)); a limb column without one is
     quantized here from its f64 plane.  Returns {value col: AggState,
     "__presence": AggState(counts=...)} plus, in limb mode,
-    "__limb_err:<col>" states holding each column's error bound."""
-    n_internal = plan.internal_groups
+    "__limb_err:<col>" states holding each column's error bound.  A hash
+    plan needs `hash_table` (int64 [hash_slots], updated in place) and
+    returns (states, hash_table), the states over [hash_slots] slots with
+    an "__hash_overflow" state counting the rows that found no slot."""
+    is_hash = plan.agg_strategy == "hash"
+    if is_hash and hash_table is None:
+        raise ValueError("hash agg strategy requires the threaded hash_table")
     gates = [nulls[c] for c in plan.filter_null_cols if c in nulls]
     if dyn is not None:
         filters = [(columns[name], op, v)
@@ -156,11 +172,19 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
         tags = list(zip(plan.layout_tags, plan.layout_cards))
     else:
         tags = list(zip(plan.group_tags, plan.tag_cards))
-    # K1: padding rows get the max id so they never break clustering;
-    # their mask keeps them out of every reduction
-    gids, mask = mask_gids(
-        valid, filters, gates, [(columns[t], card) for t, card in tags], bucket, n_internal - 1,
-    )
+    comps = [(columns[t], card) for t, card in tags]
+    overflow = None
+    if is_hash:
+        # int64 ids: the sparse space may pass int32; only its occupied
+        # keys materialize, one per table slot (K1 then K17)
+        gid64, mask = mask_gids(valid, filters, gates, comps, bucket, None, dtype=torch.int64)
+        hash_table, gids, overflow = hash_group_slots(hash_table, gid64, mask)
+        n_internal = plan.hash_slots
+    else:
+        n_internal = plan.internal_groups
+        # K1: padding rows get the max id so they never break clustering;
+        # their mask keeps them out of every reduction
+        gids, mask = mask_gids(valid, filters, gates, comps, bucket, n_internal - 1)
 
     ts = None
     if plan.ts_col is not None and plan.ts_col in columns:
@@ -199,6 +223,7 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
                 last_presence = col  # its count IS the presence count
             states[col] = fold(segment_aggregate(
                 columns[col], gids, n_internal, key, mask=col_mask, ts=ts,
+                force_scatter=is_hash,
             ))
             continue
         # Count-pass sharing: a column with NO null mask counts exactly the
@@ -252,7 +277,7 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
         ]
         col_masks = [mask & nulls[c] if c in nulls else mask for c in cols]
         multi = segment_aggregate_multi(
-            vals, gids, n_internal, key, col_masks, mask
+            vals, gids, n_internal, key, col_masks, mask, force_scatter=is_hash,
         )
         for i, c in enumerate(cols):
             states[c] = fold(multi.row(i))
@@ -283,6 +308,11 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
         states["__presence"] = fold(AggState(counts=lpresence))
     elif presence_from is not None:
         states["__presence"] = AggState(counts=states[presence_from].counts)
+    if is_hash:
+        # sum-merges across sources like any count; > 0 after the last
+        # merge means some row found no slot: the caller reruns dense
+        states["__hash_overflow"] = AggState(counts=overflow.reshape(1))
+        return states, hash_table
     return states
 
 

@@ -4,9 +4,9 @@ Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor`:
 `execute`, `_try_execute_impl`, the warm branch of `_locked_execute`,
 `_encode_mem` (the memtable tail), `_fetch_result`, `_finalize`,
 `_decode_result` and the `_assemble_*` helpers, for the configuration
-the port implements (one device, the dense "sort" strategy, no host fast
-path, no cold host serve, no fused or batched builds, no dedup plane, no
-window tiles, no streamed spill).  A query:
+the port implements (one device, the "sort" and "hash" strategies, no
+host fast path, no cold host serve, no fused or batched builds, no dedup
+plane, no window tiles, no streamed spill).  A query:
 
   1. snapshots each region's (files, memtables) and checks that the
      tile path may aggregate raw file rows (append-mode table, or
@@ -15,13 +15,21 @@ window tiles, no streamed spill).  A query:
      builds and uploads, or extends by a flushed delta) each region's
      super-tile, and repairs the code planes a dictionary growth moved
      (`repair_super`);
-  3. builds the plan and its runtime values (parallel/tile_planner.py);
+  3. picks the group-by strategy (`choose_agg_strategy`: hash when the
+     padded group space is sparse against the distinct keys) and builds
+     the plan and its runtime values (parallel/tile_planner.py); a sort
+     plan must fit the dense bounds (`query.max_groups` * 64 output
+     groups, `query.max_internal_groups` stage-1 groups);
   4. runs one tile program over every chunk and tail — of the
      time-major copies for a bucket-only group-by — (parallel/
      tile_program.py) and reads the packed result back once;
   5. decodes it on the host.  A limb verdict of 0 (a group's
      quantization bound above 1e-7 of its sum) reruns the query with
-     exact f64 accumulation.
+     exact f64 accumulation; a hash overflow verdict (some row found no
+     slot) reruns it on the dense plan when the dense bounds allow it,
+     and otherwise declines, so the table-fed path answers.  A hash
+     result decodes from the slot table: occupied slots in ascending gid
+     order, the order of the dense path's rows.
 
 `execute` returns None when the query does not apply, and the caller
 takes the table-fed path.  `timings` holds the host ms per stage of the
@@ -46,22 +54,18 @@ import torch
 
 from ..ops.aggregate import unpack_f64_bits
 from ..ops.tiles import pad_rows
+from ..query import passes
 from ..storage.region import OP_COL
 from .executor import COUNT_STAR, GroupByResult, _FUNC_TO_KERNEL
 from .tile_planes import TileCacheManager, TileContext, _encode_host_tiles, _SuperTiles
 from .tile_planner import (
     build_plan,
+    choose_agg_strategy,
     choose_layout,
     disjoint,
     plan_cols,
 )
 from .tile_program import limb_sum_cols, tile_program
-
-
-# dense [G] bounds of the tile path (the reference's query.max_groups * 64
-# and query.max_internal_groups at their defaults)
-MAX_GROUPS = (1 << 16) * 64
-MAX_INTERNAL_GROUPS = 1 << 24
 
 
 class TileExecutor:
@@ -74,6 +78,13 @@ class TileExecutor:
         self.timings: dict[str, float] = {}
         # queries rerun in exact f64 after a failed limb verdict
         self.limb_reruns = 0
+        # the strategy of the last query's first dispatched plan ("hash",
+        # "sort", or None when it dispatched nothing), and whether its
+        # hash dispatch overflowed the slot table
+        self.last_strategy: str | None = None
+        self.last_hash_overflow = False
+        # bytes of the last result read back from the device
+        self.last_readback_bytes = 0
 
     @property
     def device(self) -> torch.device:
@@ -86,8 +97,10 @@ class TileExecutor:
     # -- public entry --------------------------------------------------------
     def execute(self, lowering, schema, time_bounds, ctx: TileContext):
         self.timings = {}
-        # only the dense "sort" strategy is ported: refuse the others, also
-        # when the config was changed after it was built
+        self.last_strategy = None
+        self.last_hash_overflow = False
+        # refuse an unknown strategy also when the config was changed after
+        # it was built
         self.config.validate()
         scan = lowering.scan
         ts_name = schema.time_index.name if schema.time_index else None
@@ -229,12 +242,24 @@ class TileExecutor:
         if not entries and not any(ms for _r, _f, ms in region_sources):
             return None
 
-        # 3. the static plan (cards after all dictionary updates)
-        built = build_plan(self.config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_ts)
+        # 3. the strategy probe and the static plan (cards after all
+        # dictionary updates; before the limb planes are decided, since a
+        # hash plan accumulates exact f64)
+        agg_probe = choose_agg_strategy(
+            self.config, lowering, schema, scan, ctx, tag_cols, time_bounds
+        )
+        built = build_plan(self.config, lowering, schema, scan, ctx, tag_cols, time_bounds,
+                           use_ts, agg_probe=agg_probe)
         if built is None:
             return None
         plan, dyn_host, fspec = built
-        if plan.num_groups > MAX_GROUPS or plan.internal_groups > MAX_INTERNAL_GROUPS:
+        if plan.agg_strategy == "hash":
+            # the dense [G] space never materializes: only the slot table
+            # must fit, and size_hash_slots caps it at max_internal_groups
+            passes.note("agg_strategy", True, agg_probe["why"], slots=plan.hash_slots,
+                        groups=plan.num_groups, distinct_est=agg_probe["d_est"],
+                        stats=agg_probe["stats_src"])
+        elif not self._dense_fits(plan):
             return None  # group space too large for dense [G] states
 
         # 4. the device sources: chunks of each super-tile, then the tails
@@ -299,8 +324,19 @@ class TileExecutor:
             self.timings["time_major"] = tm_ms
         self.timings["plan"] = (time.perf_counter() - t_start) * 1e3 - sum(self.timings.values())
 
-        # 5. one program, one readback; a failed limb verdict reruns in f64
-        for attempt in (plan, dataclasses.replace(plan, acc_dtype="float64")):
+        # 5. one program, one readback.  A failed limb verdict reruns in
+        # f64; a hash overflow reruns on the dense plan when it fits the
+        # dense bounds, and otherwise the table-fed path owns the query
+        if plan.agg_strategy == "hash":
+            attempts = [plan]
+            dense = dataclasses.replace(plan, agg_strategy="sort", hash_slots=0,
+                                        acc_dtype="float64")
+            if self._dense_fits(dense):
+                attempts.append(dense)
+        else:
+            attempts = [plan, dataclasses.replace(plan, acc_dtype="float64")]
+        self.last_strategy = plan.agg_strategy
+        for attempt in attempts:
             program = tile_program(attempt, nullable_cols, fspec)
             t0 = time.perf_counter()
             packed = program.run_all(device_sources, dyn)
@@ -309,8 +345,16 @@ class TileExecutor:
             table = self._finalize(packed, program, attempt, lowering, ctx, dyn_host)
             if table is not None:
                 return table
-            self.limb_reruns += 1
+            if attempt.agg_strategy == "hash":
+                self.last_hash_overflow = True
+            else:
+                self.limb_reruns += 1
         return None
+
+    def _dense_fits(self, plan) -> bool:
+        """A sort plan's [G] states fit the dense bounds."""
+        return (plan.num_groups <= self.config.max_groups * 64
+                and plan.internal_groups <= self.config.max_internal_groups)
 
     def _add_ms(self, stage: str, t0: float) -> None:
         self.timings[stage] = self.timings.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
@@ -326,6 +370,7 @@ class TileExecutor:
         t0 = time.perf_counter()
         fetched = self._fetch_result(packed)
         self._add_ms("readback", t0)
+        self.last_readback_bytes = sum(a.nbytes for a in fetched)
         t0 = time.perf_counter()
         try:
             return self._decode_result(fetched, program, plan, lowering, ctx, dyn_host)
@@ -360,11 +405,21 @@ class TileExecutor:
         buf = fetched[0]
         accs64 = fetched[1] if len(fetched) > 1 else None
         spec = program.spec
+        is_hash = plan.agg_strategy == "hash"
+        if is_hash and buf[-1] != 0:
+            # slot-table overflow: the distinct-key estimate was badly low;
+            # the caller reruns dense or declines (never a wrong result)
+            return None
         if program.limb_err_cols and buf[-1] == 0:
             # a group's quantization bound exceeded 1e-7 of its sum: the
             # caller reruns with exact f64 accumulation
             return None
-        g = spec.cap if spec is not None else plan.num_groups
+        if spec is not None:
+            g = spec.cap
+        elif is_hash:
+            g = plan.hash_slots
+        else:
+            g = plan.num_groups
         bit_packed = program.bit_packed
         int_row = -(-g // 8) if bit_packed else g
         ni = len(program.int_layout)
@@ -400,6 +455,8 @@ class TileExecutor:
             # the device consumed these post-ops: the host replay skips them
             lowering.post_done = dyn_host.get("post_consumed", frozenset())
             return table
+        if is_hash:
+            return self._assemble_hash_result(finals, plan, ctx, dyn_host, fetched[2])
         return self._assemble_result(finals, plan, ctx, dyn_host)
 
     def _group_key_columns(self, plan, ctx, dyn_host, gids) -> dict:
@@ -445,6 +502,18 @@ class TileExecutor:
                 vals = np.where(col_count > 0, arr, np.nan)
                 cols[f"{func}({col})"] = pa.array(vals, mask=np.isnan(vals))
         return cols
+
+    def _assemble_hash_result(self, finals, plan, ctx, dyn_host, table_keys):
+        """[K, hash_slots] rows + the slot -> gid key table -> SQL rows: the
+        occupied slots ordered by gid ascending (the order of the dense
+        path's scan over [G]), keys decoded with the same mixed radix and
+        the same NULL gating and naming."""
+        keys = np.asarray(table_keys, dtype=np.int64)
+        presence = np.asarray(finals["__presence"]["count"])
+        slot_idx = np.nonzero((keys >= 0) & (presence[: keys.shape[0]] > 0))[0]
+        slots = slot_idx[np.argsort(keys[slot_idx], kind="stable")]
+        cols = self._group_key_columns(plan, ctx, dyn_host, keys[slots])
+        return pa.table(self._append_agg_columns(cols, finals, plan, slots))
 
     def _assemble_compact(self, finals, plan, ctx, dyn_host, sel, n_out, spec):
         """Compact [K, cap] rows + selected group ids -> SQL rows in device

@@ -2,14 +2,20 @@
 
 Counterpart of the planning methods of
 `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor` (`_plan_cols`,
-`_bucket_geometry`, `_build_plan`, `_plan_device_finalize`,
-`config_acc_dtype`) and its module helpers
-(`_choose_layout`, `_encode_tag_filter`, `_quantize_soft`, `_disjoint`),
-copied as functions of the query config.  Differences:
+`_bucket_geometry`, `_size_hash_slots`, `_choose_agg_strategy`,
+`_build_plan`, `_plan_device_finalize`, `config_acc_dtype`) and its
+module helpers (`_choose_layout`, `_encode_tag_filter`, `_quantize_soft`,
+`_disjoint`, `_HASH_GID_LIMIT`), copied as functions of the query config.
+Differences:
 
-* the group-by strategy is always the dense "sort" path, so
-  `_choose_agg_strategy` has no counterpart (the hash path, B18, is not
-  ported; `QueryConfig.validate` refuses "hash" and "auto");
+* the strategy probe (`choose_agg_strategy`) reads the tag dictionary
+  only.  The port has no index sidecars, so no term index answers for a
+  column the dictionary has not encoded; the tile executor therefore
+  calls the probe once every source of the query (memtable tails and
+  files) is encoded, before the limb planes are decided, where the
+  reference calls it before its file encodes and asks the term index on
+  a cold dictionary.  On a warm dictionary both read the same
+  cardinalities;
 * the blocked kernels' span is fixed at 16 (the reference sizes it per
   plan, and the port only records its estimate in the `time_major`
   note): where the reference's wider span would pass, the port's guard
@@ -29,6 +35,12 @@ from ..ops.aggregate import BLOCK_ROWS, TOPK_MAX_KEYED_CAP, TOPK_MAX_KEYS, havin
 from ..query import passes
 from ..storage.dictionary import TableDictionary
 from .executor import COUNT_STAR, DistGroupByPlan, _quantize_card
+
+# Hash-strategy gids are int64 mixed-radix composites; past this padded
+# group space the composition would wrap and alias distinct groups into
+# one slot with no overflow verdict.  The margin below 2^63 keeps every
+# intermediate `gid * card + c` in range too.
+HASH_GID_LIMIT = 1 << 62
 
 
 def plan_cols(plan: DistGroupByPlan) -> set:
@@ -149,11 +161,108 @@ def _coerce(v):
     return v
 
 
-def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_ts):
+def size_hash_slots(config, d_est: int) -> int:
+    """Slot-table size for a distinct-key estimate: the next power of two
+    past 2x (load factor <= 0.5), floored at 1024, capped at the
+    internal-groups bound.  The result stays a power of two (K17
+    addresses with `& (H - 1)`), so a max_internal_groups that is not one
+    clamps down to its largest contained power of two."""
+    cap = max(int(config.max_internal_groups), 1 << 10)
+    cap = 1 << (cap.bit_length() - 1)
+    slots = 1 << 10
+    while slots < 2 * d_est and slots < cap:
+        slots <<= 1
+    return min(slots, cap)
+
+
+def choose_agg_strategy(config, lowering, schema, scan, ctx, tag_cols, time_bounds):
+    """Pick hash vs sort before the plan is built, from the per-tag
+    dictionary cardinalities against the padded dense group space: dense
+    [G] states win while G is small and the (pk, ts) sort feeds the blocked
+    kernels; a slot table sized to the distinct keys wins when G is sparse,
+    and is the only option once G passes the dense bound.  Returns the
+    probe dict build_plan consumes, or None meaning "sort"."""
+    knob = getattr(config, "agg_strategy", "auto")
+    has_last = any(f == "last_value" for f, _c in lowering.agg_specs)
+    why_sort = None
+    if not passes.enabled("agg_strategy", config):
+        why_sort = "pass disabled"
+    elif knob == "sort":
+        why_sort = "query.agg_strategy=sort forces the dense path"
+    elif not tag_cols:
+        why_sort = "bucket-only group-by: dense space is one axis, trivially small"
+    elif has_last:
+        why_sort = "last_value needs the ts-ordered dense kernels"
+    if why_sort is not None:
+        passes.note("agg_strategy", False, why_sort)
+        return None
+    d = ctx.dictionary
+    est_rows = max(sum(r.approx_rows() for r in ctx.regions), 1)
+    _bc, _iv, _orig, n_buckets_real, n_buckets = bucket_geometry(
+        lowering, schema, scan, time_bounds
+    )
+    d_prod = 1
+    g_est = n_buckets
+    for t in tag_cols:
+        card = max(d.cardinality(t), 1)
+        d_prod *= card
+        g_est *= _quantize_card(card)
+    if g_est >= HASH_GID_LIMIT:
+        passes.note(
+            "agg_strategy", False,
+            f"padded group space {g_est} exceeds the int64 gid range: "
+            "neither strategy can address it; scan path owns the query",
+        )
+        return None
+    d_est = min(est_rows, d_prod * max(n_buckets_real, 1))
+    slots = size_hash_slots(config, d_est)
+    if slots < 2 * d_est and knob != "hash":
+        # the cap clamped the table below 2x the estimate: overflow is
+        # likely, auto declines (forced hash proceeds: the estimate is an
+        # upper bound and the overflow verdict stays the net)
+        passes.note(
+            "agg_strategy", False,
+            f"~{d_est} distinct keys exceed half the {slots}-slot cap "
+            "(query.max_internal_groups): hash would overflow, dense/"
+            "scan paths own the query",
+        )
+        return None
+    info = {"strategy": "hash", "slots": slots, "d_est": int(d_est), "g_est": int(g_est),
+            "stats_src": "dictionary"}
+    if knob == "hash":
+        info["why"] = (
+            f"query.agg_strategy=hash forced: ~{d_est} distinct keys "
+            f"into {slots} slots (dense space {g_est})"
+        )
+        return info
+    min_space = int(getattr(config, "agg_hash_min_group_space", 1 << 16))
+    if g_est >= min_space and d_est * 4 <= g_est:
+        info["why"] = (
+            f"sparse group space: ~{d_est} distinct keys (dictionary) vs "
+            f"{g_est} dense groups -> {slots}-slot hash table"
+        )
+        return info
+    passes.note(
+        "agg_strategy", False,
+        f"dense space {g_est} is small or well-filled (~{d_est} "
+        "distinct keys): sorted dense states win",
+        groups=int(g_est), distinct_est=int(d_est),
+    )
+    return None
+
+
+def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_ts,
+               agg_probe=None):
     """(plan, dyn_host, spec) or None when the query cannot tile.  `plan`
     is the static structure (filter literals replaced by their arity,
     bucket geometry by placeholders); `dyn_host` carries the runtime
-    values; `spec` is the device-finalize spec or None."""
+    values; `spec` is the device-finalize spec or None.  `agg_probe` (a
+    `choose_agg_strategy` result) switches the plan to the hash group-by:
+    no layout fold, no time-major copies, exact f64 accumulation, and the
+    probe's slot count.  The reference re-sizes the table and re-checks
+    the gid range here because its probe read a cold dictionary; the
+    port's probe already reads the final one (see the module docstring),
+    and declines a gid space past `HASH_GID_LIMIT` itself."""
     d = ctx.dictionary
     bucket_col, interval_native, origin, n_buckets_real, n_buckets = bucket_geometry(
         lowering, schema, scan, time_bounds
@@ -199,9 +308,11 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
     norm_specs = [(func, COUNT_STAR if col is None else col) for func, col in lowering.agg_specs]
     needs_ts_order = any(f == "last_value" for f, _ in norm_specs)
     pk = [c.name for c in schema.tag_columns()]
-    layout_tags = choose_layout(pk, tag_cols, bucket_col is not None)
+    is_hash = agg_probe is not None and agg_probe.get("strategy") == "hash"
+    layout_tags = None if is_hash else choose_layout(pk, tag_cols, bucket_col is not None)
     time_major = (
-        bucket_col is not None
+        not is_hash
+        and bucket_col is not None
         and not tag_cols
         and layout_tags is None
         and passes.enabled("time_major", config)
@@ -228,6 +339,13 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
         if name not in tag_names and name != ts_name
         and schema.has_column(name) and schema.column(name).nullable
     }))
+    acc_dtype = config_acc_dtype(config)
+    hash_slots = 0
+    if is_hash:
+        hash_slots = agg_probe["slots"]
+        # hash accumulates exact f64: slot ids defeat the limb kernels'
+        # block geometry
+        acc_dtype = "float64"
     plan = DistGroupByPlan(
         group_tags=tuple(tag_cols),
         tag_cards=tuple(_quantize_card(d.cardinality(t)) for t in tag_cols),
@@ -237,7 +355,7 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
         n_buckets=n_buckets,
         agg_specs=tuple(norm_specs),
         filters=tuple(enc_filters),
-        acc_dtype=config_acc_dtype(config),
+        acc_dtype=acc_dtype,
         ts_col=use_ts if needs_ts_order else None,
         filter_null_cols=filter_null_cols,
         layout_tags=None if layout_tags is None else tuple(layout_tags),
@@ -245,12 +363,22 @@ def build_plan(config, lowering, schema, scan, ctx, tag_cols, time_bounds, use_t
             _quantize_card(d.cardinality(t)) for t in layout_tags
         ),
         time_major=time_major,
+        agg_strategy="hash" if is_hash else "sort",
+        hash_slots=hash_slots,
     )
     dyn_host = {
         "filter_values": filter_vals,
         "bucket_origin": origin,
         "bucket_interval": interval_native,
     }
+    if is_hash:
+        # hash results are already compact (O(slots) fetch, host slot ->
+        # key decode); Sort/LIMIT/HAVING replay on the host
+        passes.note(
+            "device_finalize", False,
+            "hash agg strategy ships compact slots; host post-ops own Sort/LIMIT/HAVING",
+        )
+        return plan, dyn_host, None
     spec = plan_device_finalize(config, lowering, schema, ctx, plan, dyn_host, n_buckets_real)
     return plan, dyn_host, spec
 

@@ -14,7 +14,13 @@ the reference's result layout:
   f64 rows;
 * compact path (a DeviceFinalizeSpec): (buf,) — int rows, f32 rows, the
   selected group ids, the survivor count, the f64 rows as [hi, lo] int32
-  words, the verdict byte; every row gathered by the selection.
+  words, the verdict byte; every row gathered by the selection;
+* hash path: (buf, accs64, table_keys) — the dense layout over the
+  [hash_slots] slot rows, buf ending in the overflow byte (1 = some row
+  found no slot), and the [hash_slots] int64 key table that every source
+  threaded through K17 in source order, for the host's slot -> key decode.
+  The byte packing keys off the logical group space, as on the dense
+  path, so hash and sort ship the same precision.
 
 There is no jit: PyTorch runs eagerly and the kernels are compiled once
 per process (kernels/_build.py), so a "program" is the layout plus the
@@ -29,6 +35,7 @@ import functools
 import torch
 
 from ..ops.aggregate import (
+    HASH_EMPTY,
     HavingRef,
     finalize,
     having_mask,
@@ -60,6 +67,9 @@ class TileProgram:
         self.plan = plan
         self.nullable_cols = nullable_cols
         self.spec = spec
+        self.is_hash = plan.agg_strategy == "hash"
+        if self.is_hash and spec is not None:
+            raise ValueError("a hash plan has no device-finalize spec")
         per_col_aggs: dict[str, set] = {}
         for func, col in plan.agg_specs:
             per_col_aggs.setdefault(col, set()).add(_FUNC_TO_KERNEL[func])
@@ -96,9 +106,10 @@ class TileProgram:
         )
 
     # -- the pieces ----------------------------------------------------------
-    def partial(self, cols, valid, nulls, dyn, limbs):
+    def partial(self, cols, valid, nulls, dyn, limbs, hash_table=None):
         return compute_partial_states(
             self.plan, cols, valid, nulls, dyn=dyn, count_cols=self.nullable_cols, limbs=limbs,
+            hash_table=hash_table,
         )
 
     @staticmethod
@@ -150,7 +161,7 @@ class TileProgram:
             order_keys.append((v, isn, asc, nulls_first))
         return topk_group_select(mask, order_keys, spec.cap)
 
-    def final(self, merged, having_values=()):
+    def final(self, merged, having_values=(), table_keys=None):
         presence = merged["__presence"].counts
         outs = {"__presence": {"count": presence}}
         for col, aggs in self.per_col_aggs.items():
@@ -175,25 +186,35 @@ class TileProgram:
             verdict = [
                 (merged["__limb_err:" + c].sums, merged[c].sums) for c in self.limb_err_cols
             ]
-        return pack_result(
+        packed = pack_result(
             [int_row(col) for col, _agg in self.int_layout],
             [(merged[col].sums, self._counts_of(merged, col, presence))
              for col, _agg in self.acc32_layout],
             [f64_row(col, agg) for col, agg in self.acc64_layout],
             self.bit_packed, sel=sel, n_out=n_out, verdict_rows=verdict,
+            overflow=merged["__hash_overflow"].counts if self.is_hash else None,
         )
+        return (*packed, table_keys) if self.is_hash else packed
 
     def run_all(self, sources, dyn):
         """sources: (cols, valid, nulls, limbs) per chunk/tail, merged in
-        order; dyn: the runtime literals and bucket geometry."""
+        order; dyn: the runtime literals and bucket geometry.  A hash plan
+        threads one key table through the sources, in source order."""
         pdyn = {k: dyn[k] for k in ("filter_values", "bucket_origin", "bucket_interval")}
         merged = None
+        table_keys = None
         for cols, valid, nulls, limbs in sources:
-            states = self.partial(cols, valid, nulls, pdyn, limbs)
+            if self.is_hash:
+                if table_keys is None:
+                    table_keys = torch.full((self.plan.hash_slots,), HASH_EMPTY,
+                                            dtype=torch.int64, device=valid.device)
+                states, table_keys = self.partial(cols, valid, nulls, pdyn, limbs, table_keys)
+            else:
+                states = self.partial(cols, valid, nulls, pdyn, limbs)
             merged = states if merged is None else self.merge(merged, states)
         if merged is None:
             raise ValueError("tile program received no sources")
-        return self.final(merged, dyn.get("having_values", ()))
+        return self.final(merged, dyn.get("having_values", ()), table_keys)
 
 
 @functools.lru_cache(maxsize=256)

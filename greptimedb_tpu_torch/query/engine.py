@@ -19,7 +19,10 @@ engine's device and are built at the first such query.
 by either path), `declined` (queries try_lower declined),
 `tile_dispatches` (lowered queries the tile path answered) and
 `tile_declined` (lowered queries it declined, answered by the table-fed
-path); `last_timings` holds the per-stage host wall ms of the last
+path), and, per query the tile path dispatched, the strategy of its
+first plan, `agg_hash` or `agg_sort`, and `agg_hash_overflow` (hash
+dispatches whose slot table overflowed) — the reference's
+AGG_STRATEGY_TOTAL{strategy} and AGG_HASH_OVERFLOW; `last_timings` holds the per-stage host wall ms of the last
 lowered query and `last_path` which path answered it.
 
 PromQL (query/promql/) counts its range evaluations here too:
@@ -76,6 +79,7 @@ class QueryEngine:
         self._tile_executor = None
         self.stats = {
             "lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0,
+            "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0,
             "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
         }
         # per-stage host wall ms of the last lowered query (DeviceExecutor)
@@ -119,6 +123,8 @@ class QueryEngine:
             return self.cpu.execute(plan)
         scan = lowering.scan
         tile = self.tile_executor()
+        if tile is not None:
+            tile.last_strategy, tile.last_hash_overflow = None, False
         device = DeviceExecutor(self._region_scan, self.config.device, tile_executor=tile,
                                 tile_context_provider=self._tile_ctx)
         table = device.execute(
@@ -129,6 +135,9 @@ class QueryEngine:
         self.stats["lowered"] += 1
         if tile is not None:
             self.stats["tile_dispatches" if device.path == "tile" else "tile_declined"] += 1
+            if tile.last_strategy is not None:
+                self.stats["agg_" + tile.last_strategy] += 1
+            self.stats["agg_hash_overflow"] += int(tile.last_hash_overflow)
         self.last_timings = device.timings
         self.last_path = device.path
         return table

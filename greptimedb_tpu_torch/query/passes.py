@@ -23,6 +23,10 @@ from dataclasses import dataclass, field
 
 # name -> what the pass does, in run order
 PASSES = {
+    "agg_strategy": "pick the device group-by strategy per query from table stats: dense "
+                    "mixed-radix states exploiting the (pk, ts) sort, or a hash table "
+                    "sized to the distinct-key estimate when the padded group space is "
+                    "sparse (the hash/sort winner flips with group cardinality)",
     "limb_quantize": "accumulate sum/avg through fixed-point base-256 digit planes (K5 "
                      "quantize, K6 integer segment sums) with a per-group error bound",
     "incremental_tile": "extend an existing super-tile IN PLACE when a flush appends files: "

@@ -12,12 +12,13 @@ that matter:
   (the authoritative Arrow executor).
 * There is no `fallback_to_cpu`: a device-path failure raises instead of
   being served silently from the CPU executor.
-* The tile-cache knobs (`tile_cache_enable` .. `agg_strategy`) are the
+* The tile-cache knobs (`tile_cache_enable` .. `agg_hash_min_group_space`)
+  and the dense bounds (`max_groups`, `max_internal_groups`) are the
   reference's, at the configuration the port implements: the passes it
-  has not ported do not exist (`query/passes.py`) and behave as disabled,
-  and `agg_strategy` is "sort" — "hash" and "auto" raise `ConfigError`
-  until the hash group-by is ported.  Persistence of super-tiles, the
-  streamed spill, batching and the mesh have no knobs here.
+  has not ported do not exist (`query/passes.py`) and behave as disabled.
+  `agg_strategy` is "auto" (hash or sort per query), "hash" or "sort",
+  as in the reference.  Persistence of super-tiles, the streamed spill,
+  batching and the mesh have no knobs here.
 * `TileConfig` holds only `incremental` (delta maintenance of the
   planes on flush); the prewarm, pipelined and fused builds are not
   ported.
@@ -57,6 +58,12 @@ class QueryConfig:
     backend: str = "torch"  # "torch" = lowered device path, "cpu" = Arrow executor
     # the torch device the lowered path runs on
     device: str = "cuda"
+    # dense [G] bounds of the tile path: a sort plan runs when its output
+    # group space is at most max_groups * 64 and its stage-1 (hierarchical)
+    # space at most max_internal_groups; the hash slot table is capped at
+    # max_internal_groups (its largest contained power of two)
+    max_groups: int = 1 << 16
+    max_internal_groups: int = 1 << 24
     # device-resident super-tiles (parallel/tile_planes.py): warm queries
     # run over planes cached on the card instead of rescanning Parquet
     tile_cache_enable: bool = True
@@ -72,8 +79,15 @@ class QueryConfig:
     device_topk: bool = True
     # named passes of query/passes.py to switch off
     disabled_passes: tuple = ()
-    # device group-by strategy: only the dense "sort" path is ported
-    agg_strategy: str = "sort"
+    # device group-by strategy (the `agg_strategy` pass,
+    # parallel/tile_planner.py): "auto" picks per query between the dense
+    # mixed-radix states ("sort") and a slot table sized to the distinct
+    # keys ("hash", K17), from the tag dictionaries against the padded
+    # group space; "sort" and "hash" force one
+    agg_strategy: str = "auto"
+    # auto considers hash only when the padded group space is at least
+    # this large: below it dense [G] states are trivially cheap
+    agg_hash_min_group_space: int = 1 << 16
 
     def __post_init__(self):
         self.validate()
@@ -81,10 +95,17 @@ class QueryConfig:
     def validate(self) -> None:
         from .errors import ConfigError
 
-        if self.agg_strategy != "sort":
+        if self.agg_strategy not in ("auto", "hash", "sort"):
             raise ConfigError(
-                f"query.agg_strategy={self.agg_strategy!r}: only 'sort' is "
-                "ported (the hash group-by is not)"
+                "query.agg_strategy must be 'auto', 'hash' or 'sort' (the "
+                "device group-by strategy; 'sort' forces the dense path); "
+                f"got {self.agg_strategy!r}"
+            )
+        if self.agg_hash_min_group_space < 1024:
+            raise ConfigError(
+                "query.agg_hash_min_group_space must be >= 1024 groups (below "
+                "that the dense path is always cheaper than a hash table); "
+                f"got {self.agg_hash_min_group_space!r}"
             )
         if self.tile_acc_dtype not in ("limb", "float64"):
             raise ConfigError(

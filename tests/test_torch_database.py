@@ -139,6 +139,7 @@ def test_cpu_backend_and_declined_plans_are_counted(tmp_path):
     assert out.to_pylist() == [{"k": "x", "d": 7.0}, {"k": "y", "d": 5.0}]
     assert db.query_engine.stats == {
         "lowered": 0, "declined": 1, "tile_dispatches": 0, "tile_declined": 0,
+        "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0,
         "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
     }
     db.config.query.backend = "cpu"
@@ -167,6 +168,7 @@ def test_device_failure_raises_unless_fallback_is_on(tmp_path, monkeypatch):
             db.sql_one("SELECT k, max(v) AS m FROM m GROUP BY k")
     assert db.query_engine.stats == {
         "lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0,
+        "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0,
         "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
     }
     db.close()

@@ -445,10 +445,31 @@ def test_packed_readback_large_group_space(tmp_path, with_count):
 # ---- configuration -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("strategy", ["hash", "auto"])
-def test_unported_agg_strategy_raises(strategy):
-    with pytest.raises(ConfigError, match="only 'sort'"):
-        QueryConfig(agg_strategy=strategy)
+def test_agg_strategy_defaults_to_auto():
+    cfg = QueryConfig()
+    assert cfg.agg_strategy == "auto" and cfg.agg_hash_min_group_space == 1 << 16
+    assert cfg.max_groups == 1 << 16 and cfg.max_internal_groups == 1 << 24
+
+
+@pytest.mark.parametrize("knobs,ok", [
+    ({"agg_strategy": "auto"}, True),
+    ({"agg_strategy": "hash"}, True),
+    ({"agg_strategy": "sort"}, True),
+    ({"agg_strategy": "dense"}, False),
+    ({"agg_strategy": ""}, False),
+    ({"agg_hash_min_group_space": 1024}, True),
+    ({"agg_hash_min_group_space": 1023}, False),
+])
+def test_agg_strategy_config_values(knobs, ok):
+    """The reference's accepted strategies and agg_hash_min_group_space
+    floor (greptimedb_tpu/utils/config.py:1189-1199)."""
+    if ok:
+        cfg = QueryConfig(**knobs)
+        for k, v in knobs.items():
+            assert getattr(cfg, k) == v
+    else:
+        with pytest.raises(ConfigError, match="agg_strategy|agg_hash_min_group_space"):
+            QueryConfig(**knobs)
 
 
 def test_disabled_limb_pass_accumulates_in_f64(tmp_path):
