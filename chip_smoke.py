@@ -2,14 +2,14 @@
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 2] [--tile-reps 5] [--tql-reps 5]
-                          [--container-hours 6] [--container-reps 3]
+                          [--container-hours 6] [--container-reps 3] [--tick-reps 5]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the seventeen kernels of csrc/ for sm_90a (one nvcc
-             each, all started together).
+2. build   — builds the eighteen kernel sources of csrc/ for sm_90a (one
+             nvcc each, all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
              17.28 M rows, C = 1, 5 and 10, span 16, G = 4096 x 12; the
@@ -44,6 +44,20 @@ Phases, each printing one JSON line:
              than K7 takes, a bucket-only avg/sum (limbs over the
              time-major copies), and a minute-bucket query with the
              time_major pass off (K2's guard fails, K3 on the tile path).
+5c. tick   — on phase 5's resident region: the 15 queries as the
+             dashboard tick (`batch.window_ms` 120, `max_members` 16; 15
+             threads released by one barrier): --tick-reps ticks, then
+             --tick-reps with every window one bucket later and the host
+             literals changed.  Each tick is one tick program (B19: one
+             CUDA graph replay, one readback; `batch_fused_dispatches` and
+             `tick_graph_replays` +1) serving all 15 members, each result
+             byte-identical to the query's solo run; the first tick captures
+             the graph, the slid ticks capture none.  Then a result-cache
+             re-hit that launches nothing.  Prints per tick the wall time net
+             of the window, replay, readback and per-member decode ms, and
+             the capture ms and the graph's pool bytes; the members run
+             once more eagerly under torch's sync debug mode "error" (no host
+             read before the readback).
 5b. live   — on phase 5's resident region: 30 more minutes for the 4000
              hosts and 96 new ones (737,280 rows through Database.write,
              WAL on, flushed; the new names move the host codes).  The
@@ -78,6 +92,13 @@ Phases, each printing one JSON line:
              (tql.tile off: K9-K11) held against the tile path; T1 of a
              few hosts against a numpy twin; the legacy hour again on the
              CPU backend (plain versions), held against the card.
+   3f (guards on the card) — K2 and K6 behind their layout guards with
+             no host read (both branches launched, each predicated on the
+             guard's word) at 17.28 M rows and C = 10, the guard passing
+             (host x hour) and failing (minute buckets): byte for byte
+             against the host-driven form and against the plain version,
+             twice, the three timed; K18 (the flag-reading sort of the K3
+             branch) against torch.sort.
    3e (hash kernels) — at H1's shape (phase 7: 5.76 M rows in (namespace,
              pod, container, ts) order, 2^24 slots): K1's int64 ids, K17
              `hash_group_slots` and K3 over the slot ids, each byte for byte
@@ -101,10 +122,17 @@ Phases, each printing one JSON line:
              K17, K3 and K8 and none of K2, K5, K6.  Then a forced-hash query
              whose 4096-slot table overflows: `agg_hash_overflow` +1, the
              table-fed path answers, against the CPU backend.
-8. the kernels line, then the last line {"ok": true, "device": {...}}.
+   7c (hash tick) — H1-H4 as one tick (H3 sort, the others hash, K17's
+             probe rounds on the card inside the graph), each byte-identical
+             to its solo run.
+8. the kernels line (B19's row `tick_program`: its launches are the
+   replays of phase 5c, its bound its members' traffic), then the last
+   line {"ok": true, "device": {...}}.
 
-The launch counts are set to 0 just before phases 4, 5, 5b, 6's tile and
-legacy runs and 7's H1-H4, and read just after each.  It imports neither jax nor the reference package
+The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
+and legacy runs, 7's H1-H4 and 7c, and read just after each (a graph
+replay launches the kernels it captured without calling their wrappers:
+phase 5c's and 7c's counts are those of the capture).  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
 device is present or when it runs outside a checkout of the repository.
 """
@@ -286,7 +314,8 @@ def kernel_table():
     K1-K4 serve the table-fed path and the tile path, K5-K8 the tile path,
     K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route),
     K13-K16 the tile path's HAVING and plane maintenance, K17 its hash
-    group-by."""
+    group-by, K18 the stable sort of K3's ids (behind the guards, read
+    from the card's verdict)."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
     from greptimedb_tpu_torch.ops import permute as perm
@@ -328,6 +357,8 @@ def kernel_table():
                         "greptimedb_tpu/parallel/tile_cache.py:292"),
         "hash_group_slots": (agg.hash_group_slots, src + "hash_group_slots.cu",
                              "greptimedb_tpu/ops/aggregate.py:118"),
+        "segment_sort": (agg.sort_segments, src + "segment_sort.cu",
+                         "greptimedb_tpu/ops/aggregate.py:598"),
     }
 
 
@@ -455,6 +486,12 @@ def _plain_on_host(fn, *args):
     return _moved(fn(*_moved(args, torch.device("cpu"))), dev)
 
 
+def _passed(verdict) -> bool:
+    """A K2 call's guard verdict on the host: the plain version returns a
+    bool, the kernel its int32 [1] word on the card (0 = passed)."""
+    return verdict if isinstance(verdict, bool) else int(verdict.item()) == 0
+
+
 def _twice_identical(fn, what: str):
     import torch
 
@@ -528,7 +565,7 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         aggs = ("count", "max", "min", "sum")
         ok, k_st, _b = _twice_identical(
             lambda: agg.segment_reduce_blocked(cols, gids, masks, mask, G, aggs), f"blocked C={C}")
-        assert ok, "the TSBS layout must pass the blocked guard"
+        assert _passed(ok), "the TSBS layout must pass the blocked guard"
         _okp, p_st, _bp = agg.segment_reduce_blocked_plain(cols, gids, masks, mask, G, aggs)
         e2 = _check_state(k_st, p_st, f"segment_reduce_blocked C={C}")
         order = agg.sort_segments(gids, mask, G)
@@ -567,7 +604,7 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     n_min = hours * 60
     gm, mm = flt.mask_gids(valid, [(ts, "<", hi - 1800_000)], [], [], (ts, T0, 60_000, n_min), n_min - 1)
     ok, _st, _b = agg.segment_reduce_blocked(vals[:1], gm, [mm], mm, n_min, ("max",))
-    assert not ok, "minute buckets over the host-major layout must fail the blocked guard"
+    assert not _passed(ok), "minute buckets over the host-major layout must fail the blocked guard"
     nb = -(-n // 4096)
     # the failing guard reads ids and base mask once and writes the bases;
     # a min and a max compare per row
@@ -590,7 +627,7 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # K4 at the lastpoint shape: group by hostname only
     gl, ml = flt.mask_gids(valid, [], [], [(codes, card)], None, card - 1)
     okl, _st, base = agg.segment_reduce_blocked([vals[0]], gl, [ml], ml, card, ("count",))
-    assert okl, "lastpoint must pass the blocked guard"
+    assert _passed(okl), "lastpoint must pass the blocked guard"
     kl = _twice_identical(lambda: agg.segment_last(vals[0], ts, gl, ml, card, base=base), "segment_last")
     pl = agg.segment_last_plain(vals[0], ts, gl, ml, card, base=base)
     e4 = max(_compare(kl[0], pl[0], True, "segment_last.ts"), _compare(kl[1], pl[1], True, "segment_last.val"))
@@ -639,9 +676,12 @@ def run_edge_cases(dev) -> None:
     aggs = ("count", "max", "min", "sum")
     cases = {"clustered": gid, "shuffled": t(rng.permutation(gid_np))}
     for name, g in cases.items():
-        ok, k_st, base = _twice_identical(
-            lambda: agg.segment_reduce_blocked([v, v2], g, [colmask, mask], mask, G, aggs),
-            f"edge {name} blocked")
+        # the fold writes the state only where the guard passed
+        ok = _passed(agg.segment_reduce_blocked([v, v2], g, [colmask, mask], mask, G, aggs)[0])
+        if ok:
+            _v, k_st, base = _twice_identical(
+                lambda: agg.segment_reduce_blocked([v, v2], g, [colmask, mask], mask, G, aggs),
+                f"edge {name} blocked")
         okp, p_st, _ = _plain_on_host(agg.segment_reduce_blocked_plain, [v, v2], g,
                                       [colmask, mask], mask, G, aggs)
         if ok != okp:
@@ -1243,6 +1283,127 @@ def run_plane_edge_cases(dev) -> None:
     emit({"phase": "plane_edge_cases", "ok": True})
 
 
+# ---- phase 3f: the guards decided on the card ----------------------------------------
+
+
+def _same_state(a, b, what: str) -> None:
+    for name, x, y in zip(("sums", "counts", "mins", "maxs", "last_ts", "last_val"),
+                          _state_tensors(a), _state_tensors(b)):
+        if (x is None) != (y is None) or (x is not None and not _same_bytes(x, y)):
+            raise AssertionError(f"{what}.{name}: the bytes differ")
+
+
+def run_guard_kernel_phase(n_hosts: int, hours: int, reps: int, dev=None) -> dict:
+    """Phase 3f: K2 and K6 behind their layout guards with no host read —
+    both branches launched, each predicated on the guard's word on the
+    card — at the main path's shapes (17.28 M rows, 10 columns): the
+    double-groupby ids (host x hour: the guard passes) and minute buckets
+    over the host-major layout (it fails).  Each is held byte for byte
+    against the host-driven form (the verdict read on the host, then only
+    the taken branch: K2's fold, or K18 + K3; the guard computed by its
+    plain version, then K6 or its dequantize + K3 branch) and against its
+    plain version (sums within rel 1e-12: the fold order differs; the rest
+    exact), twice, and all three are timed.  K18, the flag-reading sort of
+    the K3 branch, is held against torch.sort (its plain version) on the
+    failing shape.  K17's single cooperative call is phase 3e's.  The
+    planes are padded to a multiple of 4096 rows, as the tile path holds
+    them (K5/K6 take whole blocks)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    n, codes, ts, valid, vals = tsbs_planes(n_hosts, hours, 10, dev)
+    n = pad_rows(n)
+    codes, ts, valid = _padded(codes, n, 0), _padded(ts, n, 0), _padded(valid, n, False)
+    vals = [_padded(v, n, 0.0) for v in vals]
+    card = 1 << (max(n_hosts, 1) - 1).bit_length()
+    lo, hi = T0, T0 + hours * H3600
+    n_min = hours * 60
+    shapes = {
+        "pass": flt.mask_gids(valid, [(ts, ">=", lo), (ts, "<", hi)], [], [(codes, card)],
+                              (ts, T0, H3600, hours), card * hours - 1) + (card * hours,),
+        "fail": flt.mask_gids(valid, [(ts, "<", hi - 1800_000)], [], [],
+                              (ts, T0, 60_000, n_min), n_min - 1) + (n_min,),
+    }
+    aggs = ("count", "max", "min", "sum")
+    out: dict[str, dict] = {}
+
+    def k2_host_driven(g, m, G):
+        verdict, st, _b = agg.segment_reduce_blocked(vals, g, [m] * 10, m, G, aggs)
+        if _passed(verdict):
+            return st
+        return agg.segment_reduce_scatter(vals, g, [m] * 10, m, G, aggs)
+
+    lcols = [agg.quantize_limbs(v) for v in vals]
+
+    def k6_host_driven(g, m, G):
+        ok, _base = agg.block_guard_plain(g, m, G)
+        if ok:
+            return agg.limb_segment_sums(lcols, g, m, G)
+        return agg._limb_slow(lcols, g, m, G, None, agg.dequantize_limbs)
+
+    for case, (g, m, G) in shapes.items():
+        ok, _base = agg.block_guard_plain(g, m, G)
+        if ok != (case == "pass"):
+            raise AssertionError(f"3f {case}: the guard verdict is {ok}")
+        k = _twice_identical(lambda: agg.segment_aggregate_multi(vals, g, G, aggs, [m] * 10, m),
+                             f"3f K2 {case}")
+        _same_state(k, k2_host_driven(g, m, G), f"3f K2 {case} vs host-driven")
+        if ok:
+            p = agg.segment_reduce_blocked_plain(vals, g, [m] * 10, m, G, aggs)[1]
+        else:
+            p = agg.segment_reduce_scatter_plain(vals, g, [m] * 10, m, G, aggs)
+        e2 = _check_state(k, p, f"3f K2 {case} vs plain")
+        kb, kby = bound(n * (4 + 1 + 8 * 10) + 10 * G * 28, n * 10 * len(aggs))
+        out[f"k2_{case}"] = dict(
+            max_abs_err=e2, rows=n, groups=G,
+            ms=_timed(lambda: agg.segment_aggregate_multi(vals, g, G, aggs, [m] * 10, m), reps),
+            host_driven_ms=_timed(lambda: k2_host_driven(g, m, G), reps),
+            plain_ms=_timed(lambda: (agg.segment_reduce_blocked_plain if ok else
+                                     agg.segment_reduce_scatter_plain)(
+                vals, g, [m] * 10, m, G, aggs), 1),
+            bound_ms=kb, bound_by=kby,
+        )
+        k6 = _twice_identical(lambda: agg.limb_segment_sums(lcols, g, m, G), f"3f K6 {case}")
+        for a, b, w in zip(k6, k6_host_driven(g, m, G), ("sums", "errs", "counts", "presence")):
+            if (a is None) != (b is None) or (a is not None and not _same_bytes(a, b)):
+                raise AssertionError(f"3f K6 {case} vs host-driven: {w} differs")
+        e6 = _check_limb_sums(k6, agg.limb_segment_sums_plain(lcols, g, m, G),
+                              f"3f K6 {case} vs plain")
+        nb = -(-n // agg.BLOCK_ROWS)
+        b6, b6by = bound(n * (4 + 1 + 8 * 10) + nb * 80 + G * (10 * 16 + 4), n * 10 * 4)
+        out[f"k6_{case}"] = dict(
+            max_abs_err=e6, rows=n, groups=G,
+            ms=_timed(lambda: agg.limb_segment_sums(lcols, g, m, G), reps),
+            host_driven_ms=_timed(lambda: k6_host_driven(g, m, G), reps),
+            plain_ms=_timed(lambda: agg.limb_segment_sums_plain(lcols, g, m, G), 1),
+            bound_ms=b6, bound_by=b6by,
+        )
+        emit({"phase": "guard_kernels", "case": case, "k2": out[f"k2_{case}"],
+              "k6": out[f"k6_{case}"]})
+    # K18 on the failing shape: the ids and mask read once, the sorted ids
+    # and rows written once; a compare and a select per row
+    g, m, G = shapes["fail"]
+    ks = _twice_identical(lambda: agg.sort_segments(g, m, G), "3f K18")
+    ps = agg.sort_segments_plain(g, m, G)
+    if not (_same_bytes(ks[0], ps[0]) and _same_bytes(ks[1], ps[1])):
+        raise AssertionError("3f K18: the sort differs from torch.sort's")
+    sb, sby = bound(n * (4 + 1) + n * (4 + 8), n * 2)
+    plain_ms = _timed(lambda: agg.sort_segments_plain(g, m, G), reps)
+    out["segment_sort"] = dict(
+        max_abs_err=0.0, rows=n, groups=G, passes=-(-G.bit_length() // 8),
+        ms=_timed(lambda: agg.sort_segments(g, m, G), reps), plain_ms=plain_ms,
+        bound_ms=sb, bound_by=sby, library_ms=plain_ms,
+    )
+    emit({"phase": "segment_sort", **out["segment_sort"]})
+    del vals, lcols, shapes, codes, ts, valid
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---- phase 3e: the hash group-by's kernels at H1's shape ---------------------------
 
 # The container-metrics configuration of phase 7 (cAdvisor's
@@ -1345,7 +1506,7 @@ def run_hash_kernel_phase(reps: int) -> dict:
         return agg.hash_group_slots(table.fill_(agg.HASH_EMPTY), gids, mask)
 
     kt, ks, ko = _twice_identical(k17, "hash_group_slots")
-    rounds = agg.hash_group_slots.last_rounds
+    rounds = agg.last_hash_rounds()
     pt, ps, po = agg.hash_group_slots_plain(
         torch.full((H,), agg.HASH_EMPTY, dtype=torch.int64, device=dev), gids, mask)
     _compare_bytes(kt, pt, "hash_group_slots.table")
@@ -1613,7 +1774,7 @@ def check_ground_truth(table, gt: dict, tsbs: Tsbs, tol: float = 1e-12) -> None:
             raise AssertionError(f"double-groupby-1 {h} {tb}: {a} vs ground truth {s / c}")
 
 
-def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
+def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, tick_reps: int = 5,
               tile_reps: int | None = None) -> dict:
     """Phases 4, 5 and 5b on `device` ("cuda" on the card; "cpu" to
     rehearse the control flow with the plain versions): ingest, the
@@ -1694,10 +1855,11 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
         raise AssertionError(f"{db.query_engine.stats['declined']} queries declined by try_lower")
     tile = run_tile_phase(db, tsbs, reps if tile_reps is None else tile_reps, cpu_results, gt,
                           is_cuda, full_size)
+    tick = run_tick_phase(db, tsbs, is_cuda, tick_reps)
     live = run_live_phase(db, tsbs, is_cuda, full_size)
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
-            "launches": totals, "tile": tile, "live": live}
+            "launches": totals, "tile": tile, "tick": tick, "live": live}
 
 
 def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cuda: bool,
@@ -1752,12 +1914,6 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
                 if name == first_tm and not (cold_delta[_ARGSORT] and cold_delta[_GATHER]):
                     raise AssertionError(f"{name}: the first time-major run built no permutation "
                                          "or copies")
-                if full_size and delta[_SCATTER]:
-                    # K2's guard failed on the time-major copies (a block
-                    # spans more than 16 ids, or a masked id lies outside
-                    # the block's window) and K3 reran the reduction
-                    emit({"phase": "guard_fail", "name": name, "k3_launches": delta[_SCATTER],
-                          "why": "K2's guard failed over the time-major copies; K3 reran"})
         rel = compare_tables(result, cpu_results[name], name + " " + sql, tol=1e-7)
         if name == "double-groupby-1":
             check_ground_truth(result, gt, tsbs, tol=1e-7)
@@ -1842,6 +1998,205 @@ def run_tile_edge_queries(db, tsbs: Tsbs, is_cuda: bool) -> dict:
     emit({"phase": "tile_edge_query", "what": "time_major off (K2 guard fails, K3)",
           "rows_out": got.num_rows, "launched": sorted(ran), "stage_ms": st})
     return launch_counts()
+
+
+# ---- phase 5c: the dashboard tick ---------------------------------------------------------
+
+TICK_WINDOW_MS = 120.0
+
+
+def slid_queries(tsbs: Tsbs) -> list[tuple[str, str]]:
+    """The 15 queries a dashboard sends one refresh later: every window
+    one of its own buckets later (the hourly panels 1 h, the minute and
+    unbucketed ones 1 min) and the host literals changed.  The plan
+    structures stay, so a tick of them finds its program."""
+    n = tsbs.n_hosts
+    later = {}
+    for step in (H3600, 60_000):
+        t = Tsbs(n, tsbs.hours, n_metrics=len(tsbs.metrics), end=tsbs.end + step)
+        t.host1 = f"host_{(703 + 1) % n}"
+        t.hosts8 = [f"host_{(i + 1) % n}" for i in (703, 1217, 2048, 99, 3777, 1500, 2901, 42)]
+        later[step] = dict(t.queries())
+    hourly = ("double-groupby", "cpu-max-all")
+    return [(name, later[H3600 if name.startswith(hourly) else 60_000][name])
+            for name, _sql in tsbs.queries()]
+
+
+def _tick_round(db, queries: list[str], window_ms: float):
+    """One round: a thread per query, all released by one barrier.  Returns
+    (results, stats delta, ms from the release to the last result net of
+    the window)."""
+    import threading
+
+    eng = db.query_engine
+    before = dict(eng.stats)
+    results, errors = [None] * len(queries), []
+    starts, ends = [0.0] * len(queries), [0.0] * len(queries)
+    barrier = threading.Barrier(len(queries))
+
+    def run(i, sql):
+        try:
+            barrier.wait(timeout=60)
+            starts[i] = time.perf_counter()
+            results[i] = db.sql_one(sql)
+            ends[i] = time.perf_counter()
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i, q)) for i, q in enumerate(queries)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("a tick member never returned")
+    if errors:
+        raise errors[0]
+    delta = {k: v - before.get(k, 0) for k, v in eng.stats.items()}
+    return results, delta, (max(ends) - min(starts)) * 1e3 - window_ms
+
+
+def _clean_tick(db, queries: list[str], window_ms: float, rounds: int = 8):
+    """Rounds until one forms a clean tick: every query a member of one
+    tick answered by one tick program.  Membership is read from the stats,
+    never from timing."""
+    for _ in range(rounds):
+        results, delta, wall = _tick_round(db, queries, window_ms)
+        if (delta["batch_ticks"], delta["batch_members"], delta["batch_fused_dispatches"],
+                delta["tick_graph_replays"]) == (1, len(queries), 1, 1):
+            return results, delta, wall
+    raise AssertionError(f"no clean tick of {len(queries)} members formed in {rounds} rounds")
+
+
+def _solo_refs(db, named: list[tuple[str, str]], is_cuda: bool, reps: int = 3):
+    """Per query its solo bytes and solo wall p50 (window 0, the direct
+    path)."""
+    import torch
+
+    refs, ms = {}, {}
+    for name, sql in named:
+        times = []
+        out = None
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            out = db.sql_one(sql)
+            if is_cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        refs[sql] = _ipc_bytes(out)
+        ms[name] = float(np.median(times))
+    return refs, ms
+
+
+def _tick_series(db, named, refs: dict, n_ticks: int, what: str) -> list[dict]:
+    """n_ticks clean ticks of the named queries, each result held against
+    its solo bytes; per tick the program's stage ms and the stats moved."""
+    tile = db.query_engine.tile_executor()
+    sqls = [sql for _n, sql in named]
+    out = []
+    for i in range(n_ticks):
+        results, delta, wall = _clean_tick(db, sqls, TICK_WINDOW_MS)
+        for (name, sql), r in zip(named, results):
+            if _ipc_bytes(r) != refs[sql]:
+                raise AssertionError(f"{what} tick {i}: {name} differs from its solo run")
+        tick = tile.last_tick
+        out.append({"wall_ms": wall, "stage_ms": dict(tick.last_stage_ms),
+                    "new_programs": delta["tick_graph_captures"], "members": delta["batch_members"],
+                    "agg_hash": delta["agg_hash"], "agg_sort": delta["agg_sort"]})
+        emit({"phase": "tick", "what": what, "i": i, **out[-1]})
+    return out
+
+
+def _sync_free(program, is_cuda: bool) -> None:
+    """Run a tick program's members eagerly with every synchronizing CUDA
+    call an error (torch's sync debug mode)."""
+    if not is_cuda:
+        return
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        program.run_members()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def run_tick_phase(db, tsbs: Tsbs, is_cuda: bool, n_ticks: int = 5) -> dict:
+    """Phase 5c, on phase 5's resident region: the 15 queries as the
+    dashboard tick (`batch.window_ms` 120, `max_members` 16): n_ticks
+    ticks, then n_ticks with every window a bucket later and the host
+    literals changed.  Each tick must be one tick-program run
+    (`batch_fused_dispatches` +1, `tick_graph_replays` +1) serving all 15
+    members, each result byte-identical to the same query's solo run; the
+    first tick builds the program (on the card: captures the CUDA graph),
+    and the slid ticks build none.  Then a result-cache re-hit that
+    launches nothing.  Launch counts: 0 before the ticks, read after."""
+    import torch
+
+    eng = db.query_engine
+    bc = db.config.batch
+    tile = eng.tile_executor()
+    named = tsbs.queries()
+    slid = slid_queries(tsbs)
+    bc.window_ms, bc.max_members, bc.fuse_programs = 0.0, 16, True
+    refs, solo_ms = _solo_refs(db, named, is_cuda)
+    slid_refs, _ms = _solo_refs(db, slid, is_cuda, reps=1)
+    bc.window_ms = TICK_WINDOW_MS
+    try:
+        s0 = dict(eng.stats)
+        reset_counts()  # the tick's main path starts here
+        ticks = _tick_series(db, named, refs, n_ticks, "warm")
+        program = tile.last_tick
+        slid_ticks = _tick_series(db, slid, slid_refs, n_ticks, "slid")
+        launches = launch_counts()  # ... and ends here
+        s2 = dict(eng.stats)
+    finally:
+        bc.window_ms = 0.0
+    # counted over the clean ticks (a round that split the members into
+    # two ticks may build a program for a smaller multiset)
+    captured = [t["new_programs"] for t in ticks]
+    recaptured = sum(t["new_programs"] for t in slid_ticks)
+    if captured != [1] + [0] * (n_ticks - 1) or recaptured:
+        raise AssertionError(f"tick programs built: {captured} for the warm ticks, {recaptured} "
+                             "after the slide (expected one, then none)")
+    if tile.last_tick is not program:
+        raise AssertionError("the slid ticks ran another tick program")
+    replays = s2["tick_graph_replays"] - s0["tick_graph_replays"]
+    # no host read between a dispatch's start and its readback: the members
+    # run eagerly, back to back, under the sync debug mode "error" (the
+    # graph's capture already refused any sync); then B19 against that
+    # plain form
+    _sync_free(program, is_cuda)
+    plain_ms = _timed(program.run_members, 3) if is_cuda else None
+    replay_ms = [t["stage_ms"]["replay"] for t in ticks[1:] + slid_ticks]
+    # the result cache: a re-asked window is served with no launch
+    bc.result_cache_mb = 64
+    try:
+        name, sql = named[0]
+        db.sql_one(sql)
+        before, h0 = launch_counts(), eng.stats["result_cache_hits"]
+        again = db.sql_one(sql)
+        if eng.stats["result_cache_hits"] != h0 + 1 or launch_counts() != before:
+            raise AssertionError("the result-cache re-hit launched kernels or missed")
+        if _ipc_bytes(again) != refs[sql]:
+            raise AssertionError("the result-cache re-hit differs from the solo bytes")
+    finally:
+        bc.result_cache_mb = 0
+    out = {
+        "members": len(named), "ticks": ticks, "slid_ticks": slid_ticks, "replays": replays,
+        "launches": launches, "capture_ms": program.capture_ms, "pool_bytes": program.pool_bytes,
+        "readback_bytes": program.readback_bytes, "bytes_moved": program.bytes_moved(),
+        "replay_p50_ms": float(np.median(replay_ms)) if replay_ms else None,
+        "plain_ms": plain_ms,
+        "wall_p50_ms": float(np.median([t["wall_ms"] for t in ticks[1:] + slid_ticks])),
+        "solo_p50_ms": solo_ms, "solo_p50_sum_ms": float(sum(solo_ms.values())),
+    }
+    emit({"phase": "tick_summary", **{k: v for k, v in out.items()
+                                        if k not in ("ticks", "slid_ticks")}})
+    if is_cuda:
+        torch.cuda.synchronize()
+    return out
 
 
 # ---- phase 5b: live ingest on the resident region --------------------------------------
@@ -1975,10 +2330,6 @@ def run_live_phase(db, tsbs: Tsbs, is_cuda: bool, full_size: bool,
                 raise AssertionError(f"live {name}: answered by the {eng.last_path!r} path")
             cold_stages = dict(eng.last_timings)
             ran = {k for k, v in launch_counts().items() if v > before[k]}
-            if is_cuda and full_size and _SCATTER in ran:
-                emit({"phase": "guard_fail", "name": f"live {name}",
-                      "why": "a blocked guard (K2 or K6) failed over the (hostname, ts) planes, "
-                             "whose blocks now hold the new hosts' short runs; K3 reran"})
             if i == 0:
                 stats1 = eng.tile_cache.stats()
                 delta = {
@@ -2692,7 +3043,7 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
     keys overflows, the dense rerun is past max_internal_groups too, so
     the table-fed path answers, against the CPU backend."""
     from greptimedb_tpu_torch import Database
-    from greptimedb_tpu_torch.ops.aggregate import hash_group_slots
+    from greptimedb_tpu_torch.ops.aggregate import last_hash_rounds
 
     is_cuda = device.startswith("cuda")
     if is_cuda:
@@ -2755,11 +3106,12 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
             "warm_p50_ms": float(np.median(times[1:] if reps else times)),
             "warm_stage_p50_ms": {k: float(np.median([st.get(k, 0.0) for st in warm])) for k in keys},
             "readback_bytes": readback[-1], "cpu_backend_ms": cpu_ms, "max_rel_err": rel,
-            "k17_rounds": hash_group_slots.last_rounds,
+            "k17_rounds": last_hash_rounds(),
             "launches": {k: v for k, v in delta.items() if v},
         }
         emit({"phase": "container_query", "name": name, **per_query[name]})
     totals = launch_counts()  # the main path's launches end here
+    tick = run_container_tick(db, hours, results, is_cuda)
 
     # H3 forced to hash: the same bytes as its sort plan (count and max are exact)
     h3 = dict((n, s) for n, _st, s in container_queries(hours))["H3"]
@@ -2793,7 +3145,38 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
     emit({"phase": "container_overflow", "ms": over_ms, "rows_out": over.num_rows, **moved})
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "queries": per_query, "launches": totals,
-            "overflow_ms": over_ms}
+            "overflow_ms": over_ms, "tick": tick}
+
+
+def run_container_tick(db, hours: int, solo_tables: dict, is_cuda: bool, n_ticks: int = 2) -> dict:
+    """Phase 7c: H1-H4 as one tick (H3 sort, H1, H2 and H4 hash; K17's
+    probe rounds on the card inside the graph), each result byte-identical
+    to its solo run of phase 7.  Launch counts: 0 before, read after."""
+    from greptimedb_tpu_torch.ops.aggregate import last_hash_rounds
+
+    eng = db.query_engine
+    bc = db.config.batch
+    named = [(name, sql) for name, _st, sql in container_queries(hours)]
+    refs = {sql: _ipc_bytes(solo_tables[name]) for name, sql in named}
+    bc.window_ms, bc.max_members, bc.fuse_programs = TICK_WINDOW_MS, 16, True
+    try:
+        reset_counts()  # the hash tick's main path starts here
+        ticks = _tick_series(db, named, refs, n_ticks, "containers")
+        launches = launch_counts()  # ... and ends here
+    finally:
+        bc.window_ms = 0.0
+    moved = {k: sum(t[k] for t in ticks) for k in ("agg_hash", "agg_sort", "new_programs")}
+    if moved["agg_hash"] != 3 * n_ticks or moved["agg_sort"] != n_ticks:
+        raise AssertionError(f"container tick strategies: {moved}")
+    program = eng.tile_executor().last_tick
+    _sync_free(program, is_cuda)
+    out = {"ticks": ticks, "launches": launches, "capture_ms": program.capture_ms,
+           "pool_bytes": program.pool_bytes, "readback_bytes": program.readback_bytes,
+           "k17_rounds": last_hash_rounds(), "programs_built": moved["new_programs"]}
+    if is_cuda and launches["hash_group_slots"] == 0:
+        raise AssertionError("the hash tick's capture launched no K17")
+    emit({"phase": "container_tick", **{k: v for k, v in out.items() if k != "ticks"}})
+    return out
 
 
 # ---- main ------------------------------------------------------------------------------
@@ -2810,6 +3193,8 @@ def main(argv=None) -> int:
                     help="hours of the container table (phase 7)")
     ap.add_argument("--container-reps", type=int, default=3,
                     help="warm runs per container query, tile path")
+    ap.add_argument("--tick-reps", type=int, default=5,
+                    help="dashboard ticks before and after the slide (phase 5c)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2848,6 +3233,12 @@ def main(argv=None) -> int:
     kstats["mask_gids"]["int64"] = hstats["mask_gids_int64"]
     kstats["segment_reduce_scatter"]["hash_slots"] = hstats["scatter_hash_slots"]
     kstats["pack_result"]["hash_slots"] = hstats["pack_hash_slots"]
+    gstats = run_guard_kernel_phase(args.hosts, args.hours, args.kernel_reps)
+    kstats["segment_sort"] = gstats.pop("segment_sort")
+    kstats["segment_reduce_blocked"]["predicated"] = {k: v for k, v in gstats.items()
+                                                     if k.startswith("k2_")}
+    kstats["limb_segment_sums"]["predicated"] = {k: v for k, v in gstats.items()
+                                                if k.startswith("k6_")}
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
 
     work = os.path.join(HERE, "build", "chip_smoke")  # listed in .gitignore
@@ -2855,12 +3246,14 @@ def main(argv=None) -> int:
     try:
         t0 = time.perf_counter()
         sl = run_slice("cuda", args.hosts, args.hours, args.reps, os.path.join(work, "db"),
-                       tile_reps=args.tile_reps)
+                       tick_reps=args.tick_reps, tile_reps=args.tile_reps)
         emit({"phase": "slice", "seconds": time.perf_counter() - t0, "rows": sl["rows"],
               "card": smi, "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in sl["queries"].items()},
               "tile_warm_p50_ms": {k: v["warm_p50_ms"]
                                    for k, v in sl["tile"]["queries"].items()},
               "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"],
+              "tick": {k: v for k, v in sl["tick"].items()
+                       if k not in ("ticks", "slid_ticks", "launches")},
               "live": {k: v for k, v in sl["live"].items() if k not in ("queries", "launches")}})
         import gc
 
@@ -2892,6 +3285,23 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
+    tick = sl["tick"]
+    # B19: the tick program, one CUDA graph replay per tick (phase 5c); its
+    # bound is its members' traffic (every source read once per member,
+    # the slab written once) at the memory rate
+    b19_bound, b19_by = bound(tick["bytes_moved"], 0)
+    kernels.append({
+        "name": "tick_program", "route": "cuda",
+        "source": "greptimedb_tpu_torch/parallel/tile_program.py",
+        "replaces": "greptimedb_tpu/parallel/tile_cache.py:3325",
+        "launches": tick["replays"], "max_abs_err": 0.0, "ms": tick["replay_p50_ms"],
+        "plain_ms": tick["plain_ms"], "bound_ms": b19_bound, "bound_by": b19_by,
+        "library_ms": None, "members": tick["members"], "capture_ms": tick["capture_ms"],
+        "pool_bytes": tick["pool_bytes"], "readback_bytes": tick["readback_bytes"],
+        "hash_tick_replays": sum(1 for _t in cm["tick"]["ticks"]),
+    })
+    if tick["replays"] == 0:
+        raise AssertionError("the tick program never ran on the dashboard tick (phase 5c)")
     for name in HASH_PATH:
         if cm["launches"][name] == 0:
             raise AssertionError(f"kernel {name} never launched on the hash path (phase 7)")
@@ -2953,8 +3363,9 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "tile_launches": tile_launches,
             "hash_launches": cm["launches"][name],
-            **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots")
-               if k in s},
+            "tick_launches": tick["launches"][name],
+            **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots",
+                                 "predicated", "passes") if k in s},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

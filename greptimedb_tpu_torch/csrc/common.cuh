@@ -19,6 +19,23 @@ constexpr int kRowsPerThread = kBlockRows / kBlockThreads;
 // Window of consecutive group ids one block may touch (BLOCK_SPAN).
 constexpr int kSpan = 16;
 
+// A predicated launch (the device-side form of the reference's lax.cond
+// over the blocked layout guard): `verdict` points at the guard's word on
+// the card, 0 when every block passed.  A kernel of the blocked branch
+// runs only when it is 0 (on_fail = 0), a kernel of the scatter branch
+// only when it is not (on_fail = 1); both branches write the same
+// outputs, so no host read decides between them.  A null verdict always
+// runs.  Mirrored by _Gate in ops/aggregate.py (ctypes).
+struct Gate {
+  const int32_t* verdict;
+  int32_t on_fail;
+  int32_t reserved;
+};
+
+__device__ __forceinline__ bool gate_shut(const Gate& g) {
+  return g.verdict != nullptr && ((*(volatile const int32_t*)g.verdict != 0) != (g.on_fail != 0));
+}
+
 constexpr double kDblMax = 1.7976931348623157e308;  // finfo(float64).max
 constexpr int64_t kInt64Min = (-0x7fffffffffffffffLL - 1);
 

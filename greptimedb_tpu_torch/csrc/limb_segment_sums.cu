@@ -20,9 +20,11 @@
 // multiplied by the block's scale, so every per-(block, slot) value is
 // bit-identical to the reference's.  The fold adds the blocks covering a
 // group in (base, block) order: no float atomics, the same bytes on every
-// run.  A block failing the guard ORs the verdict and stops; the caller
-// reads the verdict (one host sync) and, on failure, dequantizes the
-// digits (`gt_limb_dequant`) and aggregates the values on K3.
+// run.  A block failing the guard ORs the verdict and stops.  No host
+// reads the verdict: the fold and the slow branch — dequantize the digits
+// (`gt_limb_dequant`), sort the ids, aggregate the values on K3 — are all
+// launched, each predicated on it (Gate in common.cuh), and both branches
+// write the same output tensors.
 #include "common.cuh"
 
 constexpr int kLimbQExp = 29;
@@ -66,6 +68,7 @@ struct LimbFoldArgs {
   int32_t n_cols;
   int32_t n_counted;
   int32_t reserved;
+  Gate gate;          // runs when the guard passed
 };
 
 struct DequantArgs {
@@ -74,6 +77,7 @@ struct DequantArgs {
   const double* scale;
   double* vhat;  // [n]: (q - 2^29) * scale
   double* half;  // [n]: scale / 2, or nullptr
+  Gate gate;     // the slow branch: runs when the guard failed
 };
 
 __device__ __forceinline__ int32_t digit(uint32_t halfword) {
@@ -234,6 +238,7 @@ __global__ void __launch_bounds__(kBlockThreads) limb_partials_kernel(const Limb
 }
 
 __global__ void __launch_bounds__(256) limb_fold_kernel(const LimbFoldArgs a) {
+  if (gate_shut(a.gate)) return;
   // planes: 0 presence, 1..Cc counts, then C sums, then C errs
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t G = a.num_groups;
@@ -264,15 +269,19 @@ __global__ void __launch_bounds__(256) limb_fold_kernel(const LimbFoldArgs a) {
   (is_err ? a.errs : a.sums)[c * G + g] = s;
 }
 
+// grid-stride over a capped grid: a launch whose gate is shut costs a few
+// thousand empty blocks, not one per 256 rows
 __global__ void __launch_bounds__(256) limb_dequant_kernel(const DequantArgs a) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.n) return;
-  const uint2 w = a.limbs[r];
-  const int32_t q = digit(w.x & 0xFFFFu) + (digit(w.x >> 16) << 8) +
-                    (digit(w.y & 0xFFFFu) << 16) + (digit(w.y >> 16) << 24);
-  const double sc = a.scale[r / kBlockRows];
-  a.vhat[r] = __dmul_rn((double)(q - (1 << kLimbQExp)), sc);
-  if (a.half != nullptr) a.half[r] = __dmul_rn(sc, 0.5);
+  if (gate_shut(a.gate)) return;
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < a.n;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const uint2 w = a.limbs[r];
+    const int32_t q = digit(w.x & 0xFFFFu) + (digit(w.x >> 16) << 8) +
+                      (digit(w.y & 0xFFFFu) << 16) + (digit(w.y >> 16) << 24);
+    const double sc = a.scale[r / kBlockRows];
+    a.vhat[r] = __dmul_rn((double)(q - (1 << kLimbQExp)), sc);
+    if (a.half != nullptr) a.half[r] = __dmul_rn(sc, 0.5);
+  }
 }
 
 GT_EXPORT int gt_limb_partials(const LimbArgs* args, void* stream) {
@@ -290,6 +299,8 @@ GT_EXPORT int gt_limb_fold(const LimbFoldArgs* args, void* stream) {
 
 GT_EXPORT int gt_limb_dequant(const DequantArgs* args, void* stream) {
   if (args->n <= 0) return (int)cudaSuccess;
-  limb_dequant_kernel<<<(unsigned)((args->n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(*args);
+  int64_t blocks = (args->n + 255) / 256;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  limb_dequant_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,10 @@
 // written).  There is no reuse to exploit, so the design is one thread
 // per row over a grid-stride loop with coalesced loads; literals (IN-lists
 // included) are runtime data in a small device buffer, read through the
-// read-only cache.
+// read-only cache.  The bucket origin and interval lead that buffer
+// (lits[0], lits[1]) instead of riding the argument struct by value: a
+// CUDA graph bakes a launch's arguments in, so a captured dashboard tick
+// slides its window by rewriting the buffer, with no recapture.
 //
 // Semantics kept from the reference:
 //  * time_bucket is a FLOOR division, (ts - origin) // interval, then a
@@ -44,11 +47,10 @@ enum FilterOp : int32_t { kEq = 0, kNe, kLt, kLe, kGt, kGe, kIn, kNotIn };
 // Mirrored field for field by MaskGidsArgs in ops/filter.py (ctypes).
 struct MaskGidsArgs {
   int64_t n;
-  int64_t origin;
-  int64_t interval;
   const uint8_t* valid;
   const int64_t* ts;        // nullptr: no time bucket component
-  const int64_t* lits;      // literal bits (f64 literals as their bit pattern)
+  const int64_t* lits;      // [origin, interval, literal bits...] (f64 literals
+                            // as their bit pattern; offsets count from 0)
   void* gids_out;           // int32 [n], or int64 [n] with id64
   uint8_t* mask_out;
   const void* fplane[kMaxFilters];
@@ -134,9 +136,10 @@ __global__ void __launch_bounds__(256) mask_gids_kernel(const MaskGidsArgs a) {
       gid = gid * (UT)card + (UT)cc;
     }
     if (a.ts != nullptr) {
-      const int64_t d = (int64_t)((uint64_t)a.ts[i] - (uint64_t)a.origin);
-      int64_t q = d / a.interval;
-      if ((d % a.interval != 0) && ((d < 0) != (a.interval < 0))) q -= 1;  // floor
+      const int64_t origin = __ldg(a.lits), interval = __ldg(a.lits + 1);
+      const int64_t d = (int64_t)((uint64_t)a.ts[i] - (uint64_t)origin);
+      int64_t q = d / interval;
+      if ((d % interval != 0) && ((d < 0) != (interval < 0))) q -= 1;  // floor
       const IdT b = (IdT)(int32_t)(uint32_t)(uint64_t)q;                   // astype(int32)
       const IdT card = (IdT)a.n_buckets;
       in_range = in_range && b >= 0 && b < card;

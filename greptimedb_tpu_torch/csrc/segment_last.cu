@@ -15,7 +15,9 @@
 // Blocked form (the guard of K2 passed; it reuses K2's per-block bases):
 // one CTA per 4096-row block keeps a 16-slot (ts, row) window in
 // registers, then a fold kernel combines the blocks covering each group
-// and gathers.  Sorted-run form (the guard failed, or under 2^16 rows):
+// and gathers; both launches are predicated on K2's guard flag (Gate).
+// Sorted-run form (the guard failed — predicated on the same flag — or
+// under 2^16 rows):
 // over K3's stable sort of the masked ids, one warp per group reduces its
 // run and gathers.
 #include "common.cuh"
@@ -29,6 +31,7 @@ struct LastBlockedArgs {
   const int32_t* base;  // [nb] from K2's guard pass
   int64_t* pts;         // [nb, kSpan]
   int32_t* prow;        // [nb, kSpan]
+  Gate gate;            // runs when K2's guard passed
 };
 
 struct LastFoldArgs {
@@ -43,6 +46,7 @@ struct LastFoldArgs {
   int64_t n;
   int32_t num_groups;
   int32_t reserved;
+  Gate gate;             // runs when K2's guard passed
 };
 
 struct LastSortedArgs {
@@ -55,6 +59,7 @@ struct LastSortedArgs {
   double* last_val;
   int32_t num_groups;
   int32_t reserved;
+  Gate gate;             // behind K2's guard: runs when it failed
 };
 
 __device__ __forceinline__ double gather_value(const double* values, int64_t n, int32_t r) {
@@ -64,6 +69,7 @@ __device__ __forceinline__ double gather_value(const double* values, int64_t n, 
 }
 
 __global__ void __launch_bounds__(kBlockThreads) last_partials_kernel(const LastBlockedArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t b = blockIdx.x;
   const int64_t row0 = b * kBlockRows;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -109,6 +115,7 @@ __global__ void __launch_bounds__(kBlockThreads) last_partials_kernel(const Last
 }
 
 __global__ void __launch_bounds__(256) last_fold_kernel(const LastFoldArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= a.num_groups) return;
   const int64_t lo = lower_bound_i32(a.sbase, a.nb, g - kSpan + 1);
@@ -124,6 +131,7 @@ __global__ void __launch_bounds__(256) last_fold_kernel(const LastFoldArgs a) {
 }
 
 __global__ void __launch_bounds__(256) last_sorted_kernel(const LastSortedArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (gw >= a.num_groups) return;  // uniform per warp

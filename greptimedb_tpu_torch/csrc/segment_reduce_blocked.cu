@@ -21,8 +21,10 @@
 // Pass 1 (`blocked_partials_kernel`) computes the block's masked id
 // range, writes its base (= min(bmin, G); an all-masked block gets the
 // overflow slot G) and ORs a failing verdict into one flag; a failing
-// block stops before reading any value.  The caller reads the flag (one
-// host sync per query) and runs pass 2 or the scatter kernel K3.
+// block stops before reading any value.  No host reads the flag: pass 2
+// and the scatter branch (the flag-reading sort and K3) are all launched,
+// each predicated on the flag (Gate in common.cuh), so a CUDA graph can
+// hold the whole choice.
 // Pass 2 (`blocked_fold_kernel`) folds the partials into [C, G]: each
 // (column, group) thread visits, in (base, block) order, the blocks whose
 // window covers its group (found by binary search in the bases, sorted
@@ -65,6 +67,7 @@ struct FoldArgs {
   int64_t nb;
   int32_t num_groups;
   int32_t n_cols;
+  Gate gate;             // runs when the guard passed
 };
 
 constexpr int kWarps = kBlockThreads / 32;
@@ -204,6 +207,7 @@ __global__ void __launch_bounds__(kBlockThreads) blocked_partials_kernel(const B
 }
 
 __global__ void __launch_bounds__(256) blocked_fold_kernel(const FoldArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t G = a.num_groups;
   if (idx >= G * a.n_cols) return;

@@ -9,8 +9,11 @@
 // column) of every row once, the [C, G] outputs once, plus the index
 // plumbing below.  A scatter with f64 atomicAdd would be faster but adds
 // in a different order on every run; this kernel is deterministic
-// instead.  The caller sorts the masked ids with a stable torch.sort
-// (index plumbing: rows of one group end up in one run, in row order).
+// instead.  The caller sorts the masked ids stably with the flag-reading
+// radix sort of csrc/segment_sort.cu (index plumbing: rows of one group
+// end up in one run, in row order).  Behind K2's guard every launch here
+// is predicated on the guard's flag (Gate): it runs only when the guard
+// failed.
 // One warp walks each run: its lanes gather the run's rows in a strided
 // order and a fixed shuffle tree combines them, so the order of every f64
 // addition is fixed by the data alone.  Two ways to hand out the runs,
@@ -37,6 +40,7 @@ struct ScatterArgs {
   double* maxs;
   int32_t num_groups;
   int32_t n_cols;
+  Gate gate;                    // behind K2's or K6's guard: runs when it failed
 };
 
 // One warp reduces the run [start, end) of group g into every column.
@@ -80,6 +84,7 @@ __device__ __forceinline__ void reduce_run(const ScatterArgs& a, int64_t g, int6
 
 // dense ids: a warp per group, its run found by two binary searches
 __global__ void __launch_bounds__(256) scatter_group_kernel(const ScatterArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (gw >= a.num_groups) return;  // uniform per warp
   reduce_run(a, gw, lower_bound_i32(a.skeys, a.n, gw), lower_bound_i32(a.skeys, a.n, gw + 1),
@@ -88,6 +93,7 @@ __global__ void __launch_bounds__(256) scatter_group_kernel(const ScatterArgs a)
 
 // sparse ids, first launch: the identities of every group (0, 0, +-inf)
 __global__ void __launch_bounds__(256) scatter_identity_kernel(const ScatterArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t total = (int64_t)a.n_cols * a.num_groups;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
@@ -101,6 +107,7 @@ __global__ void __launch_bounds__(256) scatter_identity_kernel(const ScatterArgs
 // sparse ids, second launch: a warp per 32 sorted positions walks each run
 // that starts there
 __global__ void __launch_bounds__(256) scatter_run_kernel(const ScatterArgs a) {
+  if (gate_shut(a.gate)) return;
   const int64_t base = (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) << 5;
   const int lane = threadIdx.x & 31;
   if (base >= a.n) return;  // uniform per warp

@@ -74,6 +74,7 @@ class Database:
             config=self.config.query,
             tile_context_provider=self._tile_context,
             tile_config=self.config.tile,
+            batch_config=self.config.batch,
         )
         self._reopen_regions()
 

@@ -39,6 +39,7 @@ KERNEL_SOURCES = (
     "gather_planes",
     "delta_patch",
     "hash_group_slots",
+    "segment_sort",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -146,7 +147,8 @@ _EXPORTS = {
     "ts_argsort": ("gt_argsort_range", "gt_argsort_passes"),
     "gather_planes": ("gt_gather_plane", "gt_remap_codes"),
     "delta_patch": ("gt_delta_patch",),
-    "hash_group_slots": ("gt_hash_init", "gt_hash_round"),
+    "hash_group_slots": ("gt_hash_init", "gt_hash_rounds"),
+    "segment_sort": ("gt_segment_sort",),
 }
 
 
@@ -158,13 +160,79 @@ def launch(name: str, fn: str, args: ctypes.Structure, stream: int) -> None:
         raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {err}")
 
 
+class TableArena:
+    """Where a capture's descriptor tables live.
+
+    `upload_table` stages a table in a fresh pinned buffer and copies it
+    on the stream; inside a CUDA graph capture that copy would become a
+    memcpy node whose host source the caching host allocator hands to
+    later work, so a replay would copy whatever lies there then.  Inside
+    `with arena:` a table instead lands at the next aligned offset of a
+    pinned host buffer and is returned as a view of one device buffer,
+    both owned by the arena and allocated before the capture; `commit()`
+    copies the whole buffer once, after the capture and before the first
+    replay.  The tables hold device pointers, which stay valid as long as
+    the graph that reads them holds their tensors."""
+
+    _ALIGN = 16
+
+    def __init__(self, nbytes: int, dev):
+        import torch
+
+        self.host = torch.empty(int(nbytes), dtype=torch.uint8).pin_memory()
+        self.device = torch.empty(int(nbytes), dtype=torch.uint8, device=dev)
+        self.used = 0
+        self._prev = None
+
+    def put(self, raw):
+        import torch
+
+        if isinstance(raw, list):
+            data = torch.tensor(raw, dtype=torch.int64).view(torch.uint8)
+            dtype = torch.int64
+        else:
+            data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+            dtype = torch.uint8
+        off = -(-self.used // self._ALIGN) * self._ALIGN
+        end = off + int(data.numel())
+        if end > self.host.numel():
+            raise RuntimeError(
+                f"table arena of {self.host.numel()} bytes is full ({end} needed)")
+        self.host[off:end] = data
+        self.used = end
+        return self.device[off:end].view(dtype)
+
+    def commit(self) -> None:
+        """The one host -> device copy of every table (synchronous)."""
+        self.device.copy_(self.host)
+
+    def __enter__(self):
+        self._prev = getattr(_arena, "current", None)
+        _arena.current = self
+        return self
+
+    def __exit__(self, *exc):
+        _arena.current = self._prev
+        return False
+
+
+_arena = threading.local()
+
+
 def upload_table(raw, dev):
     """A small descriptor table (a list of int64 values, or the bytes of a
     ctypes array) on `dev` without a host sync: staged in pinned memory
     and copied on the current stream.  PyTorch's caching host allocator
-    keeps the staging buffer until that copy has run."""
+    keeps the staging buffer until that copy has run.  Inside a
+    `TableArena` the table lands in the arena instead; a capture without
+    one raises."""
     import torch
 
+    arena = getattr(_arena, "current", None)
+    if arena is not None:
+        return arena.put(raw)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("upload_table inside a CUDA graph capture needs a TableArena")
     if isinstance(raw, list):
         host = torch.tensor(raw, dtype=torch.int64)
     else:

@@ -31,8 +31,14 @@ through a query's sources; its states then reduce over the slot ids on K3
 `segment_aggregate` / `segment_aggregate_multi` choose between them the
 way the reference does: under 2^16 rows the scatter kernel; otherwise K2,
 whose per-block guard (masked ids in range, span < 16) decides whether
-its result stands or K3 reruns the reduction.  Reading the guard's verdict
-is the one host sync per aggregate call.
+its result stands or K3 reruns the reduction.  The reference decides with
+a `lax.cond` on the device; on a CUDA tile no host reads the verdict
+either: both branches are launched, every kernel of each predicated on
+the verdict word (a `Gate`), and both write the same outputs — K2's fold
+when the guard passed; K18 `sort_segments` (csrc/segment_sort.cu, a
+stable radix sort that reads the flag) and K3 when it failed.  So the
+warm tile program has no host sync before its readback, and a CUDA graph
+can hold it (parallel/tile_program.py `TickProgram`).
 
 All sums are float64; every kernel adds in a fixed order, so a CUDA run
 is byte-identical from run to run.  `merge_states`, `reduce_state_axes`
@@ -202,6 +208,22 @@ def _stacked(out: dict) -> AggState:
     return AggState(**{k: torch.stack(v) if v else None for k, v in out.items()})
 
 
+class _Gate(ctypes.Structure):
+    """Mirror of `Gate` (csrc/common.cuh): a predicated launch runs only
+    when the guard verdict word (0 = passed) says its branch is taken."""
+
+    _fields_ = [("verdict", ctypes.c_void_p), ("on_fail", ctypes.c_int32),
+                ("reserved", ctypes.c_int32)]
+
+
+def _gate(verdict, on_fail: bool) -> _Gate:
+    """The Gate of a launch behind `verdict` (int32 [1] on the card, or
+    None: always run)."""
+    if verdict is None:
+        return _Gate(None, 0, 0)
+    return _Gate(verdict.data_ptr(), int(on_fail), 0)
+
+
 class _BlockedArgs(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int64), ("nb", ctypes.c_int64),
@@ -223,18 +245,26 @@ class _FoldArgs(ctypes.Structure):
         ("mins", ctypes.c_void_p), ("maxs", ctypes.c_void_p),
         ("nb", ctypes.c_int64),
         ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
+        ("gate", _Gate),
     ]
 
 
-def segment_reduce_blocked(values, gids, masks, base_mask, num_groups: int, aggs):
+def segment_reduce_blocked(values, gids, masks, base_mask, num_groups: int, aggs, outs=None):
     """K2: blocked sum/count/min/max of C columns.
 
     values: C float tensors [n]; gids int32 [n]; masks: C bool [n] column
     masks, each a subset of `base_mask` (bool [n]) — the guard runs on the
-    base mask.  Returns (ok, AggState [C, G] or None, base int32 [nb]):
-    ok is False when the layout guard failed, and the caller must use K3.
-    A CUDA tile launches csrc/segment_reduce_blocked.cu; a CPU tile runs
-    `segment_reduce_blocked_plain`."""
+    base mask.  A CPU tile runs `segment_reduce_blocked_plain` and returns
+    (ok, AggState [C, G] or None, base int32 [nb]): ok is False when the
+    layout guard failed, and the caller must use K3.
+
+    A CUDA tile launches csrc/segment_reduce_blocked.cu and returns
+    (verdict, AggState [C, G], base): verdict is the guard's int32 [1]
+    word on the card (0 = passed), which no host reads; the fold that
+    writes the state is predicated on it, so the state holds the blocked
+    result when it is 0 and is left for the predicated K3 branch to write
+    (`segment_aggregate`) when it is not.  `outs` optionally gives the
+    [C, G] output tensors (sums, counts, mins, maxs) to write."""
     if gids.device.type == "cpu":
         return segment_reduce_blocked_plain(values, gids, masks, base_mask, num_groups, aggs)
     from ..kernels._build import launch
@@ -260,20 +290,28 @@ def segment_reduce_blocked(values, gids, masks, base_mask, num_groups: int, aggs
     stream = torch.cuda.current_stream(dev).cuda_stream
     segment_reduce_blocked.launches += 1
     launch("segment_reduce_blocked", "gt_blocked_partials", a, stream)
-    if int(verdict.item()) != 0:  # the one host sync: the layout guard
-        return False, None, base
+    # the bases are written whatever the verdict; sorting them is cheap
     sbase, order = torch.sort(base, stable=True)
-    outs = [
-        torch.empty((C, G), dtype=dt, device=dev) if on else None
-        for on, dt in zip(want, (torch.float64, torch.int32, torch.float64, torch.float64))
-    ]
+    outs = _state_outs(want, C, G, dev, outs)
     f = _FoldArgs(
         sbase.data_ptr(), order.data_ptr(), *(_ptr(p) for p in parts),
-        *(_ptr(o) for o in outs), nb, G, C,
+        *(_ptr(o) for o in outs), nb, G, C, _gate(verdict, on_fail=False),
     )
     launch("segment_reduce_blocked", "gt_blocked_fold", f, stream)
     del vals
-    return True, _state_of(want, *outs), base
+    return verdict, _state_of(want, *outs), base
+
+
+def _state_outs(want, C: int, G: int, dev, outs=None) -> list:
+    """The [C, G] (sums f64, counts int32, mins f64, maxs f64) outputs a
+    reduction writes: `outs` where given (two branches of one guard write
+    the same tensors), else new ones."""
+    if outs is not None:
+        return [o if on else None for o, on in zip(outs, want)]
+    return [
+        torch.empty((C, G), dtype=dt, device=dev) if on else None
+        for on, dt in zip(want, (torch.float64, torch.int32, torch.float64, torch.float64))
+    ]
 
 
 segment_reduce_blocked.launches = 0
@@ -282,15 +320,63 @@ segment_reduce_blocked.launches = 0
 # ---- K3: scatter reduction over sorted runs ----------------------------------
 
 
-def sort_segments(gids, mask, num_groups: int):
-    """Index plumbing for K3/K4: a stable sort of the masked ids (masked
-    and out-of-range rows carry G and sort last).  Returns (sorted ids
-    int32 [n], row of each int64 [n]); rows of one group form one run, in
-    row order."""
+def sort_segments_plain(gids, mask, num_groups: int):
+    """Torch-op version of K18: a stable torch.sort of the masked ids."""
     G = int(num_groups)
     key = torch.where(mask & (gids >= 0) & (gids < G), gids.to(torch.int32), G)
     skeys, perm = torch.sort(key, stable=True)
     return skeys.contiguous(), perm.contiguous()
+
+
+class _SortArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int64), ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+        ("keys", ctypes.c_void_p * 2), ("idx", ctypes.c_void_p * 2), ("hist", ctypes.c_void_p),
+        ("seg_sums", ctypes.c_void_p), ("skeys", ctypes.c_void_p), ("perm", ctypes.c_void_p),
+        ("num_groups", ctypes.c_int32), ("n_passes", ctypes.c_int32), ("gate", _Gate),
+    ]
+
+
+def sort_segments(gids, mask, num_groups: int, verdict=None):
+    """K18, the index plumbing of K3/K4: a stable sort of the masked ids
+    (masked and out-of-range rows carry G and sort last).  Returns (sorted
+    ids int32 [n], row of each int64 [n]); rows of one group form one run,
+    in row order.  A CUDA tile launches csrc/segment_sort.cu (as many
+    8-bit radix passes as G + 1 needs), predicated on `verdict` (a layout
+    guard's int32 [1] word: the sort runs only when it failed) when one is
+    given; a CPU tile runs `sort_segments_plain`."""
+    if gids.device.type == "cpu":
+        return sort_segments_plain(gids, mask, num_groups)
+    from ..kernels._build import launch
+
+    dev = gids.device
+    n = int(gids.shape[0])
+    G = int(num_groups)
+    if n >= 1 << 31:
+        raise ValueError(f"sort_segments takes fewer than 2^31 rows, got {n}")
+    _check_rows(gids, torch.int32, n, dev)
+    _check_rows(mask, torch.bool, n, dev)
+    skeys = torch.empty(n, dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    hist_len = 256 * max(-(-n // BLOCK_ROWS), 1)
+    hist = torch.empty(hist_len, dtype=torch.int32, device=dev)
+    seg_sums = torch.empty(-(-hist_len // 8192), dtype=torch.int32, device=dev)
+    a = _SortArgs(n, gids.data_ptr(), mask.data_ptr(),
+                  (ctypes.c_void_p * 2)(*(k.data_ptr() for k in keys)),
+                  (ctypes.c_void_p * 2)(*(i.data_ptr() for i in idx)), hist.data_ptr(),
+                  seg_sums.data_ptr(), skeys.data_ptr(), perm.data_ptr(), G,
+                  -(-G.bit_length() // 8), _gate(verdict, on_fail=True))
+    sort_segments.launches += 1
+    launch("segment_sort", "gt_segment_sort", a, torch.cuda.current_stream(dev).cuda_stream)
+    # the scratch is freed into the caching allocator and reused only by
+    # work queued after these launches on the same stream
+    del keys, idx, hist, seg_sums
+    return skeys, perm
+
+
+sort_segments.launches = 0
 
 
 def segment_reduce_scatter_plain(values, gids, masks, base_mask, num_groups: int, aggs):
@@ -330,15 +416,19 @@ class _ScatterArgs(ctypes.Structure):
         ("sums", ctypes.c_void_p), ("counts", ctypes.c_void_p),
         ("mins", ctypes.c_void_p), ("maxs", ctypes.c_void_p),
         ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
+        ("gate", _Gate),
     ]
 
 
-def segment_reduce_scatter(values, gids, masks, base_mask, num_groups: int, aggs, order=None):
+def segment_reduce_scatter(values, gids, masks, base_mask, num_groups: int, aggs, order=None,
+                           verdict=None, outs=None):
     """K3: sum/count/min/max of C columns for any id order.  Arguments as
     `segment_reduce_blocked`; `order` optionally reuses a
     `sort_segments(gids, base_mask, G)` result.  Returns AggState [C, G].
-    A CUDA tile launches csrc/segment_reduce_scatter.cu; a CPU tile runs
-    `segment_reduce_scatter_plain`."""
+    A CUDA tile launches csrc/segment_reduce_scatter.cu — predicated on
+    `verdict` (a layout guard's word: it runs only when the guard failed)
+    when one is given, writing `outs` (the other branch's outputs) — and
+    a CPU tile runs `segment_reduce_scatter_plain`."""
     if gids.device.type == "cpu":
         return segment_reduce_scatter_plain(values, gids, masks, base_mask, num_groups, aggs)
     from ..kernels._build import launch
@@ -349,17 +439,14 @@ def segment_reduce_scatter(values, gids, masks, base_mask, num_groups: int, aggs
     _check_rows(gids, torch.int32, n, dev)
     _check_rows(base_mask, torch.bool, n, dev)
     if order is None:
-        order = sort_segments(gids, base_mask, G)
+        order = sort_segments(gids, base_mask, G, verdict)
     skeys, perm = order
     vals, vt, mt = _column_tables(values, masks, base_mask, n, dev)
     want = _wants(aggs)
-    outs = [
-        torch.empty((C, G), dtype=dt, device=dev) if on else None
-        for on, dt in zip(want, (torch.float64, torch.int32, torch.float64, torch.float64))
-    ]
+    outs = _state_outs(want, C, G, dev, outs)
     a = _ScatterArgs(
         n, skeys.data_ptr(), perm.data_ptr(), vt.data_ptr(), mt.data_ptr(),
-        *(_ptr(o) for o in outs), G, C,
+        *(_ptr(o) for o in outs), G, C, _gate(verdict, on_fail=True),
     )
     segment_reduce_scatter.launches += 1
     launch("segment_reduce_scatter", "gt_scatter_reduce", a,
@@ -430,6 +517,7 @@ class _LastBlockedArgs(ctypes.Structure):
         ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
         ("ts", ctypes.c_void_p), ("base", ctypes.c_void_p),
         ("pts", ctypes.c_void_p), ("prow", ctypes.c_void_p),
+        ("gate", _Gate),
     ]
 
 
@@ -441,6 +529,7 @@ class _LastFoldArgs(ctypes.Structure):
         ("last_val", ctypes.c_void_p),
         ("nb", ctypes.c_int64), ("n", ctypes.c_int64),
         ("num_groups", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("gate", _Gate),
     ]
 
 
@@ -450,17 +539,20 @@ class _LastSortedArgs(ctypes.Structure):
         ("ts", ctypes.c_void_p), ("values", ctypes.c_void_p),
         ("last_ts", ctypes.c_void_p), ("last_val", ctypes.c_void_p),
         ("num_groups", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("gate", _Gate),
     ]
 
 
-def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None):
+def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None, verdict=None):
     """K4: last_value(values ORDER BY ts) per group; a ts tie goes to the
-    later row.  With `base` (int32 [nb] from a passing K2 guard over this
+    later row.  With `base` (int32 [nb] from K2's guard pass over this
     `mask`) the blocked form; otherwise the sorted-run form over `order`
-    (`sort_segments(gids, mask, G)`, computed when not given).  Returns
-    (last_ts int64 [G], last_val float64 [G]); an empty group has ts
-    INT64_MIN and the value of row 0.  A CUDA tile launches
-    csrc/segment_last.cu; a CPU tile runs `segment_last_plain`."""
+    (`sort_segments(gids, mask, G)`, computed when not given).  With
+    `verdict` (the int32 [1] word of that K2 call, on the card) both forms
+    launch, each predicated on it, into the same outputs: no host reads
+    which one stands.  Returns (last_ts int64 [G], last_val float64 [G]);
+    an empty group has ts INT64_MIN and the value of row 0.  A CUDA tile
+    launches csrc/segment_last.cu; a CPU tile runs `segment_last_plain`."""
     if gids.device.type == "cpu":
         return segment_last_plain(values, ts, gids, mask, num_groups, base)
     from ..kernels._build import launch
@@ -470,6 +562,8 @@ def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None)
     G = int(num_groups)
     if n >= 2**31:
         raise ValueError("segment_last indexes rows in int32: at most 2^31 - 1 rows")
+    if verdict is not None and base is None:
+        raise ValueError("a predicated segment_last needs the guard's bases")
     _check_rows(gids, torch.int32, n, dev)
     _check_rows(mask, torch.bool, n, dev)
     _check_rows(ts, torch.int64, n, dev)
@@ -483,20 +577,23 @@ def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None)
         nb = int(base.shape[0])
         pts = torch.empty((nb, BLOCK_SPAN), dtype=torch.int64, device=dev)
         prow = torch.empty((nb, BLOCK_SPAN), dtype=torch.int32, device=dev)
+        blocked = _gate(verdict, on_fail=False)
         a = _LastBlockedArgs(n, nb, gids.data_ptr(), mask.data_ptr(), ts.data_ptr(),
-                             base.data_ptr(), pts.data_ptr(), prow.data_ptr())
+                             base.data_ptr(), pts.data_ptr(), prow.data_ptr(), blocked)
         launch("segment_last", "gt_last_partials", a, stream)
         sbase, order_b = torch.sort(base, stable=True)
         f = _LastFoldArgs(sbase.data_ptr(), order_b.data_ptr(), pts.data_ptr(),
                           prow.data_ptr(), x.data_ptr(), last_ts.data_ptr(),
-                          last_val.data_ptr(), nb, n, G, 0)
+                          last_val.data_ptr(), nb, n, G, 0, blocked)
         launch("segment_last", "gt_last_fold", f, stream)
-        return last_ts, last_val
+        if verdict is None:
+            return last_ts, last_val
     if order is None:
-        order = sort_segments(gids, mask, G)
+        order = sort_segments(gids, mask, G, verdict)
     skeys, perm = order
     a = _LastSortedArgs(n, skeys.data_ptr(), perm.data_ptr(), ts.data_ptr(), x.data_ptr(),
-                        last_ts.data_ptr(), last_val.data_ptr(), G, 0)
+                        last_ts.data_ptr(), last_val.data_ptr(), G, 0,
+                        _gate(verdict, on_fail=True))
     launch("segment_last", "gt_last_sorted", a, stream)
     return last_ts, last_val
 
@@ -568,9 +665,24 @@ def segment_aggregate(
     other = tuple(a for a in aggs if a != LAST)
     if LAST in aggs and ts is None:
         raise ValueError("LAST aggregation requires ts")
+    guarded = n >= _FAST_MIN_ROWS and not force_scatter
+    if guarded and gids.device.type != "cpu":
+        # both branches, predicated on the guard's word: no host read
+        verdict, st, base = segment_reduce_blocked(
+            [values], gids, [mask], mask, num_groups, other or (COUNT,))
+        order = sort_segments(gids, mask, num_groups, verdict)
+        state = AggState()
+        if other:
+            state = segment_reduce_scatter(
+                [values], gids, [mask], mask, num_groups, other, order, verdict,
+                outs=_outs_of(st)).row(0)
+        if LAST in aggs:
+            state.last_ts, state.last_val = segment_last(
+                values, ts, gids, mask, num_groups, base=base, order=order, verdict=verdict)
+        return state
     base = None
     state = None
-    if n >= _FAST_MIN_ROWS and not force_scatter:
+    if guarded:
         ok, st, b = segment_reduce_blocked(
             [values], gids, [mask], mask, num_groups, other or (COUNT,)
         )
@@ -592,6 +704,10 @@ def segment_aggregate(
     return state
 
 
+def _outs_of(st: AggState) -> list:
+    return [st.sums, st.counts, st.mins, st.maxs]
+
+
 def segment_aggregate_multi(
     values: list,
     gids: torch.Tensor,
@@ -604,8 +720,9 @@ def segment_aggregate_multi(
     """C value columns sharing ONE layout guard and one kernel launch:
     arrays in the result are [C, G].  `masks[c]` must be a subset of
     `base_mask` (the guard runs on the base mask); `force_scatter` skips
-    the guard for K3 (hash slot ids).  LAST is not supported here
-    (callers route last_value per column)."""
+    the guard for K3 (hash slot ids).  On a CUDA tile the K3 branch is
+    predicated on the guard's word, as in `segment_aggregate`.  LAST is
+    not supported here (callers route last_value per column)."""
     if LAST in aggs:
         raise ValueError("segment_aggregate_multi does not support LAST")
     n = values[0].shape[0]
@@ -613,6 +730,9 @@ def segment_aggregate_multi(
         ok, st, _base = segment_reduce_blocked(
             values, gids, masks, base_mask, num_groups, aggs
         )
+        if gids.device.type != "cpu":
+            return segment_reduce_scatter(values, gids, masks, base_mask, num_groups, aggs,
+                                          verdict=ok, outs=_outs_of(st))
         if ok:
             return st
     return segment_reduce_scatter(values, gids, masks, base_mask, num_groups, aggs)
@@ -754,7 +874,7 @@ def hash_group_slots_plain(table_keys, gids, active):
         act = act & ~found
         probe = torch.where(act, probe + 1, probe)
         rounds += 1
-    hash_group_slots.last_rounds = rounds
+    hash_group_slots.last_rounds = torch.tensor([rounds], dtype=torch.int32)
     table_keys.copy_(table)
     return table_keys, slots, act.sum(dtype=torch.int32)
 
@@ -763,8 +883,8 @@ class _HashArgs(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int64), ("h", ctypes.c_int64), ("table", ctypes.c_void_p),
         ("gids", ctypes.c_void_p), ("active", ctypes.c_void_p), ("slots", ctypes.c_void_p),
-        ("probe", ctypes.c_void_p), ("claim", ctypes.c_void_p), ("n_active", ctypes.c_void_p),
-        ("bits", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("probe", ctypes.c_void_p), ("claim", ctypes.c_void_p), ("state", ctypes.c_void_p),
+        ("bits", ctypes.c_int32), ("max_rounds", ctypes.c_int32),
     ]
 
 
@@ -782,9 +902,11 @@ def hash_group_slots(table_keys: torch.Tensor, gids: torch.Tensor, active: torch
     probe rounds, and overflow the count of the latter.  Deterministic:
     per round the smallest gid claiming a position wins it, so threading
     one table through a query's sources gives every gid one slot.  A CUDA
-    tensor launches csrc/hash_group_slots.cu (one launch per round, the
-    host reading the active count between rounds); a CPU tensor runs
-    `hash_group_slots_plain`.  `last_rounds` holds the last call's rounds."""
+    tensor launches csrc/hash_group_slots.cu: one cooperative launch runs
+    every round and stops on the card's own count, so no host read sits
+    between the rounds; a CPU tensor runs `hash_group_slots_plain`.  The
+    rounds of the last call stay on the tensors' device until asked for
+    (`last_hash_rounds`), after the query's readback."""
     if gids.device.type == "cpu":
         return hash_group_slots_plain(table_keys, gids, active)
     from ..kernels._build import launch
@@ -799,28 +921,29 @@ def hash_group_slots(table_keys: torch.Tensor, gids: torch.Tensor, active: torch
     slots = torch.empty(n, dtype=torch.int32, device=dev)
     probe = torch.empty(n, dtype=torch.int32, device=dev)
     claim = torch.empty(h, dtype=torch.int64, device=dev)
-    n_active = torch.zeros(1, dtype=torch.int32, device=dev)
+    # [rows still active, rounds run, three rotating round counters]
+    state = torch.zeros(5, dtype=torch.int32, device=dev)
     args = _HashArgs(n, h, table_keys.data_ptr(), gids.data_ptr(), active.data_ptr(),
-                     slots.data_ptr(), probe.data_ptr(), claim.data_ptr(),
-                     n_active.data_ptr(), max(h.bit_length() - 1, 1), 0)
+                     slots.data_ptr(), probe.data_ptr(), claim.data_ptr(), state.data_ptr(),
+                     max(h.bit_length() - 1, 1), min(2 * h, 1024))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rounds = 0
     if n:
         hash_group_slots.launches += 1
         launch("hash_group_slots", "gt_hash_init", args, stream)
-        # the reference tests for an active row before each round; a round
-        # with none changes nothing, so the first one runs unconditionally
-        while rounds < min(2 * h, 1024):
-            launch("hash_group_slots", "gt_hash_round", args, stream)
-            rounds += 1
-            if int(n_active.item()) == 0:
-                break
-    hash_group_slots.last_rounds = rounds
-    return table_keys, slots, n_active.reshape(())
+        launch("hash_group_slots", "gt_hash_rounds", args, stream)
+    hash_group_slots.last_rounds = state[1:2]
+    return table_keys, slots, state[0]
 
 
 hash_group_slots.launches = 0
-hash_group_slots.last_rounds = 0
+hash_group_slots.last_rounds = None
+
+
+def last_hash_rounds() -> int:
+    """The probe rounds of the last `hash_group_slots` call (a host read of
+    its device word: call it after the query's readback)."""
+    rounds = hash_group_slots.last_rounds
+    return 0 if rounds is None else int(rounds.reshape(-1)[0])
 
 
 # ---- K5: limb quantization ------------------------------------------------------
@@ -1061,6 +1184,7 @@ class _LimbFoldArgs(ctypes.Structure):
         ("nb", ctypes.c_int64),
         ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
         ("n_counted", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("gate", _Gate),
     ]
 
 
@@ -1068,12 +1192,15 @@ class _DequantArgs(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int64), ("limbs", ctypes.c_void_p), ("scale", ctypes.c_void_p),
         ("vhat", ctypes.c_void_p), ("half", ctypes.c_void_p),
+        ("gate", _Gate),
     ]
 
 
-def dequantize_limbs(limbs: torch.Tensor, scale: torch.Tensor):
+def dequantize_limbs(limbs: torch.Tensor, scale: torch.Tensor, verdict=None):
     """(v-hat, half step) of `dequantize_limbs_plain`; on a CUDA tensor the
-    `gt_limb_dequant` entry of K6's source computes them."""
+    `gt_limb_dequant` entry of K6's source computes them, predicated on
+    `verdict` (K6's guard word: it runs only when the guard failed) when
+    one is given."""
     if limbs.device.type == "cpu":
         return dequantize_limbs_plain(limbs, scale)
     from ..kernels._build import launch
@@ -1082,7 +1209,8 @@ def dequantize_limbs(limbs: torch.Tensor, scale: torch.Tensor):
     n = int(limbs.shape[0]) * BLOCK_ROWS
     vhat = torch.empty(n, dtype=torch.float64, device=dev)
     half = torch.empty(n, dtype=torch.float64, device=dev)
-    a = _DequantArgs(n, limbs.data_ptr(), scale.data_ptr(), vhat.data_ptr(), half.data_ptr())
+    a = _DequantArgs(n, limbs.data_ptr(), scale.data_ptr(), vhat.data_ptr(), half.data_ptr(),
+                     _gate(verdict, on_fail=True))
     launch("limb_segment_sums", "gt_limb_dequant", a, torch.cuda.current_stream(dev).cuda_stream)
     return vhat, half
 
@@ -1098,8 +1226,9 @@ def limb_segment_sums(limb_cols, gids, mask, num_groups: int, count01=None):
     When the layout guard (masked ids in range, block span < 16) fails,
     the digits are dequantized and aggregated on K3 — both branches share
     the quantized values, so the result does not depend on the branch.
-    A CUDA tile launches csrc/limb_segment_sums.cu; reading its guard
-    verdict is one host sync.  A CPU tile runs `limb_segment_sums_plain`."""
+    A CUDA tile launches csrc/limb_segment_sums.cu and both branches, each
+    predicated on the guard's word on the card, into the same outputs (no
+    host read).  A CPU tile runs `limb_segment_sums_plain`."""
     if gids.device.type == "cpu":
         return limb_segment_sums_plain(limb_cols, gids, mask, num_groups, count01)
     from ..kernels._build import launch, upload_table
@@ -1141,19 +1270,35 @@ def limb_segment_sums(limb_cols, gids, mask, num_groups: int, count01=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     limb_segment_sums.launches += 1
     launch("limb_segment_sums", "gt_limb_partials", a, stream)
-    if int(verdict.item()) != 0:  # the one host sync: the layout guard
-        return _limb_slow(limb_cols, gids, mask, G, count01, dequantize_limbs)
-    sbase, order = torch.sort(base, stable=True)
-    presence = torch.empty(G, dtype=torch.int32, device=dev)
+    # the outputs both branches write: the fold's sums and errs are rows
+    # [:C] and [C:] of the slow branch's K3 sums over (values, halves), its
+    # presence row 0 of the K3 counts, its null-gated counts the counted
+    # K3's rows
+    sums2 = torch.empty((2 * C, G), dtype=torch.float64, device=dev)
+    cnt2 = torch.empty((2 * C, G), dtype=torch.int32, device=dev)
     cnts = torch.empty((max(Cc, 1), G), dtype=torch.int32, device=dev)
-    sums = torch.empty((C, G), dtype=torch.float64, device=dev)
-    errs = torch.empty((C, G), dtype=torch.float64, device=dev)
+    sbase, order = torch.sort(base, stable=True)
     f = _LimbFoldArgs(
         sbase.data_ptr(), order.data_ptr(), ppres.data_ptr(), pcnt.data_ptr(),
-        psum.data_ptr(), perr.data_ptr(), presence.data_ptr(), cnts.data_ptr(),
-        sums.data_ptr(), errs.data_ptr(), nb, G, C, Cc, 0,
+        psum.data_ptr(), perr.data_ptr(), cnt2.data_ptr(), cnts.data_ptr(),
+        sums2.data_ptr(), sums2[C:].data_ptr(), nb, G, C, Cc, 0,
+        _gate(verdict, on_fail=False),
     )
     launch("limb_segment_sums", "gt_limb_fold", f, stream)
+    # the slow branch (the guard failed): dequantize, then K3
+    vals, halves = [], []
+    for limbs, scale in limb_cols:
+        vhat, half = dequantize_limbs(limbs, scale, verdict)
+        vals.append(vhat)
+        halves.append(half)
+    order_s = sort_segments(gids, mask, G, verdict)
+    segment_reduce_scatter(vals + halves, gids, [mask] * (2 * C), mask, G, (SUM, COUNT),
+                           order_s, verdict, outs=[sums2, cnt2, None, None])
+    if counted:
+        segment_reduce_scatter([vals[i] for i in counted], gids,
+                               [mask & count01[i] for i in counted], mask, G, (COUNT,),
+                               order_s, verdict, outs=[None, cnts[:Cc], None, None])
+    presence = cnt2[0]
     counts = None
     if count01 is not None:
         rows = [presence] * C
@@ -1161,7 +1306,7 @@ def limb_segment_sums(limb_cols, gids, mask, num_groups: int, count01=None):
             rows[i] = cnts[j]
         counts = torch.stack(rows)
     del ptrs
-    return sums, errs, counts, presence
+    return sums2[:C], sums2[C:], counts, presence
 
 
 limb_segment_sums.launches = 0
@@ -1503,7 +1648,7 @@ def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_
         off += 1
     buf = torch.empty(off, dtype=torch.uint8, device=dev)
     if verdict_at is not None:
-        buf[verdict_at] = 1  # verdict rows clear it where a bound fails
+        buf[verdict_at:verdict_at + 1].fill_(1)  # verdict rows clear it where a bound fails
     accs64 = None
     if not compact:
         accs64 = torch.empty((len(acc64_rows), G), dtype=torch.float64, device=dev)

@@ -9,6 +9,12 @@ they are one hand-written CUDA pass (csrc/mask_gids.cu) on a CUDA tensor,
 and `mask_gids_plain` — the same arithmetic in torch ops — on a CPU
 tensor.  The plain version is also what the kernel is checked against.
 
+The literals live in one int64 table on the tensors' device, led by the
+bucket origin and interval: [origin, interval, literal bits...]
+(`literal_table`).  K1 reads all of them from there, so a captured launch
+(parallel/tile_program.py `TickProgram`) takes new literals and a slid
+window from a rewrite of the table, with no recapture.
+
 Ids come in two widths, as the reference's `raw_group_ids(dtype=...)`:
 int32 for the dense strategy (padding rows get the pad id), and int64
 for the hash strategy, whose sparse group space may pass 2^31 (no pad
@@ -20,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..utils.errors import PlanError
@@ -36,8 +43,6 @@ class _MaskGidsArgs(ctypes.Structure):
 
     _fields_ = [
         ("n", ctypes.c_int64),
-        ("origin", ctypes.c_int64),
-        ("interval", ctypes.c_int64),
         ("valid", ctypes.c_void_p),
         ("ts", ctypes.c_void_p),
         ("lits", ctypes.c_void_p),
@@ -93,11 +98,23 @@ def time_bucket(ts: torch.Tensor, origin: int, interval: int) -> torch.Tensor:
     return torch.div(ts - origin, interval, rounding_mode="floor").to(torch.int32)
 
 
-def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32):
-    """Torch-op version of K1 (see `mask_gids` for the arguments)."""
+def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32,
+                    lits=None):
+    """Torch-op version of K1 (see `mask_gids` for the arguments).  With
+    `lits` the literal values, origin and interval are read from that
+    table (`literal_table`'s layout), as the kernel reads them."""
     mask = valid.clone()
-    for plane, op, value in filters:
+    specs = literal_specs([(p.dtype, op, v) for p, op, v in filters]) if lits is not None else None
+    for i, (plane, op, value) in enumerate(filters):
         plane, value = _normalize_filter(plane, op, value)
+        if specs is not None:
+            _kind, _op, off, cnt = specs[i]
+            raw = lits[2 + off: 2 + off + cnt]
+            if plane.dtype == torch.float64:
+                raw = raw.view(torch.float64)
+            else:
+                plane = plane.to(torch.int64)  # the kernel compares integers in int64
+            value = tuple(raw) if op in ("in", "not in") else raw[0]
         if plane.dtype == torch.uint8:
             plane = plane.to(torch.int64)
         mask = mask & _compare(plane, op, value)
@@ -106,6 +123,8 @@ def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.in
     components = [(codes, card) for codes, card in tags]
     if bucket is not None:
         ts, origin, interval, n_buckets = bucket
+        if lits is not None:
+            origin, interval = lits[0], lits[1]
         components.append((time_bucket(ts, origin, interval), n_buckets))
     gid = torch.zeros(valid.shape, dtype=dtype, device=valid.device)
     in_range = torch.ones(valid.shape, dtype=torch.bool, device=valid.device)
@@ -119,35 +138,81 @@ def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.in
     return gid, mask
 
 
-def _normalize_filter(plane: torch.Tensor, op: str, value):
-    """Bring a filter plane to one of the kernel's plane types (int32,
-    int64, float64, uint8) with its literal(s) in the comparison's type:
-    float32 planes compare in float32 (as the reference's weakly typed
-    literals do), integer planes against a non-integral literal compare in
-    float64, and booleans compare as 0/1."""
+def _normalize_literals(dtype: torch.dtype, op: str, value):
+    """(the kernel's plane type, the literal(s) in the comparison's type)
+    of a filter over a plane of `dtype`: float32 planes compare in float32
+    (as the reference's weakly typed literals do), integer planes against
+    a non-integral literal compare in float64, and booleans compare as
+    0/1."""
     values = tuple(value) if op in ("in", "not in") else (value,)
-    if plane.dtype == torch.bool:
-        plane = plane.view(torch.uint8)
-    if plane.dtype == torch.float32:
-        plane = plane.to(torch.float64)
+    if dtype == torch.bool:
+        dtype = torch.uint8
+    if dtype == torch.float32:
+        dtype = torch.float64
         values = tuple(float(torch.tensor(float(v), dtype=torch.float32)) for v in values)
-    elif plane.dtype == torch.float64:
+    elif dtype == torch.float64:
         values = tuple(float(v) for v in values)
     else:
-        if plane.dtype in (torch.int8, torch.int16):
-            plane = plane.to(torch.int32)
+        if dtype in (torch.int8, torch.int16):
+            dtype = torch.int32
         if any(isinstance(v, float) and not (math.isfinite(v) and v == int(v)) for v in values):
-            plane = plane.to(torch.float64)
+            dtype = torch.float64
             values = tuple(float(v) for v in values)
         else:
             values = tuple(int(v) for v in values)
-    return plane, (values if op in ("in", "not in") else values[0])
+    return dtype, (values if op in ("in", "not in") else values[0])
+
+
+def _normalize_filter(plane: torch.Tensor, op: str, value):
+    """The filter plane in the kernel's plane type (int32, int64, float64,
+    uint8) and its literal(s) in the comparison's type
+    (`_normalize_literals`)."""
+    dtype, value = _normalize_literals(plane.dtype, op, value)
+    if plane.dtype == torch.bool:
+        plane = plane.view(torch.uint8)
+    if plane.dtype != dtype:
+        plane = plane.to(dtype)
+    return plane, value
+
+
+_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2, torch.uint8: 3}
+
+
+def literal_specs(filters) -> tuple:
+    """Per filter (plane kind, op code, offset, count) of the literal table
+    for filters given as (plane dtype, op, value): the structure a
+    captured K1 launch bakes in (a literal that changes its kind changes
+    it)."""
+    specs, off = [], 0
+    for dtype, op, value in filters:
+        if op not in _OP_CODE:
+            raise PlanError(f"unsupported filter op: {op}")
+        kind, value = _normalize_literals(dtype, op, value)
+        cnt = len(value) if op in ("in", "not in") else 1
+        specs.append((_KINDS[kind], _OP_CODE[op], off, cnt))
+        off += cnt
+    return tuple(specs)
+
+
+def literal_table(filters, origin: int = 0, interval: int = 1) -> list[int]:
+    """K1's int64 literal table for filters given as (plane dtype, op,
+    value): [origin, interval, literal bits...], an f64 literal as its
+    bit pattern, in the order of `literal_specs`."""
+    lits = [int(origin), int(interval)]
+    for dtype, op, value in filters:
+        kind, value = _normalize_literals(dtype, op, value)
+        for v in (value if op in ("in", "not in") else (value,)):
+            if kind == torch.float64:
+                lits.append(int(np.float64(v).view(np.int64)))
+            else:
+                lits.append(int(v))
+    return lits
 
 
 # ---- the kernel --------------------------------------------------------------
 
 
-def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32):
+def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32, lits=None):
     """Predicate mask and mixed-radix group ids over one tile.
 
     valid:   bool [n], False for padding rows
@@ -160,17 +225,22 @@ def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32):
              with int64 ids (pass None)
     dtype:   torch.int32 (dense ids, wrapping like XLA's int32) or
              torch.int64 (hash ids: composed in int64, no pad rule)
+    lits:    None, or int64 [>= 2] on `valid`'s device: the literal table
+             (`literal_table` of these filters and bucket) to read the
+             literals, origin and interval from; the values in `filters`
+             and `bucket` then give only their structure.  Without it the
+             table is built from them and uploaded.
 
     Returns (gids [n] of `dtype`, mask bool [n]).  A CUDA tile runs kernel
     K1 (csrc/mask_gids.cu); a CPU tile runs `mask_gids_plain`."""
     if dtype not in (torch.int32, torch.int64):
         raise ValueError(f"mask_gids ids are int32 or int64, not {dtype}")
     if valid.device.type == "cpu":
-        return mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype)
-    return _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype)
+        return mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype, lits)
+    return _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype, lits)
 
 
-def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype):
+def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype, lits):
     from ..kernels._build import launch, upload_table
 
     dev = valid.device
@@ -185,26 +255,16 @@ def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype):
     args.n = n
     _check(valid, torch.bool, n, dev)
     args.valid = valid.data_ptr()
-    lits: list[int] = []
-    kinds = {torch.int32: 0, torch.int64: 1, torch.float64: 2, torch.uint8: 3}
+    specs = literal_specs([(p.dtype, op, v) for p, op, v in filters])
     for i, (plane, op, value) in enumerate(filters):
-        if op not in _OP_CODE:
-            raise PlanError(f"unsupported filter op: {op}")
-        plane, value = _normalize_filter(plane, op, value)
+        plane, _value = _normalize_filter(plane, op, value)
         plane = plane.contiguous()
         _check(plane, plane.dtype, n, dev)
         keep.append(plane)
-        vals = value if op in ("in", "not in") else (value,)
         args.fplane[i] = plane.data_ptr()
-        args.fkind[i] = kinds[plane.dtype]
-        args.fop[i] = _OP_CODE[op]
-        args.flit_off[i] = len(lits)
-        args.flit_cnt[i] = len(vals)
-        for v in vals:
-            if plane.dtype == torch.float64:
-                lits.append(torch.tensor(v, dtype=torch.float64).view(torch.int64).item())
-            else:
-                lits.append(int(v))
+        args.fkind[i], args.fop[i], off, cnt = specs[i]
+        args.flit_off[i] = off + 2
+        args.flit_cnt[i] = cnt
     args.n_filters = len(filters)
     for i, g in enumerate(gates):
         _check(g, torch.bool, n, dev)
@@ -215,20 +275,25 @@ def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype):
         args.tag[i] = codes.data_ptr()
         args.card[i] = int(card)
     args.n_tags = len(tags)
+    origin, interval = 0, 1
     if bucket is not None:
         ts, origin, interval, n_buckets = bucket
         _check(ts, torch.int64, n, dev)
-        if int(interval) == 0:
-            raise ValueError("time bucket interval must be non-zero")
         args.ts = ts.data_ptr()
-        args.origin = int(origin)
-        args.interval = int(interval)
         args.n_buckets = int(n_buckets)
     else:
         args.ts = None
-    lit_t = upload_table(lits or [0], dev)
-    keep.append(lit_t)
-    args.lits = lit_t.data_ptr()
+    if lits is None:
+        if bucket is not None and int(interval) == 0:
+            raise ValueError("time bucket interval must be non-zero")
+        table = literal_table([(p.dtype, op, v) for p, op, v in filters], origin, interval)
+        lits = upload_table(table, dev)
+    elif lits.device != dev or lits.dtype != torch.int64 or lits.dim() != 1 \
+            or not lits.is_contiguous() or lits.shape[0] < 2 + sum(c for *_x, c in specs):
+        raise ValueError("mask_gids lits must be a contiguous int64 literal table on "
+                         f"{dev} of at least {2 + sum(c for *_x, c in specs)} entries")
+    keep.append(lits)
+    args.lits = lits.data_ptr()
     gids = torch.empty(n, dtype=dtype, device=dev)
     mask = torch.empty(n, dtype=torch.bool, device=dev)
     args.gids_out = gids.data_ptr()

@@ -24,6 +24,7 @@ which the tile cache gathered once.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
@@ -174,17 +175,19 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
         tags = list(zip(plan.group_tags, plan.tag_cards))
     comps = [(columns[t], card) for t, card in tags]
     overflow = None
+    lits = None if dyn is None else dyn.get("lits")
     if is_hash:
         # int64 ids: the sparse space may pass int32; only its occupied
         # keys materialize, one per table slot (K1 then K17)
-        gid64, mask = mask_gids(valid, filters, gates, comps, bucket, None, dtype=torch.int64)
+        gid64, mask = mask_gids(valid, filters, gates, comps, bucket, None, dtype=torch.int64,
+                                lits=lits)
         hash_table, gids, overflow = hash_group_slots(hash_table, gid64, mask)
         n_internal = plan.hash_slots
     else:
         n_internal = plan.internal_groups
         # K1: padding rows get the max id so they never break clustering;
         # their mask keeps them out of every reduction
-        gids, mask = mask_gids(valid, filters, gates, comps, bucket, n_internal - 1)
+        gids, mask = mask_gids(valid, filters, gates, comps, bucket, n_internal - 1, lits=lits)
 
     ts = None
     if plan.ts_col is not None and plan.ts_col in columns:
@@ -355,6 +358,11 @@ class GroupByResult:
         return pa.table(cols)
 
 
+# the table-fed path composes int32 group ids: a padded group space this
+# large cannot be addressed (its pad id would overflow)
+INT32_GROUP_SPACE = 1 << 31
+
+
 def distributed_groupby(
     region_tables: list[pa.Table],
     *,
@@ -367,10 +375,13 @@ def distributed_groupby(
     filters: list[tuple[str, str, object]] | None = None,
     device: str | torch.device = "cuda",
     ts_col: str | None = None,
-) -> GroupByResult:
+) -> GroupByResult | None:
     """Execute a scan->filter->time-bucketed-groupby over region tables on
     one device (the reference's 1-device mesh: all regions concatenated
-    into one shard, in region order)."""
+    into one shard, in region order).  Returns None — a decline, before
+    anything is uploaded — when the padded group space (the quantized tag
+    cardinalities of the dictionary union times the buckets) reaches
+    2^31, which int32 ids cannot address."""
     t_start = time.perf_counter()
     filters = filters or []
     norm_specs: list[tuple[str, str]] = []
@@ -407,6 +418,10 @@ def distributed_groupby(
                 if v not in mapping:
                     mapping[v] = len(mapping)
 
+    tag_cards = tuple(_quantize_card(len(union_dicts.get(t, {}))) for t in group_tags)
+    n_b = max(int(n_buckets), 1) if bucket_col is not None else 1
+    if math.prod(tag_cards) * n_b >= INT32_GROUP_SPACE:
+        return None
     table = table.select([c for c in table.column_names if c in needed_cols])
     batch: TileBatch = tiles_from_table(table, device=device, dicts=union_dicts)
     nulls = {c: batch.nulls[c] for c in value_cols if c in batch.nulls}
@@ -422,7 +437,6 @@ def distributed_groupby(
         elif op in ("in", "not in"):
             value = tuple(value)
         enc_filters.append((name, op, value))
-    tag_cards = tuple(_quantize_card(len(union_dicts.get(t, {}))) for t in group_tags)
 
     needs_ts = any(f == "last_value" for f, _c in norm_specs)
     plan = DistGroupByPlan(

@@ -32,8 +32,17 @@ plane, no window tiles, no streamed spill).  A query:
      order, the order of the dense path's rows.
 
 `execute` returns None when the query does not apply, and the caller
-takes the table-fed path.  `timings` holds the host ms per stage of the
-last call: build and upload (cold entries only), delta_host and
+takes the table-fed path.  Before the dispatch path it probes the windowed
+result cache (`batch.result_cache_mb`), and a query of a warm family
+under `batch.window_ms > 0` joins the table's dashboard tick
+(parallel/batcher.py) before the table lock is taken, so the leader's
+window sleep never blocks its followers.  A tick's members are captured
+at the dispatch site and answered by one `TickProgram` (B19,
+`fused_dispatch`), or dispatched back to back with one shared readback.
+
+Per-call state is thread-local (the members of a tick run on their own
+threads): `timings` holds the host ms per stage of the calling thread's
+last query: build and upload (cold entries only), delta_host and
 delta_device (a flushed delta merged into a cached entry: host encode
 and merge, then the K16 patches through a sync), time_major (K14 and
 the K15 copies through a sync; near zero once cached), quantize (K5,
@@ -45,7 +54,10 @@ readback, decode.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import pyarrow as pa
@@ -56,6 +68,15 @@ from ..ops.aggregate import unpack_f64_bits
 from ..ops.tiles import pad_rows
 from ..query import passes
 from ..storage.region import OP_COL
+from .batcher import (
+    CapturedDispatch,
+    PendingFetch,
+    QueryBatcher,
+    WindowedResultCache,
+    capture_active,
+    defer_active,
+    region_versions,
+)
 from .executor import COUNT_STAR, GroupByResult, _FUNC_TO_KERNEL
 from .tile_planes import TileCacheManager, TileContext, _encode_host_tiles, _SuperTiles
 from .tile_planner import (
@@ -65,26 +86,93 @@ from .tile_planner import (
     disjoint,
     plan_cols,
 )
-from .tile_program import limb_sum_cols, tile_program
+from .tile_program import TickProgram, limb_sum_cols, np_dtype, tile_program
+
+
+class _CallState(threading.local):
+    """The calling thread's per-query state (see TileExecutor)."""
+
+    def __init__(self):
+        self.timings: dict[str, float] = {}
+        self.last_strategy: str | None = None
+        self.last_hash_overflow = False
+        self.last_readback_bytes = 0
+
+
+def _call_field(name: str):
+    return property(lambda self: getattr(self._call, name),
+                    lambda self, v: setattr(self._call, name, v))
+
+
+class Counters(dict):
+    """A dict of counters that threads bump under one lock."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.lock = threading.Lock()
+
+    def add(self, **deltas) -> None:
+        with self.lock:
+            for k, v in deltas.items():
+                self[k] = self.get(k, 0) + v
 
 
 class TileExecutor:
     """Aggregation over cached device super-tiles; returns None when not
     applicable so the caller can take the table-fed path."""
 
-    def __init__(self, cache: TileCacheManager, config):
+    # warm families remembered (an LRU), as the reference's _fused_done
+    _FAMILIES_MAX = 4096
+
+    def __init__(self, cache: TileCacheManager, config, batch_config=None, stats=None):
         self.cache = cache
         self.config = config
-        self.timings: dict[str, float] = {}
-        # queries rerun in exact f64 after a failed limb verdict
-        self.limb_reruns = 0
-        # the strategy of the last query's first dispatched plan ("hash",
-        # "sort", or None when it dispatched nothing), and whether its
-        # hash dispatch overflowed the slot table
-        self.last_strategy: str | None = None
-        self.last_hash_overflow = False
-        # bytes of the last result read back from the device
-        self.last_readback_bytes = 0
+        self.batch_config = batch_config
+        # the engine's counters: limb_reruns, the batch and tick counters
+        self.stats = stats if stats is not None else Counters()
+        self._call = _CallState()
+        self._lock = threading.Lock()
+        self._warm: OrderedDict = OrderedDict()  # plan fingerprints answered on the card
+        self._batcher = QueryBatcher(self)
+        self.result_cache: WindowedResultCache | None = None
+        # tick programs by (member keys, input signatures, source identity),
+        # an LRU bounded in bytes out of the tile budget
+        self._ticks: OrderedDict = OrderedDict()
+        self.cache.plane_listeners.append(self._drop_ticks_of)
+        # the tick program of the last tick (diagnostics)
+        self.last_tick: TickProgram | None = None
+
+    # the strategy of the calling thread's last query's first dispatched
+    # plan ("hash", "sort", or None when it dispatched nothing), whether
+    # its hash dispatch overflowed the slot table, and the bytes of its
+    # result read back from the device
+    timings = _call_field("timings")
+    last_strategy = _call_field("last_strategy")
+    last_hash_overflow = _call_field("last_hash_overflow")
+    last_readback_bytes = _call_field("last_readback_bytes")
+
+    @property
+    def limb_reruns(self) -> int:
+        """Queries rerun in exact f64 after a failed limb verdict."""
+        return self.stats.get("limb_reruns", 0)
+
+    def call_state(self) -> dict:
+        """A copy of the calling thread's per-query state."""
+        return {"timings": dict(self.timings), "last_strategy": self.last_strategy,
+                "last_hash_overflow": self.last_hash_overflow,
+                "last_readback_bytes": self.last_readback_bytes}
+
+    def adopt_call(self, call: dict) -> None:
+        """Take over per-query state another thread left for this one."""
+        for k, v in call.items():
+            setattr(self._call, k, v)
+
+    def _reset_call(self) -> None:
+        self.adopt_call({"timings": {}, "last_strategy": None, "last_hash_overflow": False,
+                         "last_readback_bytes": 0})
+
+    def count(self, **deltas) -> None:
+        self.stats.add(**deltas)
 
     @property
     def device(self) -> torch.device:
@@ -96,9 +184,99 @@ class TileExecutor:
 
     # -- public entry --------------------------------------------------------
     def execute(self, lowering, schema, time_bounds, ctx: TileContext):
-        self.timings = {}
-        self.last_strategy = None
-        self.last_hash_overflow = False
+        """The result cache, the batch tick of a warm family, or the solo
+        path."""
+        self._reset_call()
+        bc = self.batch_config
+        if bc is not None:
+            bc.validate()
+        fp = self.plan_fp(lowering, ctx)
+        rc = self._result_cache(bc)
+        ck = None
+        if rc is not None:
+            ck = WindowedResultCache.key_for(fp, lowering, schema, ctx)
+            hit = rc.get(ck)
+            if hit is not None and region_versions(ctx) != ck[3]:
+                # a write landed between the key's snapshot and the probe:
+                # the entry may not be purged yet, and must not serve
+                hit = None
+            if hit is not None:
+                table, lowering.post_done = hit
+                self.count(result_cache_hits=1)
+                return table
+        with self._lock:
+            warm = fp in self._warm
+        if bc is not None and bc.window_ms > 0 and warm:
+            out = self._batcher.submit(lowering, schema, time_bounds, ctx, bc)
+        else:
+            out = self.execute_direct(lowering, schema, time_bounds, ctx)
+        if out is not None:
+            with self._lock:
+                self._warm[fp] = None
+                self._warm.move_to_end(fp)
+                while len(self._warm) > self._FAMILIES_MAX:
+                    self._warm.popitem(last=False)
+            # the dispatch may have read data newer than the key's snapshot
+            # (the leader sleeps out the window): store only a current key
+            if rc is not None and region_versions(ctx) == ck[3]:
+                rc.put(ck, out, lowering.post_done)
+        return out
+
+    def _result_cache(self, bc):
+        """The executor's WindowedResultCache, made the first time
+        `batch.result_cache_mb` is on (None while it is 0)."""
+        if bc is None or bc.result_cache_mb <= 0:
+            return None
+        with self._lock:
+            if self.result_cache is None:
+                self.result_cache = WindowedResultCache(int(bc.result_cache_mb) << 20)
+                self.cache.result_cache = self.result_cache
+            return self.result_cache
+
+    @staticmethod
+    def plan_fp(lowering, ctx: TileContext):
+        """A query family without its literals or data snapshot: the
+        filter structure (column, op, arity), the window's shape, the
+        group shape, the aggregates and the post-ops.  Slid windows and
+        swapped literals stay in the family."""
+        scan = lowering.scan
+        scan_fp = (
+            scan.table, scan.database,
+            None if scan.projection is None else tuple(scan.projection),
+            tuple((f[0], f[1], len(f[2]) if isinstance(f[2], (list, tuple, set, frozenset))
+                   else None) for f in scan.filters),
+            scan.time_range is not None and scan.time_range[0] > -(1 << 61),
+            scan.time_range is not None and scan.time_range[1] < (1 << 61),
+        )
+        return (ctx.table_key, ctx.append_mode, repr((
+            scan_fp, tuple(lowering.group_tags), lowering.bucket, tuple(lowering.agg_specs),
+            lowering.group_exprs, lowering.agg_exprs,
+            tuple(TileExecutor._post_op_fp(op) for op in lowering.post_ops),
+        )))
+
+    @staticmethod
+    def _post_op_fp(op):
+        """One post-op's own fields (its input subtree is covered by the
+        scan, group and aggregate parts of the key): plan reprs are lossy."""
+        return (type(op).__name__, repr({
+            f.name: getattr(op, f.name) for f in dataclasses.fields(op) if f.name != "input"
+        }))
+
+    @staticmethod
+    def family_key(lowering, ctx: TileContext):
+        """A query and its data snapshot: two members of a tick with equal
+        keys would compute the same bytes, so one answers both."""
+        return (ctx.table_key, ctx.append_mode, repr((
+            lowering.scan, tuple(lowering.group_tags), lowering.bucket,
+            tuple(lowering.agg_specs), lowering.group_exprs, lowering.agg_exprs,
+            tuple(TileExecutor._post_op_fp(op) for op in lowering.post_ops),
+        )), region_versions(ctx))
+
+    def execute_direct(self, lowering, schema, time_bounds, ctx: TileContext):
+        """The solo path: one query over the planes, under the table lock.
+        In capture mode it returns a CapturedDispatch, in deferred-fetch
+        mode a PendingFetch."""
+        self._reset_call()
         # refuse an unknown strategy also when the config was changed after
         # it was built
         self.config.validate()
@@ -270,7 +448,11 @@ class TileExecutor:
         for region, _metas, mem_tables in region_sources:
             s = entries.get(region.region_id)
             if s is not None:
-                if s.nbytes > self.cache.budget // 2:
+                # a tick member keeps the other members' planes: the tick
+                # reads all of them at once, and a release would re-upload
+                # them (and rebuild the tick's graph) on every tick
+                if s.nbytes > self.cache.budget // 2 and not (capture_active()
+                                                               or defer_active()):
                     self.cache.release_unneeded(s, need_cols)
                 if plan.time_major:
                     t0 = time.perf_counter()
@@ -336,10 +518,29 @@ class TileExecutor:
         else:
             attempts = [plan, dataclasses.replace(plan, acc_dtype="float64")]
         self.last_strategy = plan.agg_strategy
+        if capture_active():
+            # a tick member: everything before the dispatch is done (plan,
+            # planes, limbs, time-major copies, each synced); the tick
+            # program launches it.  Only the first rung is captured: a
+            # rerun verdict sends the member to its own solo run
+            first = attempts[0]
+            program = tile_program(first, nullable_cols, fspec)
+            return CapturedDispatch(
+                key=(first, nullable_cols, fspec), sources=tuple(device_sources), dyn=dyn,
+                finish=functools.partial(self._finish_fetched, program, first, lowering, ctx,
+                                         dyn_host),
+                call=self.call_state(), regions=[r.region_id for r, _f, _m in region_sources],
+            )
         for attempt in attempts:
             program = tile_program(attempt, nullable_cols, fspec)
             t0 = time.perf_counter()
             packed = program.run_all(device_sources, dyn)
+            if defer_active():
+                # the per-member tick path: the leader reads every member's
+                # leaves back in one copy, then decodes (first rung only)
+                return PendingFetch(packed, functools.partial(
+                    self._finish_fetched, program, attempt, lowering, ctx, dyn_host),
+                    call=self.call_state())
             self._sync()
             self._add_ms("dispatch", t0)
             table = self._finalize(packed, program, attempt, lowering, ctx, dyn_host)
@@ -348,7 +549,7 @@ class TileExecutor:
             if attempt.agg_strategy == "hash":
                 self.last_hash_overflow = True
             else:
-                self.limb_reruns += 1
+                self.count(limb_reruns=1)
         return None
 
     def _dense_fits(self, plan) -> bool:
@@ -370,12 +571,124 @@ class TileExecutor:
         t0 = time.perf_counter()
         fetched = self._fetch_result(packed)
         self._add_ms("readback", t0)
+        return self._finish_fetched(program, plan, lowering, ctx, dyn_host, fetched)
+
+    def _finish_fetched(self, program, plan, lowering, ctx, dyn_host, fetched):
+        """Everything `_finalize` does after the readback, on leaves
+        already on the host (a tick's shared readback); None on a rerun
+        verdict."""
         self.last_readback_bytes = sum(a.nbytes for a in fetched)
         t0 = time.perf_counter()
         try:
             return self._decode_result(fetched, program, plan, lowering, ctx, dyn_host)
         finally:
             self._add_ms("decode", t0)
+
+    # -- the batch tick --------------------------------------------------------
+    def fetch_leaves(self, per_member: list) -> list[tuple]:
+        """The per-member path's one readback: every member's leaves
+        through one device slab and one device -> host copy."""
+        flat = [t for leaves in per_member for t in leaves]
+        if not flat:
+            return [() for _ in per_member]
+        slab = torch.cat([t.contiguous().view(torch.uint8).reshape(-1) for t in flat])
+        host = slab.cpu().numpy()
+        out, off = [], 0
+        for leaves in per_member:
+            mine = []
+            for t in leaves:
+                nb = t.numel() * t.element_size()
+                mine.append(host[off: off + nb].view(np_dtype(t.dtype))
+                            .reshape(tuple(t.shape)).copy())
+                off += nb
+            out.append(tuple(mine))
+        return out
+
+    def finish_pending(self, pending: PendingFetch, fetched) -> tuple:
+        """(decoded table or None, the member's call state) of one member of
+        the per-member path."""
+        self.adopt_call(pending.call)
+        table = pending.finish(fetched)
+        return table, self.call_state()
+
+    def fused_dispatch(self, cds: list[CapturedDispatch], ctx: TileContext) -> tuple[list, list]:
+        """B19: the captured members of one tick through one TickProgram:
+        one replay (one CUDA graph launch on the card), one readback, a
+        decode per member.  Returns per member (in the given order) the
+        decoded table or None (a rerun verdict), and its call state.  The
+        multiset is canonical — members sorted by key — so {A, B} and
+        {B, A} share one program; a slid window (new literals and bounds,
+        the same structure) finds it again.  A capture or replay failure
+        raises.  The replay runs under the table lock, as a solo dispatch
+        does."""
+        order = sorted(range(len(cds)), key=lambda i: repr(cds[i].key))
+        members, encs, sigs = [], [], []
+        for i in order:
+            cd = cds[i]
+            prog = tile_program(*cd.key)
+            sig, enc = prog.encode_inputs(cd.sources, cd.dyn)
+            members.append((prog, cd.sources, cd.dyn))
+            encs.append(enc)
+            sigs.append(sig)
+        key = (tuple(cds[i].key for i in order), tuple(sigs),
+               tuple(_source_identity(cds[i].sources) for i in order))
+        with ctx.dictionary.table_lock:
+            tick = self._tick_program(key, members, set().union(*(cd.regions for cd in cds)))
+            t0 = time.perf_counter()
+            fetched = tick.run(encs)
+            run_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self._trim_ticks_locked()  # its graph's pool is known after the first run
+        self.count(tick_graph_replays=1)
+        tables, calls = [None] * len(cds), [None] * len(cds)
+        decode_ms = []
+        for pos, i in enumerate(order):
+            cd = cds[i]
+            self.adopt_call(cd.call)
+            self.timings["dispatch"] = run_ms
+            self.timings["readback"] = tick.last_stage_ms.get("readback", 0.0)
+            tables[i] = cd.finish(fetched[pos])
+            decode_ms.append(self.timings.get("decode", 0.0))
+            calls[i] = self.call_state()
+        tick.last_stage_ms["decode_ms"] = decode_ms
+        # the tick program of the calling thread's last tick (read by
+        # chip_smoke.py and the tests)
+        self.last_tick = tick
+        return tables, calls
+
+    def _tick_program(self, key, members, regions) -> TickProgram:
+        """The cached TickProgram of a member multiset over these exact
+        sources, or a new one (counted in tick_graph_captures; on the card
+        its first run captures the graph).  The cache is an LRU bounded in
+        bytes, the bytes taken out of the tile cache's budget."""
+        with self._lock:
+            tick = self._ticks.get(key)
+            if tick is not None:
+                self._ticks.move_to_end(key)
+                return tick
+        tick = TickProgram(members, self.device)
+        tick.regions = frozenset(regions)
+        self.count(tick_graph_captures=1)
+        with self._lock:
+            self._ticks[key] = tick
+        return tick
+
+    def _trim_ticks_locked(self) -> None:
+        budget = self.cache.budget // 4
+        used = sum(t.nbytes for t in self._ticks.values())
+        while used > budget and len(self._ticks) > 1:
+            _k, old = self._ticks.popitem(last=False)
+            used -= old.nbytes
+        self.cache.graph_bytes = used
+
+    def _drop_ticks_of(self, region_id: int) -> None:
+        """A plane of the region was replaced or freed: drop every tick
+        program that reads the region (it holds the old planes; its key
+        would never match the new ones)."""
+        with self._lock:
+            for k in [k for k, t in self._ticks.items() if region_id in t.regions]:
+                del self._ticks[k]
+            self.cache.graph_bytes = sum(t.nbytes for t in self._ticks.values())
 
     # -- sources ----------------------------------------------------------------
     def _encode_mem(self, dictionary, table, tag_cols, ts_col, value_cols):
@@ -556,3 +869,18 @@ class TileExecutor:
             tag_values={t: ctx.dictionary.values(t) for t in plan.group_tags}, plan=real,
         )
         return result.to_table()
+
+
+def _source_identity(sources) -> tuple:
+    """What a captured graph reads, by address: every tensor of every
+    source (a new plane, even at a reused address after a drop, is
+    caught by the cache's plane listeners)."""
+    out = []
+    for cols, valid, nulls, limbs in sources:
+        out.append((
+            tuple((k, v.data_ptr()) for k, v in sorted(cols.items())),
+            valid.data_ptr(),
+            tuple((k, v.data_ptr()) for k, v in sorted(nulls.items())),
+            tuple((k, lb.data_ptr(), sc.data_ptr()) for k, (lb, sc) in sorted(limbs.items())),
+        ))
+    return tuple(out)

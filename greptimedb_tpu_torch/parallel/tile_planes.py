@@ -245,6 +245,23 @@ class TileCacheManager:
         self._group_csrs: OrderedDict[tuple, tuple] = OrderedDict()
         # counters: entries built, warm hits, host file decodes, evictions
         self.stats_counts = {"builds": 0, "hits": 0, "decodes": 0, "evictions": 0}
+        # called with a region id whenever a plane of its entry is replaced
+        # or freed: the tile executor drops the tick programs (CUDA graphs)
+        # that read it
+        self.plane_listeners: list = []
+        # device bytes the executor's tick programs hold, out of the budget
+        self.graph_bytes = 0
+        # the executor's windowed result cache, purged per region here
+        self.result_cache = None
+
+    def _planes_changed(self, region_id: int) -> None:
+        for fn in self.plane_listeners:
+            fn(region_id)
+
+    @property
+    def plane_budget(self) -> int:
+        """The budget left for planes beside the tick programs' graphs."""
+        return max(self.budget - self.graph_bytes, 0)
 
     # ---- bookkeeping -------------------------------------------------------
     def stats(self) -> dict:
@@ -273,7 +290,10 @@ class TileCacheManager:
                 keep_file_ids is None or not set(entry.file_ids) <= keep_file_ids
             ):
                 self._used -= self._super.pop(region_id).nbytes
+                self._planes_changed(region_id)
             self._region_versions.pop(region_id, None)
+        if self.result_cache is not None:
+            self.result_cache.purge_region(region_id)
 
     def invalidate_region_if_changed(
         self, region_id: int, keep_file_ids: set[str], manifest_version: int
@@ -307,6 +327,7 @@ class TileCacheManager:
                         table = torch.from_numpy(np.ascontiguousarray(perm, np.int32)).to(
                             self.device)
                         entry.cols[tag] = gather_planes(entry.cols[tag], table, remap=True)
+                        self._planes_changed(entry.region_id)
                         # the time-major copy holds the old codes
                         dropped = entry.tm_cols.pop(tag, None)
                         if dropped is not None:
@@ -327,7 +348,7 @@ class TileCacheManager:
 
     def _reserve_locked(self, est: int, pinned_regions: set[int]):
         """Make room for `est` bytes about to allocate on the device."""
-        if est and self._used > self.budget - est:
+        if est and self._used > self.plane_budget - est:
             saved, self.budget = self.budget, max(self.budget - est, 0)
             try:
                 self._evict_locked(pinned_regions)
@@ -354,6 +375,8 @@ class TileCacheManager:
             entry.nbytes -= freed
             if self._super.get(entry.region_id) is entry:
                 self._used -= freed
+            if freed:
+                self._planes_changed(entry.region_id)
             return freed
 
     def _evict_locked(self, pinned_regions: set[int]):
@@ -361,16 +384,18 @@ class TileCacheManager:
         # unpinned entries (a Parquet decode rebuilds those)
         for entry in list(self._super.values()):
             for key in list(entry.limb_cols):
-                if self._used <= self.budget:
+                if self._used <= self.plane_budget:
                     break
                 freed = _limb_nbytes(entry.limb_cols.pop(key))
                 entry.nbytes -= freed
                 self._used -= freed
-        while self._used > self.budget and len(self._super) > len(pinned_regions):
+                self._planes_changed(entry.region_id)
+        while self._used > self.plane_budget and len(self._super) > len(pinned_regions):
             for rid in list(self._super):
                 if rid not in pinned_regions:
                     self._used -= self._super.pop(rid).nbytes
                     self.stats_counts["evictions"] += 1
+                    self._planes_changed(rid)
                     break
             else:
                 break
@@ -510,6 +535,7 @@ class TileCacheManager:
                     with self._lock:
                         if self._super.get(rid) is entry:
                             self._used -= self._super.pop(rid).nbytes
+                            self._planes_changed(rid)
                     entry = None
                 else:
                     entry = extended
@@ -579,6 +605,7 @@ class TileCacheManager:
                 old = self._super.pop(rid, None)
                 if old is not None and old is not entry:
                     self._used -= old.nbytes
+                    self._planes_changed(rid)
                 self._super[rid] = entry
                 self._used += added
                 self._evict_locked(pinned_regions | {rid})
@@ -743,6 +770,7 @@ class TileCacheManager:
             entry.perm = None
             entry.limb_cols = {}
             entry.nbytes = _entry_device_bytes(entry)
+            self._planes_changed(rid)
             self._used += entry.nbytes - old_dev
             self._evict_locked(pinned_regions | {rid})
         entry.delta_extends += 1

@@ -14,8 +14,11 @@ parallel/tile_executor.py) `try_tile` is tried first: a warm query skips
 the Parquet scan, the re-encode and the upload and runs one tile program
 over the cached planes.  HAVING / ORDER BY / LIMIT the program consumed
 on the card (`Lowering.post_done`) are skipped by the host replay.  When
-the tile path declines, the table-fed path runs.  Distributed state
-shipping is not ported (ROADMAP.md).
+the tile path declines, the table-fed path runs — unless its padded
+group space reaches 2^31, which int32 ids cannot address:
+`distributed_groupby` declines before any upload, `execute` returns None
+and the engine declines the query to the CPU executor.
+Distributed state shipping is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -200,9 +203,10 @@ class DeviceExecutor:
         self.path = "tile"
         return out
 
-    def execute(self, lowering: Lowering, schema: Schema, time_bounds) -> pa.Table:
+    def execute(self, lowering: Lowering, schema: Schema, time_bounds) -> pa.Table | None:
         """time_bounds: callback () -> (min_ts, max_ts) over the scanned data,
-        used when the query has no explicit time range."""
+        used when the query has no explicit time range.  None when the
+        table-fed path cannot take the query's group space (a decline)."""
         from ..parallel.executor import distributed_groupby
 
         table = self.try_tile(lowering, schema, time_bounds)
@@ -240,6 +244,8 @@ class DeviceExecutor:
             device=self.device,
             ts_col=schema.time_index.name if needs_ts and schema.time_index else None,
         )
+        if result is None:
+            return None  # a shape rule: int32 ids cannot address the group space
         t2 = time.perf_counter()
         out = self._shape_output(result.to_table(), lowering, schema)
         self.timings = {

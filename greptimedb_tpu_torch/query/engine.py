@@ -16,14 +16,26 @@ provider, a lowered query tries the device-resident super-tile path first
 engine's device and are built at the first such query.
 
 `stats` counts, per engine: `lowered` (queries answered on the device,
-by either path), `declined` (queries try_lower declined),
+by either path), `declined` (queries try_lower declined, and table-fed
+queries whose padded group space reaches 2^31 — the int32 ids cannot
+hold it),
 `tile_dispatches` (lowered queries the tile path answered) and
 `tile_declined` (lowered queries it declined, answered by the table-fed
 path), and, per query the tile path dispatched, the strategy of its
 first plan, `agg_hash` or `agg_sort`, and `agg_hash_overflow` (hash
 dispatches whose slot table overflowed) — the reference's
-AGG_STRATEGY_TOTAL{strategy} and AGG_HASH_OVERFLOW; `last_timings` holds the per-stage host wall ms of the last
-lowered query and `last_path` which path answered it.
+AGG_STRATEGY_TOTAL{strategy} and AGG_HASH_OVERFLOW; `limb_reruns`
+(tile queries rerun in f64 after a failed limb verdict); and the
+dashboard tick (parallel/batcher.py, the reference's QUERY_BATCH_*):
+`batch_ticks` (ticks of two or more members), `batch_members` (members
+they served), `batch_fused_dispatches` (ticks answered by one tick
+program), `tick_graph_captures` (tick programs built: on the card, a
+CUDA graph captured), `tick_graph_replays` (tick program runs: on the
+card, one graph replay each) and `result_cache_hits` (queries the
+windowed result cache served with no dispatch).  The counters are bumped
+under a lock: the members of a tick run on their own threads.
+`last_timings` holds the per-stage host wall ms of the calling thread's
+last lowered query and `last_path` which path answered it.
 
 PromQL (query/promql/) counts its range evaluations here too:
 `tql_tile_dispatches` (answered by the warm tile program),
@@ -35,10 +47,12 @@ the last TQL statement.
 
 from __future__ import annotations
 
+import threading
+
 import pyarrow as pa
 
 from ..datatypes.schema import Schema
-from ..utils.config import QueryConfig, TileConfig
+from ..utils.config import BatchConfig, QueryConfig, TileConfig
 from .cpu_exec import CpuExecutor
 from .device_exec import DeviceExecutor, try_lower
 from .logical_plan import LogicalPlan
@@ -56,6 +70,7 @@ class QueryEngine:
         config: QueryConfig | None = None,
         tile_context_provider=None,
         tile_config: TileConfig | None = None,
+        batch_config: BatchConfig | None = None,
     ):
         """
         schema_provider(table, database) -> Schema
@@ -66,6 +81,7 @@ class QueryEngine:
         """
         self.config = config or QueryConfig()
         self.tile_config = tile_config or TileConfig()
+        self.batch_config = batch_config or BatchConfig()
         if self.config.backend not in ("torch", "cpu"):
             raise ValueError(
                 f"query backend {self.config.backend!r}: use 'torch' or 'cpu'"
@@ -77,16 +93,36 @@ class QueryEngine:
         self._tile_ctx = tile_context_provider
         self.tile_cache = None
         self._tile_executor = None
-        self.stats = {
+        from ..parallel.tile_executor import Counters
+
+        self.stats = Counters({
             "lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0,
-            "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0,
+            "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0, "limb_reruns": 0,
             "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
-        }
-        # per-stage host wall ms of the last lowered query (DeviceExecutor)
-        self.last_timings: dict[str, float] = {}
-        self.last_path = ""
+            "batch_ticks": 0, "batch_members": 0, "batch_fused_dispatches": 0,
+            "tick_graph_captures": 0, "tick_graph_replays": 0, "result_cache_hits": 0,
+        })
+        self._local = threading.local()
         # per-stage host wall ms of the last TQL statement (query/promql/)
         self.last_tql_timings: dict[str, float] = {}
+
+    # per-stage host wall ms of the calling thread's last lowered query
+    # (DeviceExecutor), and which path answered it
+    @property
+    def last_timings(self) -> dict[str, float]:
+        return getattr(self._local, "timings", {})
+
+    @last_timings.setter
+    def last_timings(self, value) -> None:
+        self._local.timings = value
+
+    @property
+    def last_path(self) -> str:
+        return getattr(self._local, "path", "")
+
+    @last_path.setter
+    def last_path(self, value) -> None:
+        self._local.path = value
 
     def tile_executor(self):
         """The engine's tile executor (built on first use), or None when the
@@ -107,7 +143,8 @@ class QueryEngine:
                 config=self.config,
                 tile_config=self.tile_config,
             )
-            self._tile_executor = TileExecutor(self.tile_cache, self.config)
+            self._tile_executor = TileExecutor(self.tile_cache, self.config,
+                                               batch_config=self.batch_config, stats=self.stats)
         return self._tile_executor
 
     def execute_select(self, stmt: SelectStmt, database: str = "public") -> pa.Table:
@@ -119,7 +156,7 @@ class QueryEngine:
             return self.cpu.execute(plan)
         lowering = try_lower(plan, schema)
         if lowering is None:
-            self.stats["declined"] += 1
+            self.stats.add(declined=1)
             return self.cpu.execute(plan)
         scan = lowering.scan
         tile = self.tile_executor()
@@ -132,12 +169,17 @@ class QueryEngine:
             schema,
             time_bounds=lambda: self._time_bounds(scan.table, scan.database),
         )
-        self.stats["lowered"] += 1
+        if table is None:
+            # the table-fed path declined a shape (a group space past int32)
+            self.stats.add(declined=1)
+            return self.cpu.execute(plan)
+        counts = {"lowered": 1}
         if tile is not None:
-            self.stats["tile_dispatches" if device.path == "tile" else "tile_declined"] += 1
+            counts["tile_dispatches" if device.path == "tile" else "tile_declined"] = 1
             if tile.last_strategy is not None:
-                self.stats["agg_" + tile.last_strategy] += 1
-            self.stats["agg_hash_overflow"] += int(tile.last_hash_overflow)
+                counts["agg_" + tile.last_strategy] = 1
+            counts["agg_hash_overflow"] = int(tile.last_hash_overflow)
+        self.stats.add(**counts)
         self.last_timings = device.timings
         self.last_path = device.path
         return table

@@ -348,7 +348,7 @@ class PromqlEngine:
         stats, _presence = range_windows(src, grid, values=adjusted, layout=layout)
         vals = range_finalize([stats], grid, func).cpu().numpy().reshape(num_series, len(steps))
         qe = self.db.query_engine
-        qe.stats["tql_legacy"] += 1
+        qe.stats.add(tql_legacy=1)
         _add_ms(qe.last_tql_timings, "legacy_device", t0)
         return Matrix(label_names, label_values, vals, steps)
 

@@ -121,9 +121,9 @@ class TqlTileExecutor:
         try:
             out = self._attempt(func, sel, range_ms, start, end, step, agg)
         except _Ineligible:
-            self.qe.stats["tql_tile_declined"] += 1
+            self.qe.stats.add(tql_tile_declined=1)
             return None
-        self.qe.stats["tql_tile_dispatches"] += 1
+        self.qe.stats.add(tql_tile_dispatches=1)
         return out
 
     def _add_ms(self, stage: str, t0: float) -> None:

@@ -17,8 +17,11 @@ that matter:
   reference's, at the configuration the port implements: the passes it
   has not ported do not exist (`query/passes.py`) and behave as disabled.
   `agg_strategy` is "auto" (hash or sort per query), "hash" or "sort",
-  as in the reference.  Persistence of super-tiles, the streamed spill,
-  batching and the mesh have no knobs here.
+  as in the reference.  Persistence of super-tiles, the streamed spill
+  and the mesh have no knobs here.
+* `BatchConfig` is the reference's `batch` section: the dashboard batch
+  tick (parallel/batcher.py) and the windowed result cache, off by
+  default.
 * `TileConfig` holds only `incremental` (delta maintenance of the
   planes on flush); the prewarm, pipelined and fused builds are not
   ported.
@@ -154,8 +157,67 @@ class TqlConfig:
 
 
 @dataclasses.dataclass
+class BatchConfig:
+    """Cross-query device batching + windowed result cache
+    (parallel/batcher.py, hooked into the tile executor).  Everything here
+    defaults off-safe: with `window_ms = 0` and `result_cache_mb = 0`
+    every query runs the solo path bit for bit.
+
+    Warm queries against the same table that arrive within `window_ms`
+    of each other form one tick: with `fuse_programs` the members'
+    programs run as one CUDA graph (one replay, one readback); without
+    it, back to back with one shared readback.  Members share the
+    readback, never each other's math, so results are byte-identical to
+    solo runs; a member whose result carries a rerun verdict (limb bound,
+    hash overflow) runs solo."""
+
+    # Batching window: a warm query waits up to this long for peers to
+    # join its tick.  0 disables batching entirely.
+    window_ms: float = 0.0
+    # Most members one tick may carry; arrivals past the cap start the
+    # next tick rather than queueing behind this one.
+    max_members: int = 16
+    # Windowed result cache budget.  Keyed on (literal-insensitive plan
+    # fingerprint, filter-literal digest, bucket-aligned time window,
+    # per-region manifest version + WAL tail id) so a sliding dashboard
+    # re-serves with no dispatch.  0 disables the cache.
+    result_cache_mb: int = 0
+    # The tick's members as one CUDA graph (B19), keyed on the multiset of
+    # their program keys; literals and bucket geometry ride in device
+    # buffers, so a slid window replays with no recapture.  False runs
+    # the members back to back with one shared readback.
+    fuse_programs: bool = True
+
+    def validate(self) -> None:
+        from .errors import ConfigError
+
+        if self.window_ms < 0:
+            raise ConfigError(
+                "batch.window_ms must be >= 0 milliseconds (0 disables "
+                f"cross-query batching); got {self.window_ms!r}"
+            )
+        if self.max_members < 2:
+            raise ConfigError(
+                "batch.max_members must be >= 2 queries per tick — a one-member "
+                "batch is just a solo dispatch with extra latency; got "
+                f"{self.max_members!r}"
+            )
+        if self.result_cache_mb < 0:
+            raise ConfigError(
+                "batch.result_cache_mb must be >= 0 MB (0 disables the windowed "
+                f"result cache); got {self.result_cache_mb!r}"
+            )
+        if not isinstance(self.fuse_programs, bool):
+            raise ConfigError(
+                "batch.fuse_programs must be a boolean (run a tick's member "
+                f"programs as one CUDA graph); got {self.fuse_programs!r}"
+            )
+
+
+@dataclasses.dataclass
 class Config:
     storage: StorageConfig = dataclasses.field(default_factory=StorageConfig)
     query: QueryConfig = dataclasses.field(default_factory=QueryConfig)
     tql: TqlConfig = dataclasses.field(default_factory=TqlConfig)
     tile: TileConfig = dataclasses.field(default_factory=TileConfig)
+    batch: BatchConfig = dataclasses.field(default_factory=BatchConfig)

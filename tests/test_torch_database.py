@@ -139,8 +139,10 @@ def test_cpu_backend_and_declined_plans_are_counted(tmp_path):
     assert out.to_pylist() == [{"k": "x", "d": 7.0}, {"k": "y", "d": 5.0}]
     assert db.query_engine.stats == {
         "lowered": 0, "declined": 1, "tile_dispatches": 0, "tile_declined": 0,
-        "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0,
+        "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0, "limb_reruns": 0,
         "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
+        "batch_ticks": 0, "batch_members": 0, "batch_fused_dispatches": 0,
+        "tick_graph_captures": 0, "tick_graph_replays": 0, "result_cache_hits": 0,
     }
     db.config.query.backend = "cpu"
     assert db.sql_one("SELECT count(*) AS n FROM m").to_pylist() == [{"n": 3}]
@@ -168,7 +170,9 @@ def test_device_failure_raises_unless_fallback_is_on(tmp_path, monkeypatch):
             db.sql_one("SELECT k, max(v) AS m FROM m GROUP BY k")
     assert db.query_engine.stats == {
         "lowered": 0, "declined": 0, "tile_dispatches": 0, "tile_declined": 0,
-        "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0,
+        "agg_hash": 0, "agg_sort": 0, "agg_hash_overflow": 0, "limb_reruns": 0,
         "tql_tile_dispatches": 0, "tql_tile_declined": 0, "tql_legacy": 0,
+        "batch_ticks": 0, "batch_members": 0, "batch_fused_dispatches": 0,
+        "tick_graph_captures": 0, "tick_graph_replays": 0, "result_cache_hits": 0,
     }
     db.close()
