@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 2] [--tile-reps 5] [--tql-reps 5]
+    python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 1] [--tile-reps 5] [--tql-reps 5]
                           [--container-hours 6] [--container-reps 3] [--tick-reps 5]
+                          [--vector-rows 1000000] [--vector-reps 3]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the eighteen kernel sources of csrc/ for sm_90a (one
+2. build   — builds the nineteen kernel sources of csrc/ for sm_90a (one
              nvcc each, all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
@@ -125,14 +126,33 @@ Phases, each printing one JSON line:
    7c (hash tick) — H1-H4 as one tick (H3 sort, the others hash, K17's
              probe rounds on the card inside the graph), each byte-identical
              to its solo run.
-8. the kernels line (B19's row `tick_program`: its launches are the
+8. vectors — K19 `topk_distances` against its plain version on the card
+             at the slice's shape (ANN-Benchmarks' sift-128-euclidean:
+             1,000,000 x 128, integer values in [0, 255] from the seed,
+             one row in 1,000 a copy of an earlier one), k = 10, 100 and
+             1000, every metric and both orders, byte for byte and twice;
+             on uniform real data within the sums' rounding bound; edge
+             cases (the NaN rules, signed zeros, d = 1/3/128/1024, N = 1,
+             all rows invalid, k past the valid rows, k above the
+             one-block sort).  Timed: K19, the plain version, torch.mv +
+             torch.topk.  Then the slice: the table `sift (ts TIMESTAMP
+             TIME INDEX, id BIGINT, emb VECTOR(128))` (default mode)
+             written through Database.write and flushed, five queries
+             (l2sq LIMIT 10 and 100, cos LIMIT 10, dot DESC LIMIT 10, l2sq
+             LIMIT 10 OFFSET 5) cold and --vector-reps warm, each against
+             a numpy ground truth (exact for l2sq and dot), K19 launched
+             once per run; per stage: region scan, decode_matrix, upload,
+             rank (K19 + readback), take.  Then a small append-mode VECTOR
+             INDEX table: the per-SST IVF route answers
+             (INDEX_VECTOR_APPLIED moves).
+9. the kernels line (B19's row `tick_program`: its launches are the
    replays of phase 5c, its bound its members' traffic), then the last
    line {"ok": true, "device": {...}}.
 
 The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
-and legacy runs, 7's H1-H4 and 7c, and read just after each (a graph
-replay launches the kernels it captured without calling their wrappers:
-phase 5c's and 7c's counts are those of the capture).  It imports neither jax nor the reference package
+and legacy runs, 7's H1-H4, 7c and 8's queries, and read just after each
+(a graph replay launches the kernels it captured without calling their
+wrappers: phase 5c's and 7c's counts are those of the capture).  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
 device is present or when it runs outside a checkout of the repository.
 """
@@ -315,11 +335,12 @@ def kernel_table():
     K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route),
     K13-K16 the tile path's HAVING and plane maintenance, K17 its hash
     group-by, K18 the stable sort of K3's ids (behind the guards, read
-    from the card's verdict)."""
+    from the card's verdict), K19 the vector search's distance + top-k."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
     from greptimedb_tpu_torch.ops import permute as perm
     from greptimedb_tpu_torch.ops import rate
+    from greptimedb_tpu_torch.ops import vector as vec
 
     src = "greptimedb_tpu_torch/csrc/"
     return {
@@ -359,6 +380,8 @@ def kernel_table():
                              "greptimedb_tpu/ops/aggregate.py:118"),
         "segment_sort": (agg.sort_segments, src + "segment_sort.cu",
                          "greptimedb_tpu/ops/aggregate.py:598"),
+        "topk_distances": (vec.topk_distances, src + "topk_distances.cu",
+                           "greptimedb_tpu/ops/vector.py:25"),
     }
 
 
@@ -3179,13 +3202,358 @@ def run_container_tick(db, hours: int, solo_tables: dict, is_cuda: bool, n_ticks
     return out
 
 
+# ---- phase 8: vector search (K19) on a SIFT1M-shaped table -------------------------------
+
+# ANN-Benchmarks' sift-128-euclidean: 1,000,000 base vectors of 128 f32
+# dimensions, recall at k = 10 and 100.  The data is made from the seed:
+# integers in [0, 255] as f32 (SIFT's value range, not its distribution);
+# one row in 1,000 copies an earlier row, so exact ties exist.
+SIFT_ROWS, SIFT_DIM = 1_000_000, 128
+SIFT_TABLE = "sift"
+VECTOR_KS = (10, 100, 1000)
+VEC_METRICS = {"l2sq": "vec_l2sq_distance", "cos": "vec_cos_distance", "dot": "vec_dot_product"}
+U32 = 2.0 ** -24  # f32 unit roundoff
+
+
+def sift_data(rows: int, dim: int, seed: int = SEED):
+    """(base f32 [rows, dim], queries f32 [4, dim]): integer values in
+    [0, 255]; rows 999, 1999, ... copy an earlier row; query 0 equals a
+    stored row that has such a copy, so its nearest distance 0 is a tie."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (rows, dim)).astype(np.float32)
+    dups = np.arange(999, rows, 1000)
+    srcs = (rng.random(dups.size) * dups).astype(np.int64)
+    srcs -= srcs % 1000 == 999  # a source is never a copy itself
+    base[dups] = base[srcs]
+    queries = rng.integers(0, 256, (4, dim)).astype(np.float32)
+    if dups.size:
+        queries[0] = base[srcs[dups.size // 2]]
+    return base, queries
+
+
+def vector_literal(q) -> str:
+    return "[" + ",".join(str(int(x)) for x in q) + "]"
+
+
+def vector_queries(queries, table: str = SIFT_TABLE) -> list[tuple]:
+    """(name, sql, metric, k, offset, descending, query index)."""
+    out = []
+    for name, metric, k, offset, desc, qi in (
+            ("V1 l2sq k10", "l2sq", 10, 0, False, 0), ("V2 l2sq k100", "l2sq", 100, 0, False, 1),
+            ("V3 cos k10", "cos", 10, 0, False, 2), ("V4 dot desc k10", "dot", 10, 0, True, 3),
+            ("V5 l2sq k10 offset 5", "l2sq", 10, 5, False, 1)):
+        sql = (f"SELECT id FROM {table} ORDER BY {VEC_METRICS[metric]}(emb, "
+               f"'{vector_literal(queries[qi])}'){' DESC' if desc else ''} LIMIT {k}"
+               + (f" OFFSET {offset}" if offset else ""))
+        out.append((name, sql, metric, k, offset, desc, qi))
+    return out
+
+
+def vector_truth(base64, ss64, q, metric: str):
+    """f64 distances of every row to q: exact for l2sq and dot on integer
+    data (every partial sum is an integer below 2^53)."""
+    q64 = q.astype(np.float64)
+    dots = base64 @ q64
+    if metric == "dot":
+        return dots
+    if metric == "l2sq":
+        return ss64 - 2.0 * dots + q64 @ q64
+    denom = np.sqrt(ss64) * np.sqrt(q64 @ q64)
+    return 1.0 - np.where(denom > 0, dots / np.maximum(denom, 1e-300), 0.0)
+
+
+def check_vector_result(ids, dist, k: int, offset: int, desc: bool, exact: bool, what: str):
+    """ids against the truth's ranks offset..offset+k (ties to the lower
+    row: np.lexsort((row, d))); exact for l2sq and dot; cos by distance,
+    within 1e-6 of the f64 truth at each rank (the port ranks in f32)."""
+    key = -dist if desc else dist
+    want = np.lexsort((np.arange(dist.size), key))[offset:offset + k]
+    got = np.asarray(ids, dtype=np.int64)
+    if exact:
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: ids {got[:12]} != truth {want[:12]}")
+    elif got.size != want.size or not np.allclose(dist[got], dist[want], rtol=0, atol=1e-6):
+        raise AssertionError(f"{what}: distances {dist[got][:6]} != truth {dist[want][:6]}")
+
+
+def vector_column(mat):
+    """A binary Arrow column of f32-le vectors, built from one buffer."""
+    import pyarrow as pa
+
+    n, d = mat.shape
+    offsets = np.arange(n + 1, dtype=np.int32) * (d * 4)
+    data = np.ascontiguousarray(mat, dtype="<f4").tobytes()
+    return pa.Array.from_buffers(pa.binary(), n, [None, pa.py_buffer(offsets.tobytes()),
+                                                  pa.py_buffer(data)])
+
+
+def ingest_vectors(db, table: str, base, chunk: int = 100_000) -> int:
+    """Rows (ts = T0 + i ms, id = i, emb) through Database.write, then a flush."""
+    import pyarrow as pa
+
+    n = base.shape[0]
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        ids = np.arange(s, e, dtype=np.int64)
+        db.write(table, pa.table({"ts": pa.array(T0 + ids, pa.timestamp("ms")), "id": ids,
+                                  "emb": vector_column(base[s:e])}))
+    db.flush()
+    return n
+
+
+def run_vector_slice(device: str, rows: int, dim: int, reps: int, data_home: str) -> dict:
+    """Phase 8's slice: the SIFT-shaped table in the default mode (one
+    region scan feeds one K19 launch at 100,000 rows and more), the five
+    queries once cold and `reps` times warm, each against a numpy ground
+    truth from the seed data; K19 must launch once per run on the card.
+    Then a small append-mode VECTOR INDEX table, flushed: the IVF route
+    must answer (INDEX_VECTOR_APPLIED moves)."""
+    from greptimedb_tpu_torch import Database
+    from greptimedb_tpu_torch.ops.vector import _DIST_THRESHOLD_ROWS, topk_distances
+
+    is_cuda = device.startswith("cuda")
+    if is_cuda:
+        import torch
+    db = Database(data_home, device=device)
+    base, queries = sift_data(rows, dim)
+    db.sql(f"CREATE TABLE {SIFT_TABLE} (ts TIMESTAMP TIME INDEX, id BIGINT, emb VECTOR({dim}))")
+    t0 = time.perf_counter()
+    ingest_vectors(db, SIFT_TABLE, base)
+    ingest_s = time.perf_counter() - t0
+    emit({"phase": "vector_ingest", "rows": rows, "dim": dim, "seconds": ingest_s,
+          "rows_per_s": rows / ingest_s})
+    base64 = base.astype(np.float64)
+    ss64 = np.einsum("ij,ij->i", base64, base64)
+    per_query = {}
+    reset_counts()  # the vector main path's run starts here
+    for name, sql, metric, k, offset, desc, qi in vector_queries(queries):
+        times, stages = [], []
+        out = None
+        for _ in range(1 + reps):
+            before = topk_distances.launches
+            t1 = time.perf_counter()
+            out = db.sql_one(sql)
+            if is_cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            stages.append(dict(db.last_vector_timings))
+            launched = topk_distances.launches - before
+            if is_cuda and launched != int(rows >= _DIST_THRESHOLD_ROWS):
+                raise AssertionError(f"{name}: K19 launched {launched} times in one run")
+        truth = vector_truth(base64, ss64, queries[qi], metric)
+        check_vector_result(out.column("id").to_numpy(), truth, k, offset, desc,
+                            metric != "cos", name)
+        warm = stages[1:] if reps else stages
+        per_query[name] = {
+            "metric": metric, "k": k, "offset": offset, "rows_out": out.num_rows,
+            "cold_ms": times[0], "warm_p50_ms": float(np.median(times[1:] if reps else times)),
+            "warm_stage_p50_ms": {s: float(np.median([st[s] for st in warm])) for s in warm[0]},
+        }
+        emit({"phase": "vector_query", "name": name, **per_query[name]})
+    totals = launch_counts()  # ... and ends here
+    del base64, ss64
+    ivf = run_vector_ivf(db, is_cuda)
+    db.close()
+    return {"rows": rows, "dim": dim, "ingest_s": ingest_s, "queries": per_query,
+            "launches": totals, "ivf": ivf}
+
+
+def run_vector_ivf(db, is_cuda: bool, rows: int = 3000, dim: int = 16) -> dict:
+    """An append-mode table with a VECTOR INDEX column, flushed: its SST
+    has an IVF sidecar, the search takes the probed candidates
+    (INDEX_VECTOR_APPLIED +1) and ranks them (numpy: below the K19
+    threshold).  The query is a stored row, which must come first, and the
+    five rows lie within the exact top 20 (IVF is approximate)."""
+    from greptimedb_tpu_torch.ops.vector import topk_distances
+    from greptimedb_tpu_torch.storage.sst import INDEX_VECTOR_APPLIED
+
+    rng = np.random.default_rng(SEED + 8)
+    base = rng.integers(0, 256, (rows, dim)).astype(np.float32)
+    db.sql(f"CREATE TABLE sift_ivf (ts TIMESTAMP TIME INDEX, id BIGINT, "
+           f"emb VECTOR({dim}) VECTOR INDEX) WITH (append_mode = 'true')")
+    ingest_vectors(db, "sift_ivf", base)
+    q = base[42]
+    applied, k19 = INDEX_VECTOR_APPLIED.get(), topk_distances.launches
+    t0 = time.perf_counter()
+    out = db.sql_one(f"SELECT id FROM sift_ivf ORDER BY vec_l2sq_distance(emb, "
+                     f"'{vector_literal(q)}') LIMIT 5")
+    ms = (time.perf_counter() - t0) * 1e3
+    applied = INDEX_VECTOR_APPLIED.get() - applied
+    got = out.column("id").to_pylist()
+    near = set(np.argsort(((base.astype(np.float64) - q) ** 2).sum(1), kind="stable")[:20].tolist())
+    if applied < 1 or got[0] != 42 or not set(got) <= near or len(got) != 5:
+        raise AssertionError(f"IVF route: applied {applied}, ids {got}")
+    if topk_distances.launches != k19:
+        raise AssertionError("the IVF table's search launched K19 below its threshold")
+    res = {"rows": rows, "dim": dim, "ms": ms, "index_vector_applied": applied, "ids": got}
+    emit({"phase": "vector_ivf", **res})
+    return res
+
+
+def _vector_bound(n: int, d: int, k: int, metric: str) -> tuple[float, str]:
+    # mat, valid and q read once, dist (4 B) and idx (8 B) written once;
+    # 2 flops per element for the dots, 2 more for sum(mat * mat)
+    return bound(n * d * 4 + n + d * 4 + k * 12, n * d * (2 if metric == "dot" else 4))
+
+
+def _same_topk(a, b, what: str) -> None:
+    """Two (dist, idx) results: equal indices and dist bit for bit."""
+    import torch
+
+    if not torch.equal(a[1].cpu(), b[1].cpu()):
+        bad = int((a[1].cpu() != b[1].cpu()).sum())
+        raise AssertionError(f"{what}: {bad} of {a[1].numel()} indices differ")
+    if not _same_bytes(a[0].cpu(), b[0].cpu()):
+        raise AssertionError(f"{what}: distances differ in their bits")
+
+
+def run_vector_kernel_phase(rows: int, dim: int, reps: int) -> dict:
+    """Phase 8's kernels: K19 against its plain version on the card at the
+    slice's shape (the SIFT-shaped rows, one row in 4099 invalid and
+    zero-filled), k = 10, 100 and 1000, every metric, both orders: the
+    same bytes (integer data: every sum is exact), twice; then uniform
+    [0, 1) data, where the two add in different orders: distances within
+    2 d 2^-24 of the terms' magnitude, indices equal wherever neighbours
+    are further apart than that.  Timed: K19, the plain version, and
+    torch.mv + torch.topk (the yardstick)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import vector as V
+
+    dev = torch.device("cuda", 0)
+    base, queries = sift_data(rows, dim)
+    valid_np = np.ones(rows, dtype=bool)
+    valid_np[::4099] = False
+    base[~valid_np] = 0.0
+    mat = torch.from_numpy(base).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    qs = [torch.from_numpy(q).to(dev) for q in queries]
+    out = {"ms": {}, "plain_ms": {}, "library_ms": {}, "bound_ms": {}}
+    for metric in VEC_METRICS:
+        for k in VECTOR_KS:
+            for asc in (True, False):
+                q = qs[0 if asc else 3]
+                args = (mat, valid, q, metric, k, asc)
+                got = _twice_identical(lambda: V.topk_distances(*args), f"topk_distances {metric}")
+                _same_topk(got, V.topk_distances_plain(*args), f"topk_distances {metric} k={k} asc={asc}")
+            key = f"{metric} k={k}"
+            args = (mat, valid, qs[0], metric, k, True)
+            out["ms"][key] = _timed(lambda: V.topk_distances(*args), reps)
+            out["plain_ms"][key] = _timed(lambda: V.topk_distances_plain(*args), max(reps // 2, 1))
+            out["library_ms"][key] = _timed(
+                lambda: torch.topk(torch.mv(mat, qs[0]), k, largest=False), reps)
+            out["bound_ms"][key] = _vector_bound(rows, dim, k, metric)[0]
+            emit({"phase": "vector_kernel", "case": key, "ms": out["ms"][key],
+                  "plain_ms": out["plain_ms"][key], "library_ms": out["library_ms"][key],
+                  "bound_ms": out["bound_ms"][key]})
+    # real data: f32 sums in other orders
+    rng = np.random.default_rng(SEED + 9)
+    real = torch.from_numpy(rng.random((rows, dim), dtype=np.float32)).to(dev)
+    qr = torch.from_numpy(rng.random(dim, dtype=np.float32)).to(dev)
+    worst, swaps = 0.0, 0
+    for metric in VEC_METRICS:
+        args = (real, valid, qr, metric, 100, metric != "dot")
+        kd, ki = _twice_identical(lambda: V.topk_distances(*args), f"topk_distances real {metric}")
+        pd, pi = V.topk_distances_plain(*args)
+        rows_k = real[ki].double()
+        terms = rows_k * qr.double()
+        if metric == "dot":
+            scale = terms.abs().sum(1)
+        elif metric == "l2sq":
+            scale = (rows_k * rows_k).sum(1) + 2 * terms.abs().sum(1) + (qr.double() ** 2).sum()
+        else:
+            scale = torch.ones_like(kd, dtype=torch.float64)
+        tol = 2 * dim * U32 * scale
+        diff = (kd.double() - pd.double()).abs()
+        if bool((diff > tol).any()):
+            raise AssertionError(f"real {metric}: K19 and plain differ by {float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+        moved = ki != pi
+        swaps += int(moved.sum())
+        # a different row at a rank is a near-tie: its distance within tol
+        if bool(moved.any()) and bool((diff[moved] > tol[moved]).any()):
+            raise AssertionError(f"real {metric}: indices differ beyond near-ties")
+    out["real_max_abs_err"], out["real_near_tie_swaps"] = worst, swaps
+    del real, qr
+    main = "l2sq k=10"
+    b, by = _vector_bound(rows, dim, 10, "l2sq")
+    res = {"max_abs_err": worst, "ms": out["ms"][main], "plain_ms": out["plain_ms"][main],
+           "library_ms": out["library_ms"][main], "bound_ms": b, "bound_by": by,
+           "rows": rows, "dim": dim, "per_case": out}
+    del mat, valid, qs
+    torch.cuda.empty_cache()
+    res["large_k"] = run_vector_edge_cases(dev, reps)
+    return res
+
+
+def run_vector_edge_cases(dev, reps: int) -> dict:
+    """K19 against its plain version on the card and on the host (the form
+    the CPU tests hold against the JAX package): the NaN rules, signed
+    zeros, d = 1, 3, 128 and 1024, N = 1 and N off every block size, all
+    rows invalid, k past the valid rows, k = N past the one-block sort
+    (its radix passes), duplicates and both orders, twice each."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import vector as V
+
+    rng = np.random.default_rng(SEED + 10)
+    nan, neg_nan = np.float32(np.nan), -np.float32(np.nan)
+    cases = []
+    special = np.array([[1, 0], [nan, 0], [0, 0], [1, 0], [np.inf, 0], [neg_nan, 0],
+                        [-np.inf, 0], [0, 1]], np.float32)
+    cases.append(("nan rules", special, np.ones(8, bool), np.array([1, 0], np.float32)))
+    cases.append(("query nan", special[[0, 2, 3, 7]], np.ones(4, bool),
+                  np.array([nan, 1], np.float32)))
+    cases.append(("signed zeros, d=1", np.array([[-0.0], [0.0], [-1.0], [2.0], [-0.0]], np.float32),
+                  np.ones(5, bool), np.array([1.0], np.float32)))
+    for d, hi in ((1, 256), (3, 256), (128, 256), (1024, 16)):
+        n = 4099
+        m = rng.integers(0, hi, (n, d)).astype(np.float32)
+        m[rng.integers(0, n, 40)] = m[rng.integers(0, n, 40)]  # duplicates
+        v = rng.random(n) < 0.9
+        m[~v] = 0.0
+        cases.append((f"d={d}", m, v, rng.integers(0, hi, d).astype(np.float32)))
+    cases.append(("N=1", np.array([[3, 4]], np.float32), np.ones(1, bool), np.array([1, 1], np.float32)))
+    cases.append(("all invalid", np.zeros((300, 4), np.float32), np.zeros(300, bool),
+                  np.ones(4, np.float32)))
+    few = rng.integers(0, 256, (100, 8)).astype(np.float32)
+    fv = np.zeros(100, bool)
+    fv[rng.choice(100, 30, replace=False)] = True
+    few[~fv] = 0.0
+    cases.append(("k past the valid rows", few, fv, rng.integers(0, 256, 8).astype(np.float32)))
+    big = rng.integers(0, 256, (5000, 16)).astype(np.float32)
+    cases.append(("k = N = 5000", big, np.ones(5000, bool), rng.integers(0, 256, 16).astype(np.float32)))
+    for what, m, v, q in cases:
+        n = m.shape[0]
+        ks = sorted({1, min(7, n), n} | ({2049} if n > 2049 else set()) | ({50} if n == 100 else set()))
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (m, v, q)]
+        for metric in VEC_METRICS:
+            for k in ks:
+                for asc in (True, False):
+                    args = (*t, metric, k, asc)
+                    got = _twice_identical(lambda: V.topk_distances(*args), f"edge {what}")
+                    _same_topk(got, V.topk_distances_plain(*args), f"edge {what} {metric} k={k} asc={asc}")
+                    _same_topk(got, V.topk_distances_plain(*(x.cpu() for x in t), metric, k, asc),
+                               f"edge {what} {metric} k={k} asc={asc} (host)")
+    # k past the one-block sort at the slice's width: the radix passes
+    base, queries = sift_data(SIFT_ROWS // 10, SIFT_DIM)
+    t = [torch.from_numpy(base).to(dev), torch.ones(base.shape[0], dtype=torch.bool, device=dev),
+         torch.from_numpy(queries[0]).to(dev)]
+    args = (*t, "l2sq", 10_000, True)
+    _same_topk(_twice_identical(lambda: V.topk_distances(*args), "edge large k"),
+               V.topk_distances_plain(*args), "edge k=10000")
+    large_k = {"rows": base.shape[0], "k": 10_000, "ms": _timed(lambda: V.topk_distances(*args), reps)}
+    emit({"phase": "vector_edge_cases", "ok": True, "large_k": large_k})
+    return large_k
+
+
 # ---- main ------------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=12)
     ap.add_argument("--hosts", type=int, default=4000)
-    ap.add_argument("--reps", type=int, default=2, help="warm runs per query, table-fed path")
+    ap.add_argument("--reps", type=int, default=1, help="warm runs per query, table-fed path")
     ap.add_argument("--tile-reps", type=int, default=5, help="warm runs per query, tile path")
     ap.add_argument("--kernel-reps", type=int, default=10, help="timed launches per kernel")
     ap.add_argument("--tql-reps", type=int, default=5, help="warm runs per TQL query, tile path")
@@ -3195,6 +3563,10 @@ def main(argv=None) -> int:
                     help="warm runs per container query, tile path")
     ap.add_argument("--tick-reps", type=int, default=5,
                     help="dashboard ticks before and after the slide (phase 5c)")
+    ap.add_argument("--vector-rows", type=int, default=SIFT_ROWS,
+                    help="rows of the SIFT-shaped vector table (phase 8)")
+    ap.add_argument("--vector-reps", type=int, default=3,
+                    help="warm runs per vector query (phase 8)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3281,6 +3653,18 @@ def main(argv=None) -> int:
               "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in cm["queries"].items()},
               "cold_ms": {k: v["cold_ms"] for k, v in cm["queries"].items()},
               "overflow_ms": cm["overflow_ms"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        vk = run_vector_kernel_phase(args.vector_rows, SIFT_DIM, args.kernel_reps)
+        kstats["topk_distances"] = vk
+        vs = run_vector_slice("cuda", args.vector_rows, SIFT_DIM, args.vector_reps,
+                              os.path.join(work, "vectors"))
+        emit({"phase": "vectors", "seconds": time.perf_counter() - t0, "rows": vs["rows"],
+              "card": smi, "ingest_s": vs["ingest_s"],
+              "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in vs["queries"].items()},
+              "cold_ms": {k: v["cold_ms"] for k, v in vs["queries"].items()},
+              "k19_ms": vk["per_case"]["ms"], "ivf_ms": vs["ivf"]["ms"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3307,6 +3691,19 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} never launched on the hash path (phase 7)")
     for name, (_fn, source, replaces) in kernel_table().items():
         s = kstats[name]
+        if name == "topk_distances":
+            # K19: its launches on phase 8's vector queries, one per run
+            launches = vs["launches"][name]
+            if launches == 0:
+                raise AssertionError("kernel topk_distances never launched on the vector path")
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                "library_ms": s["library_ms"], "rows": s["rows"], "dim": s["dim"],
+                "per_case": s["per_case"], "large_k": s["large_k"],
+            })
+            continue
         if name == "hash_group_slots":
             # K17: its launches on phase 7's H1-H4
             kernels.append({

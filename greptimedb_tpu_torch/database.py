@@ -6,7 +6,11 @@ slice runs: catalog + TimeSeriesEngine (WAL -> memtable -> Parquet SSTs)
 and the per-table tag dictionaries (data_home/dicts/) the device tile
 cache encodes with.  Statements: CREATE DATABASE, CREATE TABLE,
 DROP TABLE, INSERT ... VALUES, SELECT, and TQL EVAL (PromQL,
-query/promql/).  Everything else the reference's facade does
+query/promql/).  `ORDER BY vec_*_distance(col, literal) LIMIT k` over a
+bare scan is answered by `_vector_search` (per-SST IVF candidates on
+append-mode tables, then `ops/vector.py::topk_host` on this Database's
+device; `last_vector_timings` holds its host ms per stage).  Everything
+else the reference's facade does
 (ALTER/DELETE/COPY, views, flows, the metric engine, information_schema,
 sessions and admission) is cut and listed in ROADMAP.md.
 
@@ -75,7 +79,10 @@ class Database:
             tile_context_provider=self._tile_context,
             tile_config=self.config.tile,
             batch_config=self.config.batch,
+            vector_search_provider=self._vector_search,
         )
+        # host ms per stage of the last vector search (_vector_search)
+        self.last_vector_timings: dict[str, float] = {}
         self._reopen_regions()
 
     @property
@@ -233,6 +240,82 @@ class Database:
             return meta.schema.to_arrow().empty_table()
         return pa.concat_tables(tables, promote_options="permissive")
 
+    def _vector_search(self, vs) -> pa.Table:
+        """Top-k nearest rows for a VectorSearch node.
+
+        Append-mode regions consult the per-SST IVF index (reference
+        vector-index applier): distances are computed only over the probed
+        candidate rows; dedup-mode regions rank the authoritative merged
+        scan (last-write-wins must win before ranking).  Rows with NULL
+        vectors are excluded from the top-k, like the reference's index
+        search.  Every table the port has is backed by its own regions, so
+        a missing region raises (the reference's whole-table fallback is
+        for virtual and logical tables, which the port lacks)."""
+        import time
+
+        import numpy as np
+
+        from .ops.vector import topk_host
+        from .query.vector import decode_matrix
+        from .storage.sst import INDEX_VECTOR_APPLIED, _apply_residual
+
+        q = np.frombuffer(vs.query, dtype="<f4")
+        timings = {"scan": 0.0, "decode": 0.0, "upload": 0.0, "rank": 0.0, "take": 0.0}
+        self.last_vector_timings = timings
+
+        def ms_since(t0: float) -> float:
+            return (time.perf_counter() - t0) * 1e3
+
+        def topk_of(table: pa.Table) -> pa.Table:
+            if table.num_rows == 0 or vs.column not in table.column_names:
+                # pre-ALTER data may lack the vector column entirely: those
+                # rows have NULL vectors and never rank
+                return table.schema.empty_table() if table.num_rows else table
+            t0 = time.perf_counter()
+            mat, valid = decode_matrix(table[vs.column], len(q))
+            timings["decode"] += ms_since(t0)
+            _dist, sel = topk_host(mat, valid, q, vs.metric, vs.k, vs.ascending,
+                                   device=self.device, timings=timings)
+            t0 = time.perf_counter()
+            out = table.take(pa.array(np.sort(sel)))
+            timings["take"] += ms_since(t0)
+            return out
+
+        meta = self.catalog.table(vs.scan.table, vs.scan.database)
+        out: list[pa.Table] = []
+        pred = self._pred_of(vs.scan)
+        regions = [self.storage.region(rid) for rid in meta.region_ids]
+        for region in regions:
+            if region.append_mode:
+                # per-SST IVF candidates + memtable brute force; no dedup to
+                # disturb in append mode
+                for fm in region.sst_reader.prune_files(region.files(), pred):
+                    t0 = time.perf_counter()
+                    t = region.sst_reader.read(fm, pred)
+                    timings["scan"] += ms_since(t0)
+                    vi = region.sst_reader.vector_index(fm, vs.column)
+                    if vi is not None and t.num_rows == fm.num_rows:
+                        cand = vi.candidates(q, nprobe=8)
+                        if len(cand) >= min(vs.k, vi.n) and len(cand) < t.num_rows:
+                            INDEX_VECTOR_APPLIED.inc()
+                            t = t.take(pa.array(np.sort(cand)))
+                    out.append(topk_of(t))
+                ts_name = meta.schema.time_index.name if meta.schema.time_index else None
+                for mem in [*region._frozen_memtables, region.memtable]:
+                    t0 = time.perf_counter()
+                    mt = _apply_residual(mem.to_table(dedup=False), pred, ts_name)
+                    timings["scan"] += ms_since(t0)
+                    out.append(topk_of(mt))
+            else:
+                t0 = time.perf_counter()
+                t = region.scan(pred)
+                timings["scan"] += ms_since(t0)
+                out.append(topk_of(t))
+        tables = [t for t in out if t.num_rows]
+        if not tables:
+            return meta.schema.to_arrow().empty_table()
+        return pa.concat_tables(tables, promote_options="permissive")
+
     def _tile_context(self, scan: TableScan):
         """TileContext of a scan for the device tile cache, or None when the
         scan has no table to tile."""
@@ -303,13 +386,26 @@ def build_schema_and_rule(stmt: CreateTableStmt):
             sem = SemanticType.TAG
         else:
             sem = SemanticType.FIELD
+        dt = ConcreteDataType.parse(c.type_name)
+        vdim = None
+        if dt == ConcreteDataType.VECTOR:
+            import re
+
+            m = re.match(r"vector\s*\(\s*(\d+)\s*\)", c.type_name.strip().lower())
+            if not m:
+                raise InvalidArgumentsError(
+                    f"VECTOR column {c.name!r} needs a dimension: VECTOR(n)"
+                )
+            vdim = int(m.group(1))
         columns.append(
             ColumnSchema(
                 name=c.name,
-                data_type=ConcreteDataType.parse(c.type_name),
+                data_type=dt,
                 semantic_type=sem,
                 nullable=c.nullable and sem == SemanticType.FIELD,
                 default=c.default,
+                vector_dim=vdim,
+                vector_index=c.vector_index,
             )
         )
     if time_index is None:
@@ -354,6 +450,14 @@ def rows_to_columns(rows: list, columns: list[str]) -> dict:
 
 def _coerce_array(values: list, col: ColumnSchema) -> pa.Array:
     t = col.data_type.to_arrow()
+    if col.data_type == ConcreteDataType.VECTOR:
+        from .query.vector import parse_vector_literal
+
+        coerced = [
+            None if v is None else (v if isinstance(v, bytes) else parse_vector_literal(v, col.vector_dim))
+            for v in values
+        ]
+        return pa.array(coerced, t)
     if col.data_type.is_timestamp():
         unit_ms = col.data_type.timestamp_unit_ns() // 1_000_000
         if all(v is None or type(v) is int for v in values):

@@ -40,6 +40,7 @@ KERNEL_SOURCES = (
     "delta_patch",
     "hash_group_slots",
     "segment_sort",
+    "topk_distances",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -149,6 +150,7 @@ _EXPORTS = {
     "delta_patch": ("gt_delta_patch",),
     "hash_group_slots": ("gt_hash_init", "gt_hash_rounds"),
     "segment_sort": ("gt_segment_sort",),
+    "topk_distances": ("gt_topk_distances",),
 }
 
 

@@ -71,6 +71,7 @@ class QueryEngine:
         tile_context_provider=None,
         tile_config: TileConfig | None = None,
         batch_config: BatchConfig | None = None,
+        vector_search_provider=None,
     ):
         """
         schema_provider(table, database) -> Schema
@@ -78,6 +79,8 @@ class QueryEngine:
         region_scan_provider(scan) -> list[pa.Table]         (one per region)
         time_bounds_provider(table, database) -> (min_ts, max_ts)
         tile_context_provider(scan) -> TileContext | None    (the tile path)
+        vector_search_provider(vs: VectorSearch) -> pa.Table (top-k rows;
+            the CPU executor calls it on either backend, as the reference)
         """
         self.config = config or QueryConfig()
         self.tile_config = tile_config or TileConfig()
@@ -87,7 +90,7 @@ class QueryEngine:
                 f"query backend {self.config.backend!r}: use 'torch' or 'cpu'"
             )
         self.schema_of = schema_provider
-        self.cpu = CpuExecutor(scan_provider)
+        self.cpu = CpuExecutor(scan_provider, vector_search_provider)
         self._region_scan = region_scan_provider
         self._time_bounds = time_bounds_provider
         self._tile_ctx = tile_context_provider

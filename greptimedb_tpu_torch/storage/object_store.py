@@ -19,6 +19,13 @@ class ObjectStore:
     def read(self, key: str) -> bytes:
         raise NotImplementedError
 
+    def read_range(self, key: str, offset: int, length: int) -> bytes:
+        """`length` bytes at `offset` (a puffin sidecar's footer and blobs)."""
+        return self.read(key)[offset : offset + length]
+
+    def size(self, key: str) -> int:
+        return len(self.read(key))
+
     def write(self, key: str, data: bytes) -> None:
         """Atomic full-object write."""
         raise NotImplementedError
@@ -63,6 +70,14 @@ class FsObjectStore(ObjectStore):
     def read(self, key: str) -> bytes:
         with open(self._p(key), "rb") as f:
             return f.read()
+
+    def read_range(self, key: str, offset: int, length: int) -> bytes:
+        with open(self._p(key), "rb") as f:
+            f.seek(offset)
+            return f.read(length)
+
+    def size(self, key: str) -> int:
+        return os.path.getsize(self._p(key))
 
     def write(self, key: str, data: bytes) -> None:
         path = self._p(key)

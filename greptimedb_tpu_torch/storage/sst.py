@@ -6,11 +6,19 @@ Parquet files with min/max time statistics used to prune whole files and row
 groups at scan time.  We persist data in the reference's "flat format"
 (flat_format.rs) spirit — plain columnar, tags as dictionary-encoded
 columns — because flat columns are exactly what the device tile loader wants.
+
+Each SST with `VECTOR INDEX` columns gets a puffin sidecar
+(`{file_id}.puffin`) holding one IVF-flat blob per such column, built
+while the file is written (the reference's `_build_indexes`, its vector
+loop; the other index kinds wait for A7, see storage/index.py).
+`SstReader.vector_index` parses a file's blob once and caches it.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import threading
 import uuid
 from dataclasses import dataclass, field
 
@@ -19,9 +27,38 @@ import pyarrow.compute as pc
 import pyarrow.parquet as pq
 
 from ..datatypes.schema import Schema
+from . import index as idx
+from .index import VECTOR_BLOB
 from .object_store import FsObjectStore, ObjectStore
+from .puffin import PuffinReader, PuffinWriter
 
 DEFAULT_ROW_GROUP_SIZE = 1 << 20  # rows per row group; big groups = big tiles
+
+log = logging.getLogger("greptimedb_tpu_torch.index")
+
+
+class Counter:
+    """A process-wide event count (the reference's metrics.Counter, without
+    the exposition): `inc()` and `get()`."""
+
+    def __init__(self, name: str, help_text: str = ""):
+        self.name = name
+        self.help = help_text
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    def get(self) -> int:
+        return self._value
+
+
+INDEX_VECTOR_APPLIED = Counter(
+    "greptime_index_vector_applied_total",
+    "top-k vector searches answered via the IVF index",
+)
 
 
 @dataclass
@@ -89,6 +126,27 @@ class SstWriter:
         self.schema = schema
         self.row_group_size = row_group_size
 
+    def _build_indexes(self, table: pa.Table, file_id: str) -> tuple[list[str], int]:
+        """Build the IVF-flat index of every VECTOR INDEX column into the
+        puffin sidecar; returns (indexed columns, sidecar bytes)."""
+        vec_cols = [
+            c
+            for c in self.schema.columns
+            if c.vector_index and c.name in table.column_names
+        ]
+        if not vec_cols:
+            return [], 0
+        writer = PuffinWriter(self.store, f"{file_id}.puffin")
+        indexed = []
+        for c in vec_cols:
+            col = table[c.name]
+            col = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
+            vec = idx.build_vector_index(col, c.vector_dim or 0)
+            if vec is not None:
+                writer.add_blob(VECTOR_BLOB, vec, {"column": c.name})
+                indexed.append(c.name)
+        return indexed, writer.finish()
+
     def write(self, table: pa.Table, level: int = 0) -> FileMeta | None:
         """Write one sorted table as one SST file; returns its FileMeta."""
         if table.num_rows == 0:
@@ -128,14 +186,51 @@ class SstWriter:
         )
         file_size = os.path.getsize(scratch)
         self.store.put_file(key, scratch)
+        try:
+            indexed, index_size = self._build_indexes(table, file_id)
+        except Exception as e:  # noqa: BLE001 — as the reference: an index
+            # build failure must never lose the data write; the SST lands
+            # without a sidecar (searched exactly) and the failure is loud
+            log.warning("index build for %s failed; SST written unindexed: %s", file_id, e)
+            indexed, index_size = [], 0
         return FileMeta(
             file_id=file_id,
             time_range=(t_min, t_max),
             num_rows=table.num_rows,
             file_size=file_size,
             level=level,
+            indexed_columns=indexed,
+            index_file_size=index_size,
             num_deletes=num_deletes,
         )
+
+
+_INDEX_CACHE = idx.IndexCache(capacity=128)
+
+
+class _VectorSidecar:
+    """One SST's puffin sidecar, its vector blobs parsed once each (the
+    reference's TermIndexReader, its vector route only)."""
+
+    def __init__(self, store: ObjectStore, file_id: str):
+        self.file_id = file_id
+        self._puffin = PuffinReader(store, f"{file_id}.puffin", ranged=True)
+        self._parsed: dict[str, idx.VectorIndex | None] = {}
+
+    def vector_index(self, column: str) -> idx.VectorIndex | None:
+        if column in self._parsed:
+            return self._parsed[column]
+        out = None
+        try:
+            bm = self._puffin.find(VECTOR_BLOB, column=column)
+            if bm is not None:
+                out = idx.VectorIndex(self._puffin.read_blob(bm))
+        except Exception as e:  # noqa: BLE001 — as the reference: a broken
+            # sidecar degrades to an exact search of the file, never a failure
+            log.warning("vector index %s of %s unreadable: %s", column, self.file_id, e)
+            out = None
+        self._parsed[column] = out
+        return out
 
 
 class SstReader:
@@ -148,6 +243,19 @@ class SstReader:
         writer) from the store."""
         self.store.delete(f"{file_id}.parquet")
         self.store.delete(f"{file_id}.puffin")
+
+    def vector_index(self, meta: FileMeta, column: str) -> idx.VectorIndex | None:
+        """Parsed per-SST IVF index for `column`, or None."""
+        if not meta.indexed_columns:
+            return None
+        key = f"{getattr(self.store, 'root', id(self.store))}/{meta.file_id}"
+        sidecar = _INDEX_CACHE.get(key)
+        if sidecar is None:
+            if not self.store.exists(f"{meta.file_id}.puffin"):
+                return None
+            sidecar = _VectorSidecar(self.store, meta.file_id)
+            _INDEX_CACHE.put(key, sidecar)
+        return sidecar.vector_index(column)
 
     def prune_files(self, files: list[FileMeta], pred: ScanPredicate) -> list[FileMeta]:
         """File-level pruning on time range (whole-file min/max)."""

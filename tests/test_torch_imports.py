@@ -41,7 +41,9 @@ def test_imports_with_jax_and_reference_blocked():
         "assert {'greptimedb_tpu_torch.ops.rate', 'greptimedb_tpu_torch.query.promql.engine',\n"
         "        'greptimedb_tpu_torch.query.promql.parser',\n"
         "        'greptimedb_tpu_torch.query.promql.tile_exec',\n"
-        "        'greptimedb_tpu_torch.ops.permute'} <= set(names), names\n"
+        "        'greptimedb_tpu_torch.ops.permute', 'greptimedb_tpu_torch.ops.vector',\n"
+        "        'greptimedb_tpu_torch.storage.puffin',\n"
+        "        'greptimedb_tpu_torch.storage.index'} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'greptimedb_tpu.'))\n"
