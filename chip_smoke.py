@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 1] [--tile-reps 5] [--tql-reps 5]
                           [--container-hours 6] [--container-reps 3] [--tick-reps 5]
                           [--vector-rows 1000000] [--vector-reps 3]
+                          [--sketch-hours 12] [--sketch-reps 1]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the nineteen kernel sources of csrc/ for sm_90a (one
+2. build   — builds the twenty-one kernel sources of csrc/ for sm_90a (one
              nvcc each, all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
@@ -145,12 +146,35 @@ Phases, each printing one JSON line:
              rank (K19 + readback), take.  Then a small append-mode VECTOR
              INDEX table: the per-SST IVF route answers
              (INDEX_VECTOR_APPLIED moves).
-9. the kernels line (B19's row `tick_program`: its launches are the
+9. sketches — K20 `segment_hll` and K21 `segment_udd` against their plain
+             versions on the card, byte for byte and twice, over the TSBS
+             rows (--hosts x --sketch-hours, in (hostname, ts) order):
+             K20 over hll_inputs(hash64(usage_user)) by host at p = 12 and
+             14 and by hour, K21 over udd_bucket_ids(usage_user) at B = 128
+             and 1024 by host, one row in 100 masked; timed beside the plain
+             version and the library call (`scatter_reduce_` amax /
+             `index_add_` over the flat ids); K20's registers equal the host
+             `hll_build_grouped`.  The main path: the rows as 4 host-range
+             shards, K20/K21 per shard folded in shard order (torch.maximum,
+             +), equal to the single pass; the estimates against the seed
+             data.  Edge cases (the int32 wrap, out-of-range gids, rho <= 0,
+             masked rows, G = 1, N = 0, every row on one register / bucket,
+             G * width past 2^31).  Then the slice: the TSBS table through
+             Database.write (WAL on), flushed, and S1-S5 (active hosts per
+             hour, per-host p99, per-host HLL states, the table's hosts and
+             median, the hourly states stored in a BINARY table and merged)
+             through Database.sql, cold and --sketch-reps warm, each declined
+             to the CPU executor (as in the reference) and held to the
+             reference test's bars (hll_count within 5 %, uddsketch_calc
+             within 10 % of the seed data's answer); S3's states are K20's
+             registers and S5's merged state is S4's, byte for byte.
+10. the kernels line (B19's row `tick_program`: its launches are the
    replays of phase 5c, its bound its members' traffic), then the last
    line {"ok": true, "device": {...}}.
 
 The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
-and legacy runs, 7's H1-H4, 7c and 8's queries, and read just after each
+and legacy runs, 7's H1-H4, 7c, 8's queries, 9's two-step path and 9's
+queries (which launch nothing), and read just after each
 (a graph replay launches the kernels it captured without calling their
 wrappers: phase 5c's and 7c's counts are those of the capture).  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
@@ -335,11 +359,13 @@ def kernel_table():
     K9-K12 TQL (K9-K11 on both of its routes, K12 on the tile route),
     K13-K16 the tile path's HAVING and plane maintenance, K17 its hash
     group-by, K18 the stable sort of K3's ids (behind the guards, read
-    from the card's verdict), K19 the vector search's distance + top-k."""
+    from the card's verdict), K19 the vector search's distance + top-k,
+    K20/K21 the device builds of the HLL and UDDSketch states."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
     from greptimedb_tpu_torch.ops import permute as perm
     from greptimedb_tpu_torch.ops import rate
+    from greptimedb_tpu_torch.ops import sketch as sk
     from greptimedb_tpu_torch.ops import vector as vec
 
     src = "greptimedb_tpu_torch/csrc/"
@@ -382,6 +408,10 @@ def kernel_table():
                          "greptimedb_tpu/ops/aggregate.py:598"),
         "topk_distances": (vec.topk_distances, src + "topk_distances.cu",
                            "greptimedb_tpu/ops/vector.py:25"),
+        "segment_hll": (sk.segment_hll, src + "segment_hll.cu",
+                        "greptimedb_tpu/ops/sketch.py:185"),
+        "segment_udd": (sk.segment_udd, src + "segment_udd.cu",
+                        "greptimedb_tpu/ops/sketch.py:403"),
     }
 
 
@@ -1738,6 +1768,32 @@ def compare_tables(dev_t, cpu_t, query: str, tol: float = 1e-12, inexact=(),
     return worst
 
 
+def tsbs_chunks(tsbs: Tsbs):
+    """The TSBS cpu-only rows from the seed, in the chunks `ingest` writes:
+    (ts int64 [rows], host index [rows], {metric: f64 [rows]}), each chunk
+    tick-major (every host at one tick, then the next tick)."""
+    n_hosts = tsbs.n_hosts
+    rng = np.random.default_rng(SEED)
+    ticks_total = tsbs.hours * 3600 // SCRAPE_S
+    chunk_ticks = max(1, 2_000_000 // n_hosts)
+    for start in range(0, ticks_total, chunk_ticks):
+        ticks = min(chunk_ticks, ticks_total - start)
+        ts = T0 + (start + np.arange(ticks, dtype=np.int64))[:, None] * (SCRAPE_S * 1000)
+        ts = np.broadcast_to(ts, (ticks, n_hosts)).reshape(-1)
+        hidx = np.broadcast_to(np.arange(n_hosts)[None, :], (ticks, n_hosts)).reshape(-1)
+        yield ts, hidx, {m: rng.uniform(0.0, 100.0, ticks * n_hosts) for m in tsbs.metrics}
+
+
+def tsbs_columns(tsbs: Tsbs, names) -> dict:
+    """Columns `names` of the rows `ingest` writes, in the region scan's
+    (hostname, ts) order: {name: f64 [hosts * ticks]}."""
+    parts = {m: [] for m in names}
+    for _ts, _hidx, vals in tsbs_chunks(tsbs):
+        for m in names:
+            parts[m].append(vals[m].reshape(-1, tsbs.n_hosts))
+    return {m: np.ascontiguousarray(np.concatenate(parts[m]).T).reshape(-1) for m in names}
+
+
 def ingest(db, tsbs: Tsbs) -> tuple[int, dict]:
     """TSBS cpu-only rows through Database.write (WAL on), then flush.
     Returns (rows, double-groupby-1 ground truth {(host, hour): [sum, n]})."""
@@ -1749,31 +1805,22 @@ def ingest(db, tsbs: Tsbs) -> tuple[int, dict]:
         f"PRIMARY KEY (hostname)) WITH (append_mode = 'true')"
     )
     n_hosts = tsbs.n_hosts
-    rng = np.random.default_rng(SEED)
-    ticks_total = tsbs.hours * 3600 // SCRAPE_S
-    chunk_ticks = max(1, 2_000_000 // n_hosts)
     hosts_arr = np.array([f"host_{i}" for i in range(n_hosts)])
     gt: dict[int, list] = {}
     n_rows = 0
-    for start in range(0, ticks_total, chunk_ticks):
-        ticks = min(chunk_ticks, ticks_total - start)
-        ts = T0 + (start + np.arange(ticks, dtype=np.int64))[:, None] * (SCRAPE_S * 1000)
-        ts = np.broadcast_to(ts, (ticks, n_hosts)).reshape(-1)
-        hs = np.broadcast_to(hosts_arr[None, :], (ticks, n_hosts)).reshape(-1)
-        vals = {m: rng.uniform(0.0, 100.0, ticks * n_hosts) for m in tsbs.metrics}
+    for ts, hidx, vals in tsbs_chunks(tsbs):
         batch = pa.table({
-            "hostname": pa.array(hs),
+            "hostname": pa.array(hosts_arr[hidx]),
             "ts": pa.array(ts, pa.timestamp("ms")),
             **{m: pa.array(vals[m], pa.float64()) for m in tsbs.metrics},
         })
         db.write("cpu", batch)
-        n_rows += ticks * n_hosts
+        n_rows += ts.shape[0]
         w12 = tsbs.w12
         in_w = (ts >= w12[0]) & (ts < w12[1])
         if in_w.any():
             hour = ((ts[in_w] - w12[0]) // H3600).astype(np.int64)
-            hidx = np.broadcast_to(np.arange(n_hosts)[None, :], (ticks, n_hosts)).reshape(-1)[in_w]
-            key = hidx * 100 + hour
+            key = hidx[in_w] * 100 + hour
             sums = np.bincount(key, weights=vals["usage_user"][in_w])
             cnts = np.bincount(key)
             for k in np.nonzero(cnts)[0]:
@@ -3547,6 +3594,399 @@ def run_vector_edge_cases(dev, reps: int) -> dict:
     return large_k
 
 
+# ---- phase 9: approximate sketches -----------------------------------------------------
+
+UDD_GAMMA = (1 + 0.01) / (1 - 0.01)  # uddsketch_state(128, 0.01, ...)'s starting gamma
+SHARDS = 4  # the two-step merge: host ranges, folded in shard order
+HLL_BAR, UDD_BAR = 0.05, 0.10  # tests/test_sketch.py's bars: hll_count, uddsketch_calc
+
+
+def _sketch_bound(kind: str, n: int, total: int) -> tuple[float, str]:
+    # K20 reads reg_idx, rho and gids (12 B a row), K21 bucket_ids, gids
+    # and mask (9 B a row), once; each writes its [G, width] int32 once
+    return bound(n * (12 if kind == "hll" else 9) + total * 4, n * 4)
+
+
+def _library_call(kind: str, args, dev):
+    """One PyTorch call that scatters the same rows, given the flat ids
+    the kernel computes per row (the id arithmetic is not timed):
+    `scatter_reduce_(..., "amax")` for K20, `index_add_` for K21."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.sketch import _flat_ids
+
+    total = args[-2] * args[-1]
+    out = torch.zeros(total, dtype=torch.int32, device=dev)
+    if kind == "hll":
+        reg, rho, gids = args[:3]
+        flat, ok = _flat_ids(gids, reg, args[-1], total)
+        flat, vals = flat[ok], rho[ok]
+        return lambda: out.scatter_reduce_(0, flat, vals, "amax")
+    bids, gids, mask = args[:3]
+    flat, ok = _flat_ids(gids, bids, args[-1], total)
+    flat = flat[ok & mask]
+    ones = torch.ones(flat.shape, dtype=torch.int32, device=dev)
+    return lambda: out.index_add_(0, flat, ones)
+
+
+def _sketch_check(kind: str, args, what: str, is_cuda: bool, host_too: bool = False):
+    """The kernel twice (the same bytes), against its plain version on the
+    same device and, with host_too, on the host; returns its result."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    kernel, plain = ((sk.segment_hll, sk.segment_hll_plain) if kind == "hll"
+                     else (sk.segment_udd, sk.segment_udd_plain))
+    a = kernel(*args)
+    b = kernel(*args)
+    if is_cuda:
+        torch.cuda.synchronize()
+    if not _same_bytes(a, b):
+        raise AssertionError(f"{what}: two runs differ in their bytes")
+    del b
+    wants = [plain(*args)]
+    if host_too:
+        wants.append(plain(*(x.cpu() if torch.is_tensor(x) else x for x in args)))
+    for want in wants:
+        if a.dtype != want.dtype or a.shape != want.shape or not _same_bytes(a, want.to(a.device)):
+            raise AssertionError(f"{what}: the kernel and its plain version differ")
+    return a
+
+
+def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
+    """K20 and K21 against their plain versions on `dev` (on the card also
+    against the host's), twice each: seeded ids, empty groups, rho <= 0,
+    negative and out-of-range gids with the int32 wrap (gid 2^20 at
+    m = 4096 lands on group 0, gid 2^19 wraps negative), masked rows,
+    G = 1, N = 0; every one of `n_rows` rows on one register / bucket (the
+    worst contention, timed on the card); and on the card a width past
+    2^31 (G = 2^19 + 1 at m = 4096, G = 2^21 + 1 at B = 1024: 8.6 GB),
+    where the last group's rows wrap negative and are dropped."""
+    import torch
+
+    is_cuda = dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 11)
+    small = 5000
+    wrap = rng.integers(0, 3, small).astype(np.int64)
+    wrap[::5] = 1 << 20
+    wrap[1::7] = 1 << 19
+    wrap[2::11] = -(1 << 20)
+    wrap[3::13] = -1
+    wrap[4::17] = 3
+    cases = [("seeded", rng.integers(0, 9, small), 9, 64),
+             ("empty groups", rng.integers(0, 5, small) * 8, 40, 64),
+             ("G=1", np.zeros(small, np.int64), 1, 1024),
+             ("N=0", np.zeros(0, np.int64), 4, 16),
+             ("int32 wrap", wrap, 3, 4096),
+             ("out of range", rng.integers(-6, 10, small), 4, 128)]
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    for what, gids, g, width in cases:
+        n = gids.shape[0]
+        cols = up(rng.integers(0, width, n).astype(np.int32))
+        rho = up(rng.integers(-3, 40, n).astype(np.int32))
+        mask = up(rng.random(n) > 0.2)
+        gt = up(gids)
+        _sketch_check("hll", (cols, rho, gt, g, width), f"edge hll {what}", is_cuda, is_cuda)
+        _sketch_check("udd", (cols, gt, mask, g, width), f"edge udd {what}", is_cuda, is_cuda)
+    out = {}
+    zeros = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    rho = up(rng.integers(1, 50, n_rows).astype(np.int32))
+    ones = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    hll_args, udd_args = (zeros, rho, zeros, 1, 4096), (zeros, zeros, ones, 1, 128)
+    _sketch_check("hll", hll_args, "edge hll one register", is_cuda)
+    _sketch_check("udd", udd_args, "edge udd one bucket", is_cuda)
+    if is_cuda:
+        from greptimedb_tpu_torch.ops import sketch as sk
+
+        out["one_register_ms"] = _timed(lambda: sk.segment_hll(*hll_args), reps)
+        out["one_bucket_ms"] = _timed(lambda: sk.segment_udd(*udd_args), reps)
+    del zeros, rho, ones, hll_args, udd_args
+    if is_cuda:
+        n = 1 << 20
+        for kind, g, width in (("hll", (1 << 19) + 1, 4096), ("udd", (1 << 21) + 1, 1024)):
+            gids = rng.integers(0, g, n).astype(np.int32)
+            gids[::10] = g - 1  # wraps negative: dropped
+            cols = up(rng.integers(0, width, n).astype(np.int32))
+            second = up(rng.integers(1, 40, n).astype(np.int32)) if kind == "hll" else up(
+                np.ones(n, bool))
+            args = ((cols, second, up(gids), g, width) if kind == "hll"
+                    else (cols, up(gids), second, g, width))
+            got = _sketch_check(kind, args, f"edge {kind} G*width >= 2^31", is_cuda)
+            if bool(got[g - 1].any()) or not bool(got[g - 2].any()):
+                raise AssertionError(f"edge {kind} G*width >= 2^31: the last group's rows "
+                                     f"were not dropped")
+            del got, args, cols, second
+            torch.cuda.empty_cache()
+        out["past_2_31"] = True
+    emit({"phase": "sketch_edge_cases", "ok": True, **out})
+    return out
+
+
+def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) -> dict:
+    """Phase 9's kernels on `device` ("cuda" on the card; "cpu" rehearses
+    the control flow with the plain versions): K20 `segment_hll` over
+    hll_inputs(hash64(usage_user)) of the TSBS rows in (hostname, ts)
+    order, grouped by host (p = 12 and 14) and by hour (p = 12); K21
+    `segment_udd` over udd_bucket_ids(usage_user, gamma(0.01), B), B = 128
+    and 1024, by host, one row in 100 masked.  Each against its plain
+    version byte for byte and twice; on the card the kernel, the plain
+    version and the library call are timed.  The tie to the SQL path: K20's
+    host registers as uint8 equal the host `hll_build_grouped` of the same
+    rows.  Then the main path: the rows as SHARDS host ranges, K20 and K21
+    per shard, folded in shard order by torch.maximum and +, which must
+    equal the single pass (launches counted), and the estimates against
+    the seed data.  Then the edge cases."""
+    import pyarrow as pa
+    import torch
+
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    is_cuda = device.startswith("cuda")
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    user = tsbs_columns(Tsbs(n_hosts, hours), ("usage_user",))["usage_user"]
+    n = user.shape[0]
+    ticks = n // n_hosts
+    host_np = np.repeat(np.arange(n_hosts, dtype=np.int32), ticks)
+    hour_np = np.tile((np.arange(ticks) * SCRAPE_S // 3600).astype(np.int32), n_hosts)
+    mask_np = np.ones(n, dtype=bool)
+    mask_np[::100] = False
+    t1 = time.perf_counter()
+    hashes = sk.hash64(pa.array(user))
+    t2 = time.perf_counter()
+    inputs = {p: sk.hll_inputs(hashes, p) for p in (12, 14)}
+    t3 = time.perf_counter()
+    bids = {b: sk.udd_bucket_ids(user, UDD_GAMMA, b) for b in (128, 1024)}
+    host_s = {"data_s": t1 - t0, "hash64_s": t2 - t1, "hll_inputs_s": t3 - t2,
+              "udd_bucket_ids_s": time.perf_counter() - t3}
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    host, hour, mask = up(host_np), up(hour_np), up(mask_np)
+    idx = {p: up(inputs[p][0]) for p in inputs}
+    rho = {p: up(inputs[p][1]) for p in inputs}
+    bid = {b: up(bids[b]) for b in bids}
+    cases = {
+        "hll host p=12": ("hll", (idx[12], rho[12], host, n_hosts, 1 << 12)),
+        "hll hour p=12": ("hll", (idx[12], rho[12], hour, hours, 1 << 12)),
+        "hll host p=14": ("hll", (idx[14], rho[14], host, n_hosts, 1 << 14)),
+        "udd host B=128": ("udd", (bid[128], host, mask, n_hosts, 128)),
+        "udd host B=1024": ("udd", (bid[1024], host, mask, n_hosts, 1024)),
+    }
+    out = {"rows": n, "hosts": n_hosts, "hours": hours, "host_s": host_s, "per_case": {}}
+    single = {}
+    for name, (kind, args) in cases.items():
+        single[name] = _sketch_check(kind, args, name, is_cuda)
+        b, by = _sketch_bound(kind, n, args[-2] * args[-1])
+        rec = {"bound_ms": b, "bound_by": by}
+        if is_cuda:
+            kernel, plain = ((sk.segment_hll, sk.segment_hll_plain) if kind == "hll"
+                             else (sk.segment_udd, sk.segment_udd_plain))
+            rec["ms"] = _timed(lambda: kernel(*args), reps)
+            rec["plain_ms"] = _timed(lambda: plain(*args), max(reps // 2, 1))
+            rec["library_ms"] = _timed(_library_call(kind, args, dev), reps)
+            torch.cuda.empty_cache()
+        out["per_case"][name] = rec
+        emit({"phase": "sketch_kernel", "case": name, **rec})
+    # the tie to the SQL path: K20's host registers are hll_build_grouped's
+    t4 = time.perf_counter()
+    host_regs = sk.hll_build_grouped(hashes, host_np, n_hosts, 12)
+    host_s["hll_build_grouped_s"] = time.perf_counter() - t4
+    regs_by_host = single["hll host p=12"].cpu().numpy().astype(np.uint8)
+    if not np.array_equal(regs_by_host, host_regs):
+        raise AssertionError("K20's registers differ from the host hll_build_grouped")
+    del hashes, inputs, bids, host_regs
+    # the main path: per-shard partials folded in shard order
+    cut = [(s * n_hosts // SHARDS) * ticks for s in range(SHARDS + 1)]
+    reset_counts()  # phase 9's main path starts here
+    t5 = time.perf_counter()
+    regs = counts = None
+    for lo, hi in zip(cut[:-1], cut[1:]):
+        r = sk.segment_hll(idx[12][lo:hi], rho[12][lo:hi], host[lo:hi], n_hosts, 1 << 12)
+        c = sk.segment_udd(bid[1024][lo:hi], host[lo:hi], mask[lo:hi], n_hosts, 1024)
+        regs = r if regs is None else torch.maximum(regs, r)
+        counts = c if counts is None else counts + c
+    if is_cuda:
+        torch.cuda.synchronize()
+    out["two_step_ms"] = (time.perf_counter() - t5) * 1e3
+    out["launches"] = launch_counts()  # ... and ends here
+    for got, name in ((regs, "hll host p=12"), (counts, "udd host B=1024")):
+        if not _same_bytes(got, single[name]):
+            raise AssertionError(f"two-step {name}: the folded shards differ from the single pass")
+    if is_cuda and (out["launches"]["segment_hll"], out["launches"]["segment_udd"]) != (SHARDS,) * 2:
+        raise AssertionError(f"two-step path launches {out['launches']}")
+    # the estimates against the seed data: the union of the host registers
+    # and each hour's registers within HLL_BAR of the exact distinct count
+    # (the per-host estimates, 4320 rows each at 12 h, are reported: the
+    # largest of thousands of 1.6 %-error estimates may pass a 5 % bar)
+    by_host = user.reshape(n_hosts, ticks)
+    est_host = sk.hll_estimate(regs.cpu().numpy())
+    exact_host = np.array([np.unique(row).size for row in by_host])
+    est_union = sk.hll_estimate(regs.max(0).values.cpu().numpy())
+    exact_union = np.unique(user).size
+    est_hour = sk.hll_estimate(single["hll hour p=12"].cpu().numpy())
+    exact_hour = np.array([np.unique(user[hour_np == h]).size for h in range(hours)])
+    kept = mask_np.reshape(n_hosts, ticks)
+    truth = np.array([np.quantile(row[k], 0.99) for row, k in zip(by_host, kept)])
+    p99 = sk.udd_quantile_dense(counts.cpu().numpy(), 0.99, UDD_GAMMA)
+    out["hll_host_max_rel_err"] = float(np.max(np.abs(est_host - exact_host) / exact_host))
+    out["hll_max_rel_err"] = float(max(abs(est_union - exact_union) / exact_union,
+                                       np.max(np.abs(est_hour - exact_hour) / exact_hour)))
+    out["udd_p99_max_rel_err"] = float(np.max(np.abs(p99 - truth) / truth))
+    if out["hll_max_rel_err"] > HLL_BAR or out["udd_p99_max_rel_err"] > UDD_BAR:
+        raise AssertionError(f"device sketches off their bars: hll {out['hll_max_rel_err']}, "
+                             f"p99 {out['udd_p99_max_rel_err']}")
+    del regs, counts, single, idx, rho, bid, host, hour, mask, cases
+    if is_cuda:
+        torch.cuda.empty_cache()
+    out["edge"] = run_sketch_edge_cases(dev, n, reps)
+    out["regs_by_host"] = regs_by_host
+    emit({"phase": "sketch_kernels", "ok": True, "rows": n, "host_s": host_s,
+          "two_step_ms": out["two_step_ms"], "hll_max_rel_err": out["hll_max_rel_err"],
+          "hll_host_max_rel_err": out["hll_host_max_rel_err"],
+          "udd_p99_max_rel_err": out["udd_p99_max_rel_err"]})
+    return out
+
+
+ROLLUP = "cpu_rollup"
+
+
+def sketch_queries() -> list[tuple[str, str]]:
+    """S1-S5: active hosts per hour, per-host p99, per-host HLL states,
+    the whole table's hosts and median, and GreptimeDB's two-step rollup
+    (hourly states stored in a BINARY table, merged at query time; S5's
+    first statement makes the states, its second merges them)."""
+    return [
+        ("S1", "SELECT time_bucket('1h', ts) AS h, hll_count(hll(hostname)) AS hosts "
+               "FROM cpu GROUP BY h ORDER BY h"),
+        ("S2", "SELECT hostname, uddsketch_calc(0.99, uddsketch_state(128, 0.01, usage_user)) "
+               "AS p99 FROM cpu GROUP BY hostname"),
+        ("S3", "SELECT hostname, hll(usage_user) AS s FROM cpu GROUP BY hostname"),
+        ("S4", "SELECT hll_count(hll(hostname)) AS hosts, hll(hostname) AS s, "
+               "uddsketch_calc(0.5, uddsketch_state(128, 0.01, usage_idle)) AS p50 FROM cpu"),
+        ("S5 states", "SELECT time_bucket('1h', ts) AS h, hll(hostname) AS s, "
+                      "uddsketch_state(128, 0.01, usage_user) AS u FROM cpu GROUP BY h ORDER BY h"),
+        ("S5", f"SELECT hll_count(hll_merge(s)) AS hosts, hll_merge(s) AS s, "
+               f"uddsketch_calc(0.99, uddsketch_merge(u)) AS p99 FROM {ROLLUP}"),
+    ]
+
+
+def _rel(got, want) -> float:
+    return abs(got - want) / abs(want)
+
+
+def check_sketch_result(name: str, t, truth: dict) -> float:
+    """Hold one result to the reference test's bars against the seed data;
+    returns the largest relative error (0 where states are compared)."""
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    # every host reports at every tick of the load: the exact distinct
+    # count of each hour and of the table is the number of hosts
+    n_hosts, hours = truth["hosts"], truth["hours"]
+    cols = t.to_pydict()
+    if name == "S1":
+        if len(cols["hosts"]) != hours:
+            raise AssertionError(f"S1: {len(cols['hosts'])} hours")
+        errs = [_rel(c, n_hosts) for c in cols["hosts"]]
+        bar = HLL_BAR
+    elif name == "S2":
+        if len(cols["p99"]) != n_hosts:
+            raise AssertionError(f"S2: {len(cols['p99'])} hosts")
+        errs = [_rel(p, truth["user_p99_by_host"][int(h[5:])])
+                for h, p in zip(cols["hostname"], cols["p99"])]
+        bar = UDD_BAR
+    elif name == "S3":
+        if len(cols["s"]) != n_hosts:
+            raise AssertionError(f"S3: {len(cols['s'])} hosts")
+        for h, s in zip(cols["hostname"], cols["s"]):
+            if not np.array_equal(sk.hll_deserialize(s), truth["regs_by_host"][int(h[5:])]):
+                raise AssertionError(f"S3 {h}: the state is not K20's registers")
+        return 0.0
+    elif name == "S4":
+        errs = [_rel(cols["hosts"][0], n_hosts), _rel(cols["p50"][0], truth["idle_p50"])]
+        if errs[0] > HLL_BAR or errs[1] > UDD_BAR:
+            raise AssertionError(f"S4 off its bars: {errs}")
+        return max(errs)
+    elif name == "S5 states":
+        if len(cols["s"]) != hours:
+            raise AssertionError(f"S5 states: {len(cols['s'])} hours")
+        return 0.0
+    else:  # S5
+        if cols["s"][0] != truth["s4_state"]:
+            raise AssertionError("S5: the merged HLL state is not S4's hll(hostname)")
+        errs = [_rel(cols["hosts"][0], n_hosts), _rel(cols["p99"][0], truth["user_p99"])]
+        if errs[0] > HLL_BAR or errs[1] > UDD_BAR:
+            raise AssertionError(f"S5 off its bars: {errs}")
+        return max(errs)
+    if max(errs) > bar:
+        raise AssertionError(f"{name}: relative error {max(errs)} past {bar}")
+    return max(errs)
+
+
+def run_sketch_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
+                     regs_by_host) -> dict:
+    """Phase 9's slice: the TSBS table through Database.write (WAL on),
+    flushed; S1-S5 through Database.sql once cold and `reps` times warm.
+    The sketches are host work in both packages: every run must be
+    declined by the device executor (`declined` +1, last_path "cpu") and
+    launch no kernel.  S5's hourly states go through Database.write into
+    a BINARY table before the merge.  `regs_by_host` are K20's host
+    registers for the same rows (S3's states must be them)."""
+    import pyarrow as pa
+
+    from greptimedb_tpu_torch import Database
+
+    db = Database(data_home, device=device)
+    tsbs = Tsbs(n_hosts, hours)
+    t0 = time.perf_counter()
+    n_rows, _gt = ingest(db, tsbs)
+    ingest_s = time.perf_counter() - t0
+    cols = tsbs_columns(tsbs, ("usage_user", "usage_idle"))
+    truth = {"hosts": n_hosts, "hours": hours, "regs_by_host": regs_by_host,
+             "user_p99_by_host": np.quantile(cols["usage_user"].reshape(n_hosts, -1), 0.99, axis=1),
+             "user_p99": float(np.quantile(cols["usage_user"], 0.99)),
+             "idle_p50": float(np.quantile(cols["usage_idle"], 0.5))}
+    del cols
+    emit({"phase": "sketch_ingest", "rows": n_rows, "seconds": ingest_s})
+    eng = db.query_engine
+    per_query = {}
+    reset_counts()
+    for name, sql in sketch_queries():
+        if name == "S5":
+            states = per_query["S5 states"].pop("table")
+            db.sql(f"CREATE TABLE {ROLLUP} (h TIMESTAMP(3) TIME INDEX, s BINARY, u BINARY)")
+            db.write(ROLLUP, pa.table({"h": states["h"], "s": states["s"], "u": states["u"]}))
+            db.flush()
+        times = []
+        for _ in range(1 + reps):
+            declined = eng.stats["declined"]
+            t1 = time.perf_counter()
+            t = db.sql_one(sql)
+            times.append((time.perf_counter() - t1) * 1e3)
+            if eng.stats["declined"] != declined + 1 or eng.last_path != "cpu":
+                raise AssertionError(f"{name}: not declined to the CPU executor")
+        err = check_sketch_result(name, t, truth)
+        if name == "S4":
+            truth["s4_state"] = t["s"][0].as_py()
+        per_query[name] = {"cold_ms": times[0], "warm_p50_ms": float(np.median(times[1:] or times)),
+                           "max_rel_err": err, "rows_out": t.num_rows}
+        if name == "S5 states":
+            per_query[name]["table"] = t
+        emit({"phase": "sketch_query", "name": name,
+              **{k: v for k, v in per_query[name].items() if k != "table"}})
+    per_query["S5"]["states"] = per_query.pop("S5 states")
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"a sketch query launched a kernel: {launches}")
+    db.close()
+    return {"rows": n_rows, "ingest_s": ingest_s, "queries": per_query}
+
+
 # ---- main ------------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -3567,6 +4007,10 @@ def main(argv=None) -> int:
                     help="rows of the SIFT-shaped vector table (phase 8)")
     ap.add_argument("--vector-reps", type=int, default=3,
                     help="warm runs per vector query (phase 8)")
+    ap.add_argument("--sketch-hours", type=int, default=12,
+                    help="hours of the TSBS table of phase 9")
+    ap.add_argument("--sketch-reps", type=int, default=1,
+                    help="warm runs per sketch query (phase 9)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3665,6 +4109,23 @@ def main(argv=None) -> int:
               "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in vs["queries"].items()},
               "cold_ms": {k: v["cold_ms"] for k, v in vs["queries"].items()},
               "k19_ms": vk["per_case"]["ms"], "ivf_ms": vs["ivf"]["ms"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        skk = run_sketch_kernel_phase("cuda", args.hosts, args.sketch_hours, args.kernel_reps)
+        for name, case in (("segment_hll", "hll host p=12"), ("segment_udd", "udd host B=1024")):
+            kstats[name] = {"max_abs_err": 0.0, **skk["per_case"][case]}
+        sks = run_sketch_slice("cuda", args.hosts, args.sketch_hours, args.sketch_reps,
+                               os.path.join(work, "sketches"), skk["regs_by_host"])
+        emit({"phase": "sketches", "seconds": time.perf_counter() - t0, "rows": sks["rows"],
+              "card": smi, "ingest_s": sks["ingest_s"],
+              "cold_ms": {k: v["cold_ms"] for k, v in sks["queries"].items()},
+              "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in sks["queries"].items()},
+              "s5_states_ms": {k: sks["queries"]["S5"]["states"][k]
+                               for k in ("cold_ms", "warm_p50_ms")},
+              "kernel_ms": {k: v.get("ms") for k, v in skk["per_case"].items()},
+              "two_step_ms": skk["two_step_ms"], "host_s": skk["host_s"],
+              "edge": skk["edge"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3691,6 +4152,18 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} never launched on the hash path (phase 7)")
     for name, (_fn, source, replaces) in kernel_table().items():
         s = kstats[name]
+        if name in ("segment_hll", "segment_udd"):
+            # K20/K21: their launches on phase 9's two-step path
+            launches = skk["launches"][name]
+            if launches == 0:
+                raise AssertionError(f"kernel {name} never launched on the sketch path")
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, **s, "rows": skk["rows"],
+                "per_case": {k: v for k, v in skk["per_case"].items()
+                             if k.startswith(name[8:])},
+            })
+            continue
         if name == "topk_distances":
             # K19: its launches on phase 8's vector queries, one per run
             launches = vs["launches"][name]

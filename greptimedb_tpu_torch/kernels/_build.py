@@ -41,6 +41,8 @@ KERNEL_SOURCES = (
     "hash_group_slots",
     "segment_sort",
     "topk_distances",
+    "segment_hll",
+    "segment_udd",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,6 +153,8 @@ _EXPORTS = {
     "hash_group_slots": ("gt_hash_init", "gt_hash_rounds"),
     "segment_sort": ("gt_segment_sort",),
     "topk_distances": ("gt_topk_distances",),
+    "segment_hll": ("gt_segment_hll",),
+    "segment_udd": ("gt_segment_udd",),
 }
 
 

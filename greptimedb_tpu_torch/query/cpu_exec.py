@@ -1363,11 +1363,99 @@ _SKETCH_AGGS = {"hll", "hll_merge", "uddsketch_state", "uddsketch_merge"}
 
 
 def _sketch_of(fn: str, params: tuple, values: pa.Array) -> bytes:
-    raise PlanError(f"{fn}: sketch aggregates are not ported yet")
+    """One serialized sketch state over `values` (nulls skipped).
+
+    hll(v)                          -> HLL registers from hashed values
+    hll_merge(state)                -> elementwise-max union of HLL states
+    uddsketch_state(nb, err, v)     -> UDDSketch histogram of values
+    uddsketch_merge(state)          -> count-sum union of UDDSketch states
+    """
+    from ..ops import sketch as sk
+
+    if fn == "hll":
+        hashes = sk.hash64(values)
+        valid = ~np.asarray(values.is_null())
+        return sk.hll_serialize(sk.hll_build(hashes[valid]))
+    if fn == "hll_merge":
+        regs = None
+        for state in values.to_pylist():
+            if state is None:
+                continue
+            r = sk.hll_deserialize(state)
+            regs = r if regs is None else sk.hll_merge(regs, r)
+        if regs is None:
+            regs = np.zeros(1 << sk.HLL_P_DEFAULT, dtype=np.uint8)
+        return sk.hll_serialize(regs)
+    if fn == "uddsketch_state":
+        u = _udd_new(params)
+        v = np.asarray(values.cast(pa.float64()).fill_null(np.nan), dtype=np.float64)
+        u.add_array(v)  # add_array drops NaN
+        return u.serialize()
+    if fn == "uddsketch_merge":
+        merged = None
+        for state in values.to_pylist():
+            if state is None:
+                continue
+            u = sk.UddSketch.deserialize(state)
+            if merged is None:
+                merged = u
+            else:
+                try:
+                    merged.merge(u)
+                except ValueError as e:
+                    raise PlanError(f"uddsketch_merge: {e}") from None
+        return (merged or sk.UddSketch()).serialize()
+    raise PlanError(f"unknown sketch aggregate: {fn}")
 
 
-def _sketch_grouped(fn, params, col, gids, num_groups, *_args):
-    raise PlanError(f"{fn}: sketch aggregates are not ported yet")
+def _sketch_grouped(
+    fn: str, params: tuple, col: pa.Array, gids: np.ndarray, num_groups: int, idx_lists
+) -> list[bytes]:
+    """Grouped sketch states, vectorized where it pays.
+
+    hll uses one hash64 pass + one np.maximum.at scatter over all groups
+    (sk.hll_build_grouped); uddsketch_state slices numpy values per group
+    (the collapsing sketch is inherently per-group); the *_merge variants
+    iterate their (few, small) serialized states.
+    """
+    from ..ops import sketch as sk
+
+    if fn == "hll":
+        hashes = sk.hash64(col)
+        valid = ~np.asarray(col.is_null())
+        regs = sk.hll_build_grouped(
+            hashes[valid], gids[valid], num_groups, sk.HLL_P_DEFAULT
+        )
+        return [sk.hll_serialize(regs[g]) for g in range(num_groups)]
+    if fn == "uddsketch_state":
+        v = np.asarray(col.cast(pa.float64()).fill_null(np.nan), dtype=np.float64)
+        flat = np.asarray(idx_lists.values, dtype=np.int64)
+        offsets = np.asarray(idx_lists.offsets, dtype=np.int64)
+        states = []
+        for g in range(num_groups):
+            u = _udd_new(params)
+            u.add_array(v[flat[offsets[g] : offsets[g + 1]]])
+            states.append(u.serialize())
+        return states
+    # merge variants: small binary state lists per group
+    return [
+        _sketch_of(fn, params, col.take(pa.array(ids)))
+        for ids in idx_lists.to_pylist()
+    ]
+
+
+def _udd_new(params: tuple):
+    """UddSketch from SQL literal params, with friendly errors."""
+    from ..ops import sketch as sk
+
+    try:
+        nb = int(params[0]) if params else sk.UDD_DEFAULT_BUCKETS
+        err = float(params[1]) if len(params) > 1 else sk.UDD_DEFAULT_ERROR
+        return sk.UddSketch(nb, err)
+    except (TypeError, ValueError) as e:
+        raise PlanError(
+            f"uddsketch_state(bucket_num, error_rate, value): bad parameters {params!r}: {e}"
+        ) from None
 
 
 def _global_agg(col, pa_fn: str, ddof=None):

@@ -35,7 +35,8 @@ card, one graph replay each) and `result_cache_hits` (queries the
 windowed result cache served with no dispatch).  The counters are bumped
 under a lock: the members of a tick run on their own threads.
 `last_timings` holds the per-stage host wall ms of the calling thread's
-last lowered query and `last_path` which path answered it.
+last lowered query and `last_path` which path answered its last query:
+"tile", "table", or "cpu" where the device executor declined it.
 
 PromQL (query/promql/) counts its range evaluations here too:
 `tql_tile_dispatches` (answered by the warm tile program),
@@ -160,6 +161,7 @@ class QueryEngine:
         lowering = try_lower(plan, schema)
         if lowering is None:
             self.stats.add(declined=1)
+            self.last_path = "cpu"
             return self.cpu.execute(plan)
         scan = lowering.scan
         tile = self.tile_executor()
@@ -175,6 +177,7 @@ class QueryEngine:
         if table is None:
             # the table-fed path declined a shape (a group space past int32)
             self.stats.add(declined=1)
+            self.last_path = "cpu"
             return self.cpu.execute(plan)
         counts = {"lowered": 1}
         if tile is not None:

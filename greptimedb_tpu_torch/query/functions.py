@@ -521,6 +521,41 @@ def _type_of(v):
     return pa.null()
 
 
+# ---- approx sketch finalizers (reference common/function aggrs) ------------
+
+
+@register("hll_count")
+def _hll_count(state):
+    """Cardinality estimate from an hll()/hll_merge() state column."""
+    from ..ops import sketch as sk
+
+    def one(v):
+        return None if v is None else int(round(sk.hll_estimate(sk.hll_deserialize(v))))
+
+    if isinstance(state, pa.Scalar):
+        return pa.scalar(one(state.as_py()), pa.int64())
+    return pa.array([one(v) for v in _pylist(state)], pa.int64())
+
+
+@register("uddsketch_calc")
+def _uddsketch_calc(q, state):
+    """Percentile from a uddsketch_state()/uddsketch_merge() state column.
+    Signature matches the reference: uddsketch_calc(0.95, state)."""
+    from ..ops import sketch as sk
+
+    qv = q.as_py() if isinstance(q, pa.Scalar) else float(np.asarray(q).reshape(-1)[0])
+
+    def one(v):
+        if v is None:
+            return None
+        out = sk.UddSketch.deserialize(v).quantile(float(qv))
+        return None if np.isnan(out) else float(out)
+
+    if isinstance(state, pa.Scalar):
+        return pa.scalar(one(state.as_py()), pa.float64())
+    return pa.array([one(v) for v in _pylist(state)], pa.float64())
+
+
 # ---- vector functions (reference common/function/src/scalars/vector/) ------
 
 
