@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 1] [--tile-reps 5] [--tql-reps 5]
                           [--container-hours 6] [--container-reps 3] [--tick-reps 5]
                           [--vector-rows 1000000] [--vector-reps 3]
-                          [--sketch-hours 12] [--sketch-reps 1]
+                          [--sketch-hours 6] [--sketch-reps 1]
+                          [--mesh-hours 12] [--mesh-reps 2]
 
 Phases, each printing one JSON line:
 
 1. device  — requires a CUDA device; prints the card's name and power
              limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
-2. build   — builds the twenty-one kernel sources of csrc/ for sm_90a (one
+2. build   — builds the twenty-two kernel sources of csrc/ for sm_90a (one
              nvcc each, all started together).
 3. kernels — runs K1-K8 against their plain torch versions on the card, at
              the main path's shapes (TSBS cpu-only, 4000 hosts x 12 h =
@@ -168,13 +169,37 @@ Phases, each printing one JSON line:
              reference test's bars (hll_count within 5 %, uddsketch_calc
              within 10 % of the seed data's answer); S3's states are K20's
              registers and S5's merged state is S4's, byte for byte.
-10. the kernels line (B19's row `tick_program`: its launches are the
-   replays of phase 5c, its bound its members' traffic), then the last
-   line {"ok": true, "device": {...}}.
+10. mesh — multi-device tile execution (`tile.mesh_devices`) on the one
+             card, one JSON line per step.  (a) K22 `fold_states` against
+             its plain version, byte for byte and twice: dense, 8 sources
+             over double-groupby-all's state shape (48,000 groups x 10
+             columns: sums, counts, min, max, LAST), the table-fed rule
+             too; keyed, 4 slot tables of 2^24 slots built by K17 from H1's
+             ids of the container cell, unioned by K17, inverted and
+             folded; edge cases (NaN, +-inf, +-0.0, ts ties, empty sources,
+             dummies, the trailing row); timed beside the plain version and
+             the library calls (sum/amin/amax over the stacked states,
+             index_add_ for keyed).  (b) at the end of run_slice, on phase
+             5's resident region: the 15 TSBS queries (bench.py's
+             MULTICHIP_QUERIES among them) at mesh_devices 1 against 0, byte
+             for byte, each mesh run advancing `mesh_dispatches` and K22;
+             p50 of both.  (c) the TSBS table as PARTITION BY HASH
+             (hostname) PARTITIONS 4 (--hosts x --mesh-hours) in a
+             Database over ["cuda:0"] * 4: MULTICHIP_QUERIES, lastpoint and
+             groupby-orderby-limit (device finalize on and off) at
+             mesh_devices 0, 1 and 4, byte for byte, under agg_strategy
+             sort, hash and auto; the table-fed route over the 4 slots
+             against the CPU backend; a TQL sum(rate(...)) over a 4-region
+             counter at mesh_devices 4 against 0.
+11. the kernels line (B19's row `tick_program`: its launches are the
+   replays of phase 5c, its bound its members' traffic; K22's its
+   launches on 10b and 10c), then the last line {"ok": true, "device":
+   {...}}.
 
 The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
 and legacy runs, 7's H1-H4, 7c, 8's queries, 9's two-step path and 9's
-queries (which launch nothing), and read just after each
+queries (which launch nothing), 10b, and 10c's tile, table-fed and TQL
+runs, and read just after each
 (a graph replay launches the kernels it captured without calling their
 wrappers: phase 5c's and 7c's counts are those of the capture).  It imports neither jax nor the reference package
 (greptimedb_tpu).  It exits non-zero, printing no result, when no CUDA
@@ -360,7 +385,8 @@ def kernel_table():
     K13-K16 the tile path's HAVING and plane maintenance, K17 its hash
     group-by, K18 the stable sort of K3's ids (behind the guards, read
     from the card's verdict), K19 the vector search's distance + top-k,
-    K20/K21 the device builds of the HLL and UDDSketch states."""
+    K20/K21 the device builds of the HLL and UDDSketch states, K22 the
+    mesh fold of partial states."""
     from greptimedb_tpu_torch.ops import aggregate as agg
     from greptimedb_tpu_torch.ops import filter as flt
     from greptimedb_tpu_torch.ops import permute as perm
@@ -412,6 +438,8 @@ def kernel_table():
                         "greptimedb_tpu/ops/sketch.py:185"),
         "segment_udd": (sk.segment_udd, src + "segment_udd.cu",
                         "greptimedb_tpu/ops/sketch.py:403"),
+        "fold_states": (agg.fold_states, src + "fold_states.cu",
+                        "greptimedb_tpu/ops/aggregate.py:1007"),
     }
 
 
@@ -1794,15 +1822,18 @@ def tsbs_columns(tsbs: Tsbs, names) -> dict:
     return {m: np.ascontiguousarray(np.concatenate(parts[m]).T).reshape(-1) for m in names}
 
 
-def ingest(db, tsbs: Tsbs) -> tuple[int, dict]:
-    """TSBS cpu-only rows through Database.write (WAL on), then flush.
-    Returns (rows, double-groupby-1 ground truth {(host, hour): [sum, n]})."""
+def ingest(db, tsbs: Tsbs, partitions: int | None = None) -> tuple[int, dict]:
+    """TSBS cpu-only rows through Database.write (WAL on), then flush; with
+    `partitions`, into that many regions by hash of the host (bench.py's
+    multi-chip layout).  Returns (rows, double-groupby-1 ground truth
+    {(host, hour): [sum, n]})."""
     import pyarrow as pa
 
     cols_sql = ", ".join(f"{m} DOUBLE" for m in tsbs.metrics)
+    part = f" PARTITION BY HASH (hostname) PARTITIONS {partitions}" if partitions else ""
     db.sql(
         f"CREATE TABLE cpu (hostname STRING, {cols_sql}, ts TIMESTAMP(3) TIME INDEX, "
-        f"PRIMARY KEY (hostname)) WITH (append_mode = 'true')"
+        f"PRIMARY KEY (hostname)){part} WITH (append_mode = 'true')"
     )
     n_hosts = tsbs.n_hosts
     hosts_arr = np.array([f"host_{i}" for i in range(n_hosts)])
@@ -1846,10 +1877,11 @@ def check_ground_truth(table, gt: dict, tsbs: Tsbs, tol: float = 1e-12) -> None:
 
 def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, tick_reps: int = 5,
               tile_reps: int | None = None) -> dict:
-    """Phases 4, 5 and 5b on `device` ("cuda" on the card; "cpu" to
-    rehearse the control flow with the plain versions): ingest, the
+    """Phases 4, 5, 5c, 5b and 10b on `device` ("cuda" on the card; "cpu"
+    to rehearse the control flow with the plain versions): ingest, the
     table-fed path (tile cache off), the tile path on the same region,
-    then the live append on it.  Returns the slice record."""
+    the tick, the live append on it, then the region at mesh_devices 1.
+    Returns the slice record."""
     from greptimedb_tpu_torch import Database
 
     tsbs = Tsbs(n_hosts, hours)
@@ -1927,9 +1959,11 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
                           is_cuda, full_size)
     tick = run_tick_phase(db, tsbs, is_cuda, tick_reps)
     live = run_live_phase(db, tsbs, is_cuda, full_size)
+    mesh = run_mesh_region(db, Tsbs(tsbs.n_hosts, tsbs.hours, len(tsbs.metrics),
+                                    end=tsbs.end + LIVE_MINUTES * 60_000), is_cuda)
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
-            "launches": totals, "tile": tile, "tick": tick, "live": live}
+            "launches": totals, "tile": tile, "tick": tick, "live": live, "mesh": mesh}
 
 
 def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cuda: bool,
@@ -3989,6 +4023,428 @@ def run_sketch_slice(device: str, n_hosts: int, hours: int, reps: int, data_home
 
 # ---- main ------------------------------------------------------------------------------
 
+# ---- phase 10: the mesh (tile.mesh_devices) and K22 ---------------------------------------
+
+MESH_SLOTS = 4  # (c): the partitioned table's regions, and the device list's slots
+MESH_SOURCES = 8  # (a) dense: partials of 8 sources
+MESH_GROUPS = 4000 * 12  # double-groupby-all's groups (4000 hosts x 12 hourly buckets)
+MESH_COLS = 10
+MESH_H = 1 << 24  # (a) keyed: the container cell's slot tables
+_K22 = "fold_states"
+# bench.py's MULTICHIP_QUERIES (bench.py:1871-1880), all of them TSBS queries
+MULTICHIP = ("double-groupby-1", "double-groupby-5", "double-groupby-all",
+             "single-groupby-5-8-1", "cpu-max-all-8")
+
+
+def _fold_inputs(rng, m: int, rows: int, dev, edge: bool = False):
+    """Stacked partial states [m, rows] from the seed: f64 sums, min and max
+    (NaN, +-inf and +-0.0 mixed in for `edge`), int32 counts, LAST (ts ties
+    for `edge`)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.aggregate import AggState
+
+    def f64():
+        v = rng.standard_normal((m, rows)) * 100.0
+        if edge:
+            pool = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -1.5])
+            v = np.where(rng.random((m, rows)) < 0.4, rng.choice(pool, size=(m, rows)), v)
+        return torch.from_numpy(v).to(dev)
+
+    ts = rng.integers(0, 4, (m, rows)) if edge else rng.integers(0, 1 << 40, (m, rows))
+    return AggState(sums=f64(), counts=torch.from_numpy(rng.integers(0, 400, (m, rows))
+                                                       .astype(np.int32)).to(dev),
+                    mins=f64(), maxs=f64(), last_ts=torch.from_numpy(ts.astype(np.int64)).to(dev),
+                    last_val=f64())
+
+
+def _state_bytes(st) -> int:
+    return sum(t.numel() * t.element_size() for t in _state_tensors(st) if t is not None)
+
+
+def _same_state_bytes(a, b, what: str) -> None:
+    for name, x, y in zip(("sums", "counts", "mins", "maxs", "last_ts", "last_val"),
+                          _state_tensors(a), _state_tensors(b)):
+        if not _same_bytes(x, y):
+            raise AssertionError(f"{what}.{name}: K22 and its plain version differ in their bytes")
+
+
+def _twice_on(dev, fn, what: str):
+    """`_twice_identical` on the card; on the CPU (a rehearsal) the same
+    check without the device sync."""
+    if dev.type == "cuda":
+        return _twice_identical(fn, what)
+    a, b = fn(), fn()
+    xs = _state_tensors(a) if hasattr(a, "sums") else [a]
+    ys = _state_tensors(b) if hasattr(b, "sums") else [b]
+    if not all(_same_bytes(x, y) for x, y in zip(xs, ys)):
+        raise AssertionError(f"{what}: two runs differ in their bytes")
+    return a
+
+
+def _slot_tables(n_slots: int, h: int, hours: int, dev):
+    """Slot tables of the container cell: H1's int64 group ids (K1 over the
+    6 h table) in `n_slots` contiguous row shards, each shard's K17 table
+    of `h` slots.  Returns the tables [n_slots, h]."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.aggregate import HASH_EMPTY, hash_group_slots
+    from greptimedb_tpu_torch.ops.filter import mask_gids
+
+    n, args = h1_group_ids(hours, dev)
+    gids, mask = mask_gids(*args)
+    bounds = np.linspace(0, gids.shape[0], n_slots + 1).astype(np.int64)
+    tables = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        t = torch.full((h,), HASH_EMPTY, dtype=torch.int64, device=dev)
+        t, _slots, ovf = hash_group_slots(t, gids[a:b].contiguous(), mask[a:b].contiguous())
+        if int(ovf) != 0:
+            raise AssertionError("container slot table overflowed")
+        tables.append(t)
+    return torch.stack(tables)
+
+
+def _keyed_states(tables, trailing: bool, seed: int):
+    """Per slot table, partial states over its slots: seeded values in the
+    occupied slots, the scatter identity in the empty ones (what a partial
+    holds there), the trailing row seeded when present."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.aggregate import HASH_EMPTY, AggState
+
+    d, h = tables.shape
+    dev = tables.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    occ = tables != HASH_EMPTY
+    if trailing:
+        occ = torch.cat([occ, torch.ones(d, 1, dtype=torch.bool, device=dev)], dim=1)
+
+    def vals(ident, dtype=torch.float64):
+        if dtype == torch.int32:
+            v = torch.randint(0, 400, occ.shape, generator=g, device=dev, dtype=torch.int32)
+        else:
+            v = torch.randn(occ.shape, generator=g, device=dev, dtype=torch.float64) * 100.0
+        return torch.where(occ, v, torch.full_like(v, ident))
+
+    return AggState(sums=vals(0.0), counts=vals(0, torch.int32), mins=vals(float("inf")),
+                    maxs=vals(float("-inf")))
+
+
+def run_mesh_kernel_phase(device: str, reps: int, hours: int = 6, groups: int = MESH_GROUPS,
+                          h: int = MESH_H) -> dict:
+    """Phase 10a: K22 against its plain version on the card, byte for byte
+    and twice: dense, S = 8 sources over double-groupby-all's state shape
+    (48,000 groups x 10 columns: sums, counts, min, max, LAST); keyed, 4
+    slot tables of 2^24 slots built by K17 from H1's ids of the container
+    cell (8000 series x `hours`), unioned by K17, inverted and folded;
+    then the edge cases.  Times K22, its plain version and the library
+    calls (`sum`/`amin`/`amax` over the stacked states; `index_add_` for
+    keyed, over the occupied rows; neither gives the same bytes) with CUDA
+    events."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    dev = torch.device(device)
+    is_cuda = dev.type == "cuda"
+    rng = np.random.default_rng(SEED)
+    out = {"per_case": {}}
+
+    def timed(fn):
+        return _timed(fn, reps) if is_cuda else None
+
+    # dense, at the main path's shape
+    rows = groups * MESH_COLS
+    st = _fold_inputs(rng, MESH_SOURCES, rows, dev)
+    order = list(range(MESH_SOURCES))
+    k = _twice_on(dev, lambda: agg.fold_states(st, MESH_SOURCES, order), "K22 dense")
+    _same_state_bytes(k, agg.fold_states_plain(st, MESH_SOURCES, order), "K22 dense")
+    t_bound, by = bound(_state_bytes(st) + _state_bytes(k), 0)
+    lib = (lambda: (st.sums.sum(0), st.counts.sum(0, dtype=torch.int32), st.mins.amin(0),
+                    st.maxs.amax(0)))
+    out["per_case"]["dense"] = {
+        "sources": MESH_SOURCES, "rows": rows, "ms": timed(lambda: agg.fold_states(st, MESH_SOURCES, order)),
+        "plain_ms": timed(lambda: agg.fold_states_plain(st, MESH_SOURCES, order)),
+        "library_ms": timed(lib), "bound_ms": t_bound, "bound_by": by,
+    }
+    # the table-fed route's rule (psum), one source per slot
+    k = _twice_on(dev, lambda: agg.fold_states(st, 1, order, rule="psum"), "K22 psum")
+    _same_state_bytes(k, agg.fold_states_plain(st, 1, order, rule="psum"), "K22 psum")
+    out["per_case"]["psum"] = {"ms": timed(lambda: agg.fold_states(st, 1, order, rule="psum"))}
+    del st, k
+
+    # keyed, at the container cell's slot tables
+    tables = _slot_tables(MESH_SLOTS, h, hours, dev)
+    keys = tables.reshape(-1)
+    _u = torch.full((h,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+    _u, slots, ovf = agg.hash_group_slots(_u, keys, keys != agg.HASH_EMPTY)
+    if int(ovf) != 0:
+        raise AssertionError("the union of the slot tables overflowed")
+    slot_map = slots.reshape(MESH_SLOTS, h)
+    inv = _twice_on(dev, lambda: agg.invert_slot_maps(slot_map), "K22 invert")
+    if not _same_bytes(inv, agg.invert_slot_maps_plain(slot_map)):
+        raise AssertionError("K22 invert: kernel and plain version differ")
+    kst = _keyed_states(tables, False, SEED)
+    korder = list(range(MESH_SLOTS))
+    k = _twice_on(dev, lambda: agg.fold_states(kst, 1, korder, inv=inv), "K22 keyed")
+    _same_state_bytes(k, agg.fold_states_plain(kst, 1, korder, inv=inv), "K22 keyed")
+    occupied = int((tables != agg.HASH_EMPTY).sum())
+    map_bytes = slot_map.numel() * 4
+    t_bound, by = bound(_state_bytes(kst) + _state_bytes(k) + 3 * map_bytes, 0)
+    # the library yardstick: index_add_ of the occupied rows' sums into
+    # their union slots (the rows and their slots gathered beforehand)
+    occ = keys != agg.HASH_EMPTY
+    lib_idx, lib_src = slots[occ].to(torch.int64), kst.sums.reshape(-1)[occ]
+    lib_acc = torch.zeros(h, dtype=torch.float64, device=dev)
+    out["per_case"]["keyed"] = {
+        "slots": h, "tables": MESH_SLOTS, "occupied": occupied,
+        "ms": timed(lambda: agg.fold_states(kst, 1, korder, inv=agg.invert_slot_maps(slot_map))),
+        "invert_ms": timed(lambda: agg.invert_slot_maps(slot_map)),
+        "plain_ms": timed(lambda: agg.fold_states_plain(
+            kst, 1, korder, inv=agg.invert_slot_maps_plain(slot_map))),
+        "library_ms": timed(lambda: lib_acc.index_add_(0, lib_idx, lib_src)),
+        "bound_ms": t_bound, "bound_by": by,
+    }
+    del kst, k, inv, lib_idx, lib_src, lib_acc, occ, slots, slot_map, _u
+
+    out["edge"] = run_mesh_edge_cases(dev, rng)
+    return out
+
+
+def run_mesh_edge_cases(dev, rng) -> list[str]:
+    """K22's edge cases, each byte for byte against the plain version and
+    twice: NaN, +-inf and +-0.0 in every field at 8 slots with dummies (3
+    sources a slot, 7 real), LAST ts ties, empty sources, both rules; the
+    keyed fold with and without the trailing row over small K17 tables;
+    one source."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    done = []
+
+    def check(st, n_local, order, what, inv=None, rule="fold"):
+        k = _twice_on(dev, lambda: agg.fold_states(st, n_local, order, inv=inv, rule=rule), what)
+        _same_state_bytes(k, agg.fold_states_plain(st, n_local, order, inv=inv, rule=rule), what)
+        done.append(what)
+
+    st = _fold_inputs(rng, 24, 4099, dev, edge=True)
+    st.sums[5], st.counts[5], st.mins[5], st.maxs[5] = 0.0, 0, float("inf"), float("-inf")
+    order = [0, 3, 6, 9, 12, 15, 18, 1, 4, 7, 10, 13, 16, 19, 2]  # real sources only
+    check(st, 3, order, "edge dense, 8 slots x 3 with dummies")
+    check(st, 1, list(range(24)), "edge dense, psum rule", rule="psum")
+    check(st, 24, [7], "edge dense, one source")
+    for trailing in (False, True):
+        tables = torch.full((4, 4096), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+        for d in range(4):
+            ids = torch.from_numpy(rng.choice(3000, size=1500).astype(np.int64)).to(dev)
+            agg.hash_group_slots(tables[d], ids, torch.ones_like(ids, dtype=torch.bool))
+        keys = tables.reshape(-1)
+        u = torch.full((4096,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+        _u, slots, _ovf = agg.hash_group_slots(u, keys, keys != agg.HASH_EMPTY)
+        inv = agg.invert_slot_maps(slots.reshape(4, 4096))
+        kst = _keyed_states(tables.repeat_interleave(2, dim=0), trailing, SEED + 1)
+        check(kst, 2, [0, 2, 4, 6, 1, 3, 7], f"edge keyed, trailing row {trailing}", inv=inv)
+    return done
+
+
+def run_mesh_region(db, tsbs: Tsbs, is_cuda: bool, reps: int = 3) -> dict:
+    """Phase 10b, on phase 5's resident region on the one card: the 15
+    TSBS queries (bench.py's MULTICHIP_QUERIES among them) at
+    tile.mesh_devices = 1 against mesh_devices = 0, byte for byte; each
+    mesh run must advance `mesh_dispatches` and K22's launches.  Warm p50
+    of both settings."""
+    eng = db.query_engine
+    if is_cuda:
+        import torch
+    per_query = {}
+    reset_counts()  # the mesh region's run starts here
+    for name, sql in tsbs.queries():
+        res, p50 = {}, {}
+        for n in (0, 1):
+            db.config.tile.mesh_devices = n
+            times = []
+            try:
+                for _ in range(1 + reps):
+                    m0, k0 = eng.stats.get("mesh_dispatches", 0), launch_counts()[_K22]
+                    t1 = time.perf_counter()
+                    out = db.sql_one(sql)
+                    if is_cuda:
+                        torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                    if eng.last_path != "tile":
+                        raise AssertionError(f"mesh {name}: answered by the {eng.last_path!r} path")
+                    meshed = eng.stats.get("mesh_dispatches", 0) - m0
+                    k22 = launch_counts()[_K22] - k0
+                    if n and (meshed != 1 or (is_cuda and k22 == 0)):
+                        raise AssertionError(f"mesh {name}: mesh_dispatches +{meshed}, K22 +{k22}")
+                    if not n and (meshed or k22):
+                        raise AssertionError(f"mesh {name}: meshed at mesh_devices 0")
+            finally:
+                db.config.tile.mesh_devices = 0
+            res[n] = _ipc_bytes(out)
+            p50[n] = float(np.median(times[1:]))
+        if res[0] != res[1]:
+            raise AssertionError(f"mesh {name}: mesh_devices 1 differs from 0")
+        per_query[name] = {"p50_ms_mesh0": p50[0], "p50_ms_mesh1": p50[1],
+                           "multichip": name in MULTICHIP}
+    totals = launch_counts()
+    emit({"phase": "mesh", "step": "b_region", "queries": per_query,
+          "k22_launches": totals[_K22]})
+    return {"queries": per_query, "launches": totals}
+
+
+def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) -> dict:
+    """Phase 10c: the TSBS table as `PARTITION BY HASH (hostname)
+    PARTITIONS 4` (bench.py:866-869's layout) at --hosts x --hours in a
+    Database over 4 slots of the one device.  bench.py's MULTICHIP_QUERIES,
+    lastpoint and groupby-orderby-limit at mesh_devices 0, 1 and 4, byte
+    for byte, under agg_strategy sort, hash and auto, and the ORDER BY
+    query with device finalize off too; the table-fed route over the 4
+    slots against the CPU backend (sums within rel 1e-12); one TQL
+    sum(rate(...)) over a 4-region counter through the 4-slot mesh
+    against mesh_devices 0."""
+    from greptimedb_tpu_torch import Database
+
+    is_cuda = device.startswith("cuda")
+    if is_cuda:
+        import torch
+    db = Database(data_home, device=[device] * MESH_SLOTS)
+    eng = db.query_engine
+    tsbs = Tsbs(n_hosts, hours)
+    t0 = time.perf_counter()
+    n_rows, _gt = ingest(db, tsbs, partitions=MESH_SLOTS)
+    ingest_s = time.perf_counter() - t0
+    n_regions = len(db.catalog.table("cpu", "public").region_ids)
+    if n_regions != MESH_SLOTS:
+        raise AssertionError(f"partitioned table has {n_regions} regions")
+    queries = dict(tsbs.queries())
+    names = list(MULTICHIP) + ["lastpoint", "groupby-orderby-limit"]
+
+    def run(sql):
+        t1 = time.perf_counter()
+        out = db.sql_one(sql)
+        if is_cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    reset_counts()  # the partitioned mesh's run starts here
+    per_case = {}
+    for strategy in ("sort", "hash", "auto"):
+        db.config.query.agg_strategy = strategy
+        for name in names:
+            for topk in ((True, False) if name == "groupby-orderby-limit" else (True,)):
+                db.config.query.device_topk = topk
+                res, p50 = {}, {}
+                for n in (0, 1, MESH_SLOTS):
+                    db.config.tile.mesh_devices = n
+                    times = []
+                    try:
+                        for _ in range(1 + reps):
+                            m0, k0 = eng.stats.get("mesh_dispatches", 0), launch_counts()[_K22]
+                            out, ms = run(queries[name])
+                            times.append(ms)
+                            if eng.last_path != "tile":
+                                raise AssertionError(f"mesh {name}: the {eng.last_path!r} path")
+                            meshed = eng.stats.get("mesh_dispatches", 0) - m0
+                            k22 = launch_counts()[_K22] - k0
+                            if bool(n) != bool(meshed) or (n and is_cuda and k22 == 0):
+                                raise AssertionError(f"mesh {name} at {n}: mesh_dispatches "
+                                                     f"+{meshed}, K22 +{k22}")
+                    finally:
+                        db.config.tile.mesh_devices = 0
+                    res[n], p50[n] = _ipc_bytes(out), float(np.median(times[1:]))
+                if len(set(res.values())) != 1:
+                    raise AssertionError(f"mesh {name} ({strategy}, topk {topk}): mesh_devices "
+                                         "0, 1 and 4 differ")
+                per_case[f"{strategy}/{name}" + ("" if topk else "/no_topk")] = {
+                    f"p50_ms_mesh{n}": v for n, v in p50.items()}
+    db.config.query.agg_strategy = "auto"
+    db.config.query.device_topk = True
+    tile_launches = launch_counts()
+
+    # the table-fed route over the 4 slots (tile cache off)
+    db.config.query.tile_cache_enable = False
+    table_fed = {}
+    reset_counts()
+    for name in ("double-groupby-1", "lastpoint", "high-cpu-all"):
+        k0 = launch_counts()[_K22]
+        got, ms = run(queries[name])
+        if eng.last_path != "table" or (is_cuda and launch_counts()[_K22] == k0):
+            raise AssertionError(f"table-fed {name}: path {eng.last_path!r}, K22 did not fold")
+        db.config.query.backend = "cpu"
+        try:
+            want, cpu_ms = run(queries[name])
+        finally:
+            db.config.query.backend = "torch"
+        rel = compare_tables(got, want, f"table-fed {name}")
+        table_fed[name] = {"ms": ms, "cpu_ms": cpu_ms, "max_rel_err": rel}
+    db.config.query.tile_cache_enable = True
+    table_launches = launch_counts()
+
+    # TQL: a counter over 4 regions, sum(rate(...)) through the mesh
+    tql = run_mesh_tql(db, n_hosts, is_cuda)
+    reset_counts()
+    db.close()
+    out = {"rows": n_rows, "ingest_s": ingest_s, "cases": per_case, "table_fed": table_fed,
+           "tql": tql, "launches": {k: tile_launches[k] + table_launches[k] + tql["launches"][k]
+                                    for k in tile_launches}}
+    emit({"phase": "mesh", "step": "c_partitioned", "rows": n_rows, "ingest_s": ingest_s,
+          "cases": per_case, "table_fed": table_fed, "tql": {k: v for k, v in tql.items()
+                                                            if k != "launches"},
+          "k22_launches": out["launches"][_K22]})
+    return out
+
+
+def run_mesh_tql(db, n_hosts: int, is_cuda: bool, minutes: int = 60) -> dict:
+    """A Prometheus counter of `n_hosts` hosts x `minutes` at 10 s over 4
+    regions; `sum(rate(...[5m]))` at mesh_devices 4 against 0, byte for
+    byte (each region's K9/K10 on its slot, K11/K12 on slot 0)."""
+    import pyarrow as pa
+
+    eng = db.query_engine
+    db.sql("CREATE TABLE mesh_counter (host STRING, greptime_value DOUBLE, ts TIMESTAMP(3) "
+           f"TIME INDEX, PRIMARY KEY (host)) PARTITION BY HASH (host) PARTITIONS {MESH_SLOTS}")
+    rng = np.random.default_rng(SEED)
+    ticks = minutes * 60 // SCRAPE_S
+    hosts = np.array([f"host_{i}" for i in range(n_hosts)])
+    vals = np.cumsum(rng.uniform(0.0, 10.0, (ticks, n_hosts)), axis=0)
+    ts = T0 + np.arange(ticks, dtype=np.int64) * SCRAPE_S * 1000
+    db.write("mesh_counter", pa.table({
+        "host": pa.array(np.tile(hosts, ticks)),
+        "greptime_value": pa.array(vals.reshape(-1)),
+        "ts": pa.array(np.repeat(ts, n_hosts), pa.timestamp("ms")),
+    }))
+    db.flush()
+    start_s, end_s = (T0 + 10 * 60_000) // 1000, (T0 + minutes * 60_000) // 1000
+    sql = f"TQL EVAL ({start_s}, {end_s}, '60s') sum(rate(mesh_counter[5m]))"
+    res, ms = {}, {}
+    reset_counts()
+    for n in (0, MESH_SLOTS):
+        db.config.tile.mesh_devices = n
+        try:
+            for _ in range(2):
+                m0, t0 = eng.stats.get("mesh_dispatches", 0), eng.stats["tql_tile_dispatches"]
+                t1 = time.perf_counter()
+                out = db.sql_one(sql)
+                ms[n] = (time.perf_counter() - t1) * 1e3
+                if eng.stats["tql_tile_dispatches"] != t0 + 1:
+                    raise AssertionError(f"TQL mesh at {n}: not the tile route")
+                if eng.stats.get("mesh_dispatches", 0) - m0 != int(bool(n)):
+                    raise AssertionError(f"TQL mesh at {n}: mesh_dispatches did not follow")
+        finally:
+            db.config.tile.mesh_devices = 0
+        res[n] = _ipc_bytes(out)
+    if res[0] != res[MESH_SLOTS] or out.num_rows == 0:
+        raise AssertionError("TQL sum(rate) through the 4-slot mesh differs from mesh_devices 0")
+    launches = launch_counts()
+    if is_cuda and not all(launches[k] for k in TQL_KERNELS):
+        raise AssertionError(f"TQL mesh: K9-K12 launches {launches}")
+    return {"rows_out": out.num_rows, "warm_ms_mesh0": ms[0], "warm_ms_mesh4": ms[MESH_SLOTS],
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=12)
@@ -4007,10 +4463,14 @@ def main(argv=None) -> int:
                     help="rows of the SIFT-shaped vector table (phase 8)")
     ap.add_argument("--vector-reps", type=int, default=3,
                     help="warm runs per vector query (phase 8)")
-    ap.add_argument("--sketch-hours", type=int, default=12,
+    ap.add_argument("--sketch-hours", type=int, default=6,
                     help="hours of the TSBS table of phase 9")
     ap.add_argument("--sketch-reps", type=int, default=1,
                     help="warm runs per sketch query (phase 9)")
+    ap.add_argument("--mesh-hours", type=int, default=12,
+                    help="hours of the partitioned TSBS table of phase 10c")
+    ap.add_argument("--mesh-reps", type=int, default=2,
+                    help="warm runs per query and mesh_devices setting (phase 10c)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4126,6 +4586,21 @@ def main(argv=None) -> int:
               "kernel_ms": {k: v.get("ms") for k, v in skk["per_case"].items()},
               "two_step_ms": skk["two_step_ms"], "host_s": skk["host_s"],
               "edge": skk["edge"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mk = run_mesh_kernel_phase("cuda", args.kernel_reps, hours=CM_HOURS)
+        emit({"phase": "mesh", "step": "a_kernel", "card": smi, **mk})
+        kstats[_K22] = {"max_abs_err": 0.0, **mk["per_case"]["dense"], "per_case": mk["per_case"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        mc = run_mesh_slice("cuda", args.hosts, args.mesh_hours, args.mesh_reps,
+                            os.path.join(work, "mesh"))
+        emit({"phase": "mesh", "seconds": time.perf_counter() - t0, "card": smi,
+              "rows": mc["rows"], "ingest_s": mc["ingest_s"],
+              "region_p50_ms": sl["mesh"]["queries"],
+              "k22_launches": {"region": sl["mesh"]["launches"][_K22],
+                               "partitioned": mc["launches"][_K22]}})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4152,6 +4627,21 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} never launched on the hash path (phase 7)")
     for name, (_fn, source, replaces) in kernel_table().items():
         s = kstats[name]
+        if name == _K22:
+            # K22: its launches on phase 10's mesh runs (the resident region
+            # at mesh_devices 1, the partitioned table at 1 and 4 slots and
+            # its table-fed route); the dense case is the line's
+            launches = sl["mesh"]["launches"][name] + mc["launches"][name]
+            if sl["mesh"]["launches"][name] == 0 or mc["launches"][name] == 0:
+                raise AssertionError("kernel fold_states never launched on a mesh run")
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": 0.0, "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                "library_ms": s["library_ms"], "sources": s["sources"], "rows": s["rows"],
+                "per_case": s["per_case"],
+            })
+            continue
         if name in ("segment_hll", "segment_udd"):
             # K20/K21: their launches on phase 9's two-step path
             launches = skk["launches"][name]

@@ -15,8 +15,11 @@ else the reference's facade does
 sessions and admission) is cut and listed in ROADMAP.md.
 
 `device` names the torch device of the lowered query path: "cuda" (the
-default) or "cpu".  `Database(..., device="cuda")` on a machine without a
-card raises; it never runs quietly on the CPU.
+default) or "cpu", or a list of devices — the slots of the multi-device
+mesh (`tile.mesh_devices`, parallel/mesh.py), where one device may fill
+several (`["cuda:0"] * 4`); the first slot is `device`.
+`Database(..., device="cuda")` on a machine without a card raises; it
+never runs quietly on the CPU.
 
 The on-disk layout is the reference's, so a data home written by either
 package opens in the other.
@@ -49,18 +52,20 @@ from .storage.engine import TimeSeriesEngine
 from .storage.sst import ScanPredicate
 from .utils.config import Config
 from .utils.errors import InvalidArgumentsError, UnsupportedError
-from .utils.torch_env import resolve_device
+from .utils.torch_env import resolve_devices
 
 
 class Database:
     def __init__(
         self,
         data_home: str | None = None,
-        device: str = "cuda",
+        device: str | list = "cuda",
         config: Config | None = None,
     ):
         self.config = config or Config()
-        self.config.query.device = str(resolve_device(device))
+        slots = resolve_devices(device)
+        self.config.query.device = str(slots[0])
+        self.config.query.devices = tuple(str(d) for d in slots)
         if data_home is not None:
             self.config.storage.data_home = data_home
             self.config.storage.wal_dir = ""
@@ -88,6 +93,11 @@ class Database:
     @property
     def device(self) -> str:
         return self.config.query.device
+
+    @property
+    def devices(self) -> tuple[str, ...]:
+        """The mesh slots, the first being `device`."""
+        return self.config.query.device_slots()
 
     def close(self):
         self.storage.close()

@@ -43,6 +43,7 @@ KERNEL_SOURCES = (
     "topk_distances",
     "segment_hll",
     "segment_udd",
+    "fold_states",
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,6 +156,7 @@ _EXPORTS = {
     "topk_distances": ("gt_topk_distances",),
     "segment_hll": ("gt_segment_hll",),
     "segment_udd": ("gt_segment_udd",),
+    "fold_states": ("gt_fold_states", "gt_fold_invert"),
 }
 
 

@@ -1907,3 +1907,286 @@ def having_mask(tree, refs: dict, values: torch.Tensor, presence: torch.Tensor):
 
 
 having_mask.launches = 0
+
+
+# ---- K22: the mesh fold of partial states ---------------------------------------------
+#
+# B20 (the reference's `psum_states` and its mesh merges): the partial
+# states of one AggState key from M = D * n_local sources, gathered on the
+# first mesh slot as [M, rows] (source m on slot m // n_local, dummies
+# included), folded into one [rows] state.  `order` lists the rows of the
+# real sources in global source order.  See csrc/fold_states.cu for the
+# rules each field follows.
+
+_FOLD_KINDS = {"sums": 1, "counts": 2, "mins": 3, "maxs": 4}
+_FOLD_DTYPES = {torch.float64: 0, torch.float32: 1, torch.int64: 2, torch.int32: 3}
+_FOLD_RULES = {"fold": 0, "psum": 1}
+
+
+def _ieee_min(a, b):
+    """jnp.minimum as the reference's CPU backend computes it (LLVM's x86
+    lowering): the operands ordered by the first one's sign, MINSD (the
+    second on a NaN or a tie), the first ordered one when it is a NaN.
+    -0 < +0; a NaN propagates unquieted."""
+    pos = ~torch.signbit(a)
+    x, y = torch.where(pos, a, b), torch.where(pos, b, a)
+    return torch.where(torch.isnan(x), x, torch.where(x < y, x, y))
+
+
+def _ieee_max(a, b):
+    """jnp.maximum, as `_ieee_min` with the sign test and MAXSD."""
+    neg = torch.signbit(a)
+    x, y = torch.where(neg, a, b), torch.where(neg, b, a)
+    return torch.where(torch.isnan(x), x, torch.where(x > y, x, y))
+
+
+def _add_x86(a, b):
+    """a + b with the NaN rules of x86 (the reference's CPU backend), which
+    K22 follows on the card too: a NaN operand comes out quieted (the first
+    when both are), an invalid sum is the sign-set default NaN."""
+    if not a.dtype.is_floating_point:
+        return a + b
+    if a.dtype == torch.float64:
+        bits, quiet, default = torch.int64, 1 << 51, 0xFFF8000000000000 - (1 << 64)
+    else:
+        bits, quiet, default = torch.int32, 1 << 22, 0xFFC00000 - (1 << 32)
+    default = torch.tensor(default, dtype=bits).view(a.dtype)
+
+    def quieted(x):
+        return (x.view(bits) | quiet).view(a.dtype)
+
+    r = a + b
+    r = torch.where(torch.isnan(r), default.to(r.device), r)
+    r = torch.where(torch.isnan(b), quieted(b), r)
+    return torch.where(torch.isnan(a), quieted(a), r)
+
+
+def _coll(acc, b, less: bool):
+    """XLA CPU pmin (less) / pmax across slots: NaN skipped, ties keep acc."""
+    better = (b < acc) if less else (b > acc)
+    out = torch.where(better, b, acc)
+    out = torch.where(torch.isnan(b), acc, out)
+    return torch.where(torch.isnan(acc), b, out)
+
+
+def _type_max(dtype) -> float | int:
+    return (torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)).max
+
+
+def _fold_dense_plain(name, g, n_local: int, order, rule: str):
+    if name == "sums":
+        acc = g[order[0]].clone()
+        for k in order[1:]:
+            # psum keeps the later source's NaN where two meet, the fold the
+            # earlier one's: the same sum otherwise
+            acc = _add_x86(g[k], acc) if rule == "psum" else _add_x86(acc, g[k])
+        return acc
+    if name == "counts":
+        return g.sum(0, dtype=g.dtype)
+    local_op = _ieee_min if name == "mins" else _ieee_max
+    acc = None
+    for d in range(g.shape[0] // n_local):
+        local = g[d * n_local]
+        for l in range(1, n_local):
+            local = local_op(local, g[d * n_local + l])
+        acc = local.clone() if acc is None else _coll(acc, local, name == "mins")
+    return acc
+
+
+def _fold_keyed_plain(name, g, n_local: int, order, inv):
+    rows = g.shape[1]
+    h = inv.shape[1]
+    top = _type_max(g.dtype)
+    fill = {"mins": top, "maxs": -top}.get(name, 0)
+    acc = torch.full((rows,), fill, dtype=g.dtype, device=g.device)
+    # the scatter's add keeps the update's NaN where two meet
+    op = {"mins": _ieee_min, "maxs": _ieee_max}.get(name, lambda a, v: _add_x86(v, a))
+    for m in order:
+        j = inv[m // n_local].to(torch.int64)
+        hit = j >= 0
+        v = g[m].index_select(0, j.clamp(min=0))
+        acc[:h] = torch.where(hit, op(acc[:h], v), acc[:h])
+        if rows > h:
+            acc[h:] = op(acc[h:], g[m, h:])
+    return acc
+
+
+def _last_plain(ts, val, order, rule: str):
+    if rule == "fold":
+        lt, lv = ts[order[0]].clone(), val[order[0]].clone()
+        for k in order[1:]:
+            bt, bv = ts[k], val[k]
+            lv = torch.where(bt >= lt, bv, lv)
+            lt = torch.maximum(lt, bt)
+        return lt, lv
+    lt = ts.amax(0)
+    lv = None
+    for m in range(ts.shape[0]):
+        c = torch.where(ts[m] == lt, val[m], torch.full_like(val[m], -_DBL_MAX))
+        lv = c if lv is None else _coll(lv, c, False)
+    return lt, lv
+
+
+def stack_states(states: list, dev) -> AggState:
+    """The gather before a fold: one key's partial states from M sources,
+    each field stacked [M, rows] on `dev` (plumbing: copies only)."""
+    first = states[0]
+    return AggState(**{
+        f.name: torch.stack([getattr(st, f.name).to(dev) for st in states])
+        for f in fields(first) if getattr(first, f.name) is not None
+    })
+
+
+def _fold_check(state: AggState, n_local: int, order, inv, rule: str):
+    m = next(getattr(state, f.name) for f in fields(state)
+             if getattr(state, f.name) is not None).shape[0]
+    if n_local < 1 or m % n_local or not order:
+        raise ValueError(f"fold of {m} sources at {n_local} per slot, {len(order)} real")
+    if rule not in _FOLD_RULES:
+        raise ValueError(f"fold rule {rule!r}: use 'fold' or 'psum'")
+    if inv is not None and state.last_ts is not None:
+        raise ValueError("a keyed fold has no LAST states")
+    return m
+
+
+def fold_states_plain(state: AggState, n_local: int, order, inv=None,
+                      rule: str = "fold") -> AggState:
+    """Torch-op version of K22 (see `fold_states`), field for field the
+    reference's fold."""
+    _fold_check(state, n_local, order, inv, rule)
+    order = [int(k) for k in order]
+    out = AggState()
+    for name in _FOLD_KINDS:
+        g = getattr(state, name)
+        if g is not None:
+            setattr(out, name, _fold_dense_plain(name, g, n_local, order, rule) if inv is None
+                    else _fold_keyed_plain(name, g, n_local, order, inv))
+    if state.last_ts is not None:
+        out.last_ts, out.last_val = _last_plain(state.last_ts, state.last_val, order, rule)
+    return out
+
+
+def invert_slot_maps_plain(slot_map: torch.Tensor) -> torch.Tensor:
+    """inv[d, u] = the row j of slot d's table with slot_map[d, j] == u < H,
+    else -1 (each device table holds distinct keys, so it is injective)."""
+    d, h = slot_map.shape
+    inv = torch.full((d, h), -1, dtype=torch.int32, device=slot_map.device)
+    rows = torch.arange(h, dtype=torch.int32, device=slot_map.device)
+    for i in range(d):
+        sm = slot_map[i].to(torch.int64)
+        ok = (sm >= 0) & (sm < h)
+        inv[i, sm[ok]] = rows[ok]
+    return inv
+
+
+class _FoldField(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p), ("kind", ctypes.c_int32),
+                ("dtype", ctypes.c_int32)]
+
+
+class _FoldStatesArgs(ctypes.Structure):
+    _fields_ = [
+        ("fields", _FoldField * 4), ("last_ts", ctypes.c_void_p), ("last_val", ctypes.c_void_p),
+        ("out_last_ts", ctypes.c_void_p), ("out_last_val", ctypes.c_void_p),
+        ("order", ctypes.c_void_p), ("inv", ctypes.c_void_p), ("rows", ctypes.c_int64),
+        ("h", ctypes.c_int64), ("m", ctypes.c_int32), ("n_local", ctypes.c_int32),
+        ("n_order", ctypes.c_int32), ("rule", ctypes.c_int32),
+    ]
+
+
+class _InvertArgs(ctypes.Structure):
+    _fields_ = [("slot_map", ctypes.c_void_p), ("inv", ctypes.c_void_p), ("h", ctypes.c_int64),
+                ("d", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+
+
+def fold_states(state: AggState, n_local: int, order, inv=None,
+                rule: str = "fold") -> AggState:
+    """K22: fold the stacked partial states of one key into one state.
+
+    state:     AggState whose fields are [M, rows] on the first mesh slot,
+               source m from slot m // n_local (slots padded with dummies)
+    order:     the rows of the real sources, in global source order
+    inv:       None (dense mode: every source over the same rows), or int32
+               [D, H] from `invert_slot_maps` (keyed mode: hash plans,
+               source m's rows indexed by slot m // n_local's table; rows H
+               or H + 1, the trailing row folding onto itself)
+    rule:      "fold" (the tile mesh's left folds: the later source wins a
+               LAST ts tie) or "psum" (`psum_states`, the table-fed route:
+               LAST is the max value at the max ts); the two also differ in
+               which NaN's sign a sum keeps where two NaNs meet
+
+    Dense: sums fold left over `order`, counts add, min/max take each
+    slot's IEEE minimum/maximum and then the collective's rule across the
+    slots; keyed: every field starts at the scatter identity and takes the
+    sources' rows in `order`.  A CUDA tensor launches csrc/fold_states.cu
+    (one thread per row, a fixed order: the same bytes every run); a CPU
+    tensor runs `fold_states_plain`."""
+    first = next(getattr(state, f.name) for f in fields(state)
+                 if getattr(state, f.name) is not None)
+    if first.device.type == "cpu":
+        return fold_states_plain(state, n_local, order, inv, rule)
+    from ..kernels._build import launch, upload_table
+
+    m = _fold_check(state, n_local, order, inv, rule)
+    dev = first.device
+    rows = int(first.shape[1])
+    args = _FoldStatesArgs()
+    keep, out = [], AggState()
+    for i, name in enumerate(_FOLD_KINDS):
+        g = getattr(state, name)
+        if g is None:
+            continue
+        if g.dtype not in _FOLD_DTYPES or g.shape != (m, rows) or g.device != dev:
+            raise ValueError(f"K22 {name}: {g.dtype} {tuple(g.shape)} on {g.device}, "
+                             f"want [{m}, {rows}] on {dev}")
+        g = g.contiguous()
+        dst = torch.empty(rows, dtype=g.dtype, device=dev)
+        args.fields[i] = _FoldField(g.data_ptr(), dst.data_ptr(), _FOLD_KINDS[name],
+                                    _FOLD_DTYPES[g.dtype])
+        keep.append(g)
+        setattr(out, name, dst)
+    if state.last_ts is not None:
+        ts, val = state.last_ts.contiguous(), state.last_val.contiguous()
+        for t, dt in ((ts, torch.int64), (val, torch.float64)):
+            if t.dtype != dt or t.shape != (m, rows) or t.device != dev:
+                raise ValueError(f"K22 LAST state: {t.dtype} {tuple(t.shape)} on {t.device}")
+        out.last_ts = torch.empty(rows, dtype=torch.int64, device=dev)
+        out.last_val = torch.empty(rows, dtype=torch.float64, device=dev)
+        args.last_ts, args.last_val = ts.data_ptr(), val.data_ptr()
+        args.out_last_ts, args.out_last_val = out.last_ts.data_ptr(), out.last_val.data_ptr()
+        keep += [ts, val]
+    order_t = upload_table(bytes((ctypes.c_int32 * len(order))(*[int(k) for k in order])),
+                           dev).view(torch.int32)
+    args.order = order_t.data_ptr()
+    if inv is not None:
+        _check_rows(inv.reshape(-1), torch.int32, inv.numel(), dev)
+        if inv.shape[0] * n_local != m or rows not in (inv.shape[1], inv.shape[1] + 1):
+            raise ValueError(f"K22 keyed: inv {tuple(inv.shape)} for {m} sources of {rows} rows")
+        args.inv, args.h = inv.data_ptr(), int(inv.shape[1])
+    args.rows, args.m, args.n_local, args.n_order = rows, m, int(n_local), len(order)
+    args.rule = _FOLD_RULES[rule]
+    fold_states.launches += 1
+    launch("fold_states", "gt_fold_states", args, torch.cuda.current_stream(dev).cuda_stream)
+    del keep, order_t
+    return out
+
+
+fold_states.launches = 0
+
+
+def invert_slot_maps(slot_map: torch.Tensor) -> torch.Tensor:
+    """K22's first launch in keyed mode: int32 [D, H] slot maps (K17's
+    union slot of each device-table row, H where none) -> inv [D, H] (see
+    `invert_slot_maps_plain`).  Counted in `fold_states.launches`."""
+    if slot_map.device.type == "cpu":
+        return invert_slot_maps_plain(slot_map)
+    from ..kernels._build import launch
+
+    d, h = (int(x) for x in slot_map.shape)
+    slot_map = slot_map.contiguous()
+    _check_rows(slot_map.reshape(-1), torch.int32, d * h, slot_map.device)
+    inv = torch.full((d, h), -1, dtype=torch.int32, device=slot_map.device)
+    fold_states.launches += 1
+    launch("fold_states", "gt_fold_invert", _InvertArgs(slot_map.data_ptr(), inv.data_ptr(), h, d, 0),
+           torch.cuda.current_stream(slot_map.device).cuda_stream)
+    return inv

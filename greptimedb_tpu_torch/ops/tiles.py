@@ -90,14 +90,18 @@ def tiles_from_table(
     table: pa.Table,
     device: str | torch.device = "cpu",
     dicts: dict[str, dict] | None = None,
+    rows: int | None = None,
 ) -> TileBatch:
     """Host-side: convert an Arrow table to a padded TileBatch on `device`.
 
     `dicts` optionally pins pre-agreed dictionary code assignments (needed
     when multiple shards must agree on tag codes for a global group-by).
-    Columns are padded to `pad_rows(table.num_rows)`."""
+    Columns are padded to `rows` (shards of one group-by share a size),
+    by default to `pad_rows(table.num_rows)`."""
     n = table.num_rows
-    padded = pad_rows(n)
+    padded = pad_rows(n) if rows is None else int(rows)
+    if padded < n:
+        raise ValueError(f"cannot pad {n} rows to {padded}")
     columns: dict[str, torch.Tensor] = {}
     nulls: dict[str, torch.Tensor] = {}
     out_dicts: dict[str, list] = {}

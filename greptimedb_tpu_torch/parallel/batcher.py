@@ -12,8 +12,9 @@ this module answers them as one tick:
     (`CapturedDispatch`: the plan's program key, the device sources, the
     literals, the decode continuation) and the executor answers all of
     them from one `TickProgram` (parallel/tile_program.py: one CUDA graph
-    per member multiset, one replay, one readback).  Without it each
-    member dispatches back to back in deferred-fetch mode
+    per member multiset, one replay, one readback).  Without it, or while
+    `tile.mesh_devices` > 0 (the reference's rule), each member dispatches
+    back to back in deferred-fetch mode
     (`PendingFetch`) and the leader reads every member's leaves back in
     one copy.  Members share the dispatch and the readback, never each
     other's math: each result is byte-identical to the member's solo run.
@@ -337,9 +338,12 @@ class QueryBatcher:
         if len(primaries) == 1:
             # one plan: the plain solo dispatch
             self._run_solo_into(primaries[0])
-        elif bc.fuse_programs:
+        elif bc.fuse_programs and ex.cache.mesh_devices() == 0:
             self._run_fused(primaries)
         else:
+            # with the mesh on (tile.mesh_devices > 0) each member
+            # dispatches over the mesh in turn: its per-slot partials and
+            # gathers do not ride one graph
             self._run_packed(primaries)
         for dupe, prim in adopt:
             if prim.served:

@@ -1,8 +1,10 @@
-"""Group-by execution over region tables on one torch device.
+"""Group-by execution over region tables on the mesh's device slots.
 
-Counterpart of `greptimedb_tpu/parallel/executor.py` on a single device:
-there is no mesh, no shard_map and no cross-device merge (multi-GPU is
-later work).  The host side is kept as it was:
+Counterpart of `greptimedb_tpu/parallel/executor.py`: region tables go to
+D slots, each slot computes its partial states on its device, and the
+partials gather on the first slot and fold in slot order there (K22,
+`ops/aggregate.py::fold_states`, in place of the reference's shard_map +
+`psum_states` collectives).  The host side is kept as it was:
   - union tag dictionaries across region tables, in order of first
     appearance, so codes — hence group ids and row order — match the
     reference;
@@ -38,6 +40,7 @@ from ..ops.aggregate import (
     _FAST_MIN_ROWS,
     AggState,
     finalize,
+    fold_states,
     hash_group_slots,
     limb_segment_sums,
     quantize_limbs,
@@ -45,9 +48,10 @@ from ..ops.aggregate import (
     segment_aggregate,
     segment_aggregate_multi,
     segment_sums_scatter,
+    stack_states,
 )
 from ..ops.filter import mask_gids
-from ..ops.tiles import TileBatch, tiles_from_table
+from ..ops.tiles import TileBatch, pad_rows, tiles_from_table
 
 COUNT_STAR = "__count_star"  # pseudo-column for count(*)
 
@@ -319,6 +323,14 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
     return states
 
 
+def fold_partials(partials: list[dict], dev) -> dict[str, AggState]:
+    """The table-fed mesh merge: one partial state dict per slot, in slot
+    order, gathered on `dev` and folded by K22 with `psum_states`' rules."""
+    order = list(range(len(partials)))
+    return {key: fold_states(stack_states([p[key] for p in partials], dev), 1, order, rule="psum")
+            for key in partials[0]}
+
+
 @dataclass
 class GroupByResult:
     """Finalized aggregates plus the host-side group key decode."""
@@ -373,17 +385,28 @@ def distributed_groupby(
     n_buckets: int,
     agg_specs: list[tuple[str, str]],
     filters: list[tuple[str, str, object]] | None = None,
-    device: str | torch.device = "cuda",
+    device="cuda",
     ts_col: str | None = None,
 ) -> GroupByResult | None:
     """Execute a scan->filter->time-bucketed-groupby over region tables on
-    one device (the reference's 1-device mesh: all regions concatenated
-    into one shard, in region order).  Returns None — a decline, before
-    anything is uploaded — when the padded group space (the quantized tag
-    cardinalities of the dictionary union times the buckets) reaches
-    2^31, which int32 ids cannot address."""
+    the D device slots `device` (a device, or a sequence of them: the
+    reference's mesh of D devices):
+    region table i goes to slot i % D, each slot's tables concatenated in
+    region order and padded to one size, with the dictionaries unioned in
+    slot order.  Each slot computes its partial states on its device; with
+    D > 1 they gather on the first slot and fold in slot order (K22, the
+    reference's `psum_states`: counts add, min/max take order statistics,
+    sums fold left, LAST takes the max value at the max ts).  A slot with
+    no table gets an all-invalid source, whose states are the identity.
+    Returns None — a decline, before anything is uploaded — when the
+    padded group space (the quantized tag cardinalities of the dictionary
+    union times the buckets) reaches 2^31, which int32 ids cannot
+    address."""
     t_start = time.perf_counter()
     filters = filters or []
+    devices = [torch.device(d) for d in
+               (device if isinstance(device, (list, tuple)) else (device,))]
+    n_dev = len(devices)
     norm_specs: list[tuple[str, str]] = []
     for func, col in agg_specs:
         if func == "count" and col is None:
@@ -393,9 +416,15 @@ def distributed_groupby(
     tables = [t for t in region_tables if t is not None]
     if not tables:
         raise ValueError("no region tables to scan")
-    table = pa.concat_tables(tables, promote_options="permissive")
+    slots: list[list[pa.Table]] = [[] for _ in range(n_dev)]
+    for i, t in enumerate(tables):
+        slots[i % n_dev].append(t)
+    slot_tables = [
+        pa.concat_tables(ts, promote_options="permissive") if ts else None for ts in slots
+    ]
 
-    # Union tag dictionaries so codes agree globally (first appearance).
+    # Union tag dictionaries so codes agree globally (first appearance,
+    # slot by slot).
     value_cols = [c for _f, c in norm_specs if c != COUNT_STAR]
     needed_cols = set(group_tags) | set(value_cols) | {f[0] for f in filters}
     if bucket_col is not None:
@@ -403,28 +432,37 @@ def distributed_groupby(
     if ts_col is not None:
         needed_cols.add(ts_col)
     union_dicts: dict[str, dict] = {}
-    for name in table.column_names:
-        if name not in needed_cols:
+    for table in slot_tables:
+        if table is None:
             continue
-        col = table[name]
-        typ = col.type
-        if pa.types.is_dictionary(typ):
-            typ = typ.value_type
-        if pa.types.is_string(typ) or pa.types.is_large_string(typ) or pa.types.is_binary(typ):
-            mapping = union_dicts.setdefault(name, {})
-            if col.type != typ:
-                col = col.cast(typ)
-            for v in pc.unique(col).to_pylist():
-                if v not in mapping:
-                    mapping[v] = len(mapping)
+        for name in table.column_names:
+            if name not in needed_cols:
+                continue
+            col = table[name]
+            typ = col.type
+            if pa.types.is_dictionary(typ):
+                typ = typ.value_type
+            if pa.types.is_string(typ) or pa.types.is_large_string(typ) or pa.types.is_binary(typ):
+                mapping = union_dicts.setdefault(name, {})
+                if col.type != typ:
+                    col = col.cast(typ)
+                for v in pc.unique(col).to_pylist():
+                    if v not in mapping:
+                        mapping[v] = len(mapping)
 
     tag_cards = tuple(_quantize_card(len(union_dicts.get(t, {}))) for t in group_tags)
     n_b = max(int(n_buckets), 1) if bucket_col is not None else 1
     if math.prod(tag_cards) * n_b >= INT32_GROUP_SPACE:
         return None
-    table = table.select([c for c in table.column_names if c in needed_cols])
-    batch: TileBatch = tiles_from_table(table, device=device, dicts=union_dicts)
-    nulls = {c: batch.nulls[c] for c in value_cols if c in batch.nulls}
+    schema = next(t for t in slot_tables if t is not None).schema
+    rows = pad_rows(max(t.num_rows for t in slot_tables if t is not None))
+    batches: list[TileBatch] = []
+    for table, dev in zip(slot_tables, devices):
+        if table is None:
+            table = schema.empty_table()
+        table = table.select([c for c in table.column_names if c in needed_cols])
+        batches.append(tiles_from_table(table, device=dev, dicts=union_dicts, rows=rows))
+    null_cols = tuple(sorted(c for c in value_cols if any(c in b.nulls for b in batches)))
 
     # Encode filter literals to codes; quantize cardinalities.
     enc_filters = []
@@ -451,7 +489,14 @@ def distributed_groupby(
         ts_col=(ts_col or bucket_col) if needs_ts else None,
     )
     t_tiled = time.perf_counter()
-    states = compute_partial_states(plan, batch.columns, batch.valid, nulls)
+    partials = []
+    for b in batches:
+        # a column masked in some slot is null-gated in every slot (all
+        # present where a slot has no mask), so every partial has one shape
+        nulls = {c: b.nulls.get(c, torch.ones_like(b.valid)) for c in null_cols}
+        partials.append(compute_partial_states(plan, b.columns, b.valid, nulls,
+                                               count_cols=null_cols))
+    states = partials[0] if n_dev == 1 else fold_partials(partials, devices[0])
 
     per_col_aggs: dict[str, set] = {}
     for func, col in norm_specs:
@@ -462,8 +507,9 @@ def distributed_groupby(
         for col, aggs in per_col_aggs.items()
         if col in states
     }
-    if batch.device.type == "cuda":
-        torch.cuda.synchronize(batch.device)
+    if devices[0].type == "cuda":
+        for dev in dict.fromkeys(devices):
+            torch.cuda.synchronize(dev)
     t_device = time.perf_counter()
     # one device->host copy of the [G]-sized results
     presence_np = presence.cpu().numpy()

@@ -3,10 +3,11 @@
 Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor`:
 `execute`, `_try_execute_impl`, the warm branch of `_locked_execute`,
 `_encode_mem` (the memtable tail), `_fetch_result`, `_finalize`,
-`_decode_result` and the `_assemble_*` helpers, for the configuration
-the port implements (one device, the "sort" and "hash" strategies, no
-host fast path, no cold host serve, no fused or batched builds, no dedup
-plane, no window tiles, no streamed spill).  A query:
+`_decode_result`, the `_assemble_*` helpers and `_mesh_attempt`, for
+the configuration the port implements (the "sort" and "hash"
+strategies, the mesh of `tile.mesh_devices` slots, no host fast path,
+no cold host serve, no fused or batched builds, no dedup plane, no
+window tiles, no streamed spill).  A query:
 
   1. snapshots each region's (files, memtables) and checks that the
      tile path may aggregate raw file rows (append-mode table, or
@@ -22,7 +23,11 @@ plane, no window tiles, no streamed spill).  A query:
      groups, `query.max_internal_groups` stage-1 groups);
   4. runs one tile program over every chunk and tail — of the
      time-major copies for a bucket-only group-by — (parallel/
-     tile_program.py) and reads the packed result back once;
+     tile_program.py) and reads the packed result back once.  With
+     `tile.mesh_devices` > 0 the program runs over the mesh instead
+     (`mesh_run`: per-slot partials, K22's fold on the first slot,
+     finalize once; counted in `mesh_dispatches`); a shape it does not
+     express takes the single-device dispatch, and a failure raises;
   5. decodes it on the host.  A limb verdict of 0 (a group's
      quantization bound above 1e-7 of its sum) reruns the query with
      exact f64 accumulation; a hash overflow verdict (some row found no
@@ -86,7 +91,15 @@ from .tile_planner import (
     disjoint,
     plan_cols,
 )
-from .tile_program import TickProgram, limb_sum_cols, np_dtype, tile_program
+from .mesh import REGION_AXIS
+from .tile_program import (
+    MeshIneligible,
+    TickProgram,
+    limb_sum_cols,
+    mesh_run,
+    np_dtype,
+    tile_program,
+)
 
 
 class _CallState(threading.local):
@@ -277,9 +290,11 @@ class TileExecutor:
         In capture mode it returns a CapturedDispatch, in deferred-fetch
         mode a PendingFetch."""
         self._reset_call()
-        # refuse an unknown strategy also when the config was changed after
-        # it was built
+        # refuse an unknown strategy, or more mesh slots than are listed,
+        # also when the config was changed after it was built
         self.config.validate()
+        if self.cache.tile_config is not None:
+            self.cache.tile_config.validate(len(self.cache.devices))
         scan = lowering.scan
         ts_name = schema.time_index.name if schema.time_index else None
         tag_cols = list(lowering.group_tags)
@@ -444,6 +459,9 @@ class TileExecutor:
         need_cols = plan_cols(plan)
         limb_need = limb_sum_cols(plan)
         device_sources = []
+        # each source's mesh slot (its chunk's placement; time-major copies
+        # and memtable tails live on slot 0, as in the reference)
+        source_slots = []
         q_ms = tm_ms = 0.0
         for region, _metas, mem_tables in region_sources:
             s = entries.get(region.region_id)
@@ -477,6 +495,7 @@ class TileExecutor:
                         {k: v[i] for k, v in nulls.items()},
                         {k: v[i] for k, v in limbs.items()},
                     ))
+                    source_slots.append(0 if plan.time_major else s.chunk_slot(i))
             for mt in mem_tables:
                 src = self._encode_mem(ctx.dictionary, mt, all_tag_cols, use_ts, value_cols)
                 if src is None:
@@ -488,6 +507,7 @@ class TileExecutor:
                     {k: v for k, v in nulls.items() if k in need_cols},
                     {},
                 ))
+                source_slots.append(0)
         # count rows ship only for columns whose sources carry a null mask
         null_present = set()
         for _cols, _valid, nulls, _limbs in device_sources:
@@ -505,6 +525,16 @@ class TileExecutor:
         if plan.time_major:
             self.timings["time_major"] = tm_ms
         self.timings["plan"] = (time.perf_counter() - t_start) * 1e3 - sum(self.timings.values())
+        ndev = len(self.cache.devices)
+        placed = ndev > 1 and passes.enabled("chunk_placement", self.config)
+        if placed:
+            why = (f"{len(device_sources)} tile chunk(s) placed over {ndev} device slots, "
+                   "states merged N:1")
+        elif ndev > 1:
+            why = "pass disabled: all chunks pinned to slot 0"
+        else:
+            why = f"{len(device_sources)} tile chunk(s) on the single device"
+        passes.note("chunk_placement", placed, why, chunks=len(device_sources), devices=ndev)
 
         # 5. one program, one readback.  A failed limb verdict reruns in
         # f64; a hash overflow reruns on the dense plan when it fits the
@@ -534,7 +564,11 @@ class TileExecutor:
         for attempt in attempts:
             program = tile_program(attempt, nullable_cols, fspec)
             t0 = time.perf_counter()
-            packed = program.run_all(device_sources, dyn)
+            # the mesh first (tile.mesh_devices > 0); a shape it does not
+            # express takes the single-device dispatch, and a failure raises
+            packed = self._mesh_attempt(program, device_sources, source_slots, dyn)
+            if packed is None:
+                packed = program.run_all(device_sources, dyn)
             if defer_active():
                 # the per-member tick path: the leader reads every member's
                 # leaves back in one copy, then decodes (first rung only)
@@ -551,6 +585,33 @@ class TileExecutor:
             else:
                 self.count(limb_reruns=1)
         return None
+
+    def _mesh_attempt(self, program, device_sources, source_slots, dyn):
+        """The multi-device dispatch (`tile.mesh_devices` > 0, the
+        reference's `_mesh_attempt`): the packed result, or None to run the
+        single-device dispatch (mesh off, pass disabled, or a shape the
+        mesh run does not express).  Unlike the reference, a failure in
+        the mesh run raises: nothing degrades to the single device."""
+        mesh_n = self.cache.mesh_devices()
+        if mesh_n <= 0:
+            return None
+        if not passes.enabled("mesh_dispatch", self.config):
+            passes.note("mesh_dispatch", False, "pass disabled: single-device dispatch")
+            return None
+        try:
+            packed = mesh_run(program, device_sources, source_slots, dyn,
+                              self.cache.mesh(mesh_n))
+        except MeshIneligible as why:
+            passes.note("mesh_dispatch", False, f"{why}: single-device dispatch")
+            return None
+        self.count(mesh_dispatches=1)
+        passes.note(
+            "mesh_dispatch", True,
+            f"{len(device_sources)} source(s) over the {mesh_n}-slot `{REGION_AXIS}` mesh: "
+            "per-slot partial states, K22 fold on slot 0, finalize once after the fold",
+            devices=mesh_n, sources=len(device_sources),
+        )
+        return packed
 
     def _dense_fits(self, plan) -> bool:
         """A sort plan's [G] states fit the dense bounds."""

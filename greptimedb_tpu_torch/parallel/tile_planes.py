@@ -45,8 +45,17 @@ Keeping the planes current, as the reference does at its defaults:
   (the SQL path still declines overlapping files);
 * the fold CSRs of the fused TQL aggregations (`group_csr`), kept per
   (radices, kept tags);
-* not ported: persistence of consolidated encodes, window tiles,
-  multi-device placement (of chunks and of time-major copies), the
+* chunk placement (the `chunk_placement` pass; reference
+  `tile_cache.py:1172-1260`): with several device slots an entry's chunk
+  i goes to slot (base + i) % n, decided once per entry when its valid
+  plane uploads — base 0 over every slot with the mesh off, base
+  `region_device_index(region, mesh_devices)` over the mesh's slots with
+  it on, every chunk on slot 0 with the pass disabled.  The entry keeps
+  that rule (`_SuperTiles.placement`), so its sources are keyed to slots
+  by index, never by device identity (one device may fill several
+  slots).  Time-major copies and memtable tails live on slot 0, as in
+  the reference;
+* not ported: persistence of consolidated encodes, window tiles, the
   pipelined and fused builds.  Limb-only columns keep their f64 plane
   (the reference skips that upload).
 
@@ -76,6 +85,7 @@ from ..query import passes
 from ..storage.dictionary import TableDictionary
 from ..storage.region import Region
 from ..storage.sst import FileMeta
+from .mesh import make_mesh, region_device_index
 
 TILE_CHUNK_ROWS = 1 << 24
 
@@ -175,6 +185,13 @@ class _SuperTiles:
     nbytes: int = 0
     # in-place delta merges absorbed since the entry was built
     delta_extends: int = 0
+    # chunk placement: chunk i lives on mesh slot (base + i) % modulus,
+    # decided when the valid plane uploads (TileCacheManager.placement)
+    placement: tuple[int, int] = (0, 1)
+
+    def chunk_slot(self, i: int) -> int:
+        base, modulus = self.placement
+        return (base + i) % modulus
 
 
 def _nbytes(chunks) -> int:
@@ -220,7 +237,7 @@ class TileCacheManager:
         self,
         budget_bytes: int = 8 << 30,
         chunk_rows: int = TILE_CHUNK_ROWS,
-        device: str | torch.device = "cuda",
+        device="cuda",
         config=None,
         tile_config=None,
     ):
@@ -231,7 +248,12 @@ class TileCacheManager:
         self.budget = budget_bytes
         self.host_budget = budget_bytes * 2  # host encodes of the SST files
         self.chunk_rows = chunk_rows
-        self.device = torch.device(device)
+        # the mesh slots (parallel/mesh.py; `device` is one device or a
+        # sequence of them): chunks are placed over them, the first is
+        # where single-device work runs
+        self.devices = tuple(torch.device(d) for d in
+                             (device if isinstance(device, (list, tuple)) else (device,)))
+        self.device = self.devices[0]
         self._lock = threading.RLock()
         self._super: OrderedDict[int, _SuperTiles] = OrderedDict()
         self._host: OrderedDict[tuple[int, str], _FileHostTiles] = OrderedDict()
@@ -253,6 +275,28 @@ class TileCacheManager:
         self.graph_bytes = 0
         # the executor's windowed result cache, purged per region here
         self.result_cache = None
+
+    # ---- placement -----------------------------------------------------------
+    def mesh(self, n_devices: int) -> tuple:
+        """The mesh of the first `n_devices` slots."""
+        return make_mesh(n_devices, devices=self.devices)
+
+    def mesh_devices(self) -> int:
+        """The live `tile.mesh_devices` knob, clamped to the listed slots."""
+        n = int(getattr(self.tile_config, "mesh_devices", 0) or 0)
+        return min(max(n, 0), len(self.devices))
+
+    def placement(self, region_id: int) -> tuple[int, int]:
+        """(base, modulus) of a new entry's chunk placement: chunk i goes to
+        slot (base + i) % modulus — round robin over every slot, from the
+        region's co-located slot over the mesh's slots when the mesh is on,
+        slot 0 when the `chunk_placement` pass is disabled."""
+        if not passes.enabled("chunk_placement", self.config):
+            return (0, 1)
+        mesh_n = self.mesh_devices()
+        if mesh_n > 0:
+            return (region_device_index(region_id, mesh_n), mesh_n)
+        return (0, len(self.devices))
 
     def _planes_changed(self, region_id: int) -> None:
         for fn in self.plane_listeners:
@@ -594,7 +638,8 @@ class TileCacheManager:
                 v = np.zeros(entry.pad, bool)
                 v[: entry.num_rows] = True
                 t0 = time.perf_counter()
-                entry.valid = self._up_chunks(v, bounds)
+                entry.placement = self.placement(rid)
+                entry.valid = self._up_chunks(v, bounds, entry.placement)
                 acc[0] += v.nbytes
                 acc[1] += time.perf_counter() - t0
             self._upload_missing(entry, missing, host_tiles, bounds, acc, tag_cols, pk_cols,
@@ -812,10 +857,10 @@ class TileCacheManager:
         """Upload one consolidated column (+ its present-mask plane) and
         stamp the dictionary epoch of a tag column."""
         t0 = time.perf_counter()
-        entry.cols[name] = self._up_chunks(buf, bounds)
+        entry.cols[name] = self._up_chunks(buf, bounds, entry.placement)
         acc[0] += buf.nbytes
         if nbuf is not None:
-            entry.nulls[name] = self._up_chunks(nbuf, bounds)
+            entry.nulls[name] = self._up_chunks(nbuf, bounds, entry.placement)
             acc[0] += nbuf.nbytes
         acc[1] += time.perf_counter() - t0
         if name in tag_cols or name in pk_cols:
@@ -830,11 +875,16 @@ class TileCacheManager:
             self._land_column(entry, name, buf, nbuf, bounds, acc, tag_cols, pk_cols,
                               dictionary)
 
-    def _up_chunks(self, buf: np.ndarray, bounds) -> list:
-        """Upload a consolidated host buffer chunk by chunk."""
+    def _up_chunks(self, buf: np.ndarray, bounds, placement=(0, 1)) -> list:
+        """Upload a consolidated host buffer chunk by chunk, chunk i onto
+        slot (base + i) % modulus of `placement`."""
         t = torch.from_numpy(buf)
-        return [t[a:b].to(self.device).contiguous() if self.device.type != "cpu"
-                else t[a:b].clone() for a, b in bounds]
+        base, modulus = placement
+        out = []
+        for i, (a, b) in enumerate(bounds):
+            dev = self.devices[(base + i) % modulus]
+            out.append(t[a:b].to(dev).contiguous() if dev.type != "cpu" else t[a:b].clone())
+        return out
 
     def ensure_dedup_keep(self, entry: _SuperTiles) -> bool:
         """Build (once per file set) the last-write-wins keep plane from the
@@ -855,7 +905,8 @@ class TileCacheManager:
                 for arr in entry.sorted_host.values():
                     same &= arr[:-1] == arr[1:]
                 keep[: n - 1] &= ~same
-            entry.valid_dedup = self._up_chunks(keep, chunk_bounds(entry.pad, self.chunk_rows))
+            entry.valid_dedup = self._up_chunks(keep, chunk_bounds(entry.pad, self.chunk_rows),
+                                                entry.placement)
             entry.nbytes += entry.pad
             if self._super.get(entry.region_id) is entry:
                 self._used += entry.pad

@@ -32,6 +32,14 @@ literals] — and the HAVING literals) are encoded on the host
 device buffer, uploaded without a sync before the first launch; nothing
 between that upload and the readback reads the device on the host.
 
+`mesh_run` is the multi-device form (`tile.mesh_devices`, the reference's
+`_mesh_run`, `_mesh_merge_program`, `_mesh_hash_cross_program`): the
+sources split into contiguous runs of one shape; within a run each mesh
+slot computes the partial states of its sources (`TileProgram.partial`,
+on the slot's device), the partials gather on the first slot and K22
+folds them (`fold_states`); runs merge pairwise in run order, and `final`
+runs once on the first slot.
+
 `TickProgram` is B19, the reference's `_mega_program`
 (greptimedb_tpu/parallel/tile_cache.py:3325): the members of a dashboard
 tick — N distinct warm queries over one table — as one program.  On the
@@ -45,6 +53,7 @@ the CPU the same plumbing runs eagerly over the same static buffers.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -53,12 +62,17 @@ import torch
 
 from ..ops.aggregate import (
     HASH_EMPTY,
+    AggState,
     HavingRef,
     finalize,
+    fold_states,
+    hash_group_slots,
     having_mask,
     having_refs,
+    invert_slot_maps,
     merge_states,
     pack_result,
+    stack_states,
     topk_group_select,
 )
 from ..ops.filter import literal_specs, literal_table
@@ -248,19 +262,22 @@ class TileProgram:
         )
         return (*packed, table_keys) if self.is_hash else packed
 
+    def upload_inputs(self, sources, dyn, dev):
+        """`encode_inputs` of `sources` as one int64 buffer on `dev`."""
+        from ..kernels._build import upload_table
+
+        _sig, enc = self.encode_inputs(sources, dyn)
+        if dev.type == "cpu":
+            return torch.from_numpy(enc)
+        return upload_table(enc.tolist(), dev)
+
     def run_all(self, sources, dyn):
         """sources: (cols, valid, nulls, limbs) per chunk/tail, merged in
         order; dyn: the runtime literals and bucket geometry, encoded and
         uploaded in one buffer before the first launch."""
-        from ..kernels._build import upload_table
-
-        _sig, enc = self.encode_inputs(sources, dyn)
         dev = sources[0][1].device if sources else torch.device("cpu")
-        if dev.type == "cpu":
-            inputs = torch.from_numpy(enc)
-        else:
-            inputs = upload_table(enc.tolist(), dev)
-        return self.run_with(sources, dyn, inputs)
+        sources = [source_on(src, dev) for src in sources]
+        return self.run_with(sources, dyn, self.upload_inputs(sources, dyn, dev))
 
     def run_with(self, sources, dyn, inputs):
         """`run_all` over `inputs`, the int64 buffer `encode_inputs` laid
@@ -284,6 +301,175 @@ class TileProgram:
                 states = self.partial(cols, valid, nulls, sdyn, limbs)
             merged = states if merged is None else self.merge(merged, states)
         return self.final(merged, hv, table_keys)
+
+
+def source_on(src, dev):
+    """A (cols, valid, nulls, limbs) source with every tensor on `dev` (the
+    source itself when it already is)."""
+    cols, valid, nulls, limbs = src
+    if valid.device == dev and all(t.device == dev for t in cols.values()):
+        return src
+    return ({k: v.to(dev) for k, v in cols.items()}, valid.to(dev),
+            {k: v.to(dev) for k, v in nulls.items()},
+            {k: (lb.to(dev), sc.to(dev)) for k, (lb, sc) in limbs.items()})
+
+
+# ---- the mesh run (tile.mesh_devices) ------------------------------------------------
+#
+# The reference's order contract (tile_cache.py:3378-3396): counts add and
+# min/max take order statistics, while float sums and LAST states fold in
+# GLOBAL SOURCE ORDER, the single-device left fold, so a 1-slot mesh, an
+# N-slot mesh and the single-device dispatch give the same bytes.  K22
+# (`fold_states`) does every fold.
+
+
+class MeshIneligible(Exception):
+    """A query shape the mesh run does not express: the single-device
+    dispatch answers it (a shape verdict, never an error)."""
+
+
+def _source_sig(src) -> tuple:
+    def sig(t):
+        return tuple(t.shape), str(t.dtype)
+
+    cols, valid, nulls, limbs = src
+    return (tuple((k, sig(v)) for k, v in sorted(cols.items())), sig(valid),
+            tuple((k, sig(v)) for k, v in sorted(nulls.items())),
+            tuple((k, sig(lb), sig(sc)) for k, (lb, sc) in sorted(limbs.items())))
+
+
+def mesh_runs(sources, slots) -> list[list[tuple]]:
+    """Contiguous runs of sources of one structure and shape, as
+    (source, slot) pairs (the reference's `_mesh_runs`)."""
+    runs, last = [], None
+    for src, slot in zip(sources, slots):
+        sig = _source_sig(src)
+        if runs and sig == last:
+            runs[-1].append((src, slot))
+        else:
+            runs.append([(src, slot)])
+            last = sig
+    return runs
+
+
+def mesh_positions(run, n_dev: int, n_local: int) -> list[tuple[int, int]]:
+    """(slot, local index) of each source of a run: its placed slot while
+    that slot has room, else the least loaded slot (the reference's
+    `_stack_mesh_inputs`)."""
+    counts = [0] * n_dev
+    out = []
+    for _src, slot in run:
+        d = slot if slot is not None and 0 <= slot < n_dev else None
+        if d is None or counts[d] >= n_local:
+            d = min(range(n_dev), key=lambda i: (counts[i], i))
+        out.append((d, counts[d]))
+        counts[d] += 1
+    return out
+
+
+def _dummy_of(src, dev):
+    """An all-invalid source of `src`'s shapes on `dev` (identity states)."""
+    cols, valid, nulls, limbs = src
+    return ({k: torch.zeros_like(v, device=dev) for k, v in cols.items()},
+            torch.zeros_like(valid, device=dev),
+            {k: torch.zeros_like(v, device=dev) for k, v in nulls.items()},
+            {k: (torch.zeros_like(lb, device=dev), torch.zeros_like(sc, device=dev))
+             for k, (lb, sc) in limbs.items()})
+
+
+def on_device(dev):
+    """The slot's device as the current one: a kernel is launched in the
+    current device's context, on its operands' device's stream."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _fold_run(program, run, devices, dyn):
+    """One run over the mesh: (merged states, union key table or None, hv).
+    Each slot computes its sources' partials (and its dummies') on its
+    device; the partials gather on the first slot and K22 folds them."""
+    n_dev = len(devices)
+    n_local = -(-len(run) // n_dev)
+    positions = mesh_positions(run, n_dev, n_local)
+    local: list[list] = [[None] * n_local for _ in range(n_dev)]
+    for (src, _slot), (d, l) in zip(run, positions):
+        local[d][l] = source_on(src, devices[d])
+    template = run[0][0]
+    pdyn = {k: dyn[k] for k in ("filter_values", "bucket_origin", "bucket_interval")}
+    states, tables, hv = [], [], None
+    for d, dev in enumerate(devices):
+        srcs = [s if s is not None else _dummy_of(template, dev) for s in local[d]]
+        with on_device(dev):
+            lits, slot_hv = program._input_views(srcs, dyn, program.upload_inputs(srcs, dyn, dev))
+            if d == 0:
+                hv = slot_hv  # the HAVING literals, on the first slot
+            table = None
+            if program.is_hash:
+                table = torch.full((program.plan.hash_slots,), HASH_EMPTY, dtype=torch.int64,
+                                   device=dev)
+            for (cols, valid, nulls, limbs), src_lits in zip(srcs, lits):
+                sdyn = dict(pdyn, lits=src_lits)
+                if program.is_hash:
+                    st, table = program.partial(cols, valid, nulls, sdyn, limbs, table)
+                else:
+                    st = program.partial(cols, valid, nulls, sdyn, limbs)
+                states.append(st)
+            tables.append(table)
+    dev0 = devices[0]
+    order = [d * n_local + l for d, l in positions]
+    if not program.is_hash:
+        return {key: fold_states(stack_states([st[key] for st in states], dev0), n_local, order)
+                for key in states[0]}, None, hv
+    return (*_keyed_fold(program.plan.hash_slots, states, tables, n_local, order, dev0), hv)
+
+
+def _keyed_fold(h, states, tables, n_local, order, dev0):
+    """Hash plans: union the slot tables through K17 on the first slot,
+    invert each slot's map (K22's first launch) and fold every key through
+    it (K22, keyed).  `states` holds the per-source state dicts
+    (slot-major, n_local a slot); `tables` one [h] key table per slot.
+    Returns (merged states, union keys)."""
+    keys = torch.cat([t.to(dev0) for t in tables])
+    union = torch.full((h,), HASH_EMPTY, dtype=torch.int64, device=dev0)
+    union, slots, overflow = hash_group_slots(union, keys, keys != HASH_EMPTY)
+    inv = invert_slot_maps(slots.reshape(len(tables), h))
+    merged = {}
+    for key in states[0]:
+        stacked = stack_states([st[key] for st in states], dev0)
+        if key == "__hash_overflow":
+            total = fold_states(stacked, n_local, order).counts
+            merged[key] = AggState(counts=total + overflow.to(total.dtype).reshape(1))
+        else:
+            merged[key] = fold_states(stacked, n_local, order, inv=inv)
+    return merged, union
+
+
+def mesh_run(program: "TileProgram", sources, slots, dyn, devices):
+    """The query's sources over the mesh `devices` (the first
+    tile.mesh_devices slots): one fold per shape run, runs merged pairwise
+    in run order (K22 again: the reference's `merge_states` for dense
+    states, a keyed union for hash plans), then `final` once on the first
+    slot.  `slots` gives each source's placed slot (None: unplaced).
+    Returns the packed result as `run_all` does."""
+    plan = program.plan
+    if program.is_hash and any(_FUNC_TO_KERNEL[f] == "last" for f, _c in plan.agg_specs):
+        raise MeshIneligible("LAST states have no keyed merge")
+    if not sources:
+        raise ValueError("mesh program received no sources")
+    dev0 = devices[0]
+    merged = keys = hv = None
+    for run in mesh_runs(sources, slots):
+        states, run_keys, run_hv = _fold_run(program, run, devices, dyn)
+        hv = run_hv if hv is None else hv
+        if merged is None:
+            merged, keys = states, run_keys
+        elif program.is_hash:
+            merged, keys = _keyed_fold(plan.hash_slots, [merged, states], [keys, run_keys],
+                                       1, [0, 1], dev0)
+        else:
+            merged = {k: fold_states(stack_states([merged[k], states[k]], dev0), 2, [0, 1])
+                      for k in merged}
+    with on_device(dev0):
+        return program.final(merged, hv, keys)
 
 
 @functools.lru_cache(maxsize=256)

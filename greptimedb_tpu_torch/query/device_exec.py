@@ -170,13 +170,15 @@ def try_lower(plan: LogicalPlan, schema: Schema) -> Lowering | None:
 
 
 class DeviceExecutor:
-    """Executes lowered plans on one torch device; post-ops on the CPU."""
+    """Executes lowered plans on the torch device slots (the table-fed
+    route over all of them, the tile path over its mesh); post-ops on the
+    CPU."""
 
-    def __init__(self, region_scan_provider, device, tile_executor=None,
+    def __init__(self, region_scan_provider, devices, tile_executor=None,
                  tile_context_provider=None):
         # region_scan_provider(scan: TableScan) -> list[pa.Table], one per region
         self.region_scan = region_scan_provider
-        self.device = device
+        self.devices = devices
         self.tile_executor = tile_executor
         self.tile_context_provider = tile_context_provider
         # host wall ms per stage of the last execute(): on the table-fed
@@ -241,7 +243,7 @@ class DeviceExecutor:
             n_buckets=n_buckets,
             agg_specs=[(f, c) for f, c in lowering.agg_specs],
             filters=list(scan.filters),
-            device=self.device,
+            device=self.devices,
             ts_col=schema.time_index.name if needs_ts and schema.time_index else None,
         )
         if result is None:

@@ -32,7 +32,10 @@ they served), `batch_fused_dispatches` (ticks answered by one tick
 program), `tick_graph_captures` (tick programs built: on the card, a
 CUDA graph captured), `tick_graph_replays` (tick program runs: on the
 card, one graph replay each) and `result_cache_hits` (queries the
-windowed result cache served with no dispatch).  The counters are bumped
+windowed result cache served with no dispatch); and, from the first
+one on, `mesh_dispatches` (tile dispatches and TQL range evaluations run
+over the `tile.mesh_devices` mesh, the reference's
+TILE_MESH_DISPATCHES; read it with `stats.get`).  The counters are bumped
 under a lock: the members of a tick run on their own threads.
 `last_timings` holds the per-stage host wall ms of the calling thread's
 last lowered query and `last_path` which path answered its last query:
@@ -143,13 +146,22 @@ class QueryEngine:
             self.tile_cache = TileCacheManager(
                 device_budget(self.config.tile_cache_mb, device),
                 chunk_rows=self.config.tile_chunk_rows,
-                device=device,
+                device=self.mesh,
                 config=self.config,
                 tile_config=self.tile_config,
             )
             self._tile_executor = TileExecutor(self.tile_cache, self.config,
                                                batch_config=self.batch_config, stats=self.stats)
         return self._tile_executor
+
+    @property
+    def mesh(self):
+        """Every listed device slot (parallel/mesh.py), the first being
+        `config.device`: the table-fed route runs over all of them, the
+        tile path over the first `tile.mesh_devices`."""
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh(devices=self.config.device_slots())
 
     def execute_select(self, stmt: SelectStmt, database: str = "public") -> pa.Table:
         plan, schema = plan_query(stmt, self.schema_of, database)
@@ -167,7 +179,7 @@ class QueryEngine:
         tile = self.tile_executor()
         if tile is not None:
             tile.last_strategy, tile.last_hash_overflow = None, False
-        device = DeviceExecutor(self._region_scan, self.config.device, tile_executor=tile,
+        device = DeviceExecutor(self._region_scan, self.mesh, tile_executor=tile,
                                 tile_context_provider=self._tile_ctx)
         table = device.execute(
             lowering,

@@ -4,8 +4,8 @@ switchable.
 Counterpart of `greptimedb_tpu/query/passes.py`, holding only the passes
 the port implements and whose decision points consult `enabled()`.  A
 pass the reference has and the port does not (window tiles, the dedup
-plane on the SQL path, the host fast path, the fused build, the mesh,
-...) does not exist here, so `enabled()` reports it off: the port
+plane on the SQL path, the host fast path, the fused build, ...) does
+not exist here, so `enabled()` reports it off: the port
 behaves as the reference does with that pass in
 `query.disabled_passes`.
 
@@ -40,6 +40,13 @@ PASSES = {
     "tql_tile": "evaluate PromQL range functions (rate/increase/delta, *_over_time, the "
                 "by-label sum/avg/min/max/count fold) as one program (K9-K12) over the "
                 "resident super-tile planes, with a compacted [series_out, steps] readback",
+    "chunk_placement": "place super-tile chunks round-robin over the device slots (from the "
+                       "region's co-located slot when tile.mesh_devices is on); disabled, "
+                       "every chunk lives on the first slot",
+    "mesh_dispatch": "run the tile program over the tile.mesh_devices slots: each slot "
+                     "computes its sources' partial states on its device, the partials "
+                     "gather on the first slot and fold there (K22; hash slot tables union "
+                     "through K17 first), device finalize runs once after the fold",
 }
 
 

@@ -1,7 +1,7 @@
 """Warm TQL path: PromQL range-vector evaluation over the device-resident
 super-tile planes.
 
-Counterpart of `greptimedb_tpu/query/promql/tile_exec.py` on one device.
+Counterpart of `greptimedb_tpu/query/promql/tile_exec.py`.
 The legacy `PromqlEngine._fetch` rescans the region, re-encodes and
 re-uploads the samples on every query; here a query over a table whose
 planes (tag codes, ts, value, present mask, valid or dedup keep plane) are
@@ -43,13 +43,18 @@ vectors, matchers and the by-label folds equal it on one-region tables
 increase over series with counter resets, and float sums folded across
 regions, within the last ulp.
 
-Not ported: the mesh programs (`_mesh_dispatch`, `_partial_program`,
-`_merge_program`), the fused and cold-serve builds, the flight recorder,
+With `tile.mesh_devices` > 0 and more than one region, each region's
+K9/K10 run on its co-located mesh slot and K11/K12 on the first slot
+(`mesh_program`, the reference's `_mesh_dispatch`, `_partial_program`
+and `_merge_program`), counted in the engine's `mesh_dispatches`.
+
+Not ported: the fused and cold-serve builds, the flight recorder,
 tracing spans, fault points and the degrade counters.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 import time
 
@@ -64,6 +69,8 @@ from ...ops.rate import (
     series_fold,
     strip_counter_resets,
 )
+from ...parallel.mesh import region_device_index
+from ...parallel.tile_program import on_device
 from .. import passes
 from ..logical_plan import TableScan
 
@@ -76,25 +83,70 @@ class _Ineligible(Exception):
     path answers it."""
 
 
-def tql_program(sources: list[RowSource], grid: RangeGrid, func: str, agg_op=None,
-                fold=None):
-    """The warm program: per region K9 (rate/increase) and K10, then K11
-    over all regions, then K12 when `agg_op` is fused (`fold` = the
-    group CSR (offsets, members)).  Returns ([S, W] or [G, W] f64, the
-    per-region [S] presence bools)."""
-    stats, presence = [], []
-    for src in sources:
-        adjusted = layout = None
-        if func in ("rate", "increase"):
-            adjusted, layout = strip_counter_resets(src)
-        st, pres = range_windows(src, grid, values=adjusted, layout=layout)
-        stats.append(st)
-        presence.append(pres)
+def region_stats(src: RowSource, grid: RangeGrid, func: str):
+    """One region's part of the program: K9 (rate/increase) and K10 over
+    its planes, on the planes' device.  Returns (WindowStats, [S] presence)."""
+    adjusted = layout = None
+    if func in ("rate", "increase"):
+        adjusted, layout = strip_counter_resets(src)
+    return range_windows(src, grid, values=adjusted, layout=layout)
+
+
+def merge_program(stats: list, grid: RangeGrid, func: str, agg_op=None, fold=None):
+    """K11 over the regions' stats in region order (the selection merge of
+    series-disjoint regions), then K12 when `agg_op` is fused (`fold` = the
+    group CSR (offsets, members)).  Returns [S, W] or [G, W] f64."""
     mat = range_finalize(stats, grid, func).view(grid.num_series, grid.n_steps)
     if agg_op is not None:
         offsets, members = fold
         mat = series_fold(mat, offsets, members, agg_op)
-    return mat, presence
+    return mat
+
+
+def tql_program(sources: list[RowSource], grid: RangeGrid, func: str, agg_op=None,
+                fold=None):
+    """The warm program: per region K9 (rate/increase) and K10, then K11
+    over all regions, then K12 when `agg_op` is fused.  Returns ([S, W] or
+    [G, W] f64, the per-region [S] presence bools)."""
+    parts = [region_stats(src, grid, func) for src in sources]
+    mat = merge_program([st for st, _p in parts], grid, func, agg_op, fold)
+    return mat, [p for _st, p in parts]
+
+
+def _source_on(src: RowSource, dev) -> RowSource:
+    """`src` with its planes on `dev` (itself when they already are)."""
+    if src.device == dev:
+        return src
+
+    def move(chunks):
+        return None if chunks is None else [c.to(dev) for c in chunks]
+
+    return dataclasses.replace(
+        src, ts=move(src.ts), values=move(src.values), nulls=move(src.nulls),
+        valid=move(src.valid), codes=tuple(move(c) for c in src.codes),
+        masks=tuple((ti, m.to(dev)) for ti, m in src.masks))
+
+
+def _stats_on(st, dev):
+    return type(st)(**{f.name: getattr(st, f.name).to(dev) for f in dataclasses.fields(st)})
+
+
+def mesh_program(sources: list[RowSource], region_ids, devices, grid: RangeGrid, func: str,
+                 agg_op=None, fold=None):
+    """The TQL mesh route (`tile.mesh_devices` > 0, the reference's
+    `_mesh_dispatch`): each region's stats on its co-located slot
+    (`region_device_index`), gathered on the first slot and merged there in
+    region order, as `tql_program` merges them: the same bytes."""
+    dev0 = devices[0]
+    stats, presence = [], []
+    for src, rid in zip(sources, region_ids):
+        dev = devices[region_device_index(rid, len(devices))]
+        with on_device(dev):
+            st, pres = region_stats(_source_on(src, dev), grid, func)
+        stats.append(_stats_on(st, dev0))
+        presence.append(pres.to(dev0))
+    with on_device(dev0):
+        return merge_program(stats, grid, func, agg_op, fold), presence
 
 
 class TqlTileExecutor:
@@ -378,7 +430,13 @@ class TqlTileExecutor:
         self._add_ms("plan", t0)
 
         t0 = time.perf_counter()
-        mat, pres = tql_program(sources, grid, func, agg_op, fold)
+        mesh_n = self.cache.mesh_devices()
+        if mesh_n > 0 and len(sources) > 1:
+            mat, pres = mesh_program(sources, [item["region"].region_id for item in items],
+                                     self.cache.mesh(mesh_n), grid, func, agg_op, fold)
+            self.qe.stats.add(mesh_dispatches=1)
+        else:
+            mat, pres = tql_program(sources, grid, func, agg_op, fold)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._add_ms("dispatch", t0)

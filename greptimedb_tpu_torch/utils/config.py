@@ -8,6 +8,9 @@ that matter:
 * `QueryConfig.device` names the torch device the lowered query path runs on
   (`"cuda"` by default, `"cpu"` for the tests).  Nothing probes for a
   card to pick one: `Database(device="cuda")` without a card raises.
+  `QueryConfig.devices` lists the slots of the multi-device mesh
+  (`Database(device=[...])`, a device may repeat); empty means the one
+  slot `device`.
 * `QueryConfig.backend` is `"torch"` (the lowered device path) or `"cpu"`
   (the authoritative Arrow executor).
 * There is no `fallback_to_cpu`: a device-path failure raises instead of
@@ -18,13 +21,15 @@ that matter:
   has not ported do not exist (`query/passes.py`) and behave as disabled.
   `agg_strategy` is "auto" (hash or sort per query), "hash" or "sort",
   as in the reference.  Persistence of super-tiles, the streamed spill
-  and the mesh have no knobs here.
+  has no knobs here.
 * `BatchConfig` is the reference's `batch` section: the dashboard batch
   tick (parallel/batcher.py) and the windowed result cache, off by
   default.
-* `TileConfig` holds only `incremental` (delta maintenance of the
-  planes on flush); the prewarm, pipelined and fused builds are not
-  ported.
+* `TileConfig` holds `incremental` (delta maintenance of the planes on
+  flush) and `mesh_devices` (multi-device tile execution); the prewarm,
+  pipelined and fused builds are not ported.  `Config.validate()` checks
+  `mesh_devices` against the listed slots, as the reference checks it
+  against the local devices.
 
 The TOML/env layering, the other sections and the JAX probe are cut
 (listed in ROADMAP.md).
@@ -59,8 +64,11 @@ class StorageConfig:
 @dataclasses.dataclass
 class QueryConfig:
     backend: str = "torch"  # "torch" = lowered device path, "cpu" = Arrow executor
-    # the torch device the lowered path runs on
+    # the torch device the lowered path runs on (the first mesh slot)
     device: str = "cuda"
+    # every mesh slot (parallel/mesh.py), the first being `device`; a
+    # device may fill several slots.  Empty: the one slot `device`
+    devices: tuple = ()
     # dense [G] bounds of the tile path: a sort plan runs when its output
     # group space is at most max_groups * 64 and its stage-1 (hierarchical)
     # space at most max_internal_groups; the hash slot table is capped at
@@ -94,6 +102,10 @@ class QueryConfig:
 
     def __post_init__(self):
         self.validate()
+
+    def device_slots(self) -> tuple[str, ...]:
+        """The mesh slots: `devices`, or the one slot `device`."""
+        return tuple(self.devices) or (self.device,)
 
     def validate(self) -> None:
         from .errors import ConfigError
@@ -133,6 +145,39 @@ class TileConfig:
     # is O(delta rows), not O(total rows).  Off restores the
     # invalidate-and-rebuild-from-scratch path bit-for-bit.
     incremental: bool = True
+    # Multi-device tile execution (parallel/tile_program.py `mesh_run`):
+    # N > 0 runs a query's chunk sources over the first N mesh slots —
+    # each slot computes its sources' partial states on its device, the
+    # partials gather on the first slot and fold there (K22: counts add,
+    # min/max take order statistics, float sums and LAST fold in global
+    # source order), and device finalize runs once after the fold, so the
+    # result is byte-identical for any N and for 0.  0 (the default) is
+    # the single-device dispatch.  Values above the listed slots are
+    # rejected by `Config.validate`.  Unlike the reference, a failure in
+    # the mesh run raises instead of degrading to the single device.
+    mesh_devices: int = 0
+
+    def validate(self, slots: int | None = None) -> None:
+        """`slots`: the number of mesh slots the device list holds."""
+        from .errors import ConfigError
+
+        n = self.mesh_devices
+        if not isinstance(n, int) or isinstance(n, bool):
+            raise ConfigError(
+                "tile.mesh_devices must be an integer device count "
+                f"(0 = single-device dispatch); got {n!r}"
+            )
+        if n < 0:
+            raise ConfigError(
+                "tile.mesh_devices must be >= 0 devices (0 = single-device "
+                f"dispatch, N = shard over the first N slots); got {n!r}"
+            )
+        if slots is not None and n > slots:
+            raise ConfigError(
+                f"tile.mesh_devices ({n}) exceeds the {slots} listed device "
+                "slot(s): the regions mesh cannot be built; lower it or list "
+                "more devices (Database(device=[...]))"
+            )
 
 
 @dataclasses.dataclass
@@ -221,3 +266,8 @@ class Config:
     tql: TqlConfig = dataclasses.field(default_factory=TqlConfig)
     tile: TileConfig = dataclasses.field(default_factory=TileConfig)
     batch: BatchConfig = dataclasses.field(default_factory=BatchConfig)
+
+    def validate(self) -> None:
+        self.query.validate()
+        self.tile.validate(len(self.query.device_slots()))
+        self.batch.validate()

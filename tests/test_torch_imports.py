@@ -42,7 +42,7 @@ def test_imports_with_jax_and_reference_blocked():
         "        'greptimedb_tpu_torch.query.promql.parser',\n"
         "        'greptimedb_tpu_torch.query.promql.tile_exec',\n"
         "        'greptimedb_tpu_torch.ops.permute', 'greptimedb_tpu_torch.ops.vector',\n"
-        "        'greptimedb_tpu_torch.ops.sketch',\n"
+        "        'greptimedb_tpu_torch.ops.sketch', 'greptimedb_tpu_torch.parallel.mesh',\n"
         "        'greptimedb_tpu_torch.storage.puffin',\n"
         "        'greptimedb_tpu_torch.storage.index'} <= set(names), names\n"
         "for n in names: importlib.import_module(n)\n"
