@@ -4190,8 +4190,11 @@ def run_mesh_kernel_phase(device: str, reps: int, hours: int = 6, groups: int = 
     k = _twice_on(dev, lambda: agg.fold_states(kst, 1, korder, inv=inv), "K22 keyed")
     _same_state_bytes(k, agg.fold_states_plain(kst, 1, korder, inv=inv), "K22 keyed")
     occupied = int((tables != agg.HASH_EMPTY).sum())
-    map_bytes = slot_map.numel() * 4
-    t_bound, by = bound(_state_bytes(kst) + _state_bytes(k) + 3 * map_bytes, 0)
+    # what the keyed fold needs: each slot map read once, each partial's
+    # occupied rows (an empty slot holds the identity and is skipped), the
+    # merged state written once
+    row_bytes = sum(t.element_size() for t in _state_tensors(kst) if t is not None)
+    t_bound, by = bound(slot_map.numel() * 4 + occupied * row_bytes + _state_bytes(k), 0)
     # the library yardstick: index_add_ of the occupied rows' sums into
     # their union slots (the rows and their slots gathered beforehand)
     occ = keys != agg.HASH_EMPTY

@@ -19,14 +19,18 @@
 //            psum rule keeps the later NaN where two meet, as XLA's CPU
 //            all-reduce does, the fold rule the earlier);
 //   counts   integer add over every source (any order is exact);
-//   min/max  per slot the IEEE minimum/maximum fold over its local sources
-//            (jnp.minimum: a NaN propagates, -0 < +0), then across the
-//            slots in slot order the collective's rule (XLA CPU pmin/pmax:
-//            a NaN is skipped, and on a tie the earlier slot stays);
+//   min/max  the IEEE minimum/maximum fold over every source (jnp.minimum:
+//            a NaN propagates, -0 < +0).  Its result depends only on the
+//            sources' values (a min is +NaN if any source is +NaN, else
+//            -NaN if any is, else the least value; a max mirrors it), so
+//            one slot and N slots give the same bytes.  XLA CPU's pmin and
+//            pmax across devices skip a NaN instead; K22 does not follow
+//            them there (the tile encode stores a NaN value as 0, so no
+//            SQL state holds one);
 //   LAST     rule 0 (fold, tile mesh): left fold over `order`, the later
 //            source wins a ts tie; rule 1 (psum_states, the table-fed mesh): the
-//            max ts, and the collective max of the values at that ts, the
-//            others counting as -DBL_MAX.
+//            max ts, and the collective max of the values at that ts (XLA
+//            CPU's pmax: a NaN skipped), the others counting as -DBL_MAX.
 // Keyed mode (hash plans): each slot's states are indexed by its own slot
 // table; `inv[d, u]` is the row of slot d's table that holds union row u's
 // key, or -1 (built by gt_fold_invert from K17's union slot map).  Row u
@@ -129,13 +133,8 @@ template <typename T> __device__ __forceinline__ T ieee_max(T a, T b) {
   const T x = neg ? a : b, y = neg ? b : a;
   return is_nan(x) ? x : (x > y ? x : y);
 }
-// The collective's rule across slots (XLA CPU pmin/pmax): NaN is skipped,
-// and a tie keeps the accumulated (earlier slot's) value.
-template <typename T> __device__ __forceinline__ T coll_min(T acc, T b) {
-  if (is_nan(acc)) return b;
-  if (is_nan(b)) return acc;
-  return b < acc ? b : acc;
-}
+// psum_states' LAST across slots (XLA CPU pmax): NaN is skipped, and a tie
+// keeps the accumulated (earlier slot's) value.
 template <typename T> __device__ __forceinline__ T coll_max(T acc, T b) {
   if (is_nan(acc)) return b;
   if (is_nan(b)) return acc;
@@ -165,16 +164,10 @@ __global__ void __launch_bounds__(kThreads) dense_field(const FoldArgs a, const 
     acc = 0;
     for (int m = 0; m < a.m; ++m) acc = add_rn(acc, g[(int64_t)m * R + r]);
   } else {
-    const int d_n = a.m / a.n_local;
-    for (int d = 0; d < d_n; ++d) {
-      const int64_t base = (int64_t)d * a.n_local;
-      T local = g[base * R + r];
-      for (int l = 1; l < a.n_local; ++l) {
-        const T v = g[(base + l) * R + r];
-        local = K == kMin ? ieee_min(local, v) : ieee_max(local, v);
-      }
-      if (d == 0) acc = local;
-      else acc = K == kMin ? coll_min(acc, local) : coll_max(acc, local);
+    acc = g[r];
+    for (int m = 1; m < a.m; ++m) {
+      const T v = g[(int64_t)m * R + r];
+      acc = K == kMin ? ieee_min(acc, v) : ieee_max(acc, v);
     }
   }
   out[r] = acc;

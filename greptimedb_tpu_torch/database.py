@@ -64,8 +64,8 @@ class Database:
     ):
         self.config = config or Config()
         slots = resolve_devices(device)
-        self.config.query.device = str(slots[0])
-        self.config.query.devices = tuple(str(d) for d in slots)
+        self.config.query.device = (tuple(str(d) for d in slots)
+                                    if isinstance(device, (list, tuple)) else str(slots[0]))
         if data_home is not None:
             self.config.storage.data_home = data_home
             self.config.storage.wal_dir = ""
@@ -92,12 +92,12 @@ class Database:
 
     @property
     def device(self) -> str:
-        return self.config.query.device
+        return self.config.query.first_device
 
     @property
     def devices(self) -> tuple[str, ...]:
         """The mesh slots, the first being `device`."""
-        return self.config.query.device_slots()
+        return self.config.query.slots
 
     def close(self):
         self.storage.close()

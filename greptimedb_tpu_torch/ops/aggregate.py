@@ -1961,10 +1961,10 @@ def _add_x86(a, b):
     return torch.where(torch.isnan(a), quieted(a), r)
 
 
-def _coll(acc, b, less: bool):
-    """XLA CPU pmin (less) / pmax across slots: NaN skipped, ties keep acc."""
-    better = (b < acc) if less else (b > acc)
-    out = torch.where(better, b, acc)
+def _coll_max(acc, b):
+    """XLA CPU pmax across slots (psum_states' LAST): NaN skipped, ties
+    keep acc."""
+    out = torch.where(b > acc, b, acc)
     out = torch.where(torch.isnan(b), acc, out)
     return torch.where(torch.isnan(acc), b, out)
 
@@ -1973,7 +1973,7 @@ def _type_max(dtype) -> float | int:
     return (torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)).max
 
 
-def _fold_dense_plain(name, g, n_local: int, order, rule: str):
+def _fold_dense_plain(name, g, order, rule: str):
     if name == "sums":
         acc = g[order[0]].clone()
         for k in order[1:]:
@@ -1983,13 +1983,10 @@ def _fold_dense_plain(name, g, n_local: int, order, rule: str):
         return acc
     if name == "counts":
         return g.sum(0, dtype=g.dtype)
-    local_op = _ieee_min if name == "mins" else _ieee_max
-    acc = None
-    for d in range(g.shape[0] // n_local):
-        local = g[d * n_local]
-        for l in range(1, n_local):
-            local = local_op(local, g[d * n_local + l])
-        acc = local.clone() if acc is None else _coll(acc, local, name == "mins")
+    op = _ieee_min if name == "mins" else _ieee_max
+    acc = g[0].clone()
+    for m in range(1, g.shape[0]):
+        acc = op(acc, g[m])
     return acc
 
 
@@ -2023,7 +2020,7 @@ def _last_plain(ts, val, order, rule: str):
     lv = None
     for m in range(ts.shape[0]):
         c = torch.where(ts[m] == lt, val[m], torch.full_like(val[m], -_DBL_MAX))
-        lv = c if lv is None else _coll(lv, c, False)
+        lv = c if lv is None else _coll_max(lv, c)
     return lt, lv
 
 
@@ -2059,7 +2056,7 @@ def fold_states_plain(state: AggState, n_local: int, order, inv=None,
     for name in _FOLD_KINDS:
         g = getattr(state, name)
         if g is not None:
-            setattr(out, name, _fold_dense_plain(name, g, n_local, order, rule) if inv is None
+            setattr(out, name, _fold_dense_plain(name, g, order, rule) if inv is None
                     else _fold_keyed_plain(name, g, n_local, order, inv))
     if state.last_ts is not None:
         out.last_ts, out.last_val = _last_plain(state.last_ts, state.last_val, order, rule)
@@ -2115,12 +2112,13 @@ def fold_states(state: AggState, n_local: int, order, inv=None,
                LAST is the max value at the max ts); the two also differ in
                which NaN's sign a sum keeps where two NaNs meet
 
-    Dense: sums fold left over `order`, counts add, min/max take each
-    slot's IEEE minimum/maximum and then the collective's rule across the
-    slots; keyed: every field starts at the scatter identity and takes the
-    sources' rows in `order`.  A CUDA tensor launches csrc/fold_states.cu
-    (one thread per row, a fixed order: the same bytes every run); a CPU
-    tensor runs `fold_states_plain`."""
+    Dense: sums fold left over `order`, counts add, min/max take the IEEE
+    minimum/maximum over every source (a NaN propagates, -0 < +0: the
+    same bytes for any slot count); keyed: every field starts at the
+    scatter identity and takes the sources' rows in `order`.  A CUDA
+    tensor launches csrc/fold_states.cu (one thread per row, a fixed
+    order: the same bytes every run); a CPU tensor runs
+    `fold_states_plain`."""
     first = next(getattr(state, f.name) for f in fields(state)
                  if getattr(state, f.name) is not None)
     if first.device.type == "cpu":

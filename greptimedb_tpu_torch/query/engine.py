@@ -142,7 +142,7 @@ class QueryEngine:
             from ..parallel.tile_executor import TileExecutor
             from ..parallel.tile_planes import TileCacheManager, device_budget
 
-            device = torch.device(self.config.device)
+            device = torch.device(self.config.first_device)
             self.tile_cache = TileCacheManager(
                 device_budget(self.config.tile_cache_mb, device),
                 chunk_rows=self.config.tile_chunk_rows,
@@ -157,11 +157,11 @@ class QueryEngine:
     @property
     def mesh(self):
         """Every listed device slot (parallel/mesh.py), the first being
-        `config.device`: the table-fed route runs over all of them, the
-        tile path over the first `tile.mesh_devices`."""
+        `config.first_device`: the table-fed route runs over all of them,
+        the tile path over the first `tile.mesh_devices`."""
         from ..parallel.mesh import make_mesh
 
-        return make_mesh(devices=self.config.device_slots())
+        return make_mesh(devices=self.config.slots)
 
     def execute_select(self, stmt: SelectStmt, database: str = "public") -> pa.Table:
         plan, schema = plan_query(stmt, self.schema_of, database)

@@ -45,8 +45,9 @@ regions, within the last ulp.
 
 With `tile.mesh_devices` > 0 and more than one region, each region's
 K9/K10 run on its co-located mesh slot and K11/K12 on the first slot
-(`mesh_program`, the reference's `_mesh_dispatch`, `_partial_program`
-and `_merge_program`), counted in the engine's `mesh_dispatches`.
+(`tql_program` over the mesh, the reference's `_mesh_dispatch`,
+`_partial_program` and `_merge_program`), counted in the engine's
+`mesh_dispatches`.
 
 Not ported: the fused and cold-serve builds, the flight recorder,
 tracing spans, fault points and the degrade counters.
@@ -103,16 +104,6 @@ def merge_program(stats: list, grid: RangeGrid, func: str, agg_op=None, fold=Non
     return mat
 
 
-def tql_program(sources: list[RowSource], grid: RangeGrid, func: str, agg_op=None,
-                fold=None):
-    """The warm program: per region K9 (rate/increase) and K10, then K11
-    over all regions, then K12 when `agg_op` is fused.  Returns ([S, W] or
-    [G, W] f64, the per-region [S] presence bools)."""
-    parts = [region_stats(src, grid, func) for src in sources]
-    mat = merge_program([st for st, _p in parts], grid, func, agg_op, fold)
-    return mat, [p for _st, p in parts]
-
-
 def _source_on(src: RowSource, dev) -> RowSource:
     """`src` with its planes on `dev` (itself when they already are)."""
     if src.device == dev:
@@ -131,12 +122,14 @@ def _stats_on(st, dev):
     return type(st)(**{f.name: getattr(st, f.name).to(dev) for f in dataclasses.fields(st)})
 
 
-def mesh_program(sources: list[RowSource], region_ids, devices, grid: RangeGrid, func: str,
-                 agg_op=None, fold=None):
-    """The TQL mesh route (`tile.mesh_devices` > 0, the reference's
-    `_mesh_dispatch`): each region's stats on its co-located slot
-    (`region_device_index`), gathered on the first slot and merged there in
-    region order, as `tql_program` merges them: the same bytes."""
+def tql_program(sources: list[RowSource], region_ids, devices, grid: RangeGrid, func: str,
+                agg_op=None, fold=None):
+    """The warm program: per region K9 (rate/increase) and K10 on the
+    region's slot of `devices` (`region_device_index`; one slot: all on
+    it), then on the first slot K11 over all regions in region order, and
+    K12 when `agg_op` is fused.  Returns ([S, W] or [G, W] f64, the
+    per-region [S] presence bools).  Over several slots this is the
+    reference's `_mesh_dispatch`: the same bytes as over one."""
     dev0 = devices[0]
     stats, presence = [], []
     for src, rid in zip(sources, region_ids):
@@ -431,12 +424,12 @@ class TqlTileExecutor:
 
         t0 = time.perf_counter()
         mesh_n = self.cache.mesh_devices()
-        if mesh_n > 0 and len(sources) > 1:
-            mat, pres = mesh_program(sources, [item["region"].region_id for item in items],
-                                     self.cache.mesh(mesh_n), grid, func, agg_op, fold)
+        on_mesh = mesh_n > 0 and len(sources) > 1
+        mat, pres = tql_program(sources, [item["region"].region_id for item in items],
+                                self.cache.mesh(mesh_n) if on_mesh else (dev,), grid, func,
+                                agg_op, fold)
+        if on_mesh:
             self.qe.stats.add(mesh_dispatches=1)
-        else:
-            mat, pres = tql_program(sources, grid, func, agg_op, fold)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self._add_ms("dispatch", t0)

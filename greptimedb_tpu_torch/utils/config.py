@@ -8,9 +8,9 @@ that matter:
 * `QueryConfig.device` names the torch device the lowered query path runs on
   (`"cuda"` by default, `"cpu"` for the tests).  Nothing probes for a
   card to pick one: `Database(device="cuda")` without a card raises.
-  `QueryConfig.devices` lists the slots of the multi-device mesh
-  (`Database(device=[...])`, a device may repeat); empty means the one
-  slot `device`.
+  A tuple there lists the slots of the multi-device mesh
+  (`Database(device=[...])`, a device may repeat); `slots` and
+  `first_device` read it either way.
 * `QueryConfig.backend` is `"torch"` (the lowered device path) or `"cpu"`
   (the authoritative Arrow executor).
 * There is no `fallback_to_cpu`: a device-path failure raises instead of
@@ -64,11 +64,9 @@ class StorageConfig:
 @dataclasses.dataclass
 class QueryConfig:
     backend: str = "torch"  # "torch" = lowered device path, "cpu" = Arrow executor
-    # the torch device the lowered path runs on (the first mesh slot)
-    device: str = "cuda"
-    # every mesh slot (parallel/mesh.py), the first being `device`; a
-    # device may fill several slots.  Empty: the one slot `device`
-    devices: tuple = ()
+    # the torch device the lowered path runs on, or a tuple of them: the
+    # mesh slots (parallel/mesh.py), a device possibly filling several
+    device: str | tuple = "cuda"
     # dense [G] bounds of the tile path: a sort plan runs when its output
     # group space is at most max_groups * 64 and its stage-1 (hierarchical)
     # space at most max_internal_groups; the hash slot table is capped at
@@ -103,9 +101,15 @@ class QueryConfig:
     def __post_init__(self):
         self.validate()
 
-    def device_slots(self) -> tuple[str, ...]:
-        """The mesh slots: `devices`, or the one slot `device`."""
-        return tuple(self.devices) or (self.device,)
+    @property
+    def slots(self) -> tuple[str, ...]:
+        """The mesh slots: each listed device, or the one `device`."""
+        return tuple(self.device) if isinstance(self.device, (list, tuple)) else (self.device,)
+
+    @property
+    def first_device(self) -> str:
+        """The first slot, where single-device work runs."""
+        return self.slots[0]
 
     def validate(self) -> None:
         from .errors import ConfigError
@@ -269,5 +273,5 @@ class Config:
 
     def validate(self) -> None:
         self.query.validate()
-        self.tile.validate(len(self.query.device_slots()))
+        self.tile.validate(len(self.query.slots))
         self.batch.validate()
