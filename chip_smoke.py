@@ -78,7 +78,9 @@ Phases, each printing one JSON line:
              host-code remap of the live append, K16 merging its 737,280
              rows at the front, the back and interleaved, K13 at G = 4096
              x 16 with every op, NULL and NaN), K14-K16 byte for byte and
-             K13 exactly, and on edge cases, twice each.
+             K13 exactly, and on edge cases (K14 spans either side of 2^32,
+             INT64_MIN/MAX, no valid row, no row), twice each; K14 timed
+             again on the same rows with each ts moved by 0-9999 ms.
    3c (TQL kernels) — K9-K12 against their plain versions at the TQL main
              path's shapes (17.28 M rows in two chunks, S_pad 4096, W_pad
              1024, k = 8 and 64, NaN values, NULLs, invalid rows) and on
@@ -101,10 +103,12 @@ Phases, each printing one JSON line:
              (host x hour) and failing (minute buckets): byte for byte
              against the host-driven form and against the plain version,
              twice, the three timed; K18 (the flag-reading sort of the K3
-             branch) against torch.sort.
+             branch, radix.cuh's one-sweep sort) against torch.sort, and its
+             edge cases (n and G at every plan boundary, all masked, one id,
+             a shut gate, one graph capture replayed twice).
    3e (hash kernels) — at H1's shape (phase 7: 5.76 M rows in (namespace,
              pod, container, ts) order, 2^24 slots): K1's int64 ids, K17
-             `hash_group_slots` and K3 over the slot ids, each byte for byte
+             `hash_group_slots`, K18 alone and K3 over the slot ids, each byte for byte
              against its plain version and twice; K17's time includes the
              refill of its table; K17 edge cases (threaded sources, masked
              rows, overflow, shared home positions, ids 0 and 2^62 - 1), K1
@@ -209,6 +213,7 @@ device is present or when it runs outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -1127,6 +1132,23 @@ def growth_perm(n_old: int, n_new: int):
     return np.array([rank[h] for h in old], np.int32)
 
 
+def _timed_sort(wrapper, fn, reps: int, extra_kernels: int = 0) -> dict:
+    """Mean ms of fn(), a call of a radix.cuh sort's wrapper, and what the
+    last of those calls ran as the wrapper recorded it: the plan it used
+    and the kernels it launched, counted where they were launched (the
+    memset of the control words is not a kernel).  Fails unless that is
+    the histogram and one kernel a pass, plus `extra_kernels` of the
+    wrapper's own."""
+    wrapper.last_sort = None
+    ms = _timed(fn, reps)
+    s = wrapper.last_sort
+    if s is None or s["kernels"] != 1 + s["passes"] + extra_kernels:
+        raise AssertionError(f"{wrapper.__name__} ran {s}: expected the histogram, one kernel a "
+                             f"pass and {extra_kernels} more")
+    return {"ms": ms, "passes": s["passes"], "key_bytes": s["key_bytes"],
+            "sort_launches": s["kernels"]}
+
+
 def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     """Phase 3d: K13-K16 against their plain versions on the card, at the
     main path's shapes (the super-tile of --hosts x --hours in (hostname,
@@ -1156,14 +1178,26 @@ def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     key = torch.where(torch.cat(valid_c), torch.cat(ts_c), P.INT64_MAX)
     # ts (8 B) and valid (1 B) read, the int32 perm written, once a row
     k14b, k14by = bound(npad * (8 + 1 + 4), npad)
+    k14 = _timed_sort(P.ts_argsort, lambda: P.ts_argsort(ts_c, valid_c), reps, extra_kernels=2)
+    # the same rows with each ts moved by 0-9999 ms, as targets scraped at
+    # their own offsets with jitter: no low bit shared, the same span
+    jit = torch.Generator(device=dev).manual_seed(SEED + 14)
+    jts_c = [c + torch.randint(0, 10_000, c.shape, generator=jit, device=dev) for c in ts_c]
+    jperm = _twice_identical(lambda: P.ts_argsort(jts_c, valid_c), "ts_argsort jittered")
+    _compare_bytes(jperm, P.ts_argsort_plain(jts_c, valid_c), "ts_argsort jittered")
+    jkey = torch.where(torch.cat(valid_c), torch.cat(jts_c), P.INT64_MAX)
+    jittered = _timed_sort(P.ts_argsort, lambda: P.ts_argsort(jts_c, valid_c), reps,
+                           extra_kernels=2)
+    jittered["library_ms"] = _timed(lambda: torch.argsort(jkey, stable=True), reps)
     out["ts_argsort"] = dict(
-        max_abs_err=0.0, rows=npad,
-        ms=_timed(lambda: P.ts_argsort(ts_c, valid_c), reps),
+        max_abs_err=0.0, rows=npad, **k14,
         plain_ms=_timed(lambda: P.ts_argsort_plain(ts_c, valid_c), 1),
         bound_ms=k14b, bound_by=k14by,
         library_ms=_timed(lambda: torch.argsort(key, stable=True), reps),
+        jittered=jittered,
     )
-    del key
+    emit({"phase": "ts_argsort", **out["ts_argsort"]})
+    del key, jkey, jts_c, jperm
 
     # K15 gather: an f64, an int32 and a bool plane by that perm
     for name, planes in (("f64", f64_c), ("int32", codes_c), ("bool", valid_c)):
@@ -1298,21 +1332,40 @@ def run_plane_edge_cases(dev) -> None:
     rng = np.random.default_rng(29)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     imax, imin = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    below = rng.integers(-7, (1 << 32) - 9, 3 * 4096 + 1000)
+    below[:3] = [-7, (1 << 32) - 9, -6]  # the largest key, hi - lo + 1, is 2^32 - 1: u32 keys
+    past = rng.integers(-7, (1 << 32) + 7, 3 * 4096 + 1000)
+    past[:3] = [-7, (1 << 32) + 6, -6]  # past 2^32: u64 keys
     cases = {
         "ties": rng.integers(-5, 5, 3 * 4096),
         "wide": rng.integers(imin, imax, 3 * 4096, dtype=np.int64),
         "edges": np.array([imax, imin, 0, -1, imax, imin + 1, imax - 1] * 1755 + [7] * 3),
         "one": np.array([42] * 4096),
+        "below 2^32": below,
+        "past 2^32": past,
+        "ragged": rng.integers(0, 43_200_000, 3 * 4096 + 1000),
+        "below one tile": rng.integers(-1000, 1000, 100),
+        "one row": np.array([5]),
+        "no row": np.zeros(0),
     }
     for name, ts_np in cases.items():
         ts_np = ts_np.astype(np.int64)
         for p_valid in (1.0, 0.7, 0.0):
             v_np = rng.random(ts_np.size) < p_valid
+            if name in ("below 2^32", "past 2^32") and p_valid:
+                v_np[:3] = True
             for chunk in (4096, 8192, 1 << 24):
-                ts_c, v_c = _chunked(t(ts_np), chunk), _chunked(t(v_np), chunk)
+                ts_c = _chunked(t(ts_np), chunk) or [t(ts_np)]
+                v_c = _chunked(t(v_np), chunk) or [t(v_np)]
                 k = _twice_identical(lambda: P.ts_argsort(ts_c, v_c), f"edge argsort {name}")
                 _compare_bytes(k, P.ts_argsort_plain(ts_c, v_c),
                                f"edge ts_argsort {name} valid={p_valid} chunk={chunk}")
+        if name in ("below 2^32", "past 2^32"):
+            want = 4 if name == "below 2^32" else 8
+            P.ts_argsort([t(ts_np)], [t(np.ones(ts_np.size, bool))])
+            got = P.ts_argsort.last_sort["key_bytes"]
+            if got != want:
+                raise AssertionError(f"edge ts_argsort {name}: {got}-byte keys, expected {want}")
     n = 3 * 4096 + 1000
     perm = t(rng.permutation(n).astype(np.int32))
     for dtype in (np.float64, np.int32, np.int64, np.bool_, np.uint8):
@@ -1475,14 +1528,99 @@ def run_guard_kernel_phase(n_hosts: int, hours: int, reps: int, dev=None) -> dic
     sb, sby = bound(n * (4 + 1) + n * (4 + 8), n * 2)
     plain_ms = _timed(lambda: agg.sort_segments_plain(g, m, G), reps)
     out["segment_sort"] = dict(
-        max_abs_err=0.0, rows=n, groups=G, passes=-(-G.bit_length() // 8),
-        ms=_timed(lambda: agg.sort_segments(g, m, G), reps), plain_ms=plain_ms,
-        bound_ms=sb, bound_by=sby, library_ms=plain_ms,
+        max_abs_err=0.0, rows=n, groups=G,
+        **_timed_sort(agg.sort_segments, lambda: agg.sort_segments(g, m, G), reps),
+        plain_ms=plain_ms, bound_ms=sb, bound_by=sby, library_ms=plain_ms,
     )
     emit({"phase": "segment_sort", **out["segment_sort"]})
     del vals, lcols, shapes, codes, ts, valid
     torch.cuda.empty_cache()
+    run_sort_edge_cases(dev)
     return out
+
+
+def _same_sort(got, g, m, G: int, what: str) -> None:
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    want = agg.sort_segments_plain(g, m, G)
+    _compare_bytes(got[0], want[0], f"{what} ids")
+    _compare_bytes(got[1], want[1], f"{what} rows")
+
+
+def run_sort_edge_cases(dev) -> None:
+    """K18 (radix.cuh's one-sweep sort) against its plain version, byte for
+    byte and twice: n = 0, below one tile, on and off the tile size; G + 1
+    at every digit and pass boundary of `radix_plan` up to 2^31 - 1 and G
+    = 2^24; every row masked and one id for every row (all rows in one
+    digit of every pass: the longest look-back) at 2^22 + 5 rows; a shut
+    gate leaves given outputs as they were; the sort captured once in a
+    CUDA graph and replayed twice on new inputs."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    rng = np.random.default_rng(SEED + 18)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def case(n: int, G: int):
+        gids = rng.integers(-3, G + 3, n, dtype=np.int64).astype(np.int32)
+        gids[: n // 3] = rng.integers(0, min(G, 7) + 1, n // 3)
+        return t(gids), t(rng.random(n) < 0.8)
+
+    bounds = (0, 1, 2, 255, 256, 720, 1023, 1024, 2047, 2048, (1 << 16) - 1, 1 << 16,
+              (1 << 22) - 1, 1 << 22, 1 << 24, (1 << 31) - 1)
+    for n in (0, 1, 100, 4095, 4096, 4097, 3 * 4096 + 1000):
+        for G in bounds:
+            g, m = case(n, G)
+            got = _twice_identical(lambda: agg.sort_segments(g, m, G), f"edge K18 n={n} G={G}")
+            _same_sort(got, g, m, G, f"edge K18 n={n} G={G}")
+    for G in (720, 2048, 1 << 24):
+        g, m = case(1_000_003, G)
+        _same_sort(_twice_identical(lambda: agg.sort_segments(g, m, G), "edge K18 1M"), g, m, G,
+                   f"edge K18 n=1000003 G={G}")
+    n = (1 << 22) + 5
+    for G in (720, 1 << 24):
+        for what, g, m in (
+                ("all masked", t(rng.integers(0, G, n).astype(np.int32)),
+                 torch.zeros(n, dtype=torch.bool, device=dev)),
+                ("one id", torch.full((n,), 7, dtype=torch.int32, device=dev),
+                 torch.ones(n, dtype=torch.bool, device=dev))):
+            got = _twice_identical(lambda: agg.sort_segments(g, m, G), f"edge K18 {what}")
+            _same_sort(got, g, m, G, f"edge K18 {what} G={G}")
+    # the gate: shut (the guard passed: 0) leaves the outputs alone; open
+    # (it failed) sorts
+    for G, verdict in itertools.product((720, 1 << 24), (0, 1)):
+        g, m = case(3 * 4096 + 1000, G)
+        word = torch.full((1,), verdict, dtype=torch.int32, device=dev)
+        out = (torch.full(g.shape, -7, dtype=torch.int32, device=dev),
+               torch.full(g.shape, -9, dtype=torch.int64, device=dev))
+        agg._segment_sort_into(g, m, G, word, *out)
+        torch.cuda.synchronize()
+        if verdict:
+            _same_sort(out, g, m, G, f"edge K18 gate open G={G}")
+        elif not (bool((out[0] == -7).all()) and bool((out[1] == -9).all())):
+            raise AssertionError(f"edge K18 G={G}: a shut gate wrote the outputs")
+    # one capture, two replays on new inputs (1 and 3 passes)
+    for G in (720, 1 << 24):
+        sg, sm = case(1_000_003, G)
+        word = torch.ones(1, dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            agg.sort_segments(sg, sm, G, verdict=word)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            res = agg.sort_segments(sg, sm, G, verdict=word)
+        for replay in range(2):
+            g, m = case(1_000_003, G)
+            sg.copy_(g)
+            sm.copy_(m)
+            graph.replay()
+            torch.cuda.synchronize()
+            _same_sort(res, g, m, G, f"edge K18 graph G={G} replay {replay}")
+        del graph, res
+    emit({"phase": "sort_edge_cases", "ok": True})
 
 
 # ---- phase 3e: the hash group-by's kernels at H1's shape ---------------------------
@@ -1629,6 +1767,18 @@ def run_hash_kernel_phase(reps: int) -> dict:
         library_ms=_timed(lambda: torch.zeros(H + 1, dtype=torch.float64, device=dev)
                           .index_add_(0, safe, vals), reps),
     )
+    # K18 alone over the slot ids, the sort inside K3 at H1's shape: the ids
+    # and mask read once, the sorted ids and rows written once
+    k18 = _twice_identical(lambda: agg.sort_segments(ks, mask, H), "sort_segments over slots")
+    _same_sort(k18, ks, mask, H, "sort_segments over slots")
+    b18, b18_by = bound(npad * (4 + 1) + npad * (4 + 8), npad * 2)
+    k18_plain = _timed(lambda: agg.sort_segments_plain(ks, mask, H), reps)
+    out["sort_hash_slots"] = dict(
+        max_abs_err=0.0, rows=npad, groups=H,
+        **_timed_sort(agg.sort_segments, lambda: agg.sort_segments(ks, mask, H), reps),
+        plain_ms=k18_plain, bound_ms=b18, bound_by=b18_by, library_ms=k18_plain,
+    )
+    del k18
     # K8 over the [2^24] slot rows as H1's program hands them: bit-packed
     # presence, the value's (sums, counts) shipped as f32 averages, its f64
     # max, and the overflow row
@@ -1647,7 +1797,8 @@ def run_hash_kernel_phase(reps: int) -> dict:
         bound_ms=b8, bound_by=b8_by, library_ms=None,
     )
     emit({"phase": "hash_kernels", "rows": n, "slots": H, "rounds": rounds, "occupied": occupied,
-          **{k: {m: v for m, v in d.items() if m in ("ms", "plain_ms", "bound_ms", "library_ms")}
+          **{k: {m: v for m, v in d.items() if m in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                     "passes", "key_bytes", "sort_launches")}
              for k, d in out.items()}})
     del gids, mask, table, kt, ks, pt, ps, vals, safe, k1_args, s_st, pres, packed, k8, p8
     torch.cuda.empty_cache()
@@ -3623,7 +3774,8 @@ def run_vector_edge_cases(dev, reps: int) -> dict:
     args = (*t, "l2sq", 10_000, True)
     _same_topk(_twice_identical(lambda: V.topk_distances(*args), "edge large k"),
                V.topk_distances_plain(*args), "edge k=10000")
-    large_k = {"rows": base.shape[0], "k": 10_000, "ms": _timed(lambda: V.topk_distances(*args), reps)}
+    large_k = {"rows": base.shape[0], "k": 10_000,
+               **_timed_sort(V.topk_distances, lambda: V.topk_distances(*args), reps)}
     emit({"phase": "vector_edge_cases", "ok": True, "large_k": large_k})
     return large_k
 
@@ -4514,6 +4666,7 @@ def main(argv=None) -> int:
     kstats["pack_result"]["hash_slots"] = hstats["pack_hash_slots"]
     gstats = run_guard_kernel_phase(args.hosts, args.hours, args.kernel_reps)
     kstats["segment_sort"] = gstats.pop("segment_sort")
+    kstats["segment_sort"]["hash_slots"] = hstats["sort_hash_slots"]
     kstats["segment_reduce_blocked"]["predicated"] = {k: v for k, v in gstats.items()
                                                      if k.startswith("k2_")}
     kstats["limb_segment_sums"]["predicated"] = {k: v for k, v in gstats.items()
@@ -4708,7 +4861,8 @@ def main(argv=None) -> int:
                 "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "tile_launches": tile_launches, "live_launches": live_launches,
-                **{k: s[k] for k in ("remap",) if k in s},
+                **{k: s[k] for k in ("remap", "passes", "key_bytes", "sort_launches", "jittered")
+                   if k in s},
             })
             continue
         # K1-K4: their launches on the table-fed path (phase 4); K1-K8: on
@@ -4728,7 +4882,7 @@ def main(argv=None) -> int:
             "hash_launches": cm["launches"][name],
             "tick_launches": tick["launches"][name],
             **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots",
-                                 "predicated", "passes") if k in s},
+                                 "predicated", "passes", "key_bytes", "sort_launches") if k in s},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -42,9 +42,10 @@
 // reaches the k still wanted.  The state lives on the card, so no host
 // read.  Then every key at or above the k-th is compacted (warp-aggregated
 // atomics, in no fixed order) and the k survivors are sorted: one block's
-// bitonic sort in shared memory up to 2048, else the stable radix passes
-// of radix.cuh (shared with K14 and K18) over the inverted keys.  The
-// order is the keys' alone, so the output is the same on every run.
+// bitonic sort in shared memory up to 2048, else the one-sweep radix sort
+// of radix.cuh (shared with K14 and K18) over the inverted keys, six
+// passes whose last writes the outputs.  The order is the keys' alone,
+// so the output is the same on every run.
 #include "radix.cuh"
 
 constexpr int kRowWarps = 8;  // rows in flight per block of pass 1
@@ -57,6 +58,12 @@ constexpr uint32_t kQuietBit = 0x00400000u;
 constexpr uint32_t kDefaultNaN = 0xFFC00000u;
 constexpr u64 kNoNaN = ~0ull;
 
+static int grid_for(int64_t n, int threads) {
+  int64_t g = (n + threads - 1) / threads;
+  if (g > 132 * 32) g = 132 * 32;
+  return g < 1 ? 1 : (int)g;
+}
+
 // Mirrored field for field by _TopkArgs in ops/vector.py (ctypes).
 struct TopkArgs {
   int64_t n;
@@ -68,16 +75,14 @@ struct TopkArgs {
   u64* sel;               // [k] scratch: the k largest keys
   u64* state;             // [4] scratch: prefix, mask, still wanted, survivors
   int32_t* hist;          // [256] scratch
-  u64* sort_keys[2];      // [k] scratch, k > kSmallK
-  int32_t* sort_idx[2];   // [k] scratch, k > kSmallK
-  int32_t* sort_hist;     // [256 * ceil(k / 4096)] scratch, k > kSmallK
-  int32_t* seg_sums;      // scratch, k > kSmallK
   float* dist;            // [k] out
   int64_t* idx;           // [k] out
   int32_t d;
   int32_t metric;         // 0 dot, 1 l2sq, 2 cos
   int32_t ascending;
   int32_t vec4;           // d % 4 == 0 and both pointers 16-byte aligned
+  RadixPlan sort_plan;    // k > kSmallK: radix_plan(2^64 - 1)
+  RadixScratch sort;      // k > kSmallK: its scratch
 };
 
 // (index << 32 | quieted bits) of a NaN component, or kNoNaN: the smallest
@@ -277,24 +282,31 @@ __global__ void __launch_bounds__(kSortThreads) small_sort_kernel(const TopkArgs
   for (int i = threadIdx.x; i < a.k; i += kSortThreads) emit(a, i, s[i]);
 }
 
-__global__ void __launch_bounds__(kThreads) large_prepare_kernel(const TopkArgs a) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.k;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    a.sort_keys[0][i] = ~a.sel[i];  // ascending inverted keys: largest first
-    a.sort_idx[0][i] = (int32_t)i;
+// k > kSmallK: the survivors sorted by their inverted keys (largest
+// first), the last pass emitting each.
+struct SurvivorSrc {
+  const u64* sel;
+  __device__ __forceinline__ void load_items(int64_t base, int64_t n, u64 (&key)[kItems],
+                                             int32_t (&row)[kItems]) const {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t i = base + (int64_t)k * 32;
+      if (i < n) {
+        key[k] = ~sel[i];
+        row[k] = (int32_t)i;
+      }
+    }
   }
-}
+};
 
-__global__ void __launch_bounds__(kThreads) large_emit_kernel(const TopkArgs a, const u64* sorted) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.k;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    emit(a, i, ~sorted[i]);
-  }
-}
+struct SurvivorDst {
+  TopkArgs a;
+  __device__ __forceinline__ void put(int64_t pos, u64 key, int32_t) const { emit(a, pos, ~key); }
+};
 
-GT_EXPORT int gt_topk_distances(const TopkArgs* args, void* stream) {
+GT_EXPORT int gt_topk_distances(TopkArgs* args, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const TopkArgs& a = *args;
+  TopkArgs& a = *args;
   if (a.n <= 0 || a.k <= 0) return (int)cudaSuccess;
   int64_t rows_grid = (a.n + kRowWarps - 1) / kRowWarps;
   if (rows_grid > 132 * 16) rows_grid = 132 * 16;
@@ -310,14 +322,7 @@ GT_EXPORT int gt_topk_distances(const TopkArgs* args, void* stream) {
     small_sort_kernel<<<1, kSortThreads, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
-  const int k_grid = grid_for(a.k, kThreads);
-  large_prepare_kernel<<<k_grid, kThreads, 0, s>>>(a);
-  // eight passes: the last lands in buffer 0, which the seventh read from 1
-  const RadixScratch r = {{a.sort_keys[0], a.sort_keys[1]}, {a.sort_idx[0], a.sort_idx[1]},
-                          a.sort_hist, a.seg_sums};
-  const Gate open = {nullptr, 0, 0};
-  cudaError_t err = radix_passes(r, a.k, 8, a.sort_idx[0], a.sort_keys[0], open, s);
-  if (err != cudaSuccess) return (int)err;
-  large_emit_kernel<<<k_grid, kThreads, 0, s>>>(a, a.sort_keys[0]);
-  return (int)cudaGetLastError();
+  const SurvivorSrc src = {a.sel};
+  const SurvivorDst dst = {a};
+  return (int)onesweep_sort<u64>(src, dst, a.k, a.sort_plan, a.sort, Gate{nullptr, 0, 0}, s);
 }

@@ -61,6 +61,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from .radix import _RadixPlan, _RadixScratch, plan_struct, radix_plan, radix_scratch, sort_record
+
 SUM, COUNT, MIN, MAX, LAST = "sum", "count", "min", "max", "last"
 
 # Blocked geometry: rows are processed in blocks of BLOCK_ROWS; a block
@@ -329,11 +331,12 @@ def sort_segments_plain(gids, mask, num_groups: int):
 
 
 class _SortArgs(ctypes.Structure):
+    # mirrored field for field by SortArgs in csrc/segment_sort.cu
     _fields_ = [
         ("n", ctypes.c_int64), ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
-        ("keys", ctypes.c_void_p * 2), ("idx", ctypes.c_void_p * 2), ("hist", ctypes.c_void_p),
-        ("seg_sums", ctypes.c_void_p), ("skeys", ctypes.c_void_p), ("perm", ctypes.c_void_p),
-        ("num_groups", ctypes.c_int32), ("n_passes", ctypes.c_int32), ("gate", _Gate),
+        ("skeys", ctypes.c_void_p), ("perm", ctypes.c_void_p), ("num_groups", ctypes.c_int32),
+        ("reserved", ctypes.c_int32), ("gate", _Gate), ("plan", _RadixPlan),
+        ("scratch", _RadixScratch),
     ]
 
 
@@ -341,42 +344,48 @@ def sort_segments(gids, mask, num_groups: int, verdict=None):
     """K18, the index plumbing of K3/K4: a stable sort of the masked ids
     (masked and out-of-range rows carry G and sort last).  Returns (sorted
     ids int32 [n], row of each int64 [n]); rows of one group form one run,
-    in row order.  A CUDA tile launches csrc/segment_sort.cu (as many
-    8-bit radix passes as G + 1 needs), predicated on `verdict` (a layout
+    in row order.  A CUDA tile launches csrc/segment_sort.cu (the one-sweep
+    radix sort planned from G: one pass up to G = 2047; what it ran lands
+    in `sort_segments.last_sort`), predicated on `verdict` (a layout
     guard's int32 [1] word: the sort runs only when it failed) when one is
     given; a CPU tile runs `sort_segments_plain`."""
     if gids.device.type == "cpu":
         return sort_segments_plain(gids, mask, num_groups)
-    from ..kernels._build import launch
-
     dev = gids.device
     n = int(gids.shape[0])
     G = int(num_groups)
     if n >= 1 << 31:
         raise ValueError(f"sort_segments takes fewer than 2^31 rows, got {n}")
+    if not 0 <= G <= _I32_MAX:
+        raise ValueError(f"sort_segments takes 0 <= G < 2^31 groups, got {G}")
     _check_rows(gids, torch.int32, n, dev)
     _check_rows(mask, torch.bool, n, dev)
     skeys = torch.empty(n, dtype=torch.int32, device=dev)
     perm = torch.empty(n, dtype=torch.int64, device=dev)
-    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
-    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    hist_len = 256 * max(-(-n // BLOCK_ROWS), 1)
-    hist = torch.empty(hist_len, dtype=torch.int32, device=dev)
-    seg_sums = torch.empty(-(-hist_len // 8192), dtype=torch.int32, device=dev)
-    a = _SortArgs(n, gids.data_ptr(), mask.data_ptr(),
-                  (ctypes.c_void_p * 2)(*(k.data_ptr() for k in keys)),
-                  (ctypes.c_void_p * 2)(*(i.data_ptr() for i in idx)), hist.data_ptr(),
-                  seg_sums.data_ptr(), skeys.data_ptr(), perm.data_ptr(), G,
-                  -(-G.bit_length() // 8), _gate(verdict, on_fail=True))
     sort_segments.launches += 1
-    launch("segment_sort", "gt_segment_sort", a, torch.cuda.current_stream(dev).cuda_stream)
-    # the scratch is freed into the caching allocator and reused only by
-    # work queued after these launches on the same stream
-    del keys, idx, hist, seg_sums
+    _segment_sort_into(gids, mask, G, verdict, skeys, perm)
     return skeys, perm
 
 
+def _segment_sort_into(gids, mask, G: int, verdict, skeys, perm) -> None:
+    """Launches K18 into `skeys` and `perm` (checked CUDA tensors of n rows);
+    a shut gate leaves them as they were."""
+    from ..kernels._build import launch
+
+    n = int(gids.shape[0])
+    plan = radix_plan(G)
+    keep, scratch = radix_scratch(n, plan, gids.device)
+    a = _SortArgs(n, gids.data_ptr(), mask.data_ptr(), skeys.data_ptr(), perm.data_ptr(), G, 0,
+                  _gate(verdict, on_fail=True), plan_struct(plan), scratch)
+    launch("segment_sort", "gt_segment_sort", a, torch.cuda.current_stream(gids.device).cuda_stream)
+    sort_segments.last_sort = sort_record(plan, a.scratch.kernels)
+    # the scratch is freed into the caching allocator and reused only by
+    # work queued after these launches on the same stream
+    del keep
+
+
 sort_segments.launches = 0
+sort_segments.last_sort = None
 
 
 def segment_reduce_scatter_plain(values, gids, masks, base_mask, num_groups: int, aggs):

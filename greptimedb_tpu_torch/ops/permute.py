@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from .radix import _RadixPlan, _RadixScratch, plan_struct, radix_plan, radix_scratch, sort_record
 from .tiles import chunk_bounds
 
 INT64_MAX = (1 << 63) - 1
@@ -97,19 +98,31 @@ def ts_argsort_plain(ts_chunks, valid_chunks) -> torch.Tensor:
 
 
 class _RangeArgs(ctypes.Structure):
+    # mirrored field for field by RangeArgs in csrc/ts_argsort.cu
     _fields_ = [
         ("ts", _ChunkTable), ("valid", _ChunkTable), ("n", ctypes.c_int64),
-        ("range", ctypes.c_void_p),
+        ("range", ctypes.c_void_p), ("kernels", ctypes.c_int32),
     ]
 
 
-class _PassArgs(ctypes.Structure):
+class _ArgsortArgs(ctypes.Structure):
+    # mirrored field for field by ArgsortArgs in csrc/ts_argsort.cu
     _fields_ = [
         ("ts", _ChunkTable), ("valid", _ChunkTable), ("n", ctypes.c_int64),
-        ("keys", ctypes.c_void_p * 2), ("idx", ctypes.c_void_p * 2), ("hist", ctypes.c_void_p),
-        ("seg_sums", ctypes.c_void_p), ("out", ctypes.c_void_p), ("lo", ctypes.c_int64),
-        ("fill", ctypes.c_uint64), ("n_passes", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("out", ctypes.c_void_p), ("lo", ctypes.c_int64), ("fill", ctypes.c_uint64),
+        ("plan", _RadixPlan), ("scratch", _RadixScratch),
     ]
+
+
+def argsort_keys(lo: int, hi: int) -> tuple[int, int]:
+    """K14's key from the min and max of the valid ts (lo > hi when no row
+    is valid): (offset, fill), key = ts - offset for a valid row and fill
+    for an invalid one.  The fill sorts after every valid key, as INT64_MAX
+    does in the reference, and ties with real rows at INT64_MAX.  The fill
+    is also the largest key, which plans the sort."""
+    if lo > hi:  # no valid row: every key is INT64_MAX
+        return 0, 0
+    return lo, hi - lo if hi == INT64_MAX else hi - lo + 1
 
 
 def ts_argsort(ts_chunks, valid_chunks) -> torch.Tensor:
@@ -117,8 +130,9 @@ def ts_argsort(ts_chunks, valid_chunks) -> torch.Tensor:
     padded rows), stable, with invalid rows after every valid one — the
     reference's `jnp.argsort(jnp.where(valid, ts, INT64_MAX))`.  CUDA
     chunks launch csrc/ts_argsort.cu (one range pass, whose min and max
-    the host reads to pick the number of 8-bit radix passes, then the
-    passes); CPU chunks run `ts_argsort_plain`."""
+    the host reads to plan the one-sweep radix sort, then the sort; what
+    it ran lands in `ts_argsort.last_sort`); CPU chunks run
+    `ts_argsort_plain`."""
     if ts_chunks[0].device.type == "cpu":
         return ts_argsort_plain(ts_chunks, valid_chunks)
     from ..kernels._build import launch
@@ -134,31 +148,23 @@ def ts_argsort(ts_chunks, valid_chunks) -> torch.Tensor:
     stream = _stream(dev)
     rng = torch.empty(2, dtype=torch.int64, device=dev)
     ts_argsort.launches += 1
-    launch("ts_argsort", "gt_argsort_range", _RangeArgs(ts_t, valid_t, n, rng.data_ptr()), stream)
-    lo, hi = (int(v) for v in rng.cpu())
-    if lo > hi:  # no valid row: every key is INT64_MAX
-        lo, fill, span = 0, 0, 0
-    else:
-        span = hi - lo if hi == INT64_MAX else hi - lo + 1
-        fill = span
-    n_passes = -(-span.bit_length() // 8)
+    ra = _RangeArgs(ts_t, valid_t, n, rng.data_ptr(), 0)
+    launch("ts_argsort", "gt_argsort_range", ra, stream)
+    lo, fill = argsort_keys(*(int(v) for v in rng.cpu()))
+    plan = radix_plan(fill)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
-    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    hist_len = 256 * -(-n // 4096)
-    hist = torch.empty(hist_len, dtype=torch.int32, device=dev)
-    seg_sums = torch.empty(-(-hist_len // 8192), dtype=torch.int32, device=dev)
-    a = _PassArgs(ts_t, valid_t, n, (ctypes.c_void_p * 2)(*(k.data_ptr() for k in keys)),
-                  (ctypes.c_void_p * 2)(*(i.data_ptr() for i in idx)), hist.data_ptr(),
-                  seg_sums.data_ptr(), out.data_ptr(), lo, fill, n_passes, 0)
+    keep, scratch = radix_scratch(n, plan, dev)
+    a = _ArgsortArgs(ts_t, valid_t, n, out.data_ptr(), lo, fill, plan_struct(plan), scratch)
     launch("ts_argsort", "gt_argsort_passes", a, stream)
+    ts_argsort.last_sort = sort_record(plan, ra.kernels + a.scratch.kernels)
     # the scratch is freed into the caching allocator and reused only by
     # work queued after these launches on the same stream
-    del keys, idx, hist, seg_sums
+    del keep
     return out
 
 
 ts_argsort.launches = 0
+ts_argsort.last_sort = None
 
 
 # ---- K15: gather / remap ---------------------------------------------------------

@@ -37,11 +37,13 @@ import time
 import numpy as np
 import torch
 
+from .radix import _RadixPlan, _RadixScratch, plan_struct, radix_plan, radix_scratch, sort_record
+
 _DIST_THRESHOLD_ROWS = 100_000  # below this, numpy wins (no H2D copy)
 
 METRICS = {"dot": 0, "l2sq": 1, "cos": 2}
 # the kernel sorts up to this many survivors in one block's shared memory;
-# more take the radix passes of csrc/radix.cuh
+# more take the one-sweep radix sort of csrc/radix.cuh
 SMALL_K = 2048
 
 _SIGN = -(1 << 31)  # int32 sign bit
@@ -109,10 +111,9 @@ class _TopkArgs(ctypes.Structure):
         ("n", ctypes.c_int64), ("k", ctypes.c_int64), ("mat", ctypes.c_void_p),
         ("valid", ctypes.c_void_p), ("q", ctypes.c_void_p), ("keys", ctypes.c_void_p),
         ("sel", ctypes.c_void_p), ("state", ctypes.c_void_p), ("hist", ctypes.c_void_p),
-        ("sort_keys", ctypes.c_void_p * 2), ("sort_idx", ctypes.c_void_p * 2),
-        ("sort_hist", ctypes.c_void_p), ("seg_sums", ctypes.c_void_p),
         ("dist", ctypes.c_void_p), ("idx", ctypes.c_void_p), ("d", ctypes.c_int32),
         ("metric", ctypes.c_int32), ("ascending", ctypes.c_int32), ("vec4", ctypes.c_int32),
+        ("sort_plan", _RadixPlan), ("sort", _RadixScratch),
     ]
 
 
@@ -120,8 +121,9 @@ def topk_distances(mat, valid, q, metric: str = "cos", k: int = 10, ascending: b
     """K19: -> (dist f32 [k], idx int64 [k]), the k best rows of `mat`
     [N, d] f32 (invalid rows zero-filled) by distance to `q` [d] f32, in
     `lax.top_k`'s order; `valid` [N] bool pushes the other rows to the
-    losing end.  A CUDA tensor launches csrc/topk_distances.cu; a CPU
-    tensor runs `topk_distances_plain`."""
+    losing end.  A CUDA tensor launches csrc/topk_distances.cu (past k =
+    2048 what its radix sort ran lands in `topk_distances.last_sort`); a
+    CPU tensor runs `topk_distances_plain`."""
     if mat.device.type == "cpu":
         return topk_distances_plain(mat, valid, q, metric, k, ascending)
     from ..kernels._build import launch
@@ -148,34 +150,27 @@ def topk_distances(mat, valid, q, metric: str = "cos", k: int = 10, ascending: b
     hist = torch.empty(256, dtype=torch.int32, device=dev)
     dist = torch.empty(k, dtype=torch.float32, device=dev)
     idx = torch.empty(k, dtype=torch.int64, device=dev)
-    sort_keys = sort_idx = [None, None]
-    sort_hist = seg_sums = None
+    # past the one-block sort, the survivors' full 64-bit keys by radix.cuh
+    plan, keep, sort = None, [], _RadixScratch()
     if k > SMALL_K:
-        sort_keys = [torch.empty(k, dtype=torch.int64, device=dev) for _ in range(2)]
-        sort_idx = [torch.empty(k, dtype=torch.int32, device=dev) for _ in range(2)]
-        hist_len = 256 * -(-k // 4096)
-        sort_hist = torch.empty(hist_len, dtype=torch.int32, device=dev)
-        seg_sums = torch.empty(-(-hist_len // 8192), dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+        plan = radix_plan((1 << 64) - 1)
+        keep, sort = radix_scratch(k, plan, dev)
     vec4 = d % 4 == 0 and mat.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
     a = _TopkArgs(n, k, mat.data_ptr(), valid.data_ptr(), q.data_ptr(), keys.data_ptr(),
-                  sel.data_ptr(), state.data_ptr(), hist.data_ptr(),
-                  (ctypes.c_void_p * 2)(*(ptr(t) for t in sort_keys)),
-                  (ctypes.c_void_p * 2)(*(ptr(t) for t in sort_idx)), ptr(sort_hist),
-                  ptr(seg_sums), dist.data_ptr(), idx.data_ptr(), d, METRICS[metric],
-                  int(bool(ascending)), int(vec4))
+                  sel.data_ptr(), state.data_ptr(), hist.data_ptr(), dist.data_ptr(),
+                  idx.data_ptr(), d, METRICS[metric], int(bool(ascending)), int(vec4),
+                  _RadixPlan() if plan is None else plan_struct(plan), sort)
     topk_distances.launches += 1
     launch("topk_distances", "gt_topk_distances", a, torch.cuda.current_stream(dev).cuda_stream)
+    topk_distances.last_sort = None if plan is None else sort_record(plan, a.sort.kernels)
     # the scratch is freed into the caching allocator and reused only by
     # work queued after these launches on the same stream
-    del keys, sel, state, hist, sort_keys, sort_idx, sort_hist, seg_sums
+    del keys, sel, state, hist, keep
     return dist, idx
 
 
 topk_distances.launches = 0
+topk_distances.last_sort = None
 
 
 def topk_host(mat, valid, q, metric: str, k: int, ascending: bool = True,
