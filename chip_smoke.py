@@ -85,7 +85,9 @@ Phases, each printing one JSON line:
              path's shapes (17.28 M rows in two chunks, S_pad 4096, W_pad
              1024, k = 8 and 64, NaN values, NULLs, invalid rows) and on
              edge cases (two tags, matcher masks, ns/us units with an
-             offset, odd chunk lengths, several regions), twice each.
+             offset, odd chunk lengths, several regions; K10's slices at
+             k = 64, a 1 s step, a 1 h step over 10 s scrapes and a series
+             wholly before the first step), twice each.
 6. tql     — two Prometheus metrics (a gauge and a counter with restarts,
              GreptimeDB's remote-write layout, not append_mode) at --hosts x
              --hours, flushed, a remote-write retry overlapping the last
@@ -158,13 +160,17 @@ Phases, each printing one JSON line:
              14 and by hour, K21 over udd_bucket_ids(usage_user) at B = 128
              and 1024 by host, one row in 100 masked; timed beside the plain
              version and the library call (`scatter_reduce_` amax /
-             `index_add_` over the flat ids); K20's registers equal the host
-             `hll_build_grouped`.  The main path: the rows as 4 host-range
+             `index_add_` over the flat ids), K20's path (ordered or atomic,
+             decided on the card) checked and printed beside each time;
+             K20's registers equal the host `hll_build_grouped`.  The main path: the rows as 4 host-range
              shards, K20/K21 per shard folded in shard order (torch.maximum,
              +), equal to the single pass; the estimates against the seed
              data.  Edge cases (the int32 wrap, out-of-range gids, rho <= 0,
              masked rows, G = 1, N = 0, every row on one register / bucket,
-             G * width past 2^31).  Then the slice: the TSBS table through
+             G * width past 2^31; K20's paths: sorted gids with empty
+             groups, a decreasing gid at a tile's first row, m at the
+             shared-memory budget and above it, long runs over helper
+             blocks).  Then the slice: the TSBS table through
              Database.write (WAL on), flushed, and S1-S5 (active hosts per
              hour, per-host p99, per-host HLL states, the table's hosts and
              median, the hourly states stored in a BINARY table and merged)
@@ -197,7 +203,9 @@ Phases, each printing one JSON line:
              counter at mesh_devices 4 against 0.
 11. the kernels line (B19's row `tick_program`: its launches are the
    replays of phase 5c, its bound its members' traffic; K22's its
-   launches on 10b and 10c), then the last line {"ok": true, "device":
+   launches on 10b and 10c; K10's launches also per k on the TQL routes,
+   K2's and K3's per column count C on the tile path), then the last line
+   {"ok": true, "device":
    {...}}.
 
 The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
@@ -455,6 +463,48 @@ def launch_counts() -> dict[str, int]:
 def reset_counts() -> None:
     for fn, _s, _r in kernel_table().values():
         fn.launches = 0
+    SHAPES.clear()
+
+
+# Launches per shape of the kernels whose time depends on it: (kernel, C
+# entry point) -> the argument that sets the shape.  Each wrapper launches
+# that entry point once a call.
+SHAPED = {("segment_reduce_blocked", "gt_blocked_partials"): "n_cols",
+          ("segment_reduce_scatter", "gt_scatter_reduce"): "n_cols",
+          ("range_windows", "gt_range_windows"): "k"}
+SHAPE_KEY = {"n_cols": "C", "k": "k"}
+SHAPES: dict[str, int] = {}
+
+
+def count_shapes() -> None:
+    """Count the launches of SHAPED's entry points by shape (K2/K3 per
+    column count C, K10 per k) from here on: a wrapper around the port's
+    one launch function, which every wrapper looks up when it is called."""
+    from greptimedb_tpu_torch.kernels import _build
+
+    launch = _build.launch
+    if getattr(launch, "counts_shapes", False):
+        return
+
+    def counted(name, fn, args, stream):
+        field = SHAPED.get((name, fn))
+        if field is not None:
+            key = f"{name} {SHAPE_KEY[field]}={getattr(args, field)}"
+            SHAPES[key] = SHAPES.get(key, 0) + 1
+        return launch(name, fn, args, stream)
+
+    counted.counts_shapes = True
+    _build.launch = counted
+
+
+def shape_counts() -> dict[str, int]:
+    return dict(sorted(SHAPES.items()))
+
+
+def by_shape(shapes: dict[str, int], name: str) -> dict[str, int]:
+    """{shape: launches} of kernel `name` in a shape_counts() record."""
+    pre = name + " "
+    return {k[len(pre):]: v for k, v in shapes.items() if k.startswith(pre)}
 
 
 # ---- phase 3: kernels against their plain versions ------------------------------
@@ -642,11 +692,12 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
     )
 
-    # K2 at C = 1 and C = 10 over the K1 output; K3 on the same inputs
+    # K2 at C = 1, 5 and 10 (the tile path's widths) over the K1 output; K3
+    # on the same inputs
     # (the scatter path of a failing guard); one index_add_ as the library
     # yardstick of the sums.
     stats = {}
-    for C in (1, 10):
+    for C in (1, 5, 10):
         cols, masks = vals[:C], [mask] * C
         aggs = ("count", "max", "min", "sum")
         ok, k_st, _b = _twice_identical(
@@ -681,8 +732,10 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
                 bound_ms=kb, bound_by=kby, library_ms=lib,
             ),
         )
-    out["segment_reduce_blocked"] = dict(stats[10]["blocked"], c1=stats[1]["blocked"])
-    out["segment_reduce_scatter"] = dict(stats[10]["scatter"], c1=stats[1]["scatter"])
+    out["segment_reduce_blocked"] = dict(stats[10]["blocked"], c1=stats[1]["blocked"],
+                                         c5=stats[5]["blocked"])
+    out["segment_reduce_scatter"] = dict(stats[10]["scatter"], c1=stats[1]["scatter"],
+                                         c5=stats[5]["scatter"])
 
     # groupby-orderby-limit's shape: 1-minute buckets over the host-major
     # layout fail K2's guard, and K3 reruns; what the failed K2 call
@@ -2186,8 +2239,10 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
         }
         emit({"phase": "tile_query", "name": name, **per_query[name]})
     totals = launch_counts()  # the main path's launches end here
+    shapes = shape_counts()
     edge = run_tile_edge_queries(db, tsbs, is_cuda)
-    return {"queries": per_query, "launches": totals, "edge_launches": edge,
+    return {"queries": per_query, "launches": totals, "shape_launches": shapes,
+            "edge_launches": edge, "edge_shape_launches": shape_counts(),
             "cache": eng.tile_cache.stats(), "limb_reruns": eng.tile_executor().limb_reruns}
 
 
@@ -2861,6 +2916,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
             raise AssertionError(f"{name}: empty or non-finite result")
         emit({"phase": "tql_tile_query", "name": name, **per_query[name]})
     tile_launches = launch_counts()  # the main path's launches end here
+    tile_shapes = shape_counts()
 
     # -- numpy twin of T1 on a few hosts over the whole load --
     t1_rows = results12["T1"]
@@ -2884,16 +2940,20 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
     lo1 = hi - H3600
     legacy = {}
     legacy_launches = {k: 0 for k in launch_counts()}
+    legacy_shapes: dict[str, int] = {}
     for name, promql in tql_queries(n_hosts):
         sql = tql(promql, lo1, hi, "15s")
         db.config.tql.tile = False
-        before = launch_counts()
+        before, shapes_before = launch_counts(), shape_counts()
         try:
             out, ms, stages, delta = _tql_run(db, sql, is_cuda)
         finally:
             db.config.tql.tile = True
         for k, v in launch_counts().items():
             legacy_launches[k] += v - before[k]
+        for k, v in shape_counts().items():
+            if v - shapes_before.get(k, 0):
+                legacy_shapes[k] = legacy_shapes.get(k, 0) + v - shapes_before.get(k, 0)
         if delta["tql_legacy"] != 1 or delta["tql_tile_dispatches"] or delta["tql_tile_declined"]:
             raise AssertionError(f"{name}: not one legacy evaluation: {delta}")
         tile_out, tile_ms, _st, tdelta = _tql_run(db, sql, is_cuda)
@@ -2930,6 +2990,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
     return {
         "rows": n_rows, "ingest_s": ingest_s, "queries": per_query,
         "launches": tile_launches, "legacy_launches": legacy_launches,
+        "shape_launches": tile_shapes, "legacy_shape_launches": legacy_shapes,
         "legacy": {k: {kk: vv for kk, vv in v.items() if kk != "result"}
                    for k, v in legacy.items()},
         "cpu": cpu, "twin_max_rel_err": twin_err, "cache": cache,
@@ -3131,7 +3192,11 @@ def run_tql_edge_cases(dev) -> None:
     """K9-K12 on small inputs that make them hard, against their plain
     versions: equal timestamps in a window, NaN/+-inf values, a series
     that is all NULL, matcher masks, two tags, chunks that are not a power
-    of two, ns and us time units with an offset, several regions merged."""
+    of two, ns and us time units with an offset, several regions merged;
+    K10's slices at k = 64 with the range a multiple of the step, at a 1 s
+    step (empty slices), at a 1 h step over 10 s scrapes (360-row slices,
+    cut at a 1.5 h range) and with a series whose every sample precedes
+    the first step (the clamp slice), twice each."""
     import torch
 
     from greptimedb_tpu_torch.ops import rate as R
@@ -3210,7 +3275,53 @@ def run_tql_edge_cases(dev) -> None:
                     for op in ("sum", "min", "count"):
                         _same_f64(R.series_fold(mat, off, mem, op),
                                   R.series_fold_plain(mat, off, mem, op), f"edge fold {op}")
+        if unit_ns == 1_000_000:
+            # K10's slices over the same rows: k = 64 with the range a
+            # multiple of the step, a 1 s step (most slices empty)
+            src = srcs[0]
+            for step_e, rng_e in ((10_000, 640_000), (1_000, 30_000)):
+                n_e = (6_200_000 - start) // step_e + 1
+                k_e = 1 << (-(-rng_e // step_e) - 1).bit_length()
+                _k10_edge(R, src, R.RangeGrid(start, step_e, rng_e, 1 << (n_e - 1).bit_length(),
+                                              k_e, s_pad, n_e), f"step {step_e} range {rng_e}")
+    # a 1 h step over 10 s scrapes (slices of 360 rows, the oldest cut at
+    # 1.5 h), one series whose every sample precedes the first step
+    hours, s_hour = 6, 16
+    ticks = hours * 3600 // SCRAPE_S
+    t0 = 7_200_000_000
+    sid = np.repeat(np.arange(s_hour, dtype=np.int32), ticks)
+    t_ms = np.tile(t0 + np.arange(ticks, dtype=np.int64) * SCRAPE_S * 1000, s_hour)
+    t_ms[sid == 3] -= hours * H3600  # series 3: every sample before `start`
+    v = rng.normal(0, 1, sid.shape[0]).cumsum()
+    order = np.lexsort((t_ms, sid))
+
+    def one(x, dt):
+        return [torch.from_numpy(np.ascontiguousarray(x[order], dtype=dt)).to(dev)]
+
+    src = R.RowSource(ts=one(t_ms, np.int64), values=one(v, np.float64), num_series=s_hour,
+                      codes=(one(sid, np.int32),), radices=(s_hour,))
+    start = t0 + H3600 // 2
+    for rng_e, k_e in ((5_400_000, 2), (3_600_000, 64)):
+        n_e = (t0 + hours * H3600 - start) // H3600 + 1
+        _k10_edge(R, src, R.RangeGrid(start, H3600, rng_e, 8, k_e, s_hour, n_e),
+                  f"1 h step range {rng_e} k {k_e}")
     emit({"phase": "tql_edge_cases", "ok": True})
+
+
+def _k10_edge(R, src, grid, what: str) -> None:
+    """K10 twice (the same bytes) against its plain version on one grid."""
+    import torch
+
+    sid, ts_ms, vf, inf = R.source_rows(src)
+    st, pres = _twice_identical_stats(lambda: R.range_windows(src, grid), f"edge K10 {what}")
+    sp = R.range_windows_plain(sid, ts_ms, vf, inf, grid.start, grid.step, grid.range_,
+                               grid.n_steps, grid.k, grid.num_series, grid.n_steps_actual)
+    for f in R.WindowStats.FIELDS:
+        _compare(getattr(st, f), getattr(sp, f), True, f"edge K10 {what}: {f}")
+    if not torch.equal(pres, R.series_presence_plain(sid, inf, grid.num_series)):
+        raise AssertionError(f"edge K10 {what}: presence differs")
+    if int(st.count.sum()) == 0:
+        raise AssertionError(f"edge K10 {what}: no sample in any window")
 
 
 # ---- phase 7: the hash group-by on a high-cardinality container table ------------------
@@ -3784,6 +3895,9 @@ def run_vector_edge_cases(dev, reps: int) -> dict:
 
 UDD_GAMMA = (1 + 0.01) / (1 - 0.01)  # uddsketch_state(128, 0.01, ...)'s starting gamma
 SHARDS = 4  # the two-step merge: host ranges, folded in shard order
+# the path K20 must take on the card (csrc/segment_hll.cu): rows in group
+# runs take the ordered path, the rest the atomic one
+HLL_PATHS = {"hll host p=12": "ordered", "hll hour p=12": "atomic", "hll host p=14": "ordered"}
 HLL_BAR, UDD_BAR = 0.05, 0.10  # tests/test_sketch.py's bars: hll_count, uddsketch_calc
 
 
@@ -3840,15 +3954,52 @@ def _sketch_check(kind: str, args, what: str, is_cuda: bool, host_too: bool = Fa
     return a
 
 
+def _hll_path(want: str, what: str) -> str:
+    """The path of the last K20 call on the card, which must be `want`."""
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    got = sk.last_hll_path()
+    if got != want:
+        raise AssertionError(f"{what}: K20 took the {got} path, expected {want}")
+    return got
+
+
+def _hll_path_cases(rng, n_rows: int):
+    """(name, path, gids, reg_idx, G, m) of K20's path edges on the card:
+    sorted gids with empty groups between their runs, one decreasing gid at
+    a warp's and a tile's first row, m at the shared-memory budget and
+    above it, long runs of one window split over helper blocks."""
+    n = min(n_rows, 1 << 21)
+    g = 5000
+    sorted_gids = np.sort(rng.integers(0, g, n)) // 3 * 3  # two empty groups in three
+    down = sorted_gids.copy()
+    at = 1 << 16 if n > 1 << 16 else n // 2 & ~31  # lane 0 of a warp, first row of a tile
+    down[at] = down[at - 1] - 1
+    big = np.repeat(np.arange(64, dtype=np.int64), n // 64)
+    long_runs = np.repeat(np.arange(3, dtype=np.int64), -(-n // 3))[:n]
+    regs = rng.integers(0, 4096, n).astype(np.int32)
+    return [
+        ("sorted, empty groups", "ordered", sorted_gids, regs, g, 4096),
+        ("decreasing gid at a tile boundary", "atomic", down, regs, g, 4096),
+        ("m at the budget (2^15)", "ordered", big, rng.integers(0, 1 << 15, big.shape[0]), 64,
+         1 << 15),
+        ("m above the budget (2^16)", "atomic", big, rng.integers(0, 1 << 16, big.shape[0]), 64,
+         1 << 16),
+        ("long runs, m = 64", "ordered", long_runs, rng.integers(0, 64, n), 3, 64),
+    ]
+
+
 def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
     """K20 and K21 against their plain versions on `dev` (on the card also
     against the host's), twice each: seeded ids, empty groups, rho <= 0,
     negative and out-of-range gids with the int32 wrap (gid 2^20 at
     m = 4096 lands on group 0, gid 2^19 wraps negative), masked rows,
-    G = 1, N = 0; every one of `n_rows` rows on one register / bucket (the
-    worst contention, timed on the card); and on the card a width past
-    2^31 (G = 2^19 + 1 at m = 4096, G = 2^21 + 1 at B = 1024: 8.6 GB),
-    where the last group's rows wrap negative and are dropped."""
+    G = 1, N = 0; K20's path edges (`_hll_path_cases`, timed on the card);
+    every one of `n_rows` rows on one register / bucket (the worst
+    contention, timed on the card); and on the card a width past 2^31
+    (G = 2^19 + 1 at m = 4096, G = 2^21 + 1 at B = 1024: 8.6 GB), where
+    the last group's rows wrap negative and are dropped.  On the card each
+    K20 case also checks the path it took (ordered or atomic)."""
     import torch
 
     is_cuda = dev.type == "cuda"
@@ -3870,6 +4021,7 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+    out = {"hll_paths": {}}
     for what, gids, g, width in cases:
         n = gids.shape[0]
         cols = up(rng.integers(0, width, n).astype(np.int32))
@@ -3877,13 +4029,28 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
         mask = up(rng.random(n) > 0.2)
         gt = up(gids)
         _sketch_check("hll", (cols, rho, gt, g, width), f"edge hll {what}", is_cuda, is_cuda)
+        if is_cuda:
+            out["hll_paths"][what] = _hll_path(
+                "ordered" if what in ("G=1", "N=0") else "atomic", f"edge hll {what}")
         _sketch_check("udd", (cols, gt, mask, g, width), f"edge udd {what}", is_cuda, is_cuda)
-    out = {}
+    for what, path, gids, regs, g, width in _hll_path_cases(rng, n_rows):
+        args = (up(regs.astype(np.int32)), up(rng.integers(-3, 64, gids.shape[0]).astype(np.int32)),
+                up(gids), g, width)
+        _sketch_check("hll", args, f"edge hll {what}", is_cuda)
+        if is_cuda:
+            from greptimedb_tpu_torch.ops import sketch as sk
+
+            out["hll_paths"][what] = {"path": _hll_path(path, f"edge hll {what}"),
+                                      "ms": _timed(lambda: sk.segment_hll(*args), reps)}
+        del args
+
     zeros = torch.zeros(n_rows, dtype=torch.int32, device=dev)
     rho = up(rng.integers(1, 50, n_rows).astype(np.int32))
     ones = torch.ones(n_rows, dtype=torch.bool, device=dev)
     hll_args, udd_args = (zeros, rho, zeros, 1, 4096), (zeros, zeros, ones, 1, 128)
     _sketch_check("hll", hll_args, "edge hll one register", is_cuda)
+    if is_cuda:
+        out["hll_paths"]["one register"] = _hll_path("ordered", "edge hll one register")
     _sketch_check("udd", udd_args, "edge udd one bucket", is_cuda)
     if is_cuda:
         from greptimedb_tpu_torch.ops import sketch as sk
@@ -3902,6 +4069,8 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
             args = ((cols, second, up(gids), g, width) if kind == "hll"
                     else (cols, up(gids), second, g, width))
             got = _sketch_check(kind, args, f"edge {kind} G*width >= 2^31", is_cuda)
+            if kind == "hll":
+                out["hll_paths"]["G*m >= 2^31"] = _hll_path("atomic", "edge hll G*m >= 2^31")
             if bool(got[g - 1].any()) or not bool(got[g - 2].any()):
                 raise AssertionError(f"edge {kind} G*width >= 2^31: the last group's rows "
                                      f"were not dropped")
@@ -3970,6 +4139,8 @@ def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) ->
         single[name] = _sketch_check(kind, args, name, is_cuda)
         b, by = _sketch_bound(kind, n, args[-2] * args[-1])
         rec = {"bound_ms": b, "bound_by": by}
+        if is_cuda and kind == "hll":
+            rec["path"] = _hll_path(HLL_PATHS[name], name)
         if is_cuda:
             kernel, plain = ((sk.segment_hll, sk.segment_hll_plain) if kind == "hll"
                              else (sk.segment_udd, sk.segment_udd_plain))
@@ -4653,6 +4824,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": built})
+    count_shapes()
 
     t0 = time.perf_counter()
     kstats = run_kernel_phase(args.hosts, args.hours, args.kernel_reps)
@@ -4845,6 +5017,9 @@ def main(argv=None) -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "legacy_launches": tq["legacy_launches"][name],
                 **{k: s[k] for k in ("k64", "by_series") if k in s},
+                **({"launches_by_k": by_shape(tq["shape_launches"], name),
+                    "legacy_launches_by_k": by_shape(tq["legacy_shape_launches"], name)}
+                   if name == _WIN else {}),
             })
             continue
         if name in PLANE_KERNELS:
@@ -4869,8 +5044,10 @@ def main(argv=None) -> int:
         # the tile path (phase 5), K3's from the tile edge query with the
         # time_major pass off (the TSBS queries no longer fail K2's guard)
         tile_launches = sl["tile"]["launches"][name]
+        tile_shapes = sl["tile"]["shape_launches"]
         if name == _SCATTER:
             tile_launches = sl["tile"]["edge_launches"][name]
+            tile_shapes = sl["tile"]["edge_shape_launches"]
         launches = tile_launches if name in TILE_KERNELS else sl["launches"][name]
         if launches == 0 or tile_launches == 0:
             raise AssertionError(f"kernel {name} never launched on its path")
@@ -4881,6 +5058,8 @@ def main(argv=None) -> int:
             "library_ms": s["library_ms"], "tile_launches": tile_launches,
             "hash_launches": cm["launches"][name],
             "tick_launches": tick["launches"][name],
+            **({"tile_launches_by_c": by_shape(tile_shapes, name)}
+               if name in (_BLOCKED, _SCATTER) else {}),
             **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots",
                                  "predicated", "passes", "key_bytes", "sort_launches") if k in s},
         })

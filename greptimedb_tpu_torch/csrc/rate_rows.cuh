@@ -84,63 +84,107 @@ __device__ __forceinline__ double value_of(const RowPlanes& p, int64_t r) {
   return p.vals[c][o];
 }
 
+// Row r's series id when it is fetched, else -1.
+__device__ __forceinline__ int64_t fetched_series(const RowPlanes& p, int64_t r, int64_t chunks,
+                                                  int64_t num_series) {
+  int64_t c, o;
+  row_at(p, r, c, o);
+  bool ok = p.valid == nullptr || p.valid[c][o] != 0;
+  if (p.has_range) {
+    const int64_t t = p.ts[c][o];
+    ok = ok && t >= p.lo && t < p.hi;
+  }
+  int64_t sid = 0;
+  if (p.sid != nullptr) {
+    sid = p.sid[c][o];
+  } else {
+    int64_t mult = 1;
+    for (int t = p.n_tags - 1; t >= 0; --t) {
+      const int64_t code = p.codes[(int64_t)t * chunks + c][o];
+      ok = ok && code >= 0;
+      const uint8_t* m = p.masks[t];
+      if (m != nullptr) ok = ok && code < p.mask_len[t] && m[code < 0 ? 0 : code] != 0;
+      sid += code * mult;
+      mult *= p.radices[t];
+    }
+  }
+  return ok && sid >= 0 && sid < num_series ? sid : -1;
+}
+
+constexpr int kLayoutGroups = 4;   // groups of 32 rows a warp loads at once
+constexpr int kLayoutSpan = 1024;  // rows a warp takes in a row
+
 // Bound on the H100: bytes — valid, ts and the code planes read once per
-// row, in_fetch written.  Each series' first/last fetched row is a 64-bit
-// integer atomicMin/atomicMax (the result does not depend on order),
-// issued only by the lanes where a run of one series starts or ends in
-// the warp, so a series costs two atomics per warp it touches, not per row.
+// row, in_fetch written.  Each warp takes kLayoutSpan consecutive rows,
+// kLayoutGroups x 32 in flight.  A series' first/last fetched row is a
+// 64-bit integer atomicMin/atomicMax (the result does not depend on
+// order), issued only where the series changes between one fetched row
+// and the next fetched row of the warp's span (rows that are not fetched
+// between them do not count), and at the span's ends: two atomics per
+// series and span, not per warp of 32 rows.
 __global__ void __launch_bounds__(256) series_layout_kernel(const LayoutArgs a) {
   const RowPlanes& p = a.rows;
   const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   const int64_t chunks = (p.n + p.chunk_rows - 1) / p.chunk_rows;
-  // warp-uniform loop: every lane takes part in the shuffles
-  for (int64_t r0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); r0 < p.n;
-       r0 += stride) {
-    const int64_t r = r0 + lane;
-    bool ok = r < p.n;
-    int64_t s = -1;
-    if (ok) {
-      int64_t c, o;
-      row_at(p, r, c, o);
-      ok = p.valid == nullptr || p.valid[c][o] != 0;
-      if (p.has_range) {
-        const int64_t t = p.ts[c][o];
-        ok = ok && t >= p.lo && t < p.hi;
+  // warp-uniform loops: every lane takes part in the votes and shuffles
+  for (int64_t c0 = warp * kLayoutSpan; c0 < p.n; c0 += warps * kLayoutSpan) {
+    const int64_t c1 = c0 + kLayoutSpan < p.n ? c0 + kLayoutSpan : p.n;
+    int64_t cs = -1, cr = -1;  // the series and row of the span's last fetched row so far
+    for (int64_t r0 = c0; r0 < c1; r0 += 32 * kLayoutGroups) {
+      int64_t sg[kLayoutGroups];
+#pragma unroll
+      for (int u = 0; u < kLayoutGroups; ++u) {
+        const int64_t r = r0 + 32 * u + lane;
+        sg[u] = r < c1 ? fetched_series(p, r, chunks, a.out.num_series) : -1;
       }
-      int64_t sid = 0;
-      if (p.sid != nullptr) {
-        sid = p.sid[c][o];
-      } else {
-        int64_t mult = 1;
-        for (int t = p.n_tags - 1; t >= 0; --t) {
-          const int64_t code = p.codes[(int64_t)t * chunks + c][o];
-          ok = ok && code >= 0;
-          const uint8_t* m = p.masks[t];
-          if (m != nullptr) ok = ok && code < p.mask_len[t] && m[code < 0 ? 0 : code] != 0;
-          sid += code * mult;
-          mult *= p.radices[t];
+      // stored after every load of the groups (a store between them would
+      // keep the loads of the next group waiting)
+#pragma unroll
+      for (int u = 0; u < kLayoutGroups; ++u) {
+        const int64_t r = r0 + 32 * u + lane;
+        if (r < c1) a.out.in_fetch[r] = sg[u] >= 0 ? 1 : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kLayoutGroups; ++u) {
+        const int64_t r = r0 + 32 * u + lane;
+        const int64_t s = sg[u];
+        const unsigned fm = __ballot_sync(0xffffffffu, s >= 0);
+        if (fm == 0) continue;
+        const unsigned before = fm & ((1u << lane) - 1);
+        const unsigned after = lane == 31 ? 0u : fm & (0xffffffffu << (lane + 1));
+        const int64_t prev_s = __shfl_sync(0xffffffffu, s, before ? 31 - __clz(before) : 0);
+        const int64_t next_s = __shfl_sync(0xffffffffu, s, after ? __ffs(after) - 1 : 0);
+        if (s >= 0) {
+          const int64_t ps = before ? prev_s : cs;
+          if (ps != s) {
+            atomicMin((long long*)(a.out.first + s), (long long)r);
+            if (!before && cs >= 0) {  // the carried row ended its run
+              atomicMax((long long*)(a.out.last + cs), (long long)cr);
+              a.out.presence[cs] = 1;
+            }
+          }
+          if (after && next_s != s) {
+            atomicMax((long long*)(a.out.last + s), (long long)r);
+            a.out.presence[s] = 1;
+          }
         }
+        const int top = 31 - __clz(fm);
+        cs = __shfl_sync(0xffffffffu, s, top);
+        cr = __shfl_sync(0xffffffffu, r, top);
       }
-      ok = ok && sid >= 0 && sid < a.out.num_series;
-      a.out.in_fetch[r] = ok ? 1 : 0;
-      if (ok) s = sid;
     }
-    const int64_t prev = __shfl_up_sync(0xffffffffu, s, 1);
-    const int64_t next = __shfl_down_sync(0xffffffffu, s, 1);
-    if (s >= 0) {
-      if (lane == 0 || prev != s) atomicMin((long long*)(a.out.first + s), (long long)r);
-      if (lane == 31 || next != s) {
-        atomicMax((long long*)(a.out.last + s), (long long)r);
-        a.out.presence[s] = 1;
-      }
+    if (lane == 0 && cs >= 0) {  // the span's last fetched row ends its run
+      atomicMax((long long*)(a.out.last + cs), (long long)cr);
+      a.out.presence[cs] = 1;
     }
   }
 }
 
 static inline int launch_series_layout(const LayoutArgs* args, cudaStream_t stream) {
   if (args->rows.n <= 0) return (int)cudaSuccess;
-  const int64_t blocks = (args->rows.n + 255) / 256;
+  const int64_t blocks = (args->rows.n + 8 * kLayoutSpan - 1) / (8 * kLayoutSpan);  // 8 warps a block
   series_layout_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -173,6 +173,7 @@ class Database:
         db_name = stmt.database or self.current_database
         if stmt.if_exists and not self.catalog.has_table(stmt.name, db_name):
             return None
+        self.catalog.table(stmt.name, db_name)  # a missing table raises with {database}.{name}
         meta = self.catalog.drop_table(stmt.name, db_name)
         cache = self.query_engine.tile_cache
         for rid in meta.region_ids:

@@ -48,6 +48,7 @@ INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
 F64_MAX = torch.finfo(torch.float64).max
 F64_MIN = torch.finfo(torch.float64).min
+SLICE_BYTES = 68  # a slice of K10's table: 7 x 8 B of statistics, count, row range
 
 RATE_FUNCS = ("rate", "increase", "delta")
 OVER_TIME_FUNCS = (
@@ -584,7 +585,7 @@ class _WindowArgs(ctypes.Structure):
         ("count", ctypes.c_void_p), ("first_ts", ctypes.c_void_p),
         ("last_ts", ctypes.c_void_p), ("first_val", ctypes.c_void_p),
         ("last_val", ctypes.c_void_p), ("sum", ctypes.c_void_p),
-        ("min", ctypes.c_void_p), ("max", ctypes.c_void_p),
+        ("min", ctypes.c_void_p), ("max", ctypes.c_void_p), ("slices", ctypes.c_void_p),
         ("n_steps", ctypes.c_int64), ("n_steps_actual", ctypes.c_int64),
         ("k", ctypes.c_int64), ("start", ctypes.c_int64),
         ("step", ctypes.c_int64), ("range", ctypes.c_int64),
@@ -757,8 +758,9 @@ def range_windows(src: RowSource, grid: RangeGrid, values: torch.Tensor | None =
     each series' presence.  `values` (K9's output) replaces the source's
     value planes.  Returns (WindowStats, presence bool [S]).  A CUDA source
     launches csrc/range_windows.cu: the row prologue unless K9 left its
-    layout, then one thread per cell; a CPU source runs the plain
-    versions."""
+    layout, then the slice table (one thread per (series, step) slice) and
+    the cells (one block per series and 256 steps, the slices in shared
+    memory); a CPU source runs the plain versions."""
     if grid.num_series != src.num_series:
         raise ValueError("the grid's series count must be the source's")
     if src.device.type == "cpu":
@@ -784,12 +786,15 @@ def range_windows(src: RowSource, grid: RangeGrid, values: torch.Tensor | None =
         torch.empty(cells, dtype=torch.int64, device=dev),
         *(torch.empty(cells, dtype=torch.float64, device=dev) for _ in range(5)),
     )
+    # the slice table (csrc/range_windows.cu): 68 B a (series, real step)
+    slices = torch.empty(SLICE_BYTES * grid.num_series * max(grid.n_steps_actual, 0),
+                         dtype=torch.uint8, device=dev)
     range_windows.launches += 1
     if layout is None:
         layout = _layout("range_windows", "gt_range_layout", src, planes)
     a = _WindowArgs(
         planes, layout.struct(), None if values is None else values.data_ptr(),
-        *(t.data_ptr() for t in stats.tensors()),
+        *(t.data_ptr() for t in stats.tensors()), slices.data_ptr(),
         grid.n_steps, grid.n_steps_actual, grid.k, grid.start, grid.step, grid.range_,
     )
     launch("range_windows", "gt_range_windows", a, _stream(dev))

@@ -431,6 +431,26 @@ def segment_hll_plain(reg_idx, rho, gids, num_groups: int, m: int):
     return regs.reshape(int(num_groups), int(m))
 
 
+# K20's two device paths (csrc/segment_hll.cu).  The ordered path keeps a
+# window of HLL_WINDOW_INTS registers (one group from m = HLL_WINDOW_INTS
+# up to HLL_MAX_ORDERED_M) in one block's shared memory; an owner block
+# takes a window's first `tile_rows` rows and helper blocks the rest.
+HLL_WINDOW_INTS = 4096
+HLL_MAX_ORDERED_M = 1 << 15
+HLL_MIN_TILE_ROWS = 1 << 16
+HLL_TILES = 264  # two blocks a streaming multiprocessor of the H100
+
+
+def hll_layout(n: int, num_groups: int, m: int) -> tuple[bool, int, int]:
+    """(whether the ordered path may run, groups per window, rows an owner
+    or helper block takes) for n rows: the ordered path needs G * m below
+    2^31 (no int32 wrap) and m registers in shared memory."""
+    ordered = int(num_groups) * int(m) < (1 << 31) and int(m) <= HLL_MAX_ORDERED_M
+    cap = max(1, HLL_WINDOW_INTS // int(m))
+    tile = max(HLL_MIN_TILE_ROWS, 1 << max(int(n) // HLL_TILES - 1, 0).bit_length())
+    return ordered, cap, tile
+
+
 def segment_udd_plain(bucket_ids, gids, mask, num_groups: int, n_buckets: int):
     """Torch-op version of K21: [num_groups, n_buckets] int32 counts of the
     rows where `mask` holds, per flattened (gid, bucket) id."""
@@ -447,7 +467,11 @@ class _HllArgs(ctypes.Structure):
     # mirrored field for field by HllArgs in csrc/segment_hll.cu
     _fields_ = [("n", ctypes.c_int64), ("total", ctypes.c_int64), ("reg", ctypes.c_void_p),
                 ("rho", ctypes.c_void_p), ("gids", ctypes.c_void_p), ("regs", ctypes.c_void_p),
-                ("m", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+                ("verdict", ctypes.c_void_p), ("windows", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("groups", ctypes.c_int64),
+                ("n_windows", ctypes.c_int64), ("tile_rows", ctypes.c_int64),
+                ("n_tiles", ctypes.c_int64), ("stride", ctypes.c_int64), ("m", ctypes.c_int32),
+                ("cap", ctypes.c_int32), ("ordered", ctypes.c_int32), ("reserved", ctypes.c_int32)]
 
 
 class _UddArgs(ctypes.Structure):
@@ -478,7 +502,10 @@ def segment_hll(reg_idx, rho, gids, num_groups: int, m: int):
     reg_idx/rho come from `hll_inputs` (host), gids are group ids; all [N]
     integer tensors on one device.  Merge partials with `torch.maximum`
     (the HLL union is elementwise max).  A CUDA tensor launches
-    csrc/segment_hll.cu; a CPU tensor runs `segment_hll_plain`."""
+    csrc/segment_hll.cu: rows in sorted group runs take the ordered path
+    (each window of registers built once in shared memory), any others the
+    atomic path, decided on the card (`last_hll_path()` reads which); a
+    CPU tensor runs `segment_hll_plain`."""
     if rho.device.type == "cpu":
         return segment_hll_plain(reg_idx, rho, gids, num_groups, m)
     from ..kernels._build import launch
@@ -489,8 +516,21 @@ def segment_hll(reg_idx, rho, gids, num_groups: int, m: int):
     reg = _int32_rows("segment_hll: reg_idx", reg_idx, n, dev)
     r = _int32_rows("segment_hll: rho", rho, n, dev)
     g = _int32_rows("segment_hll: gids", gids, n, dev)
-    regs = torch.zeros(total, dtype=torch.int32, device=dev)
-    a = _HllArgs(n, total, reg.data_ptr(), r.data_ptr(), g.data_ptr(), regs.data_ptr(), int(m), 0)
+    regs = torch.empty(total, dtype=torch.int32, device=dev)
+    verdict = torch.empty(1, dtype=torch.int32, device=dev)
+    segment_hll.last_verdict = verdict
+    if total == 0:
+        verdict.fill_(1)
+        return regs.reshape(int(num_groups), int(m))
+    ordered, cap, tile = hll_layout(n, num_groups, m)
+    n_windows = -(-int(num_groups) // cap)
+    n_tiles = -(-n // tile) if ordered else 0
+    stride = -(-(cap * int(m)) // 4) * 4
+    windows = torch.empty(2 * n_windows if ordered else 0, dtype=torch.int64, device=dev)
+    scratch = torch.empty(n_tiles * stride, dtype=torch.int32, device=dev)
+    a = _HllArgs(n, total, reg.data_ptr(), r.data_ptr(), g.data_ptr(), regs.data_ptr(),
+                 verdict.data_ptr(), windows.data_ptr(), scratch.data_ptr(), int(num_groups),
+                 n_windows, tile, n_tiles, stride, int(m), cap, int(ordered), 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     segment_hll.launches += 1
     launch("segment_hll", "gt_segment_hll", a, stream)
@@ -498,6 +538,14 @@ def segment_hll(reg_idx, rho, gids, num_groups: int, m: int):
 
 
 segment_hll.launches = 0
+segment_hll.last_verdict = None
+
+
+def last_hll_path() -> str | None:
+    """The path the last `segment_hll` call on the card took, "ordered" or
+    "atomic" (a host read of its verdict word: call it after a sync)."""
+    v = segment_hll.last_verdict
+    return None if v is None else ("ordered" if int(v.reshape(-1)[0]) == 0 else "atomic")
 
 
 def segment_udd(bucket_ids, gids, mask, num_groups: int, n_buckets: int):

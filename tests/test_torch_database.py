@@ -3,7 +3,8 @@ Database.sql (device path on device="cpu") against the reference
 Database, both with the tile cache off (the table-fed device path; the
 tile path has tests/test_torch_tile.py), on the same seeded data written
 through each package.  The port also reopens a data home the reference
-wrote, and recovers an unflushed write from its own WAL.
+wrote, and recovers an unflushed write from its own WAL; DROP TABLE of a
+missing table raises the reference's error text.
 
 Tolerances: keys, counts, min, max and last_value exact; avg within rel
 1e-12 (chip_smoke.compare_tables)."""
@@ -176,3 +177,44 @@ def test_device_failure_raises_unless_fallback_is_on(tmp_path, monkeypatch):
         "tick_graph_captures": 0, "tick_graph_replays": 0, "result_cache_hits": 0,
     }
     db.close()
+
+
+def _drop_error(db, sql):
+    with pytest.raises(Exception) as err:
+        db.sql_one(sql)
+    return f"{type(err.value).__name__}: {err.value}"
+
+
+@pytest.mark.parametrize("sql", ["DROP TABLE nope", "DROP TABLE public.nope"])
+def test_drop_missing_table_matches_reference_message(tmp_path, sql):
+    """DROP TABLE of a missing table raises the reference's error text,
+    `table not found: {database}.{name}`; IF EXISTS stays silent in both."""
+    jdb = JaxDatabase(config=JaxConfig(), data_home=str(tmp_path / "jax"))
+    port = Database(str(tmp_path / "port"), device="cpu")
+    try:
+        want = _drop_error(jdb, sql)
+        assert want.endswith("table not found: public.nope")
+        assert _drop_error(port, sql) == want
+        exists = sql.replace("DROP TABLE", "DROP TABLE IF EXISTS")
+        assert jdb.sql_one(exists) is None
+        assert port.sql_one(exists) is None
+    finally:
+        jdb.close()
+        port.close()
+
+
+def test_errors_golden_through_the_port(tmp_path):
+    """tests/cases/standalone/errors.sql renders its .result byte for byte
+    through the port (its second DROP TABLE is of a missing table)."""
+    import os
+
+    from tests.sqlness_runner import CASES_DIR, run_case
+
+    case = os.path.join(CASES_DIR, "errors.sql")
+    with open(case[:-4] + ".result") as f:
+        want = f.read()
+    db = Database(str(tmp_path / "db"), device="cpu")
+    try:
+        assert run_case(case, db) == want
+    finally:
+        db.close()

@@ -4,7 +4,9 @@ query/promql/tile_exec.py `_region_stats` / `_finalize`) on seeded inputs:
 counter resets, invalid rows between samples, NaN values, equal
 timestamps in a window, padded steps (`n_steps_actual < n_steps`),
 padded k, ns-scale timestamps, every rate kind, the six *_over_time and
-`__last_ts`.  The inputs are made with numpy and handed to both sides.
+`__last_ts`; and K10's two stages (the slice table, then each cell's
+slices newest first) emulated in torch ops, on those windows and on the
+slices' edges.  The inputs are made with numpy and handed to both sides.
 
 Tolerances, and why:
 * K9: exact on series without a reset (both add exactly 0.0); relative
@@ -40,7 +42,7 @@ def _one_torch_thread():
 
 
 def _counter(seed, n_series=6, n_samples=80, scrape=15_000, resets=True, nan=False,
-             invalid=False, dup_ts=False, base=T0, jitter=True):
+             invalid=False, dup_ts=False, base=T0, jitter=True, inf=False):
     """Sorted (sid, ts, values, valid) of seeded counters."""
     rng = np.random.default_rng(seed)
     sid = np.repeat(np.arange(n_series, dtype=np.int32), n_samples)
@@ -65,6 +67,10 @@ def _counter(seed, n_series=6, n_samples=80, scrape=15_000, resets=True, nan=Fal
         vals[s * n_samples:(s + 1) * n_samples] = v
     if nan:
         vals[rng.random(vals.shape[0]) < 0.05] = np.nan
+    if inf:
+        u = rng.random(vals.shape[0])
+        vals[u < 0.03] = np.inf
+        vals[(u >= 0.03) & (u < 0.06)] = -np.inf
     valid = rng.random(vals.shape[0]) < 0.85 if invalid else np.ones(vals.shape[0], bool)
     return sid, ts, vals, valid
 
@@ -144,9 +150,21 @@ WINDOW_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+# the edges of K10's slices (csrc/range_windows.cu)
+EDGE_WINDOW_CASES = {
+    "100s_30s_cut": (dict(nan=True), 60_000, 30_000, 100_000, 30, 32, None),
+    "clamp_slice": (dict(invalid=True), 600_000, 60_000, 900_000, 12, 16, None),
+    "long_slices": (dict(n_samples=300, scrape=10_000), 300_000, 300_000, 900_000, 9, 16, None),
+    "empty_slices": (dict(scrape=15_000), 30_000, 4_000, 20_000, 200, 256, 8),
+    "k_past_range": (dict(), 120_000, 60_000, 60_000, 16, 16, 16),
+    "inf_nan_dup": (dict(nan=True, inf=True, dup_ts=True), 90_000, 20_000, 70_000, 50, 64, 8),
+}
+ALL_WINDOW_CASES = {**WINDOW_CASES, **EDGE_WINDOW_CASES}
+
+
+@pytest.mark.parametrize("case", sorted(ALL_WINDOW_CASES))
 def test_range_windows_matches_reference(case):
-    kw, off, step, rng_ms, steps, w_pad, k_pad = WINDOW_CASES[case]
+    kw, off, step, rng_ms, steps, w_pad, k_pad = ALL_WINDOW_CASES[case]
     sid, ts, vals, valid = _counter(7, **kw)
     start = int(ts.min()) + off
     k = k_pad or -(-rng_ms // step)
@@ -160,6 +178,149 @@ def test_range_windows_matches_reference(case):
     assert int(got.count.sum()) > 0
     for f in R.WindowStats.FIELDS:
         assert _same(getattr(got, f).numpy(), getattr(want, f)), f"{case}: {f} differs"
+
+
+def _bits_equal(a, b):
+    """Byte for byte, NaN equal to NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f":
+        nan = np.isnan(a)
+        return bool(np.array_equal(nan, np.isnan(b))
+                    and np.array_equal(a[~nan].view(np.int64), b[~nan].view(np.int64)))
+    return bool(np.array_equal(a, b))
+
+
+def _k10_slices(sid, ts, vals, fetched, start, step):
+    """K10's first stage in torch ops: a slice is a run of one series' rows
+    (fetched or not) that share one first window w0 = ceil(f64(ts - start)
+    / f64(step)) clamped at 0; its statistics are those of its fetched rows,
+    walked in row order (the kernel's per-row updates)."""
+    diff = (ts - start).to(torch.float64)
+    w0 = torch.ceil(diff / torch.full_like(diff, float(step))).to(torch.int64).clamp(min=0)
+    n = int(ts.shape[0])
+    head = torch.ones(n, dtype=torch.bool)
+    head[1:] = (sid[1:] != sid[:-1]) | (w0[1:] != w0[:-1])
+    beg = torch.nonzero(head).flatten()
+    end = torch.cat([beg[1:], torch.tensor([n])])
+    return sid[beg].to(torch.int64), w0[beg], beg, end, _k10_walk(ts, vals, fetched, beg, end)
+
+
+def _k10_walk(ts, vals, fetched, beg, end):
+    """Per run [beg, end): count, first/last ts, the value at each (the
+    largest of equal ts, NaN propagating), the sum from 0.0 in row order,
+    min and max, over the fetched rows, as the kernel's walk_rows."""
+    R_ = int(beg.shape[0])
+    cnt = torch.zeros(R_, dtype=torch.int32)
+    fts = torch.full((R_,), R.INT64_MAX, dtype=torch.int64)
+    lts = torch.full((R_,), R.INT64_MIN, dtype=torch.int64)
+    fv = torch.full((R_,), R.F64_MIN, dtype=torch.float64)
+    lv = fv.clone()
+    total = torch.zeros(R_, dtype=torch.float64)
+    mn = torch.full((R_,), R.F64_MAX, dtype=torch.float64)
+    mx = torch.full((R_,), R.F64_MIN, dtype=torch.float64)
+    small = torch.full((R_,), R.F64_MIN, dtype=torch.float64)
+    longest = int((end - beg).max()) if R_ else 0
+    for off in range(longest):
+        r = beg + off
+        live = (r < end) & fetched[r.clamp(max=max(int(ts.shape[0]) - 1, 0))]
+        i = torch.nonzero(live).flatten()
+        v, t = vals[r[i]], ts[r[i]]
+        cnt[i] += 1
+        total[i] = total[i] + v
+        mn[i] = torch.minimum(mn[i], v)
+        mx[i] = torch.maximum(mx[i], v)
+        new_f, new_l = t < fts[i], t > lts[i]
+        fv[i] = torch.where(new_f, torch.maximum(small[i], v),
+                            torch.where(t == fts[i], torch.maximum(fv[i], v), fv[i]))
+        lv[i] = torch.where(new_l, torch.maximum(small[i], v),
+                            torch.where(t == lts[i], torch.maximum(lv[i], v), lv[i]))
+        fts[i] = torch.minimum(fts[i], t)
+        lts[i] = torch.maximum(lts[i], t)
+    return cnt, fts, lts, fv, lv, total, mn, mx
+
+
+def _k10_emulation(sid, ts, vals, fetched, start, step, range_, n_steps, k, num_series,
+                   n_steps_actual):
+    """K10's two stages in torch ops: the slice table, then each cell
+    (s, w) combining slices w, w - 1, ... newest first, the slice holding
+    t_w - range cut to its rows in the window (found by bisection, summed
+    from the rows), older slices skipped."""
+    s_sid, s_w0, s_beg, s_end, st = _k10_slices(sid, ts, vals, fetched, start, step)
+    table = torch.full((num_series, n_steps), -1, dtype=torch.int64)
+    inside = s_w0 < n_steps
+    table[s_sid[inside], s_w0[inside]] = torch.nonzero(inside).flatten()
+    cells = num_series * n_steps
+    s = torch.arange(cells) // n_steps
+    w = torch.arange(cells) % n_steps
+    t_w = start + w * step
+    lo = t_w - range_
+    ldiff = (lo - start).to(torch.float64)
+    lo_w0 = torch.ceil(ldiff / torch.full_like(ldiff, float(step))).to(torch.int64).clamp(min=0)
+    oldest = torch.maximum(w - k + 1, lo_w0)
+    out = R.WindowStats(*(x[:1].expand(cells).clone() for x in (
+        torch.zeros(1, dtype=torch.int32), torch.full((1,), R.INT64_MAX),
+        torch.full((1,), R.INT64_MIN), torch.full((1,), R.F64_MIN, dtype=torch.float64),
+        torch.full((1,), R.F64_MIN, dtype=torch.float64), torch.zeros(1, dtype=torch.float64),
+        torch.full((1,), R.F64_MAX, dtype=torch.float64),
+        torch.full((1,), R.F64_MIN, dtype=torch.float64))))
+    have = torch.zeros(cells, dtype=torch.bool)
+    done = w >= n_steps_actual
+    for j in range(k):
+        m = w - j
+        sl = table[s, m.clamp(min=0)]
+        act = ~done & (m >= oldest) & (m >= 0) & (sl >= 0)
+        act &= st[0][sl.clamp(min=0)] > 0
+        i = torch.nonzero(act).flatten()
+        x = sl[i]
+        ft, lt = st[1][x], st[2][x]
+        past = lt <= lo[i]
+        done[i[past]] = True
+        i, x, ft, lt = i[~past], x[~past], ft[~past], lt[~past]
+        whole = (ft > lo[i]) & (lt <= t_w[i])
+        part = [y[x].clone() for y in st]
+        cut = torch.nonzero(~whole).flatten()
+        if cut.numel():
+            a = R._bisect(ts, s_beg[x[cut]], s_end[x[cut]], lo[i[cut]])
+            b = R._bisect(ts, a, s_end[x[cut]], t_w[i[cut]])
+            for y, z in zip(part, _k10_walk(ts, vals, fetched, a, b)):
+                y[cut] = z
+        use = torch.nonzero(part[0] > 0).flatten()
+        c, p = i[use], [y[use] for y in part]
+        newest = ~have[c]
+        out.count[c] += p[0]
+        out.sum[c] = out.sum[c] + p[5]
+        out.min[c] = torch.minimum(out.min[c], p[6])
+        out.max[c] = torch.maximum(out.max[c], p[7])
+        out.last_ts[c] = torch.where(newest, p[2], out.last_ts[c])
+        out.last_val[c] = torch.where(newest, p[4], out.last_val[c])
+        have[c] = True
+        out.first_ts[c] = p[1]
+        out.first_val[c] = p[3]
+        done[i[ft <= lo[i]]] = True
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ALL_WINDOW_CASES))
+def test_k10_two_stage_emulation_matches_reference(case):
+    """K10's slice table and newest-first combine (csrc/range_windows.cu),
+    emulated in torch ops, give the reference's bytes in all eight
+    statistics: slices cut by the window's left edge, the clamp slice,
+    slices of many rows and empty ones, padded steps, k past the range,
+    NaN, +-inf and equal timestamps."""
+    kw, off, step, rng_ms, steps, w_pad, k_pad = ALL_WINDOW_CASES[case]
+    sid, ts, vals, valid = _counter(7, **kw)
+    start = int(ts.min()) + off
+    k = k_pad or -(-rng_ms // step)
+    n_series = int(sid.max()) + 1
+    want = jrate.range_windows_dyn(
+        jnp.asarray(sid), jnp.asarray(ts), jnp.asarray(vals), jnp.asarray(valid),
+        start=np.int64(start), step=np.int64(step), range_=np.int64(rng_ms),
+        n_steps=w_pad, k=k, num_series=n_series, n_steps_actual=np.int64(steps))
+    got = _k10_emulation(_t(sid), _t(ts), _t(vals), _t(valid), start, step, rng_ms, w_pad, k,
+                         n_series, steps)
+    assert int(got.count.sum()) > 0
+    for f in R.WindowStats.FIELDS:
+        assert _bits_equal(getattr(got, f).numpy(), getattr(want, f)), f"{case}: {f} differs"
 
 
 # ---- K11: range_finalize ---------------------------------------------------------------

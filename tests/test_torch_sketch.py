@@ -11,6 +11,9 @@ on the CPU.
   tensors) against the reference's `segment_hll` / `segment_udd`, int32
   bytes equal: empty groups, rho <= 0, negative and out-of-range gids
   with the int32 wrap, masked rows, G = 1, N = 0;
+* K20's ordered path: the decision (sorted gids in [0, G), reg_idx in
+  [0, m), G * m < 2^31, m within the shared-memory budget) and its result
+  built from one register row per group, against the reference;
 * the two-step merge: the reference's 8-device `shard_map` (`pmax` /
   `psum`) against the port's per-shard partials folded in shard order;
 * `Database.sql` through both packages: the scenarios of
@@ -279,6 +282,97 @@ def test_segment_hll_wrap_aliases_into_group_zero():
     want = np.asarray(jsk.segment_hll(jnp.asarray(reg), jnp.asarray(rho), jnp.asarray(gids), 2, 4096))
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0, 5] == 9 and int(got.sum()) == 9
+
+
+def _hll_path(reg_idx, gids, num_groups: int, m: int) -> str:
+    """The path K20 (csrc/segment_hll.cu) takes for these rows: "ordered"
+    when the host allows it (`hll_layout`: G * m < 2^31, m within the
+    shared-memory budget), every gid lies in [0, G) and none is below the
+    gid before it, and every reg_idx lies in [0, m); else "atomic"."""
+    ordered, _cap, _tile = psk.hll_layout(int(gids.shape[0]), num_groups, m)
+    g = gids.to(torch.int64)
+    r = reg_idx.to(torch.int64)
+    ok = (ordered and bool(((g >= 0) & (g < num_groups)).all())
+          and bool((g[1:] >= g[:-1]).all()) and bool(((r >= 0) & (r < m)).all()))
+    return "ordered" if ok else "atomic"
+
+
+def _hll_ordered(reg_idx, rho, gids, num_groups: int, m: int):
+    """K20's ordered path in torch ops, for rows that take it: each group's
+    run of rows builds its own register row from zeros, stored once;
+    groups with no row store zeros."""
+    g = gids.to(torch.int64)
+    regs = torch.zeros((int(num_groups), int(m)), dtype=torch.int32)
+    bounds = torch.searchsorted(g, torch.arange(int(num_groups) + 1))
+    for grp in range(int(num_groups)):
+        lo, hi = int(bounds[grp]), int(bounds[grp + 1])
+        keep = rho[lo:hi] > 0
+        regs[grp].scatter_reduce_(0, reg_idx[lo:hi][keep].to(torch.int64),
+                                  rho[lo:hi][keep].to(torch.int32), "amax")
+    return regs
+
+
+def _hll_path_cases():
+    """(name, path K20 must take, num_groups, m, gids, reg_idx): the
+    ordered path's decision at its edges (sorted runs of 300 rows)."""
+    rng = np.random.default_rng(9)
+    runs = np.repeat(np.array([0, 1, 4, 5, 9, 11], np.int64), 300)  # empty groups between
+    n = runs.shape[0]
+
+    def regs(m):
+        return rng.integers(0, m, n).astype(np.int32)
+
+    down = runs.copy()
+    down[-1] = 10  # one decreasing gid at the very end
+    minus = runs.copy()
+    minus[400] = -1  # a gid of -1 inside a sorted run
+    past = runs.copy()
+    past[700] = 12  # a gid of G inside a sorted run
+    bad_reg = regs(64)
+    bad_reg[900] = 64  # reg_idx out of range
+    neg_reg = regs(64)
+    neg_reg[5] = -1
+    return [
+        ("sorted, empty groups", "ordered", 12, 64, runs, regs(64)),
+        ("sorted, one group per window", "ordered", 12, 4096, runs, regs(4096)),
+        ("sorted, m at the budget", "ordered", 12, 1 << 15, runs, regs(1 << 15)),
+        ("m above the budget", "atomic", 12, 1 << 16, runs, regs(1 << 16)),
+        ("one decreasing gid at the end", "atomic", 12, 64, down, regs(64)),
+        ("gid -1 in a sorted run", "atomic", 12, 64, minus, regs(64)),
+        ("gid G in a sorted run", "atomic", 12, 64, past, regs(64)),
+        ("reg_idx = m", "atomic", 12, 64, runs, bad_reg),
+        ("reg_idx = -1", "atomic", 12, 64, runs, neg_reg),
+        ("N=0", "ordered", 4, 16, np.zeros(0, np.int64), np.zeros(0, np.int32)),
+    ]
+
+
+@pytest.mark.parametrize("case", _hll_path_cases(), ids=lambda c: c[0])
+def test_hll_ordered_path_plain_matches_reference(case):
+    """K20's path decision as a plain function, and the ordered path's
+    result built from one register row per group, against the reference's
+    segment_hll (the atomic path's result is `segment_hll_plain`)."""
+    _name, path, g, m, gids, reg = case
+    rho = np.random.default_rng(10).integers(-3, 40, gids.shape[0]).astype(np.int32)
+    t_reg, t_rho, t_gids = (torch.from_numpy(x) for x in (reg, rho, gids))
+    assert _hll_path(t_reg, t_gids, g, m) == path
+    want = np.asarray(jsk.segment_hll(jnp.asarray(reg), jnp.asarray(rho), jnp.asarray(gids), g, m))
+    got = (_hll_ordered if path == "ordered" else psk.segment_hll_plain)(
+        t_reg, t_rho, t_gids, g, m)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == (g, m)
+    assert got.numpy().tobytes() == want.astype(np.int32).tobytes()
+
+
+def test_hll_path_past_2_31_is_atomic():
+    """G * m >= 2^31 (the int32 wrap) keeps the ordered path off, however
+    the rows lie; the layout caps a window at 4096 registers."""
+    gids = torch.arange(8, dtype=torch.int64)
+    reg = torch.zeros(8, dtype=torch.int32)
+    assert _hll_path(reg, gids, (1 << 19) + 1, 4096) == "atomic"
+    assert _hll_path(reg, gids, 1 << 19, 4096) == "atomic"
+    assert _hll_path(reg, gids, (1 << 19) - 1, 4096) == "ordered"
+    assert psk.hll_layout(17_280_000, 4000, 1 << 14) == (True, 1, 1 << 16)
+    assert psk.hll_layout(0, 4000, 16) == (True, 256, 1 << 16)
+    assert psk.hll_layout(100_000_000, 1, 4096)[2] == 1 << 19
 
 
 @pytest.mark.parametrize("case", _segment_cases(), ids=lambda c: c[0])
