@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 1] [--tile-reps 5] [--tql-reps 5]
                           [--container-hours 6] [--container-reps 3] [--tick-reps 5]
-                          [--vector-rows 1000000] [--vector-reps 3]
-                          [--sketch-hours 6] [--sketch-reps 1]
-                          [--mesh-hours 12] [--mesh-reps 2]
+                          [--vector-rows 1000000] [--vector-reps 2]
+                          [--sketch-hours 6] [--sketch-reps 0]
+                          [--mesh-hours 6] [--mesh-reps 2]
 
 Phases, each printing one JSON line:
 
@@ -103,11 +103,16 @@ Phases, each printing one JSON line:
              no host read (both branches launched, each predicated on the
              guard's word) at 17.28 M rows and C = 10, the guard passing
              (host x hour) and failing (minute buckets): byte for byte
-             against the host-driven form and against the plain version,
-             twice, the three timed; K18 (the flag-reading sort of the K3
-             branch, radix.cuh's one-sweep sort) against torch.sort, and its
-             edge cases (n and G at every plan boundary, all masked, one id,
-             a shut gate, one graph capture replayed twice).
+             against the host-driven form and K6 against its plain version
+             run on the host (K2 within rel 1e-12), twice, the three timed;
+             the falling-bases shape (hour alone over 16 h of hosts, the
+             guard passing with bases that fall at each host): K6 and K4
+             byte for byte against their plain versions, K2 within rel
+             1e-12, and no library sort kernel (cub, Radix, DeviceSort) in a
+             profiled K2, K4 or K6 call; K18 (the flag-reading sort of the
+             K3 branch, radix.cuh's one-sweep sort) against torch.sort, and
+             its edge cases (n and G at every plan boundary, all masked, one
+             id, a shut gate, one graph capture replayed twice).
    3e (hash kernels) — at H1's shape (phase 7: 5.76 M rows in (namespace,
              pod, container, ts) order, 2^24 slots): K1's int64 ids, K17
              `hash_group_slots`, K18 alone and K3 over the slot ids, each byte for byte
@@ -321,6 +326,7 @@ class Tsbs:
 # buckets over whole hosts fail it (K3 reruns); scans under 2^16 rows go
 # straight to K3.
 _BLOCKED, _SCATTER, _LAST = "segment_reduce_blocked", "segment_reduce_scatter", "segment_last"
+_SORT = "segment_sort"
 TILE_KERNELS = ("quantize_limbs", "limb_segment_sums", "topk_select", "pack_result")
 EXPECTED_PATH = {
     "double-groupby-1": {_BLOCKED},
@@ -466,20 +472,31 @@ def reset_counts() -> None:
     SHAPES.clear()
 
 
+def _rows_bucket(n: int) -> str:
+    """n rounded up to a power of two, as "2^k"."""
+    return f"2^{max(int(n) - 1, 0).bit_length()}"
+
+
 # Launches per shape of the kernels whose time depends on it: (kernel, C
-# entry point) -> the argument that sets the shape.  Each wrapper launches
-# that entry point once a call.
-SHAPED = {("segment_reduce_blocked", "gt_blocked_partials"): "n_cols",
-          ("segment_reduce_scatter", "gt_scatter_reduce"): "n_cols",
-          ("range_windows", "gt_range_windows"): "k"}
-SHAPE_KEY = {"n_cols": "C", "k": "k"}
+# entry point) -> the shape of one launch, from its argument struct.  Each
+# wrapper launches that entry point once a call (K2 and K6 once per 32 and
+# 16 columns).
+SHAPED = {
+    ("segment_reduce_blocked", "gt_blocked_partials"): lambda a: f"C={a.n_cols}",
+    ("segment_reduce_scatter", "gt_scatter_reduce"): lambda a: f"C={a.n_cols}",
+    ("limb_segment_sums", "gt_limb_partials"): lambda a: f"C={a.n_cols}",
+    ("range_windows", "gt_range_windows"): lambda a: f"k={a.k}",
+    ("fold_states", "gt_fold_states"): lambda a: f"sources={a.m} rows<={_rows_bucket(a.rows)}",
+    ("segment_sort", "gt_segment_sort"): lambda a: f"rows<={_rows_bucket(a.n)}",
+}
 SHAPES: dict[str, int] = {}
 
 
 def count_shapes() -> None:
-    """Count the launches of SHAPED's entry points by shape (K2/K3 per
-    column count C, K10 per k) from here on: a wrapper around the port's
-    one launch function, which every wrapper looks up when it is called."""
+    """Count the launches of SHAPED's entry points by shape (K2/K3/K6 per
+    column count C, K10 per k, K22 per sources and rows, K18 per rows) from
+    here on: a wrapper around the port's one launch function, which every
+    wrapper looks up when it is called."""
     from greptimedb_tpu_torch.kernels import _build
 
     launch = _build.launch
@@ -487,9 +504,9 @@ def count_shapes() -> None:
         return
 
     def counted(name, fn, args, stream):
-        field = SHAPED.get((name, fn))
-        if field is not None:
-            key = f"{name} {SHAPE_KEY[field]}={getattr(args, field)}"
+        shape = SHAPED.get((name, fn))
+        if shape is not None:
+            key = f"{name} {shape(args)}"
             SHAPES[key] = SHAPES.get(key, 0) + 1
         return launch(name, fn, args, stream)
 
@@ -499,6 +516,15 @@ def count_shapes() -> None:
 
 def shape_counts() -> dict[str, int]:
     return dict(sorted(SHAPES.items()))
+
+
+def _summed(*shape_dicts) -> dict[str, int]:
+    """Launches per shape over several runs' shape_counts() records."""
+    out: dict[str, int] = {}
+    for d in shape_dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return dict(sorted(out.items()))
 
 
 def by_shape(shapes: dict[str, int], name: str) -> dict[str, int]:
@@ -967,8 +993,8 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         )
         if C == 10:
             k6_states = k
-    # minute buckets over the host-major layout fail the guard: the
-    # dequantize + K3 branch
+    # minute buckets over the host-major layout fail the guard: the slow
+    # branch (K18's sort, then the runs of dequantized values)
     n_min = hours * 60
     gm, mm = flt.mask_gids(valid, [(ts, "<", hi - 1800_000)], [], [], (ts, T0, 60_000, n_min),
                            n_min - 1)
@@ -1488,9 +1514,11 @@ def run_guard_kernel_phase(n_hosts: int, hours: int, reps: int, dev=None) -> dic
     over the host-major layout (it fails).  Each is held byte for byte
     against the host-driven form (the verdict read on the host, then only
     the taken branch: K2's fold, or K18 + K3; the guard computed by its
-    plain version, then K6 or its dequantize + K3 branch) and against its
-    plain version (sums within rel 1e-12: the fold order differs; the rest
-    exact), twice, and all three are timed.  K18, the flag-reading sort of
+    plain version, then K6 or its slow branch alone) and against its plain
+    version (K2's sums within rel 1e-12, the order inside a block differs,
+    the rest exact; K6 byte for byte against the plain version run on the
+    host, whose f64 adds run in the kernel's order), twice, and all three
+    are timed; then the falling-bases shape (`run_falling_case`).  K18, the flag-reading sort of
     the K3 branch, is held against torch.sort (its plain version) on the
     failing shape.  K17's single cooperative call is phase 3e's.  The
     planes are padded to a multiple of 4096 rows, as the tile path holds
@@ -1530,7 +1558,7 @@ def run_guard_kernel_phase(n_hosts: int, hours: int, reps: int, dev=None) -> dic
         ok, _base = agg.block_guard_plain(g, m, G)
         if ok:
             return agg.limb_segment_sums(lcols, g, m, G)
-        return agg._limb_slow(lcols, g, m, G, None, agg.dequantize_limbs)
+        return agg.limb_segment_runs(lcols, g, m, G)
 
     for case, (g, m, G) in shapes.items():
         ok, _base = agg.block_guard_plain(g, m, G)
@@ -1558,8 +1586,10 @@ def run_guard_kernel_phase(n_hosts: int, hours: int, reps: int, dev=None) -> dic
         for a, b, w in zip(k6, k6_host_driven(g, m, G), ("sums", "errs", "counts", "presence")):
             if (a is None) != (b is None) or (a is not None and not _same_bytes(a, b)):
                 raise AssertionError(f"3f K6 {case} vs host-driven: {w} differs")
-        e6 = _check_limb_sums(k6, agg.limb_segment_sums_plain(lcols, g, m, G),
-                              f"3f K6 {case} vs plain")
+        # the plain version on the host: its f64 adds run in block (pass)
+        # or row (fail) order, as the kernel's do
+        e6 = _same_limb_sums(k6, _plain_on_host(agg.limb_segment_sums_plain, lcols, g, m, G),
+                             f"3f K6 {case} vs plain")
         nb = -(-n // agg.BLOCK_ROWS)
         b6, b6by = bound(n * (4 + 1 + 8 * 10) + nb * 80 + G * (10 * 16 + 4), n * 10 * 4)
         out[f"k6_{case}"] = dict(
@@ -1588,7 +1618,133 @@ def run_guard_kernel_phase(n_hosts: int, hours: int, reps: int, dev=None) -> dic
     emit({"phase": "segment_sort", **out["segment_sort"]})
     del vals, lcols, shapes, codes, ts, valid
     torch.cuda.empty_cache()
+    out.update(run_falling_case(n_hosts, reps, dev))
     run_sort_edge_cases(dev)
+    return out
+
+
+def _same_limb_sums(k, p, what: str) -> float:
+    """K6's four outputs against its plain version's, byte for byte."""
+    for name, a, b in zip(("sums", "errs", "counts", "presence"), k, p):
+        if (a is None) != (b is None) or (a is not None and not _same_bytes(a, b)):
+            bad = -1 if a is None or b is None else int((a != b).sum())
+            raise AssertionError(f"{what}.{name}: {bad} entries differ from the plain version")
+    return 0.0
+
+
+# Hours of phase 3f's falling-bases planes.  At 10 s a host holds 360 rows
+# an hour, so over 12 h (4320 rows) nearly every 4096-row block holds some
+# host's first hour and its base is 0; over 16 h (5760 rows) a block inside
+# one host starts at its own hour and the next, crossing into the next
+# host, at 0 (1374 of 5625 bases fall at 4000 hosts).
+FALL_HOURS = 16
+LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name, without its return type, template and
+    parameter lists ("void ns::k<T>(A, B)" -> "ns::k")."""
+    name = key.split("(")[0].split("<")[0]
+    return name.split(" ")[-1]
+
+
+def _device_kernels(fn) -> dict[str, float]:
+    """{CUDA kernel or memset name: device us} of one fn() under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us and evt.device_type is not None and "cuda" in str(evt.device_type).lower():
+            out[evt.key[:80]] = us
+    return out
+
+
+def run_falling_case(n_hosts: int, reps: int, dev) -> dict:
+    """Phase 3f's falling-bases shape: the TSBS planes over FALL_HOURS
+    grouped by `date_bin('1 hour', ts)` alone (G = 16), column 0 in blocks
+    of other magnitudes (so K5's scales differ and a group's sum shows the
+    order of its adds).  The guard passes and the bases fall at each host.
+    K6 and K4 equal their plain versions byte for byte (K6's on the host,
+    whose f64 adds run in block order), K2 within rel 1e-12 with count, min
+    and max exact; each twice.  Under torch.profiler one K2, one K4 and one
+    K6 call launch no library sort kernel (cub, Radix, DeviceSort); the
+    phase fails otherwise."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+
+    H = FALL_HOURS
+    n, codes, ts, valid, vals = tsbs_planes(n_hosts, H, 10, dev)
+    n = pad_rows(n)
+    ts, valid = _padded(ts, n, 0), _padded(valid, n, False)
+    vals = [_padded(v, n, 0.0) for v in vals]
+    del codes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    mag = torch.exp(torch.rand(n // agg.BLOCK_ROWS, generator=gen, device=dev,
+                               dtype=torch.float64) * 40.0 - 20.0)
+    vals[0] = vals[0] * mag.repeat_interleave(agg.BLOCK_ROWS)
+    g, m = flt.mask_gids(valid, [], [], [], (ts, T0, H3600, H), H - 1)
+    ok, pbase = agg.block_guard_plain(g, m, H)
+    falls = int((pbase[1:] < pbase[:-1]).sum())
+    if not ok or falls == 0:
+        raise AssertionError(f"3f falling: guard {ok}, {falls} falling bases")
+    aggs = ("count", "max", "min", "sum")
+    cm = [m] * 10
+    verdict, k2, base = _twice_identical(
+        lambda: agg.segment_reduce_blocked(vals, g, cm, m, H, aggs), "3f K2 falling")
+    if not _passed(verdict):
+        raise AssertionError("3f falling: K2's guard failed")
+    e2 = _check_state(k2, agg.segment_reduce_blocked_plain(vals, g, cm, m, H, aggs)[1],
+                      "3f K2 falling vs plain")
+    lcols = [agg.quantize_limbs(v) for v in vals]
+    k6 = _twice_identical(lambda: agg.limb_segment_sums(lcols, g, m, H), "3f K6 falling")
+    _same_limb_sums(k6, _plain_on_host(agg.limb_segment_sums_plain, lcols, g, m, H),
+                    "3f K6 falling vs plain")
+    k4 = _twice_identical(lambda: agg.segment_last(vals[1], ts, g, m, H, base=base),
+                          "3f K4 falling")
+    p4 = agg.segment_last_plain(vals[1], ts, g, m, H, base=base)
+    if not (_same_bytes(k4[0], p4[0]) and _same_bytes(k4[1], p4[1])):
+        raise AssertionError("3f K4 falling: differs from the plain version")
+    calls = {
+        "K2": lambda: agg.segment_reduce_blocked(vals, g, cm, m, H, aggs),
+        "K4": lambda: agg.segment_last(vals[1], ts, g, m, H, base=base),
+        "K6": lambda: agg.limb_segment_sums(lcols, g, m, H),
+    }
+    launched = {}
+    for name, fn in calls.items():
+        launched[name] = _device_kernels(fn)
+        sorts = [k for k in launched[name]
+                 if any(w in _kernel_name(k) for w in LIBRARY_SORT_NAMES)]
+        if sorts:
+            raise AssertionError(f"3f {name}: a library sort ran: {sorts}")
+    nb = n // agg.BLOCK_ROWS
+    out = {
+        "k2_falling": dict(
+            max_abs_err=e2, rows=n, groups=H, falls=falls,
+            ms=_timed(calls["K2"], reps), device_us=launched["K2"],
+            bound_ms=bound(n * (4 + 1 + 8 * 10) + 10 * H * 28, n * 10 * len(aggs))[0]),
+        "k6_falling": dict(
+            max_abs_err=0.0, rows=n, groups=H, ms=_timed(calls["K6"], reps),
+            device_us=launched["K6"],
+            bound_ms=bound(n * (4 + 1 + 8 * 10) + nb * 80 + H * (10 * 16 + 4), n * 10 * 4)[0]),
+        "k4_falling": dict(
+            max_abs_err=0.0, rows=n, groups=H, ms=_timed(calls["K4"], reps),
+            device_us=launched["K4"],
+            bound_ms=bound(n * (4 + 1 + 8) + H * (8 + 8 + 8), n * 2)[0]),
+    }
+    emit({"phase": "guard_kernels", "case": "falling", **out})
     return out
 
 
@@ -2156,7 +2312,7 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
             "launches": {k: v for k, v in delta.items() if v},
         }
         emit({"phase": "query", "name": name, **per_query[name]})
-    totals = launch_counts()
+    totals, shapes = launch_counts(), shape_counts()
     if db.query_engine.stats["declined"]:
         raise AssertionError(f"{db.query_engine.stats['declined']} queries declined by try_lower")
     tile = run_tile_phase(db, tsbs, reps if tile_reps is None else tile_reps, cpu_results, gt,
@@ -2167,7 +2323,8 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
                                     end=tsbs.end + LIVE_MINUTES * 60_000), is_cuda)
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
-            "launches": totals, "tile": tile, "tick": tick, "live": live, "mesh": mesh}
+            "launches": totals, "shape_launches": shapes, "tile": tile, "tick": tick,
+            "live": live, "mesh": mesh}
 
 
 def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cuda: bool,
@@ -2459,7 +2616,7 @@ def run_tick_phase(db, tsbs: Tsbs, is_cuda: bool, n_ticks: int = 5) -> dict:
         ticks = _tick_series(db, named, refs, n_ticks, "warm")
         program = tile.last_tick
         slid_ticks = _tick_series(db, slid, slid_refs, n_ticks, "slid")
-        launches = launch_counts()  # ... and ends here
+        launches, shapes = launch_counts(), shape_counts()  # ... and ends here
         s2 = dict(eng.stats)
     finally:
         bc.window_ms = 0.0
@@ -2495,7 +2652,8 @@ def run_tick_phase(db, tsbs: Tsbs, is_cuda: bool, n_ticks: int = 5) -> dict:
         bc.result_cache_mb = 0
     out = {
         "members": len(named), "ticks": ticks, "slid_ticks": slid_ticks, "replays": replays,
-        "launches": launches, "capture_ms": program.capture_ms, "pool_bytes": program.pool_bytes,
+        "launches": launches, "shape_launches": shapes, "capture_ms": program.capture_ms,
+        "pool_bytes": program.pool_bytes,
         "readback_bytes": program.readback_bytes, "bytes_moved": program.bytes_moved(),
         "replay_p50_ms": float(np.median(replay_ms)) if replay_ms else None,
         "plain_ms": plain_ms,
@@ -3476,7 +3634,7 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
             "launches": {k: v for k, v in delta.items() if v},
         }
         emit({"phase": "container_query", "name": name, **per_query[name]})
-    totals = launch_counts()  # the main path's launches end here
+    totals, shapes = launch_counts(), shape_counts()  # the main path's launches end here
     tick = run_container_tick(db, hours, results, is_cuda)
 
     # H3 forced to hash: the same bytes as its sort plan (count and max are exact)
@@ -3511,7 +3669,7 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
     emit({"phase": "container_overflow", "ms": over_ms, "rows_out": over.num_rows, **moved})
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "queries": per_query, "launches": totals,
-            "overflow_ms": over_ms, "tick": tick}
+            "shape_launches": shapes, "overflow_ms": over_ms, "tick": tick}
 
 
 def run_container_tick(db, hours: int, solo_tables: dict, is_cuda: bool, n_ticks: int = 2) -> dict:
@@ -4491,10 +4649,22 @@ def run_mesh_kernel_phase(device: str, reps: int, hours: int = 6, groups: int = 
         "plain_ms": timed(lambda: agg.fold_states_plain(st, MESH_SOURCES, order)),
         "library_ms": timed(lib), "bound_ms": t_bound, "bound_by": by,
     }
+    # the mesh runs' most frequent shape: 4 sources (one a slot) x 2^16 rows
+    st4 = _fold_inputs(rng, MESH_SLOTS, 1 << 16, dev)
+    order4 = list(range(MESH_SLOTS))
+    k4 = _twice_on(dev, lambda: agg.fold_states(st4, 1, order4), "K22 dense 4 x 2^16")
+    _same_state_bytes(k4, agg.fold_states_plain(st4, 1, order4), "K22 dense 4 x 2^16")
+    b4, by4 = bound(_state_bytes(st4) + _state_bytes(k4), 0)
+    out["per_case"]["dense_4x65536"] = {
+        "sources": MESH_SLOTS, "rows": 1 << 16,
+        "ms": timed(lambda: agg.fold_states(st4, 1, order4)), "bound_ms": b4, "bound_by": by4}
+    del st4, k4
     # the table-fed route's rule (psum), one source per slot
     k = _twice_on(dev, lambda: agg.fold_states(st, 1, order, rule="psum"), "K22 psum")
     _same_state_bytes(k, agg.fold_states_plain(st, 1, order, rule="psum"), "K22 psum")
-    out["per_case"]["psum"] = {"ms": timed(lambda: agg.fold_states(st, 1, order, rule="psum"))}
+    # the same bytes in and out as the fold rule
+    out["per_case"]["psum"] = {"ms": timed(lambda: agg.fold_states(st, 1, order, rule="psum")),
+                               "bound_ms": t_bound, "bound_by": by}
     del st, k
 
     # keyed, at the container cell's slot tables
@@ -4615,10 +4785,10 @@ def run_mesh_region(db, tsbs: Tsbs, is_cuda: bool, reps: int = 3) -> dict:
             raise AssertionError(f"mesh {name}: mesh_devices 1 differs from 0")
         per_query[name] = {"p50_ms_mesh0": p50[0], "p50_ms_mesh1": p50[1],
                            "multichip": name in MULTICHIP}
-    totals = launch_counts()
+    totals, shapes = launch_counts(), shape_counts()
     emit({"phase": "mesh", "step": "b_region", "queries": per_query,
           "k22_launches": totals[_K22]})
-    return {"queries": per_query, "launches": totals}
+    return {"queries": per_query, "launches": totals, "shape_launches": shapes}
 
 
 def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) -> dict:
@@ -4688,7 +4858,7 @@ def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: 
                     f"p50_ms_mesh{n}": v for n, v in p50.items()}
     db.config.query.agg_strategy = "auto"
     db.config.query.device_topk = True
-    tile_launches = launch_counts()
+    tile_launches, tile_shapes = launch_counts(), shape_counts()
 
     # the table-fed route over the 4 slots (tile cache off)
     db.config.query.tile_cache_enable = False
@@ -4707,7 +4877,7 @@ def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: 
         rel = compare_tables(got, want, f"table-fed {name}")
         table_fed[name] = {"ms": ms, "cpu_ms": cpu_ms, "max_rel_err": rel}
     db.config.query.tile_cache_enable = True
-    table_launches = launch_counts()
+    table_launches, table_shapes = launch_counts(), shape_counts()
 
     # TQL: a counter over 4 regions, sum(rate(...)) through the mesh
     tql = run_mesh_tql(db, n_hosts, is_cuda)
@@ -4715,7 +4885,8 @@ def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: 
     db.close()
     out = {"rows": n_rows, "ingest_s": ingest_s, "cases": per_case, "table_fed": table_fed,
            "tql": tql, "launches": {k: tile_launches[k] + table_launches[k] + tql["launches"][k]
-                                    for k in tile_launches}}
+                                    for k in tile_launches},
+           "shape_launches": _summed(tile_shapes, table_shapes, tql["shape_launches"])}
     emit({"phase": "mesh", "step": "c_partitioned", "rows": n_rows, "ingest_s": ingest_s,
           "cases": per_case, "table_fed": table_fed, "tql": {k: v for k, v in tql.items()
                                                             if k != "launches"},
@@ -4768,7 +4939,7 @@ def run_mesh_tql(db, n_hosts: int, is_cuda: bool, minutes: int = 60) -> dict:
     if is_cuda and not all(launches[k] for k in TQL_KERNELS):
         raise AssertionError(f"TQL mesh: K9-K12 launches {launches}")
     return {"rows_out": out.num_rows, "warm_ms_mesh0": ms[0], "warm_ms_mesh4": ms[MESH_SLOTS],
-            "launches": launches}
+            "launches": launches, "shape_launches": shape_counts()}
 
 
 def main(argv=None) -> int:
@@ -4787,13 +4958,13 @@ def main(argv=None) -> int:
                     help="dashboard ticks before and after the slide (phase 5c)")
     ap.add_argument("--vector-rows", type=int, default=SIFT_ROWS,
                     help="rows of the SIFT-shaped vector table (phase 8)")
-    ap.add_argument("--vector-reps", type=int, default=3,
+    ap.add_argument("--vector-reps", type=int, default=2,
                     help="warm runs per vector query (phase 8)")
     ap.add_argument("--sketch-hours", type=int, default=6,
                     help="hours of the TSBS table of phase 9")
-    ap.add_argument("--sketch-reps", type=int, default=1,
+    ap.add_argument("--sketch-reps", type=int, default=0,
                     help="warm runs per sketch query (phase 9)")
-    ap.add_argument("--mesh-hours", type=int, default=12,
+    ap.add_argument("--mesh-hours", type=int, default=6,
                     help="hours of the partitioned TSBS table of phase 10c")
     ap.add_argument("--mesh-reps", type=int, default=2,
                     help="warm runs per query and mesh_devices setting (phase 10c)")
@@ -4839,6 +5010,7 @@ def main(argv=None) -> int:
     gstats = run_guard_kernel_phase(args.hosts, args.hours, args.kernel_reps)
     kstats["segment_sort"] = gstats.pop("segment_sort")
     kstats["segment_sort"]["hash_slots"] = hstats["sort_hash_slots"]
+    kstats["segment_last"]["falling"] = gstats.pop("k4_falling")
     kstats["segment_reduce_blocked"]["predicated"] = {k: v for k, v in gstats.items()
                                                      if k.startswith("k2_")}
     kstats["limb_segment_sums"]["predicated"] = {k: v for k, v in gstats.items()
@@ -4968,6 +5140,8 @@ def main(argv=None) -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "sources": s["sources"], "rows": s["rows"],
                 "per_case": s["per_case"],
+                "launches_by_shape": by_shape(_summed(sl["mesh"]["shape_launches"],
+                                                      mc["shape_launches"]), name),
             })
             continue
         if name in ("segment_hll", "segment_udd"):
@@ -5059,9 +5233,15 @@ def main(argv=None) -> int:
             "hash_launches": cm["launches"][name],
             "tick_launches": tick["launches"][name],
             **({"tile_launches_by_c": by_shape(tile_shapes, name)}
-               if name in (_BLOCKED, _SCATTER) else {}),
+               if name in (_BLOCKED, _SCATTER, _LIMB) else {}),
+            **({"launches_by_rows": {
+                "table_fed": by_shape(sl["shape_launches"], name),
+                "tile": by_shape(sl["tile"]["shape_launches"], name),
+                "tick": by_shape(tick["shape_launches"], name),
+                "hash": by_shape(cm["shape_launches"], name)}} if name == _SORT else {}),
             **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots",
-                                 "predicated", "passes", "key_bytes", "sort_launches") if k in s},
+                                 "predicated", "falling", "passes", "key_bytes", "sort_launches")
+               if k in s},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -36,6 +36,12 @@ __device__ __forceinline__ bool gate_shut(const Gate& g) {
   return g.verdict != nullptr && ((*(volatile const int32_t*)g.verdict != 0) != (g.on_fail != 0));
 }
 
+// CTAs of a capped grid that strides over its work: as many 256-thread
+// CTAs as the H100 holds at once (8 an SM), so an open launch keeps every
+// warp slot busy and a predicated launch whose gate is shut costs one wave
+// of empty CTAs however large its work is.
+constexpr int64_t kCapBlocks = 132 * 8;
+
 constexpr double kDblMax = 1.7976931348623157e308;  // finfo(float64).max
 constexpr int64_t kInt64Min = (-0x7fffffffffffffffLL - 1);
 

@@ -67,7 +67,7 @@ constexpr int kMaxRadix = 1 << kMaxDigitBits;
 constexpr int kMaxPasses = 6;  // 64 bits at 11 a pass
 constexpr int kMaxDigitsPerThread = kMaxRadix / kThreads;
 constexpr int kLookback = 4;  // predecessors read at once per digit
-constexpr int kHistBlocks = 132 * 8;
+constexpr int kHistBlocks = 132 * 2;  // one wave: a shut launch costs little
 // A look-back word: 0 until published; then the tile's own count plus one
 // (at most kTileRows + 1), or kPrefix | the count of this tile and all
 // before it (at most n < 2^31, so 31 bits hold it).
@@ -273,104 +273,110 @@ __global__ void __launch_bounds__(kThreads) onesweep_pass_kernel(
   uint32_t* lexcl = (uint32_t*)(delta + radix);        // [radix]
   uint16_t* whist = (uint16_t*)(lexcl + radix);        // [kWarps][radix]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t n_tiles = (n + kTileRows - 1) / kTileRows;
 
-  if (tid == 0) tile_s = atomicAdd(tile_counter, 1u);
-  for (int i = tid; i < kWarps * radix / 2; i += kThreads) ((uint32_t*)whist)[i] = 0u;
-  __syncthreads();
-  const int64_t tile = tile_s;
-  const int64_t t0 = tile * kTileRows;
-  const int rows = (int)(n - t0 < kTileRows ? n - t0 : kTileRows);
-  const int64_t base = t0 + warp * 32 * kItems + lane;
-  KeyT key[kItems];
-  int32_t row[kItems];
+  // a capped grid: each CTA takes tiles from the counter until none is left
+  for (;;) {
+    if (tid == 0) tile_s = atomicAdd(tile_counter, 1u);
+    for (int i = tid; i < kWarps * radix / 2; i += kThreads) ((uint32_t*)whist)[i] = 0u;
+    __syncthreads();
+    const int64_t tile = tile_s;
+    if (tile >= n_tiles) return;
+    const int64_t t0 = tile * kTileRows;
+    const int rows = (int)(n - t0 < kTileRows ? n - t0 : kTileRows);
+    const int64_t base = t0 + warp * 32 * kItems + lane;
+    KeyT key[kItems];
+    int32_t row[kItems];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    key[k] = 0;
-    row[k] = 0;
-  }
-  in.load_items(base, n, key, row);
-
-  // 1. Rank within the warp, in row order: item k of lane l is row
-  // base + 32 k, so (k, lane) order is row order.
-  uint32_t rank[kItems];
-  const unsigned lt = (1u << lane) - 1u;
-  uint16_t* wh = whist + warp * radix;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const bool live = base + (int64_t)k * 32 < n;
-    const int d = live ? digit_of(key[k], shift, dmask) : radix;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const uint32_t c = live ? (uint32_t)wh[d] : 0u;
-    __syncwarp();
-    if (live && (peers & lt) == 0u) wh[d] = (uint16_t)(c + __popc(peers));
-    __syncwarp();
-    rank[k] = c + __popc(peers & lt);
-  }
-  __syncthreads();
-
-  // 2. Per digit: the warps' counts made exclusive, the tile's count
-  // published (tile 0's is already a prefix).
-  for (int d = tid; d < radix; d += kThreads) {
-    uint32_t run = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t c = whist[w * radix + d];
-      whist[w * radix + d] = (uint16_t)run;
-      run += c;
+    for (int k = 0; k < kItems; ++k) {
+      key[k] = 0;
+      row[k] = 0;
     }
-    lexcl[d] = run;
-    status_store(status + tile * radix + d, tile == 0 ? kPrefix | run : run + 1u);
-  }
+    in.load_items(base, n, key, row);
 
-  // 3. Decoupled look-back, digit after digit of this thread: the counts
-  // of the tiles before this one back to the nearest prefix, kLookback
-  // words read at once; the prefix is published at once, before this
-  // tile's own staging, so that later tiles find it early.
+    // 1. Rank within the warp, in row order: item k of lane l is row
+    // base + 32 k, so (k, lane) order is row order.
+    uint32_t rank[kItems];
+    const unsigned lt = (1u << lane) - 1u;
+    uint16_t* wh = whist + warp * radix;
 #pragma unroll
-  for (int j = 0; j < kMaxDigitsPerThread; ++j) {
-    const int d = tid + j * kThreads;
-    if (d >= radix) break;
-    uint32_t run = 0;
-    if (tile > 0) {
-      bool done = false;
-      for (int64_t j0 = tile - 1; !done; j0 -= kLookback) {
-        uint32_t s[kLookback];
+    for (int k = 0; k < kItems; ++k) {
+      const bool live = base + (int64_t)k * 32 < n;
+      const int d = live ? digit_of(key[k], shift, dmask) : radix;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      const uint32_t c = live ? (uint32_t)wh[d] : 0u;
+      __syncwarp();
+      if (live && (peers & lt) == 0u) wh[d] = (uint16_t)(c + __popc(peers));
+      __syncwarp();
+      rank[k] = c + __popc(peers & lt);
+    }
+    __syncthreads();
+
+    // 2. Per digit: the warps' counts made exclusive, the tile's count
+    // published (tile 0's is already a prefix).
+    for (int d = tid; d < radix; d += kThreads) {
+      uint32_t run = 0;
 #pragma unroll
-        for (int w = 0; w < kLookback; ++w)
-          s[w] = j0 - w >= 0 ? status_load(status + (j0 - w) * radix + d) : 0u;
+      for (int w = 0; w < kWarps; ++w) {
+        const uint32_t c = whist[w * radix + d];
+        whist[w * radix + d] = (uint16_t)run;
+        run += c;
+      }
+      lexcl[d] = run;
+      status_store(status + tile * radix + d, tile == 0 ? kPrefix | run : run + 1u);
+    }
+
+    // 3. Decoupled look-back, digit after digit of this thread: the counts
+    // of the tiles before this one back to the nearest prefix, kLookback
+    // words read at once; the prefix is published at once, before this
+    // tile's own staging, so that later tiles find it early.
 #pragma unroll
-        for (int w = 0; w < kLookback; ++w) {
-          if (!done && j0 - w >= 0) {
-            uint32_t v = s[w];
-            while (v == 0u) v = status_load(status + (j0 - w) * radix + d);
-            done = status_add(v, run);
+    for (int j = 0; j < kMaxDigitsPerThread; ++j) {
+      const int d = tid + j * kThreads;
+      if (d >= radix) break;
+      uint32_t run = 0;
+      if (tile > 0) {
+        bool done = false;
+        for (int64_t j0 = tile - 1; !done; j0 -= kLookback) {
+          uint32_t s[kLookback];
+#pragma unroll
+          for (int w = 0; w < kLookback; ++w)
+            s[w] = j0 - w >= 0 ? status_load(status + (j0 - w) * radix + d) : 0u;
+#pragma unroll
+          for (int w = 0; w < kLookback; ++w) {
+            if (!done && j0 - w >= 0) {
+              uint32_t v = s[w];
+              while (v == 0u) v = status_load(status + (j0 - w) * radix + d);
+              done = status_add(v, run);
+            }
           }
         }
+        status_store(status + tile * radix + d, kPrefix | (run + lexcl[d]));
       }
-      status_store(status + tile * radix + d, kPrefix | (run + lexcl[d]));
+      delta[d] = (int32_t)(digit_base[d] + run);
     }
-    delta[d] = (int32_t)(digit_base[d] + run);
-  }
-  cta_exclusive_scan(lexcl, radix, warp_tot);
+    cta_exclusive_scan(lexcl, radix, warp_tot);
 
-  // 4. Stage the tile in digit order; each digit's output offset less its
-  // staged start.
+    // 4. Stage the tile in digit order; each digit's output offset less its
+    // staged start.
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (base + (int64_t)k * 32 < n) {
-      const int d = digit_of(key[k], shift, dmask);
-      const int slot = (int)(lexcl[d] + whist[warp * radix + d] + rank[k]);
-      skey[slot] = key[k];
-      srow[slot] = row[k];
+    for (int k = 0; k < kItems; ++k) {
+      if (base + (int64_t)k * 32 < n) {
+        const int d = digit_of(key[k], shift, dmask);
+        const int slot = (int)(lexcl[d] + whist[warp * radix + d] + rank[k]);
+        skey[slot] = key[k];
+        srow[slot] = row[k];
+      }
     }
-  }
-  for (int d = tid; d < radix; d += kThreads) delta[d] -= (int32_t)lexcl[d];
-  __syncthreads();
+    for (int d = tid; d < radix; d += kThreads) delta[d] -= (int32_t)lexcl[d];
+    __syncthreads();
 
-  // 5. Each digit's run out as one contiguous write.
-  for (int s = tid; s < rows; s += kThreads) {
-    const KeyT k = skey[s];
-    out.put((int64_t)delta[digit_of(k, shift, dmask)] + s, k, srow[s]);
+    // 5. Each digit's run out as one contiguous write.
+    for (int s = tid; s < rows; s += kThreads) {
+      const KeyT k = skey[s];
+      out.put((int64_t)delta[digit_of(k, shift, dmask)] + s, k, srow[s]);
+    }
+    __syncthreads();  // the tile is out of shared memory before the next
   }
 }
 
@@ -390,7 +396,20 @@ static void launch_pass(const In& in, const Out& out, int64_t n, int64_t n_tiles
     if (dev >= 0 && dev < 64) allowed[dev] = true;
   }
   const int smem = pass_smem<KeyT>(1 << bits);
-  onesweep_pass_kernel<KeyT, In, Out><<<(unsigned)n_tiles, kThreads, smem, s>>>(
+  // a capped grid, as many CTAs as the card holds at once: each takes
+  // tiles from the counter (a CTA only waits on tiles already taken, so any
+  // grid makes progress), and a launch whose gate is shut costs one wave of
+  // empty CTAs, not one per tile
+  static int resident[kMaxDigitBits + 1];
+  if (resident[bits] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, onesweep_pass_kernel<KeyT, In, Out>,
+                                                  kThreads, smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident[bits] = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }
+  const int64_t grid = n_tiles < resident[bits] ? n_tiles : resident[bits];
+  onesweep_pass_kernel<KeyT, In, Out><<<(unsigned)grid, kThreads, smem, s>>>(
       in, out, n, shift, bits, status, digit_base, counter, g);
 }
 

@@ -14,38 +14,38 @@
 //
 // Blocked form (the guard of K2 passed; it reuses K2's per-block bases):
 // one CTA per 4096-row block keeps a 16-slot (ts, row) window in
-// registers, then a fold kernel combines the blocks covering each group
-// and gathers; both launches are predicated on K2's guard flag (Gate).
+// registers and marks its occupied slots; the last CTA finishes this
+// call's block layout (block_layout.cuh) from K2's bases, so the fold
+// kernel finds the blocks covering each group with no sort of the bases,
+// combines them and gathers; both launches are predicated on K2's guard
+// flag (Gate).
 // Sorted-run form (the guard failed — predicated on the same flag — or
 // under 2^16 rows):
 // over K3's stable sort of the masked ids, one warp per group reduces its
 // run and gathers.
-#include "common.cuh"
+#include "block_layout.cuh"
 
+// Mirrored field for field by _LastBlockedArgs in ops/aggregate.py (ctypes).
 struct LastBlockedArgs {
   int64_t n;
-  int64_t nb;
   const int32_t* gids;
   const uint8_t* mask;
   const int64_t* ts;
-  const int32_t* base;  // [nb] from K2's guard pass
+  BlockLayout layout;   // base: [nb] from K2's guard pass; occ, keys, mode: this call's
   int64_t* pts;         // [nb, kSpan]
   int32_t* prow;        // [nb, kSpan]
   Gate gate;            // runs when K2's guard passed
 };
 
+// Mirrored field for field by _LastFoldArgs in ops/aggregate.py (ctypes).
 struct LastFoldArgs {
-  const int32_t* sbase;  // [nb] sorted bases
-  const int64_t* order;  // [nb]
+  BlockLayout layout;
   const int64_t* pts;
   const int32_t* prow;
   const double* values;  // [n]
   int64_t* last_ts;      // [G]
   double* last_val;      // [G]
-  int64_t nb;
   int64_t n;
-  int32_t num_groups;
-  int32_t reserved;
   Gate gate;             // runs when K2's guard passed
 };
 
@@ -75,7 +75,8 @@ __global__ void __launch_bounds__(kBlockThreads) last_partials_kernel(const Last
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   __shared__ int64_t sh_t[kBlockThreads / 32][kSpan];
   __shared__ int32_t sh_r[kBlockThreads / 32][kSpan];
-  const int32_t base = a.base[b];
+  const BlockLayout& L = a.layout;
+  const int32_t base = L.base[b];
   int64_t bt[kSpan];
   int32_t br[kSpan];
 #pragma unroll
@@ -105,66 +106,95 @@ __global__ void __launch_bounds__(kBlockThreads) last_partials_kernel(const Last
     }
   }
   __syncthreads();
-  if (t < kSpan) {
-    int64_t tt = sh_t[0][t];
-    int32_t rr = sh_r[0][t];
-    for (int w = 1; w < kBlockThreads / 32; ++w) lex_max(tt, rr, sh_t[w][t], sh_r[w][t]);
-    a.pts[b * kSpan + t] = tt;
-    a.prow[b * kSpan + t] = rr;
+  if (warp == 0) {
+    int64_t tt = kInt64Min;
+    int32_t rr = -1;
+    if (t < kSpan) {
+      tt = sh_t[0][t];
+      rr = sh_r[0][t];
+      for (int w = 1; w < kBlockThreads / 32; ++w) lex_max(tt, rr, sh_t[w][t], sh_r[w][t]);
+      a.pts[b * kSpan + t] = tt;
+      a.prow[b * kSpan + t] = rr;
+    }
+    const uint32_t occ = __ballot_sync(0xffffffffu, t < kSpan && rr >= 0);
+    if (t == 0) L.occ[b] = occ;
   }
+  finish_layout(L, false);
 }
 
+// a thread or a warp (fold_lanes) per group; lex_max is order-free
 __global__ void __launch_bounds__(256) last_fold_kernel(const LastFoldArgs a) {
   if (gate_shut(a.gate)) return;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= a.num_groups) return;
-  const int64_t lo = lower_bound_i32(a.sbase, a.nb, g - kSpan + 1);
-  const int64_t hi = lower_bound_i32(a.sbase, a.nb, g + 1);
+  const BlockLayout& L = a.layout;
+  const int64_t G = L.num_groups;
+  const int lanes = fold_lanes(L.nb, G);
+  const int64_t g = (int64_t)blockIdx.x * (blockDim.x / lanes) + threadIdx.x / lanes;
+  if (g >= G) return;  // uniform per warp when a warp folds a group
   int64_t tt = kInt64Min;
   int32_t rr = -1;
-  for (int64_t i = lo; i < hi; ++i) {
-    const int64_t p = a.order[i] * kSpan + (g - a.sbase[i]);
-    lex_max(tt, rr, a.pts[p], a.prow[p]);
+  auto load = [&](int64_t blk, int slot) { return blk * kSpan + slot; };
+  if (lanes == 1) {
+    fold_blocks<4, int64_t>(L, g, load, [&](int64_t p) { lex_max(tt, rr, a.pts[p], a.prow[p]); });
+  } else {
+    // lex_max is order-free: each lane takes every 32nd block of the
+    // range, then a shuffle tree
+    const int lane = threadIdx.x & 31;
+    int64_t lo, hi;
+    covering_range(L, g, lo, hi);
+    for (int64_t blk = lo + lane; blk < hi; blk += 32) {
+      const int s = covered_slot(L, blk, g);
+      if (s >= 0) lex_max(tt, rr, a.pts[blk * kSpan + s], a.prow[blk * kSpan + s]);
+    }
+    warp_lex_max(tt, rr);
+    if (lane != 0) return;
   }
   a.last_ts[g] = tt;
   a.last_val[g] = gather_value(a.values, a.n, rr);
 }
 
+// a capped grid of warps striding over the groups: a launch whose gate is
+// shut costs one wave of empty CTAs
 __global__ void __launch_bounds__(256) last_sorted_kernel(const LastSortedArgs a) {
   if (gate_shut(a.gate)) return;
-  const int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (gw >= a.num_groups) return;  // uniform per warp
-  const int64_t start = lower_bound_i32(a.skeys, a.n, gw);
-  const int64_t end = lower_bound_i32(a.skeys, a.n, gw + 1);
-  int64_t tt = kInt64Min;
-  int32_t rr = -1;
-  for (int64_t j = start + lane; j < end; j += 32) {
-    const int64_t r = a.perm[j];
-    lex_max(tt, rr, a.ts[r], (int32_t)r);
-  }
-  warp_lex_max(tt, rr);
-  if (lane == 0) {
-    a.last_ts[gw] = tt;
-    a.last_val[gw] = gather_value(a.values, a.n, rr);
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  for (int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; gw < a.num_groups;
+       gw += warps) {  // uniform per warp
+    const int64_t start = lower_bound_i32(a.skeys, a.n, gw);
+    const int64_t end = lower_bound_i32(a.skeys, a.n, gw + 1);
+    int64_t tt = kInt64Min;
+    int32_t rr = -1;
+    for (int64_t j = start + lane; j < end; j += 32) {
+      const int64_t r = a.perm[j];
+      lex_max(tt, rr, a.ts[r], (int32_t)r);
+    }
+    warp_lex_max(tt, rr);
+    if (lane == 0) {
+      a.last_ts[gw] = tt;
+      a.last_val[gw] = gather_value(a.values, a.n, rr);
+    }
   }
 }
 
 GT_EXPORT int gt_last_partials(const LastBlockedArgs* args, void* stream) {
-  if (args->nb <= 0) return (int)cudaSuccess;
-  last_partials_kernel<<<(unsigned)args->nb, kBlockThreads, 0, (cudaStream_t)stream>>>(*args);
+  if (args->layout.nb <= 0) return (int)cudaSuccess;
+  last_partials_kernel<<<(unsigned)args->layout.nb, kBlockThreads, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 GT_EXPORT int gt_last_fold(const LastFoldArgs* args, void* stream) {
-  if (args->num_groups <= 0) return (int)cudaSuccess;
-  last_fold_kernel<<<(unsigned)((args->num_groups + 255) / 256), 256, 0, (cudaStream_t)stream>>>(*args);
+  const int64_t G = args->layout.num_groups;
+  if (G <= 0) return (int)cudaSuccess;
+  const int64_t per_cta = 256 / fold_lanes(args->layout.nb, G);
+  last_fold_kernel<<<(unsigned)((G + per_cta - 1) / per_cta), 256, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 GT_EXPORT int gt_last_sorted(const LastSortedArgs* args, void* stream) {
   const int64_t threads = (int64_t)args->num_groups * 32;
   if (threads <= 0) return (int)cudaSuccess;
-  last_sorted_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, (cudaStream_t)stream>>>(*args);
+  const int64_t blocks = (threads + 255) / 256;
+  last_sorted_kernel<<<(unsigned)(blocks < kCapBlocks ? blocks : kCapBlocks), 256, 0,
+                       (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -140,7 +140,7 @@ _EXPORTS = {
     "segment_reduce_scatter": ("gt_scatter_reduce",),
     "segment_last": ("gt_last_partials", "gt_last_fold", "gt_last_sorted"),
     "quantize_limbs": ("gt_quantize_limbs",),
-    "limb_segment_sums": ("gt_limb_partials", "gt_limb_fold", "gt_limb_dequant"),
+    "limb_segment_sums": ("gt_limb_partials", "gt_limb_fold", "gt_limb_runs"),
     "topk_select": ("gt_topk_round", "gt_topk_compact"),
     "pack_result": ("gt_pack_result",),
     "strip_counter_resets": ("gt_strip_layout", "gt_strip_counter_resets"),

@@ -16,8 +16,9 @@ The tile path adds four more (each again beside its plain version):
 * K5 `quantize_limbs` (csrc/quantize_limbs.cu): per-block fixed-point
   encode of a value column into four base-256 bfloat16 digits;
 * K6 `limb_segment_sums` (csrc/limb_segment_sums.cu): exact integer
-  digit sums per group with a per-group error bound; its slow branch and
-  `segment_sums_scatter` run on K3;
+  digit sums per group with a per-group error bound; its slow branch is
+  K18's sort and its own runs kernel, and `segment_sums_scatter` runs on
+  K3;
 * K7 `topk_group_select` (csrc/topk_select.cu): ORDER BY / LIMIT and
   empty-group compaction over finalized [G] states;
 * K8 `pack_result` (csrc/pack_result.cu): finalize and pack a query's
@@ -31,7 +32,10 @@ through a query's sources; its states then reduce over the slot ids on K3
 `segment_aggregate` / `segment_aggregate_multi` choose between them the
 way the reference does: under 2^16 rows the scatter kernel; otherwise K2,
 whose per-block guard (masked ids in range, span < 16) decides whether
-its result stands or K3 reruns the reduction.  The reference decides with
+its result stands or K3 reruns the reduction.  The blocked kernels' folds
+(K2, K4's blocked form, K6) add each group's blocks in block order, as
+the reference's scatter does, through the block layout of
+csrc/block_layout.cuh (no sort of the bases).  The reference decides with
 a `lax.cond` on the device; on a CUDA tile no host reads the verdict
 either: both branches are launched, every kernel of each predicated on
 the verdict word (a `Gate`), and both write the same outputs — K2's fold
@@ -61,7 +65,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from .radix import _RadixPlan, _RadixScratch, plan_struct, radix_plan, radix_scratch, sort_record
+from .radix import (_RadixPlan, _RadixScratch, carve, plan_struct, radix_plan, radix_scratch,
+                    sort_record)
 
 SUM, COUNT, MIN, MAX, LAST = "sum", "count", "min", "max", "last"
 
@@ -73,6 +78,7 @@ _FAST_MIN_ROWS = 1 << 16
 _DBL_MAX = float(np.finfo(np.float64).max)
 _I64_MIN = int(np.iinfo(np.int64).min)
 _I32_MAX = int(np.iinfo(np.int32).max)
+_I32_MIN = int(np.iinfo(np.int32).min)
 
 
 @dataclass
@@ -206,6 +212,59 @@ def segment_reduce_blocked_plain(values, gids, masks, base_mask, num_groups: int
     return True, _stacked(out), base
 
 
+def block_occupancy_plain(gids, base_mask, base) -> torch.Tensor:
+    """occ int32 [nb]: bit j set where slot base + j of the block holds a
+    masked row — what the blocked kernels write beside each base
+    (csrc/block_layout.cuh); meaningful where the guard passed."""
+    nb = base.shape[0]
+    g = _pad_to(gids.to(torch.int64), nb * BLOCK_ROWS, 0).reshape(nb, BLOCK_ROWS)
+    m = _pad_to(base_mask, nb * BLOCK_ROWS, False).reshape(nb, BLOCK_ROWS)
+    slot = g - base.to(torch.int64)[:, None]
+    bit = torch.where(m & (slot >= 0) & (slot < BLOCK_SPAN),
+                      torch.ones_like(slot) << slot.clamp(0, BLOCK_SPAN - 1), 0)
+    occ = torch.zeros(nb, dtype=torch.int64, device=gids.device)
+    for j in range(BLOCK_SPAN):
+        occ |= ((bit >> j) & 1).amax(dim=1) << j
+    return occ.to(torch.int32)
+
+
+def block_layout_plain(base, occ):
+    """(keylo, keyhi, mode) of the blocked kernels' fold, in torch ops (the
+    last CTA's scan in csrc/block_layout.cuh): the running maxima of the
+    occupied blocks' bases and top occupied ids (INT32_MIN before the
+    first), and whether some occupied block's base falls below the one
+    before it."""
+    on = occ != 0
+    o64 = occ.to(torch.int64)
+    top = torch.zeros_like(o64)
+    for j in range(BLOCK_SPAN):
+        top = torch.where(((o64 >> j) & 1) == 1, j, top)
+    b64 = base.to(torch.int64)
+    lo = torch.where(on, b64, _I32_MIN)
+    hi = torch.where(on, b64 + top, _I32_MIN)
+    keylo = torch.cummax(lo, 0).values
+    keyhi = torch.cummax(hi, 0).values
+    prev = torch.cat([keylo.new_full((1,), _I32_MIN), keylo[:-1]])
+    mode = bool((on & (b64 < prev)).any())
+    return keylo.to(torch.int32), keyhi.to(torch.int32), mode
+
+
+def covering_blocks_plain(base, occ, keylo, keyhi, mode: bool, g: int) -> list:
+    """[(block, slot)] the fold of group g adds, in the order it adds them:
+    blocks [lo, hi) in block order (lo the first with keyhi >= g; hi the
+    first with keylo > g, or nb when the bases fall), those whose slot
+    g - base is occupied."""
+    nb = int(base.shape[0])
+    lo = int(torch.searchsorted(keyhi.to(torch.int64), g, right=False))
+    hi = nb if mode else int(torch.searchsorted(keylo.to(torch.int64), g, right=True))
+    out = []
+    for b in range(lo, hi):
+        s = g - int(base[b])
+        if 0 <= s < BLOCK_SPAN and (int(occ[b]) >> s) & 1:
+            out.append((b, s))
+    return out
+
+
 def _stacked(out: dict) -> AggState:
     return AggState(**{k: torch.stack(v) if v else None for k, v in out.items()})
 
@@ -226,27 +285,63 @@ def _gate(verdict, on_fail: bool) -> _Gate:
     return _Gate(verdict.data_ptr(), int(on_fail), 0)
 
 
+class _BlockLayout(ctypes.Structure):
+    """Mirror of `BlockLayout` (csrc/block_layout.cuh): a blocked kernel's
+    per-block bases and occupied slots, the fold's keys, the verdict and
+    the mode word."""
+
+    _fields_ = [
+        ("base", ctypes.c_void_p), ("keylo", ctypes.c_void_p), ("keyhi", ctypes.c_void_p),
+        ("occ", ctypes.c_void_p), ("verdict", ctypes.c_void_p), ("mode", ctypes.c_void_p),
+        ("nb", ctypes.c_int64), ("num_groups", ctypes.c_int32), ("reserved", ctypes.c_int32),
+    ]
+
+
+def _block_layout(nb: int, G: int, dev, base=None, scratch=()):
+    """(buffer, _BlockLayout, scratch addresses) of one call, in one
+    allocation: the bases (unless `base` is given: K4 reads K2's), keylo,
+    keyhi, occ, the verdict and mode words — all written on the card, no
+    memset — then the call's scratch pieces (byte sizes).  The bases are
+    buf[:4 nb] and the verdict buf[16 nb:16 nb + 4] as int32 (`_words`)."""
+    own = base is None
+    buf, (p, *rest) = carve([4 * ((4 if own else 3) * nb + 2), *scratch], dev)
+    w = 4 * nb
+    if own:
+        base_ptr, p = p, p + w
+    else:
+        base_ptr = base.data_ptr()
+    lay = _BlockLayout(base_ptr, p, p + w, p + 2 * w, p + 3 * w if own else None,
+                       p + 3 * w + (4 if own else 0), nb, G, 0)
+    return buf, lay, rest
+
+
+def _words(buf, lo: int, hi: int) -> torch.Tensor:
+    """int32 words [lo, hi) of a block layout's buffer."""
+    return buf[4 * lo:4 * hi].view(torch.int32)
+
+
+_K2_MAX_COLS = 32  # kMaxCols of csrc/segment_reduce_blocked.cu
+
+
 class _BlockedArgs(ctypes.Structure):
     _fields_ = [
-        ("n", ctypes.c_int64), ("nb", ctypes.c_int64),
-        ("gids", ctypes.c_void_p), ("base_mask", ctypes.c_void_p),
-        ("values", ctypes.c_void_p), ("masks", ctypes.c_void_p),
-        ("base_out", ctypes.c_void_p), ("verdict", ctypes.c_void_p),
+        ("n", ctypes.c_int64), ("gids", ctypes.c_void_p), ("base_mask", ctypes.c_void_p),
+        ("values", ctypes.c_void_p * _K2_MAX_COLS), ("masks", ctypes.c_void_p * _K2_MAX_COLS),
+        ("layout", _BlockLayout),
         ("psum", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
         ("pmin", ctypes.c_void_p), ("pmax", ctypes.c_void_p),
-        ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
+        ("n_cols", ctypes.c_int32), ("reserved", ctypes.c_int32),
     ]
 
 
 class _FoldArgs(ctypes.Structure):
     _fields_ = [
-        ("sbase", ctypes.c_void_p), ("order", ctypes.c_void_p),
+        ("layout", _BlockLayout),
         ("psum", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
         ("pmin", ctypes.c_void_p), ("pmax", ctypes.c_void_p),
         ("sums", ctypes.c_void_p), ("counts", ctypes.c_void_p),
         ("mins", ctypes.c_void_p), ("maxs", ctypes.c_void_p),
-        ("nb", ctypes.c_int64),
-        ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
+        ("n_cols", ctypes.c_int32), ("reserved", ctypes.c_int32),
         ("gate", _Gate),
     ]
 
@@ -266,7 +361,10 @@ def segment_reduce_blocked(values, gids, masks, base_mask, num_groups: int, aggs
     writes the state is predicated on it, so the state holds the blocked
     result when it is 0 and is left for the predicated K3 branch to write
     (`segment_aggregate`) when it is not.  `outs` optionally gives the
-    [C, G] output tensors (sums, counts, mins, maxs) to write."""
+    [C, G] output tensors (sums, counts, mins, maxs) to write.  A launch
+    takes up to 32 columns (their pointers ride in its arguments); more
+    run as further launches over the same ids, each with its own guard
+    pass, which gives the same verdict."""
     if gids.device.type == "cpu":
         return segment_reduce_blocked_plain(values, gids, masks, base_mask, num_groups, aggs)
     from ..kernels._build import launch
@@ -277,31 +375,35 @@ def segment_reduce_blocked(values, gids, masks, base_mask, num_groups: int, aggs
     C, G = len(values), int(num_groups)
     _check_rows(gids, torch.int32, n, dev)
     _check_rows(base_mask, torch.bool, n, dev)
-    vals, vt, mt = _column_tables(values, masks, base_mask, n, dev)
+    vals, mptrs = _column_ptrs(values, masks, base_mask, n, dev)
     want = _wants(aggs)
-    base = torch.empty(nb, dtype=torch.int32, device=dev)
-    verdict = torch.zeros(1, dtype=torch.int32, device=dev)
-    parts = [
-        torch.empty((nb, C, BLOCK_SPAN), dtype=dt, device=dev) if on else None
-        for on, dt in zip(want, (torch.float64, torch.int32, torch.float64, torch.float64))
-    ]
-    a = _BlockedArgs(
-        n, nb, gids.data_ptr(), base_mask.data_ptr(), vt.data_ptr(), mt.data_ptr(),
-        base.data_ptr(), verdict.data_ptr(), *(_ptr(p) for p in parts), G, C,
-    )
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    segment_reduce_blocked.launches += 1
-    launch("segment_reduce_blocked", "gt_blocked_partials", a, stream)
-    # the bases are written whatever the verdict; sorting them is cheap
-    sbase, order = torch.sort(base, stable=True)
     outs = _state_outs(want, C, G, dev, outs)
-    f = _FoldArgs(
-        sbase.data_ptr(), order.data_ptr(), *(_ptr(p) for p in parts),
-        *(_ptr(o) for o in outs), nb, G, C, _gate(verdict, on_fail=False),
-    )
-    launch("segment_reduce_blocked", "gt_blocked_fold", f, stream)
-    del vals
-    return verdict, _state_of(want, *outs), base
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    first = None
+    for c0 in range(0, C, _K2_MAX_COLS):
+        cc = min(_K2_MAX_COLS, C - c0)
+        # the [nb, cc, 16] partials of the wanted aggregates beside the layout
+        sizes = [nb * cc * BLOCK_SPAN * b for on, b in zip(want, (8, 4, 8, 8)) if on]
+        buf, lay, ptrs = _block_layout(nb, G, dev, scratch=sizes)
+        it = iter(ptrs)
+        parts = [next(it) if on else None for on in want]
+        a = _BlockedArgs(
+            n, gids.data_ptr(), base_mask.data_ptr(),
+            (ctypes.c_void_p * _K2_MAX_COLS)(*(v.data_ptr() for v in vals[c0:c0 + cc])),
+            (ctypes.c_void_p * _K2_MAX_COLS)(*mptrs[c0:c0 + cc]),
+            lay, *parts, cc, 0,
+        )
+        segment_reduce_blocked.launches += 1
+        launch("segment_reduce_blocked", "gt_blocked_partials", a, stream)
+        verdict = _words(buf, 4 * nb, 4 * nb + 1)
+        f = _FoldArgs(
+            lay, *parts, *(None if o is None else o[c0:c0 + cc].data_ptr() for o in outs),
+            cc, 0, _gate(verdict, on_fail=False),
+        )
+        launch("segment_reduce_blocked", "gt_blocked_fold", f, stream)
+        if first is None:
+            first = (verdict, _words(buf, 0, nb))
+    return first[0], _state_of(want, *outs), first[1]
 
 
 def _state_outs(want, C: int, G: int, dev, outs=None) -> list:
@@ -522,23 +624,17 @@ def segment_last_plain(values, ts, gids, mask, num_groups: int, base=None):
 
 class _LastBlockedArgs(ctypes.Structure):
     _fields_ = [
-        ("n", ctypes.c_int64), ("nb", ctypes.c_int64),
-        ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
-        ("ts", ctypes.c_void_p), ("base", ctypes.c_void_p),
-        ("pts", ctypes.c_void_p), ("prow", ctypes.c_void_p),
-        ("gate", _Gate),
+        ("n", ctypes.c_int64), ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+        ("ts", ctypes.c_void_p), ("layout", _BlockLayout),
+        ("pts", ctypes.c_void_p), ("prow", ctypes.c_void_p), ("gate", _Gate),
     ]
 
 
 class _LastFoldArgs(ctypes.Structure):
     _fields_ = [
-        ("sbase", ctypes.c_void_p), ("order", ctypes.c_void_p),
-        ("pts", ctypes.c_void_p), ("prow", ctypes.c_void_p),
+        ("layout", _BlockLayout), ("pts", ctypes.c_void_p), ("prow", ctypes.c_void_p),
         ("values", ctypes.c_void_p), ("last_ts", ctypes.c_void_p),
-        ("last_val", ctypes.c_void_p),
-        ("nb", ctypes.c_int64), ("n", ctypes.c_int64),
-        ("num_groups", ctypes.c_int32), ("reserved", ctypes.c_int32),
-        ("gate", _Gate),
+        ("last_val", ctypes.c_void_p), ("n", ctypes.c_int64), ("gate", _Gate),
     ]
 
 
@@ -584,17 +680,20 @@ def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None,
     segment_last.launches += 1
     if base is not None:
         nb = int(base.shape[0])
-        pts = torch.empty((nb, BLOCK_SPAN), dtype=torch.int64, device=dev)
-        prow = torch.empty((nb, BLOCK_SPAN), dtype=torch.int32, device=dev)
+        if nb != max(-(-n // BLOCK_ROWS), 1) or base.dtype != torch.int32 or base.device != dev:
+            raise ValueError("segment_last's bases must be K2's int32 [nb] of these rows")
         blocked = _gate(verdict, on_fail=False)
-        a = _LastBlockedArgs(n, nb, gids.data_ptr(), mask.data_ptr(), ts.data_ptr(),
-                             base.data_ptr(), pts.data_ptr(), prow.data_ptr(), blocked)
+        # this call's keys and occupied slots beside K2's bases (no sort),
+        # and the [nb, 16] (ts, row) partials
+        keep, lay, (pts, prow) = _block_layout(nb, G, dev, base=base,
+                                               scratch=(nb * BLOCK_SPAN * 8, nb * BLOCK_SPAN * 4))
+        a = _LastBlockedArgs(n, gids.data_ptr(), mask.data_ptr(), ts.data_ptr(), lay, pts, prow,
+                             blocked)
         launch("segment_last", "gt_last_partials", a, stream)
-        sbase, order_b = torch.sort(base, stable=True)
-        f = _LastFoldArgs(sbase.data_ptr(), order_b.data_ptr(), pts.data_ptr(),
-                          prow.data_ptr(), x.data_ptr(), last_ts.data_ptr(),
-                          last_val.data_ptr(), nb, n, G, 0, blocked)
+        f = _LastFoldArgs(lay, pts, prow, x.data_ptr(), last_ts.data_ptr(), last_val.data_ptr(),
+                          n, blocked)
         launch("segment_last", "gt_last_fold", f, stream)
+        del keep
         if verdict is None:
             return last_ts, last_val
     if order is None:
@@ -626,10 +725,10 @@ def _check_rows(t: torch.Tensor, dtype, n: int, dev) -> None:
         )
 
 
-def _column_tables(values, masks, base_mask, n: int, dev):
-    """Device tables of column pointers for the C-column kernels.  A
-    column mask that IS the base mask is passed as a null pointer (no
-    second read).  Returns (kept tensors, values table, masks table)."""
+def _column_ptrs(values, masks, base_mask, n: int, dev):
+    """The C-column kernels' operands: (f64 columns, their masks' pointers).
+    A column mask that IS the base mask is a null pointer (no second
+    read)."""
     if len(values) != len(masks) or not values:
         raise ValueError("one mask per value column, at least one column")
     vals = [_f64(v).contiguous() for v in values]
@@ -638,14 +737,21 @@ def _column_tables(values, masks, base_mask, n: int, dev):
     mptrs = []
     for m in masks:
         if m is base_mask or m.data_ptr() == base_mask.data_ptr():
-            mptrs.append(0)
+            mptrs.append(None)
         else:
             _check_rows(m, torch.bool, n, dev)
             mptrs.append(m.data_ptr())
+    return vals, mptrs
+
+
+def _column_tables(values, masks, base_mask, n: int, dev):
+    """Device tables of column pointers for K3 (`_column_ptrs`).  Returns
+    (kept tensors, values table, masks table)."""
+    vals, mptrs = _column_ptrs(values, masks, base_mask, n, dev)
     from ..kernels._build import upload_table
 
     # one host-to-device copy for both tables, no host sync
-    ptrs = upload_table([v.data_ptr() for v in vals] + mptrs, dev)
+    ptrs = upload_table([v.data_ptr() for v in vals] + [p or 0 for p in mptrs], dev)
     vt, mt = ptrs[: len(vals)], ptrs[len(vals):]
     return (vals, ptrs), vt, mt
 
@@ -1110,17 +1216,17 @@ def _counted_rows(values, gids, mask, num_groups: int, count01, presence):
     return torch.stack(rows)
 
 
-def _limb_slow(limb_cols, gids, mask, num_groups: int, count01, dequant):
-    """The guard failed: aggregate the dequantized values on K3 (or its
-    plain version) — sums, error bounds, counts and presence."""
+def _limb_slow(limb_cols, gids, mask, num_groups: int, count01):
+    """The guard failed: aggregate the dequantized values with the plain
+    scatter (row order) — sums, error bounds, counts and presence."""
     C = len(limb_cols)
     vals, halves = [], []
     for limbs, scale in limb_cols:
-        vhat, half = dequant(limbs, scale)
+        vhat, half = dequantize_limbs_plain(limbs, scale)
         vals.append(vhat)
         halves.append(half)
-    st = segment_reduce_scatter(vals + halves, gids, [mask] * (2 * C), mask, num_groups,
-                                (SUM, COUNT))
+    st = segment_reduce_scatter_plain(vals + halves, gids, [mask] * (2 * C), mask, num_groups,
+                                      (SUM, COUNT))
     presence = st.counts[0]
     counts = _counted_rows(vals, gids, mask, num_groups, count01, presence)
     return st.sums[:C], st.sums[C:], counts, presence
@@ -1131,7 +1237,7 @@ def limb_segment_sums_plain(limb_cols, gids, mask, num_groups: int, count01=None
     G = int(num_groups)
     ok, base = block_guard_plain(gids, mask, G)
     if not ok:
-        return _limb_slow(limb_cols, gids, mask, G, count01, dequantize_limbs_plain)
+        return _limb_slow(limb_cols, gids, mask, G, count01)
     nb = base.shape[0]
     L, K = BLOCK_ROWS, BLOCK_SPAN
     dev = gids.device
@@ -1169,59 +1275,121 @@ def limb_segment_sums_plain(limb_cols, gids, mask, num_groups: int, count01=None
     return torch.stack(sums), torch.stack(errs), counts, presence
 
 
+_K6_MAX_COLS = 16  # kMaxCols of csrc/limb_segment_sums.cu (value and counted columns)
+
+
+def _ptr_array(ptrs):
+    return (ctypes.c_void_p * _K6_MAX_COLS)(*ptrs)
+
+
 class _LimbArgs(ctypes.Structure):
     _fields_ = [
-        ("n", ctypes.c_int64), ("nb", ctypes.c_int64),
-        ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
-        ("limbs", ctypes.c_void_p), ("scales", ctypes.c_void_p),
-        ("count01", ctypes.c_void_p),
-        ("base_out", ctypes.c_void_p), ("verdict", ctypes.c_void_p),
+        ("n", ctypes.c_int64), ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+        ("limbs", ctypes.c_void_p * _K6_MAX_COLS), ("scales", ctypes.c_void_p * _K6_MAX_COLS),
+        ("count01", ctypes.c_void_p * _K6_MAX_COLS), ("layout", _BlockLayout),
         ("ppres", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
         ("psum", ctypes.c_void_p), ("perr", ctypes.c_void_p),
-        ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
-        ("n_counted", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("n_cols", ctypes.c_int32), ("n_counted", ctypes.c_int32),
     ]
 
 
 class _LimbFoldArgs(ctypes.Structure):
     _fields_ = [
-        ("sbase", ctypes.c_void_p), ("order", ctypes.c_void_p),
+        ("layout", _BlockLayout),
         ("ppres", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
         ("psum", ctypes.c_void_p), ("perr", ctypes.c_void_p),
         ("presence", ctypes.c_void_p), ("counts", ctypes.c_void_p),
         ("sums", ctypes.c_void_p), ("errs", ctypes.c_void_p),
-        ("nb", ctypes.c_int64),
+        ("n_cols", ctypes.c_int32), ("n_counted", ctypes.c_int32),
+        ("gate", _Gate),
+    ]
+
+
+class _LimbRunsArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int64), ("skeys", ctypes.c_void_p), ("perm", ctypes.c_void_p),
+        ("limbs", ctypes.c_void_p * _K6_MAX_COLS), ("scales", ctypes.c_void_p * _K6_MAX_COLS),
+        ("count01", ctypes.c_void_p * _K6_MAX_COLS),
+        ("presence", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p), ("errs", ctypes.c_void_p),
         ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
         ("n_counted", ctypes.c_int32), ("reserved", ctypes.c_int32),
         ("gate", _Gate),
     ]
 
 
-class _DequantArgs(ctypes.Structure):
-    _fields_ = [
-        ("n", ctypes.c_int64), ("limbs", ctypes.c_void_p), ("scale", ctypes.c_void_p),
-        ("vhat", ctypes.c_void_p), ("half", ctypes.c_void_p),
-        ("gate", _Gate),
-    ]
+def _limb_operands(limb_cols, gids, mask, count01):
+    """Checks K6's operands on the card; returns (n, nb, counted indices)."""
+    dev = gids.device
+    n = int(gids.shape[0])
+    if n % BLOCK_ROWS or not limb_cols:
+        raise ValueError("limb_segment_sums needs a multiple of 4096 rows and a column")
+    nb = n // BLOCK_ROWS
+    _check_rows(gids, torch.int32, n, dev)
+    _check_rows(mask, torch.bool, n, dev)
+    for limbs, scale in limb_cols:
+        if (limbs.device != dev or limbs.dtype != torch.bfloat16
+                or tuple(limbs.shape) != (nb, BLOCK_ROWS, N_LIMBS) or not limbs.is_contiguous()
+                or scale.device != dev or scale.dtype != torch.float64
+                or tuple(scale.shape) != (nb,) or not scale.is_contiguous()):
+            raise ValueError("limb planes must be K5 outputs of this tile's length")
+    counted = [] if count01 is None else [i for i, c in enumerate(count01) if c is not None]
+    for i in counted:
+        _check_rows(count01[i], torch.bool, n, dev)
+    return n, nb, counted
 
 
-def dequantize_limbs(limbs: torch.Tensor, scale: torch.Tensor, verdict=None):
-    """(v-hat, half step) of `dequantize_limbs_plain`; on a CUDA tensor the
-    `gt_limb_dequant` entry of K6's source computes them, predicated on
-    `verdict` (K6's guard word: it runs only when the guard failed) when
-    one is given."""
-    if limbs.device.type == "cpu":
-        return dequantize_limbs_plain(limbs, scale)
+def _limb_outputs(C: int, Cc: int, G: int, dev):
+    """The outputs both branches write: sums and errs (rows [:C] and [C:] of
+    one [2C, G] f64 tensor), presence [G] and the counted columns' counts."""
+    return (torch.empty((2 * C, G), dtype=torch.float64, device=dev),
+            torch.empty(G, dtype=torch.int32, device=dev),
+            torch.empty((max(Cc, 1), G), dtype=torch.int32, device=dev))
+
+
+def _limb_result(sums2, presence, cnts, C: int, count01, counted):
+    counts = None
+    if count01 is not None:
+        rows = [presence] * C
+        for j, i in enumerate(counted):
+            rows[i] = cnts[j]
+        counts = torch.stack(rows)
+    return sums2[:C], sums2[C:], counts, presence
+
+
+def _launch_limb_runs(limb_cols, gids, G: int, count01, counted, order, verdict, sums2,
+                      presence, cnts) -> None:
     from ..kernels._build import launch
 
-    dev = limbs.device
-    n = int(limbs.shape[0]) * BLOCK_ROWS
-    vhat = torch.empty(n, dtype=torch.float64, device=dev)
-    half = torch.empty(n, dtype=torch.float64, device=dev)
-    a = _DequantArgs(n, limbs.data_ptr(), scale.data_ptr(), vhat.data_ptr(), half.data_ptr(),
-                     _gate(verdict, on_fail=True))
-    launch("limb_segment_sums", "gt_limb_dequant", a, torch.cuda.current_stream(dev).cuda_stream)
-    return vhat, half
+    C, n = len(limb_cols), int(gids.shape[0])
+    skeys, perm = order
+    a = _LimbRunsArgs(
+        n, skeys.data_ptr(), perm.data_ptr(),
+        _ptr_array(lb.data_ptr() for lb, _s in limb_cols),
+        _ptr_array(sc.data_ptr() for _l, sc in limb_cols),
+        _ptr_array(count01[i].data_ptr() for i in counted),
+        presence.data_ptr(), cnts.data_ptr(), sums2.data_ptr(), sums2[C:].data_ptr(),
+        G, C, len(counted), 0, _gate(verdict, on_fail=True),
+    )
+    launch("limb_segment_sums", "gt_limb_runs", a, torch.cuda.current_stream(gids.device).cuda_stream)
+
+
+def limb_segment_runs(limb_cols, gids, mask, num_groups: int, count01=None):
+    """K6's slow branch alone on the card (what runs when the layout guard
+    fails): K18's stable sort of the masked ids, then `gt_limb_runs`, a warp
+    per group adding its rows' dequantized values, error bounds and counts
+    in row order.  The result of `limb_segment_sums` on any layout, equal to
+    `_limb_slow` (the plain version's slow branch) byte for byte."""
+    if gids.device.type == "cpu":
+        return _limb_slow(limb_cols, gids, mask, int(num_groups), count01)
+    G = int(num_groups)
+    if len(limb_cols) > _K6_MAX_COLS or (count01 is not None and len(count01) != len(limb_cols)):
+        raise ValueError(f"limb_segment_runs takes up to {_K6_MAX_COLS} columns")
+    _n, _nb, counted = _limb_operands(limb_cols, gids, mask, count01)
+    sums2, presence, cnts = _limb_outputs(len(limb_cols), len(counted), G, gids.device)
+    order = sort_segments(gids, mask, G)
+    _launch_limb_runs(limb_cols, gids, G, count01, counted, order, None, sums2, presence, cnts)
+    return _limb_result(sums2, presence, cnts, len(limb_cols), count01, counted)
 
 
 def limb_segment_sums(limb_cols, gids, mask, num_groups: int, count01=None):
@@ -1233,89 +1401,57 @@ def limb_segment_sums(limb_cols, gids, mask, num_groups: int, count01=None):
     Returns (sums [C, G] f64, errs [C, G] f64 — the per-group worst-case
     quantization error, counts [C, G] int32 or None, presence [G] int32).
     When the layout guard (masked ids in range, block span < 16) fails,
-    the digits are dequantized and aggregated on K3 — both branches share
-    the quantized values, so the result does not depend on the branch.
-    A CUDA tile launches csrc/limb_segment_sums.cu and both branches, each
-    predicated on the guard's word on the card, into the same outputs (no
-    host read).  A CPU tile runs `limb_segment_sums_plain`."""
+    the digits are dequantized and summed per group in row order — both
+    branches share the quantized values, so the result does not depend on
+    the branch.  A CUDA tile launches csrc/limb_segment_sums.cu: the
+    per-block pass, the fold (blocks in block order) and the slow branch
+    (K18's sort of the ids, then `gt_limb_runs`), each predicated on the
+    guard's word on the card, into the same outputs (no host read).  A
+    launch takes up to 16 value columns (their pointers ride in its
+    arguments); more run as further calls over the same ids.  A CPU tile
+    runs `limb_segment_sums_plain`."""
     if gids.device.type == "cpu":
         return limb_segment_sums_plain(limb_cols, gids, mask, num_groups, count01)
-    from ..kernels._build import launch, upload_table
+    if count01 is not None and len(count01) != len(limb_cols):
+        raise ValueError("one count01 entry per limb column")
+    if len(limb_cols) > _K6_MAX_COLS:
+        parts = [
+            limb_segment_sums(limb_cols[c0:c0 + _K6_MAX_COLS], gids, mask, num_groups,
+                              None if count01 is None else count01[c0:c0 + _K6_MAX_COLS])
+            for c0 in range(0, len(limb_cols), _K6_MAX_COLS)
+        ]
+        counts = None if count01 is None else torch.cat([p[2] for p in parts])
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]), counts,
+                parts[0][3])
+    from ..kernels._build import launch
 
     dev = gids.device
-    n = int(gids.shape[0])
-    if n % BLOCK_ROWS or not limb_cols:
-        raise ValueError("limb_segment_sums needs a multiple of 4096 rows and a column")
-    nb = n // BLOCK_ROWS
-    C, G = len(limb_cols), int(num_groups)
-    _check_rows(gids, torch.int32, n, dev)
-    _check_rows(mask, torch.bool, n, dev)
-    for limbs, scale in limb_cols:
-        if (limbs.device != dev or limbs.dtype != torch.bfloat16
-                or tuple(limbs.shape) != (nb, BLOCK_ROWS, N_LIMBS) or not limbs.is_contiguous()
-                or scale.dtype != torch.float64 or tuple(scale.shape) != (nb,)):
-            raise ValueError("limb planes must be K5 outputs of this tile's length")
-    counted = [] if count01 is None else [i for i, c in enumerate(count01) if c is not None]
-    for i in counted:
-        _check_rows(count01[i], torch.bool, n, dev)
-    ptrs = upload_table(
-        [lb.data_ptr() for lb, _s in limb_cols] + [s.data_ptr() for _l, s in limb_cols]
-        + [count01[i].data_ptr() for i in counted],
-        dev,
-    )
-    Cc = len(counted)
-    base = torch.empty(nb, dtype=torch.int32, device=dev)
-    verdict = torch.zeros(1, dtype=torch.int32, device=dev)
-    ppres = torch.empty((nb, BLOCK_SPAN), dtype=torch.int32, device=dev)
-    pcnt = torch.empty((nb, max(Cc, 1), BLOCK_SPAN), dtype=torch.int32, device=dev)
-    psum = torch.empty((nb, C, BLOCK_SPAN), dtype=torch.float64, device=dev)
-    perr = torch.empty((nb, C, BLOCK_SPAN), dtype=torch.float64, device=dev)
-    a = _LimbArgs(
-        n, nb, gids.data_ptr(), mask.data_ptr(), ptrs.data_ptr(),
-        ptrs.data_ptr() + 8 * C, ptrs.data_ptr() + 16 * C,
-        base.data_ptr(), verdict.data_ptr(), ppres.data_ptr(), pcnt.data_ptr(),
-        psum.data_ptr(), perr.data_ptr(), G, C, Cc, 0,
-    )
+    n, nb, counted = _limb_operands(limb_cols, gids, mask, count01)
+    C, G, Cc = len(limb_cols), int(num_groups), len(counted)
+    # the [nb, 16] presence, [nb, Cc, 16] counts and [nb, C, 16] sums and
+    # error bounds per block, beside the layout
+    k = nb * BLOCK_SPAN
+    buf, lay, (ppres, pcnt, psum, perr) = _block_layout(
+        nb, G, dev, scratch=(k * 4, k * max(Cc, 1) * 4, k * C * 8, k * C * 8))
+    limbs = _ptr_array(lb.data_ptr() for lb, _s in limb_cols)
+    scales = _ptr_array(sc.data_ptr() for _l, sc in limb_cols)
+    c01 = _ptr_array(count01[i].data_ptr() for i in counted)
+    a = _LimbArgs(n, gids.data_ptr(), mask.data_ptr(), limbs, scales, c01, lay,
+                  ppres, pcnt, psum, perr, C, Cc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     limb_segment_sums.launches += 1
     launch("limb_segment_sums", "gt_limb_partials", a, stream)
-    # the outputs both branches write: the fold's sums and errs are rows
-    # [:C] and [C:] of the slow branch's K3 sums over (values, halves), its
-    # presence row 0 of the K3 counts, its null-gated counts the counted
-    # K3's rows
-    sums2 = torch.empty((2 * C, G), dtype=torch.float64, device=dev)
-    cnt2 = torch.empty((2 * C, G), dtype=torch.int32, device=dev)
-    cnts = torch.empty((max(Cc, 1), G), dtype=torch.int32, device=dev)
-    sbase, order = torch.sort(base, stable=True)
-    f = _LimbFoldArgs(
-        sbase.data_ptr(), order.data_ptr(), ppres.data_ptr(), pcnt.data_ptr(),
-        psum.data_ptr(), perr.data_ptr(), cnt2.data_ptr(), cnts.data_ptr(),
-        sums2.data_ptr(), sums2[C:].data_ptr(), nb, G, C, Cc, 0,
-        _gate(verdict, on_fail=False),
-    )
+    verdict = _words(buf, 4 * nb, 4 * nb + 1)
+    sums2, presence, cnts = _limb_outputs(C, Cc, G, dev)
+    f = _LimbFoldArgs(lay, ppres, pcnt, psum, perr, presence.data_ptr(), cnts.data_ptr(),
+                      sums2.data_ptr(), sums2[C:].data_ptr(), C, Cc,
+                      _gate(verdict, on_fail=False))
     launch("limb_segment_sums", "gt_limb_fold", f, stream)
-    # the slow branch (the guard failed): dequantize, then K3
-    vals, halves = [], []
-    for limbs, scale in limb_cols:
-        vhat, half = dequantize_limbs(limbs, scale, verdict)
-        vals.append(vhat)
-        halves.append(half)
-    order_s = sort_segments(gids, mask, G, verdict)
-    segment_reduce_scatter(vals + halves, gids, [mask] * (2 * C), mask, G, (SUM, COUNT),
-                           order_s, verdict, outs=[sums2, cnt2, None, None])
-    if counted:
-        segment_reduce_scatter([vals[i] for i in counted], gids,
-                               [mask & count01[i] for i in counted], mask, G, (COUNT,),
-                               order_s, verdict, outs=[None, cnts[:Cc], None, None])
-    presence = cnt2[0]
-    counts = None
-    if count01 is not None:
-        rows = [presence] * C
-        for j, i in enumerate(counted):
-            rows[i] = cnts[j]
-        counts = torch.stack(rows)
-    del ptrs
-    return sums2[:C], sums2[C:], counts, presence
+    # the slow branch (the guard failed): sort the ids, then the runs
+    order = sort_segments(gids, mask, G, verdict)
+    _launch_limb_runs(limb_cols, gids, G, count01, counted, order, verdict, sums2, presence,
+                      cnts)
+    return _limb_result(sums2, presence, cnts, C, count01, counted)
 
 
 limb_segment_sums.launches = 0

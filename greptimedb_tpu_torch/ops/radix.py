@@ -22,6 +22,7 @@ keeps of its last sort.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 TILE_ROWS = 4096  # kTileRows: 512 threads x 8 keys
@@ -40,6 +41,7 @@ class RadixPlan:
         return len(self.widths)
 
 
+@functools.lru_cache(maxsize=256)
 def radix_plan(max_key: int) -> RadixPlan:
     """The plan of a sort whose keys lie in [0, max_key]."""
     if not 0 <= max_key < 1 << 64:
@@ -72,11 +74,18 @@ class _RadixScratch(ctypes.Structure):
     ]
 
 
-def plan_struct(plan: RadixPlan) -> _RadixPlan:
+@functools.lru_cache(maxsize=256)
+def _plan_struct(plan: RadixPlan) -> _RadixPlan:
     pad = (0,) * (MAX_PASSES - plan.n_passes)
     return _RadixPlan(plan.n_passes, plan.key_bytes,
                       (ctypes.c_int32 * MAX_PASSES)(*plan.shifts, *pad),
                       (ctypes.c_int32 * MAX_PASSES)(*plan.widths, *pad))
+
+
+def plan_struct(plan: RadixPlan) -> _RadixPlan:
+    """The plan as its C struct (built once per plan; the launch argument
+    structs copy it)."""
+    return _plan_struct(plan)
 
 
 def scratch_sizes(n: int, plan: RadixPlan) -> dict:
@@ -92,22 +101,33 @@ def scratch_sizes(n: int, plan: RadixPlan) -> dict:
     }
 
 
-def radix_scratch(n: int, plan: RadixPlan, dev):
-    """(tensors to keep alive until the launch is queued, _RadixScratch)."""
+def carve(nbytes, dev):
+    """One allocation cut into pieces of the given byte sizes, each at a
+    256-byte boundary: (the tensor to keep alive, the pieces' addresses)."""
     import torch
 
+    offs, end = [], 0
+    for b in nbytes:
+        offs.append(end)
+        end += -(-int(b) // 256) * 256
+    buf = torch.empty(max(end, 1), dtype=torch.uint8, device=dev)
+    p = buf.data_ptr()
+    return buf, [p + o for o in offs]
+
+
+def radix_scratch(n: int, plan: RadixPlan, dev):
+    """(the tensor to keep alive until the launch is queued, _RadixScratch):
+    the keys and rows between passes, the look-back and control words, in
+    one allocation."""
     size = scratch_sizes(n, plan)
-    key_dtype = torch.int32 if plan.key_bytes == 4 else torch.int64
-    keys = [torch.empty(n, dtype=key_dtype, device=dev) for _ in range(size["buffers"])]
-    idx = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(size["buffers"])]
-    status = torch.empty(size["status"], dtype=torch.int32, device=dev)
-    control = torch.empty(size["control"], dtype=torch.int32, device=dev)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * 2)(*(t.data_ptr() for t in ts), *([None] * (2 - len(ts))))
-
-    s = _RadixScratch(ptrs(keys), ptrs(idx), status.data_ptr(), control.data_ptr(), 0)
-    return [*keys, *idx, status, control], s
+    nbuf = size["buffers"]
+    keep, (*bufs, status, control) = carve(
+        [n * plan.key_bytes] * nbuf + [n * 4] * nbuf + [size["status"] * 4, size["control"] * 4],
+        dev)
+    pad = [None] * (2 - nbuf)
+    s = _RadixScratch((ctypes.c_void_p * 2)(*bufs[:nbuf], *pad),
+                      (ctypes.c_void_p * 2)(*bufs[nbuf:], *pad), status, control, 0)
+    return keep, s
 
 
 def sort_record(plan: RadixPlan, kernels: int) -> dict:

@@ -176,6 +176,102 @@ def test_last_value_blocked_and_scatter_forms_agree():
         assert a[1][grp].item() == v[best]
 
 
+# ---- the blocked fold's order (csrc/block_layout.cuh) ------------------------------------
+
+# Layouts that pass the blocked guard: rising bases (host x hour over
+# host-major rows), falling bases (hour alone over 16 h of hosts: a block
+# inside one host starts at its hour, the next, crossing into the next
+# host, at 0), an all-masked block mid-stream (base = G), one block, and
+# G <= 16.
+FOLD_LAYOUTS = ["rising", "falling", "masked_mid", "single_block", "small_g"]
+
+
+def fold_layout(name: str, seed: int = 17):
+    """(gids int32 [n], mask bool [n], G), n a multiple of 4096."""
+    rng = np.random.default_rng(seed)
+    L = tagg.BLOCK_ROWS
+    if name in ("rising", "masked_mid", "falling"):
+        hosts, hours, per = (60, 16, 360) if name == "falling" else (24, 16, 360)
+        hour = np.tile(np.repeat(np.arange(hours), per), hosts)
+        host = np.repeat(np.arange(hosts), hours * per)
+        g = hour if name == "falling" else host * hours + hour
+        G = hours if name == "falling" else hosts * hours
+    elif name == "single_block":
+        g, G = np.sort(rng.integers(0, 10, L - 100)), 10
+    else:  # small_g: a time-major plan's bucket ids
+        g, G = np.sort(rng.integers(0, 12, 40 * L)), 12
+    n = -(-g.size // L) * L
+    gids = np.zeros(n, np.int32)
+    gids[:g.size] = g
+    mask = np.zeros(n, bool)
+    mask[:g.size] = rng.random(g.size) < 0.95
+    if name == "masked_mid":
+        mask[5 * L:8 * L] = False
+    return gids, mask, G
+
+
+def fold_emulated(parts, base, occ, G: int, add, init, order: str = "block"):
+    """The fold of [nb, 16] block partials into [G], group by group: in the
+    kernels' order (covering_blocks_plain: block order, empty slots
+    skipped), or in the (base, block) order of a fold over sorted bases."""
+    keylo, keyhi, mode = tagg.block_layout_plain(base, occ)
+    out = []
+    for g in range(G):
+        if order == "block":
+            blocks = tagg.covering_blocks_plain(base, occ, keylo, keyhi, mode, g)
+        else:
+            blocks = sorted((int(base[b]), b) for b in range(base.shape[0])
+                            if 0 <= g - int(base[b]) < tagg.BLOCK_SPAN)
+            blocks = [(b, g - bb) for bb, b in blocks]
+        acc = init
+        for b, j in blocks:
+            acc = add(acc, parts[b][j])
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("layout", FOLD_LAYOUTS)
+def test_blocked_fold_order_emulation_matches_reference(layout):
+    """K2's fold as the kernels run it — the block layout's keys and mode,
+    the covering range, blocks added in block order — over per-block
+    partials (row order inside a block, as the plain version forms them),
+    against the reference's segment_aggregate: sums within rel 1e-12,
+    count, min and max exact.  On falling bases a fold in (base, block)
+    order gives other bytes."""
+    gids, mask, G = fold_layout(layout)
+    rng = np.random.default_rng(3)
+    v = rng.uniform(-1e3, 1e3, gids.size) * np.exp(rng.uniform(-20, 20, gids.size))
+    ok, base = tagg.block_guard_plain(_t(gids), _t(mask), G)
+    assert ok
+    occ = tagg.block_occupancy_plain(_t(gids), _t(mask), base)
+    nb, K = base.shape[0], tagg.BLOCK_SPAN
+    slot = np.where(mask, np.arange(gids.size) // tagg.BLOCK_ROWS * K
+                    + gids - np.repeat(base.numpy(), tagg.BLOCK_ROWS), nb * K)
+    psum = torch.zeros(nb * K + 1, dtype=torch.float64).index_add_(
+        0, _t(slot), _t(np.where(mask, v, 0.0)))[:-1].reshape(nb, K).numpy()
+    pcnt = np.bincount(slot, minlength=nb * K + 1)[:-1].reshape(nb, K)
+    pmin = np.full(nb * K + 1, np.inf)
+    np.minimum.at(pmin, slot, np.where(mask, v, np.inf))
+    pmax = np.full(nb * K + 1, -np.inf)
+    np.maximum.at(pmax, slot, np.where(mask, v, -np.inf))
+    sums = fold_emulated(psum, base, occ, G, lambda a, x: a + float(x), 0.0)
+    ref = jagg.segment_aggregate(jnp.asarray(v), jnp.asarray(gids), G, ("count", "max", "min", "sum"),
+                                 mask=jnp.asarray(mask), acc_dtype=jnp.float64)
+    _close(np.array(sums), ref.sums, False, f"{layout} sums")
+    _close(np.array(fold_emulated(pcnt, base, occ, G, lambda a, x: a + int(x), 0), np.int32),
+           ref.counts, True, f"{layout} counts")
+    mins = fold_emulated(pmin[:-1].reshape(nb, K), base, occ, G, min, np.inf)
+    maxs = fold_emulated(pmax[:-1].reshape(nb, K), base, occ, G, max, -np.inf)
+    present = np.asarray(ref.counts) > 0
+    _close(np.array(mins)[present], np.asarray(ref.mins)[present], True, f"{layout} mins")
+    _close(np.array(maxs)[present], np.asarray(ref.maxs)[present], True, f"{layout} maxs")
+    keylo, keyhi, mode = tagg.block_layout_plain(base, occ)
+    assert mode == (layout == "falling")
+    if layout == "falling":
+        other = fold_emulated(psum, base, occ, G, lambda a, x: a + float(x), 0.0, "base")
+        assert not np.array_equal(np.array(other), np.array(sums))
+
+
 # ---- K1 -------------------------------------------------------------------------------
 
 

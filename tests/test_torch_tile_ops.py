@@ -22,6 +22,7 @@ from greptimedb_tpu_torch.ops import aggregate as P
 from greptimedb_tpu_torch.parallel.executor import DistGroupByPlan as PPlan
 from greptimedb_tpu_torch.parallel.tile_program import tile_program as p_tile_program
 from greptimedb_tpu_torch.query.device_finalize import DeviceFinalizeSpec as PSpec
+from test_torch_ops import FOLD_LAYOUTS, fold_emulated, fold_layout
 
 L = 4096
 
@@ -165,6 +166,73 @@ def test_limb_segment_sums_matches_reference(layout):
     assert verdict(p[0].numpy(), p[1].numpy()) == verdict(r[0], r[1])
     if layout == "mixed_magnitude":
         assert not verdict(p[0].numpy(), p[1].numpy()), "the co-blocked small group must fail"
+
+
+@pytest.mark.parametrize("layout", FOLD_LAYOUTS)
+def test_limb_fold_order_emulation_matches_reference(layout):
+    """K6's fold as the kernels run it — per-(block, slot) values formed
+    as the kernel forms them, the block layout's keys and mode, blocks
+    added in block order — equals the reference's limb_segment_sums byte
+    for byte (sums, error bounds, counts, presence), and so does the plain
+    version; on falling bases a fold in (base, block) order does not."""
+    gids, mask, G = fold_layout(layout)
+    rng = np.random.default_rng(9)
+    # blocks of other magnitudes: their scales differ, so a group's sum
+    # rounds and its order shows in the bytes
+    v0 = rng.uniform(-1e3, 1e3, gids.size) * np.repeat(np.exp(rng.uniform(-20, 20, gids.size // L)), L)
+    v1 = rng.normal(50, 30, gids.size)
+    nn1 = rng.random(gids.size) > 0.1
+    r = jax.jit(lambda a, b, g, m, c1: R.limb_segment_sums(
+        [R.quantize_limbs(a), R.quantize_limbs(b)], g, m, G, span=16, count01=[None, c1]
+    ))(jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(gids), jnp.asarray(mask), jnp.asarray(nn1))
+    cols = [P.quantize_limbs_plain(_t(v)) for v in (v0, v1)]
+    g, m = _t(gids), _t(mask)
+    ok, base = P.block_guard_plain(g, m, G)
+    assert ok
+    occ = P.block_occupancy_plain(g, m, base)
+    nb, K = base.shape[0], P.BLOCK_SPAN
+    slot = torch.where(m, torch.arange(gids.size) // L * K + g.long()
+                       - base.long().repeat_interleave(L), nb * K)
+
+    def slot_sum(x):  # exact integer sums per (block, slot)
+        return torch.zeros(nb * K + 1, dtype=torch.int64).index_add_(0, slot, x.long())[:-1]
+
+    pres = slot_sum(m)
+    cnt1 = slot_sum(m & _t(nn1))
+    psums, perrs = [], []
+    for limbs, scale in cols:
+        acc = -pres.double() * float(1 << 29)
+        for j in range(4):
+            acc = acc + slot_sum(limbs[:, :, j].reshape(-1).to(torch.int32)).double() * float(256**j)
+        sc = scale.repeat_interleave(K)
+        psums.append((acc * sc).reshape(nb, K).numpy())
+        perrs.append((pres.double() * (sc * 0.5)).reshape(nb, K).numpy())
+
+    def fadd(a, x):
+        return a + float(x)
+
+    def iadd(a, x):
+        return a + int(x)
+
+    differs = False
+    for c in range(2):
+        want_s, want_e = np.asarray(r[0][c]), np.asarray(r[1][c])
+        got_s = np.array(fold_emulated(psums[c], base, occ, G, fadd, 0.0))
+        got_e = np.array(fold_emulated(perrs[c], base, occ, G, fadd, 0.0))
+        np.testing.assert_array_equal(got_s.view(np.int64), want_s.view(np.int64))
+        np.testing.assert_array_equal(got_e.view(np.int64), want_e.view(np.int64))
+        if layout == "falling":
+            other = np.array(fold_emulated(psums[c], base, occ, G, fadd, 0.0, "base"))
+            differs |= not np.array_equal(other.view(np.int64), want_s.view(np.int64))
+    assert differs == (layout == "falling")
+    presence = np.array(fold_emulated(pres.reshape(nb, K).numpy(), base, occ, G, iadd, 0))
+    np.testing.assert_array_equal(presence, np.asarray(r[3]))
+    counts1 = np.array(fold_emulated(cnt1.reshape(nb, K).numpy(), base, occ, G, iadd, 0))
+    np.testing.assert_array_equal(counts1, np.asarray(r[2][1]))
+    p = P.limb_segment_sums_plain(cols, g, m, G, count01=[None, _t(nn1)])
+    for a, b in zip(p, r):
+        np.testing.assert_array_equal(np.ascontiguousarray(a.numpy()).view(np.uint8),
+                                      np.ascontiguousarray(np.asarray(b)).view(np.uint8))
 
 
 @pytest.mark.parametrize("n_counted", [17, 33])

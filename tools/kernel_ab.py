@@ -1,19 +1,38 @@
-"""Times K10 `range_windows` and K20 `segment_hll` of two checkouts of the
-port on one card, in turns (other, this, this, other), at chip_smoke.py's
-shapes:
+"""Times kernels of two checkouts of the port on one card, in turns (other,
+this, this, other), at chip_smoke.py's shapes.
 
-* K10 at phase 3c's TQL main path: 17.28 M rows (4000 hosts x 12 h of
-  10 s samples, NaN values, NULLs, invalid rows) in two chunks, S_pad 4096,
-  W_pad 1024, 721 steps of 60 s; k = 8 over K9's values (5m) and k = 64
-  (1h), the row prologue included;
-* K20 at phase 9's rows: hll_inputs(hash64(usage_user)) of the TSBS rows
-  in (hostname, ts) order, by host at p = 12 and 14, by hour at p = 12,
-  and every row on one register (G = 1, m = 4096); beside it the library
-  call chip_smoke.py times (`scatter_reduce_` amax over the flat ids);
-* with --tql, T3 (`increase(...[1h])`) of phase 6 through `TQL EVAL` on
-  the warm tile route, once per checkout: its warm p50 and dispatch stage;
-* with --profile, each K10 and K20 shape once more under torch.profiler:
-  the device time of each CUDA kernel and memset it launched, per call.
+`--set blocked` (the default): the blocked reductions of the SQL main path
+over phase 3's planes (TSBS cpu-only, 4000 hosts x 12 h of 10 s scrapes =
+17.28 M rows in (hostname, ts) order, 10 uniform columns):
+
+* K2 `segment_reduce_blocked` at C = 1, 5 and 10 over the double-groupby
+  ids (host x hour, G = 4096 x 12: the guard passes, the bases rise);
+* K6 `limb_segment_sums` at C = 1 and 10 over the same ids, the planes
+  padded to a multiple of 4096 rows as the tile path holds them;
+* K2 + K18 + K3 as `segment_aggregate_multi` runs them on the card (both
+  branches launched, the scatter branch shut by the guard's word), C = 10;
+* K3 `segment_reduce_scatter` (C = 1, 10), K18 `sort_segments` over minute
+  buckets (G = 720) and K14 `ts_argsort` over the ts plane, all open: the
+  scatter branch behind K2 and K6, and the radix sort it shares with K14;
+* K4 `segment_last` blocked at lastpoint's shape (hostname only);
+* the falling-bases shape: the same hosts over 16 h, grouped by hour
+  alone (`date_bin('1 hour', ts)`, G = 16), where a block inside one host
+  starts at its hour and the next, crossing into the next host, at 0: the
+  guard passes and the bases fall at each host.  K2 (C = 10), K6 (C = 10)
+  and K4 there are also held against their plain versions: K6 and K4 byte
+  for byte (K6's plain version on the host, whose f64 adds run in block
+  order), K2 within rel 1e-12 with count, min and max exact.
+
+`--set range_hll`: K10 `range_windows` at phase 3c's TQL shapes (k = 8 and
+64, the row prologue included) and K20 `segment_hll` at phase 9's rows (by
+host p = 12 and 14, by hour, one register) beside `scatter_reduce_`; with
+--tql, T3 through `TQL EVAL` on the warm tile route once per checkout.
+
+With --profile every shape runs once more under torch.profiler: the device
+time of each CUDA kernel and memset it launched, per call, their sum, and
+the names of any library sort kernel (cub, Radix, DeviceSort) among them.
+The first turn of each checkout also prints `nvcc --resource-usage` of the
+sources the set times (registers and shared memory of each kernel).
 
 Each turn is a process of its own that imports the port of its checkout
 and builds its kernels there (build/ of that checkout).  Each kernel's
@@ -25,8 +44,9 @@ Prints the card's name and power limit, one JSON line per turn and shape,
 and a last line with the ms of each checkout (mean of its two turns) and
 whether every output's bytes agreed.
 
-    python3 tools/kernel_ab.py --other DIR [--hosts 4000] [--hours 12]
-                               [--sketch-hours 12] [--reps 20] [--tql] [--profile]
+    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll] [--hosts 4000]
+                               [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
+                               [--profile]
 """
 
 from __future__ import annotations
@@ -41,12 +61,23 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_last"),
+           "range_hll": ("strip_counter_resets", "range_windows", "segment_hll")}
+LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
+AGGS = ("count", "max", "min", "sum")
+# Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
+# so over 12 h (4320 rows) nearly every 4096-row block holds some host's
+# first hour and its base is 0; over 16 h (5760 rows) a block inside one
+# host starts at its own hour and the next, crossing into the next host,
+# at 0 (1374 of 5625 bases fall at 4000 hosts)
+FALL_HOURS = 16
 
 
 def _digest(tensors) -> str:
     h = hashlib.sha1()
     for t in tensors:
-        h.update(t.contiguous().view(-1).cpu().numpy().tobytes())
+        if t is not None:
+            h.update(t.contiguous().view(-1).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -72,23 +103,176 @@ def _device_us(fn, calls: int = 5) -> dict:
     return out
 
 
-def worker(root: str, hosts: int, hours: int, sketch_hours: int, reps: int, tql: bool,
-           prof: bool) -> None:
-    sys.path.insert(0, root)
-    sys.modules.setdefault("jax", None)
+def _profiled(fn) -> dict:
+    """What one call launches on the card: {"device_us": per kernel,
+    "device_sum_us": their sum, "library_sorts": names of library sort
+    kernels among them}."""
+    us = _device_us(fn)
+    # the kernel's name alone ("void ns::k<T>(A, B)" -> "ns::k"): the port's
+    # own sort takes a RadixPlan argument
+    names = {k: k.split("(")[0].split("<")[0].split(" ")[-1] for k in us}
+    return {"device_us": us, "device_sum_us": sum(us.values()),
+            "library_sorts": [k for k in us if any(s in names[k] for s in LIBRARY_SORT_NAMES)]}
+
+
+def _state(st) -> list:
+    return [st.sums, st.counts, st.mins, st.maxs]
+
+
+def _enqueue_us(fn, reps: int) -> float:
+    """Host microseconds per call to enqueue fn() (no sync inside): where it
+    exceeds the CUDA-event time, back-to-back calls wait on the host."""
     import torch
 
-    import chip_smoke as c
-    from greptimedb_tpu_torch.kernels import build_all
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def blocked_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -> None:
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+
+    n, codes, ts, valid, vals = c.tsbs_planes(hosts, hours, 10, dev)
+    card = 1 << (max(hosts, 1) - 1).bit_length()
+    lo, hi = c.T0, c.T0 + hours * c.H3600
+    G = card * hours
+
+    def ids(valid, ts, codes):
+        return flt.mask_gids(valid, [(ts, ">=", lo), (ts, "<", hi)], [], [(codes, card)],
+                             (ts, c.T0, c.H3600, hours), G - 1)
+
+    def case(name, fn, outs, **kw):
+        emit(name, c._timed(fn, reps), _digest(outs), enqueue_us=_enqueue_us(fn, reps), **kw,
+             **(_profiled(fn) if prof else {}))
+
+    gids, mask = ids(valid, ts, codes)
+    for C in (1, 5, 10):
+        cols, masks = vals[:C], [mask] * C
+
+        def k2():
+            return agg.segment_reduce_blocked(cols, gids, masks, mask, G, AGGS)
+
+        case(f"K2 C={C}", k2, _state(k2()[1]), rows=n, groups=G)
+
+    # the tile path's planes: padded to a multiple of 4096 rows
+    npad = pad_rows(n)
+    codes, ts = c._padded(codes, npad, 0), c._padded(ts, npad, 0)
+    valid = c._padded(valid, npad, False)
+    vals = [c._padded(v, npad, 0.0) for v in vals]
+    gids, mask = ids(valid, ts, codes)
+    lcols = [agg.quantize_limbs(v) for v in vals]
+    for C in (1, 10):
+        def k6():
+            return agg.limb_segment_sums(lcols[:C], gids, mask, G)
+
+        case(f"K6 C={C}", k6, list(k6()), rows=npad, groups=G)
+
+    def multi():
+        return agg.segment_aggregate_multi(vals, gids, G, AGGS, [mask] * 10, mask)
+
+    case("K2+K18+K3 C=10", multi, _state(multi()), rows=npad, groups=G)
+
+    # the kernels whose launch geometry changed beside them: K3 (open) at C =
+    # 1 and 10, K18 over minute buckets (G = 720: one pass), K14 over ts
+    from greptimedb_tpu_torch.ops import permute as perm
+
+    for C in (1, 10):
+        def k3():
+            return agg.segment_reduce_scatter(vals[:C], gids, [mask] * C, mask, G, AGGS)
+
+        case(f"K3 C={C}", k3, _state(k3()), rows=npad, groups=G)
+    n_min = hours * 60
+    gm, mm = flt.mask_gids(valid, [(ts, "<", hi)], [], [], (ts, c.T0, 60_000, n_min), n_min - 1)
+
+    def k18():
+        return agg.sort_segments(gm, mm, n_min)
+
+    case("K18 G=720", k18, list(k18()), rows=npad, groups=n_min)
+
+    def k14():
+        return perm.ts_argsort([ts], [valid])
+
+    case("K14", k14, [k14()], rows=npad)
+    del gm, mm
+
+    gl, ml = flt.mask_gids(valid, [], [], [(codes, card)], None, card - 1)
+    _v, _s, base_l = agg.segment_reduce_blocked([vals[0]], gl, [ml], ml, card, ("count",))
+
+    def k4():
+        return agg.segment_last(vals[0], ts, gl, ml, card, base=base_l)
+
+    case("K4 blocked", k4, list(k4()), rows=npad, groups=card)
+
+    # falling bases: hour alone over FALL_HOURS of host-major rows
+    del codes, ts, valid, vals, lcols, gids, mask, gl, ml
+    torch.cuda.empty_cache()
+    n, codes, ts, valid, vals = c.tsbs_planes(hosts, FALL_HOURS, 10, dev)
+    npad = pad_rows(n)
+    codes, ts = c._padded(codes, npad, 0), c._padded(ts, npad, 0)
+    valid = c._padded(valid, npad, False)
+    vals = [c._padded(v, npad, 0.0) for v in vals]
+    # column 0 in blocks of other magnitudes: their K5 scales differ, so a
+    # group's sum rounds and the fold's order shows in K6's bytes
+    gen = torch.Generator(device=dev).manual_seed(c.SEED + 12)
+    mag = torch.exp(torch.rand(npad // agg.BLOCK_ROWS, generator=gen, device=dev,
+                               dtype=torch.float64) * 40.0 - 20.0)
+    vals[0] = vals[0] * mag.repeat_interleave(agg.BLOCK_ROWS)
+    lcols = [agg.quantize_limbs(v) for v in vals]
+    H = FALL_HOURS
+    gh, mh = flt.mask_gids(valid, [], [], [], (ts, c.T0, c.H3600, H), H - 1)
+    ok, pbase = agg.block_guard_plain(gh, mh, H)
+    falls = int((pbase[1:] < pbase[:-1]).sum())
+
+    def k2h():
+        return agg.segment_reduce_blocked(vals, gh, [mh] * 10, mh, H, AGGS)
+
+    verdict, k2_st, base_h = k2h()
+    p2 = agg.segment_reduce_blocked_plain(vals, gh, [mh] * 10, mh, H, AGGS)[1]
+    try:
+        c._check_state(k2_st, p2, "K2 falling")
+        k2_ok = True
+    except AssertionError as e:
+        k2_ok = str(e)
+    case("K2 falling C=10", k2h, _state(k2_st), rows=npad, groups=H, guard=bool(ok),
+         falls=falls, passed=c._passed(verdict), plain=k2_ok)
+
+    def k6h():
+        return agg.limb_segment_sums(lcols, gh, mh, H)
+
+    got = k6h()
+    host = torch.device("cpu")
+    want = agg.limb_segment_sums_plain([(lb.to(host), s.to(host)) for lb, s in lcols],
+                                       gh.to(host), mh.to(host), H)
+    same = [c._same_bytes(a.cpu() if a is not None else None, b) for a, b in zip(got, want)]
+    case("K6 falling C=10", k6h, list(got), rows=npad, groups=H,
+         plain_bytes=dict(zip(("sums", "errs", "counts", "presence"), same)))
+
+    def k4h():
+        return agg.segment_last(vals[0], ts, gh, mh, H, base=base_h)
+
+    got4 = k4h()
+    want4 = agg.segment_last_plain(vals[0], ts, gh, mh, H, base=base_h)
+    case("K4 falling", k4h, list(got4), rows=npad, groups=H,
+         plain_bytes=all(c._same_bytes(a, b) for a, b in zip(got4, want4)))
+
+
+def range_hll_cases(c, hosts: int, hours: int, sketch_hours: int, reps: int, tql: bool,
+                    prof: bool, emit) -> None:
+    import torch
+
     from greptimedb_tpu_torch.ops import rate as R
     from greptimedb_tpu_torch.ops import sketch as sk
 
-    build_all(("strip_counter_resets", "range_windows", "segment_hll"))
     dev = torch.device("cuda", 0)
-
-    def emit(case, ms, digest, **kw):
-        print(json.dumps({"case": case, "ms": ms, "bytes": digest, **kw}), flush=True)
-
     # K10 at phase 3c's shapes
     n, npad, codes, ts, vals, present, valid = c.prom_planes(hosts, hours, dev)
     s_pad = 1 << (max(hosts, 1) - 1).bit_length()
@@ -111,7 +295,7 @@ def worker(root: str, hosts: int, hours: int, sketch_hours: int, reps: int, tql:
 
         st, pres = run()
         emit(f"K10 k={k}", c._timed(run, reps), _digest(st.tensors() + (pres,)),
-             **({"device_us": _device_us(run)} if prof else {}))
+             **(_profiled(run) if prof else {}))
         del st, pres
     del codes, ts, vals, present, valid, adj
     torch.cuda.empty_cache()
@@ -142,7 +326,7 @@ def worker(root: str, hosts: int, hours: int, sketch_hours: int, reps: int, tql:
         got = sk.segment_hll(*args)
         emit(name, c._timed(lambda: sk.segment_hll(*args), reps), _digest([got]),
              library_ms=c._timed(c._library_call("hll", args, dev), reps), rows=rows,
-             **({"device_us": _device_us(lambda: sk.segment_hll(*args))} if prof else {}))
+             **(_profiled(lambda: sk.segment_hll(*args)) if prof else {}))
         del got
         torch.cuda.empty_cache()
 
@@ -155,9 +339,45 @@ def worker(root: str, hosts: int, hours: int, sketch_hours: int, reps: int, tql:
              stage_ms=t3["warm_stage_p50_ms"])
 
 
+def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps: int,
+           tql: bool, prof: bool) -> None:
+    sys.path.insert(0, root)
+    sys.modules.setdefault("jax", None)
+    import chip_smoke as c
+    from greptimedb_tpu_torch.kernels import build_all
+
+    build_all(SOURCES[kset] + (("mask_gids", "quantize_limbs", "segment_reduce_scatter",
+                                "segment_sort") if kset == "blocked" else ()))
+
+    def emit(case, ms, digest, **kw):
+        print(json.dumps({"case": case, "ms": ms, "bytes": digest, **kw}), flush=True)
+
+    if kset == "blocked":
+        import torch
+
+        blocked_cases(c, hosts, hours, reps, prof, emit, torch.device("cuda", 0))
+    else:
+        range_hll_cases(c, hosts, hours, sketch_hours, reps, tql, prof, emit)
+
+
+def resource_usage(root: str, kset: str) -> dict:
+    """{source: nvcc --resource-usage output} of the set's sources in root."""
+    from greptimedb_tpu_torch.kernels._build import NVCC_FLAGS, nvcc_path
+
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = {}
+    for name in SOURCES[kset]:
+        src = os.path.join(root, "greptimedb_tpu_torch", "csrc", f"{name}.cu")
+        proc = subprocess.run([nvcc_path(), *flags, "--resource-usage", "-c", "-o", os.devnull, src],
+                              capture_output=True, text=True)
+        out[name] = (proc.stdout + proc.stderr).strip()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout (the root of its tree)")
+    ap.add_argument("--set", dest="kset", choices=sorted(SOURCES), default="blocked")
     ap.add_argument("--hosts", type=int, default=4000)
     ap.add_argument("--hours", type=int, default=12)
     ap.add_argument("--sketch-hours", type=int, default=12)
@@ -167,8 +387,8 @@ def main() -> int:
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.hosts, args.hours, args.sketch_hours, args.reps, args.tql,
-               args.profile)
+        worker(args.worker, args.kset, args.hosts, args.hours, args.sketch_hours, args.reps,
+               args.tql, args.profile)
         return 0
     import torch
 
@@ -177,14 +397,18 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    sys.path.insert(0, ROOT)
     other = os.path.abspath(args.other)
     turns = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)]
+    for label, root in turns[:2]:
+        print(json.dumps({"tree": label, "resource_usage": resource_usage(root, args.kset)}),
+              flush=True)
     ms: dict[str, dict[str, list]] = {}
     digests: dict[str, set] = {}
     for i, (label, root) in enumerate(turns):
         # T3 once per checkout: the TQL slice ingests 34.56 M rows
         tql = args.tql and i in (1, 3)
-        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root,
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root, "--set", args.kset,
                "--hosts", str(args.hosts), "--hours", str(args.hours),
                "--sketch-hours", str(args.sketch_hours), "--reps", str(args.reps)]
         cmd += ["--profile"] if args.profile else []
@@ -207,7 +431,7 @@ def main() -> int:
     print(json.dumps({
         "ms": {case: {label: sum(v) / len(v) for label, v in per.items()}
                for case, per in ms.items()},
-        "same_bytes": all(len(d) == 1 for d in digests.values()),
+        "same_bytes": {case: len(d) == 1 for case, d in digests.items()},
     }), flush=True)
     return 0
 
