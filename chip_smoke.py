@@ -226,6 +226,7 @@ device is present or when it runs outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import os
@@ -469,7 +470,9 @@ def launch_counts() -> dict[str, int]:
 def reset_counts() -> None:
     for fn, _s, _r in kernel_table().values():
         fn.launches = 0
+    kernel_table()["fold_states"][0].merges = 0
     SHAPES.clear()
+    K22_PLANNED.update(planned=0, made=0)
 
 
 def _rows_bucket(n: int) -> str:
@@ -480,24 +483,44 @@ def _rows_bucket(n: int) -> str:
 # Launches per shape of the kernels whose time depends on it: (kernel, C
 # entry point) -> the shape of one launch, from its argument struct.  Each
 # wrapper launches that entry point once a call (K2 and K6 once per 32 and
-# 16 columns).
+# 16 columns; K22 once a merge, or as its launch plan splits it; K12 per
+# form: tw = 0 the cell form).
 SHAPED = {
     ("segment_reduce_blocked", "gt_blocked_partials"): lambda a: f"C={a.n_cols}",
     ("segment_reduce_scatter", "gt_scatter_reduce"): lambda a: f"C={a.n_cols}",
     ("limb_segment_sums", "gt_limb_partials"): lambda a: f"C={a.n_cols}",
     ("range_windows", "gt_range_windows"): lambda a: f"k={a.k}",
-    ("fold_states", "gt_fold_states"): lambda a: f"sources={a.m} rows<={_rows_bucket(a.rows)}",
+    ("fold_states", "gt_fold_states"): lambda a: (f"sources={a.m} keys={a.n_keys} "
+                                                  f"rows<={_rows_bucket(a.total_rows)}"),
+    ("series_fold", "gt_series_fold"): lambda a: f"tw={a.tw}",
     ("segment_sort", "gt_segment_sort"): lambda a: f"rows<={_rows_bucket(a.n)}",
 }
 SHAPES: dict[str, int] = {}
+# The arguments of each SHAPED entry point's last launch, and K22's
+# launches against the launches its plan makes for the same merges.
+LAST_ARGS: dict = {}
+K22_PLANNED = {"planned": 0, "made": 0}
+_K22_FIELDS = ("sums", "counts", "mins", "maxs", "last_ts", "last_val")
+
+
+def k12_last_launch() -> dict:
+    """K12's form, tw and CTAs as its last launch's arguments give them
+    (the grid as csrc/series_fold.cu's gt_series_fold computes it)."""
+    a = LAST_ARGS["series_fold"]
+    grid = (a.n_groups * -(-a.n_steps // a.tw) if a.tw
+            else -(-(a.n_groups * a.n_steps) // 256))
+    return {"form": "staged" if a.tw else "cells", "tw": int(a.tw), "grid": int(grid)}
 
 
 def count_shapes() -> None:
     """Count the launches of SHAPED's entry points by shape (K2/K3/K6 per
     column count C, K10 per k, K22 per sources and rows, K18 per rows) from
     here on: a wrapper around the port's one launch function, which every
-    wrapper looks up when it is called."""
+    wrapper looks up when it is called.  Each K22 merge must launch as
+    often as `fold_launch_plan` says for it: a wrapper around the merge
+    counts both and fails where they differ."""
     from greptimedb_tpu_torch.kernels import _build
+    from greptimedb_tpu_torch.ops import aggregate as agg
 
     launch = _build.launch
     if getattr(launch, "counts_shapes", False):
@@ -508,10 +531,29 @@ def count_shapes() -> None:
         if shape is not None:
             key = f"{name} {shape(args)}"
             SHAPES[key] = SHAPES.get(key, 0) + 1
+            LAST_ARGS[name] = args
         return launch(name, fn, args, stream)
+
+    fold_on_card = agg._fold_on_card
+    plans = functools.lru_cache(maxsize=256)(
+        lambda keys, m, n_order: len(agg.fold_launch_plan(keys, m, n_order)))
+
+    def merge(dev, didx, items, m, n_local, order, *rest):
+        planned = plans(tuple((key, tuple(f for f in _K22_FIELDS if f in per))
+                              for key, per, _k in items), m, len(order))
+        l0 = agg.fold_states.launches
+        out = fold_on_card(dev, didx, items, m, n_local, order, *rest)
+        made = agg.fold_states.launches - l0
+        if made != planned:
+            raise AssertionError(f"K22 merge of {len(items)} keys x {m} sources: {made} "
+                                 f"launches, its plan makes {planned}")
+        K22_PLANNED["planned"] += planned
+        K22_PLANNED["made"] += made
+        return out
 
     counted.counts_shapes = True
     _build.launch = counted
+    agg._fold_on_card = merge
 
 
 def shape_counts() -> dict[str, int]:
@@ -3283,30 +3325,97 @@ def run_tql_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
                      plain_ms=_timed(lambda: R.range_finalize_plain([stats5], g5, "rate"), 1),
                      bound_ms=b11, bound_by=b11by, library_ms=None)
 
-    # K12: sum (T2's G = 1) and max by nothing, and sum by hostname (G = S)
+    # K12: sum (T2's G = 1) and max by nothing, and sum by hostname (G = S),
+    # in the form its plan picks and in both forms (the same bytes)
     mat = R.range_finalize([stats5], g5, "rate").view(s_pad, w_pad)
     folds = {}
     for keep in ((), (0,)):
         offsets, members = (torch.from_numpy(x).to(dev) for x in R.group_csr((s_pad,), keep))
         G = int(offsets.shape[0]) - 1
+        forms = k12_forms(offsets, members, mat)
         for op in ("sum", "max", "avg", "count"):
-            a = _twice_identical(lambda: R.series_fold(mat, offsets, members, op), f"fold {op}")
-            _same_f64(a, R.series_fold_plain(mat, offsets, members, op), f"series_fold {op}")
+            want = R.series_fold_plain(mat, offsets, members, op)
+            for form, fn in forms.items():
+                a = _twice_identical(lambda: fn(op), f"fold {op} {form}")
+                _same_f64(a, want, f"series_fold {op} ({form} form)")
         gid = torch.from_numpy(R.gid_map((s_pad,), keep)).to(dev)
         zeroed = torch.nan_to_num(mat, nan=0.0)
         lib = _timed(lambda: torch.zeros((G, w_pad), dtype=torch.float64, device=dev)
                      .index_add_(0, gid, zeroed), reps)
         # the [S, W] matrix read once, [G, W] written, the CSR read
         b12, b12by = bound(cells * 8 + G * w_pad * 8 + (G + 1 + s_pad) * 8, cells * 2)
-        folds[G] = dict(max_abs_err=0.0,
-                        ms=_timed(lambda: R.series_fold(mat, offsets, members, "sum"), reps),
+        ms = _timed(lambda: R.series_fold(mat, offsets, members, "sum"), reps)
+        launched = k12_last_launch()  # the form, tw and CTAs of the timed calls
+        folds[G] = dict(max_abs_err=0.0, ms=ms,
                         plain_ms=_timed(lambda: R.series_fold_plain(mat, offsets, members, "sum"),
                                         1),
-                        bound_ms=b12, bound_by=b12by, library_ms=lib)
-    out[_FOLD] = dict(folds[1], by_series=folds[s_pad])
+                        bound_ms=b12, bound_by=b12by, library_ms=lib, **launched,
+                        **{f"{f}_ms": _timed(lambda: forms[f]("sum"), reps)
+                           for f in ("cells", "staged")})
+    out[_FOLD] = dict(folds[1], by_series=folds[s_pad],
+                      order_sensitive=run_fold_order_case(dev, s_pad, w_pad))
     del codes, ts, vals, present, valid, sid, ts_ms, vf, inf, adj, adj_p, stats5, mat
     torch.cuda.empty_cache()
     run_tql_edge_cases(dev)
+    return out
+
+
+def k12_forms(offsets, members, mat) -> dict:
+    """K12 over one CSR in the form its plan picks and in each form forced
+    (the cell form, the staged form at the tile the plan would give it):
+    {form: op -> result}."""
+    from greptimedb_tpu_torch.ops import rate as R
+
+    G, W = int(offsets.shape[0]) - 1, int(mat.shape[1])
+    return {"planned": lambda op: R.series_fold(mat, offsets, members, op),
+            "cells": lambda op: R._series_fold_launch(mat, offsets, members, op, 0),
+            "staged": lambda op: R._series_fold_launch(mat, offsets, members, op,
+                                                       R._staged_tile(G, W))}
+
+
+def run_fold_order_case(dev, s_pad: int, w_pad: int) -> dict:
+    """K12 on an order-sensitive matrix: values of mixed magnitude (1e-8 to
+    1e8, both signs) with NaN holes over [s_pad, w_pad], where a pairwise
+    sum of a column gives other bytes than the left fold: every form at G =
+    1, 2, 16 and 64 (the staged form at tw 8, 16 and 32, and the cell
+    form as planned) byte for byte against the plain version.  Returns
+    the form, tw and CTAs of the planned launch at each G, read from its
+    arguments, and the columns whose pairwise sum differed."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import rate as R
+
+    rng = np.random.default_rng(SEED + 13)
+    vals = rng.standard_normal((s_pad, w_pad)) * 10.0 ** rng.integers(-8, 9, (s_pad, w_pad))
+    vals[rng.random((s_pad, w_pad)) < 0.2] = np.nan
+    mat = torch.from_numpy(vals).to(dev)
+    zeroed = torch.nan_to_num(mat, nan=0.0)
+    left = torch.zeros(w_pad, dtype=torch.float64, device=dev)
+    for r in range(s_pad):
+        left = left + zeroed[r]
+    tree = zeroed
+    while tree.shape[0] > 1:
+        half = tree.shape[0] // 2
+        tree = tree[:half] + tree[half: 2 * half]
+    differ = int((left.view(torch.int64) != tree[0].view(torch.int64)).sum())
+    if differ == 0:
+        raise AssertionError("K12 order case: a pairwise sum gives the left fold's bytes")
+    out = {"columns_order_sensitive": differ}
+    for radices, keep in (((s_pad,), ()), ((2, s_pad // 2), (0,)), ((16, s_pad // 16), (0,)),
+                          ((64, s_pad // 64), (0,))):
+        off, mem = (torch.from_numpy(x).to(dev) for x in R.group_csr(radices, keep))
+        G = int(off.shape[0]) - 1
+        forms = k12_forms(off, mem, mat)
+        for op in ("sum", "avg", "count", "max"):
+            want = R.series_fold_plain(mat, off, mem, op)
+            if G == 1 and op == "sum":
+                _same_f64(want[0], torch.where(torch.isnan(want[0]), want[0], left),
+                          "K12 order case: the plain version is not the left fold")
+            for form, fn in forms.items():
+                _same_f64(fn(op), want, f"K12 order case G = {G} {op} ({form} form)")
+        forms["planned"]("sum")
+        out[f"launch_g{G}"] = k12_last_launch()
+    emit({"phase": "kernels", "step": "k12_order", **out})
     return out
 
 
@@ -4635,36 +4744,47 @@ def run_mesh_kernel_phase(device: str, reps: int, hours: int = 6, groups: int = 
     def timed(fn):
         return _timed(fn, reps) if is_cuda else None
 
+    def merged(st, n_local, order, what, rule="fold"):
+        """One key's fold as the mesh calls K22 (`fold_state_dicts` over
+        per-source states) and in the one-key form, each twice and byte for
+        byte the plain version; ms of the first, one_key_ms of the second."""
+        per = [{"k": agg.AggState(**{f: getattr(st, f)[i] for f in _K22_FIELDS
+                                     if getattr(st, f) is not None})}
+               for i in range(st.sums.shape[0])]
+        want = agg.fold_states_plain(st, n_local, order, rule=rule)
+        for name, fn in (("merge", lambda: agg.fold_state_dicts(per, n_local, order,
+                                                                rule=rule)["k"]),
+                         ("one-key form", lambda: agg.fold_states(st, n_local, order,
+                                                                  rule=rule))):
+            _same_state_bytes(_twice_on(dev, fn, f"{what} {name}"), want, f"{what} {name}")
+        return {"ms": timed(lambda: agg.fold_state_dicts(per, n_local, order, rule=rule)),
+                "one_key_ms": timed(lambda: agg.fold_states(st, n_local, order, rule=rule))}, want
+
     # dense, at the main path's shape
     rows = groups * MESH_COLS
     st = _fold_inputs(rng, MESH_SOURCES, rows, dev)
     order = list(range(MESH_SOURCES))
-    k = _twice_on(dev, lambda: agg.fold_states(st, MESH_SOURCES, order), "K22 dense")
-    _same_state_bytes(k, agg.fold_states_plain(st, MESH_SOURCES, order), "K22 dense")
+    case, k = merged(st, MESH_SOURCES, order, "K22 dense")
     t_bound, by = bound(_state_bytes(st) + _state_bytes(k), 0)
     lib = (lambda: (st.sums.sum(0), st.counts.sum(0, dtype=torch.int32), st.mins.amin(0),
                     st.maxs.amax(0)))
     out["per_case"]["dense"] = {
-        "sources": MESH_SOURCES, "rows": rows, "ms": timed(lambda: agg.fold_states(st, MESH_SOURCES, order)),
+        "sources": MESH_SOURCES, "rows": rows, **case,
         "plain_ms": timed(lambda: agg.fold_states_plain(st, MESH_SOURCES, order)),
         "library_ms": timed(lib), "bound_ms": t_bound, "bound_by": by,
     }
     # the mesh runs' most frequent shape: 4 sources (one a slot) x 2^16 rows
     st4 = _fold_inputs(rng, MESH_SLOTS, 1 << 16, dev)
     order4 = list(range(MESH_SLOTS))
-    k4 = _twice_on(dev, lambda: agg.fold_states(st4, 1, order4), "K22 dense 4 x 2^16")
-    _same_state_bytes(k4, agg.fold_states_plain(st4, 1, order4), "K22 dense 4 x 2^16")
+    case, k4 = merged(st4, 1, order4, "K22 dense 4 x 2^16")
     b4, by4 = bound(_state_bytes(st4) + _state_bytes(k4), 0)
-    out["per_case"]["dense_4x65536"] = {
-        "sources": MESH_SLOTS, "rows": 1 << 16,
-        "ms": timed(lambda: agg.fold_states(st4, 1, order4)), "bound_ms": b4, "bound_by": by4}
+    out["per_case"]["dense_4x65536"] = {"sources": MESH_SLOTS, "rows": 1 << 16, **case,
+                                        "bound_ms": b4, "bound_by": by4}
     del st4, k4
-    # the table-fed route's rule (psum), one source per slot
-    k = _twice_on(dev, lambda: agg.fold_states(st, 1, order, rule="psum"), "K22 psum")
-    _same_state_bytes(k, agg.fold_states_plain(st, 1, order, rule="psum"), "K22 psum")
-    # the same bytes in and out as the fold rule
-    out["per_case"]["psum"] = {"ms": timed(lambda: agg.fold_states(st, 1, order, rule="psum")),
-                               "bound_ms": t_bound, "bound_by": by}
+    # the table-fed route's rule (psum), one source per slot: the same
+    # bytes in and out as the fold rule
+    case, k = merged(st, 1, order, "K22 psum", rule="psum")
+    out["per_case"]["psum"] = {**case, "bound_ms": t_bound, "bound_by": by}
     del st, k
 
     # keyed, at the container cell's slot tables
@@ -4742,6 +4862,56 @@ def run_mesh_edge_cases(dev, rng) -> list[str]:
         inv = agg.invert_slot_maps(slots.reshape(4, 4096))
         kst = _keyed_states(tables.repeat_interleave(2, dim=0), trailing, SEED + 1)
         check(kst, 2, [0, 2, 4, 6, 1, 3, 7], f"edge keyed, trailing row {trailing}", inv=inv)
+        if trailing:
+            # staged: 600 sources (560 real) over the same tables
+            kst = _keyed_states(tables.repeat_interleave(150, dim=0), True, SEED + 3)
+            korder = [s * 150 + i for i in range(140) for s in (2, 0, 3, 1)]
+            check(kst, 150, korder, "edge keyed, 560 real sources (staged)", inv=inv)
+    done += run_staged_fold_cases(dev, rng, check)
+    return done
+
+
+def run_staged_fold_cases(dev, rng, check) -> list[str]:
+    """K22 past its descriptor, byte for byte against the plain version and
+    twice: 640 sources at 8 slots x 80, 600 real (more real sources than
+    the descriptor's 512; 3846 pointers), under both rules; 1000 sources
+    at 4 x 250 with 300 real (the pointers alone past its 3734); and a
+    merge of three keys at 700 sources whose middle key alone passes the
+    descriptor: three launches, as `fold_launch_plan` makes them, the
+    middle one staged."""
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    done = []
+    st = _fold_inputs(rng, 640, 4099, dev, edge=True)
+    order = [s * 80 + i for i in range(75) for s in (3, 1, 4, 0, 6, 2, 7, 5)]
+    check(st, 80, order, "staged dense, 600 of 640 sources")
+    check(st, 1, list(range(640)), "staged dense, 640 sources, psum rule", rule="psum")
+    del st
+    st = _fold_inputs(rng, 1000, 1031, dev, edge=True)
+    check(st, 250, [s * 250 + i for s in range(4) for i in range(75)],
+          "staged dense, 300 of 1000 sources")
+    del st
+    st = _fold_inputs(rng, 700, 2053, dev, edge=True)
+    order = list(range(0, 700, 2))
+    per = [{"a": agg.AggState(sums=st.sums[i]),
+            "b": agg.AggState(**{f: getattr(st, f)[i] for f in _K22_FIELDS}),
+            "c": agg.AggState(counts=st.counts[i])} for i in range(700)]
+    plan = agg.fold_launch_plan([("a", ("sums",)), ("b", _K22_FIELDS), ("c", ("counts",))],
+                                700, len(order))
+    if [agg.fold_launch_staged(u, 700, len(order)) for u in plan] != [False, True, False]:
+        raise AssertionError(f"K22 staged merge: plan {plan}")
+    l0 = agg.fold_states.launches
+    got = agg.fold_state_dicts(per, 1, order)
+    if dev.type == "cuda" and agg.fold_states.launches - l0 != len(plan):
+        raise AssertionError(f"K22 staged merge: {agg.fold_states.launches - l0} launches, "
+                             f"its plan makes {len(plan)}")
+    again = agg.fold_state_dicts(per, 1, order)
+    for key, fields_ in (("a", ("sums",)), ("b", _K22_FIELDS), ("c", ("counts",))):
+        want = agg.fold_states_plain(agg.AggState(**{f: getattr(st, f) for f in fields_}), 1,
+                                     order)
+        _same_state_bytes(got[key], want, f"K22 staged merge {key}")
+        _same_state_bytes(again[key], want, f"K22 staged merge {key}, second run")
+    done.append("staged merge, 3 keys x 700 sources, the middle one staged")
     return done
 
 
@@ -4786,9 +4956,11 @@ def run_mesh_region(db, tsbs: Tsbs, is_cuda: bool, reps: int = 3) -> dict:
         per_query[name] = {"p50_ms_mesh0": p50[0], "p50_ms_mesh1": p50[1],
                            "multichip": name in MULTICHIP}
     totals, shapes = launch_counts(), shape_counts()
+    merges = k22_per_merge(shapes)
     emit({"phase": "mesh", "step": "b_region", "queries": per_query,
-          "k22_launches": totals[_K22]})
-    return {"queries": per_query, "launches": totals, "shape_launches": shapes}
+          "k22_launches": totals[_K22], **merges})
+    return {"queries": per_query, "launches": totals, "shape_launches": shapes,
+            "merges": merges}
 
 
 def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) -> dict:
@@ -4859,6 +5031,18 @@ def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: 
     db.config.query.agg_strategy = "auto"
     db.config.query.device_topk = True
     tile_launches, tile_shapes = launch_counts(), shape_counts()
+    merges = k22_per_merge(tile_shapes)
+    emit({"phase": "mesh", "step": "c_tile_merges", **merges})
+
+    # one TSBS mesh query's whole merge at 4 slots, dense (sort) and keyed
+    # (hash), replayed from the state dicts its run folded
+    whole = {}
+    for strategy in ("sort", "hash"):
+        db.config.query.agg_strategy = strategy
+        call = capture_merge(db, queries["double-groupby-all"], MESH_SLOTS)
+        whole[strategy] = run_whole_merge_case(call, is_cuda, reps)
+    db.config.query.agg_strategy = "auto"
+    emit({"phase": "mesh", "step": "c_whole_merge", **whole})
 
     # the table-fed route over the 4 slots (tile cache off)
     db.config.query.tile_cache_enable = False
@@ -4878,19 +5062,115 @@ def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: 
         table_fed[name] = {"ms": ms, "cpu_ms": cpu_ms, "max_rel_err": rel}
     db.config.query.tile_cache_enable = True
     table_launches, table_shapes = launch_counts(), shape_counts()
+    merges = {"tile": merges, "table_fed": k22_per_merge(table_shapes)}
 
     # TQL: a counter over 4 regions, sum(rate(...)) through the mesh
     tql = run_mesh_tql(db, n_hosts, is_cuda)
     reset_counts()
     db.close()
     out = {"rows": n_rows, "ingest_s": ingest_s, "cases": per_case, "table_fed": table_fed,
-           "tql": tql, "launches": {k: tile_launches[k] + table_launches[k] + tql["launches"][k]
-                                    for k in tile_launches},
+           "tql": tql, "whole_merge": whole, "merges": merges,
+           "launches": {k: tile_launches[k] + table_launches[k] + tql["launches"][k]
+                        for k in tile_launches},
            "shape_launches": _summed(tile_shapes, table_shapes, tql["shape_launches"])}
     emit({"phase": "mesh", "step": "c_partitioned", "rows": n_rows, "ingest_s": ingest_s,
           "cases": per_case, "table_fed": table_fed, "tql": {k: v for k, v in tql.items()
                                                             if k != "launches"},
-          "k22_launches": out["launches"][_K22]})
+          "k22_launches": out["launches"][_K22], "k22_per_merge": merges})
+    return out
+
+
+def k22_per_merge(shapes: dict[str, int]) -> dict:
+    """K22's fold launches (the invert apart) against the merges that made
+    them and the launches their plans make, since the counts were last set
+    to 0; fails where the launches are not the planned ones."""
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    folds = sum(v for k, v in shapes.items() if k.startswith("fold_states "))
+    merges = agg.fold_states.merges
+    if folds != K22_PLANNED["planned"] or folds != K22_PLANNED["made"]:
+        raise AssertionError(f"K22: {folds} fold launches, {K22_PLANNED['made']} in merges, "
+                             f"{K22_PLANNED['planned']} planned")
+    return {"k22_fold_launches": folds, "k22_merges": merges,
+            "k22_planned_launches": K22_PLANNED["planned"],
+            "k22_launches_per_merge": folds / merges if merges else None}
+
+
+def capture_merge(db, sql: str, slots: int):
+    """Run `sql` at mesh_devices = slots and return the arguments of its
+    largest K22 merge (most sources x keys): (states by source, n_local,
+    order, keyword arguments)."""
+    from greptimedb_tpu_torch.parallel import tile_program as tp
+
+    seen = []
+    fold = tp.fold_state_dicts
+
+    def hook(states, n_local, order, **kw):
+        seen.append((states, n_local, list(order), kw))
+        return fold(states, n_local, order, **kw)
+
+    tp.fold_state_dicts = hook
+    db.config.tile.mesh_devices = slots
+    try:
+        db.sql_one(sql)
+    finally:
+        tp.fold_state_dicts = fold
+        db.config.tile.mesh_devices = 0
+    if not seen:
+        raise AssertionError("the mesh query made no K22 merge")
+    return max(seen, key=lambda c: len(c[0]) * len(c[0][0]))
+
+
+def run_whole_merge_case(call, is_cuda: bool, reps: int) -> dict:
+    """A captured merge through `fold_state_dicts`: twice the same bytes,
+    and byte for byte `fold_states_plain` key by key; its launches, its
+    time beside the one-key form's per-key loop and its bound (each input
+    read once, keyed keys only their slots' occupied rows, each slot map
+    once, the outputs written once)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    states, n_local, order, kw = call
+    inv, dense = kw.get("inv"), kw.get("dense_keys", ())
+    dev = torch.device(kw["dev"])
+    l0 = agg.fold_states.launches
+    got = agg.fold_state_dicts(states, n_local, order, **kw)
+    launches = agg.fold_states.launches - l0
+    plan = agg.fold_launch_plan([(key, tuple(f for f in _K22_FIELDS if getattr(st, f) is not None))
+                                 for key, st in states[0].items()], len(states), len(order))
+    if is_cuda and launches != len(plan):
+        raise AssertionError(f"whole merge: {launches} K22 launches, its plan makes {len(plan)}")
+    again = agg.fold_state_dicts(states, n_local, order, **kw)
+    nbytes = 0 if inv is None else inv.numel() * 4
+    occupied = None if inv is None else (inv >= 0).sum(1).tolist()
+    for key in states[0]:
+        keyed = inv is not None and key not in dense
+        want = agg.fold_states_plain(agg.stack_states([s[key] for s in states], dev), n_local,
+                                     order, inv if keyed else None, kw.get("rule", "fold"))
+        for name, a, b, c in zip(_K22_FIELDS, _state_tensors(got[key]), _state_tensors(again[key]),
+                                 _state_tensors(want)):
+            if not (_same_bytes(a, c) and _same_bytes(a, b)):
+                raise AssertionError(f"whole merge {key}.{name}: K22 and its plain version differ")
+            if a is None:
+                continue
+            rows = a.numel()
+            if keyed:
+                per = [occupied[m // n_local] + (rows - inv.shape[1]) for m in range(len(states))]
+                nbytes += sum(per) * a.element_size()
+            else:
+                nbytes += len(states) * rows * a.element_size()
+            nbytes += rows * a.element_size()
+    b, by = bound(nbytes, 0)
+    out = {"sources": len(states), "keys": len(states[0]), "keyed": inv is not None,
+           "launches": launches, "bound_ms": b, "bound_by": by}
+    if is_cuda:
+        out["ms"] = _timed(lambda: agg.fold_state_dicts(states, n_local, order, **kw), reps)
+        out["per_key_loop_ms"] = _timed(lambda: {
+            key: agg.fold_states(agg.stack_states([s[key] for s in states], dev), n_local, order,
+                                 inv if inv is not None and key not in dense else None,
+                                 kw.get("rule", "fold"))
+            for key in states[0]}, reps)
     return out
 
 
@@ -5139,9 +5419,10 @@ def main(argv=None) -> int:
                 "launches": launches, "max_abs_err": 0.0, "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "sources": s["sources"], "rows": s["rows"],
-                "per_case": s["per_case"],
+                "per_case": dict(s["per_case"], whole_merge=mc["whole_merge"]),
                 "launches_by_shape": by_shape(_summed(sl["mesh"]["shape_launches"],
                                                       mc["shape_launches"]), name),
+                "per_merge": {"region": sl["mesh"]["merges"], "partitioned": mc["merges"]},
             })
             continue
         if name in ("segment_hll", "segment_udd"):
@@ -5190,7 +5471,10 @@ def main(argv=None) -> int:
                 "launches": launches, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "legacy_launches": tq["legacy_launches"][name],
-                **{k: s[k] for k in ("k64", "by_series") if k in s},
+                **{k: s[k] for k in ("k64", "by_series", "form", "tw", "grid", "cells_ms",
+                                     "staged_ms", "order_sensitive") if k in s},
+                **({"launches_by_tw": by_shape(tq["shape_launches"], name)}
+                   if name == _FOLD else {}),
                 **({"launches_by_k": by_shape(tq["shape_launches"], name),
                     "legacy_launches_by_k": by_shape(tq["legacy_shape_launches"], name)}
                    if name == _WIN else {}),

@@ -60,6 +60,7 @@ import ctypes
 import decimal
 import functools
 import math
+import struct
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -2221,24 +2222,267 @@ def invert_slot_maps_plain(slot_map: torch.Tensor) -> torch.Tensor:
     return inv
 
 
-class _FoldField(ctypes.Structure):
-    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p), ("kind", ctypes.c_int32),
-                ("dtype", ctypes.c_int32)]
+# The descriptor of one K22 launch (csrc/fold_states.cu's FoldDesc), passed
+# by value in the kernel's parameter space: its capacity fills sm_90's
+# 32,764 bytes.  Field f of a key is bit f of `present`, in _FOLD_FIELDS
+# order; per present field `ptrs` holds its output, then its M sources.  A
+# staged launch (more real sources or pointers than the descriptor holds)
+# has its pointers, each real source's row of inv and `order` in a device
+# table (`table`) instead.
+_FOLD_FIELDS = ("sums", "counts", "mins", "maxs", "last_ts", "last_val")
+_FOLD_MAX_KEYS = 64
+_FOLD_MAX_ORDER = 512
+_FOLD_MAX_PTRS = 3734
+_FOLD_THREADS = 256
+_FOLD_ALIGN = 16  # between the merge's outputs of one type and the next
+_FOLD_ELEM = {torch.float64: 8, torch.float32: 4, torch.int64: 8, torch.int32: 4}
+_FOLD_KEY = struct.Struct("<qiBB4B6x")  # a _FoldKey
 
 
-class _FoldStatesArgs(ctypes.Structure):
+class _FoldKey(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_int64), ("ptr0", ctypes.c_int32), ("present", ctypes.c_uint8),
+                ("keyed", ctypes.c_uint8), ("dtype", ctypes.c_uint8 * 4),
+                ("reserved", ctypes.c_uint8 * 6)]
+
+
+class _FoldDesc(ctypes.Structure):
     _fields_ = [
-        ("fields", _FoldField * 4), ("last_ts", ctypes.c_void_p), ("last_val", ctypes.c_void_p),
-        ("out_last_ts", ctypes.c_void_p), ("out_last_val", ctypes.c_void_p),
-        ("order", ctypes.c_void_p), ("inv", ctypes.c_void_p), ("rows", ctypes.c_int64),
-        ("h", ctypes.c_int64), ("m", ctypes.c_int32), ("n_local", ctypes.c_int32),
-        ("n_order", ctypes.c_int32), ("rule", ctypes.c_int32),
+        ("desc_bytes", ctypes.c_int32), ("n_keys", ctypes.c_int32), ("m", ctypes.c_int32),
+        ("n_local", ctypes.c_int32), ("n_order", ctypes.c_int32), ("rule", ctypes.c_int32),
+        ("n_ptrs", ctypes.c_int32), ("n_slots", ctypes.c_int32), ("h", ctypes.c_int64),
+        ("total_rows", ctypes.c_int64), ("n_blocks", ctypes.c_int64), ("inv", ctypes.c_void_p),
+        ("table", ctypes.c_void_p),
+        ("blk_end", ctypes.c_uint32 * _FOLD_MAX_KEYS), ("keys", _FoldKey * _FOLD_MAX_KEYS),
+        ("order", ctypes.c_uint16 * _FOLD_MAX_ORDER), ("ptrs", ctypes.c_void_p * _FOLD_MAX_PTRS),
     ]
 
 
 class _InvertArgs(ctypes.Structure):
     _fields_ = [("slot_map", ctypes.c_void_p), ("inv", ctypes.c_void_p), ("h", ctypes.c_int64),
                 ("d", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+
+
+_FOLD_PTRS_AT = _FoldDesc.ptrs.offset
+
+
+def fold_launch_plan(keys, m: int, n_order: int) -> list[list[tuple[str, tuple]]]:
+    """K22's launches for one merge (a pure function of its shape).
+
+    keys: (key, fields) in the merge's key order, `fields` the names of
+    the key's present fields; m: the sources; n_order: the real ones.
+    Returns the launches, each a list of whole keys (key, fields) in key
+    order.  A launch closes at the descriptor's 64 keys, or where the next
+    key would pass its 3734 pointers (one output and m sources a field); a
+    key past them alone has a launch of its own.  Past the descriptor's
+    512 real sources every launch is staged (`fold_launch_staged`) and only
+    the key cap closes one."""
+    per = int(m) + 1
+    by_keys = n_order > _FOLD_MAX_ORDER
+    launches, cur, used = [], [], 0
+    for key, fields_ in keys:
+        need = len(fields_) * per
+        if cur and (len(cur) == _FOLD_MAX_KEYS or (not by_keys and used + need > _FOLD_MAX_PTRS)):
+            launches.append(cur)
+            cur, used = [], 0
+        cur.append((key, tuple(fields_)))
+        used += need
+    if cur:
+        launches.append(cur)
+    return launches
+
+
+def fold_launch_staged(units, m: int, n_order: int) -> bool:
+    """Whether a launch of `fold_launch_plan` passes the descriptor, so that
+    its pointers, rows of inv and `order` go in a device table."""
+    return (n_order > _FOLD_MAX_ORDER
+            or sum(len(f) for _k, f in units) * (int(m) + 1) > _FOLD_MAX_PTRS)
+
+
+def _fold_args_check(m: int, n_local: int, order, rule: str) -> list[int]:
+    order = [int(k) for k in order]
+    if n_local < 1 or m % n_local or not order:
+        raise ValueError(f"fold of {m} sources at {n_local} per slot, {len(order)} real")
+    if rule not in _FOLD_RULES:
+        raise ValueError(f"fold rule {rule!r}: use 'fold' or 'psum'")
+    if min(order) < 0 or max(order) >= m:
+        raise ValueError(f"fold order {order} names a source outside the {m} sources")
+    return order
+
+
+def _fold_on_card(dev, didx: int, items, m: int, n_local: int, order, inv, rule: str,
+                  stream: int) -> dict:
+    """Every key of a merge through K22 on `dev` (on `stream`), in the
+    launches of `fold_launch_plan` (one when the descriptor holds them all).
+
+    items: (key, {field: M per-source 1-D tensors}, keyed) in key order;
+    `didx` is `dev`'s index as `Tensor.get_device` gives it.  A source on
+    another device is copied to `dev`; the rest are read in place.  The
+    merged fields are views of one allocation.  What follows from the
+    merge's structure alone (the outputs' layout, the descriptors but
+    their pointers, the launch plan) is built once per structure
+    (`_fold_layout`); a staged launch's table is copied to the card per
+    call.  Returns {key: AggState}."""
+    h = 0
+    if inv is not None:
+        _check_rows(inv.reshape(-1), torch.int32, inv.numel(), inv.device)
+        if inv.get_device() != didx or inv.dim() != 2 or inv.shape[0] * n_local != m:
+            raise ValueError(f"K22 keyed: inv {tuple(inv.shape)} on {inv.device} for {m} "
+                             f"sources on {dev}")
+        h = int(inv.shape[1])
+    # per call: each field's sources, checked, and their row bases
+    keep, shape, src_ptrs = [], [], []
+    for key, per_field, keyed in items:
+        rows, fields_, ptrs = None, [], []
+        for f, name in enumerate(_FOLD_FIELDS):
+            srcs = per_field.get(name)
+            if srcs is None:
+                continue
+            t0 = srcs[0]
+            shp, dt = t0.shape, t0.dtype
+            if len(srcs) != m or len(shp) != 1:
+                raise ValueError(f"K22 {key}.{name}: {len(srcs)} sources of "
+                                 f"{tuple(shp)}, want {m} of [rows]")
+            n = shp[0]
+            field_ptrs = []
+            for t in srcs:
+                if t.shape != shp or t.dtype is not dt:
+                    raise ValueError(f"K22 {key}.{name}: {t.dtype} {tuple(t.shape)}, want "
+                                     f"{dt} {tuple(shp)}")
+                if t.get_device() != didx:
+                    t = t.to(dev)
+                    keep.append(t)
+                elif not t.is_contiguous():
+                    t = t.contiguous()
+                    keep.append(t)
+                field_ptrs.append(t.data_ptr())
+            ptrs.append(field_ptrs)
+            if rows is not None and n != rows:
+                raise ValueError(f"K22 {key}.{name}: [{n}] beside {rows} rows")
+            rows = n
+            fields_.append((f, dt))
+        shape.append((key, bool(keyed), rows, tuple(fields_)))
+        src_ptrs.append(ptrs)
+    sig = (m, n_local, tuple(order), rule, h, 0 if inv is None else int(inv.shape[0]),
+           tuple(shape))
+    layout = _FOLD_LAYOUTS.get(sig)
+    if layout is None:
+        layout = _fold_layout(sig)
+        if len(_FOLD_LAYOUTS) >= 256:
+            _FOLD_LAYOUTS.clear()
+        _FOLD_LAYOUTS[sig] = layout
+    sizes, slots, launches = layout
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    views = [{} for _ in shape]
+    for slot, part in zip(slots, torch.split_with_sizes(buf, sizes)):
+        if slot is not None:
+            ki, name, dt = slot
+            views[ki][name] = part.view(dt)
+    out = {key: AggState(**v) for (key, *_r), v in zip(shape, views)}
+    from ..kernels._build import launch, upload_table
+
+    fold_states.merges += 1
+    base = buf.data_ptr()
+    for template, entries, staged in launches:
+        a = _FoldDesc()
+        ctypes.memmove(ctypes.addressof(a), ctypes.addressof(template), _FOLD_PTRS_AT)
+        if inv is not None:
+            a.inv = inv.data_ptr()
+        flat = []
+        for ki, fi, off in entries:
+            flat.append(base + off)
+            flat += src_ptrs[ki][fi]
+        if staged:
+            # ptrs, each real source's row of inv, then order (int32)
+            rows_of = ([0] * len(order) if inv is None else
+                       [a.inv + (k // n_local) * h * 4 for k in order])
+            table = upload_table(np.asarray(flat + rows_of, dtype=np.uint64).tobytes()
+                                 + np.asarray(order, dtype=np.int32).tobytes(), dev)
+            keep.append(table)
+            a.table = table.data_ptr()
+        else:
+            a.ptrs[:len(flat)] = flat
+        fold_states.launches += 1
+        launch("fold_states", "gt_fold_states", a, stream)
+    del keep
+    return out
+
+
+# What a merge's structure decides, built once per structure:
+# (output byte sizes, the split piece of each output field, the launches:
+# (descriptor without pointers, the (key, field, output offset) of each
+# of its fields in pointer order, staged)).  A staged descriptor's `order`
+# and `ptrs` stay empty.
+_FOLD_LAYOUTS: dict = {}
+
+
+def _fold_layout(sig) -> tuple:
+    m, n_local, order, rule, h, n_slots, shape = sig
+    for key, keyed, rows, fields_ in shape:
+        names = [_FOLD_FIELDS[f] for f, _dt in fields_]
+        if not fields_:
+            raise ValueError(f"K22 {key}: no state field")
+        if keyed and (n_slots == 0 or "last_ts" in names):
+            raise ValueError(f"K22 {key}: a keyed key needs inv and has no LAST states")
+        if keyed and rows not in (h, h + 1):
+            raise ValueError(f"K22 keyed {key}: {rows} rows for slot tables of {h}")
+        for f, dt in fields_:
+            if (dt not in _FOLD_DTYPES or (f == 4 and dt is not torch.int64)
+                    or (f == 5 and dt is not torch.float64)):
+                raise ValueError(f"K22 {key}.{_FOLD_FIELDS[f]}: {dt}")
+    # the outputs: the fields of one type back to back, each type's run
+    # aligned to _FOLD_ALIGN bytes
+    by_type: dict = {}
+    for ki, (_key, _keyed, rows, fields_) in enumerate(shape):
+        for fi, (f, dt) in enumerate(fields_):
+            by_type.setdefault(dt, []).append((ki, fi, f, dt, rows))
+    sizes, slots, offset, total = [], [], {}, 0
+    for group in by_type.values():
+        for ki, fi, f, dt, rows in group:
+            offset[ki, fi] = total
+            sizes.append(rows * _FOLD_ELEM[dt])
+            slots.append((ki, _FOLD_FIELDS[f], dt))
+            total += sizes[-1]
+        pad = -total % _FOLD_ALIGN
+        if pad:
+            sizes.append(pad)
+            slots.append(None)
+            total += pad
+    # the launches: whole keys, in key order, as `fold_launch_plan` splits them
+    index = {key: ki for ki, (key, *_r) in enumerate(shape)}
+    plan = fold_launch_plan([(key, tuple(_FOLD_FIELDS[f] for f, _dt in fields_))
+                             for key, _k, _r, fields_ in shape], m, len(order))
+    rule_code = _FOLD_RULES[rule]
+    launches = []
+    for units in plan:
+        staged = fold_launch_staged(units, m, len(order))
+        a = _FoldDesc()
+        a.desc_bytes, a.n_keys, a.m, a.n_local = ctypes.sizeof(_FoldDesc), len(units), m, n_local
+        a.n_order, a.rule, a.h, a.n_slots = len(order), rule_code, h, n_slots
+        if not staged:
+            a.order[:len(order)] = order
+        keys, blk, blocks, rows_sum, n_ptrs, entries = [], [], 0, 0, 0, []
+        for key, names in units:
+            ki = index[key]
+            _key, keyed, rows, fields_ = shape[ki]
+            present, dtypes = 0, [0, 0, 0, 0]
+            for fi, (f, dt) in enumerate(fields_):
+                if _FOLD_FIELDS[f] not in names:
+                    continue
+                present |= 1 << f
+                if f < 4:
+                    dtypes[f] = _FOLD_DTYPES[dt]
+                entries.append((ki, fi, offset[ki, fi]))
+            keys.append(_FOLD_KEY.pack(rows, n_ptrs, present, int(keyed), *dtypes))
+            n_ptrs += len(names) * (m + 1)
+            blocks += -(-rows // _FOLD_THREADS)
+            rows_sum += rows
+            blk.append(blocks)
+        blob = b"".join(keys)
+        ctypes.memmove(ctypes.addressof(a) + _FoldDesc.keys.offset, blob, len(blob))
+        a.blk_end[:len(blk)] = blk
+        a.n_ptrs, a.total_rows, a.n_blocks = n_ptrs, rows_sum, blocks
+        launches.append((a, entries, staged))
+    return sizes, slots, launches
 
 
 def fold_states(state: AggState, n_local: int, order, inv=None,
@@ -2261,60 +2505,76 @@ def fold_states(state: AggState, n_local: int, order, inv=None,
     minimum/maximum over every source (a NaN propagates, -0 < +0: the
     same bytes for any slot count); keyed: every field starts at the
     scatter identity and takes the sources' rows in `order`.  A CUDA
-    tensor launches csrc/fold_states.cu (one thread per row, a fixed
-    order: the same bytes every run); a CPU tensor runs
-    `fold_states_plain`."""
+    tensor launches csrc/fold_states.cu once (one thread per row, a fixed
+    order: the same bytes every run), the one-key form of
+    `fold_state_dicts`; a CPU tensor runs `fold_states_plain`."""
     first = next(getattr(state, f.name) for f in fields(state)
                  if getattr(state, f.name) is not None)
     if first.device.type == "cpu":
         return fold_states_plain(state, n_local, order, inv, rule)
-    from ..kernels._build import launch, upload_table
-
-    m = _fold_check(state, n_local, order, inv, rule)
+    per_field = {name: list(g.unbind(0)) for name in _FOLD_FIELDS
+                 if (g := getattr(state, name)) is not None}
+    if inv is not None and "last_ts" in per_field:
+        raise ValueError("a keyed fold has no LAST states")
+    m = int(first.shape[0])
+    order = _fold_args_check(m, n_local, order, rule)
     dev = first.device
-    rows = int(first.shape[1])
-    args = _FoldStatesArgs()
-    keep, out = [], AggState()
-    for i, name in enumerate(_FOLD_KINDS):
-        g = getattr(state, name)
-        if g is None:
-            continue
-        if g.dtype not in _FOLD_DTYPES or g.shape != (m, rows) or g.device != dev:
-            raise ValueError(f"K22 {name}: {g.dtype} {tuple(g.shape)} on {g.device}, "
-                             f"want [{m}, {rows}] on {dev}")
-        g = g.contiguous()
-        dst = torch.empty(rows, dtype=g.dtype, device=dev)
-        args.fields[i] = _FoldField(g.data_ptr(), dst.data_ptr(), _FOLD_KINDS[name],
-                                    _FOLD_DTYPES[g.dtype])
-        keep.append(g)
-        setattr(out, name, dst)
-    if state.last_ts is not None:
-        ts, val = state.last_ts.contiguous(), state.last_val.contiguous()
-        for t, dt in ((ts, torch.int64), (val, torch.float64)):
-            if t.dtype != dt or t.shape != (m, rows) or t.device != dev:
-                raise ValueError(f"K22 LAST state: {t.dtype} {tuple(t.shape)} on {t.device}")
-        out.last_ts = torch.empty(rows, dtype=torch.int64, device=dev)
-        out.last_val = torch.empty(rows, dtype=torch.float64, device=dev)
-        args.last_ts, args.last_val = ts.data_ptr(), val.data_ptr()
-        args.out_last_ts, args.out_last_val = out.last_ts.data_ptr(), out.last_val.data_ptr()
-        keep += [ts, val]
-    order_t = upload_table(bytes((ctypes.c_int32 * len(order))(*[int(k) for k in order])),
-                           dev).view(torch.int32)
-    args.order = order_t.data_ptr()
-    if inv is not None:
-        _check_rows(inv.reshape(-1), torch.int32, inv.numel(), dev)
-        if inv.shape[0] * n_local != m or rows not in (inv.shape[1], inv.shape[1] + 1):
-            raise ValueError(f"K22 keyed: inv {tuple(inv.shape)} for {m} sources of {rows} rows")
-        args.inv, args.h = inv.data_ptr(), int(inv.shape[1])
-    args.rows, args.m, args.n_local, args.n_order = rows, m, int(n_local), len(order)
-    args.rule = _FOLD_RULES[rule]
-    fold_states.launches += 1
-    launch("fold_states", "gt_fold_states", args, torch.cuda.current_stream(dev).cuda_stream)
-    del keep, order_t
-    return out
+    return _fold_on_card(dev, first.get_device(), [("", per_field, inv is not None)], m,
+                         n_local, order, inv, rule,
+                         torch.cuda.current_stream(dev).cuda_stream)[""]
 
 
 fold_states.launches = 0
+fold_states.merges = 0
+
+
+def fold_state_dicts(states_by_source: list, n_local: int, order, inv=None, rule: str = "fold",
+                     dev=None, dense_keys=()) -> dict:
+    """K22 over a whole merge: the per-source state dicts {key: AggState}
+    (M = D * n_local of them, slot-major, dummies included) folded key by
+    key into one dict, every key and field in one launch (or as many as
+    `fold_launch_plan` needs).
+
+    Each key folds as `fold_states` folds its stacked states: dense, or
+    keyed through `inv` (hash plans) unless it is in `dense_keys` (the
+    `__hash_overflow` count); keys may differ in their rows.  `dev` (the
+    first mesh slot; default: the device of the first source's states)
+    holds the result.  On the card the sources are read in place (a source
+    on another card is copied over, with no stack) and the merged fields
+    are views of one allocation; on the CPU each key is stacked and folded
+    by `fold_states_plain`."""
+    if not states_by_source:
+        raise ValueError("fold of no sources")
+    first = states_by_source[0]
+    if dev is None:
+        dev = next(getattr(st, f.name) for st in first.values() for f in fields(st)
+                   if getattr(st, f.name) is not None).device
+    dev = torch.device(dev)
+    if dev.type == "cpu":
+        return {key: fold_states_plain(stack_states([s[key] for s in states_by_source], dev),
+                                       n_local, order, None if key in dense_keys else inv, rule)
+                for key in first}
+    order = _fold_args_check(len(states_by_source), n_local, order, rule)
+    didx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _fold_on_card(dev, didx, _fold_items(states_by_source, inv, dense_keys),
+                         len(states_by_source), n_local, order, inv, rule,
+                         torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _fold_items(states_by_source: list, inv, dense_keys) -> list:
+    """(key, {field: [per-source tensors]}, keyed) of a merge, in key order."""
+    items = []
+    for key, st0 in states_by_source[0].items():
+        per_field = {}
+        for name in _FOLD_FIELDS:
+            if getattr(st0, name) is None:
+                continue
+            srcs = [getattr(s[key], name) for s in states_by_source]
+            if any(t is None for t in srcs):
+                raise ValueError(f"K22 {key}.{name}: absent from some sources")
+            per_field[name] = srcs
+        items.append((key, per_field, inv is not None and key not in dense_keys))
+    return items
 
 
 def invert_slot_maps(slot_map: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ the last ulp on series with one.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -606,7 +607,7 @@ class _FoldArgs(ctypes.Structure):
         ("mat", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
         ("members", ctypes.c_void_p), ("out", ctypes.c_void_p),
         ("n_groups", ctypes.c_int64), ("n_steps", ctypes.c_int64),
-        ("op", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("op", ctypes.c_int32), ("tw", ctypes.c_int32),
     ]
 
 
@@ -841,29 +842,75 @@ def range_finalize(stats_list: list, grid: RangeGrid, func: str) -> torch.Tensor
 range_finalize.launches = 0
 
 
+# K12's forms (csrc/series_fold.cu): the staged form's steps a CTA, widest
+# first; the CTAs it wants at least (the H100 has 132 SMs); the cells from
+# which the cell form keeps enough loads in flight (at 64 groups of 64
+# members, 65,536 cells, it took 7.4 µs on an H100 against the staged
+# form's 21.6); the members a group below which the cell form runs anyway.
+SERIES_FOLD_TILES = (32, 16, 8)
+_FOLD_FILL_CTAS = 128
+_FOLD_CELLS_FILL = 1 << 15
+_FOLD_STAGED_MIN = 8
+
+
+@functools.lru_cache(maxsize=64)
+def series_fold_plan(S: int, G: int, W: int) -> dict:
+    """K12's launch for an [S, W] -> [G, W] fold, from the shape alone (the
+    mixed-radix gid map gives every group S / G members): {"form": "cells"
+    or "staged", "tw": the staged form's steps a CTA (0 for cells),
+    "grid": CTAs}.  The cell form (a thread a cell) where the cells fill
+    the card or the groups are a few members long; else the staged form
+    with the widest tile whose G x ceil(W / tw) CTAs fill the card (8 at
+    G = 1, W = 1024: 128 CTAs)."""
+    if G <= 0 or W <= 0:
+        return {"form": "cells", "tw": 0, "grid": 0}
+    if G * W >= _FOLD_CELLS_FILL or -(-S // G) < _FOLD_STAGED_MIN:
+        return {"form": "cells", "tw": 0, "grid": -(-(G * W) // 256)}
+    tw = _staged_tile(G, W)
+    return {"form": "staged", "tw": tw, "grid": G * -(-W // tw)}
+
+
+def _staged_tile(G: int, W: int) -> int:
+    """The staged form's widest tile whose CTAs fill the card."""
+    return next((t for t in SERIES_FOLD_TILES if G * -(-W // t) >= _FOLD_FILL_CTAS),
+                SERIES_FOLD_TILES[-1])
+
+
 def series_fold(mat: torch.Tensor, offsets: torch.Tensor, members: torch.Tensor,
                 op: str) -> torch.Tensor:
     """K12: the by-label fold [S, W] -> [G, W] (B17): `offsets` int64 [G + 1]
     and `members` int64 [S] are the CSR of each group's series in
-    ascending id.  A CUDA matrix launches csrc/series_fold.cu (one thread
-    per (group, step), adding members in CSR order); a CPU matrix runs
-    `series_fold_plain`."""
+    ascending id.  A CUDA matrix launches csrc/series_fold.cu in the form
+    `series_fold_plan` picks; every cell adds its members in CSR order.  A
+    CPU matrix runs `series_fold_plain`."""
     if op not in FOLD_OPS:
         raise ValueError(f"unknown fold: {op}")
     if mat.device.type == "cpu":
         return series_fold_plain(mat, offsets, members, op)
+    S, W = mat.shape
+    return _series_fold_launch(mat, offsets, members, op,
+                               series_fold_plan(S, offsets.shape[0] - 1, W)["tw"])
+
+
+def _series_fold_launch(mat: torch.Tensor, offsets: torch.Tensor, members: torch.Tensor,
+                        op: str, tw: int) -> torch.Tensor:
+    """K12's launch in the form `tw` names (0: the cell form; 8, 16 or 32:
+    the staged form's steps a CTA), whatever the plan would pick: the
+    bytes are the same.  `series_fold` calls it with the planned tw."""
     from ..kernels._build import launch
 
+    if tw not in (0,) + SERIES_FOLD_TILES:
+        raise ValueError(f"series_fold tile {tw}: use 0 or one of {SERIES_FOLD_TILES}")
     dev = mat.device
     if mat.dtype != torch.float64 or mat.dim() != 2 or not mat.is_contiguous():
         raise ValueError("series_fold takes a contiguous f64 [S, W] matrix")
     for t in (offsets, members):
         if t.device != dev or t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError("the CSR must be contiguous int64 tensors on the card")
-    G, W = int(offsets.shape[0]) - 1, int(mat.shape[1])
+    G, W = offsets.shape[0] - 1, mat.shape[1]
     out = torch.empty((G, W), dtype=torch.float64, device=dev)
     a = _FoldArgs(mat.data_ptr(), offsets.data_ptr(), members.data_ptr(), out.data_ptr(),
-                  G, W, FOLD_OPS[op], 0)
+                  G, W, FOLD_OPS[op], tw)
     series_fold.launches += 1
     launch("series_fold", "gt_series_fold", a, _stream(dev))
     return out

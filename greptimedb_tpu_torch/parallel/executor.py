@@ -2,9 +2,9 @@
 
 Counterpart of `greptimedb_tpu/parallel/executor.py`: region tables go to
 D slots, each slot computes its partial states on its device, and the
-partials gather on the first slot and fold in slot order there (K22,
-`ops/aggregate.py::fold_states`, in place of the reference's shard_map +
-`psum_states` collectives).  The host side is kept as it was:
+partials fold in slot order on the first slot, every key in one launch
+(K22, `ops/aggregate.py::fold_state_dicts`, in place of the reference's
+shard_map + `psum_states` collectives).  The host side is kept as it was:
   - union tag dictionaries across region tables, in order of first
     appearance, so codes — hence group ids and row order — match the
     reference;
@@ -40,7 +40,7 @@ from ..ops.aggregate import (
     _FAST_MIN_ROWS,
     AggState,
     finalize,
-    fold_states,
+    fold_state_dicts,
     hash_group_slots,
     limb_segment_sums,
     quantize_limbs,
@@ -48,7 +48,6 @@ from ..ops.aggregate import (
     segment_aggregate,
     segment_aggregate_multi,
     segment_sums_scatter,
-    stack_states,
 )
 from ..ops.filter import mask_gids
 from ..ops.tiles import TileBatch, pad_rows, tiles_from_table
@@ -326,9 +325,7 @@ def compute_partial_states(plan: DistGroupByPlan, columns, valid, nulls, dyn=Non
 def fold_partials(partials: list[dict], dev) -> dict[str, AggState]:
     """The table-fed mesh merge: one partial state dict per slot, in slot
     order, gathered on `dev` and folded by K22 with `psum_states`' rules."""
-    order = list(range(len(partials)))
-    return {key: fold_states(stack_states([p[key] for p in partials], dev), 1, order, rule="psum")
-            for key in partials[0]}
+    return fold_state_dicts(partials, 1, range(len(partials)), rule="psum", dev=dev)
 
 
 @dataclass

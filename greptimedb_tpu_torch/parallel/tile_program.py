@@ -36,9 +36,10 @@ between that upload and the readback reads the device on the host.
 `_mesh_run`, `_mesh_merge_program`, `_mesh_hash_cross_program`): the
 sources split into contiguous runs of one shape; within a run each mesh
 slot computes the partial states of its sources (`TileProgram.partial`,
-on the slot's device), the partials gather on the first slot and K22
-folds them (`fold_states`); runs merge pairwise in run order, and `final`
-runs once on the first slot.
+on the slot's device) and K22 folds them on the first slot, every state
+key in one launch (`fold_state_dicts`, reading the partials where they
+lie); runs merge pairwise in run order, and `final` runs once on the first
+slot.
 
 `TickProgram` is B19, the reference's `_mega_program`
 (greptimedb_tpu/parallel/tile_cache.py:3325): the members of a dashboard
@@ -65,14 +66,13 @@ from ..ops.aggregate import (
     AggState,
     HavingRef,
     finalize,
-    fold_states,
+    fold_state_dicts,
     hash_group_slots,
     having_mask,
     having_refs,
     invert_slot_maps,
     merge_states,
     pack_result,
-    stack_states,
     topk_group_select,
 )
 from ..ops.filter import literal_specs, literal_table
@@ -320,7 +320,7 @@ def source_on(src, dev):
 # min/max take order statistics, while float sums and LAST states fold in
 # GLOBAL SOURCE ORDER, the single-device left fold, so a 1-slot mesh, an
 # N-slot mesh and the single-device dispatch give the same bytes.  K22
-# (`fold_states`) does every fold.
+# (`fold_state_dicts`) does every fold, one launch per merge.
 
 
 class MeshIneligible(Exception):
@@ -386,7 +386,7 @@ def on_device(dev):
 def _fold_run(program, run, devices, dyn):
     """One run over the mesh: (merged states, union key table or None, hv).
     Each slot computes its sources' partials (and its dummies') on its
-    device; the partials gather on the first slot and K22 folds them."""
+    device; K22 folds them on the first slot, every key in one launch."""
     n_dev = len(devices)
     n_local = -(-len(run) // n_dev)
     positions = mesh_positions(run, n_dev, n_local)
@@ -417,29 +417,25 @@ def _fold_run(program, run, devices, dyn):
     dev0 = devices[0]
     order = [d * n_local + l for d, l in positions]
     if not program.is_hash:
-        return {key: fold_states(stack_states([st[key] for st in states], dev0), n_local, order)
-                for key in states[0]}, None, hv
+        return fold_state_dicts(states, n_local, order, dev=dev0), None, hv
     return (*_keyed_fold(program.plan.hash_slots, states, tables, n_local, order, dev0), hv)
 
 
 def _keyed_fold(h, states, tables, n_local, order, dev0):
     """Hash plans: union the slot tables through K17 on the first slot,
     invert each slot's map (K22's first launch) and fold every key through
-    it (K22, keyed).  `states` holds the per-source state dicts
+    it in one more (K22, keyed; `__hash_overflow` dense, plus the union's
+    overflow).  `states` holds the per-source state dicts
     (slot-major, n_local a slot); `tables` one [h] key table per slot.
     Returns (merged states, union keys)."""
     keys = torch.cat([t.to(dev0) for t in tables])
     union = torch.full((h,), HASH_EMPTY, dtype=torch.int64, device=dev0)
     union, slots, overflow = hash_group_slots(union, keys, keys != HASH_EMPTY)
     inv = invert_slot_maps(slots.reshape(len(tables), h))
-    merged = {}
-    for key in states[0]:
-        stacked = stack_states([st[key] for st in states], dev0)
-        if key == "__hash_overflow":
-            total = fold_states(stacked, n_local, order).counts
-            merged[key] = AggState(counts=total + overflow.to(total.dtype).reshape(1))
-        else:
-            merged[key] = fold_states(stacked, n_local, order, inv=inv)
+    merged = fold_state_dicts(states, n_local, order, inv=inv, dev=dev0,
+                              dense_keys=("__hash_overflow",))
+    total = merged["__hash_overflow"].counts
+    merged["__hash_overflow"] = AggState(counts=total + overflow.to(total.dtype).reshape(1))
     return merged, union
 
 
@@ -466,8 +462,7 @@ def mesh_run(program: "TileProgram", sources, slots, dyn, devices):
             merged, keys = _keyed_fold(plan.hash_slots, [merged, states], [keys, run_keys],
                                        1, [0, 1], dev0)
         else:
-            merged = {k: fold_states(stack_states([merged[k], states[k]], dev0), 2, [0, 1])
-                      for k in merged}
+            merged = fold_state_dicts([merged, states], 2, [0, 1], dev=dev0)
     with on_device(dev0):
         return program.final(merged, hv, keys)
 

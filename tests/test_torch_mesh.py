@@ -271,6 +271,361 @@ def test_fold_states_keyed_matches_reference(n_dev, n_local, trailing):
         assert np.array_equal(_bits(getattr(got, name).numpy()), _bits(v)), name
 
 
+# ---- the batched fold (fold_state_dicts): every key of a merge in one launch ----------
+
+
+_FIELDS = ("sums", "counts", "mins", "maxs", "last_ts", "last_val")
+
+
+def _per_source(st: dict, m: int) -> list:
+    """A stacked [m, rows] state (numpy arrays by field) as m per-source
+    AggStates."""
+    return [agg.AggState(**{k: torch.from_numpy(np.ascontiguousarray(v[i])) for k, v in st.items()})
+            for i in range(m)]
+
+
+def _assert_state_bits(got, want, what):
+    for name in _FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), (what, name)
+        if a is not None:
+            assert np.array_equal(_bits(a.numpy()), _bits(np.asarray(b))), (what, name)
+
+
+def _dense_merge_case(seed: int, n_dev: int, n_local: int, with_last: bool):
+    """Dense keys of different row counts and field sets over one
+    placement: the per-source dicts, the stacked states per key, positions."""
+    rows_of = {"usage_user": 301, "__limb_err:usage_user": 301, "usage_idle": 77,
+               "__presence": 5, "lastpoint": 128}
+    stacked, positions = {}, None
+    for i, (key, rows) in enumerate(rows_of.items()):
+        st, pos = _dense_case(seed * 10 + i, n_dev, n_local, rows)
+        positions = positions or pos
+        if key == "__presence":
+            st = {"counts": st["counts"]}
+        elif key.startswith("__limb_err"):
+            st = {"sums": st["sums"]}
+        elif key == "lastpoint":
+            if not with_last:
+                continue
+            st = {k: st[k] for k in ("counts", "last_ts", "last_val")}
+        else:
+            st = {k: st[k] for k in ("sums", "counts", "mins", "maxs")}
+        stacked[key] = st
+    m = n_dev * n_local
+    per = [{} for _ in range(m)]
+    for key, st in stacked.items():
+        for i, s in enumerate(_per_source(st, m)):
+            per[i][key] = s
+    return per, stacked, positions
+
+
+@pytest.mark.parametrize("n_dev,n_local,seed", [(1, 4, 31), (8, 1, 32), (4, 2, 33)])
+def test_fold_state_dicts_dense_matches_reference(n_dev, n_local, seed):
+    """The batched fold's plain path over dense keys of different row
+    counts (LAST under the fold rule among them) against the reference's
+    merges, and key by key against `fold_states_plain`, byte for byte."""
+    per, stacked, positions = _dense_merge_case(seed, n_dev, n_local, with_last=True)
+    order = [d * n_local + s for d, s in positions]
+    got = agg.fold_state_dicts(per, n_local, order)
+    assert list(got) == list(stacked)
+    for key, st in stacked.items():
+        full = {k: st.get(k, np.zeros_like(next(iter(st.values())), dtype=np.float64))
+                for k in ("sums", "mins", "maxs", "last_val")}
+        full.update({k: st.get(k, np.zeros(next(iter(st.values())).shape, np.int64))
+                     for k in ("counts", "last_ts")})
+        want = _ref_dense(full, positions, n_dev, n_local)
+        one = _ref_dense(full, positions, 1, n_dev * n_local)
+        want["mins"], want["maxs"] = one["mins"], one["maxs"]
+        for name in st:
+            ref = want[name]
+            if name == "counts":
+                ref = np.asarray(ref).astype(st[name].dtype)
+            assert np.array_equal(_bits(getattr(got[key], name).numpy()), _bits(ref)), (key, name)
+        plain = agg.fold_states_plain(agg.AggState(**{k: torch.from_numpy(v) for k, v in st.items()}),
+                                      n_local, order)
+        _assert_state_bits(got[key], plain, key)
+
+
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_fold_state_dicts_psum_rule_matches_psum_states(n_dev):
+    """The table-fed route's merge (one partial per slot, `psum_states`'
+    rules) over two keys of different rows: LAST and the sums as the
+    reference's collective gives them."""
+    st, _pos = _dense_case(41 + n_dev, n_dev, 1, rows=90)
+    st2, _pos = _dense_case(51 + n_dev, n_dev, 1, rows=13)
+    keyed = {"v": {k: st[k] for k in ("sums", "last_ts", "last_val")}, "w": {"sums": st2["sums"]}}
+    per = [{} for _ in range(n_dev)]
+    for key, s in keyed.items():
+        for i, x in enumerate(_per_source(s, n_dev)):
+            per[i][key] = x
+
+    def per_device(t, v, s):
+        out = jagg.psum_states(jagg.AggState(sums=s[0], last_ts=t[0], last_val=v[0]), REGION_AXIS)
+        return out.last_ts, out.last_val, out.sums
+
+    lt, lv, sums = _shard(per_device, n_dev)(*(jnp.asarray(st[k]) for k in
+                                              ("last_ts", "last_val", "sums")))
+    got = agg.fold_state_dicts(per, 1, list(range(n_dev)), rule="psum")
+    assert np.array_equal(got["v"].last_ts.numpy(), np.asarray(lt))
+    assert np.array_equal(_bits(got["v"].last_val.numpy()), _bits(lv))
+    assert np.array_equal(_bits(got["v"].sums.numpy()), _bits(sums))
+    w = agg.fold_states_plain(agg.AggState(sums=torch.from_numpy(st2["sums"])), 1,
+                              list(range(n_dev)), rule="psum")
+    _assert_state_bits(got["w"], w, "w")
+
+
+def _keyed_merge_case(seed, n_dev, n_local, h, trailing):
+    tables, st, positions = _keyed_case(seed, n_dev, n_local, h, trailing)
+    m = n_dev * n_local
+    rng = np.random.default_rng(seed + 100)
+    stacked = {"usage_user": st, "usage_idle": {"sums": _values(rng, st["sums"].shape)},
+               "__presence": {"counts": rng.integers(0, 9, st["counts"].shape).astype(np.int32)},
+               "__hash_overflow": {"counts": rng.integers(0, 3, (m, 1)).astype(np.int32)}}
+    for key in ("usage_idle", "__presence"):
+        for name, v in stacked[key].items():
+            for r in range(m):
+                empty = np.concatenate([tables[r // n_local] == jagg.HASH_EMPTY,
+                                        np.zeros(int(trailing), bool)])
+                v[r, empty] = 0
+    per = [{} for _ in range(m)]
+    for key, s in stacked.items():
+        for i, x in enumerate(_per_source(s, m)):
+            per[i][key] = x
+    return tables, per, stacked, positions
+
+
+@pytest.mark.parametrize("n_dev,n_local,trailing", [(1, 3, True), (8, 1, False), (4, 2, True)])
+def test_fold_state_dicts_keyed_matches_reference(n_dev, n_local, trailing):
+    """Keyed keys (with the trailing row where the plan has one) and the
+    dense `__hash_overflow` count in one merge: the reference's keyed
+    scatters in global source order for every keyed key, its psum for the
+    overflow, and `fold_states_plain` key by key, byte for byte."""
+    h = 64
+    tables, per, stacked, positions = _keyed_merge_case(60 + n_dev, n_dev, n_local, h, trailing)
+    keys = torch.from_numpy(tables.reshape(-1).copy())
+    union = torch.full((h,), agg.HASH_EMPTY, dtype=torch.int64)
+    union, slots, ovf = agg.hash_group_slots(union, keys, keys != agg.HASH_EMPTY)
+    assert int(ovf) == 0
+    inv = agg.invert_slot_maps(slots.reshape(n_dev, h))
+    slot_map = slots.reshape(n_dev, h).numpy()
+    order = [d * n_local + s for d, s in positions]
+    got = agg.fold_state_dicts(per, n_local, order, inv=inv, dense_keys=("__hash_overflow",))
+    rows = h + int(trailing)
+    for key in ("usage_user", "usage_idle", "__presence"):
+        for name, g in stacked[key].items():
+            g = jnp.asarray(g)
+            big = jnp.finfo(g.dtype).max if g.dtype == jnp.float64 else jnp.iinfo(g.dtype).max
+            acc = jnp.full((rows,), {"mins": big, "maxs": -big}.get(name, 0), g.dtype)
+            for d, s in positions:
+                idx = jnp.asarray(slot_map[d])
+                if trailing:
+                    idx = jnp.concatenate([idx, jnp.full((1,), h, idx.dtype)])
+                upd = g[d * n_local + s]
+                acc = (acc.at[idx].min(upd) if name == "mins" else acc.at[idx].max(upd)
+                       if name == "maxs" else acc.at[idx].add(upd))
+            assert np.array_equal(_bits(getattr(got[key], name).numpy()), _bits(acc)), (key, name)
+        plain = agg.fold_states_plain(
+            agg.AggState(**{k: torch.from_numpy(v) for k, v in stacked[key].items()}),
+            n_local, order, inv=inv)
+        _assert_state_bits(got[key], plain, key)
+    over = stacked["__hash_overflow"]["counts"]
+    assert got["__hash_overflow"].counts.tolist() == [int(over.sum())]
+
+
+@pytest.mark.parametrize("m,n_order,fields_per_key,n_keys,want", [
+    (4, 4, 1, 21, [21]),                 # double-groupby-all at 4 slots: one launch
+    (8, 7, 6, 10, [10]),
+    (8, 8, 4, 100, [64, 36]),            # the descriptor's 64 keys
+    (64, 60, 6, 12, [9, 3]),             # its 3734 pointers: 390 a key
+    (300, 290, 4, 5, [3, 2]),            # 1204 a key
+    (4220, 4219, 4, 21, [21]),           # past 512 real sources: staged, the key cap alone
+    (4220, 4219, 2, 100, [64, 36]),
+])
+def test_fold_launch_plan_splits_whole_keys(m, n_order, fields_per_key, n_keys, want):
+    """A merge over the descriptor's capacity splits into launches of
+    whole keys, in key order, each within the kernel's parameter space
+    unless it is staged; past 512 real sources every launch is staged."""
+    names = _FIELDS[:fields_per_key]
+    keys = [(f"k{i}", names) for i in range(n_keys)]
+    plan = agg.fold_launch_plan(keys, m, n_order)
+    assert [len(u) for u in plan] == want
+    assert [k for u in plan for k, _f in u] == [k for k, _f in keys]
+    for units in plan:
+        assert all(f == names for _k, f in units)
+        assert len(units) <= agg._FOLD_MAX_KEYS
+        staged = agg.fold_launch_staged(units, m, n_order)
+        assert staged == (n_order > agg._FOLD_MAX_ORDER)
+        assert staged or sum(len(f) * (m + 1) for _k, f in units) <= agg._FOLD_MAX_PTRS
+
+
+@pytest.mark.parametrize("n_order,want,staged", [
+    (500, [["a"], ["b"], ["c"]], [False, True, False]),   # b alone passes the pointers
+    (600, [["a", "b", "c"]], [True]),                     # past 512 real sources
+])
+def test_fold_launch_plan_stages_a_wide_key(n_order, want, staged):
+    """A key wider than a descriptor of its own keeps its fields together
+    in a launch of its own, staged; the keys beside it are not."""
+    keys = [("a", ("sums",)), ("b", _FIELDS), ("c", ("counts",))]
+    plan = agg.fold_launch_plan(keys, 900, n_order)
+    assert [[k for k, _f in u] for u in plan] == want
+    assert [u for launch in plan for u in launch] == keys
+    assert [agg.fold_launch_staged(u, 900, n_order) for u in plan] == staged
+
+
+def test_fold_descriptor_mirrors_the_kernel():
+    """_FoldDesc's capacity and size are csrc/fold_states.cu's FoldDesc: it
+    fits sm_90's 32,764 bytes of kernel parameters."""
+    import ctypes
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(agg.__file__), "..", "csrc",
+                            "fold_states.cu")).read()
+    consts = dict(re.findall(r"constexpr int (kMax\w+) = (\d+);", src))
+    assert int(consts["kMaxKeys"]) == agg._FOLD_MAX_KEYS
+    assert int(consts["kMaxOrder"]) == agg._FOLD_MAX_ORDER
+    assert int(consts["kMaxPtrs"]) == agg._FOLD_MAX_PTRS
+    assert ctypes.sizeof(agg._FoldKey) == 24
+    assert ctypes.sizeof(agg._FoldDesc) == 32760 <= 32764
+
+
+_EMU_DTYPES = {0: torch.float64, 1: torch.float32, 2: torch.int64, 3: torch.int32}
+
+
+def _emulated_launch(name, fn, a, stream):
+    """csrc/fold_states.cu's kernel read from its descriptor alone, on host
+    memory: each key's rows, fields, types, outputs and source row bases
+    from the descriptor (or, staged, from its table: pointers, each real
+    source's row of inv, `order`), folded by the plain version."""
+    import ctypes
+
+    assert (name, fn) == ("fold_states", "gt_fold_states") and stream == 0
+    assert a.desc_bytes == ctypes.sizeof(agg._FoldDesc)
+    m = a.m
+    rule = "psum" if a.rule == 1 else "fold"
+    blocks = 0
+
+    def view(ptr, rows, dtype):
+        nbytes = rows * torch.empty((), dtype=dtype).element_size()
+        return torch.frombuffer((ctypes.c_char * nbytes).from_address(ptr), dtype=dtype)
+
+    if a.table:
+        ptrs = view(a.table, a.n_ptrs, torch.int64).tolist()
+        rows_of = view(a.table + 8 * a.n_ptrs, a.n_order, torch.int64).tolist()
+        order = view(a.table + 8 * (a.n_ptrs + a.n_order), a.n_order, torch.int32).tolist()
+        assert rows_of == [a.inv + (k // a.n_local) * a.h * 4 if a.inv else 0 for k in order]
+    else:
+        assert a.n_ptrs <= agg._FOLD_MAX_PTRS and a.n_order <= agg._FOLD_MAX_ORDER
+        ptrs, order = a.ptrs, list(a.order[:a.n_order])
+    for i in range(a.n_keys):
+        k = a.keys[i]
+        blocks += -(-k.rows // 256)
+        assert a.blk_end[i] == blocks
+        p, st, outs = k.ptr0, agg.AggState(), {}
+        for f, field in enumerate(_FIELDS):
+            if not (k.present >> f) & 1:
+                continue
+            dtype = (torch.int64 if field == "last_ts" else torch.float64
+                     if field == "last_val" else _EMU_DTYPES[k.dtype[f]])
+            outs[field] = view(ptrs[p], k.rows, dtype)
+            setattr(st, field, torch.stack([view(ptrs[p + 1 + j], k.rows, dtype)
+                                            for j in range(m)]))
+            p += m + 1
+        inv = None
+        if k.keyed:
+            inv = view(a.inv, a.n_slots * a.h, torch.int32).view(a.n_slots, a.h)
+        res = agg.fold_states_plain(st, a.n_local, order, inv, rule)
+        for field, out in outs.items():
+            out.copy_(getattr(res, field))
+    assert a.n_blocks == blocks
+    emulated.append(bool(a.table))
+
+
+emulated: list = []
+
+
+def _planned(items, m, n_order) -> list[bool]:
+    """Whether each launch `fold_launch_plan` makes of these items is staged."""
+    plan = agg.fold_launch_plan([(key, tuple(f for f in _FIELDS if f in per))
+                                 for key, per, _k in items], m, n_order)
+    return [agg.fold_launch_staged(u, m, n_order) for u in plan]
+
+
+@pytest.mark.parametrize("n_dev,n_local,max_ptrs,max_order", [
+    (4, 2, None, None),    # one launch
+    (4, 2, 20, None),      # a smaller descriptor: several launches, the wider keys staged
+    (4, 2, None, 3),       # more real sources than it holds: every launch staged
+    (8, 80, None, None),   # 640 sources (more than 512 real) at the real capacity
+])
+def test_fold_descriptor_layout_through_an_emulated_kernel(monkeypatch, n_dev, n_local,
+                                                           max_ptrs, max_order):
+    """What the wrapper hands the card: the merge's descriptors (and the
+    staged launches' tables), read back by an emulation of the kernel,
+    give `fold_states_plain`'s bytes key by key (dense keys of different
+    rows, LAST, keyed keys with the trailing row, the dense overflow
+    count), in the launches `fold_launch_plan` makes."""
+    from greptimedb_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "launch", _emulated_launch)
+    monkeypatch.setattr(_build, "upload_table",
+                        lambda raw, dev: torch.frombuffer(bytearray(raw), dtype=torch.uint8))
+    monkeypatch.setattr(agg, "_FOLD_LAYOUTS", {})  # layouts are built for the capacity
+    if max_ptrs is not None:
+        monkeypatch.setattr(agg, "_FOLD_MAX_PTRS", max_ptrs)
+    if max_order is not None:
+        monkeypatch.setattr(agg, "_FOLD_MAX_ORDER", max_order)
+    cpu = torch.device("cpu")
+    m = n_dev * n_local
+    per, stacked, positions = _dense_merge_case(71, n_dev, n_local, with_last=True)
+    order = [d * n_local + s for d, s in positions]
+    items = agg._fold_items(per, None, ())
+    emulated.clear()
+    l0, g0 = agg.fold_states.launches, agg.fold_states.merges
+    got = agg._fold_on_card(cpu, -1, items, m, n_local, order, None, "fold", 0)
+    assert agg.fold_states.launches - l0 == len(emulated)
+    assert emulated == _planned(items, m, len(order))
+    assert len(emulated) == 1 if max_ptrs is None else len(emulated) > 1
+    assert any(emulated) == (max_ptrs is not None or max_order is not None or len(order) > 512)
+    assert agg.fold_states.merges - g0 == 1
+    for key, st in stacked.items():
+        plain = agg.fold_states_plain(agg.AggState(**{k: torch.from_numpy(v)
+                                                      for k, v in st.items()}), n_local, order)
+        _assert_state_bits(got[key], plain, key)
+    # keyed, with the trailing row and the dense overflow count
+    k_local = 200 if n_local > 2 else 1   # 800 sources, more than 512 real
+    tables, kper, kstacked, kpos = _keyed_merge_case(72, 4, k_local, 64, True)
+    keys = torch.from_numpy(tables.reshape(-1).copy())
+    union = torch.full((64,), agg.HASH_EMPTY, dtype=torch.int64)
+    _u, slots, _o = agg.hash_group_slots(union, keys, keys != agg.HASH_EMPTY)
+    inv = agg.invert_slot_maps(slots.reshape(4, 64))
+    korder = [d * k_local + s for d, s in kpos]
+    items = agg._fold_items(kper, inv, ("__hash_overflow",))
+    emulated.clear()
+    got = agg._fold_on_card(cpu, -1, items, 4 * k_local, k_local, korder, inv, "fold", 0)
+    assert emulated == _planned(items, 4 * k_local, len(korder))
+    assert all(emulated) if len(korder) > 512 or max_order is not None else not any(emulated)
+    for key, st in kstacked.items():
+        plain = agg.fold_states_plain(agg.AggState(**{k: torch.from_numpy(v) for k, v in st.items()}),
+                                      k_local, korder, None if key == "__hash_overflow" else inv)
+        _assert_state_bits(got[key], plain, key)
+    # the merged fields are views of one allocation
+    bases = {getattr(st, f).untyped_storage().data_ptr() for st in got.values()
+             for f in _FIELDS if getattr(st, f) is not None}
+    assert len(bases) == 1
+
+
+def test_fold_state_dicts_rejects_mixed_sources():
+    a = {"k": agg.AggState(sums=torch.zeros(3, dtype=torch.float64))}
+    b = {"k": agg.AggState(counts=torch.zeros(3, dtype=torch.int32))}
+    with pytest.raises(ValueError):
+        agg._fold_items([a, b], None, ())
+    with pytest.raises(ValueError):
+        agg.fold_state_dicts([a, a], 3, [0])
+    with pytest.raises(ValueError):
+        agg.fold_state_dicts([], 1, [0])
+
+
 def test_invert_slot_maps_plain():
     slot_map = torch.tensor([[2, 4, 0, 4], [4, 3, 1, 4]], dtype=torch.int32)
     assert agg.invert_slot_maps(slot_map).tolist() == [[2, -1, 0, -1], [-1, 2, -1, 1]]

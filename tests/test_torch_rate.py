@@ -589,3 +589,87 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError):
         R.range_finalize([R.WindowStats(*[torch.zeros(1)] * 8)],
                          R.RangeGrid(0, 1, 1, 1, 1, 1, 1), "irate")
+
+
+# ---- K12's plan and its order contract -----------------------------------------------
+
+
+@pytest.mark.parametrize("S,G,W,form,tw,grid", [
+    (4096, 1, 1024, "staged", 8, 128),      # T2 / T5: one group, 128 CTAs of 8 steps
+    (4096, 64, 1024, "cells", 0, 256),     # 65,536 cells: enough in flight
+    (4096, 16, 1024, "staged", 32, 512),
+    (4096, 4096, 1024, "cells", 0, 16384),  # G = S: a member a group
+    (4096, 1024, 1024, "cells", 0, 4096),   # the cells fill the card
+    (4096, 1, 16, "staged", 8, 2),
+    (4096, 4096, 16, "cells", 0, 256),      # a member a group
+    (64, 16, 64, "cells", 0, 4),            # 4 members a group
+    (40, 0, 64, "cells", 0, 0),
+])
+def test_series_fold_plan(S, G, W, form, tw, grid):
+    """K12's form, tile and grid from (S, G, W) alone."""
+    assert R.series_fold_plan(S, G, W) == {"form": form, "tw": tw, "grid": grid}
+
+
+def _order_sensitive_stats(seed: int, s_pad: int, w_pad: int):
+    """Window stats whose sum_over_time is a matrix of mixed magnitudes
+    (1e-8 to 1e8, both signs) with NaN holes: its sums depend on the
+    order of the adds."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.integers(-8, 9, (s_pad, w_pad))
+    vals = rng.standard_normal((s_pad, w_pad)) * mag
+    present = rng.random((s_pad, w_pad)) >= 0.2
+    present[:, 0] = False  # a step with no member
+    n = s_pad * w_pad
+    cnt = present.astype(np.int32).reshape(-1)
+    fields = dict(count=cnt, first_ts=np.zeros(n, np.int64), last_ts=np.zeros(n, np.int64),
+                  first_val=np.zeros(n), last_val=np.zeros(n), sum=vals.reshape(-1),
+                  min=np.zeros(n), max=np.zeros(n))
+    return vals, present, fields
+
+
+@pytest.mark.parametrize("op", ["sum", "avg", "count", "max"])
+@pytest.mark.parametrize("keep_idx", [(), (0,), (1, 0)])
+def test_series_fold_order_sensitive_matches_reference_finalize(op, keep_idx):
+    """K12's left fold in ascending series id on a matrix where a pairwise
+    sum gives other bytes: byte for byte the reference's `_finalize` at
+    G = 1, a middle G (16 groups of 16) and G = S."""
+    radices = (16, 16)
+    s_pad, w_pad = 256, 24
+    vals, present, fields = _order_sensitive_stats(7, s_pad, w_pad)
+    zeroed = np.where(present, vals, 0.0)
+    left = np.zeros(w_pad)
+    for r in range(s_pad):
+        left = left + zeroed[r]
+
+    def pairwise(rows):
+        if rows.shape[0] == 1:
+            return rows[0]
+        half = rows.shape[0] // 2
+        return pairwise(rows[:half]) + pairwise(rows[half:])
+
+    assert not np.array_equal(left.view(np.uint64), pairwise(zeroed).view(np.uint64))
+    jstats = jrate.WindowStats(**{f: jnp.asarray(v) for f, v in fields.items()})
+    func = "sum_over_time"
+    csig = (func, op, s_pad, w_pad, 8, radices, 1_000_000, (), keep_idx)
+    dyn = {"start": np.int64(0), "step": np.int64(1), "range": np.int64(1)}
+    want = np.asarray(jtile._finalize(jstats, dyn, csig))
+    tstats = R.WindowStats(*(torch.from_numpy(np.array(fields[f])) for f in R.WindowStats.FIELDS))
+    grid = R.RangeGrid(0, 1, 1, w_pad, 8, s_pad, w_pad)
+    mat = R.range_finalize([tstats], grid, func).view(s_pad, w_pad)
+    offsets, members = (torch.from_numpy(x) for x in R.group_csr(radices, keep_idx))
+    got = R.series_fold(mat, offsets, members, op).numpy()
+    if keep_idx == () and op == "sum":
+        assert np.array_equal(got[0, 1:].view(np.uint64), left[1:].view(np.uint64))
+    nan = np.isnan(want)
+    assert np.array_equal(nan, np.isnan(got)) and nan[:, 0].all()
+    assert np.array_equal(got[~nan].view(np.uint64), want[~nan].view(np.uint64))
+
+
+def test_series_fold_rejects_an_unknown_tile():
+    """K12's launch takes the cell form (0) or one of the staged tiles."""
+    mat = torch.zeros((4, 3), dtype=torch.float64)
+    off, mem = (torch.from_numpy(x) for x in R.group_csr((4,), ()))
+    with pytest.raises(ValueError):
+        R._series_fold_launch(mat, off, mem, "sum", 12)
+    with pytest.raises(ValueError):
+        R.series_fold(mat, off, mem, "tree")

@@ -25,8 +25,23 @@ over phase 3's planes (TSBS cpu-only, 4000 hosts x 12 h of 10 s scrapes =
 
 `--set range_hll`: K10 `range_windows` at phase 3c's TQL shapes (k = 8 and
 64, the row prologue included) and K20 `segment_hll` at phase 9's rows (by
-host p = 12 and 14, by hour, one register) beside `scatter_reduce_`; with
---tql, T3 through `TQL EVAL` on the warm tile route once per checkout.
+host p = 12 and 14, by hour, one register) beside `scatter_reduce_`.
+
+`--set fold`: the mesh merge and the by-label fold at phase 10a's and 3c's
+shapes.  K22 `fold_states` one key at a time (dense 4 x 2^16 and
+8 x 480,000 rows; keyed over 4 slot tables of 2^24 slots, the inversion
+apart) and whole merges of per-source state dicts: one key at each of those
+shapes, and a TSBS double-groupby-all merge at 4 slots (21 dense keys over
+4096 x 12 groups; 12 keyed keys over 2^17 hash slots, `__hash_overflow`
+among them).  A merge calls `fold_state_dicts` where the checkout has it,
+else the per-key loop of `stack_states` + `fold_states` that the mesh ran
+before it.  K12 `series_fold` over a 4096 x 1024 rate matrix (NaN holes) at
+G = 1, 2, 16, 32, 64 and 4096, beside `index_add_`; where the checkout has
+`_series_fold_launch`, both of its forms too (the cell form, and the staged
+form at the tile the plan would give it).
+
+With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
+route once per checkout (the dispatch stage's p50 beside the query's).
 
 With --profile every shape runs once more under torch.profiler: the device
 time of each CUDA kernel and memset it launched, per call, their sum, and
@@ -44,7 +59,7 @@ Prints the card's name and power limit, one JSON line per turn and shape,
 and a last line with the ms of each checkout (mean of its two turns) and
 whether every output's bytes agreed.
 
-    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll] [--hosts 4000]
+    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll|fold] [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
                                [--profile]
 """
@@ -60,9 +75,12 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_last"),
-           "range_hll": ("strip_counter_resets", "range_windows", "segment_hll")}
+           "range_hll": ("strip_counter_resets", "range_windows", "segment_hll"),
+           "fold": ("fold_states", "series_fold")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -81,9 +99,9 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def _device_us(fn, calls: int = 5) -> dict:
-    """{kernel or memset name: device us per call} of fn() under
-    torch.profiler."""
+def _device_us(fn, calls: int = 5) -> tuple[dict, dict]:
+    """({kernel, memset or copy name: device us per call}, {name: launches
+    per call}) of fn() under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -93,25 +111,26 @@ def _device_us(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, count = {}, {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us and evt.device_type is not None and "cuda" in str(evt.device_type).lower():
             out[evt.key[:60]] = us / calls
-    return out
+            count[evt.key[:60]] = evt.count / calls
+    return out, count
 
 
 def _profiled(fn) -> dict:
     """What one call launches on the card: {"device_us": per kernel,
     "device_sum_us": their sum, "library_sorts": names of library sort
     kernels among them}."""
-    us = _device_us(fn)
+    us, count = _device_us(fn)
     # the kernel's name alone ("void ns::k<T>(A, B)" -> "ns::k"): the port's
     # own sort takes a RadixPlan argument
     names = {k: k.split("(")[0].split("<")[0].split(" ")[-1] for k in us}
-    return {"device_us": us, "device_sum_us": sum(us.values()),
+    return {"device_us": us, "device_sum_us": sum(us.values()), "device_calls": count,
             "library_sorts": [k for k in us if any(s in names[k] for s in LIBRARY_SORT_NAMES)]}
 
 
@@ -265,8 +284,8 @@ def blocked_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -
          plain_bytes=all(c._same_bytes(a, b) for a, b in zip(got4, want4)))
 
 
-def range_hll_cases(c, hosts: int, hours: int, sketch_hours: int, reps: int, tql: bool,
-                    prof: bool, emit) -> None:
+def range_hll_cases(c, hosts: int, hours: int, sketch_hours: int, reps: int, prof: bool,
+                    emit) -> None:
     import torch
 
     from greptimedb_tpu_torch.ops import rate as R
@@ -330,13 +349,237 @@ def range_hll_cases(c, hosts: int, hours: int, sketch_hours: int, reps: int, tql
         del got
         torch.cuda.empty_cache()
 
-    if tql:
-        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
-            out = c.run_tql_slice("cuda", hosts, hours, 3, home)
-        t3 = out["queries"]["T3"]
-        emit("T3 tile warm", t3["warm_p50_ms"], None,
-             dispatch_ms=t3["warm_stage_p50_ms"].get("dispatch"),
-             stage_ms=t3["warm_stage_p50_ms"])
+
+
+# the TSBS double-groupby-all merge at 4 slots (the mesh cell's): 4000
+# hosts (a card of 4096) x 12 hourly buckets; its hash plan's slot tables
+FOLD_SLOTS = 4
+TSBS_COLS = ("usage_user", "usage_system", "usage_idle", "usage_nice", "usage_iowait",
+             "usage_irq", "usage_softirq", "usage_steal", "usage_guest", "usage_guest_nice")
+HASH_SLOTS = 1 << 17
+
+
+def _merge_parent(agg, states, n_local, order, dev, inv=None, dense=()):
+    """The mesh merge before the batched entry: one stack and one K22 call
+    per state key."""
+    return {k: agg.fold_states(agg.stack_states([s[k] for s in states], dev), n_local, order,
+                               inv=None if k in dense else inv)
+            for k in states[0]}
+
+
+def _merge(agg, states, n_local, order, dev, inv=None, dense=()):
+    if hasattr(agg, "fold_state_dicts"):
+        return agg.fold_state_dicts(states, n_local, order, dev=dev, inv=inv, dense_keys=dense)
+    return _merge_parent(agg, states, n_local, order, dev, inv, dense)
+
+
+def _split(st, m: int) -> list:
+    """A stacked [m, rows] state as m per-source states (views)."""
+    from greptimedb_tpu_torch.ops.aggregate import AggState
+
+    names = ("sums", "counts", "mins", "maxs", "last_ts", "last_val")
+    return [AggState(**{k: None if getattr(st, k) is None else getattr(st, k)[i] for k in names})
+            for i in range(m)]
+
+
+def _tsbs_dense_states(rng, dev) -> list:
+    """Per slot the state dict of double-groupby-all's sort plan in limb
+    mode: per column the limb sums and their error bound, and the presence
+    count, over 4096 x 12 groups."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.aggregate import AggState
+
+    g = 4096 * 12
+    out = []
+    for _s in range(FOLD_SLOTS):
+        st = {}
+        for col in TSBS_COLS:
+            st[col] = AggState(sums=torch.from_numpy(rng.standard_normal(g) * 1e3).to(dev))
+            st["__limb_err:" + col] = AggState(sums=torch.from_numpy(rng.random(g) * 1e-9).to(dev))
+        st["__presence"] = AggState(counts=torch.from_numpy(
+            rng.integers(0, 360, g).astype(np.int32)).to(dev))
+        out.append(st)
+    return out
+
+
+def _tsbs_keyed_states(agg, dev):
+    """double-groupby-all's hash plan at 4 slots: per slot its K17 table of
+    HASH_SLOTS slots over its partition's (host, hour) keys (host % 4), the
+    union and its inversion, and per slot the state dict over its table
+    (sums of 10 columns, usage_user's count, the presence, the overflow
+    count; the identity in empty slots)."""
+    import torch
+
+    from greptimedb_tpu_torch.ops.aggregate import AggState
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    tables = []
+    for s in range(FOLD_SLOTS):
+        ids = torch.arange(4000 * 12, dtype=torch.int64, device=dev)
+        ids = ids[(ids // 12) % FOLD_SLOTS == s].contiguous()
+        t = torch.full((HASH_SLOTS,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+        t, _slots, ovf = agg.hash_group_slots(t, ids, torch.ones_like(ids, dtype=torch.bool))
+        assert int(ovf) == 0
+        tables.append(t)
+    keys = torch.cat(tables)
+    union = torch.full((HASH_SLOTS,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+    union, slots, ovf = agg.hash_group_slots(union, keys, keys != agg.HASH_EMPTY)
+    inv = agg.invert_slot_maps(slots.reshape(FOLD_SLOTS, HASH_SLOTS))
+    states = []
+    for t in tables:
+        occ = t != agg.HASH_EMPTY
+
+        def vals(ident, ints=False):
+            v = (torch.randint(0, 360, (HASH_SLOTS,), generator=g, device=dev, dtype=torch.int32)
+                 if ints else torch.randn(HASH_SLOTS, generator=g, device=dev,
+                                          dtype=torch.float64) * 1e3)
+            return torch.where(occ, v, torch.full_like(v, ident))
+
+        st = {col: AggState(sums=vals(0.0)) for col in TSBS_COLS}
+        st["usage_user"] = AggState(sums=st["usage_user"].sums, counts=vals(0, True))
+        st["__presence"] = AggState(counts=vals(0, True))
+        st["__hash_overflow"] = AggState(counts=torch.zeros(1, dtype=torch.int32, device=dev))
+        states.append(st)
+    return states, inv
+
+
+def _rate_matrix(rng, dev, s_pad: int = 4096, w_pad: int = 1024, hosts: int = 4000,
+                 steps: int = 721):
+    """A seeded [s_pad, w_pad] rate matrix as phase 3c's fold reads it: the
+    padded series and steps NaN, 1 % NaN holes, values of mixed magnitude."""
+    import torch
+
+    v = rng.random((s_pad, w_pad)) * 10.0 ** rng.integers(-3, 4, (s_pad, w_pad))
+    v[hosts:] = np.nan
+    v[:, steps:] = np.nan
+    v[rng.random((s_pad, w_pad)) < 0.01] = np.nan
+    return torch.from_numpy(v).to(dev)
+
+
+def fold_cases(c, reps: int, prof: bool, emit, dev) -> None:
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import rate as R
+
+    rng = np.random.default_rng(c.SEED)
+    batched = hasattr(agg, "fold_state_dicts")
+
+    def case(name, fn, outs, **kw):
+        emit(name, c._timed(fn, reps), _digest(outs), enqueue_us=_enqueue_us(fn, reps),
+             batched=batched, **kw, **(_profiled(fn) if prof else {}))
+
+    def merged(out):
+        return [t for k in out for t in _state(out[k]) + [out[k].last_ts, out[k].last_val]]
+
+    # one key: the one-key form over stacked states, and the merge of
+    # per-source states (the parent: a stack, then the one-key form)
+    for m, rows in ((FOLD_SLOTS, 1 << 16), (8, 48_000 * 10)):
+        st = c._fold_inputs(rng, m, rows, dev)
+        order = list(range(m))
+        b, _by = c.bound(c._state_bytes(st) * (1 + 1 / m), 0)
+
+        def one():
+            return agg.fold_states(st, m, order)
+
+        got = one()
+        case(f"K22 dense {m}x{rows} one-key form", one,
+             _state(got) + [got.last_ts, got.last_val], rows=rows, sources=m, bound_ms=b)
+        per = [{"k": s} for s in _split(st, m)]
+
+        def dict_merge():
+            return _merge(agg, per, m, order, dev)
+
+        case(f"K22 dense {m}x{rows} merge", dict_merge, merged(dict_merge()), rows=rows,
+             sources=m, bound_ms=b)
+        del st, per
+    # keyed at the container cell's slot tables, the inversion apart
+    tables = c._slot_tables(FOLD_SLOTS, c.MESH_H, c.CM_HOURS, dev)
+    keys = tables.reshape(-1)
+    u = torch.full((c.MESH_H,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+    u, slots, _ovf = agg.hash_group_slots(u, keys, keys != agg.HASH_EMPTY)
+    inv = agg.invert_slot_maps(slots.reshape(FOLD_SLOTS, c.MESH_H))
+    kst = c._keyed_states(tables, False, c.SEED)
+    korder = list(range(FOLD_SLOTS))
+
+    def keyed():
+        return agg.fold_states(kst, 1, korder, inv=inv)
+
+    case("K22 keyed 4x2^24 fold", keyed, _state(keyed()), rows=c.MESH_H,
+         invert_ms=c._timed(lambda: agg.invert_slot_maps(slots.reshape(FOLD_SLOTS, c.MESH_H)),
+                            reps))
+    kper = [{"k": s} for s in _split(kst, FOLD_SLOTS)]
+
+    def keyed_merge():
+        return _merge(agg, kper, 1, korder, dev, inv=inv)
+
+    case("K22 keyed 4x2^24 merge", keyed_merge, merged(keyed_merge()), rows=c.MESH_H)
+    del tables, keys, u, slots, inv, kst, kper
+    torch.cuda.empty_cache()
+
+    # whole merges: double-groupby-all's state dicts at 4 slots
+    dense = _tsbs_dense_states(rng, dev)
+
+    def whole():
+        return _merge(agg, dense, 1, korder, dev)
+
+    nbytes = sum(t.numel() * t.element_size() for st in dense for s in st.values()
+                 for t in _state(s) if t is not None)
+    b, _by = c.bound(nbytes * (1 + 1 / FOLD_SLOTS), 0)
+    case("K22 whole merge dense (21 keys)", whole, merged(whole()), keys=len(dense[0]),
+         bound_ms=b, parent_loop_ms=c._timed(
+             lambda: _merge_parent(agg, dense, 1, korder, dev), reps))
+    hstates, hinv = _tsbs_keyed_states(agg, dev)
+    dk = ("__hash_overflow",)
+
+    def whole_keyed():
+        return _merge(agg, hstates, 1, korder, dev, inv=hinv, dense=dk)
+
+    case("K22 whole merge keyed (12 keys)", whole_keyed, merged(whole_keyed()),
+         keys=len(hstates[0]), parent_loop_ms=c._timed(
+             lambda: _merge_parent(agg, hstates, 1, korder, dev, hinv, dk), reps))
+    del dense, hstates, hinv
+    torch.cuda.empty_cache()
+
+    # K12 over a rate matrix at G = 1, 64 and 4096
+    mat = _rate_matrix(rng, dev)
+    s_pad, w_pad = mat.shape
+    forms = hasattr(R, "_series_fold_launch")
+    for keep, radices in (((), (s_pad,)), ((0,), (2, s_pad // 2)), ((0,), (16, s_pad // 16)),
+                          ((0,), (32, s_pad // 32)), ((0,), (64, 64)), ((0,), (s_pad,))):
+        off, mem = (torch.from_numpy(x).to(dev) for x in R.group_csr(radices, keep))
+        G = int(off.shape[0]) - 1
+        gid = torch.from_numpy(R.gid_map(radices, keep)).to(dev)
+        zeroed = torch.nan_to_num(mat, nan=0.0)
+        lib = c._timed(lambda: torch.zeros((G, w_pad), dtype=torch.float64, device=dev)
+                       .index_add_(0, gid, zeroed), reps)
+        b, _by = c.bound(mat.numel() * 8 + G * w_pad * 8 + (G + 1 + s_pad) * 8, 0)
+        tws = {"": None}
+        if forms:
+            tws.update({" cells": 0, " staged": R._staged_tile(G, w_pad)})
+        for form, tw in tws.items():
+            def fold():
+                if tw is None:
+                    return R.series_fold(mat, off, mem, "sum")
+                return R._series_fold_launch(mat, off, mem, "sum", tw)
+
+            plan = R.series_fold_plan(s_pad, G, w_pad) if hasattr(R, "series_fold_plan") else None
+            case(f"K12 G={G}{form}", fold, [fold()], groups=G, library_ms=lib, bound_ms=b,
+                 plan=plan, tw=tw)
+    del mat
+    torch.cuda.empty_cache()
+
+
+def tql_cases(c, hosts: int, hours: int, emit) -> None:
+    """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
+        out = c.run_tql_slice("cuda", hosts, hours, 3, home)
+    for name in ("T2", "T3", "T5"):
+        q = out["queries"][name]
+        emit(f"{name} tile warm", q["warm_p50_ms"], None,
+             dispatch_ms=q["warm_stage_p50_ms"].get("dispatch"),
+             stage_ms=q["warm_stage_p50_ms"])
 
 
 def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps: int,
@@ -346,18 +589,24 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
     import chip_smoke as c
     from greptimedb_tpu_torch.kernels import build_all
 
-    build_all(SOURCES[kset] + (("mask_gids", "quantize_limbs", "segment_reduce_scatter",
-                                "segment_sort") if kset == "blocked" else ()))
+    build_all(SOURCES[kset] + {"blocked": ("mask_gids", "quantize_limbs",
+                                           "segment_reduce_scatter", "segment_sort"),
+                               "fold": ("mask_gids", "hash_group_slots")}.get(kset, ()))
 
     def emit(case, ms, digest, **kw):
         print(json.dumps({"case": case, "ms": ms, "bytes": digest, **kw}), flush=True)
 
-    if kset == "blocked":
-        import torch
+    import torch
 
-        blocked_cases(c, hosts, hours, reps, prof, emit, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if kset == "blocked":
+        blocked_cases(c, hosts, hours, reps, prof, emit, dev)
+    elif kset == "fold":
+        fold_cases(c, reps, prof, emit, dev)
     else:
-        range_hll_cases(c, hosts, hours, sketch_hours, reps, tql, prof, emit)
+        range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
+    if tql:
+        tql_cases(c, hosts, hours, emit)
 
 
 def resource_usage(root: str, kset: str) -> dict:
@@ -406,7 +655,7 @@ def main() -> int:
     ms: dict[str, dict[str, list]] = {}
     digests: dict[str, set] = {}
     for i, (label, root) in enumerate(turns):
-        # T3 once per checkout: the TQL slice ingests 34.56 M rows
+        # T2, T3 and T5 once per checkout: the TQL slice ingests 34.56 M rows
         tql = args.tql and i in (1, 3)
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root, "--set", args.kset,
                "--hosts", str(args.hosts), "--hours", str(args.hours),
