@@ -473,6 +473,7 @@ def reset_counts() -> None:
     kernel_table()["fold_states"][0].merges = 0
     SHAPES.clear()
     K22_PLANNED.update(planned=0, made=0)
+    K8_PLANNED.update(calls=0, planned=0, made=0)
 
 
 def _rows_bucket(n: int) -> str:
@@ -500,6 +501,9 @@ SHAPES: dict[str, int] = {}
 # launches against the launches its plan makes for the same merges.
 LAST_ARGS: dict = {}
 K22_PLANNED = {"planned": 0, "made": 0}
+# K8's calls and their launches, made and planned (`pack_launch_plan`:
+# one a call up to 64 rows), since the counts were last set to 0
+K8_PLANNED = {"calls": 0, "planned": 0, "made": 0}
 _K22_FIELDS = ("sums", "counts", "mins", "maxs", "last_ts", "last_val")
 
 
@@ -517,8 +521,9 @@ def count_shapes() -> None:
     column count C, K10 per k, K22 per sources and rows, K18 per rows) from
     here on: a wrapper around the port's one launch function, which every
     wrapper looks up when it is called.  Each K22 merge must launch as
-    often as `fold_launch_plan` says for it: a wrapper around the merge
-    counts both and fails where they differ."""
+    often as `fold_launch_plan` says for it, and each K8 call as its
+    layout's launch plan says: wrappers around the merge and around K8's
+    launches count both and fail where they differ."""
     from greptimedb_tpu_torch.kernels import _build
     from greptimedb_tpu_torch.ops import aggregate as agg
 
@@ -551,9 +556,23 @@ def count_shapes() -> None:
         K22_PLANNED["made"] += made
         return out
 
+    pack_on_card = agg._pack_on_card
+
+    def pack(layout, *rest):
+        l0 = agg.pack_result.launches
+        pack_on_card(layout, *rest)
+        made = agg.pack_result.launches - l0
+        if made != len(layout.launches):
+            raise AssertionError(f"K8 call of {len(layout.rows)} rows: {made} launches, its "
+                                 f"plan makes {len(layout.launches)}")
+        K8_PLANNED["calls"] += 1
+        K8_PLANNED["planned"] += len(layout.launches)
+        K8_PLANNED["made"] += made
+
     counted.counts_shapes = True
     _build.launch = counted
     agg._fold_on_card = merge
+    agg._pack_on_card = pack
 
 
 def shape_counts() -> dict[str, int]:
@@ -661,6 +680,42 @@ def _check_state(k_st, p_st, what: str) -> float:
         if a is not None:
             err = max(err, _compare(a, b, exact=(name != "sums"), what=f"{what}.{name}"))
     return err
+
+
+# Seconds of the checks that hold K3 against its order emulation (in
+# phases 3 and 3e and the edge cases) and of run_pack_scatter_edge_cases
+CHECK_S = {"k3_order_emulation_s": 0.0, "pack_scatter_edge_cases_s": 0.0}
+
+
+def _same_as_lanes(k_st, lanes_fn, what: str) -> None:
+    """K3's outputs against `segment_reduce_scatter_lanes` (its add order
+    in torch ops; lanes_fn() computes it) byte for byte, signed zeros
+    included; a NaN only as a NaN (torch's own adds on the card may give it
+    another payload)."""
+    t0 = time.perf_counter()
+    try:
+        _same_bytes_as_lanes(k_st, lanes_fn(), what)
+    finally:
+        CHECK_S["k3_order_emulation_s"] += time.perf_counter() - t0
+
+
+def _same_bytes_as_lanes(k_st, lanes, what: str) -> None:
+    import torch
+
+    for name in ("sums", "counts", "mins", "maxs"):
+        a, b = getattr(k_st, name), getattr(lanes, name)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}.{name}: present in one result only")
+        if a is None:
+            continue
+        if a.is_floating_point():
+            nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+            if not torch.equal(nan_a, nan_b):
+                raise AssertionError(f"{what}.{name}: NaN positions differ from K3's order")
+            a, b = torch.where(nan_a, 0.0, a), torch.where(nan_b, 0.0, b)
+        if not _same_bytes(a, b):
+            bad = int((a.reshape(-1).view(torch.uint8) != b.reshape(-1).view(torch.uint8)).sum())
+            raise AssertionError(f"{what}.{name}: {bad} bytes differ from K3's order emulation")
 
 
 def _moved(x, dev):
@@ -778,6 +833,9 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
             lambda: agg.segment_reduce_scatter(cols, gids, masks, mask, G, aggs, order), f"scatter C={C}")
         e3 = _check_state(s_st, agg.segment_reduce_scatter_plain(cols, gids, masks, mask, G, aggs),
                           f"segment_reduce_scatter C={C}")
+        _same_as_lanes(s_st, lambda: agg.segment_reduce_scatter_lanes(cols, masks, mask, order, G,
+                                                                      aggs),
+                       f"segment_reduce_scatter C={C}")
         stacked = torch.stack(cols, dim=1)
         safe = torch.where(mask, gids, G).to(torch.int64)
         lib = _timed(lambda: torch.zeros((G + 1, C), dtype=torch.float64, device=dev)
@@ -796,6 +854,9 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
             scatter=dict(
                 max_abs_err=e3,
                 ms=_timed(lambda: agg.segment_reduce_scatter(cols, gids, masks, mask, G, aggs), reps),
+                # without its K18 sort: on a precomputed order
+                alone_ms=_timed(lambda: agg.segment_reduce_scatter(cols, gids, masks, mask, G, aggs,
+                                                                   order), reps),
                 plain_ms=_timed(lambda: agg.segment_reduce_scatter_plain(cols, gids, masks, mask, G, aggs), 1),
                 bound_ms=kb, bound_by=kby, library_ms=lib,
             ),
@@ -820,16 +881,27 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # written; one compare per row; scatter_reduce_ is the library call
     sm_bound, sm_by = bound(n * (4 + 1 + 8) + n_min * 8, n)
     safe_m = torch.where(mm, gm, n_min).to(torch.int64)
+    # K3 over 720 long runs: its order emulation and the plain version
+    order_m = agg.sort_segments(gm, mm, n_min)
+    km = _twice_identical(lambda: agg.segment_reduce_scatter(vals[:1], gm, [mm], mm, n_min, ("max",),
+                                                             order_m), "scatter minute buckets")
+    _check_state(km, agg.segment_reduce_scatter_plain(vals[:1], gm, [mm], mm, n_min, ("max",)),
+                 "segment_reduce_scatter minute buckets")
+    _same_as_lanes(km, lambda: agg.segment_reduce_scatter_lanes(vals[:1], [mm], mm, order_m, n_min,
+                                                                ("max",)),
+                   "segment_reduce_scatter minute buckets")
     out["segment_reduce_blocked"]["guard_fail"] = dict(
         ms=_timed(lambda: agg.segment_reduce_blocked(vals[:1], gm, [mm], mm, n_min, ("max",)), reps),
         bound_ms=gf_bound, bound_by=gf_by,
         scatter_ms=_timed(lambda: agg.segment_reduce_scatter(vals[:1], gm, [mm], mm, n_min, ("max",)), reps),
+        scatter_alone_ms=_timed(lambda: agg.segment_reduce_scatter(
+            vals[:1], gm, [mm], mm, n_min, ("max",), order_m), reps),
         scatter_bound_ms=sm_bound, scatter_bound_by=sm_by,
         scatter_library_ms=_timed(
             lambda: torch.full((n_min + 1,), -np.inf, dtype=torch.float64, device=dev)
             .scatter_reduce_(0, safe_m, vals[0], "amax"), reps),
     )
-    del gm, mm, safe_m
+    del gm, mm, safe_m, order_m, km
 
     # K4 at the lastpoint shape: group by hostname only
     gl, ml = flt.mask_gids(valid, [], [], [(codes, card)], None, card - 1)
@@ -1122,6 +1194,9 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     del vals, lcols, codes, ts, valid, gids, mask, k6_states, sums, errs, presence
     torch.cuda.empty_cache()
     run_tile_edge_cases(dev)
+    t0 = time.perf_counter()
+    run_pack_scatter_edge_cases(dev)
+    CHECK_S["pack_scatter_edge_cases_s"] += time.perf_counter() - t0
     return out
 
 
@@ -1212,6 +1287,206 @@ def run_tile_edge_cases(dev) -> None:
         pp = agg.pack_result_plain(*args, **kw)
         for a, b in zip(kp, pp):
             _compare_bytes(a, b, "edge pack_result")
+
+
+def _device_ops(fn) -> dict[str, tuple[float, int]]:
+    """{CUDA kernel, memset or memcpy name: (device us, how often)} of one
+    fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type is None or "cuda" not in str(evt.device_type).lower():
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        out[evt.key[:80]] = (us, evt.count)
+    return out
+
+
+def _k8_k3_ops(fn, what: str, k8_launches: int = 0) -> dict[str, int]:
+    """fn()'s device ops: no host-to-device copy (K8's descriptor and K3's
+    column pointers ride in their launches' arguments), and `k8_launches`
+    pack kernels where given."""
+    ops = {k: n for k, (_us, n) in _device_ops(fn).items()}
+    h2d = {k: n for k, n in ops.items() if "HtoD" in k}
+    if h2d:
+        raise AssertionError(f"{what}: host-to-device copies {h2d}")
+    packs = sum(n for k, n in ops.items() if "pack_kernel" in k)
+    if k8_launches and packs != k8_launches:
+        raise AssertionError(f"{what}: {packs} pack kernels, its plan makes {k8_launches}")
+    return ops
+
+
+def run_pack_scatter_edge_cases(dev) -> dict:
+    """K8 and K3 where their launch plans and kernels branch, each against
+    its plain version (K3 also against its order emulation), twice: K8 past
+    one descriptor (two launches), a misaligned row after bit-packed
+    presence, a verdict that fails at exactly one group, two calls on two
+    streams at once, a capture in a CUDA graph replayed on new inputs; K3
+    at 40 columns (two launches), runs of 1 to ~9000 rows on its dense and
+    sparse kernels, an empty last group, a shut gate (its outputs left as
+    they were) and an open one.  torch.profiler: no K8 or K3 call copies
+    to the card, and K8 launches as its plan says."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    rng = np.random.default_rng(SEED + 14)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out: dict = {}
+
+    def pack_args(G, n_acc32, n64, n_verdict, fail_at=None, bits=True):
+        pres = t(rng.integers(0, 3, G).astype(np.int32))
+        sums = [t(rng.normal(0, 1e3, G)) for _ in range(max(n_acc32, n64, n_verdict))]
+        errs = []
+        for i in range(n_verdict):
+            e = np.abs(sums[i].cpu().numpy()) * 1e-9
+            if fail_at is not None and i == n_verdict - 1:
+                e[fail_at] = abs(float(sums[i][fail_at])) * 1e-6
+            errs.append(t(e))
+        args = ([pres], [(sums[i], pres) for i in range(n_acc32)],
+                [("value", sums[i]) if i % 2 else ("avg", sums[i], pres) for i in range(n64)], bits)
+        return args, {"verdict_rows": list(zip(errs, sums)),
+                      "overflow": t(np.array([int(rng.integers(0, 2))], np.int32))}
+
+    def check_pack(args, kw, what, launches):
+        l0 = agg.pack_result.launches
+        k = _twice_identical(lambda: agg.pack_result(*args, **kw), what)
+        made = (agg.pack_result.launches - l0) // 2
+        if made != launches:
+            raise AssertionError(f"{what}: {made} launches a call, expected {launches}")
+        p = agg.pack_result_plain(*args, **kw)
+        for a, b in zip(k, p):
+            _compare_bytes(a, b, what)
+        return k
+
+    # past one descriptor: 1 + 40 + 30 + 3 + 1 rows over G = 300 bit-packed
+    big = pack_args(300, 40, 30, 3)
+    check_pack(*big, "edge K8 past one descriptor", 2)
+    _k8_k3_ops(lambda: agg.pack_result(*big[0], **big[1]), "edge K8 past one descriptor", 2)
+    # a misaligned row: 4101 presence bits leave the f32 rows at odd offsets
+    odd = pack_args(4101, 3, 2, 2)
+    layout = agg.pack_layout(True, False, 1, 3, ("avg", "value"), 2, True, 4101, 4101)
+    if [a for *_r, a in layout.rows][1] != 1:
+        raise AssertionError("edge K8: the row after 4101 presence bits should be misaligned")
+    check_pack(*odd, "edge K8 misaligned rows", 1)
+    # a verdict failing at exactly one group, and one that passes
+    for fail_at in (2999, None):
+        args, kw = pack_args(4096 * 12, 10, 0, 10, fail_at=fail_at)
+        k = check_pack(args, kw, f"edge K8 verdict fail_at={fail_at}", 1)
+        if int(k[0][-2]) != (fail_at is None):
+            raise AssertionError(f"edge K8 verdict fail_at={fail_at}: byte {int(k[0][-2])}")
+    out["k8_ops"] = _k8_k3_ops(lambda: agg.pack_result(*args, **kw), "edge K8 dense", 1)
+    # two calls on two streams at once
+    cases = [pack_args(4096 * 12, 10, 1, 10, fail_at=f) for f in (None, 7)]
+    want = [agg.pack_result_plain(*a, **kw_) for a, kw_ in cases]
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _round in range(8):
+        for i, ((a, kw_), st) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(st):
+                got[i].append(agg.pack_result(*a, **kw_))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for res in got[i]:
+            for a, b in zip(res, want[i]):
+                _compare_bytes(a, b, f"edge K8 stream {i}")
+    # a capture in a CUDA graph, replayed twice on new inputs in place
+    (gargs, gkw) = pack_args(4096 * 12, 10, 2, 10)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        agg.pack_result(*gargs, **gkw)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = agg.pack_result(*gargs, **gkw)
+    for fail_at in (None, 123):
+        fresh, fkw = pack_args(4096 * 12, 10, 2, 10, fail_at=fail_at)
+        gargs[0][0].copy_(fresh[0][0])
+        for (s_old, _c), (s_new, _c2) in zip(gargs[1], fresh[1]):
+            s_old.copy_(s_new)
+        for (e_old, _s), (e_new, _s2) in zip(gkw["verdict_rows"], fkw["verdict_rows"]):
+            e_old.copy_(e_new)
+        gkw["overflow"].copy_(fkw["overflow"])
+        want_g = agg.pack_result_plain(*gargs, **gkw)
+        for _replay in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, b in zip(captured, want_g):
+                _compare_bytes(a, b, f"edge K8 graph replay fail_at={fail_at}")
+    del graph, captured
+
+    # K3
+    aggs = ("count", "max", "min", "sum")
+
+    def check_scatter(g, G, C, what, launches=1):
+        n = g.shape[0]
+        vals = [t(rng.normal(0, 100, n)) for _ in range(C)]
+        vals[0][t(rng.choice(n, min(n, 9), replace=False))] = float("nan")
+        vals[0][t(rng.choice(n, min(n, 9), replace=False))] = -0.0
+        base = t(rng.random(n) < 0.93)
+        masks = [base if c % 3 else base & t(rng.random(n) < 0.6) for c in range(C)]
+        order = agg.sort_segments(g, base, G)
+        l0 = agg.segment_reduce_scatter.launches
+        k = _twice_identical(lambda: agg.segment_reduce_scatter(vals, g, masks, base, G, aggs,
+                                                                order), what)
+        if (agg.segment_reduce_scatter.launches - l0) // 2 != launches:
+            raise AssertionError(f"{what}: expected {launches} launches a call")
+        _check_state(k, _plain_on_host(agg.segment_reduce_scatter_plain, vals, g, masks, base, G,
+                                       aggs), what)
+        _same_as_lanes(k, lambda: agg.segment_reduce_scatter_lanes(vals, masks, base, order, G, aggs),
+                       what)
+        return vals, masks, base, order, k
+
+    lens = np.array([1, 31, 32, 33, 9001, 2, 0, 64, 65, 5, 1, 0] * 40)
+    runs = np.repeat(np.arange(lens.size), lens).astype(np.int32)
+    # dense kernel (G <= n / 32): the runs as they are; sparse: spread over 2^20
+    check_scatter(t(rng.permutation(runs)), lens.size, 3, "edge K3 runs, dense ids")
+    spread = np.sort(rng.choice(np.arange(1 << 20), lens.size, replace=False)).astype(np.int32)
+    check_scatter(t(rng.permutation(spread[runs])), 1 << 20, 3, "edge K3 runs, sparse ids")
+    short = rng.integers(0, 9, 60_000)
+    check_scatter(t(np.repeat(np.arange(short.size), short).astype(np.int32)), short.size, 2,
+                  "edge K3 short runs")
+    vals, masks, base, order, k40 = check_scatter(
+        t(np.sort(rng.integers(0, 5000, 400_000)).astype(np.int32)), 5001, 40,
+        "edge K3 40 columns, empty last group", launches=2)
+    if int(k40.counts[:, -1].abs().sum()) != 0:
+        raise AssertionError("edge K3: the empty last group holds rows")
+    # a shut gate leaves the outputs as they were; an open one writes them
+    G = 5001
+    n = base.shape[0]
+    gids = t(np.sort(rng.integers(0, G - 1, n)).astype(np.int32))
+    order = agg.sort_segments(gids, base, G)
+    sentinel = [torch.full((3, G), 7.0, dtype=torch.float64, device=dev),
+                torch.full((3, G), 7, dtype=torch.int32, device=dev),
+                torch.full((3, G), 7.0, dtype=torch.float64, device=dev),
+                torch.full((3, G), 7.0, dtype=torch.float64, device=dev)]
+    for word, shut in ((0, True), (1, False)):
+        outs = [o.clone() for o in sentinel]
+        verdict = torch.full((1,), word, dtype=torch.int32, device=dev)
+        st = agg.segment_reduce_scatter(vals[:3], gids, masks[:3], base, G, aggs, order,
+                                        verdict=verdict, outs=outs)
+        torch.cuda.synchronize()
+        if shut:
+            for a, b in zip(outs, sentinel):
+                _compare_bytes(a, b, "edge K3 shut gate")
+        else:
+            _check_state(st, _plain_on_host(agg.segment_reduce_scatter_plain, vals[:3], gids,
+                                            masks[:3], base, G, aggs), "edge K3 open gate")
+    out["k3_ops"] = _k8_k3_ops(lambda: agg.segment_reduce_scatter(vals, gids, masks, base, G,
+                                                                  aggs, order), "edge K3")
+    emit({"phase": "pack_scatter_edge_cases", "ok": True, **out})
+    return out
 
 
 # ---- phase 3d: the plane kernels K13-K16 against their plain versions ----------
@@ -1693,22 +1968,7 @@ def _kernel_name(key: str) -> str:
 def _device_kernels(fn) -> dict[str, float]:
     """{CUDA kernel or memset name: device us} of one fn() under
     torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us and evt.device_type is not None and "cuda" in str(evt.device_type).lower():
-            out[evt.key[:80]] = us
-    return out
+    return {k: us for k, (us, _n) in _device_ops(fn).items() if us}
 
 
 def run_falling_case(n_hosts: int, reps: int, dev) -> dict:
@@ -2007,6 +2267,10 @@ def run_hash_kernel_phase(reps: int) -> dict:
         lambda: agg.segment_reduce_scatter([vals], ks, [mask], mask, H, aggs), "scatter over slots")
     e3 = _check_state(s_st, agg.segment_reduce_scatter_plain([vals], ks, [mask], mask, H, aggs),
                       "segment_reduce_scatter over slots")
+    order_h = agg.sort_segments(ks, mask, H)
+    _same_as_lanes(s_st, lambda: agg.segment_reduce_scatter_lanes([vals], [mask], mask, order_h, H,
+                                                                  aggs),
+                   "segment_reduce_scatter over slots")
     safe = torch.where(mask, ks, H).to(torch.int64)
     # slot ids, mask and values read once, [H] sums, counts and maxima written
     b3, b3_by = bound(npad * (4 + 1 + 8) + H * (8 + 4 + 8), npad * len(aggs))
@@ -2014,6 +2278,8 @@ def run_hash_kernel_phase(reps: int) -> dict:
         max_abs_err=e3, ms=_timed(lambda: agg.segment_reduce_scatter([vals], ks, [mask], mask, H, aggs),
                                   reps),
         plain_ms=_timed(lambda: agg.segment_reduce_scatter_plain([vals], ks, [mask], mask, H, aggs), 1),
+        alone_ms=_timed(lambda: agg.segment_reduce_scatter([vals], ks, [mask], mask, H, aggs,
+                                                           order_h), reps),
         bound_ms=b3, bound_by=b3_by,
         library_ms=_timed(lambda: torch.zeros(H + 1, dtype=torch.float64, device=dev)
                           .index_add_(0, safe, vals), reps),
@@ -2051,7 +2317,7 @@ def run_hash_kernel_phase(reps: int) -> dict:
           **{k: {m: v for m, v in d.items() if m in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                      "passes", "key_bytes", "sort_launches")}
              for k, d in out.items()}})
-    del gids, mask, table, kt, ks, pt, ps, vals, safe, k1_args, s_st, pres, packed, k8, p8
+    del gids, mask, table, kt, ks, pt, ps, vals, safe, k1_args, s_st, pres, packed, k8, p8, order_h
     torch.cuda.empty_cache()
     run_hash_edge_cases(dev)
     return out
@@ -2369,6 +2635,40 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
             "live": live, "mesh": mesh}
 
 
+# Host seconds spent in TileProgram.final and, inside it, in K8's wrapper
+# (no sync: what the host takes to enqueue them), and the calls
+FINAL_HOST = {"final_s": 0.0, "k8_s": 0.0, "calls": 0}
+
+
+def time_final_host() -> None:
+    """Count into FINAL_HOST from here on: wrappers around
+    TileProgram.final and the K8 entry it calls."""
+    from greptimedb_tpu_torch.parallel import tile_program as tp
+
+    if getattr(tp.TileProgram.final, "timed", False):
+        return
+    final, pack = tp.TileProgram.final, tp.pack_result
+
+    def timed_final(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return final(self, *args, **kw)
+        finally:
+            FINAL_HOST["final_s"] += time.perf_counter() - t0
+            FINAL_HOST["calls"] += 1
+
+    def timed_pack(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return pack(*args, **kw)
+        finally:
+            FINAL_HOST["k8_s"] += time.perf_counter() - t0
+
+    timed_final.timed = True
+    tp.TileProgram.final = timed_final
+    tp.pack_result = timed_pack
+
+
 def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cuda: bool,
                    full_size: bool) -> dict:
     """Phase 5: the tile path (super-tiles resident on the device) on the
@@ -2378,9 +2678,12 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
     sync, readback, decode).  Every run must be answered by the tile path;
     each result is held against the CPU backend's (phase 4) — keys, counts,
     min, max, last exactly, sum and avg within rel 1e-7, the limb
-    verdict's bound."""
+    verdict's bound.  Each warm run's host time in TileProgram.final is
+    split into K8's wrapper and the rest (`finalize`'s torch ops, K7/K13
+    where a spec asks for them)."""
     eng = db.query_engine
     db.config.query.tile_cache_enable = True
+    time_final_host()
     if is_cuda:
         import torch
     per_query = {}
@@ -2392,7 +2695,9 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
         times, stages = [], []
         result = None
         cold = None
-        for _ in range(1 + reps):
+        for i in range(1 + reps):
+            if i == 1:
+                host0 = dict(FINAL_HOST)
             t1 = time.perf_counter()
             result = db.sql_one(sql)
             if is_cuda:
@@ -2436,11 +2741,21 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
             "max_rel_err": rel,
             "launches": {k: v for k, v in delta.items() if v},
         }
+        if reps:
+            calls = FINAL_HOST["calls"] - host0["calls"]
+            k8_us = (FINAL_HOST["k8_s"] - host0["k8_s"]) / max(calls, 1) * 1e6
+            final_us = (FINAL_HOST["final_s"] - host0["final_s"]) / max(calls, 1) * 1e6
+            per_query[name].update(final_host_us=final_us, final_k8_host_us=k8_us,
+                                   final_other_host_us=final_us - k8_us)
         emit({"phase": "tile_query", "name": name, **per_query[name]})
     totals = launch_counts()  # the main path's launches end here
     shapes = shape_counts()
+    k8 = dict(K8_PLANNED)
+    if is_cuda and (k8["made"] != totals[_PACK] or k8["planned"] != k8["calls"]):
+        raise AssertionError(f"K8 on the tile path: {totals[_PACK]} launches, {k8['made']} in "
+                             f"{k8['calls']} calls, {k8['planned']} planned (one a call)")
     edge = run_tile_edge_queries(db, tsbs, is_cuda)
-    return {"queries": per_query, "launches": totals, "shape_launches": shapes,
+    return {"queries": per_query, "launches": totals, "shape_launches": shapes, "k8_calls": k8,
             "edge_launches": edge, "edge_shape_launches": shape_counts(),
             "cache": eng.tile_cache.stats(), "limb_reruns": eng.tile_executor().limb_reruns}
 
@@ -5295,7 +5610,7 @@ def main(argv=None) -> int:
                                                      if k.startswith("k2_")}
     kstats["limb_segment_sums"]["predicated"] = {k: v for k, v in gstats.items()
                                                 if k.startswith("k6_")}
-    emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0, **CHECK_S})
 
     work = os.path.join(HERE, "build", "chip_smoke")  # listed in .gitignore
     shutil.rmtree(work, ignore_errors=True)
@@ -5523,9 +5838,15 @@ def main(argv=None) -> int:
                 "tile": by_shape(sl["tile"]["shape_launches"], name),
                 "tick": by_shape(tick["shape_launches"], name),
                 "hash": by_shape(cm["shape_launches"], name)}} if name == _SORT else {}),
-            **{k: s[k] for k in ("c1", "c5", "guard_fail", "compact", "int64", "hash_slots",
-                                 "predicated", "falling", "passes", "key_bytes", "sort_launches")
+            **{k: s[k] for k in ("alone_ms", "c1", "c5", "guard_fail", "compact", "int64",
+                                 "hash_slots", "predicated", "falling", "passes", "key_bytes",
+                                 "sort_launches")
                if k in s},
+            **({"calls": sl["tile"]["k8_calls"]["calls"],
+                "planned_launches": sl["tile"]["k8_calls"]["planned"],
+                "launches_per_call": sl["tile"]["k8_calls"]["made"]
+                / max(sl["tile"]["k8_calls"]["calls"], 1)}
+               if name == _PACK else {}),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -521,15 +521,95 @@ def segment_reduce_scatter_plain(values, gids, masks, base_mask, num_groups: int
     return _stacked(out)
 
 
+def _nan_min(a, b):
+    nan = torch.full_like(a, float("nan"))
+    return torch.where(torch.isnan(a) | torch.isnan(b), nan, torch.where(b < a, b, a))
+
+
+def _nan_max(a, b):
+    nan = torch.full_like(a, float("nan"))
+    return torch.where(torch.isnan(a) | torch.isnan(b), nan, torch.where(b > a, b, a))
+
+
+def segment_reduce_scatter_lanes(values, masks, base_mask, order, num_groups: int, aggs):
+    """K3's add order in torch ops (holds the kernel byte for byte, NaN
+    payloads aside): over `order` (a `sort_segments` result), lane l of a
+    run folds the run's positions start + l, start + l + 32, ... in order
+    from 0.0 / +inf / -inf (count 0), skipping rows its column mask drops,
+    then the lanes combine as csrc/common.cuh's warp_sum, warp_min and
+    warp_max do: for o = 16, 8, 4, 2, 1 lane l < o takes lane l + o, and
+    lane 0 holds the result; min and max give the quiet NaN where either
+    operand is NaN.  An empty group keeps (0.0, 0, +inf, -inf).  Returns
+    AggState [C, G]."""
+    skeys, perm = order
+    G = int(num_groups)
+    dev = skeys.device
+    n = int(skeys.shape[0])
+    want = _wants(aggs)
+    in_run = skeys < G
+    first = torch.searchsorted(skeys, skeys, right=False)
+    off = torch.arange(n, dtype=torch.int64, device=dev) - first
+    # each run's index among the runs: its partials are lanes [32 r, 32 r + 32)
+    starts = in_run & (off == 0)
+    run = torch.cumsum(starts.to(torch.int64), 0) - 1
+    n_runs = int(starts.sum())
+    slot = run * 32 + off % 32
+    groups = skeys[starts].to(torch.int64)
+    k = off // 32
+    out = {key: [] for key in ("sums", "counts", "mins", "maxs")}
+    for v, m in zip(values, masks):
+        x = _f64(v)[perm]
+        on = in_run & (m & base_mask)[perm]
+        s = torch.zeros(n_runs * 32, dtype=torch.float64, device=dev)
+        cnt = torch.zeros(n_runs * 32, dtype=torch.int32, device=dev)
+        mn = torch.full((n_runs * 32,), float("inf"), dtype=torch.float64, device=dev)
+        mx = torch.full((n_runs * 32,), float("-inf"), dtype=torch.float64, device=dev)
+        kk, pos = torch.sort(torch.where(on, k, n), stable=True)
+        _vals, per_k = torch.unique_consecutive(kk, return_counts=True)
+        for part, kv in zip(torch.split(pos, per_k.tolist()), _vals.tolist()):
+            if kv == n:
+                break
+            i, xv = slot[part], x[part]
+            s[i] = s[i] + xv
+            cnt[i] = cnt[i] + 1
+            mn[i] = _nan_min(mn[i], xv)
+            mx[i] = _nan_max(mx[i], xv)
+        s, cnt, mn, mx = (t.view(n_runs, 32) for t in (s, cnt, mn, mx))
+        for o in (16, 8, 4, 2, 1):
+            s[:, :o] = s[:, :o] + s[:, o:2 * o]
+            cnt[:, :o] = cnt[:, :o] + cnt[:, o:2 * o]
+            mn[:, :o] = _nan_min(mn[:, :o], mn[:, o:2 * o])
+            mx[:, :o] = _nan_max(mx[:, :o], mx[:, o:2 * o])
+        for key, lanes, init, dt, on_ in (("sums", s, 0.0, torch.float64, want[0]),
+                                          ("counts", cnt, 0, torch.int32, want[1]),
+                                          ("mins", mn, float("inf"), torch.float64, want[2]),
+                                          ("maxs", mx, float("-inf"), torch.float64, want[3])):
+            if on_:
+                full = torch.full((G,), init, dtype=dt, device=dev)
+                full[groups] = lanes[:, 0]
+                out[key].append(full)
+    return _stacked(out)
+
+
+_K3_MAX_COLS = 32  # kMaxCols of csrc/segment_reduce_scatter.cu
+
+
 class _ScatterArgs(ctypes.Structure):
+    # mirrored field for field by ScatterArgs in csrc/segment_reduce_scatter.cu
     _fields_ = [
         ("n", ctypes.c_int64), ("skeys", ctypes.c_void_p), ("perm", ctypes.c_void_p),
-        ("values", ctypes.c_void_p), ("masks", ctypes.c_void_p),
+        ("values", ctypes.c_void_p * _K3_MAX_COLS), ("masks", ctypes.c_void_p * _K3_MAX_COLS),
         ("sums", ctypes.c_void_p), ("counts", ctypes.c_void_p),
         ("mins", ctypes.c_void_p), ("maxs", ctypes.c_void_p),
         ("num_groups", ctypes.c_int32), ("n_cols", ctypes.c_int32),
-        ("gate", _Gate),
+        ("tile_groups", ctypes.c_int32), ("prewrite", ctypes.c_int32), ("gate", _Gate),
     ]
+
+
+def column_launches(n_cols: int, per_launch: int = _K3_MAX_COLS) -> list[tuple[int, int]]:
+    """[c0, c1) column ranges of a C-column reduction's launches: at most
+    `per_launch` columns each, in column order."""
+    return [(c0, min(c0 + per_launch, n_cols)) for c0 in range(0, n_cols, per_launch)]
 
 
 def segment_reduce_scatter(values, gids, masks, base_mask, num_groups: int, aggs, order=None,
@@ -537,10 +617,12 @@ def segment_reduce_scatter(values, gids, masks, base_mask, num_groups: int, aggs
     """K3: sum/count/min/max of C columns for any id order.  Arguments as
     `segment_reduce_blocked`; `order` optionally reuses a
     `sort_segments(gids, base_mask, G)` result.  Returns AggState [C, G].
-    A CUDA tile launches csrc/segment_reduce_scatter.cu — predicated on
-    `verdict` (a layout guard's word: it runs only when the guard failed)
-    when one is given, writing `outs` (the other branch's outputs) — and
-    a CPU tile runs `segment_reduce_scatter_plain`."""
+    A CUDA tile launches csrc/segment_reduce_scatter.cu once per 32
+    columns (`column_launches`; the column pointers ride in the launch's
+    arguments) — predicated on `verdict` (a layout guard's word: it runs
+    only when the guard failed) when one is given, writing `outs` (the
+    other branch's outputs) — and a CPU tile runs
+    `segment_reduce_scatter_plain`."""
     if gids.device.type == "cpu":
         return segment_reduce_scatter_plain(values, gids, masks, base_mask, num_groups, aggs)
     from ..kernels._build import launch
@@ -548,21 +630,27 @@ def segment_reduce_scatter(values, gids, masks, base_mask, num_groups: int, aggs
     dev = gids.device
     n = int(gids.shape[0])
     C, G = len(values), int(num_groups)
+    if n >= 1 << 31:
+        raise ValueError(f"segment_reduce_scatter takes fewer than 2^31 rows, got {n}")
     _check_rows(gids, torch.int32, n, dev)
     _check_rows(base_mask, torch.bool, n, dev)
     if order is None:
         order = sort_segments(gids, base_mask, G, verdict)
     skeys, perm = order
-    vals, vt, mt = _column_tables(values, masks, base_mask, n, dev)
+    vals, mptrs = _column_ptrs(values, masks, base_mask, n, dev)
     want = _wants(aggs)
     outs = _state_outs(want, C, G, dev, outs)
-    a = _ScatterArgs(
-        n, skeys.data_ptr(), perm.data_ptr(), vt.data_ptr(), mt.data_ptr(),
-        *(_ptr(o) for o in outs), G, C, _gate(verdict, on_fail=True),
-    )
-    segment_reduce_scatter.launches += 1
-    launch("segment_reduce_scatter", "gt_scatter_reduce", a,
-           torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gate = _gate(verdict, on_fail=True)
+    for c0, c1 in column_launches(C):
+        a = _ScatterArgs(
+            n, skeys.data_ptr(), perm.data_ptr(),
+            (ctypes.c_void_p * _K3_MAX_COLS)(*(v.data_ptr() for v in vals[c0:c1])),
+            (ctypes.c_void_p * _K3_MAX_COLS)(*mptrs[c0:c1]),
+            *(None if o is None else o[c0:c1].data_ptr() for o in outs), G, c1 - c0, 0, 0, gate,
+        )
+        segment_reduce_scatter.launches += 1
+        launch("segment_reduce_scatter", "gt_scatter_reduce", a, stream)
     del vals
     return _state_of(want, *outs)
 
@@ -743,18 +831,6 @@ def _column_ptrs(values, masks, base_mask, n: int, dev):
             _check_rows(m, torch.bool, n, dev)
             mptrs.append(m.data_ptr())
     return vals, mptrs
-
-
-def _column_tables(values, masks, base_mask, n: int, dev):
-    """Device tables of column pointers for K3 (`_column_ptrs`).  Returns
-    (kept tensors, values table, masks table)."""
-    vals, mptrs = _column_ptrs(values, masks, base_mask, n, dev)
-    from ..kernels._build import upload_table
-
-    # one host-to-device copy for both tables, no host sync
-    ptrs = upload_table([v.data_ptr() for v in vals] + [p or 0 for p in mptrs], dev)
-    vt, mt = ptrs[: len(vals)], ptrs[len(vals):]
-    return (vals, ptrs), vt, mt
 
 
 # ---- the reference's entry points ----------------------------------------------
@@ -1699,19 +1775,132 @@ def pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=No
     return buf, accs64
 
 
+_PACK_MAX_ROWS = 64  # kMaxRows of csrc/pack_result.cu
+_PACK_WORDS_PER_CTA = 256 * 4  # kWordsPerCta: elements a CTA of a word or verdict row
+_PACK_BITS_PER_CTA = 256 * 32  # kBitsPerCta: groups a CTA of a bit row
+
+
 class _PackRow(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int32), ("align", ctypes.c_int32), ("n", ctypes.c_int64),
+                ("out", ctypes.c_int64)]
+
+
+class _PackDesc(ctypes.Structure):
+    # mirrored field for field by PackDesc in csrc/pack_result.cu
     _fields_ = [
-        ("kind", ctypes.c_int32), ("reserved", ctypes.c_int32),
-        ("a", ctypes.c_void_p), ("b", ctypes.c_void_p), ("out", ctypes.c_int64),
+        ("desc_bytes", ctypes.c_int32), ("n_rows", ctypes.c_int32), ("verdict_at", ctypes.c_int64),
+        ("sel", ctypes.c_void_p), ("buf", ctypes.c_void_p), ("accs64", ctypes.c_void_p),
+        ("blk_end", ctypes.c_uint32 * _PACK_MAX_ROWS), ("rows", _PackRow * _PACK_MAX_ROWS),
+        ("ptrs", ctypes.c_void_p * (2 * _PACK_MAX_ROWS)),
     ]
 
 
-class _PackArgs(ctypes.Structure):
-    _fields_ = [
-        ("rows", ctypes.c_void_p), ("sel", ctypes.c_void_p), ("buf", ctypes.c_void_p),
-        ("accs64", ctypes.c_void_p), ("len", ctypes.c_int64), ("num_groups", ctypes.c_int64),
-        ("n_rows", ctypes.c_int32), ("reserved", ctypes.c_int32),
-    ]
+_PACK_HEAD = struct.Struct("<QQQ")  # sel, buf, accs64
+_PACK_HEAD_AT = _PackDesc.sel.offset
+_PACK_PTRS_AT = _PackDesc.ptrs.offset
+
+
+@dataclass(frozen=True)
+class PackLayout:
+    """What a result's structure decides for K8, built once per structure
+    (`pack_layout`): the rows (kind code, elements, byte offset in buf or
+    row of accs64, alignment of that offset) in launch order, the buffer's
+    bytes, the accs64 rows, the verdict byte (-1: none), the launches
+    (`pack_launch_plan`) and each launch's descriptor without its
+    pointers."""
+
+    rows: tuple
+    nbytes: int
+    n64: int
+    verdict_at: int
+    launches: tuple
+    templates: tuple
+    ptr_packers: tuple
+
+
+def pack_launch_plan(n_rows: int) -> list[tuple[int, int]]:
+    """K8's launches for a result of `n_rows` rows: [lo, hi) ranges of whole
+    rows, in row order, at most the descriptor's 64 rows each (one launch
+    for every result the tile program builds from up to 63 columns)."""
+    return [(lo, min(lo + _PACK_MAX_ROWS, n_rows)) for lo in range(0, n_rows, _PACK_MAX_ROWS)]
+
+
+def _pack_align(out: int) -> int:
+    return 8 if out % 8 == 0 else 4 if out % 4 == 0 else 1
+
+
+def _pack_ctas(kind: int, n: int) -> int:
+    if kind == _PACK["bits"]:
+        return -(-n // _PACK_BITS_PER_CTA)
+    if kind in (_PACK["scalar_int32"], _PACK["overflow"]):
+        return 1
+    return -(-n // _PACK_WORDS_PER_CTA)
+
+
+@functools.lru_cache(maxsize=256)
+def pack_layout(bit_packed: bool, compact: bool, n_int: int, n_acc32: int, acc64: tuple,
+                n_verdict: int, overflow: bool, n: int, G: int) -> PackLayout:
+    """K8's layout of one result structure (a pure function, cached): the
+    byte layout `pack_result_plain` produces, row by row.  `acc64` gives
+    each f64 row's kind ("value" or "avg"), `n_verdict` the verdict rows
+    (-1: no verdict byte), `n` the elements of a gathered row (the
+    selection's cap on the compact path, else G)."""
+    if compact and bit_packed:
+        raise ValueError("the compact result is never bit-packed")
+    rows, off = [], 0
+
+    def row(kind, elems, out):
+        rows.append((_PACK[kind], elems, out, _pack_align(out)))
+
+    for _ in range(n_int):
+        if bit_packed:
+            row("bits", G, off)
+            off += -(-G // 8)
+        else:
+            row("int32", n, off)
+            off += 4 * n
+    for _ in range(n_acc32):
+        row("avg_f32", n, off)
+        off += 4 * n
+    if compact:
+        row("raw_int32", n, off)
+        off += 4 * n
+        row("scalar_int32", 1, off)
+        off += 4
+    for i, kind in enumerate(acc64):
+        if kind not in ("value", "avg"):
+            raise ValueError(f"an f64 row is 'value' or 'avg', not {kind!r}")
+        name = ("f64_words" if kind == "value" else "avg_f64_words") if compact else (
+            "f64_dense" if kind == "value" else "avg_f64_dense")
+        if compact:
+            row(name, n, off)
+            off += 8 * n
+        else:
+            rows.append((_PACK[name], G, i, 8))
+    verdict_at = -1
+    if n_verdict >= 0:
+        verdict_at = off
+        for _ in range(n_verdict):
+            row("verdict", G, off)
+        off += 1
+    if overflow:
+        row("overflow", 1, off)
+        off += 1
+    launches = tuple(pack_launch_plan(len(rows)))
+    templates, packers = [], []
+    for li, (lo, hi) in enumerate(launches):
+        d = _PackDesc()
+        d.desc_bytes, d.n_rows = ctypes.sizeof(_PackDesc), hi - lo
+        d.verdict_at = verdict_at if li == 0 else -1
+        blocks = 0
+        for j, (kind, elems, out, align) in enumerate(rows[lo:hi]):
+            blocks += _pack_ctas(kind, elems)
+            d.blk_end[j] = blocks
+            d.rows[j] = _PackRow(kind, align, elems, out)
+        templates.append(bytes(d))
+        packers.append(struct.Struct(f"<{2 * (hi - lo)}Q"))
+    return PackLayout(tuple(rows), off, 0 if compact else len(acc64), verdict_at, launches,
+                      tuple(templates), tuple(packers))
 
 
 def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_out=None,
@@ -1722,93 +1911,97 @@ def pack_result(int_rows, acc32_rows, acc64_rows, bit_packed: bool, sel=None, n_
     int32 or, with `bit_packed`, as 1 bit per group MSB-first;
     acc32_rows: (sums f64 [G], counts int32 [G]) shipped as f32 averages;
     acc64_rows: ("value", f64 [G]) or ("avg", sums, counts) f64 rows;
-    sel/n_out: K7's selection (the compact path: every row is gathered by
-    `sel`, the f64 rows join the byte buffer as [hi, lo] int32 words);
-    verdict_rows: (errs [G], sums [G]) of the limb columns, appending one
-    byte, 1 iff every err <= max(|sum| * 1e-7, 1e-12);
+    sel/n_out: K7's selection, int32 [cap] and [1] (the compact path: every
+    row is gathered by `sel`, the f64 rows join the byte buffer as [hi, lo]
+    int32 words);
+    verdict_rows: (errs f64 [G], sums f64 [G]) of the limb columns,
+    appending one byte, 1 iff every err <= max(|sum| * 1e-7, 1e-12);
     overflow: the hash plan's int32 [1] count of rows that found no slot,
     appending one byte, 1 iff it is > 0.
     Returns (buf uint8,) on the compact path, else (buf, accs64 [K, G]).
-    A CUDA tensor launches csrc/pack_result.cu; a CPU tensor runs
+    A CUDA tensor launches csrc/pack_result.cu, once for up to 64 rows
+    (`pack_launch_plan`); the operands are read where they lie, so each
+    must have its dtype above (a wrong one raises); a CPU tensor runs
     `pack_result_plain`."""
     first = int_rows[0]
     if first.device.type == "cpu":
         return pack_result_plain(int_rows, acc32_rows, acc64_rows, bit_packed, sel, n_out,
                                  verdict_rows, overflow)
-    from ..kernels._build import launch, upload_table
-
     dev = first.device
     G = int(first.shape[0])
     compact = sel is not None
     n = int(sel.shape[0]) if compact else G
-    if compact and bit_packed:
-        raise ValueError("the compact result is never bit-packed")
-    rows, keep = [], []
+    layout = pack_layout(bool(bit_packed), compact, len(int_rows), len(acc32_rows),
+                         tuple(spec[0] for spec in acc64_rows),
+                         -1 if verdict_rows is None else len(verdict_rows), overflow is not None,
+                         n, G)
+    didx = first.get_device()
+    checked: dict = {}
 
-    def src(t, dtype):
-        t = t.to(dtype).contiguous()
-        _check_rows(t, dtype, G, dev)
-        keep.append(t)
-        return t.data_ptr()
+    def ptr(t, dtype, elems):
+        key = (id(t), dtype, elems)  # a tensor passed as several rows is checked once
+        p = checked.get(key)
+        if p is None:
+            if (t.dtype is not dtype or t.numel() != elems or t.get_device() != didx
+                    or not t.is_contiguous()):
+                raise ValueError(f"K8 operand must be a contiguous {dtype} of {elems} elements "
+                                 f"on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+            p = checked[key] = t.data_ptr()
+        return p
 
-    off = 0
-    for row in int_rows:
-        if bit_packed:
-            rows.append((_PACK["bits"], src(row, torch.int32), 0, off))
-            off += -(-G // 8)
-        else:
-            rows.append((_PACK["int32"], src(row, torch.int32), 0, off))
-            off += 4 * n
-    for s, c in acc32_rows:
-        rows.append((_PACK["avg_f32"], src(s, torch.float64), src(c, torch.int32), off))
-        off += 4 * n
-    if compact:
-        sel_t = sel.to(torch.int32).contiguous()
-        keep.append(sel_t)
-        rows.append((_PACK["raw_int32"], sel_t.data_ptr(), 0, off))
-        off += 4 * n
-        nt = n_out.to(torch.int32).contiguous()
-        keep.append(nt)
-        rows.append((_PACK["scalar_int32"], nt.data_ptr(), 0, off))
-        off += 4
-    for i, spec in enumerate(acc64_rows):
-        if spec[0] == "value":
-            kind = "f64_words" if compact else "f64_dense"
-            a_ptr, b_ptr = src(spec[1], torch.float64), 0
-        else:
-            kind = "avg_f64_words" if compact else "avg_f64_dense"
-            a_ptr, b_ptr = src(spec[1], torch.float64), src(spec[2], torch.int32)
-        rows.append((_PACK[kind], a_ptr, b_ptr, off if compact else i))
-        if compact:
-            off += 8 * n
-    verdict_at = None
-    if verdict_rows is not None:
-        verdict_at = off
-        for err, s in verdict_rows:
-            rows.append((_PACK["verdict"], src(err, torch.float64), src(s, torch.float64), off))
-        off += 1
-    if overflow is not None:
-        ov = overflow.to(torch.int32).reshape(1).contiguous()
-        keep.append(ov)
-        rows.append((_PACK["overflow"], ov.data_ptr(), 0, off))
-        off += 1
-    buf = torch.empty(off, dtype=torch.uint8, device=dev)
-    if verdict_at is not None:
-        buf[verdict_at:verdict_at + 1].fill_(1)  # verdict rows clear it where a bound fails
-    accs64 = None
-    if not compact:
-        accs64 = torch.empty((len(acc64_rows), G), dtype=torch.float64, device=dev)
-    table = (_PackRow * len(rows))(*[_PackRow(k, 0, a, b, o) for k, a, b, o in rows])
-    table_t = upload_table(table, dev)
-    args = _PackArgs(
-        table_t.data_ptr(), sel_t.data_ptr() if compact else 0, buf.data_ptr(),
-        0 if accs64 is None or accs64.numel() == 0 else accs64.data_ptr(),
-        n, G, len(rows), 0,
-    )
-    pack_result.launches += 1
-    launch("pack_result", "gt_pack_result", args, torch.cuda.current_stream(dev).cuda_stream)
-    del keep, table_t
+    ptrs = pack_operands(int_rows, acc32_rows, acc64_rows, sel, n_out, verdict_rows, overflow,
+                         ptr, G, n)
+    buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=dev)
+    accs64 = None if compact else torch.empty((layout.n64, G), dtype=torch.float64, device=dev)
+    _pack_on_card(layout, ptrs, ptr(sel, torch.int32, n) if compact else 0, buf.data_ptr(),
+                  0 if accs64 is None or accs64.numel() == 0 else accs64.data_ptr(),
+                  torch.cuda.current_stream(dev).cuda_stream)
     return (buf,) if compact else (buf, accs64)
+
+
+def pack_operands(int_rows, acc32_rows, acc64_rows, sel, n_out, verdict_rows, overflow, ptr,
+                  G: int, n: int) -> list:
+    """The (a, b) operands of each row of `pack_layout`, in row order, as
+    ptr(tensor, dtype, elements) gives them (0 for a row's missing b)."""
+    i32, f64 = torch.int32, torch.float64
+    ptrs = []
+    for row in int_rows:
+        ptrs += (ptr(row, i32, G), 0)
+    for s, c in acc32_rows:
+        ptrs += (ptr(s, f64, G), ptr(c, i32, G))
+    if sel is not None:
+        ptrs += (ptr(sel, i32, n), 0, ptr(n_out, i32, 1), 0)
+    for spec in acc64_rows:
+        ptrs += (ptr(spec[1], f64, G), 0 if spec[0] == "value" else ptr(spec[2], i32, G))
+    for err, s in verdict_rows or ():
+        ptrs += (ptr(err, f64, G), ptr(s, f64, G))
+    if overflow is not None:
+        ptrs += (ptr(overflow, i32, 1), 0)
+    return ptrs
+
+
+def pack_descriptors(layout: PackLayout, ptrs: list, sel: int, buf: int,
+                     accs64: int) -> list[bytearray]:
+    """The `PackDesc` of each of a call's launches: the layout's cached
+    template with the call's pointers written in (row r of a launch reads
+    its ptrs[2r] and ptrs[2r + 1])."""
+    out = []
+    for (lo, hi), template, packer in zip(layout.launches, layout.templates, layout.ptr_packers):
+        raw = bytearray(template)
+        _PACK_HEAD.pack_into(raw, _PACK_HEAD_AT, sel, buf, accs64)
+        packer.pack_into(raw, _PACK_PTRS_AT, *ptrs[2 * lo:2 * hi])
+        out.append(raw)
+    return out
+
+
+def _pack_on_card(layout: PackLayout, ptrs: list, sel: int, buf: int, accs64: int,
+                  stream: int) -> None:
+    """K8's launches of one call, as `pack_launch_plan` splits its rows."""
+    from ..kernels._build import launch
+
+    for raw in pack_descriptors(layout, ptrs, sel, buf, accs64):
+        pack_result.launches += 1
+        launch("pack_result", "gt_pack_result", _PackDesc.from_buffer(raw), stream)
 
 
 pack_result.launches = 0

@@ -40,6 +40,15 @@ G = 1, 2, 16, 32, 64 and 4096, beside `index_add_`; where the checkout has
 `_series_fold_launch`, both of its forms too (the cell form, and the staged
 form at the tile the plan would give it).
 
+`--set pack_scatter`: K8 `pack_result` dense (double-groupby-all's layout
+at G = 4096 x 12: bit-packed presence, 10 f32 avg rows, the verdict over
+10 limb columns), compact (lastpoint's, gathered by K7's selection) and over
+2^24 hash slots with the overflow byte; K3 `segment_reduce_scatter` at the
+TSBS tile shape (host x hour, C = 1, 5, 10), over minute buckets (G = 720:
+few long runs), over host x minute (runs of 6 rows: the sparse ids) and over
+H1's 2^24 slot ids, each alone on a precomputed `order` and (C = 1, 10, the
+slots) with its K18 sort.
+
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
 
@@ -59,7 +68,8 @@ Prints the card's name and power limit, one JSON line per turn and shape,
 and a last line with the ms of each checkout (mean of its two turns) and
 whether every output's bytes agreed.
 
-    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll|fold] [--hosts 4000]
+    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll|fold|pack_scatter]
+                               [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
                                [--profile]
 """
@@ -80,7 +90,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_last"),
            "range_hll": ("strip_counter_resets", "range_windows", "segment_hll"),
-           "fold": ("fold_states", "series_fold")}
+           "fold": ("fold_states", "series_fold"),
+           "pack_scatter": ("pack_result", "segment_reduce_scatter")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -571,6 +582,156 @@ def fold_cases(c, reps: int, prof: bool, emit, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def pack_scatter_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -> None:
+    """K8 and K3 at chip_smoke.py's shapes, each call's host enqueue beside
+    its device time."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+    from greptimedb_tpu_torch.parallel.tile_planner import quantize_soft
+
+    def case(name, fn, outs, **kw):
+        emit(name, c._timed(fn, reps), _digest(outs), enqueue_us=_enqueue_us(fn, reps), **kw,
+             **(_profiled(fn) if prof else {}))
+
+    gen = torch.Generator(device=dev).manual_seed(c.SEED + 14)
+
+    def f64(n, scale=1.0):
+        return torch.rand(n, generator=gen, dtype=torch.float64, device=dev) * scale
+
+    def i32(n, hi):
+        return torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32, device=dev)
+
+    # K8 dense: double-groupby-all's layout at G = 4096 x 12 (bit-packed
+    # presence, 10 f32 avg rows, the verdict over 10 limb columns)
+    card = 1 << (max(hosts, 1) - 1).bit_length()
+    G = card * hours
+    pres = i32(G, 361)
+    sums = [f64(G, 3.6e4) for _ in range(10)]
+    errs = [f64(G, 1e-9) for _ in range(10)]
+    dense = ([pres], [(s, pres) for s in sums], [], True)
+    verdict = [(e, s) for e, s in zip(errs, sums)]
+
+    def k8_dense():
+        return agg.pack_result(*dense, verdict_rows=verdict)
+
+    b, _by = c.bound(G * (4 + 10 * 16) + G // 8 + G * 40 + 1, 0)
+    case("K8 dense", k8_dense, list(k8_dense()), groups=G, bound_ms=b)
+    # K8 compact: lastpoint's presence and one f64 row gathered by K7
+    cap = quantize_soft(hosts)
+    surv = torch.arange(card, device=dev) < hosts
+    sel, n_out = agg.topk_group_select(surv, [], cap)
+    comp = ([surv.to(torch.int32)], [], [("value", f64(card, 100.0))], False)
+
+    def k8_compact():
+        return agg.pack_result(*comp, sel=sel, n_out=n_out)
+
+    b, _by = c.bound(cap * 4 + 4 + cap * (4 + 8) + cap * (4 + 4 + 8) + 8, 0)
+    case("K8 compact", k8_compact, list(k8_compact()), groups=card, cap=cap, bound_ms=b)
+    # K8 over the 2^24 slot rows of a hash plan, and the overflow byte
+    H = 1 << 24
+    hp = i32(H, 3)
+    hashed = ([hp], [(f64(H, 2e9), hp)], [("value", f64(H, 2e9))], True)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def k8_hash():
+        return agg.pack_result(*hashed, overflow=ovf)
+
+    b, _by = c.bound(H * (4 + 8 + 8) + 4 + H // 8 + H * (4 + 8) + 1, 0)
+    case("K8 hash 2^24", k8_hash, list(k8_hash()), groups=H, bound_ms=b)
+    del pres, sums, errs, dense, verdict, hp, hashed
+    torch.cuda.empty_cache()
+
+    # K3 at the TSBS tile shape: 17.28 M rows padded to whole blocks, host x
+    # hour (G = 4096 x 12), C = 1, 5, 10; with its K18 sort and alone
+    n, codes, ts, valid, vals = c.tsbs_planes(hosts, hours, 10, dev)
+    npad = pad_rows(n)
+    codes, ts = c._padded(codes, npad, 0), c._padded(ts, npad, 0)
+    valid = c._padded(valid, npad, False)
+    vals = [c._padded(v, npad, 0.0) for v in vals]
+    lo, hi = c.T0, c.T0 + hours * c.H3600
+    n_min = hours * 60
+    shapes = {
+        "tsbs": flt.mask_gids(valid, [(ts, ">=", lo), (ts, "<", hi)], [], [(codes, card)],
+                              (ts, c.T0, c.H3600, hours), G - 1) + (G,),
+        # minute buckets over all hosts: 720 long runs (dense ids)
+        "minute G=720": flt.mask_gids(valid, [(ts, "<", hi)], [], [],
+                                      (ts, c.T0, 60_000, n_min), n_min - 1) + (n_min,),
+        # host x minute: runs of 6 rows over 4096 x 720 ids (sparse ids)
+        "host x minute": flt.mask_gids(valid, [(ts, "<", hi)], [], [(codes, card)],
+                                       (ts, c.T0, 60_000, n_min), card * n_min - 1)
+        + (card * n_min,),
+    }
+    for shape, (gids, mask, groups) in shapes.items():
+        order = agg.sort_segments(gids, mask, groups)
+        for C in ((1, 5, 10) if shape == "tsbs" else (1,)):
+            cols, masks = vals[:C], [mask] * C
+            kb, _by = c.bound(npad * (4 + 1 + 8 * C) + C * groups * 28, 0)
+
+            def k3_alone():
+                return agg.segment_reduce_scatter(cols, gids, masks, mask, groups, AGGS, order)
+
+            case(f"K3 {shape} C={C} alone", k3_alone, _state(k3_alone()), rows=npad,
+                 groups=groups, bound_ms=kb)
+            if C in (1, 10):
+                def k3():
+                    return agg.segment_reduce_scatter(cols, gids, masks, mask, groups, AGGS)
+
+                case(f"K3 {shape} C={C} with K18", k3, _state(k3()), rows=npad, groups=groups,
+                     bound_ms=kb)
+        del order
+    del codes, ts, valid, vals, shapes
+    torch.cuda.empty_cache()
+
+    # K3 over the 2^24 slot ids of H1 (K1 int64 ids, K17's slots)
+    _n, k1_args = c.h1_group_ids(c.CM_HOURS, dev)
+    gids, mask = flt.mask_gids(*k1_args)
+    table = torch.full((H,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
+    _t, slots, _ovf = agg.hash_group_slots(table, gids, mask)
+    hv = f64(slots.shape[0], 2e9)
+    haggs = ("count", "max", "sum")
+    order = agg.sort_segments(slots, mask, H)
+    kb, _by = c.bound(slots.shape[0] * (4 + 1 + 8) + H * (8 + 4 + 8), 0)
+
+    def k3_slots_alone():
+        return agg.segment_reduce_scatter([hv], slots, [mask], mask, H, haggs, order)
+
+    def k3_slots():
+        return agg.segment_reduce_scatter([hv], slots, [mask], mask, H, haggs)
+
+    case("K3 2^24 slots alone", k3_slots_alone, _state(k3_slots_alone()), rows=slots.shape[0],
+         groups=H, bound_ms=kb)
+    case("K3 2^24 slots with K18", k3_slots, _state(k3_slots()), rows=slots.shape[0], groups=H,
+         bound_ms=kb)
+    del gids, mask, table, slots, hv, order
+    torch.cuda.empty_cache()
+
+    # the order's edge: runs of 1 to ~9000 rows with NaN, +-0 and +-inf
+    # values and a column mask, as dense ids and spread over 2^20 (sparse)
+    rng = np.random.default_rng(c.SEED + 15)
+    lens = np.array([1, 31, 32, 33, 9001, 2, 0, 64, 65, 5, 1, 0] * 40)
+    runs = np.repeat(np.arange(lens.size), lens)
+    spread = np.sort(rng.choice(np.arange(1 << 20), lens.size, replace=False))
+    n = runs.size
+    v = rng.normal(0, 100, n)
+    for val, cnt in ((np.nan, 50), (-0.0, 300), (0.0, 300), (np.inf, 20), (-np.inf, 20)):
+        v[rng.choice(n, cnt, replace=False)] = val
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cols = [up(v), up(rng.normal(0, 1, n) * 1e-300)]
+    base = up(rng.random(n) < 0.9)
+    masks = [base, base & up(rng.random(n) < 0.5)]
+    for shape, gids, groups in (("dense", runs, lens.size), ("sparse", spread[runs], 1 << 20)):
+        g = up(rng.permutation(gids).astype(np.int32))
+        order = agg.sort_segments(g, base, groups)
+
+        def k3_edge():
+            return agg.segment_reduce_scatter(cols, g, masks, base, groups, AGGS, order)
+
+        case(f"K3 edge runs {shape}", k3_edge, _state(k3_edge()), rows=n, groups=groups)
+
+
 def tql_cases(c, hosts: int, hours: int, emit) -> None:
     """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
@@ -591,7 +752,9 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
 
     build_all(SOURCES[kset] + {"blocked": ("mask_gids", "quantize_limbs",
                                            "segment_reduce_scatter", "segment_sort"),
-                               "fold": ("mask_gids", "hash_group_slots")}.get(kset, ()))
+                               "fold": ("mask_gids", "hash_group_slots"),
+                               "pack_scatter": ("mask_gids", "segment_sort", "topk_select",
+                                                "hash_group_slots")}.get(kset, ()))
 
     def emit(case, ms, digest, **kw):
         print(json.dumps({"case": case, "ms": ms, "bytes": digest, **kw}), flush=True)
@@ -603,6 +766,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
         blocked_cases(c, hosts, hours, reps, prof, emit, dev)
     elif kset == "fold":
         fold_cases(c, reps, prof, emit, dev)
+    elif kset == "pack_scatter":
+        pack_scatter_cases(c, hosts, hours, reps, prof, emit, dev)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:

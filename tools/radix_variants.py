@@ -57,47 +57,54 @@ def min11_plan(max_key: int):
     return RadixPlan(4 if bits <= 32 else 8, tuple(sum(widths[:p]) for p in range(n)), widths)
 
 
-def build_variants(out_dir: str) -> dict:
-    """variant -> {source: library path}, every nvcc started at once."""
+def build_variants(out_dir: str, variants: dict, edited: str, sources) -> dict:
+    """variant -> {source: (library path, nvcc --resource-usage lines)}.
+    Each variant is a copy of csrc/ under out_dir with the constants of
+    csrc/`edited` rewritten as `variants` gives them ({constant: value});
+    each of `sources` (csrc/<source>.cu) is built from it as the port's
+    kernels are, every nvcc started at once.  tools/scatter_variants.py
+    builds its K3 variants with it too."""
     from greptimedb_tpu_torch.kernels import _build
 
     procs, libs = [], {}
-    for name, consts in SOURCE_VARIANTS.items():
+    for name, consts in variants.items():
         vdir = os.path.join(out_dir, re.sub(r"\W+", "_", name))
         shutil.rmtree(vdir, ignore_errors=True)
         shutil.copytree(_build.CSRC, os.path.join(vdir, "csrc"))
-        path = os.path.join(vdir, "csrc", "radix.cuh")
+        path = os.path.join(vdir, "csrc", edited)
         text = open(path).read()
         for const, value in consts.items():
             text, hits = re.subn(rf"(constexpr int {const} = )[^;]+;", rf"\g<1>{value};", text)
             if hits != 1:
-                raise RuntimeError(f"radix.cuh: no single constant {const}")
+                raise RuntimeError(f"{edited}: no single constant {const}")
         with open(path, "w") as f:
             f.write(text)
-        libs[name] = {}
-        for src in SOURCES:
+        for src in sources:
             lib = os.path.join(vdir, f"lib{src}.so")
-            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
                    os.path.join(vdir, "csrc", f"{src}.cu")]
-            procs.append((name, src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                      stderr=subprocess.STDOUT, text=True)))
-            libs[name][src] = lib
-    for name, src, proc in procs:
+            procs.append((name, src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                           stderr=subprocess.STDOUT, text=True)))
+    for name, src, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} {src}.cu failed:\n{log}")
+        usage = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+        libs.setdefault(name, {})[src] = (lib, usage)
     return libs
 
 
-def use_libraries(paths: dict | None) -> None:
-    """Loads the given libraries in place of the port's (None: the port's)."""
+def use_libraries(libs: dict | None, sources) -> None:
+    """Loads a variant's libraries ({source: (path, usage)}, as
+    build_variants gives them) in place of the port's for `sources`
+    (None: the port's)."""
     from greptimedb_tpu_torch.kernels import _build
 
-    for src in SOURCES:
+    for src in sources:
         _build._libs.pop(src, None)
-        if paths is None:
+        if libs is None:
             continue
-        lib = ctypes.CDLL(paths[src])
+        lib = ctypes.CDLL(libs[src][0])
         for fn in _build._EXPORTS[src]:
             f = getattr(lib, fn)
             f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -170,14 +177,15 @@ def main(argv=None) -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    libs = build_variants(os.path.join(ROOT, "build", "radix_variants"))
+    libs = build_variants(os.path.join(ROOT, "build", "radix_variants"), SOURCE_VARIANTS,
+                          "radix.cuh", SOURCES)
     cases = shapes(torch.device("cuda", 0))
-    use_libraries(None)
+    use_libraries(None, SOURCES)
     measure("base", cases, args.reps)
     for name, paths in libs.items():
-        use_libraries(paths)
+        use_libraries(paths, SOURCES)
         measure(name, cases, args.reps)
-    use_libraries(None)
+    use_libraries(None, SOURCES)
     base_plan = (P.radix_plan, A.radix_plan)
     P.radix_plan = A.radix_plan = min11_plan
     try:
