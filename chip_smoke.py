@@ -87,7 +87,13 @@ Phases, each printing one JSON line:
              edge cases (two tags, matcher masks, ns/us units with an
              offset, odd chunk lengths, several regions; K10's slices at
              k = 64, a 1 s step, a 1 h step over 10 s scrapes and a series
-             wholly before the first step), twice each.
+             wholly before the first step; K9's series with no, one, many
+             resets and one on every row, resets at lanes 0 and 31, just
+             after unfetched rows across a group's and a window's edge, NaN
+             and +-inf either side of a reset, byte for byte at four chunk
+             lengths), twice each.  K9's call runs its three kernels (the
+             layout's identities, the row prologue, the strip) and one
+             copy (its chunk-pointer table).
 6. tql     — two Prometheus metrics (a gauge and a counter with restarts,
              GreptimeDB's remote-write layout, not append_mode) at --hosts x
              --hours, flushed, a remote-write retry overlapping the last
@@ -117,8 +123,12 @@ Phases, each printing one JSON line:
              pod, container, ts) order, 2^24 slots): K1's int64 ids, K17
              `hash_group_slots`, K18 alone and K3 over the slot ids, each byte for byte
              against its plain version and twice; K17's time includes the
-             refill of its table; K17 edge cases (threaded sources, masked
-             rows, overflow, shared home positions, ids 0 and 2^62 - 1), K1
+             refill of its table, which is one cooperative launch a call
+             beside the caller's refill; K17 edge cases, rounds held too
+             (threaded sources, masked rows, overflow, shared home
+             positions, ids 0 and 2^62 - 1, 2^62 - 1 and 2^62 - 2 contending
+             for one empty position, ten-row runs of one id across warp
+             boundaries, a 2^24 table threaded from an earlier source), K1
              int64 past 2^31, K8's overflow byte.
 7. containers — the hash group-by (agg_strategy auto) on a high-cardinality
              table: per-container memory from cAdvisor as kube-prometheus
@@ -209,7 +219,9 @@ Phases, each printing one JSON line:
 11. the kernels line (B19's row `tick_program`: its launches are the
    replays of phase 5c, its bound its members' traffic; K22's its
    launches on 10b and 10c; K10's launches also per k on the TQL routes,
-   K2's and K3's per column count C on the tile path), then the last line
+   K2's and K3's per column count C on the tile path; K9's and K17's
+   calls, launches a call and kernels a launch from 6's tile run and 7's
+   H1-H4, the kernels as their entry points count them), then the last line
    {"ok": true, "device":
    {...}}.
 
@@ -474,6 +486,9 @@ def reset_counts() -> None:
     SHAPES.clear()
     K22_PLANNED.update(planned=0, made=0)
     K8_PLANNED.update(calls=0, planned=0, made=0)
+    for name in ENTRY_KERNELS:
+        kernel_table()[name][0].calls = 0
+        ENTRY_KERNELS[name] = 0
 
 
 def _rows_bucket(n: int) -> str:
@@ -504,6 +519,11 @@ K22_PLANNED = {"planned": 0, "made": 0}
 # K8's calls and their launches, made and planned (`pack_launch_plan`:
 # one a call up to 64 rows), since the counts were last set to 0
 K8_PLANNED = {"calls": 0, "planned": 0, "made": 0}
+# K9's and K17's kernel launches since the counts were last set to 0, as
+# their entry points count them where they launch (the `kernels` field of
+# their argument structs; K9 launches the layout's identities, the row
+# prologue and the strip, K17 one cooperative kernel)
+ENTRY_KERNELS = {"strip_counter_resets": 0, "hash_group_slots": 0}
 _K22_FIELDS = ("sums", "counts", "mins", "maxs", "last_ts", "last_val")
 
 
@@ -537,7 +557,9 @@ def count_shapes() -> None:
             key = f"{name} {shape(args)}"
             SHAPES[key] = SHAPES.get(key, 0) + 1
             LAST_ARGS[name] = args
-        return launch(name, fn, args, stream)
+        launch(name, fn, args, stream)
+        if name in ENTRY_KERNELS:
+            ENTRY_KERNELS[name] += args.kernels
 
     fold_on_card = agg._fold_on_card
     plans = functools.lru_cache(maxsize=256)(
@@ -577,6 +599,24 @@ def count_shapes() -> None:
 
 def shape_counts() -> dict[str, int]:
     return dict(sorted(SHAPES.items()))
+
+
+def call_counts(name: str) -> dict[str, int]:
+    """K9's or K17's calls on the card, their wrapper's launches and the
+    kernels their entry point launched, since the counts were last set to 0."""
+    return {"calls": kernel_table()[name][0].calls, "launches": kernel_table()[name][0].launches,
+            "kernels": ENTRY_KERNELS[name]}
+
+
+def per_call(counts: dict[str, int], kernels: tuple, what: str) -> dict:
+    """The kernels line's per-call figures of K9 or K17 on its main path:
+    the calls, the wrapper's launches a call and the entry point's kernel
+    launches a launch.  Fails unless every launch ran each of `kernels`
+    once."""
+    if counts["launches"] == 0 or counts["kernels"] != len(kernels) * counts["launches"]:
+        raise AssertionError(f"{what} on its main path: {counts}, each launch runs {kernels}")
+    return {"calls": counts["calls"], "launches_per_call": counts["launches"] / counts["calls"],
+            "kernels_per_call": counts["kernels"] / counts["launches"]}
 
 
 def _summed(*shape_dicts) -> dict[str, int]:
@@ -683,8 +723,10 @@ def _check_state(k_st, p_st, what: str) -> float:
 
 
 # Seconds of the checks that hold K3 against its order emulation (in
-# phases 3 and 3e and the edge cases) and of run_pack_scatter_edge_cases
-CHECK_S = {"k3_order_emulation_s": 0.0, "pack_scatter_edge_cases_s": 0.0}
+# phases 3 and 3e and the edge cases), of run_pack_scatter_edge_cases, of
+# K9's edge series (run_strip_edge_series) and of K17's edge cases
+CHECK_S = {"k3_order_emulation_s": 0.0, "pack_scatter_edge_cases_s": 0.0,
+           "k9_edge_series_s": 0.0, "k17_edge_cases_s": 0.0}
 
 
 def _same_as_lanes(k_st, lanes_fn, what: str) -> None:
@@ -1289,16 +1331,17 @@ def run_tile_edge_cases(dev) -> None:
             _compare_bytes(a, b, "edge pack_result")
 
 
-def _device_ops(fn) -> dict[str, tuple[float, int]]:
-    """{CUDA kernel, memset or memcpy name: (device us, how often)} of one
-    fn() under torch.profiler."""
+def _device_ops(fn, calls: int = 1) -> dict[str, tuple[float, int]]:
+    """{CUDA kernel, memset or memcpy name: (device us, how often)} of
+    `calls` fn() calls under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     out = {}
     for evt in prof.key_averages():
@@ -1309,6 +1352,56 @@ def _device_ops(fn) -> dict[str, tuple[float, int]]:
             us = getattr(evt, "self_cuda_time_total", 0)
         out[evt.key[:80]] = (us, evt.count)
     return out
+
+
+# The kernels one call of K9 and of K17 runs on the card, in order: K9 the
+# layout's identities, the row prologue and the strip from one host call;
+# K17 one cooperative launch (its refill of the table is the caller's)
+K9_KERNELS = ("layout_init_kernel", "series_layout_kernel", "strip_kernel")
+K17_KERNELS = ("hash_slots_kernel",)
+
+
+def _runtime_calls(fn, calls: int = 3) -> dict[str, float]:
+    """{CUDA runtime call that puts work on a stream (a kernel launch, a
+    copy, a memset): how often a fn() call makes it}, from the host side
+    of torch.profiler (a launch is counted where the host makes it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages()
+            if e.key.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset"))}
+
+
+def _call_ops(fn, wrapper, kernels, what: str, caller_ops=(), bare=None, copies=0) -> dict:
+    """fn()'s device split (us a launch of each kernel, memset and copy,
+    from torch.profiler).  Fails unless one `bare()` call (fn without the
+    caller's own work, such as a refill; fn itself by default) added one
+    to its wrapper's count and made one runtime call per kernel of
+    `kernels`, `copies` host-to-device copies and no memset, and the
+    device ran no kernel but those and `caller_ops` (names the caller's
+    own work contains).  The kernels line's launch figures come from the
+    main path, not from here."""
+    bare = bare or fn
+    l0 = wrapper.launches
+    bare()
+    launches = wrapper.launches - l0
+    api = _runtime_calls(bare)
+    ops = _device_ops(fn, calls=3)
+    seen = {_kernel_name(key) for key, (_us, n) in ops.items() if n}
+    other = [key for key in ops if _kernel_name(key) not in kernels
+             and not any(c in key for c in caller_ops)
+             and not (copies and key.startswith("Memcpy HtoD"))]
+    if launches != 1 or api.get("cudaMemcpyAsync", 0) != copies \
+            or sum(api.values()) != len(kernels) + copies or other or not set(kernels) <= seen:
+        raise AssertionError(f"{what}: one call: {launches} wrapper launches, runtime calls "
+                             f"{api}, device ops of 3 calls {ops}")
+    return {"device_us": {_kernel_name(k): us / n for k, (us, n) in ops.items() if n}}
 
 
 def _k8_k3_ops(fn, what: str, k8_launches: int = 0) -> dict[str, int]:
@@ -2242,6 +2335,9 @@ def run_hash_kernel_phase(reps: int) -> dict:
     _compare_bytes(kt, pt, "hash_group_slots.table")
     _compare_bytes(ks, ps, "hash_group_slots.slots")
     _compare_bytes(ko, po, "hash_group_slots.overflow")
+    if agg.last_hash_rounds() != rounds:
+        raise AssertionError(f"hash_group_slots: {rounds} rounds, the plain version "
+                             f"{agg.last_hash_rounds()}")
     if int(ko) != 0:
         raise AssertionError(f"hash_group_slots: {int(ko)} rows overflowed 2^24 slots at H1")
     occupied = int((kt != agg.HASH_EMPTY).sum())
@@ -2257,6 +2353,9 @@ def run_hash_kernel_phase(reps: int) -> dict:
         occupied=occupied,
         # the timed call includes refilling the [2^24] table, as each query does
         fill_ms=_timed(lambda: table.fill_(agg.HASH_EMPTY), reps),
+        **_call_ops(k17, agg.hash_group_slots, K17_KERNELS, "hash_group_slots",
+                    caller_ops=("elementwise",),
+                    bare=lambda: agg.hash_group_slots(table, gids, mask)),
     )
 
     # K3 over the slot ids: avg and max of one value column over [2^24]
@@ -2324,10 +2423,13 @@ def run_hash_kernel_phase(reps: int) -> dict:
 
 
 def run_hash_edge_cases(dev) -> None:
-    """K17 against its plain version on the card, byte for byte and twice:
-    seeded ids at H = 1024 and 2^16, a table threaded through three
-    sources, masked rows, a table that overflows, ids that share a home
-    position, ids 0 and 2^62 - 1; K1's int64 mode with out-of-range codes
+    """K17 against its plain version on the card, byte for byte (table,
+    slots, overflow, rounds) and twice: seeded ids at H = 1024 and 2^16, a
+    table threaded through three sources, masked rows, a table that
+    overflows, ids that share a home position, ids 0 and 2^62 - 1, 2^62 - 1
+    and 2^62 - 2 contending for one empty position, ten-row runs of one id
+    across warp boundaries, a 2^24 table threaded from an earlier source;
+    K1's int64 mode with out-of-range codes
     and a space past 2^31; K3's sparse dispatch; K8's overflow byte."""
     import torch
 
@@ -2340,6 +2442,13 @@ def run_hash_edge_cases(dev) -> None:
     cand = torch.arange(2_000_000, dtype=torch.int64, device=dev)
     shared = torch.cat([cand[home == 17][:60], cand[home == 1000][:40], cand[home == 1023][:30]])
     extreme = t(np.array([0, (1 << 62) - 1, (1 << 62) - 2, 1, 0, (1 << 62) - 1, 1 << 61, 5]))
+    ones = lambda m: torch.ones(m, dtype=torch.bool, device=dev)  # noqa: E731
+    largest = t(np.array([(1 << 62) - 1, (1 << 62) - 2, (1 << 62) - 1], np.int64))
+    # runs of ten rows of one id from row 5 on: runs across every warp's edge
+    runs = t(np.concatenate([np.full(5, 3), np.repeat(rng.integers(0, 1 << 40, 1000), 10)]))
+    first = rng.integers(0, 1 << 40, 60_000)
+    big = [t(rng.choice(first, 250_000)),
+           t(np.concatenate([rng.choice(first, 150_000), rng.integers(0, 1 << 40, 150_000)]))]
     cases = {
         "seeded_1024": (1024, [(t(rng.integers(0, 400, 3000)), t(rng.random(3000) < 0.9))]),
         "seeded_65536": (1 << 16, [(t(rng.integers(0, 1 << 40, 40_000)),
@@ -2354,7 +2463,13 @@ def run_hash_edge_cases(dev) -> None:
         "extreme_ids": (1024, [(extreme, torch.ones(8, dtype=torch.bool, device=dev)),
                                (extreme.flip(0).contiguous(),
                                 torch.ones(8, dtype=torch.bool, device=dev))]),
+        # 2^62 - 1 and 2^62 - 2 contend for the one empty position: the
+        # smaller tag lands, the other id overflows
+        "largest_ids_one_slot": (1, [(largest, ones(3))]),
+        "runs_of_ten": (4096, [(runs, ones(runs.numel()))]),
+        "threaded_2^24": (1 << 24, [(g, ones(g.numel())) for g in big]),
     }
+    t17 = time.perf_counter()
     for name, (h, sources) in cases.items():
         kt = torch.full((h,), agg.HASH_EMPTY, dtype=torch.int64, device=dev)
         pt = kt.clone()
@@ -2363,13 +2478,20 @@ def run_hash_edge_cases(dev) -> None:
             ks2 = _twice_identical(
                 lambda: agg.hash_group_slots(kt.copy_(before), g, a)[1:], f"edge K17 {name}")
             _kt, ks, ko = agg.hash_group_slots(kt.copy_(before), g, a)
+            kr = agg.last_hash_rounds()
             _pt, ps, po = agg.hash_group_slots_plain(pt, g, a)
             _compare_bytes(kt, pt, f"edge K17 {name} source {i} table")
             _compare_bytes(ks, ps, f"edge K17 {name} source {i} slots")
             _compare_bytes(ko, po, f"edge K17 {name} source {i} overflow")
             _compare_bytes(ks2[0], ks, f"edge K17 {name} source {i} rerun")
+            if kr != agg.last_hash_rounds():
+                raise AssertionError(f"edge K17 {name} source {i}: {kr} rounds, the plain "
+                                     f"version {agg.last_hash_rounds()}")
         if name == "overflow" and int(ko) != 32:
             raise AssertionError(f"edge K17 overflow: {int(ko)} unplaced rows, expected 32")
+        if name == "largest_ids_one_slot" and (int(ko) != 2 or int(kt[0]) != (1 << 62) - 2):
+            raise AssertionError(f"edge K17 {name}: overflow {int(ko)}, table {kt.tolist()}")
+    CHECK_S["k17_edge_cases_s"] += time.perf_counter() - t17
     n = 10_017
     valid = t(np.arange(n) < n - 33)
     for cards in ((128, 8), (1 << 16, 1 << 12)):
@@ -2412,7 +2534,7 @@ def run_hash_edge_cases(dev) -> None:
         _compare_bytes(k[1], p[1], f"edge pack_result overflow={count} accs64")
         if int(k[0][-1]) != int(count > 0):
             raise AssertionError("edge pack_result: wrong overflow byte")
-    emit({"phase": "hash_edge_cases", "ok": True})
+    emit({"phase": "hash_edge_cases", "ok": True, "k17_edge_cases_s": CHECK_S["k17_edge_cases_s"]})
 
 
 # ---- phase 4: the slice ------------------------------------------------------------
@@ -3432,6 +3554,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
         emit({"phase": "tql_tile_query", "name": name, **per_query[name]})
     tile_launches = launch_counts()  # the main path's launches end here
     tile_shapes = shape_counts()
+    k9_calls = call_counts(_STRIP)
 
     # -- numpy twin of T1 on a few hosts over the whole load --
     t1_rows = results12["T1"]
@@ -3506,6 +3629,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
         "rows": n_rows, "ingest_s": ingest_s, "queries": per_query,
         "launches": tile_launches, "legacy_launches": legacy_launches,
         "shape_launches": tile_shapes, "legacy_shape_launches": legacy_shapes,
+        "k9_calls": k9_calls,
         "legacy": {k: {kk: vv for kk, vv in v.items() if kk != "result"}
                    for k, v in legacy.items()},
         "cpu": cpu, "twin_max_rel_err": twin_err, "cache": cache,
@@ -3585,7 +3709,10 @@ def run_tql_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     b9, b9by = bound(npad * (1 + 8 + 4 + 8 + 1) + npad * 8, npad * 4)
     out[_STRIP] = dict(max_abs_err=e9, ms=_timed(k9, reps),
                        plain_ms=_timed(lambda: R.strip_counter_resets_plain(sid, vf, inf), 1),
-                       bound_ms=b9, bound_by=b9by, library_ms=None)
+                       bound_ms=b9, bound_by=b9by, library_ms=None,
+                       # one copy: the chunk-pointer table
+                       **_call_ops(k9, R.strip_counter_resets, K9_KERNELS, "strip_counter_resets",
+                                   copies=1))
 
     # K10 at k = 8 (5m, rate's counter values) and k = 64 (1h)
     k10 = {}
@@ -3887,7 +4014,98 @@ def run_tql_edge_cases(dev) -> None:
         n_e = (t0 + hours * H3600 - start) // H3600 + 1
         _k10_edge(R, src, R.RangeGrid(start, H3600, rng_e, 8, k_e, s_hour, n_e),
                   f"1 h step range {rng_e} k {k_e}")
-    emit({"phase": "tql_edge_cases", "ok": True})
+    t9 = time.perf_counter()
+    run_strip_edge_series(dev)
+    CHECK_S["k9_edge_series_s"] += time.perf_counter() - t9
+    emit({"phase": "tql_edge_cases", "ok": True, "k9_edge_series_s": time.perf_counter() - t9})
+
+
+def strip_edge_rows(seed: int = SEED):
+    """(sid, values, valid, present) of series where K9's reset ballot
+    branches, sorted by series, rows relative to each series' first
+    fetched row (lane = row % 32 in a group, row % 256 in a window of
+    loads): no reset, one row, one reset, many, a reset on every row,
+    resets at lanes 0 and 31 of many groups, resets just after unfetched
+    rows that span a group's and a window's boundary, NaN and +-inf either
+    side of a reset, a series with no fetched row; series 11 holds none."""
+    rng = np.random.default_rng(seed)
+    ramp = lambda m: np.cumsum(rng.uniform(0.5, 3.0, m))  # noqa: E731
+    series = []
+    series.append((ramp(600), None))                        # 0: no reset
+    series.append((np.array([42.0]), None))                 # 1: one row
+    v = ramp(500)
+    v[300:] -= v[300] - 0.25
+    series.append((v, None))                                # 2: one reset
+    v = ramp(900)
+    for at in np.sort(rng.choice(np.arange(1, 900), 90, replace=False)):
+        v[at:] -= v[at] - rng.uniform(0, 1)
+    series.append((v, rng.random(900) < 0.95))              # 3: many, 5 % unfetched
+    series.append((1000.0 - np.arange(300.0), None))        # 4: a reset on every row
+    v = ramp(700)
+    for g in range(1, 21):
+        for at in (32 * g, 32 * g + 31):
+            v[at:] -= v[at] - 0.5 * v[at - 1]
+    series.append((v, None))                                # 5: lanes 0 and 31
+    v = ramp(600)
+    valid = np.ones(600, bool)
+    valid[20:41] = False                                    # across lanes 31 / 0
+    v[41:] -= v[41] - 0.5
+    valid[250:263] = False                                  # across the window's edge
+    v[263:] -= v[263] - 0.5
+    series.append((v, valid))                               # 6: after unfetched rows
+    v = ramp(200)
+    v[50], v[51] = np.nan, 1.0                              # NaN, then below it
+    v[80] = 0.5                                             # a reset, then NaN
+    v[81] = np.nan
+    v[82] = 0.25                                            # after NaN: no reset
+    v[120] = np.inf
+    v[121] = 2.0                                            # below +inf: adds inf
+    series.append((v, None))                                # 7: NaN, +inf
+    v = ramp(150)
+    v[40] = -np.inf                                         # a reset to -inf
+    v[41] = -np.inf                                         # -inf after -inf
+    v[42] = 1.0
+    v[90], v[91] = 7.0, np.inf
+    v[92] = np.inf                                          # inf after inf
+    series.append((v, None))                                # 8: -inf, +inf
+    series.append((ramp(40), np.zeros(40, bool)))           # 9: nothing fetched
+    v = ramp(300)
+    v[::7] = 0.0                                            # 10: -0.0 and 0.0 resets
+    v[::14] = -0.0
+    series.append((v, None))
+    sid = np.concatenate([np.full(len(v), i, np.int32) for i, (v, _) in enumerate(series)])
+    vals = np.concatenate([v for v, _ in series])
+    valid = np.concatenate([np.ones(len(v), bool) if m is None else m for v, m in series])
+    present = rng.random(sid.size) >= 0.02
+    present[(sid == 4) | (sid == 5)] = True
+    return sid, vals, valid, present
+
+
+def run_strip_edge_series(dev) -> None:
+    """K9 over strip_edge_rows' series against its plain version, byte for
+    byte on every fetched row and twice, at chunk lengths that put a
+    window of loads across a chunk boundary (1000 and 96 rows: a division;
+    512: a shift) and in one chunk."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import rate as R
+
+    sid, vals, valid, present = strip_edge_rows()
+    n = sid.size
+    ts = T0 + np.arange(n, dtype=np.int64) * 10_000
+    for chunk in (1000, 96, 512, n):
+        def chunks(x):
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            return [t[o:o + chunk].contiguous() for o in range(0, n, chunk)]
+
+        src = R.RowSource(ts=chunks(ts), values=chunks(vals), num_series=16,
+                          codes=(chunks(sid),), radices=(16,), nulls=chunks(present),
+                          valid=chunks(valid))
+        p_sid, _ts, vf, inf = R.source_rows(src)
+        adj, _layout = _twice_identical_masked(lambda: R.strip_counter_resets(src), inf,
+                                               f"edge K9 series, chunk {chunk}")
+        _same_f64(adj[inf], R.strip_counter_resets_plain(p_sid, vf, inf)[inf],
+                  f"edge K9 series, chunk {chunk}")
 
 
 def _k10_edge(R, src, grid, what: str) -> None:
@@ -4059,6 +4277,7 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
         }
         emit({"phase": "container_query", "name": name, **per_query[name]})
     totals, shapes = launch_counts(), shape_counts()  # the main path's launches end here
+    k17_calls = call_counts("hash_group_slots")
     tick = run_container_tick(db, hours, results, is_cuda)
 
     # H3 forced to hash: the same bytes as its sort plan (count and max are exact)
@@ -4093,7 +4312,7 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
     emit({"phase": "container_overflow", "ms": over_ms, "rows_out": over.num_rows, **moved})
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "queries": per_query, "launches": totals,
-            "shape_launches": shapes, "overflow_ms": over_ms, "tick": tick}
+            "shape_launches": shapes, "k17_calls": k17_calls, "overflow_ms": over_ms, "tick": tick}
 
 
 def run_container_tick(db, hours: int, solo_tables: dict, is_cuda: bool, n_ticks: int = 2) -> dict:
@@ -5772,7 +5991,8 @@ def main(argv=None) -> int:
                 "launches": cm["launches"][name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"],
-                **{k: s[k] for k in ("rows", "slots", "rounds", "occupied", "fill_ms")},
+                **{k: s[k] for k in ("rows", "slots", "rounds", "occupied", "fill_ms", "device_us")},
+                **per_call(cm["k17_calls"], K17_KERNELS, name),
             })
             continue
         if name in TQL_KERNELS:
@@ -5787,7 +6007,9 @@ def main(argv=None) -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "legacy_launches": tq["legacy_launches"][name],
                 **{k: s[k] for k in ("k64", "by_series", "form", "tw", "grid", "cells_ms",
-                                     "staged_ms", "order_sensitive") if k in s},
+                                     "staged_ms", "order_sensitive", "device_us")
+                   if k in s},
+                **(per_call(tq["k9_calls"], K9_KERNELS, name) if name == _STRIP else {}),
                 **({"launches_by_tw": by_shape(tq["shape_launches"], name)}
                    if name == _FOLD else {}),
                 **({"launches_by_k": by_shape(tq["shape_launches"], name),

@@ -182,9 +182,30 @@ __global__ void __launch_bounds__(256) series_layout_kernel(const LayoutArgs a) 
   }
 }
 
-static inline int launch_series_layout(const LayoutArgs* args, cudaStream_t stream) {
+// The layout's identities: no fetched row (first INT64_MAX, last -1,
+// presence 0) in every series, before the prologue's atomics.
+__global__ void __launch_bounds__(256) layout_init_kernel(const SeriesLayout out) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= out.num_series) return;
+  out.first[s] = kInt64Max;
+  out.last[s] = -1;
+  out.presence[s] = 0;
+}
+
+// The identities, then the prologue, on `stream`; each launch adds one to
+// *kernels where given.
+static inline int launch_series_layout(const LayoutArgs* args, cudaStream_t stream,
+                                       int32_t* kernels = nullptr) {
+  const int64_t S = args->out.num_series;
+  if (S > 0) {
+    layout_init_kernel<<<(unsigned)((S + 255) / 256), 256, 0, stream>>>(args->out);
+    if (kernels) ++*kernels;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   if (args->rows.n <= 0) return (int)cudaSuccess;
   const int64_t blocks = (args->rows.n + 8 * kLayoutSpan - 1) / (8 * kLayoutSpan);  // 8 warps a block
   series_layout_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, stream>>>(*args);
+  if (kernels) ++*kernels;
   return (int)cudaGetLastError();
 }

@@ -143,7 +143,7 @@ _EXPORTS = {
     "limb_segment_sums": ("gt_limb_partials", "gt_limb_fold", "gt_limb_runs"),
     "topk_select": ("gt_topk_round", "gt_topk_compact"),
     "pack_result": ("gt_pack_result",),
-    "strip_counter_resets": ("gt_strip_layout", "gt_strip_counter_resets"),
+    "strip_counter_resets": ("gt_strip_counter_resets",),
     "range_windows": ("gt_range_layout", "gt_range_windows"),
     "range_finalize": ("gt_range_finalize",),
     "series_fold": ("gt_series_fold",),
@@ -151,7 +151,7 @@ _EXPORTS = {
     "ts_argsort": ("gt_argsort_range", "gt_argsort_passes"),
     "gather_planes": ("gt_gather_plane", "gt_remap_codes"),
     "delta_patch": ("gt_delta_patch",),
-    "hash_group_slots": ("gt_hash_init", "gt_hash_rounds"),
+    "hash_group_slots": ("gt_hash_slots",),
     "segment_sort": ("gt_segment_sort",),
     "topk_distances": ("gt_topk_distances",),
     "segment_hll": ("gt_segment_hll",),

@@ -1075,8 +1075,10 @@ class _HashArgs(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int64), ("h", ctypes.c_int64), ("table", ctypes.c_void_p),
         ("gids", ctypes.c_void_p), ("active", ctypes.c_void_p), ("slots", ctypes.c_void_p),
-        ("probe", ctypes.c_void_p), ("claim", ctypes.c_void_p), ("state", ctypes.c_void_p),
+        ("rows0", ctypes.c_void_p), ("rows1", ctypes.c_void_p), ("keys0", ctypes.c_void_p),
+        ("keys1", ctypes.c_void_p), ("state", ctypes.c_void_p),
         ("bits", ctypes.c_int32), ("max_rounds", ctypes.c_int32),
+        ("kernels", ctypes.c_int32),  # out: the kernels the call launched
     ]
 
 
@@ -1095,7 +1097,8 @@ def hash_group_slots(table_keys: torch.Tensor, gids: torch.Tensor, active: torch
     per round the smallest gid claiming a position wins it, so threading
     one table through a query's sources gives every gid one slot.  A CUDA
     tensor launches csrc/hash_group_slots.cu: one cooperative launch runs
-    every round and stops on the card's own count, so no host read sits
+    every round (claims in the table itself, the rows not found on a
+    worklist) and stops on the card's own count, so no host read sits
     between the rounds; a CPU tensor runs `hash_group_slots_plain`.  The
     rounds of the last call stay on the tensors' device until asked for
     (`last_hash_rounds`), after the query's readback."""
@@ -1103,31 +1106,37 @@ def hash_group_slots(table_keys: torch.Tensor, gids: torch.Tensor, active: torch
         return hash_group_slots_plain(table_keys, gids, active)
     from ..kernels._build import launch
 
+    hash_group_slots.calls += 1
     dev = gids.device
     n, h = int(gids.shape[0]), int(table_keys.shape[0])
     if not 1 <= h < (1 << 31):
         raise ValueError(f"hash table size {h} outside [1, 2^31)")
+    if n >= 1 << 31:
+        raise ValueError(f"hash_group_slots takes fewer than 2^31 rows, not {n}")
     _check_rows(table_keys, torch.int64, h, dev)
     _check_rows(gids, torch.int64, n, dev)
     _check_rows(active, torch.bool, n, dev)
     slots = torch.empty(n, dtype=torch.int32, device=dev)
-    probe = torch.empty(n, dtype=torch.int32, device=dev)
-    claim = torch.empty(h, dtype=torch.int64, device=dev)
-    # [rows still active, rounds run, three rotating round counters]
-    state = torch.zeros(5, dtype=torch.int32, device=dev)
-    args = _HashArgs(n, h, table_keys.data_ptr(), gids.data_ptr(), active.data_ptr(),
-                     slots.data_ptr(), probe.data_ptr(), claim.data_ptr(), state.data_ptr(),
-                     max(h.bit_length() - 1, 1), min(2 * h, 1024))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if n:
+    if n == 0:
+        state = torch.zeros(2, dtype=torch.int32, device=dev)
+    else:
+        # one scratch buffer: the two worklists' gids and rows, then the
+        # state words [rows still active, rounds run, the lists' lengths,
+        # any row active], all written by the kernel before it reads them
+        scratch = torch.empty(3 * n + 4, dtype=torch.int64, device=dev)
+        base = scratch.data_ptr()
+        state = scratch[3 * n:].view(torch.int32)
+        args = _HashArgs(n, h, table_keys.data_ptr(), gids.data_ptr(), active.data_ptr(),
+                         slots.data_ptr(), base + 16 * n, base + 20 * n, base, base + 8 * n,
+                         state.data_ptr(), max(h.bit_length() - 1, 1), min(2 * h, 1024))
         hash_group_slots.launches += 1
-        launch("hash_group_slots", "gt_hash_init", args, stream)
-        launch("hash_group_slots", "gt_hash_rounds", args, stream)
+        launch("hash_group_slots", "gt_hash_slots", args, torch.cuda.current_stream(dev).cuda_stream)
     hash_group_slots.last_rounds = state[1:2]
     return table_keys, slots, state[0]
 
 
 hash_group_slots.launches = 0
+hash_group_slots.calls = 0  # calls with CUDA tensors
 hash_group_slots.last_rounds = None
 
 

@@ -577,7 +577,8 @@ class _LayoutArgs(ctypes.Structure):
 
 
 class _StripArgs(ctypes.Structure):
-    _fields_ = [("rows", _RowPlanes), ("layout", _SeriesLayout), ("out", ctypes.c_void_p)]
+    _fields_ = [("rows", _RowPlanes), ("layout", _SeriesLayout), ("out", ctypes.c_void_p),
+                ("kernels", ctypes.c_int32)]  # out: the kernels the call launched
 
 
 class _WindowArgs(ctypes.Structure):
@@ -708,21 +709,14 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _layout(name: str, fn: str, src: RowSource, planes: _RowPlanes) -> SeriesLayout:
-    """Launch a kernel source's row prologue: in_fetch, and each series'
-    first / last fetched row and presence (integer atomics only)."""
-    from ..kernels._build import launch
-
-    dev = src.device
-    S = int(src.num_series)
-    layout = SeriesLayout(
-        in_fetch=torch.empty(planes.n, dtype=torch.uint8, device=dev),
-        first=torch.full((S,), INT64_MAX, dtype=torch.int64, device=dev),
-        last=torch.full((S,), -1, dtype=torch.int64, device=dev),
-        presence=torch.zeros(S, dtype=torch.uint8, device=dev),
-    )
-    launch(name, fn, _LayoutArgs(planes, layout.struct()), _stream(dev))
-    return layout
+def _empty_layout(n: int, S: int, dev) -> SeriesLayout:
+    """A layout's tensors as views of one buffer (first, last, presence,
+    in_fetch), unwritten: the entry point that runs the row prologue
+    writes the identities first (csrc/rate_rows.cuh
+    `launch_series_layout`)."""
+    buf = torch.empty(17 * S + n, dtype=torch.uint8, device=dev)
+    return SeriesLayout(in_fetch=buf[17 * S:], first=buf[:8 * S].view(torch.int64),
+                        last=buf[8 * S:16 * S].view(torch.int64), presence=buf[16 * S:17 * S])
 
 
 # ---- the wrappers (K9-K12) ---------------------------------------------------------
@@ -732,25 +726,29 @@ def strip_counter_resets(src: RowSource):
     """K9: counter resets stripped per series (B14).  Returns (adjusted
     values f64 [n], layout): rows that are not fetched carry no meaningful
     value; `layout` (None on the CPU) feeds K10 so the prologue runs once.
-    A CUDA source launches csrc/strip_counter_resets.cu (the prologue, then
-    one warp per series walking its rows in order); a CPU source runs
-    `strip_counter_resets_plain`."""
+    A CUDA source launches csrc/strip_counter_resets.cu in one host call
+    (the layout's identities, the prologue, then one warp per series
+    walking its rows 32 at a time with a ballot of its resets); a CPU
+    source runs `strip_counter_resets_plain`."""
     if src.device.type == "cpu":
         sid, _ts, vf, in_fetch = source_rows(src)
         return strip_counter_resets_plain(sid, vf, in_fetch), None
     from ..kernels._build import launch
 
+    strip_counter_resets.calls += 1
+    dev = src.device
     planes, keep = _row_planes(src)
-    out = torch.empty(planes.n, dtype=torch.float64, device=src.device)
+    out = torch.empty(planes.n, dtype=torch.float64, device=dev)
+    layout = _empty_layout(planes.n, int(src.num_series), dev)
     strip_counter_resets.launches += 1
-    layout = _layout("strip_counter_resets", "gt_strip_layout", src, planes)
     launch("strip_counter_resets", "gt_strip_counter_resets",
-           _StripArgs(planes, layout.struct(), out.data_ptr()), _stream(src.device))
+           _StripArgs(planes, layout.struct(), out.data_ptr()), _stream(dev))
     del keep
     return out, layout
 
 
 strip_counter_resets.launches = 0
+strip_counter_resets.calls = 0  # calls with a CUDA source
 
 
 def range_windows(src: RowSource, grid: RangeGrid, values: torch.Tensor | None = None,
@@ -792,7 +790,11 @@ def range_windows(src: RowSource, grid: RangeGrid, values: torch.Tensor | None =
                          dtype=torch.uint8, device=dev)
     range_windows.launches += 1
     if layout is None:
-        layout = _layout("range_windows", "gt_range_layout", src, planes)
+        # the row prologue: in_fetch, each series' first / last fetched row
+        # and presence (integer atomics only)
+        layout = _empty_layout(planes.n, grid.num_series, dev)
+        launch("range_windows", "gt_range_layout", _LayoutArgs(planes, layout.struct()),
+               _stream(dev))
     a = _WindowArgs(
         planes, layout.struct(), None if values is None else values.data_ptr(),
         *(t.data_ptr() for t in stats.tensors()), slices.data_ptr(),

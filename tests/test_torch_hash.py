@@ -111,6 +111,14 @@ def _k17_case(name, rng):
         g = np.array([0, (1 << 62) - 1, (1 << 62) - 2, 1, 0, (1 << 62) - 1, 1 << 61, 5],
                      dtype=np.int64)
         return 1024, [(g, np.ones(len(g), bool)), (g[::-1].copy(), np.ones(len(g), bool))]
+    if name == "runs_of_ten":
+        # ten rows of one id from row 5 on: runs across every warp's edge
+        g = np.concatenate([np.full(5, 3), np.repeat(rng.integers(0, 1 << 40, 300), 10)])
+        return 1024, [(g.astype(np.int64), np.ones(len(g), bool))]
+    if name == "largest_one_slot":
+        # 2^62 - 1 and 2^62 - 2 contend for the one empty position
+        g = np.array([(1 << 62) - 1, (1 << 62) - 2, (1 << 62) - 1], dtype=np.int64)
+        return 1, [(g, np.ones(3, bool))]
     raise KeyError(name)
 
 
@@ -136,6 +144,90 @@ def test_hash_group_slots_matches_reference(name):
         assert np.array_equal(keys[s[placed]], gids[placed])
         occupied = keys[keys != tagg.HASH_EMPTY]
         assert len(occupied) == len(np.unique(occupied))
+
+
+_TAG = 1 << 62
+_SIGN = -(1 << 63)
+
+
+def _tag_rounds(table, gids, active, seed):
+    """K17's rounds (csrc/hash_group_slots.cu) in torch ops, on the table in
+    place.  A claim is the unsigned minimum of the tag 2^62 + gid into the
+    table itself (HASH_EMPTY, -1, the largest unsigned value; the minimum
+    taken on the values with their sign bit flipped), one claim per
+    distinct tag in each warp of 32 rows.  Then the fused land/find: a row
+    decodes its position's winner (a tag less 2^62, or a landed gid) and
+    is found when it is its gid; a found row that read a tag writes the
+    gid.  Round 0 walks every row; later rounds walk the worklist of the
+    rows not yet found, each round in another shuffled order.  Returns
+    (slots, overflow, rounds): rounds 0 when no row is active."""
+    h = table.shape[0]
+    home = tagg._hash_home(gids, h)
+    slots = torch.full((gids.shape[0],), h, dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    rows = torch.nonzero(active).flatten()
+    rounds, max_rounds = 0, min(2 * h, 1024)
+    while rounds == 0 or (rows.numel() and rounds < max_rounds):
+        if rounds:
+            rows = rows[torch.from_numpy(rng.permutation(rows.numel()))]
+        pos = ((home[rows] + rounds) & (h - 1)).long()
+        tag = _TAG + gids[rows]
+        # the lowest lane of each tag in each warp of 32 list entries claims
+        lane = torch.arange(rows.numel())
+        key = torch.stack([lane // 32, tag], 1)
+        _u, inv = torch.unique(key, dim=0, return_inverse=True)
+        lead = torch.full((_u.shape[0],), rows.numel(), dtype=torch.int64).scatter_reduce_(
+            0, inv, lane, "amin")
+        flipped = (table ^ _SIGN).scatter_reduce_(0, pos[lead], tag[lead] ^ _SIGN, "amin")
+        table.copy_(flipped ^ _SIGN)
+        t = table[pos]
+        w = torch.where(t >= _TAG, t - _TAG, t)
+        found = w == gids[rows]
+        landing = found & (t >= _TAG)
+        table[pos[landing]] = w[landing]
+        slots[rows[found]] = pos[found].to(torch.int32)
+        rows = rows[~found]
+        rounds += 1
+    return slots, torch.tensor(rows.numel(), dtype=torch.int32), rounds if bool(active.any()) else 0
+
+
+def _reference_rounds(h, gids, active, slots, overflow):
+    """The reference's probe rounds, from its outputs: none when no row is
+    active, the cap when a row overflowed, else one more than the largest
+    probe of a found row (a row is found in the round of its probe, and
+    below H probes)."""
+    if not active.any():
+        return 0
+    if int(overflow):
+        return min(2 * h, 1024)
+    home = np.asarray(tagg._hash_home(_t(gids), h)).astype(np.int64)
+    found = np.asarray(slots) < h
+    return int((((np.asarray(slots)[found] - home[found]) & (h - 1)).max())) + 1
+
+
+K17_TAG_CASES = K17_CASES + ("runs_of_ten", "largest_one_slot")
+
+
+@pytest.mark.parametrize("name", K17_TAG_CASES)
+def test_tag_rounds_match_reference(name):
+    """The table, slots, overflow and rounds of K17's tag rounds equal the
+    reference's and the plain version's, source after source."""
+    rng = np.random.default_rng(K17_TAG_CASES.index(name) + 1)
+    h, sources = _k17_case(name, rng)
+    jt = jnp.full((h,), jagg.HASH_EMPTY, jnp.int64)
+    et = torch.full((h,), tagg.HASH_EMPTY, dtype=torch.int64)
+    pt = et.clone()
+    for i, (gids, act) in enumerate(sources):
+        jt, js, jo = jagg.hash_group_slots(jt, jnp.asarray(gids), jnp.asarray(act))
+        es, eo, er = _tag_rounds(et, _t(gids), _t(act), seed=i)
+        _bytes_equal(et, jt, f"source {i} table")
+        _bytes_equal(es, js, f"source {i} slots")
+        _bytes_equal(eo, jo, f"source {i} overflow")
+        assert er == _reference_rounds(h, gids, act, js, jo), f"source {i} rounds"
+        _pt, _ps, _po = tagg.hash_group_slots(pt, _t(gids), _t(act))
+        assert er == tagg.last_hash_rounds(), f"source {i} rounds of the plain version"
+    if name == "largest_one_slot":
+        assert et.tolist() == [(1 << 62) - 2] and int(eo) == 2
 
 
 def test_threaded_table_keeps_slots_across_sources():

@@ -136,6 +136,141 @@ def test_strip_counter_resets_sequential_sum():
     assert _same(got[valid], want[valid])
 
 
+def _ballot_walk(sid, vals, valid, width=32, depth=1):
+    """K9's walk (csrc/strip_counter_resets.cu) in torch ops: per series,
+    its rows from its first to its last fetched row in groups of `width`
+    lanes, `depth` groups loaded at a time.  Per group: each fetched
+    lane's previous value (the highest fetched lane below it, else the
+    value carried from the groups before), the ballot of its resets, the
+    resets walked in lane order (each adds its previous value to the
+    running correction, and the lanes at or above it take the new one),
+    then x + the lane's correction.  Rows that are not fetched keep their
+    value."""
+    sid, x_all, f_all = _t(sid), _t(vals), _t(valid)
+    out = x_all.clone()
+    for s in torch.unique(sid[f_all]).tolist():
+        rows = torch.nonzero((sid == s) & f_all).flatten()
+        lo, hi = int(rows[0]), int(rows[-1])
+        acc = torch.zeros((), dtype=torch.float64)
+        pv, have = torch.zeros((), dtype=torch.float64), False
+        for base in range(lo, hi + 1, width * depth):
+            window = torch.arange(base, min(base + width * depth, hi + 1))
+            xs, fs = x_all[window], f_all[window]  # every load of the window first
+            for g0 in range(0, window.numel(), width):
+                x, f = xs[g0:g0 + width], fs[g0:g0 + width]
+                if not bool(f.any()):
+                    continue
+                lanes = torch.arange(x.numel())
+                below = torch.cummax(torch.where(f, lanes, -1), 0).values
+                below = torch.cat([torch.tensor([-1]), below[:-1]])
+                prev = torch.where(below >= 0, x[below.clamp(min=0)], pv)
+                has = (below >= 0) | have
+                mine = acc.expand(x.numel()).clone()
+                for b in torch.nonzero(f & has & (x < prev)).flatten().tolist():
+                    acc = acc + prev[b]
+                    mine[b:] = acc
+                r = window[g0:g0 + width][f]
+                out[r] = (x + mine)[f]
+                pv, have = x[int(torch.nonzero(f).flatten()[-1])], True
+    return out.numpy()
+
+
+def _strip_series(name):
+    """(sid, vals, valid) of series where K9's ballot branches; rows count
+    from each series' first fetched row, so a row's lane is its index % 32
+    and its place in a window of loads its index % 256."""
+    rng = np.random.default_rng(len(name))
+
+    def ramp(m):
+        return np.cumsum(rng.uniform(0.5, 3.0, m))
+
+    def reset(v, at, to):
+        v[at:] -= v[at] - to
+
+    series = []
+    if name == "no_reset":
+        series = [(ramp(600), None), (ramp(33), None), (np.array([42.0]), None)]
+    elif name == "one_reset":
+        v = ramp(500)
+        reset(v, 300, 0.25)
+        w = ramp(40)
+        reset(w, 1, 0.0)  # at lane 1, to 0.0
+        series = [(v, None), (w, None)]
+    elif name == "many_resets":
+        v = ramp(900)
+        for at in np.sort(rng.choice(np.arange(1, 900), 90, replace=False)):
+            reset(v, at, rng.uniform(0, 1))
+        series = [(v, rng.random(900) < 0.95), (ramp(70), None)]
+    elif name == "every_row":
+        series = [(1000.0 - np.arange(300.0), None), (5.0 - np.arange(40) * 0.1, None)]
+    elif name == "lanes_0_31":
+        v = ramp(700)
+        for at in [a for g in range(1, 21) for a in (32 * g, 32 * g + 31)] + [256, 511, 512]:
+            reset(v, at, 0.5 * v[at - 1])
+        series = [(v, None)]
+    elif name == "after_unfetched":
+        v = ramp(600)
+        valid = np.ones(600, bool)
+        valid[20:41] = False  # across lanes 31 / 0
+        reset(v, 41, 0.5)
+        valid[250:263] = False  # across a window's edge
+        reset(v, 263, 0.5)
+        valid[500:] = False  # a long unfetched tail
+        series = [(v, valid), (ramp(30), np.arange(30) % 3 == 0)]
+    elif name == "nan_inf":
+        v = ramp(200)
+        v[50], v[51] = np.nan, 1.0  # below a NaN: no reset
+        v[80], v[81], v[82] = 0.5, np.nan, 0.25  # a reset, NaN after it
+        w = ramp(150)
+        w[40] = w[41] = -np.inf  # a reset to -inf, -inf after -inf
+        w[42] = 1.0
+        z = ramp(90)
+        z[60], z[61], z[62] = np.inf, 2.0, np.inf  # below +inf: adds inf
+        # +inf last: the reference's global prefix sum carries it into later series
+        series = [(v, None), (w, None), (z, None)]
+    elif name == "signed_zero":
+        v = ramp(300)
+        v[::7] = 0.0
+        v[::14] = -0.0
+        series = [(v, None)]
+    else:
+        raise KeyError(name)
+    sid = np.concatenate([np.full(len(v), i, np.int32) for i, (v, _) in enumerate(series)])
+    vals = np.concatenate([v for v, _ in series])
+    valid = np.concatenate([np.ones(len(v), bool) if m is None else m for v, m in series])
+    return sid, vals, valid
+
+
+STRIP_SERIES = ("no_reset", "one_reset", "many_resets", "every_row", "lanes_0_31",
+                "after_unfetched", "nan_inf", "signed_zero")
+
+
+@pytest.mark.parametrize("width,depth", [(32, 1), (32, 8), (256, 1)])
+@pytest.mark.parametrize("name", STRIP_SERIES)
+def test_strip_ballot_walk_matches_plain_and_reference(name, width, depth):
+    """K9's reset ballot (groups of 32, loaded 8 at a time as the kernel
+    does; and one group of 256) gives the plain version's bytes on every
+    fetched row, which hold against the reference as
+    test_strip_counter_resets_matches_reference holds them."""
+    sid, vals, valid = _strip_series(name)
+    got = _ballot_walk(sid, vals, valid, width, depth)
+    plain = R.strip_counter_resets_plain(_t(sid), _t(vals), _t(valid)).numpy()
+    assert got[valid].tobytes() == plain[valid].tobytes()
+    want = _np(jrate.strip_counter_resets_segmented(
+        jnp.asarray(sid), jnp.asarray(vals), jnp.asarray(valid)))
+    n_resets = 0
+    for s in np.unique(sid):
+        m = (sid == s) & valid
+        v = vals[m]
+        resets = int(np.sum(v[1:] < v[:-1]))
+        n_resets += resets
+        if resets:
+            np.testing.assert_allclose(got[m], want[m], rtol=1e-12)
+        else:
+            assert _same(got[m], want[m]), f"series {s} without resets must be exact"
+    assert (n_resets == 0) == (name == "no_reset")
+
+
 # ---- K10: range_windows ---------------------------------------------------------------
 
 WINDOW_CASES = {

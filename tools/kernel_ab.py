@@ -49,6 +49,15 @@ few long runs), over host x minute (runs of 6 rows: the sparse ids) and over
 H1's 2^24 slot ids, each alone on a precomputed `order` and (C = 1, 10, the
 slots) with its K18 sort.
 
+`--set strip_hash`: K9 `strip_counter_resets` at phase 3c's shape (17.28 M
+rows in two chunks, 4096 padded series, the 5-minute source; the prologue
+included) and on the same rows with a reset at every fourth row of each
+series; K17 `hash_group_slots` at H1's shape (5.76 M rows, 2^24 slots, the
+table's refill timed in) and at the mesh union's (4 slot tables of 2^24
+keys, active where not HASH_EMPTY); K15's remap of the 4000-code plane
+beside `torch.take`.  K9's bytes are those of the fetched rows and the row
+prologue's layout; K17's the table, slots, overflow and rounds.
+
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
 
@@ -68,7 +77,7 @@ Prints the card's name and power limit, one JSON line per turn and shape,
 and a last line with the ms of each checkout (mean of its two turns) and
 whether every output's bytes agreed.
 
-    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll|fold|pack_scatter]
+    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll|fold|pack_scatter|strip_hash]
                                [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
                                [--profile]
@@ -91,7 +100,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_last"),
            "range_hll": ("strip_counter_resets", "range_windows", "segment_hll"),
            "fold": ("fold_states", "series_fold"),
-           "pack_scatter": ("pack_result", "segment_reduce_scatter")}
+           "pack_scatter": ("pack_result", "segment_reduce_scatter"),
+           "strip_hash": ("strip_counter_resets", "hash_group_slots", "gather_planes")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -732,6 +742,107 @@ def pack_scatter_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, d
         case(f"K3 edge runs {shape}", k3_edge, _state(k3_edge()), rows=n, groups=groups)
 
 
+def _reset_every_fourth(vals, ticks: int) -> list:
+    """Counter values in which every fourth row of each series (row j of
+    its `ticks`, j % 4 == 0, j > 0) falls below the row before it: about
+    1000 then 2000, 3000, 4000; NaN where `vals` holds NaN."""
+    import torch
+
+    out, row0 = [], 0
+    for v in vals:
+        j = torch.arange(row0, row0 + v.shape[0], device=v.device) % ticks
+        ramp = (j % 4 + 1).to(torch.float64) * 1000.0 + (j % 997).to(torch.float64) * 1e-3
+        out.append(torch.where(torch.isnan(v), v, ramp))
+        row0 += v.shape[0]
+    return out
+
+
+def strip_hash_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -> None:
+    """K9 and K17 at chip_smoke.py's shapes, each call's host enqueue beside
+    its device split; K15's remap beside `torch.take`."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops import permute as perm
+    from greptimedb_tpu_torch.ops import rate as R
+
+    def case(name, fn, outs, **kw):
+        emit(name, c._timed(fn, reps), _digest(outs), enqueue_us=_enqueue_us(fn, reps), **kw,
+             **(_profiled(fn) if prof else {}))
+
+    # K9 at phase 3c's shape: 17.28 M rows in two chunks, S_pad 4096, the
+    # 5-minute source; then the same rows with a reset every fourth row
+    n, npad, codes, ts, vals, present, valid = c.prom_planes(hosts, hours, dev)
+    s_pad = 1 << (max(hosts, 1) - 1).bit_length()
+    start, end = c.T0, c.T0 + hours * c.H3600
+    ticks = hours * 3600 // c.SCRAPE_S
+    kb, _by = c.bound(npad * 30, npad * 4)
+    for shape, values in (("5m", vals), ("reset every 4th row", _reset_every_fourth(vals, ticks))):
+        src = R.RowSource(ts=ts, values=values, num_series=s_pad, codes=(codes,),
+                          radices=(s_pad,), nulls=present, valid=valid,
+                          lo=start - 300_000, hi=end + 1)
+
+        def k9():
+            return R.strip_counter_resets(src)
+
+        adj, layout = k9()
+        fetched = layout.in_fetch.bool()
+        case(f"K9 {shape}", k9, [adj[fetched], layout.in_fetch, layout.first, layout.last,
+                                 layout.presence],
+             rows=npad, fetched=int(fetched.sum()), bound_ms=kb)
+        del adj, layout, fetched
+    del codes, ts, vals, present, valid
+    torch.cuda.empty_cache()
+
+    # K17 at H1's shape (5.76 M rows, 2^24 slots, the table's refill timed
+    # in), then the mesh union's (4 slot tables of 2^24 keys, active where
+    # not HASH_EMPTY)
+    H = 1 << 24
+    _n, k1_args = c.h1_group_ids(c.CM_HOURS, dev)
+    gids, mask = flt.mask_gids(*k1_args)
+    tables = c._slot_tables(4, c.MESH_H, c.CM_HOURS, dev)
+    keys = tables.reshape(-1)
+    for shape, (g, a, h) in (("H1", (gids, mask, H)),
+                              ("mesh union 4x2^24", (keys, keys != agg.HASH_EMPTY, c.MESH_H))):
+        table = torch.empty(h, dtype=torch.int64, device=dev)
+
+        def k17():
+            return agg.hash_group_slots(table.fill_(agg.HASH_EMPTY), g, a)
+
+        t, slots, ovf = k17()
+        rounds = agg.hash_group_slots.last_rounds
+        m, m_act = int(g.shape[0]), int(a.sum())
+        # active flags (1 B) read and slots (4 B) written for every row, the
+        # gids (8 B) of the active rows read, the table read and written
+        kb, _by = c.bound(m * (1 + 4) + m_act * 8 + h * 16, m_act * int(rounds.reshape(-1)[0]) * 8)
+        case(f"K17 {shape}", k17, [t, slots, ovf, rounds], rows=m, active=m_act, slots=h,
+             rounds=int(rounds.reshape(-1)[0]), occupied=int((t != agg.HASH_EMPTY).sum()),
+             bound_ms=kb, fill_ms=c._timed(lambda: table.fill_(agg.HASH_EMPTY), reps))
+        del table, t, slots, ovf
+    del gids, mask, tables, keys, k1_args
+    torch.cuda.empty_cache()
+
+    # K15's remap: the 4000-code plane of the entry through the growth
+    # permutation, beside torch.take
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+    from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
+
+    n, codes, _ts, _valid, _vals = c.tsbs_planes(hosts, hours, 1, dev)
+    del _ts, _valid, _vals
+    npad = pad_rows(n)
+    codes_c = c._chunked(c._padded(codes, npad, 0), TILE_CHUNK_ROWS)
+    table = torch.from_numpy(c.growth_perm(hosts, hosts + c.LIVE_NEW_HOSTS)).to(dev)
+    flat_codes = torch.cat(codes_c).to(torch.int64)
+    kb, _by = c.bound(npad * (4 + 4) + table.numel() * 4, 0)
+
+    def remap():
+        return perm.gather_planes(codes_c, table, remap=True)
+
+    case("K15 remap", remap, remap(), rows=npad, bound_ms=kb,
+         library_ms=c._timed(lambda: torch.take(table, flat_codes), reps))
+
+
 def tql_cases(c, hosts: int, hours: int, emit) -> None:
     """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
@@ -754,7 +865,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
                                            "segment_reduce_scatter", "segment_sort"),
                                "fold": ("mask_gids", "hash_group_slots"),
                                "pack_scatter": ("mask_gids", "segment_sort", "topk_select",
-                                                "hash_group_slots")}.get(kset, ()))
+                                                "hash_group_slots"),
+                               "strip_hash": ("mask_gids",)}.get(kset, ()))
 
     def emit(case, ms, digest, **kw):
         print(json.dumps({"case": case, "ms": ms, "bytes": digest, **kw}), flush=True)
@@ -768,6 +880,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
         fold_cases(c, reps, prof, emit, dev)
     elif kset == "pack_scatter":
         pack_scatter_cases(c, hosts, hours, reps, prof, emit, dev)
+    elif kset == "strip_hash":
+        strip_hash_cases(c, hosts, hours, reps, prof, emit, dev)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:
