@@ -339,6 +339,7 @@ class Tsbs:
 # buckets over whole hosts fail it (K3 reruns); scans under 2^16 rows go
 # straight to K3.
 _BLOCKED, _SCATTER, _LAST = "segment_reduce_blocked", "segment_reduce_scatter", "segment_last"
+_MASK = "mask_gids"
 _SORT = "segment_sort"
 TILE_KERNELS = ("quantize_limbs", "limb_segment_sums", "topk_select", "pack_result")
 EXPECTED_PATH = {
@@ -457,7 +458,7 @@ def kernel_table():
         "ts_argsort": (perm.ts_argsort, src + "ts_argsort.cu",
                        "greptimedb_tpu/parallel/tile_cache.py:2680"),
         "gather_planes": (perm.gather_planes, src + "gather_planes.cu",
-                          "greptimedb_tpu/parallel/tile_cache.py:2161"),
+                          "greptimedb_tpu/parallel/tile_cache.py:2193"),
         "delta_patch": (perm.delta_patch, src + "delta_patch.cu",
                         "greptimedb_tpu/parallel/tile_cache.py:292"),
         "hash_group_slots": (agg.hash_group_slots, src + "hash_group_slots.cu",
@@ -486,6 +487,7 @@ def reset_counts() -> None:
     SHAPES.clear()
     K22_PLANNED.update(planned=0, made=0)
     K8_PLANNED.update(calls=0, planned=0, made=0)
+    K15_PLANNED.update(calls=0, planned=0, made=0, planes=0, builds=0)
     for name in ENTRY_KERNELS:
         kernel_table()[name][0].calls = 0
         ENTRY_KERNELS[name] = 0
@@ -502,6 +504,7 @@ def _rows_bucket(n: int) -> str:
 # 16 columns; K22 once a merge, or as its launch plan splits it; K12 per
 # form: tw = 0 the cell form).
 SHAPED = {
+    ("mask_gids", "gt_mask_gids"): lambda a: f"rows<={_rows_bucket(a.n)}",
     ("segment_reduce_blocked", "gt_blocked_partials"): lambda a: f"C={a.n_cols}",
     ("segment_reduce_scatter", "gt_scatter_reduce"): lambda a: f"C={a.n_cols}",
     ("limb_segment_sums", "gt_limb_partials"): lambda a: f"C={a.n_cols}",
@@ -519,6 +522,11 @@ K22_PLANNED = {"planned": 0, "made": 0}
 # K8's calls and their launches, made and planned (`pack_launch_plan`:
 # one a call up to 64 rows), since the counts were last set to 0
 K8_PLANNED = {"calls": 0, "planned": 0, "made": 0}
+# K15's multi-plane gather calls, their launches made and planned
+# (`gather_launch_plan`: one a call up to the descriptor's pointers), the
+# planes they moved, and the time-major builds that gathered (each must
+# make exactly one call), since the counts were last set to 0
+K15_PLANNED = {"calls": 0, "planned": 0, "made": 0, "planes": 0, "builds": 0}
 # K9's and K17's kernel launches since the counts were last set to 0, as
 # their entry points count them where they launch (the `kernels` field of
 # their argument structs; K9 launches the layout's identities, the row
@@ -591,10 +599,41 @@ def count_shapes() -> None:
         K8_PLANNED["planned"] += len(layout.launches)
         K8_PLANNED["made"] += made
 
+    from greptimedb_tpu_torch.ops import permute as perm
+    from greptimedb_tpu_torch.parallel import tile_planes
+
+    gather_on_card = perm._gather_on_card
+
+    def gather(planes, outs, index, dev):
+        planned = len(perm.gather_launch_plan(len(planes), len(planes[0])))
+        l0 = perm.gather_planes.launches
+        gather_on_card(planes, outs, index, dev)
+        made = perm.gather_planes.launches - l0
+        if made != planned:
+            raise AssertionError(f"K15 gather of {len(planes)} planes: {made} launches, its "
+                                 f"plan makes {planned}")
+        K15_PLANNED["calls"] += 1
+        K15_PLANNED["planned"] += planned
+        K15_PLANNED["made"] += made
+        K15_PLANNED["planes"] += len(planes)
+
+    ensure_time_major = tile_planes.TileCacheManager.ensure_time_major
+
+    def time_major(self, *args, **kw):
+        c0 = K15_PLANNED["calls"]
+        out = ensure_time_major(self, *args, **kw)
+        if K15_PLANNED["calls"] - c0 > 1:
+            raise AssertionError(f"a time-major build made {K15_PLANNED['calls'] - c0} K15 "
+                                 "gather calls, not one")
+        K15_PLANNED["builds"] += K15_PLANNED["calls"] - c0
+        return out
+
     counted.counts_shapes = True
     _build.launch = counted
     agg._fold_on_card = merge
     agg._pack_on_card = pack
+    perm._gather_on_card = gather
+    tile_planes.TileCacheManager.ensure_time_major = time_major
 
 
 def shape_counts() -> dict[str, int]:
@@ -664,6 +703,21 @@ def _timed(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _enqueue_us(fn, reps: int) -> float:
+    """Host µs per fn() call with no sync between calls: where it passes
+    the CUDA-event time, back-to-back calls wait on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def _same_bytes(a, b) -> bool:
@@ -1108,6 +1162,31 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     gids, mask = flt.mask_gids(valid, [(ts, ">=", lo), (ts, "<", hi)], [], [(codes, card)],
                                (ts, T0, H3600, hours), G - 1)
     out: dict[str, dict] = {}
+
+    # K1 at the chunk shapes the tile path launches it at (the entry's
+    # 2^24-row chunk and its tail) with double-groupby's filters, keyed as
+    # SHAPED keys its launches; each against its plain version
+    from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
+
+    k1_chunks = {}
+    for o in range(0, npad, TILE_CHUNK_ROWS):
+        v_c, t_c, c_c = (x[o:o + TILE_CHUNK_ROWS] for x in (valid, ts, codes))
+        rows = int(v_c.shape[0])
+        k1_args = (v_c, [(t_c, ">=", lo), (t_c, "<", hi)], [], [(c_c, card)],
+                   (t_c, T0, H3600, hours), G - 1)
+        kg, km = _twice_identical(lambda: flt.mask_gids(*k1_args), f"mask_gids chunk {rows}")
+        pg, pm = flt.mask_gids_plain(*k1_args)
+        _compare(kg, pg, True, f"mask_gids chunk {rows}.gids")
+        _compare(km, pm, True, f"mask_gids chunk {rows}.mask")
+        # as phase 3's K1: valid, ts and codes read, ids and mask written
+        kb1, kby1 = bound(rows * (1 + 8 + 4) + rows * (4 + 1), rows * 8)
+        ops = _device_ops(lambda: flt.mask_gids(*k1_args), calls=3)
+        k1_chunks[f"rows<={_rows_bucket(rows)}"] = dict(
+            rows=rows, ms=_timed(lambda: flt.mask_gids(*k1_args), reps), bound_ms=kb1,
+            bound_by=kby1, enqueue_us=_enqueue_us(lambda: flt.mask_gids(*k1_args), reps),
+            device_us={_kernel_name(k): us / n for k, (us, n) in ops.items() if n})
+        del kg, km, pg, pm
+    out["mask_gids_chunk"] = k1_chunks
 
     # K5 on one full-length column
     kl = _twice_identical(lambda: agg.quantize_limbs(vals[0]), "quantize_limbs")
@@ -1611,6 +1690,22 @@ def _twice_identical_chunks(fn, what: str):
     return a
 
 
+def _multi_gather_case(P, planes, perm, what: str) -> list:
+    """K15's multi-plane gather of `planes` twice with identical bytes,
+    each plane byte for byte its plain version, in as many launches as
+    `gather_launch_plan` says."""
+    l0 = P.gather_planes.launches
+    got = _twice_identical_chunks(lambda: [c for p in P.gather_planes_multi(planes, perm)
+                                           for c in p], what)
+    made = (P.gather_planes.launches - l0) // 2
+    planned = len(P.gather_launch_plan(len(planes), len(planes[0])))
+    if planes[0][0].is_cuda and made != planned:
+        raise AssertionError(f"{what}: {made} launches a call, its plan makes {planned}")
+    want = [c for p in P.gather_planes_multi_plain(planes, perm) for c in p]
+    _same_chunks(got, want, what)
+    return got
+
+
 def growth_perm(n_old: int, n_new: int):
     """The dictionary permutation old code -> new code when hosts
     host_<n_old> .. host_<n_new - 1> join host_0 .. host_<n_old - 1>
@@ -1688,10 +1783,22 @@ def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     emit({"phase": "ts_argsort", **out["ts_argsort"]})
     del key, jkey, jts_c, jperm
 
-    # K15 gather: an f64, an int32 and a bool plane by that perm
+    # K15 gather: an f64, an int32 and a bool plane by that perm, alone and
+    # with the int64 ts plane in one multi-plane call (one launch)
     for name, planes in (("f64", f64_c), ("int32", codes_c), ("bool", valid_c)):
         k = _twice_identical_chunks(lambda: P.gather_planes(planes, perm), f"gather {name}")
         _same_chunks(k, P.gather_planes_plain(planes, perm), f"gather_planes {name}")
+    mixed = [f64_c, codes_c, valid_c, ts_c]
+    _multi_gather_case(P, mixed, perm, "gather_planes_multi f64+int32+bool+int64")
+    esum = sum(p[0].element_size() for p in mixed)
+    # perm (4 B) read once for all the planes, each element read and written
+    k15mb, k15mby = bound(npad * 4 + npad * 2 * esum, 0)
+    multi = dict(
+        planes=len(mixed), ms=_timed(lambda: P.gather_planes_multi(mixed, perm), reps),
+        bound_ms=k15mb, bound_by=k15mby,
+        per_plane_ms=sum(_timed(lambda p=p: P.gather_planes(p, perm), reps) for p in mixed),
+        per_plane_bound_ms=bound(len(mixed) * npad * 4 + npad * 2 * esum, 0)[0],
+    )
     flat = torch.cat(f64_c)
     perm64 = perm.to(torch.int64)
     # per f64 plane: the index (4 B) and the value (8 B) read, 8 B written
@@ -1708,6 +1815,7 @@ def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         plain_ms=_timed(lambda: P.gather_planes_plain(f64_c, perm), 1),
         bound_ms=k15b, bound_by=k15by,
         library_ms=_timed(lambda: torch.index_select(flat, 0, perm64), reps),
+        multi=multi,
         remap=dict(
             ms=_timed(lambda: P.gather_planes(codes_c, table, remap=True), reps),
             plain_ms=_timed(lambda: P.gather_planes_plain(codes_c, table, remap=True), 1),
@@ -1857,12 +1965,27 @@ def run_plane_edge_cases(dev) -> None:
                 raise AssertionError(f"edge ts_argsort {name}: {got}-byte keys, expected {want}")
     n = 3 * 4096 + 1000
     perm = t(rng.permutation(n).astype(np.int32))
-    for dtype in (np.float64, np.int32, np.int64, np.bool_, np.uint8):
-        x = t(rng.integers(0, 200, n).astype(dtype))
+    xs = [t(rng.integers(0, 200, n).astype(dtype))
+          for dtype in (np.float64, np.int32, np.int64, np.bool_, np.uint8)]
+    for x in xs:
         for chunk in (4096, 1 << 24):
             xc = _chunked(x, chunk)
             k = _twice_identical_chunks(lambda: P.gather_planes(xc, perm), "edge gather")
-            _same_chunks(k, P.gather_planes_plain(xc, perm), f"edge gather {dtype.__name__}")
+            _same_chunks(k, P.gather_planes_plain(xc, perm), f"edge gather {x.dtype}")
+    # the multi-plane gather over mixed 1/4/8 B planes: chunks of a power of
+    # two (a shift) and not (a 32-bit division), a ragged last chunk, one
+    # chunk and 52; then 40 planes of 64 chunks, which pass the descriptor
+    # and split into launches as planned
+    for chunk in (4096, 5000, 256, 1 << 24):
+        _multi_gather_case(P, [_chunked(x, chunk) for x in xs], perm,
+                           f"edge gather_planes_multi chunk={chunk}")
+    m64 = 64 * 200 - 77
+    perm_m = t(rng.permutation(m64).astype(np.int32))
+    many = [_chunked(t(rng.integers(0, 200, m64).astype(dt)), 200)
+            for dt in (np.float64, np.int32, np.bool_, np.int64) * 10]
+    if len(P.gather_launch_plan(len(many), len(many[0]))) < 2:
+        raise AssertionError("40 planes of 64 chunks must pass K15's descriptor")
+    _multi_gather_case(P, many, perm_m, "edge gather_planes_multi 40 planes x 64 chunks")
     m = 4000
     table = t(rng.permutation(m + 96)[:m].astype(np.int32))
     codes = t(rng.integers(-m - 2, m + 2, n).astype(np.int32))
@@ -2876,9 +2999,12 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
     if is_cuda and (k8["made"] != totals[_PACK] or k8["planned"] != k8["calls"]):
         raise AssertionError(f"K8 on the tile path: {totals[_PACK]} launches, {k8['made']} in "
                              f"{k8['calls']} calls, {k8['planned']} planned (one a call)")
+    k15 = dict(K15_PLANNED)
+    if is_cuda and (k15["made"] != totals[_GATHER] or k15["builds"] != k15["calls"]):
+        raise AssertionError(f"K15 on the tile path: {totals[_GATHER]} launches, {k15}")
     edge = run_tile_edge_queries(db, tsbs, is_cuda)
     return {"queries": per_query, "launches": totals, "shape_launches": shapes, "k8_calls": k8,
-            "edge_launches": edge, "edge_shape_launches": shape_counts(),
+            "k15_calls": k15, "edge_launches": edge, "edge_shape_launches": shape_counts(),
             "cache": eng.tile_cache.stats(), "limb_reruns": eng.tile_executor().limb_reruns}
 
 
@@ -3309,9 +3435,15 @@ def run_live_phase(db, tsbs: Tsbs, is_cuda: bool, full_size: bool,
     finally:
         tile_planner.plan_device_finalize = real_plan
     totals = launch_counts()  # the live phase's launches end here
+    # K15's launches here: the gathers of the rebuilt time-major copies,
+    # one call a build as planned, and the delta route's remaps
+    k15 = dict(K15_PLANNED)
+    if is_cuda and (k15["made"] > totals[_GATHER] or k15["builds"] != k15["calls"]):
+        raise AssertionError(f"K15 on the live phase: {totals[_GATHER]} launches, {k15}")
     rebuild = check_against_rebuild(db, "public.cpu", ["hostname"], "ts", is_cuda)
     out = {"rows": rows, "append_s": append_s, "delta": delta, **rebuild,
-           "seconds": time.perf_counter() - t0, "queries": per_query, "launches": totals}
+           "seconds": time.perf_counter() - t0, "queries": per_query, "launches": totals,
+           "k15_calls": k15}
     emit({"phase": "live", **{k: v for k, v in out.items() if k != "queries"}})
     return out
 
@@ -5814,6 +5946,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kstats = run_kernel_phase(args.hosts, args.hours, args.kernel_reps)
     kstats.update(run_tile_kernel_phase(args.hosts, args.hours, args.kernel_reps))
+    kstats["mask_gids"]["chunk"] = kstats.pop("mask_gids_chunk")
     kstats.update(run_tql_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     kstats.update(run_plane_kernel_phase(args.hosts, args.hours, args.kernel_reps))
     hstats = run_hash_kernel_phase(args.kernel_reps)
@@ -6031,8 +6164,13 @@ def main(argv=None) -> int:
                 "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "tile_launches": tile_launches, "live_launches": live_launches,
-                **{k: s[k] for k in ("remap", "passes", "key_bytes", "sort_launches", "jittered")
+                **{k: s[k] for k in ("remap", "multi", "passes", "key_bytes", "sort_launches",
+                                     "jittered")
                    if k in s},
+                # K15's gathers: one multi-plane call a time-major build, its
+                # launches as its plan makes them (tile phase, live phase)
+                **({"gather_calls": {"tile": sl["tile"]["k15_calls"],
+                                     "live": sl["live"]["k15_calls"]}} if name == _GATHER else {}),
             })
             continue
         # K1-K4: their launches on the table-fed path (phase 4); K1-K8: on
@@ -6059,8 +6197,13 @@ def main(argv=None) -> int:
                 "table_fed": by_shape(sl["shape_launches"], name),
                 "tile": by_shape(sl["tile"]["shape_launches"], name),
                 "tick": by_shape(tick["shape_launches"], name),
-                "hash": by_shape(cm["shape_launches"], name)}} if name == _SORT else {}),
-            **{k: s[k] for k in ("alone_ms", "c1", "c5", "guard_fail", "compact", "int64",
+                "hash": by_shape(cm["shape_launches"], name)}} if name in (_SORT, _MASK) else {}),
+            # K1's rank: its tile launches x (ms - bound ms) at each chunk shape
+            **({"tile_chunk_figure": sum(
+                v * (s["chunk"][k]["ms"] - s["chunk"][k]["bound_ms"])
+                for k, v in by_shape(sl["tile"]["shape_launches"], name).items()
+                if k in s["chunk"])} if name == _MASK else {}),
+            **{k: s[k] for k in ("alone_ms", "c1", "c5", "guard_fail", "compact", "int64", "chunk",
                                  "hash_slots", "predicated", "falling", "passes", "key_bytes",
                                  "sort_launches")
                if k in s},

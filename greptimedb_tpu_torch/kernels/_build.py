@@ -149,7 +149,7 @@ _EXPORTS = {
     "series_fold": ("gt_series_fold",),
     "having_mask": ("gt_having_mask",),
     "ts_argsort": ("gt_argsort_range", "gt_argsort_passes"),
-    "gather_planes": ("gt_gather_plane", "gt_remap_codes"),
+    "gather_planes": ("gt_gather_planes", "gt_remap_codes"),
     "delta_patch": ("gt_delta_patch",),
     "hash_group_slots": ("gt_hash_slots",),
     "segment_sort": ("gt_segment_sort",),

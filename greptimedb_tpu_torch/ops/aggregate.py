@@ -716,6 +716,7 @@ class _LastBlockedArgs(ctypes.Structure):
         ("n", ctypes.c_int64), ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p),
         ("ts", ctypes.c_void_p), ("layout", _BlockLayout),
         ("pts", ctypes.c_void_p), ("prow", ctypes.c_void_p), ("gate", _Gate),
+        ("vec", ctypes.c_int32), ("reserved", ctypes.c_int32),
     ]
 
 
@@ -776,8 +777,11 @@ def segment_last(values, ts, gids, mask, num_groups: int, base=None, order=None,
         # and the [nb, 16] (ts, row) partials
         keep, lay, (pts, prow) = _block_layout(nb, G, dev, base=base,
                                                scratch=(nb * BLOCK_SPAN * 8, nb * BLOCK_SPAN * 4))
+        # 16 B loads of ids and ts, 4 B of masks, where the planes allow
+        vec = int(gids.data_ptr() % 16 == 0 and ts.data_ptr() % 16 == 0
+                  and mask.data_ptr() % 4 == 0)
         a = _LastBlockedArgs(n, gids.data_ptr(), mask.data_ptr(), ts.data_ptr(), lay, pts, prow,
-                             blocked)
+                             blocked, vec, 0)
         launch("segment_last", "gt_last_partials", a, stream)
         f = _LastFoldArgs(lay, pts, prow, x.data_ptr(), last_ts.data_ptr(), last_val.data_ptr(),
                           n, blocked)

@@ -11,9 +11,10 @@ no fallback from one to the other.
 
 * K14 `ts_argsort` (csrc/ts_argsort.cu): the stable argsort of
   `where(valid, ts, INT64_MAX)` over a chunked entry, int32 [pad];
-* K15 `gather_planes` (csrc/gather_planes.cu): a chunked plane gathered
-  through that permutation (gather mode), or an int32 code plane mapped
-  through a dictionary permutation with JAX's `take(mode="fill",
+* K15 `gather_planes` (csrc/gather_planes.cu): chunked planes gathered
+  through that permutation, all the planes of a time-major build in one
+  launch (`gather_planes_multi`; gather mode), or an int32 code plane
+  mapped through a dictionary permutation with JAX's `take(mode="fill",
   fill_value=-1)` semantics (remap mode);
 * K16 `delta_patch` (csrc/delta_patch.cu): old rows and a sorted delta
   run merged into new padded chunks by the merge positions.
@@ -189,54 +190,143 @@ def gather_planes_plain(chunks, index: torch.Tensor, remap: bool = False) -> lis
     return out
 
 
-class _GatherArgs(ctypes.Structure):
+def gather_planes_multi_plain(planes, perm: torch.Tensor) -> list:
+    """Torch-op version of K15's multi-plane gather: each plane through
+    `gather_planes_plain`."""
+    return [gather_planes_plain(p, perm) for p in planes]
+
+
+# K15's gather descriptor (GatherDesc in csrc/gather_planes.cu): its
+# pointers, two per chunk of each plane of a launch, fill sm_90's kernel
+# parameter space
+_GATHER_PTRS = 4080
+
+
+class _GatherDesc(ctypes.Structure):
+    # mirrored field for field by GatherDesc in csrc/gather_planes.cu
     _fields_ = [
-        ("src", _ChunkTable), ("dst", _ChunkTable), ("perm", ctypes.c_void_p),
-        ("n", ctypes.c_int64), ("esize", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("desc_bytes", ctypes.c_int32), ("n8", ctypes.c_int32), ("n4", ctypes.c_int32),
+        ("n1", ctypes.c_int32), ("n_chunks", ctypes.c_int32), ("chunk_shift", ctypes.c_int32),
+        ("chunk_rows", ctypes.c_uint32), ("n", ctypes.c_uint32), ("perm", ctypes.c_void_p),
+        ("ptrs", ctypes.c_void_p * _GATHER_PTRS),
     ]
 
 
 class _RemapArgs(ctypes.Structure):
+    # mirrored field for field by RemapArgs in csrc/gather_planes.cu
     _fields_ = [
         ("codes", _ChunkTable), ("dst", _ChunkTable), ("table", ctypes.c_void_p),
-        ("n_table", ctypes.c_int64), ("n", ctypes.c_int64),
+        ("n_table", ctypes.c_int64), ("n", ctypes.c_int64), ("vec", ctypes.c_int32),
+        ("reserved", ctypes.c_int32),
     ]
+
+
+def gather_launch_plan(n_planes: int, n_chunks: int) -> list[list[int]]:
+    """K15's gather launches for `n_planes` planes of `n_chunks` chunks
+    each (a pure function of the shape): consecutive runs of plane
+    indices, each as many planes as the descriptor's pointers hold (two a
+    chunk of each plane: at 64 chunks, 31 planes a launch)."""
+    per = _GATHER_PTRS // (2 * max(int(n_chunks), 1))
+    return [list(range(o, min(o + per, n_planes))) for o in range(0, n_planes, per)]
+
+
+def _gather_on_card(planes, outs, perm: torch.Tensor, dev) -> None:
+    """The launches of `gather_launch_plan` for planes already checked
+    (cut alike, elements of 1, 4 or 8 bytes) into their outputs `outs`."""
+    from ..kernels._build import launch
+
+    nc = len(planes[0])
+    rows = int(planes[0][0].shape[0])
+    chunk_rows = max(rows, 1)
+    n = _rows(planes[0])
+    stream = _stream(dev)
+    for units in gather_launch_plan(len(planes), nc):
+        # the descriptor holds the 8 B planes first, then the 4 B, then the 1 B
+        order = sorted(units, key=lambda p: -planes[p][0].element_size())
+        d = _GatherDesc()
+        d.desc_bytes = ctypes.sizeof(_GatherDesc)
+        sizes = [planes[p][0].element_size() for p in order]
+        d.n8, d.n4, d.n1 = sizes.count(8), sizes.count(4), sizes.count(1)
+        d.n_chunks = nc
+        d.chunk_shift = chunk_rows.bit_length() - 1 if chunk_rows & (chunk_rows - 1) == 0 else -1
+        d.chunk_rows = chunk_rows
+        d.n = n
+        d.perm = perm.data_ptr()
+        for slot, p in enumerate(order):
+            for c in range(nc):
+                d.ptrs[2 * slot * nc + c] = planes[p][c].data_ptr()
+                d.ptrs[(2 * slot + 1) * nc + c] = outs[p][c].data_ptr()
+        gather_planes.launches += 1
+        launch("gather_planes", "gt_gather_planes", d, stream)
+
+
+def gather_planes_multi(planes, perm: torch.Tensor) -> list:
+    """K15's gather mode over several planes at once: for each chunked
+    plane (elements of 1, 4 or 8 bytes; every plane cut like the first)
+    a new plane cut alike, row i being row perm[i] of the concatenated
+    plane (`perm` int32, one entry per row, n < 2^31).  CUDA planes take
+    one launch of csrc/gather_planes.cu for all of them, or as many as
+    `gather_launch_plan` says where their chunk tables pass the
+    descriptor; CPU planes run `gather_planes_multi_plain`."""
+    if not planes:
+        return []
+    if planes[0][0].device.type == "cpu":
+        return gather_planes_multi_plain(planes, perm)
+    dev = planes[0][0].device
+    lens = [int(c.shape[0]) for c in planes[0]]
+    n = sum(lens)
+    if not lens or len(lens) > _MAX_CHUNKS:
+        raise ValueError(f"a chunked plane needs 1..{_MAX_CHUNKS} chunks, got {len(lens)}")
+    if any(x != lens[0] for x in lens[:-1]) or lens[-1] > lens[0]:
+        raise ValueError("chunks must share the first chunk's length (the last may be shorter)")
+    if n >= 1 << 31:
+        raise ValueError(f"gather_planes takes fewer than 2^31 rows, got {n}")
+    if perm.device != dev or perm.dtype != torch.int32 or not perm.is_contiguous() \
+            or tuple(perm.shape) != (n,):
+        raise ValueError(f"gather_planes index must be a contiguous int32 [{n}] on {dev}")
+    for i, plane in enumerate(planes):
+        dtype = plane[0].dtype
+        if plane[0].element_size() not in (1, 4, 8):
+            raise ValueError(f"gather_planes takes 1, 4 or 8 byte elements, got {dtype}")
+        if [int(c.shape[0]) for c in plane] != lens or any(
+                c.device != dev or c.dtype != dtype or c.dim() != 1 or not c.is_contiguous()
+                for c in plane):
+            raise ValueError(f"plane {i} must be cut like the first, in contiguous 1-d {dtype} "
+                             f"chunks on {dev}")
+    outs = [_empty_like_chunks(p, p[0].dtype, dev) for p in planes]
+    _gather_on_card(planes, outs, perm, dev)
+    return outs
 
 
 def gather_planes(chunks, index: torch.Tensor, remap: bool = False) -> list:
     """K15: a new chunked plane cut like `chunks`.  Gather mode (B13):
     row i is row index[i] of the concatenated plane (elements of 1, 4 or
-    8 bytes; `index` int32, one entry per row).  Remap mode (B12): an
-    int32 code plane mapped through the int32 table `index` with JAX's
-    fill semantics.  CUDA chunks launch csrc/gather_planes.cu, one launch
-    per plane; CPU chunks run `gather_planes_plain`."""
+    8 bytes; `index` int32, one entry per row): the one-plane case of
+    `gather_planes_multi`.  Remap mode (B12): an int32 code plane mapped
+    through the int32 table `index` with JAX's fill semantics.  CUDA
+    chunks launch csrc/gather_planes.cu once; CPU chunks run
+    `gather_planes_plain`."""
     if chunks[0].device.type == "cpu":
         return gather_planes_plain(chunks, index, remap)
+    if not remap:
+        return gather_planes_multi([chunks], index)[0]
     from ..kernels._build import launch
 
     dev = chunks[0].device
     n = _rows(chunks)
     if index.device != dev or index.dtype != torch.int32 or not index.is_contiguous():
         raise ValueError(f"gather_planes index must be contiguous int32 on {dev}")
-    dtype = chunks[0].dtype
-    src = _chunk_table(chunks, dtype, dev)
-    out = _empty_like_chunks(chunks, dtype, dev)
-    dst = _chunk_table(out, dtype, dev)
-    stream = _stream(dev)
+    if chunks[0].dtype != torch.int32:
+        raise ValueError(f"remap takes int32 code planes, got {chunks[0].dtype}")
+    if n >= 1 << 31 or int(index.shape[0]) >= 1 << 31:
+        raise ValueError(f"remap takes fewer than 2^31 codes and table rows, got {n}")
+    src = _chunk_table(chunks, torch.int32, dev)
+    out = _empty_like_chunks(chunks, torch.int32, dev)
+    dst = _chunk_table(out, torch.int32, dev)
+    vec = int(all(c.data_ptr() % 16 == 0 for c in (*chunks, *out)))
+    a = _RemapArgs(src, dst, index.data_ptr(), int(index.shape[0]), n, vec, 0)
     gather_planes.launches += 1
-    if remap:
-        if dtype != torch.int32:
-            raise ValueError(f"remap takes int32 code planes, got {dtype}")
-        a = _RemapArgs(src, dst, index.data_ptr(), int(index.shape[0]), n)
-        launch("gather_planes", "gt_remap_codes", a, stream)
-        return out
-    if int(index.shape[0]) != n:
-        raise ValueError(f"gather index has {int(index.shape[0])} rows, the plane {n}")
-    esize = chunks[0].element_size()
-    if esize not in (1, 4, 8):
-        raise ValueError(f"gather_planes takes 1, 4 or 8 byte elements, got {esize}")
-    launch("gather_planes", "gt_gather_plane",
-           _GatherArgs(src, dst, index.data_ptr(), n, esize, 0), stream)
+    launch("gather_planes", "gt_remap_codes", a, _stream(dev))
     return out
 
 

@@ -78,7 +78,7 @@ import pyarrow.compute as pc
 import torch
 
 from ..ops.aggregate import BLOCK_ROWS, _FAST_MIN_ROWS, quantize_limbs
-from ..ops.permute import delta_patch, gather_planes, ts_argsort
+from ..ops.permute import delta_patch, gather_planes, gather_planes_multi, ts_argsort
 from ..ops.rate import group_csr
 from ..ops.tiles import chunk_bounds, pad_rows
 from ..query import passes
@@ -946,9 +946,10 @@ class TileCacheManager:
             return entry.perm
 
     def ensure_time_major(self, entry: _SuperTiles, ts_name: str, cols_needed):
-        """ts-ascending copies of the needed planes (one K15 gather each,
-        once per (entry, file set, column)), so time-major dispatches
-        gather nothing.  Returns (cols, valid, nulls) views limited to
+        """ts-ascending copies of the needed planes (once per (entry, file
+        set, column); the planes a call adds in one K15 launch, as
+        `gather_planes_multi` plans it), so time-major dispatches gather
+        nothing.  Returns (cols, valid, nulls) views limited to
         `cols_needed`."""
         perm = self.ensure_perm(entry, ts_name)
         added = 0
@@ -962,16 +963,22 @@ class TileCacheManager:
             if entry.tm_valid is None:
                 est += entry.pad
             self._reserve_locked(est, {entry.region_id})
+            # (where the copy goes, its column, the plane) for each copy made
+            todo = []
             if entry.tm_valid is None:
-                entry.tm_valid = gather_planes(entry.valid, perm)
-                added += entry.pad
-            for c in cols_needed:
+                todo.append((None, None, entry.valid))
+            for c in dict.fromkeys(cols_needed):
                 if c in entry.cols and c not in entry.tm_cols:
-                    entry.tm_cols[c] = gather_planes(entry.cols[c], perm)
-                    added += _nbytes(entry.tm_cols[c])
+                    todo.append((entry.tm_cols, c, entry.cols[c]))
                 if c in entry.nulls and c not in entry.tm_nulls:
-                    entry.tm_nulls[c] = gather_planes(entry.nulls[c], perm)
-                    added += entry.pad
+                    todo.append((entry.tm_nulls, c, entry.nulls[c]))
+            copies = gather_planes_multi([plane for _d, _c, plane in todo], perm)
+            for (dest, c, _plane), copy in zip(todo, copies):
+                if dest is None:
+                    entry.tm_valid = copy
+                else:
+                    dest[c] = copy
+                added += _nbytes(copy)
             if added:
                 entry.nbytes += added
                 if self._super.get(entry.region_id) is entry:

@@ -272,6 +272,123 @@ def test_blocked_fold_order_emulation_matches_reference(layout):
         assert not np.array_equal(np.array(other), np.array(sums))
 
 
+# ---- K4's partials kernel (csrc/segment_last.cu) ------------------------------------------
+
+I64_MIN = np.iinfo(np.int64).min
+
+# Layouts that pass the blocked guard: host-major ids (lastpoint's), falling
+# bases (hour alone over 16 h of hosts), blocks whose warps each span all
+# 16 slots, all-masked warps and a whole all-masked block, and ts ties
+# within and across warps and blocks (every group's rows share 3 ts).
+K4_LAYOUTS = ["host_major", "falling", "warp_spans_16", "masked_warps_blocks", "ts_ties"]
+
+
+def k4_layout(name: str):
+    """(gids int32, mask bool, ts int64, G) with a ragged last block."""
+    rng = np.random.default_rng(len(name))
+    L = tagg.BLOCK_ROWS
+    if name == "falling":
+        gids, mask, G = fold_layout("falling")
+        gids, mask = gids[:-1000], mask[:-1000]
+    elif name == "warp_spans_16":
+        nb, G = 6, 96
+        n = nb * L - 333
+        gids = (np.arange(n) // L * 16 + rng.integers(0, 16, n)).astype(np.int32)
+        mask = rng.random(n) < 0.9
+    else:  # host-major runs of 1000 rows, 37 hosts
+        G = 37
+        gids = np.repeat(np.arange(G, dtype=np.int32), 1000)
+        mask = rng.random(gids.size) < 0.9
+        if name == "masked_warps_blocks":
+            mask[512:1536] = False          # warps 1 and 2 of block 0
+            mask[3 * L + 100:3 * L + 612] = False  # parts of two warps
+            mask[5 * L:6 * L] = False       # block 5
+    n = gids.size
+    if name == "ts_ties":
+        ts = (T0 + rng.integers(0, 3, n) * 1000).astype(np.int64)
+    else:
+        ts = (T0 + rng.integers(0, 10**6, n)).astype(np.int64)
+    return gids.astype(np.int32), mask, ts, G
+
+
+def k4_partials_emulated(gids, mask, ts, base):
+    """K4's blocked partials as the kernel forms them: per block, warp w
+    owns rows [512 w, 512 w + 512), lane l the quads 4l..4l+3 of each
+    128-row stretch; a row counts where it is masked in and id - base lies
+    in [0, 16); each warp reduces only the slots of its own range [klo,
+    khi] by the lexicographic max of (ts, row), and the block takes each
+    slot from the warps whose range holds it.  Returns (pts, prow, occ)."""
+    L, K, n = tagg.BLOCK_ROWS, tagg.BLOCK_SPAN, gids.size
+    nb = base.shape[0]
+    i = np.arange(16)
+    lane_rows = (i[None, :] >> 2) * 128 + 4 * np.arange(32)[:, None] + (i[None, :] & 3)
+    pts = np.full((nb, K), I64_MIN, np.int64)
+    prow = np.full((nb, K), -1, np.int32)
+    occ = np.zeros(nb, np.uint32)
+    for b in range(nb):
+        sh = {}
+        ranges = []
+        for w in range(8):
+            rows = (b * L + w * 512 + lane_rows).reshape(-1)
+            inn = rows < n
+            r = np.minimum(rows, n - 1)
+            k = (np.where(inn, gids[r], 0).astype(np.int64) - int(base[b])) % (1 << 32)
+            live = inn & mask[r] & (k < K)
+            lo, hi = (int(k[live].min()), int(k[live].max())) if live.any() else (K, -1)
+            ranges.append((lo, hi))
+            for j in range(lo, hi + 1):
+                sel = live & (k == j)
+                if sel.any():
+                    t = ts[r][sel].max()
+                    sh[w, j] = (t, rows[sel & (ts[r] == t)].max())
+                else:
+                    sh[w, j] = (I64_MIN, -1)
+        for j in range(K):
+            best = (I64_MIN, -1)
+            for w, (lo, hi) in enumerate(ranges):
+                if lo <= j <= hi:
+                    best = max(best, sh[w, j])
+            pts[b, j], prow[b, j] = best
+            occ[b] |= np.uint32(best[1] >= 0) << np.uint32(j)
+    return pts, prow, occ
+
+
+@pytest.mark.parametrize("layout", K4_LAYOUTS)
+def test_last_partials_emulation_matches_reference(layout):
+    """K4's warp-range partials, then the per-group max over the covering
+    blocks' occupied slots (lex_max is order-free), equal the port's
+    blocked plain form and the reference's `_segment_blocked_last`, byte
+    for byte; the occupied slots are the blocks' masked slots."""
+    gids, mask, ts, G = k4_layout(layout)
+    n = gids.size
+    v = np.random.default_rng(5).uniform(-1e3, 1e3, n)
+    ok, base = tagg.block_guard_plain(_t(gids), _t(mask), G)
+    assert ok
+    pts, prow, occ = k4_partials_emulated(gids, mask, ts, base.numpy())
+    np.testing.assert_array_equal(
+        occ, tagg.block_occupancy_plain(_t(gids), _t(mask), base).numpy().astype(np.uint32))
+    if layout == "warp_spans_16":  # every warp of the first block spans 16 slots
+        assert occ[0] == 0xFFFF
+    last_ts = np.full(G, I64_MIN, np.int64)
+    pick = np.full(G, -1, np.int64)
+    b64 = base.numpy().astype(np.int64)
+    for b in range(b64.size):
+        for j in range(tagg.BLOCK_SPAN):
+            g = b64[b] + j
+            if prow[b, j] >= 0 and g < G and (pts[b, j], prow[b, j]) > (last_ts[g], pick[g]):
+                last_ts[g], pick[g] = pts[b, j], prow[b, j]
+    last_val = v[np.clip(pick, 0, n - 1)]
+    plain = tagg.segment_last_plain(_t(v), _t(ts), _t(gids), _t(mask), G, base=base)
+    _close(plain[0], last_ts, True, f"{layout} plain last_ts")
+    _close(plain[1], last_val, True, f"{layout} plain last_val")
+    nbf = n // tagg.BLOCK_ROWS
+    ref = jagg._segment_blocked_last(jnp.asarray(v), jnp.asarray(gids), G, ("last",),
+                                     jnp.asarray(mask), jnp.asarray(ts), jnp.float64,
+                                     jnp.asarray(base.numpy()[:nbf]))
+    _close(last_ts, ref.last_ts, True, f"{layout} reference last_ts")
+    _close(last_val, ref.last_val, True, f"{layout} reference last_val")
+
+
 # ---- K1 -------------------------------------------------------------------------------
 
 

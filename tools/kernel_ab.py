@@ -58,6 +58,19 @@ keys, active where not HASH_EMPTY); K15's remap of the 4000-code plane
 beside `torch.take`.  K9's bytes are those of the fetched rows and the row
 prologue's layout; K17's the table, slots, overflow and rounds.
 
+`--set gather_last`: K15 `gather_planes` and K4 `segment_last`.  K15's
+remap of the 4000-code plane (17.28 M codes in two 2^24-row chunks)
+beside `torch.take`; its gather of one f64 plane through the time-major
+permutation (K14's) beside `torch.index_select`; the tile cell's first
+time-major build, its 13 planes (valid, ts, hostname, ten f64 columns)
+in one `gather_planes_multi` call where the checkout has it, else one
+call a plane, with each plane's time alone and their sum; where the
+checkout's gather still finds a row's chunk by common.cuh's 64-bit
+division, the remap and the f64 gather once more from a copy with a
+shift in its place (`_division_variant`).  K4's blocked form at
+lastpoint's shape (G = 4096) and on the falling-bases planes (G = 16),
+each held byte for byte against its plain version.
+
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
 
@@ -77,7 +90,8 @@ Prints the card's name and power limit, one JSON line per turn and shape,
 and a last line with the ms of each checkout (mean of its two turns) and
 whether every output's bytes agreed.
 
-    python3 tools/kernel_ab.py --other DIR [--set blocked|range_hll|fold|pack_scatter|strip_hash]
+    python3 tools/kernel_ab.py --other DIR
+                               [--set blocked|range_hll|fold|pack_scatter|strip_hash|gather_last]
                                [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
                                [--profile]
@@ -101,7 +115,8 @@ SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_l
            "range_hll": ("strip_counter_resets", "range_windows", "segment_hll"),
            "fold": ("fold_states", "series_fold"),
            "pack_scatter": ("pack_result", "segment_reduce_scatter"),
-           "strip_hash": ("strip_counter_resets", "hash_group_slots", "gather_planes")}
+           "strip_hash": ("strip_counter_resets", "hash_group_slots", "gather_planes"),
+           "gather_last": ("gather_planes", "segment_last")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -843,6 +858,173 @@ def strip_hash_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev
          library_ms=c._timed(lambda: torch.take(table, flat_codes), reps))
 
 
+def _division_variant(root: str) -> str | None:
+    """The library of a copy of the checkout's csrc/gather_planes.cu in
+    which common.cuh's chunk_load and chunk_store find a row's chunk by a
+    shift (right where chunk_rows is a power of two) in place of their
+    64-bit division; built under build/kab_shift/ of the checkout.  None
+    where the checkout's gather_planes.cu does not go through them."""
+    import re
+    import shutil
+
+    from greptimedb_tpu_torch.kernels import _build
+
+    csrc = os.path.join(root, "greptimedb_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "gather_planes.cu")) as f:
+        if "chunk_load" not in f.read():
+            return None
+    out = os.path.join(root, "build", "kab_shift")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc, os.path.join(out, "csrc"))
+    path = os.path.join(out, "csrc", "common.cuh")
+    with open(path) as f:
+        text = f.read()
+    text, hits = re.subn(r"const int64_t c = i / t\.chunk_rows;",
+                         "const int64_t c = i >> (63 - __clzll(t.chunk_rows));", text)
+    if hits != 2:
+        raise RuntimeError(f"common.cuh: {hits} chunk divisions, expected 2")
+    with open(path, "w") as f:
+        f.write(text)
+    lib = os.path.join(out, "libgather_planes.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
+                    os.path.join(out, "csrc", "gather_planes.cu")], check=True)
+    return lib
+
+
+def _use_library(name: str, path: str | None) -> None:
+    """Loads `path` in place of the port's library `name` (None: the port's)."""
+    import ctypes
+
+    from greptimedb_tpu_torch.kernels import _build
+
+    _build._libs.pop(name, None)
+    if path is None:
+        return
+    lib = ctypes.CDLL(path)
+    for fn in _build._EXPORTS[name]:
+        f = getattr(lib, fn)
+        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    _build._libs[name] = lib
+
+
+# The planes of the TSBS tile cell's first time-major build (cpu-max-all-1:
+# valid, ts, hostname and the ten usage columns; no null planes)
+TM_COLS = 10
+
+
+def gather_last_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev,
+                      root: str) -> None:
+    """K15 (remap, one f64 plane, the tile cell's time-major build) and K4's
+    blocked form (lastpoint, falling bases) at chip_smoke.py's shapes."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops import permute as perm
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+    from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
+
+    def case(name, fn, outs, **kw):
+        emit(name, c._timed(fn, reps), _digest(outs), enqueue_us=_enqueue_us(fn, reps), **kw,
+             **(_profiled(fn) if prof else {}))
+
+    n, codes, ts, valid, vals = c.tsbs_planes(hosts, hours, TM_COLS, dev)
+    npad = pad_rows(n)
+    chunk = lambda t, fill: c._chunked(c._padded(t, npad, fill), TILE_CHUNK_ROWS)  # noqa: E731
+    codes_c, ts_c, valid_c = chunk(codes, 0), chunk(ts, 0), chunk(valid, False)
+    vals_c = [chunk(v, 0.0) for v in vals]
+    del codes, ts, valid, vals
+
+    # K15 remap: the 4000-code plane through the growth permutation
+    table = torch.from_numpy(c.growth_perm(hosts, hosts + c.LIVE_NEW_HOSTS)).to(dev)
+    flat_codes = torch.cat(codes_c).to(torch.int64)
+    rb, _by = c.bound(npad * (4 + 4) + table.numel() * 4, 0)
+
+    def remap():
+        return perm.gather_planes(codes_c, table, remap=True)
+
+    take_ms = c._timed(lambda: torch.take(table, flat_codes), reps)
+    case("K15 remap", remap, remap(), rows=npad, bound_ms=rb, library_ms=take_ms)
+    del flat_codes
+
+    # K15 gather: one f64 plane through the time-major permutation
+    order = perm.ts_argsort(ts_c, valid_c)
+    flat = torch.cat(vals_c[0])
+    order64 = order.to(torch.int64)
+    gb, _by = c.bound(npad * (4 + 8 + 8), 0)
+
+    def gather_f64():
+        return perm.gather_planes(vals_c[0], order)
+
+    case("K15 gather f64", gather_f64, gather_f64(), rows=npad, bound_ms=gb,
+         library_ms=c._timed(lambda: torch.index_select(flat, 0, order64), reps))
+    del flat, order64
+
+    # K15's division: the parent's kernels with chunk_load's 64-bit division
+    # a shift (chunk_rows is 2^24 here)
+    lib = _division_variant(root)
+    if lib is not None:
+        _use_library("gather_planes", lib)
+        case("K15 remap, shift variant", remap, remap(), rows=npad, bound_ms=rb)
+        case("K15 gather f64, shift variant", gather_f64, gather_f64(), rows=npad, bound_ms=gb)
+        _use_library("gather_planes", None)
+
+    # K15: the tile cell's first time-major build, its 13 planes at once
+    # (one launch of gather_planes_multi where the checkout has it, else
+    # one launch a plane, as ensure_time_major made them)
+    planes = [valid_c, ts_c, codes_c, *vals_c]
+    multi = hasattr(perm, "gather_planes_multi")
+
+    def build():
+        if multi:
+            return perm.gather_planes_multi(planes, order)
+        return [perm.gather_planes(p, order) for p in planes]
+
+    l0 = perm.gather_planes.launches
+    got = build()
+    launches = perm.gather_planes.launches - l0
+    esum = sum(p[0].element_size() for p in planes)
+    b_one, _by = c.bound(npad * 4 + npad * 2 * esum, 0)
+    b_per, _by = c.bound(len(planes) * npad * 4 + npad * 2 * esum, 0)
+    per_plane = [c._timed(lambda p=p: perm.gather_planes(p, order), reps) for p in planes]
+    case("K15 time-major build (13 planes)", build, [t for p in got for t in p], rows=npad,
+         planes=len(planes), launches=launches, multi=multi, bound_ms=b_one,
+         per_plane_bound_ms=b_per, per_plane_ms=per_plane, per_plane_sum_ms=sum(per_plane))
+    del got, planes, order, vals_c, ts_c, codes_c, valid_c
+    torch.cuda.empty_cache()
+
+    # K4 blocked at lastpoint's shape (hostname alone, G = 4096) and on the
+    # falling-bases planes (hour alone over FALL_HOURS, G = 16)
+    card = 1 << (max(hosts, 1) - 1).bit_length()
+    for shape, hrs in (("lastpoint", hours), ("falling", FALL_HOURS)):
+        n, codes, ts, valid, vals = c.tsbs_planes(hosts, hrs, 1, dev)
+        npad = pad_rows(n)
+        codes, ts = c._padded(codes, npad, 0), c._padded(ts, npad, 0)
+        valid = c._padded(valid, npad, False)
+        v = c._padded(vals[0], npad, 0.0)
+        del vals
+        if shape == "lastpoint":
+            g, m = flt.mask_gids(valid, [], [], [(codes, card)], None, card - 1)
+            G = card
+        else:
+            G = FALL_HOURS
+            g, m = flt.mask_gids(valid, [], [], [], (ts, c.T0, c.H3600, G), G - 1)
+        verdict, _st, base = agg.segment_reduce_blocked([v], g, [m], m, G, ("count",))
+
+        def k4():
+            return agg.segment_last(v, ts, g, m, G, base=base)
+
+        got4 = k4()
+        want4 = agg.segment_last_plain(v, ts, g, m, G, base=base)
+        kb, _by = c.bound(npad * (4 + 1 + 8) + G * 8 + G * (8 + 8), npad * 2)
+        case(f"K4 {shape}", k4, list(got4), rows=npad, groups=G, bound_ms=kb,
+             passed=c._passed(verdict),
+             plain_bytes=all(c._same_bytes(a, b) for a, b in zip(got4, want4)))
+        del codes, ts, valid, v, g, m, base, got4, want4
+        torch.cuda.empty_cache()
+
+
 def tql_cases(c, hosts: int, hours: int, emit) -> None:
     """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
@@ -866,7 +1048,9 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
                                "fold": ("mask_gids", "hash_group_slots"),
                                "pack_scatter": ("mask_gids", "segment_sort", "topk_select",
                                                 "hash_group_slots"),
-                               "strip_hash": ("mask_gids",)}.get(kset, ()))
+                               "strip_hash": ("mask_gids",),
+                               "gather_last": ("mask_gids", "segment_reduce_blocked",
+                                               "ts_argsort")}.get(kset, ()))
 
     def emit(case, ms, digest, **kw):
         print(json.dumps({"case": case, "ms": ms, "bytes": digest, **kw}), flush=True)
@@ -882,6 +1066,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
         pack_scatter_cases(c, hosts, hours, reps, prof, emit, dev)
     elif kset == "strip_hash":
         strip_hash_cases(c, hosts, hours, reps, prof, emit, dev)
+    elif kset == "gather_last":
+        gather_last_cases(c, hosts, hours, reps, prof, emit, dev, root)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:
