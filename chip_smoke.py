@@ -705,6 +705,13 @@ def _timed(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _timed_runs(fn, reps: int, runs: int = 5) -> dict:
+    """`_timed` read `runs` times: the median ms and the range, for a call
+    whose mean moves between readings (a host-bound wrapper)."""
+    got = sorted(_timed(fn, reps) for _ in range(runs))
+    return {"ms": got[len(got) // 2], "ms_range": [got[0], got[-1]]}
+
+
 def _enqueue_us(fn, reps: int) -> float:
     """Host µs per fn() call with no sync between calls: where it passes
     the CUDA-event time, back-to-back calls wait on the host."""
@@ -718,6 +725,23 @@ def _enqueue_us(fn, reps: int) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e6
+
+
+def _k1_figures(chunks: dict, launches: dict) -> dict:
+    """K1's tile-path figures from its chunk shapes ({key: timed}) and its
+    launches at each ({key: n}): launches x (ms - bound ms), and that split
+    into launches x (device ms - bound ms), the kernel's part, and
+    launches x (ms - device ms), the host's."""
+    total = kernel = 0.0
+    for k, v in launches.items():
+        if k not in chunks:
+            continue
+        c = chunks[k]
+        dev_ms = sum(c["device_us"].values()) / 1e3
+        total += v * (c["ms"] - c["bound_ms"])
+        kernel += v * (dev_ms - c["bound_ms"])
+    return {"tile_chunk_figure": total, "tile_chunk_kernel_figure": kernel,
+            "tile_chunk_host_figure": total - kernel}
 
 
 def _same_bytes(a, b) -> bool:
@@ -904,11 +928,14 @@ def run_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # reads valid, ts, codes once; writes gids and mask; per row 2
     # compares, a floor division and 2 mixed-radix steps (~8 operations)
     k1_bound, k1_by = bound(n * (1 + 8 + 4) + n * (4 + 1), n * 8)
+    ops = _device_ops(lambda: flt.mask_gids(*k1_args), calls=3)
     out["mask_gids"] = dict(
         max_abs_err=err,
-        ms=_timed(lambda: flt.mask_gids(*k1_args), reps),
+        **_timed_runs(lambda: flt.mask_gids(*k1_args), reps),
         plain_ms=_timed(lambda: flt.mask_gids_plain(*k1_args), max(reps // 2, 1)),
         bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
+        enqueue_us=_enqueue_us(lambda: flt.mask_gids(*k1_args), reps),
+        device_us={_kernel_name(k): us / c for k, (us, c) in ops.items() if c},
     )
 
     # K2 at C = 1, 5 and 10 (the tile path's widths) over the K1 output; K3
@@ -1182,7 +1209,7 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
         kb1, kby1 = bound(rows * (1 + 8 + 4) + rows * (4 + 1), rows * 8)
         ops = _device_ops(lambda: flt.mask_gids(*k1_args), calls=3)
         k1_chunks[f"rows<={_rows_bucket(rows)}"] = dict(
-            rows=rows, ms=_timed(lambda: flt.mask_gids(*k1_args), reps), bound_ms=kb1,
+            rows=rows, **_timed_runs(lambda: flt.mask_gids(*k1_args), reps), bound_ms=kb1,
             bound_by=kby1, enqueue_us=_enqueue_us(lambda: flt.mask_gids(*k1_args), reps),
             device_us={_kernel_name(k): us / n for k, (us, n) in ops.items() if n})
         del kg, km, pg, pm
@@ -1697,10 +1724,10 @@ def _multi_gather_case(P, planes, perm, what: str) -> list:
     l0 = P.gather_planes.launches
     got = _twice_identical_chunks(lambda: [c for p in P.gather_planes_multi(planes, perm)
                                            for c in p], what)
-    made = (P.gather_planes.launches - l0) // 2
+    made = P.gather_planes.launches - l0
     planned = len(P.gather_launch_plan(len(planes), len(planes[0])))
-    if planes[0][0].is_cuda and made != planned:
-        raise AssertionError(f"{what}: {made} launches a call, its plan makes {planned}")
+    if planes[0][0].is_cuda and made != 2 * planned:
+        raise AssertionError(f"{what}: {made} launches in two calls, its plan makes {planned} a call")
     want = [c for p in P.gather_planes_multi_plain(planes, perm) for c in p]
     _same_chunks(got, want, what)
     return got
@@ -6198,12 +6225,13 @@ def main(argv=None) -> int:
                 "tile": by_shape(sl["tile"]["shape_launches"], name),
                 "tick": by_shape(tick["shape_launches"], name),
                 "hash": by_shape(cm["shape_launches"], name)}} if name in (_SORT, _MASK) else {}),
-            # K1's rank: its tile launches x (ms - bound ms) at each chunk shape
-            **({"tile_chunk_figure": sum(
-                v * (s["chunk"][k]["ms"] - s["chunk"][k]["bound_ms"])
-                for k, v in by_shape(sl["tile"]["shape_launches"], name).items()
-                if k in s["chunk"])} if name == _MASK else {}),
+            # K1's rank: its tile launches x (ms - bound ms) at each chunk
+            # shape, split into the kernel's part (device ms - bound ms) and
+            # the host's (ms - device ms)
+            **(_k1_figures(s["chunk"], by_shape(sl["tile"]["shape_launches"], name))
+               if name == _MASK else {}),
             **{k: s[k] for k in ("alone_ms", "c1", "c5", "guard_fail", "compact", "int64", "chunk",
+                                 "ms_range", "enqueue_us", "device_us",
                                  "hash_slots", "predicated", "falling", "passes", "key_bytes",
                                  "sort_launches")
                if k in s},

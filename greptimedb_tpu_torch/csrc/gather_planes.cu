@@ -28,11 +28,11 @@
 // rows of its tile x P planes).  Its reads are scattered (the time-major
 // perm walks the hosts at one timestamp), so what it moves comes from L2
 // only while the sectors that neighbouring timestamps share stay there:
-// the CTAs take their tiles in order from a counter, so the rows in
-// flight are a narrow window of output rows.  The descriptor
-// (`GatherDesc`) goes to the kernel by value; planes whose chunk tables
-// pass it are split into launches by the caller (ops/permute.py
-// `gather_launch_plan`).
+// a CTA a tile, which the card starts in index order, keeps the rows in
+// flight to a narrow window of output rows, and each source load asks L2
+// for the 128 B around it.  The descriptor (`GatherDesc`) goes to the
+// kernel by value; planes whose chunk tables pass it are split into
+// launches by the caller (ops/permute.py `gather_launch_plan`).
 #include "common.cuh"
 
 constexpr int kThreads = 256;
@@ -138,51 +138,31 @@ struct GatherDesc {
 static_assert(sizeof(GatherDesc) <= 32764, "K15's descriptor must fit the kernel parameters");
 
 // The gather's tuning (tools/gather_variants.py times copies with these
-// rewritten).  A launch runs kGatherCtas CTAs an SM; a thread keeps
-// kGatherLoads loads in flight, R rows of its tile x P planes at a time
-// (R = kGatherLoads / planes, a power of two from 1 to 4; P =
-// kGatherLoads / R); with kGatherCounter the CTAs take their tiles in
-// order from a counter, so the tiles in flight stay within one grid of
-// the next, else each strides over them from its own index.
+// rewritten): kGatherCtas CTAs an SM (the register cap), a thread keeping
+// kGatherLoads loads in flight, R rows of its tile x P planes at a time (R
+// = kGatherLoads / planes, a power of two from 1 to 4; P = kGatherLoads /
+// R).
 constexpr int kGatherCtas = 4;
 constexpr int kGatherLoads = 8;
-constexpr int kGatherCounter = 1;
-// The size each source load asks L2 to fetch around it (ld's prefetch-size
-// hint): 0 none, 1 64 B, 2 128 B, 3 256 B.  A source sector holds the
-// rows of neighbouring timestamps of one host, which later tiles read.
-constexpr int kGatherPrefetch = 2;
 
+// Source loads through the read-only path with L2 asked for the 128 B
+// around the element: a source sector holds the rows of neighbouring
+// timestamps of one host, which the next tiles read.
 __device__ __forceinline__ unsigned long long load_src(const unsigned long long* p) {
   unsigned long long v;
-  if (kGatherPrefetch == 3) asm("ld.global.nc.L2::256B.u64 %0, [%1];" : "=l"(v) : "l"(p));
-  else if (kGatherPrefetch == 2) asm("ld.global.nc.L2::128B.u64 %0, [%1];" : "=l"(v) : "l"(p));
-  else if (kGatherPrefetch == 1) asm("ld.global.nc.L2::64B.u64 %0, [%1];" : "=l"(v) : "l"(p));
-  else v = __ldg(p);
+  asm("ld.global.nc.L2::128B.u64 %0, [%1];" : "=l"(v) : "l"(p));
   return v;
 }
 __device__ __forceinline__ unsigned int load_src(const unsigned int* p) {
   unsigned int v;
-  if (kGatherPrefetch == 3) asm("ld.global.nc.L2::256B.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  else if (kGatherPrefetch == 2) asm("ld.global.nc.L2::128B.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  else if (kGatherPrefetch == 1) asm("ld.global.nc.L2::64B.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  else v = __ldg(p);
+  asm("ld.global.nc.L2::128B.u32 %0, [%1];" : "=r"(v) : "l"(p));
   return v;
 }
 __device__ __forceinline__ unsigned char load_src(const unsigned char* p) {
   unsigned int v;
-  if (kGatherPrefetch == 3) asm("ld.global.nc.L2::256B.u8 %0, [%1];" : "=r"(v) : "l"(p));
-  else if (kGatherPrefetch == 2) asm("ld.global.nc.L2::128B.u8 %0, [%1];" : "=r"(v) : "l"(p));
-  else if (kGatherPrefetch == 1) asm("ld.global.nc.L2::64B.u8 %0, [%1];" : "=r"(v) : "l"(p));
-  else v = __ldg(p);
+  asm("ld.global.nc.L2::128B.u8 %0, [%1];" : "=r"(v) : "l"(p));
   return (unsigned char)v;
 }
-
-// The next tile and the CTAs done, of the launch in flight; the CTA that
-// finishes last sets both back to 0 (a launch starts from zero, no memset,
-// and a CUDA graph replays clean).  Launches of this kernel on one device
-// run one at a time: the port launches on the device's current stream.
-static __device__ uint32_t g_gather_next;
-static __device__ uint32_t g_gather_done;
 
 template <int R, int P, typename T>
 __device__ __forceinline__ void move_planes(const GatherDesc& a, const void* const* s_src, int p0,
@@ -211,54 +191,36 @@ __device__ __forceinline__ void move_planes(const GatherDesc& a, const void* con
 
 template <int R>
 __global__ void __launch_bounds__(kThreads, kGatherCtas)
-    gather_kernel(const __grid_constant__ GatherDesc a, uint32_t tiles_per_chunk,
-                  uint32_t n_tiles) {
+    gather_kernel(const __grid_constant__ GatherDesc a, uint32_t tiles_per_chunk) {
   constexpr int P = kGatherLoads / R;
   // each plane's source chunks: a lane indexes them by its own row's chunk
   extern __shared__ const void* s_src[];
-  __shared__ uint32_t s_tile;
   const int nc = a.n_chunks;
   const int n_planes = a.n8 + a.n4 + a.n1;
   for (int i = threadIdx.x; i < n_planes * nc; i += kThreads) {
     s_src[i] = a.ptrs[2 * (i / nc) * nc + i % nc];
   }
-  if (kGatherCounter && threadIdx.x == 0) s_tile = atomicAdd(&g_gather_next, 1u);
   __syncthreads();
-  uint32_t tile = kGatherCounter ? s_tile : blockIdx.x;
-  const int last = nc - 1;
-  while (tile < n_tiles) {
-    const uint32_t dc = tile / tiles_per_chunk;  // uniform per CTA
-    const uint32_t rows = (int)dc == last ? a.n - dc * a.chunk_rows : a.chunk_rows;
-    const uint32_t off = (tile - dc * tiles_per_chunk) * (kThreads * R) + threadIdx.x;
-    bool in[R];
-    uint32_t dof[R], src[R], sc[R], so[R];
+  const uint32_t tile = blockIdx.x;
+  const uint32_t dc = tile / tiles_per_chunk;  // uniform per CTA
+  const uint32_t rows = (int)dc == nc - 1 ? a.n - dc * a.chunk_rows : a.chunk_rows;
+  const uint32_t off = (tile - dc * tiles_per_chunk) * (kThreads * R) + threadIdx.x;
+  bool in[R];
+  uint32_t dof[R], src[R], sc[R], so[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      dof[r] = off + r * kThreads;
-      in[r] = dof[r] < rows;
-      src[r] = in[r] ? (uint32_t)__ldg(a.perm + dc * a.chunk_rows + dof[r]) : 0u;
-    }
+  for (int r = 0; r < R; ++r) {
+    dof[r] = off + r * kThreads;
+    in[r] = dof[r] < rows;
+    src[r] = in[r] ? (uint32_t)__ldg(a.perm + dc * a.chunk_rows + dof[r]) : 0u;
+  }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      sc[r] = a.chunk_shift >= 0 ? src[r] >> a.chunk_shift : src[r] / a.chunk_rows;
-      so[r] = src[r] - sc[r] * a.chunk_rows;
-    }
-    move_planes<R, P, unsigned long long>(a, s_src, 0, a.n8, in, sc, so, dc, dof);
-    move_planes<R, P, unsigned int>(a, s_src, a.n8, a.n8 + a.n4, in, sc, so, dc, dof);
-    move_planes<R, P, unsigned char>(a, s_src, a.n8 + a.n4, n_planes, in, sc, so, dc, dof);
-    if (kGatherCounter) {
-      __syncthreads();
-      if (threadIdx.x == 0) s_tile = atomicAdd(&g_gather_next, 1u);
-      __syncthreads();
-      tile = s_tile;
-    } else {
-      tile += gridDim.x;
-    }
+  for (int r = 0; r < R; ++r) {
+    sc[r] = a.chunk_shift >= 0 ? src[r] >> a.chunk_shift : src[r] / a.chunk_rows;
+    so[r] = src[r] - sc[r] * a.chunk_rows;
   }
-  if (kGatherCounter && threadIdx.x == 0 && atomicAdd(&g_gather_done, 1u) == gridDim.x - 1) {
-    g_gather_next = 0u;
-    g_gather_done = 0u;
-  }
+  move_planes<R, P, unsigned long long>(a, s_src, 0, a.n8, in, sc, so, dc, dof);
+  move_planes<R, P, unsigned int>(a, s_src, a.n8, a.n8 + a.n4, in, sc, so, dc, dof);
+  move_planes<R, P, unsigned char>(a, s_src, a.n8 + a.n4, n_planes, in, sc, so, dc, dof);
 }
 
 // CTAs of `kernel` the card holds at once with `smem` bytes of dynamic
@@ -282,16 +244,8 @@ static int launch_gather(const GatherDesc& a, int n_planes, cudaStream_t stream)
   const uint32_t tpc = (a.chunk_rows + kTile - 1) / kTile;
   const uint32_t tail = a.n - (uint32_t)(a.n_chunks - 1) * a.chunk_rows;
   const uint32_t n_tiles = (uint32_t)(a.n_chunks - 1) * tpc + (tail + kTile - 1) / kTile;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int64_t cap = (int64_t)sms * kGatherCtas;
-  const int64_t grid = n_tiles < cap ? n_tiles : cap;
   const size_t smem = (size_t)n_planes * a.n_chunks * sizeof(void*);
-  gather_kernel<R><<<(unsigned)grid, kThreads, smem, stream>>>(a, tpc, n_tiles);
+  gather_kernel<R><<<n_tiles, kThreads, smem, stream>>>(a, tpc);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,7 @@ padded and cut into 2^24-row chunks) through the time-major permutation
 
 A variant is a copy of csrc/ with the gather's constants rewritten
 (SOURCE_VARIANTS: kGatherCtas, the CTAs an SM; kGatherLoads, the loads a
-thread keeps in flight; kGatherCounter, tiles in order from a counter or
-a grid-stride walk; kGatherPrefetch, the L2 prefetch size of the source
-loads), built by tools/radix_variants.py's `build_variants`
+thread keeps in flight), built by tools/radix_variants.py's `build_variants`
 (one nvcc per variant, all started together) into
 build/gather_variants/.  The committed kernel's outputs are held byte
 for byte against the plain version, and each variant's against the
@@ -43,11 +41,8 @@ from radix_variants import build_variants, use_libraries  # noqa: E402
 SOURCE = "gather_planes"
 # name -> {constant of gather_planes.cu: value}
 SOURCE_VARIANTS = {
-    "no prefetch": {"kGatherPrefetch": 0},
-    "prefetch 256 B": {"kGatherPrefetch": 3},
     "ctas 8, loads 4": {"kGatherCtas": 8, "kGatherLoads": 4},
     "ctas 2, loads 16": {"kGatherCtas": 2, "kGatherLoads": 16},
-    "grid-stride": {"kGatherCounter": 0},
 }
 
 

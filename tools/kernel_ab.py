@@ -64,12 +64,9 @@ beside `torch.take`; its gather of one f64 plane through the time-major
 permutation (K14's) beside `torch.index_select`; the tile cell's first
 time-major build, its 13 planes (valid, ts, hostname, ten f64 columns)
 in one `gather_planes_multi` call where the checkout has it, else one
-call a plane, with each plane's time alone and their sum; where the
-checkout's gather still finds a row's chunk by common.cuh's 64-bit
-division, the remap and the f64 gather once more from a copy with a
-shift in its place (`_division_variant`).  K4's blocked form at
-lastpoint's shape (G = 4096) and on the falling-bases planes (G = 16),
-each held byte for byte against its plain version.
+call a plane, with each plane's time alone and their sum.  K4's blocked
+form at lastpoint's shape (G = 4096) and on the falling-bases planes
+(G = 16), each held byte for byte against its plain version.
 
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
@@ -858,63 +855,12 @@ def strip_hash_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev
          library_ms=c._timed(lambda: torch.take(table, flat_codes), reps))
 
 
-def _division_variant(root: str) -> str | None:
-    """The library of a copy of the checkout's csrc/gather_planes.cu in
-    which common.cuh's chunk_load and chunk_store find a row's chunk by a
-    shift (right where chunk_rows is a power of two) in place of their
-    64-bit division; built under build/kab_shift/ of the checkout.  None
-    where the checkout's gather_planes.cu does not go through them."""
-    import re
-    import shutil
-
-    from greptimedb_tpu_torch.kernels import _build
-
-    csrc = os.path.join(root, "greptimedb_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "gather_planes.cu")) as f:
-        if "chunk_load" not in f.read():
-            return None
-    out = os.path.join(root, "build", "kab_shift")
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(csrc, os.path.join(out, "csrc"))
-    path = os.path.join(out, "csrc", "common.cuh")
-    with open(path) as f:
-        text = f.read()
-    text, hits = re.subn(r"const int64_t c = i / t\.chunk_rows;",
-                         "const int64_t c = i >> (63 - __clzll(t.chunk_rows));", text)
-    if hits != 2:
-        raise RuntimeError(f"common.cuh: {hits} chunk divisions, expected 2")
-    with open(path, "w") as f:
-        f.write(text)
-    lib = os.path.join(out, "libgather_planes.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
-                    os.path.join(out, "csrc", "gather_planes.cu")], check=True)
-    return lib
-
-
-def _use_library(name: str, path: str | None) -> None:
-    """Loads `path` in place of the port's library `name` (None: the port's)."""
-    import ctypes
-
-    from greptimedb_tpu_torch.kernels import _build
-
-    _build._libs.pop(name, None)
-    if path is None:
-        return
-    lib = ctypes.CDLL(path)
-    for fn in _build._EXPORTS[name]:
-        f = getattr(lib, fn)
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        f.restype = ctypes.c_int
-    _build._libs[name] = lib
-
-
 # The planes of the TSBS tile cell's first time-major build (cpu-max-all-1:
 # valid, ts, hostname and the ten usage columns; no null planes)
 TM_COLS = 10
 
 
-def gather_last_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev,
-                      root: str) -> None:
+def gather_last_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -> None:
     """K15 (remap, one f64 plane, the tile cell's time-major build) and K4's
     blocked form (lastpoint, falling bases) at chip_smoke.py's shapes."""
     import torch
@@ -960,15 +906,6 @@ def gather_last_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, de
     case("K15 gather f64", gather_f64, gather_f64(), rows=npad, bound_ms=gb,
          library_ms=c._timed(lambda: torch.index_select(flat, 0, order64), reps))
     del flat, order64
-
-    # K15's division: the parent's kernels with chunk_load's 64-bit division
-    # a shift (chunk_rows is 2^24 here)
-    lib = _division_variant(root)
-    if lib is not None:
-        _use_library("gather_planes", lib)
-        case("K15 remap, shift variant", remap, remap(), rows=npad, bound_ms=rb)
-        case("K15 gather f64, shift variant", gather_f64, gather_f64(), rows=npad, bound_ms=gb)
-        _use_library("gather_planes", None)
 
     # K15: the tile cell's first time-major build, its 13 planes at once
     # (one launch of gather_planes_multi where the checkout has it, else
@@ -1067,7 +1004,7 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
     elif kset == "strip_hash":
         strip_hash_cases(c, hosts, hours, reps, prof, emit, dev)
     elif kset == "gather_last":
-        gather_last_cases(c, hosts, hours, reps, prof, emit, dev, root)
+        gather_last_cases(c, hosts, hours, reps, prof, emit, dev)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:
