@@ -20,9 +20,15 @@ Phases, each printing one JSON line:
              cases (shuffled ids, NULLs, +-inf/NaN, all-masked blocks, ts
              ties, a ragged tail; block maxima at powers of two +-1 ulp,
              half-way values, mixed magnitudes; +-0/NaN/null sort keys;
-             subnormal and NaN f64 words); every kernel runs twice and must
-             give byte-identical results; times kernel, plain version and
-             the nearest single PyTorch call with CUDA events.
+             subnormal and NaN f64 words; K1 at every interval sign,
+             |interval| past 2^32 and the int64 ends of ts and the origin,
+             n from 1 to one past a thread's rows and a CTA's tile, views
+             at odd rows); every kernel runs twice and must give
+             byte-identical results; times kernel, plain version and the
+             nearest single PyTorch call with CUDA events.  K1 is also
+             timed at the tile path's two chunk shapes, as the tile program
+             calls it (`lits` a view of the run's uploaded literals) and
+             with the table uploaded each call (`_upload`).
 4. slice   — TSBS cpu-only at --hosts x --hours (10 s scrape, 10 metrics),
              written through the port's Database at its storage defaults
              with the WAL on, flushed to Parquet, then the 15 TSBS
@@ -157,7 +163,10 @@ Phases, each printing one JSON line:
              on uniform real data within the sums' rounding bound; edge
              cases (the NaN rules, signed zeros, d = 1/3/128/1024, N = 1,
              all rows invalid, k past the valid rows, k above the
-             one-block sort).  Timed: K19, the plain version, torch.mv +
+             one-block sort, tie-heavy rows at 6,000 and 200,003 with k = N
+             among the ks); every call launches the kernels and memsets
+             `topk_launch_plan` gives, at most 5 at k <= 2048 (the slice's
+             queries too).  Timed: K19, the plain version, torch.mv +
              torch.topk.  Then the slice: the table `sift (ts TIMESTAMP
              TIME INDEX, id BIGINT, emb VECTOR(128))` (default mode)
              written through Database.write and flushed, five queries
@@ -548,7 +557,8 @@ def count_shapes() -> None:
     """Count the launches of SHAPED's entry points by shape (K2/K3/K6 per
     column count C, K10 per k, K22 per sources and rows, K18 per rows) from
     here on: a wrapper around the port's one launch function, which every
-    wrapper looks up when it is called.  Each K22 merge must launch as
+    wrapper looks up when it is called, and around K1's own (`flt._launch`:
+    K1 takes its entry point once, in its cached layout).  Each K22 merge must launch as
     often as `fold_launch_plan` says for it, and each K8 call as its
     layout's launch plan says: wrappers around the merge and around K8's
     launches count both and fail where they differ."""
@@ -559,12 +569,15 @@ def count_shapes() -> None:
     if getattr(launch, "counts_shapes", False):
         return
 
-    def counted(name, fn, args, stream):
+    def counted_shape(name, fn, args):
         shape = SHAPED.get((name, fn))
         if shape is not None:
             key = f"{name} {shape(args)}"
             SHAPES[key] = SHAPES.get(key, 0) + 1
             LAST_ARGS[name] = args
+
+    def counted(name, fn, args, stream):
+        counted_shape(name, fn, args)
         launch(name, fn, args, stream)
         if name in ENTRY_KERNELS:
             ENTRY_KERNELS[name] += args.kernels
@@ -628,8 +641,17 @@ def count_shapes() -> None:
         K15_PLANNED["builds"] += K15_PLANNED["calls"] - c0
         return out
 
+    from greptimedb_tpu_torch.ops import filter as flt
+
+    k1_launch = flt._launch
+
+    def k1(fn, args, stream):  # K1 launches through its own entry, fn taken once
+        counted_shape("mask_gids", "gt_mask_gids", args)
+        k1_launch(fn, args, stream)
+
     counted.counts_shapes = True
     _build.launch = counted
+    flt._launch = k1
     agg._fold_on_card = merge
     agg._pack_on_card = pack
     perm._gather_on_card = gather
@@ -727,21 +749,24 @@ def _enqueue_us(fn, reps: int) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def _k1_figures(chunks: dict, launches: dict) -> dict:
+def _k1_figures(chunks: dict, launches: dict, form: str | None = None) -> dict:
     """K1's tile-path figures from its chunk shapes ({key: timed}) and its
     launches at each ({key: n}): launches x (ms - bound ms), and that split
     into launches x (device ms - bound ms), the kernel's part, and
-    launches x (ms - device ms), the host's."""
+    launches x (ms - device ms), the host's.  `form` "upload" reads each
+    chunk's `lits=None` timing (names suffixed `_upload`); else the tile
+    program's form."""
     total = kernel = 0.0
     for k, v in launches.items():
         if k not in chunks:
             continue
-        c = chunks[k]
+        c = chunks[k] if form is None else chunks[k][form]
         dev_ms = sum(c["device_us"].values()) / 1e3
         total += v * (c["ms"] - c["bound_ms"])
         kernel += v * (dev_ms - c["bound_ms"])
-    return {"tile_chunk_figure": total, "tile_chunk_kernel_figure": kernel,
-            "tile_chunk_host_figure": total - kernel}
+    sfx = "" if form is None else f"_{form}"
+    return {f"tile_chunk_figure{sfx}": total, f"tile_chunk_kernel_figure{sfx}": kernel,
+            f"tile_chunk_host_figure{sfx}": total - kernel}
 
 
 def _same_bytes(a, b) -> bool:
@@ -1130,6 +1155,92 @@ def run_edge_cases(dev) -> None:
     kg, km = flt.mask_gids(*args_not_in)
     pg, pm = flt.mask_gids_plain(*args_not_in)
     _compare(km, pm, True, "edge mask_gids not in")
+    run_mask_gids_edges(dev, rng)
+
+
+# K1's time bucket divides by a magic reciprocal of the interval: every sign,
+# |interval| past 2^32 and the int64 ends
+K1_INTERVALS = (1, -1, 2, 7, -7, 60_000, 3_600_000, -3_600_000, 1 << 32, -(1 << 32),
+                (1 << 32) + 1, (1 << 62) + 3, -(1 << 63), (1 << 63) - 1)
+K1_ORIGINS = (0, T0, -T0, -(1 << 63), (1 << 63) - 1)
+# rows a thread of K1 holds (two quads) and a CTA's tile of them
+K1_THREAD_ROWS, K1_TILE_ROWS = 8, 256 * 8
+
+
+def k1_edge_ts(rng, n: int, origin: int, interval: int):
+    """int64 timestamps for K1's bucket edges: the int64 ends, a span
+    around the origin, and quotients past int32 (they wrap); no row's
+    offset is -2^63 where the interval is -1 (an overflow the reference's
+    torch op traps on)."""
+    i64 = np.iinfo(np.int64)
+    ext = np.array([i64.min, i64.min + 1, -1, 0, 1, i64.max - 1, i64.max], np.int64)
+    near = np.int64(origin) + rng.integers(-5, 5, n).astype(np.int64) * np.int64(
+        min(abs(interval), 1 << 40))
+    wide = rng.integers(i64.min, i64.max, n, dtype=np.int64, endpoint=True)
+    ts = np.where(rng.random(n) < 0.5, near, wide)
+    ts[:min(n, ext.size)] = ext[:min(n, ext.size)]
+    if interval == -1:
+        wrapped = (origin + int(i64.min) + (1 << 63)) % (1 << 64) - (1 << 63)
+        ts[ts == wrapped] += 1
+    return ts
+
+
+def run_mask_gids_edges(dev, rng) -> None:
+    """K1 byte for byte against its plain version, both id widths: every
+    interval sign, |interval| past 2^32 and the int64 ends of ts and the
+    origin; n from 1 to one past a thread's rows and past a CTA's tile;
+    views at odd row offsets (the loose rows before the first aligned
+    quad); f64, f32, int8 and bool filter planes, an IN-list, a gate and
+    three tags."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import filter as flt
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    n = 4096 + 13
+    valid = t(rng.random(n) < 0.9)
+    codes = t(rng.integers(-2, 70, n).astype(np.int32))
+    for interval in K1_INTERVALS:
+        for origin in K1_ORIGINS:
+            ts = t(k1_edge_ts(rng, n, origin, interval))
+            for dtype, pad in ((torch.int32, 64 * 1024 - 1), (torch.int64, None)):
+                args = (valid, [(ts, ">", origin)], [], [(codes, 64)], (ts, origin, interval, 1024),
+                        pad, dtype)
+                what = f"edge mask_gids interval {interval} origin {origin} {dtype}"
+                kg, km = _twice_identical(lambda: flt.mask_gids(*args), what)
+                pg, pm = flt.mask_gids_plain(*args)
+                _compare_bytes(kg, pg, what)
+                _compare_bytes(km, pm, what + " mask")
+    big = 3 * K1_TILE_ROWS + 77
+    f64 = rng.uniform(-1, 1, big)
+    f64[::97] = np.nan
+    planes = dict(valid=rng.random(big) < 0.8, ts=T0 + rng.integers(-10**9, 10**9, big),
+                  f64=f64, f32=rng.uniform(-1, 1, big).astype(np.float32),
+                  i8=rng.integers(-3, 3, big).astype(np.int8), flag=rng.random(big) < 0.5,
+                  gate=rng.random(big) < 0.9, c0=rng.integers(-1, 9, big).astype(np.int32),
+                  c1=rng.integers(0, 5, big).astype(np.int32),
+                  c2=rng.integers(0, 300, big).astype(np.int32))
+    planes = {k: t(v) for k, v in planes.items()}
+    sizes = list(range(1, K1_THREAD_ROWS + 2)) + [K1_TILE_ROWS - 1, K1_TILE_ROWS + 1, 2 * K1_TILE_ROWS + 3]
+    for off in (0, 1, 2, 3, 5):
+        for m in sizes:
+            v = {k: p[off:off + m] for k, p in planes.items()}
+            # planes taken as they are (the quads start past the loose rows)
+            # and with f32 and int8 planes converted (new tensors, out of
+            # phase with the views at an odd offset: every row one a thread)
+            views = [(v["f64"], "<", 0.5), (v["flag"], "=", True), (v["ts"], "<", T0 + 10**8)]
+            converted = views + [(v["f32"], ">=", -0.75), (v["i8"], "in", (-2, 0, 2)),
+                                 (v["flag"], "<", 0.5)]  # a bool plane compared in f64
+            for (dtype, pad), (form, filters) in itertools.product(
+                    ((torch.int32, 8 * 8 * 512 * 4 - 1), (torch.int64, None)),
+                    (("views", views), ("converted", converted))):
+                args = (v["valid"], filters, [v["gate"]], [(v["c0"], 8), (v["c1"], 8), (v["c2"], 512)],
+                        (v["ts"], T0, -7_000_000, 4), pad, dtype)
+                what = f"edge mask_gids n={m} offset {off} {dtype} {form}"
+                kg, km = _twice_identical(lambda: flt.mask_gids(*args), what)
+                pg, pm = flt.mask_gids_plain(*args)
+                _compare_bytes(kg, pg, what)
+                _compare_bytes(km, pm, what + " mask")
 
 
 # ---- phase 3b: the tile path's kernels K5-K8 against their plain versions -------
@@ -1195,24 +1306,39 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # SHAPED keys its launches; each against its plain version
     from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
 
+    # each as the tile program calls it, `lits` a view of the run's one
+    # uploaded literal buffer (TileProgram.run_with), and as this phase
+    # called it before (`_upload`: the table built and uploaded each call)
+    from greptimedb_tpu_torch.kernels._build import upload_table
+
+    spans = range(0, npad, TILE_CHUNK_ROWS)
+    table = flt.literal_table([(torch.int64, ">=", lo), (torch.int64, "<", hi)], T0, H3600)
+    run_lits = upload_table(table * len(spans) + [0], dev)  # the HAVING literal after them
     k1_chunks = {}
-    for o in range(0, npad, TILE_CHUNK_ROWS):
+    for i, o in enumerate(spans):
         v_c, t_c, c_c = (x[o:o + TILE_CHUNK_ROWS] for x in (valid, ts, codes))
         rows = int(v_c.shape[0])
         k1_args = (v_c, [(t_c, ">=", lo), (t_c, "<", hi)], [], [(c_c, card)],
                    (t_c, T0, H3600, hours), G - 1)
-        kg, km = _twice_identical(lambda: flt.mask_gids(*k1_args), f"mask_gids chunk {rows}")
+        src_lits = run_lits[i * len(table):(i + 1) * len(table)]
+        forms = {"tile": lambda: flt.mask_gids(*k1_args, lits=src_lits),
+                 "upload": lambda: flt.mask_gids(*k1_args)}
         pg, pm = flt.mask_gids_plain(*k1_args)
-        _compare(kg, pg, True, f"mask_gids chunk {rows}.gids")
-        _compare(km, pm, True, f"mask_gids chunk {rows}.mask")
         # as phase 3's K1: valid, ts and codes read, ids and mask written
         kb1, kby1 = bound(rows * (1 + 8 + 4) + rows * (4 + 1), rows * 8)
-        ops = _device_ops(lambda: flt.mask_gids(*k1_args), calls=3)
+        timed = {}
+        for form, fn in forms.items():
+            kg, km = _twice_identical(fn, f"mask_gids chunk {rows} {form}")
+            _compare(kg, pg, True, f"mask_gids chunk {rows} {form}.gids")
+            _compare(km, pm, True, f"mask_gids chunk {rows} {form}.mask")
+            ops = _device_ops(fn, calls=3)
+            timed[form] = dict(**_timed_runs(fn, reps), enqueue_us=_enqueue_us(fn, reps),
+                               device_us={_kernel_name(k): us / n for k, (us, n) in ops.items() if n})
+            del kg, km
         k1_chunks[f"rows<={_rows_bucket(rows)}"] = dict(
-            rows=rows, **_timed_runs(lambda: flt.mask_gids(*k1_args), reps), bound_ms=kb1,
-            bound_by=kby1, enqueue_us=_enqueue_us(lambda: flt.mask_gids(*k1_args), reps),
-            device_us={_kernel_name(k): us / n for k, (us, n) in ops.items() if n})
-        del kg, km, pg, pm
+            rows=rows, bound_ms=kb1, bound_by=kby1, **timed["tile"],
+            upload={**timed["upload"], "bound_ms": kb1})
+        del pg, pm
     out["mask_gids_chunk"] = k1_chunks
 
     # K5 on one full-length column
@@ -1559,9 +1685,9 @@ def run_pack_scatter_edge_cases(dev) -> dict:
     def check_pack(args, kw, what, launches):
         l0 = agg.pack_result.launches
         k = _twice_identical(lambda: agg.pack_result(*args, **kw), what)
-        made = (agg.pack_result.launches - l0) // 2
-        if made != launches:
-            raise AssertionError(f"{what}: {made} launches a call, expected {launches}")
+        made = agg.pack_result.launches - l0
+        if made != 2 * launches:
+            raise AssertionError(f"{what}: {made} launches in two calls, expected {launches} a call")
         p = agg.pack_result_plain(*args, **kw)
         for a, b in zip(k, p):
             _compare_bytes(a, b, what)
@@ -1639,7 +1765,7 @@ def run_pack_scatter_edge_cases(dev) -> dict:
         l0 = agg.segment_reduce_scatter.launches
         k = _twice_identical(lambda: agg.segment_reduce_scatter(vals, g, masks, base, G, aggs,
                                                                 order), what)
-        if (agg.segment_reduce_scatter.launches - l0) // 2 != launches:
+        if agg.segment_reduce_scatter.launches - l0 != 2 * launches:
             raise AssertionError(f"{what}: expected {launches} launches a call")
         _check_state(k, _plain_on_host(agg.segment_reduce_scatter_plain, vals, g, masks, base, G,
                                        aggs), what)
@@ -2467,10 +2593,24 @@ def run_hash_kernel_phase(reps: int) -> dict:
     # written; ~12 operations a row (2 compares, the floor division, 4
     # clipped mixed-radix steps)
     b1, b1_by = bound(npad * (1 + 8 + 3 * 4) + npad * (8 + 1), npad * 12)
+    # as the hash tile program calls it (`lits` a view of an uploaded
+    # buffer), and with the table uploaded each call (`upload`)
+    from greptimedb_tpu_torch.kernels._build import upload_table
+
+    lo, hi = (v for _p, _op, v in k1_args[1])
+    _ts, origin, interval, _nb = k1_args[4]
+    lits = upload_table(flt.literal_table([(torch.int64, ">=", lo), (torch.int64, "<", hi)],
+                                          origin, interval) + [0], dev)[:-1]
+    tile = lambda: flt.mask_gids(*k1_args, lits=lits)  # noqa: E731
+    tg, tm = _twice_identical(tile, "mask_gids int64 tile")
+    _compare_bytes(tg, pg, "mask_gids int64 tile.gids")
+    _compare_bytes(tm, pm, "mask_gids int64 tile.mask")
+    del tg, tm
     out["mask_gids_int64"] = dict(
-        max_abs_err=0.0, ms=_timed(lambda: flt.mask_gids(*k1_args), reps),
+        max_abs_err=0.0, **_timed_runs(tile, reps),
         plain_ms=_timed(lambda: flt.mask_gids_plain(*k1_args), 1),
         bound_ms=b1, bound_by=b1_by, library_ms=None, rows=npad,
+        upload=_timed_runs(lambda: flt.mask_gids(*k1_args), reps),
     )
 
     table = torch.empty(H, dtype=torch.int64, device=dev)
@@ -3921,8 +4061,9 @@ def run_tql_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # rate reads count, first/last ts and first/last value (36 B) and writes
     # 8 B per cell; ~20 f64 operations per cell
     b11, b11by = bound(cells * (36 + 8), cells * 20)
+    # the median of five readings: one reading's mean moves between runs
     out[_FIN] = dict(max_abs_err=0.0,
-                     ms=_timed(lambda: R.range_finalize([stats5], g5, "rate"), reps),
+                     **_timed_runs(lambda: R.range_finalize([stats5], g5, "rate"), reps),
                      plain_ms=_timed(lambda: R.range_finalize_plain([stats5], g5, "rate"), 1),
                      bound_ms=b11, bound_by=b11by, library_ms=None)
 
@@ -4643,6 +4784,8 @@ def run_vector_slice(device: str, rows: int, dim: int, reps: int, data_home: str
             launched = topk_distances.launches - before
             if is_cuda and launched != int(rows >= _DIST_THRESHOLD_ROWS):
                 raise AssertionError(f"{name}: K19 launched {launched} times in one run")
+            if is_cuda and launched:
+                k19_planned(name)
         truth = vector_truth(base64, ss64, queries[qi], metric)
         check_vector_result(out.column("id").to_numpy(), truth, k, offset, desc,
                             metric != "cos", name)
@@ -4699,6 +4842,23 @@ def _vector_bound(n: int, d: int, k: int, metric: str) -> tuple[float, str]:
     return bound(n * d * 4 + n + d * 4 + k * 12, n * d * (2 if metric == "dot" else 4))
 
 
+K19_MAX_LAUNCHES = 5  # kernels and memsets a call at k <= SMALL_K
+
+
+def k19_planned(what: str) -> dict:
+    """K19's last call launched the kernels and memsets its plan says
+    (`topk_launch_plan`), and at most K19_MAX_LAUNCHES where k <= SMALL_K."""
+    from greptimedb_tpu_torch.ops import vector as V
+
+    got = dict(V.topk_distances.last_launches)
+    k = got.pop("k")
+    planned = V.topk_launch_plan(k)
+    if got != planned or (k <= V.SMALL_K and sum(got.values()) > K19_MAX_LAUNCHES):
+        raise AssertionError(f"{what}: K19 at k={k} launched {got}, its plan {planned} "
+                             f"(at most {K19_MAX_LAUNCHES} at k <= {V.SMALL_K})")
+    return planned
+
+
 def _same_topk(a, b, what: str) -> None:
     """Two (dist, idx) results: equal indices and dist bit for bit."""
     import torch
@@ -4738,6 +4898,7 @@ def run_vector_kernel_phase(rows: int, dim: int, reps: int) -> dict:
                 q = qs[0 if asc else 3]
                 args = (mat, valid, q, metric, k, asc)
                 got = _twice_identical(lambda: V.topk_distances(*args), f"topk_distances {metric}")
+                k19_planned(f"topk_distances {metric} k={k}")
                 _same_topk(got, V.topk_distances_plain(*args), f"topk_distances {metric} k={k} asc={asc}")
             key = f"{metric} k={k}"
             args = (mat, valid, qs[0], metric, k, True)
@@ -4826,6 +4987,15 @@ def run_vector_edge_cases(dev, reps: int) -> dict:
     cases.append(("k past the valid rows", few, fv, rng.integers(0, 256, 8).astype(np.float32)))
     big = rng.integers(0, 256, (5000, 16)).astype(np.float32)
     cases.append(("k = N = 5000", big, np.ones(5000, bool), rng.integers(0, 256, 16).astype(np.float32)))
+    # tie-heavy: a few distinct rows, each many times, so the k-th score is
+    # shared by thousands of rows and the lower rows must win (K19's passes
+    # over the row bits); at 6000 rows and at 200,003 (every row a candidate)
+    for n_ties, d in ((6000, 16), (200_003, 8)):
+        distinct = rng.integers(0, 4, (3, d)).astype(np.float32)
+        ties = distinct[rng.integers(0, 3, n_ties)]
+        tv = rng.random(n_ties) < 0.95
+        ties[~tv] = 0.0
+        cases.append((f"ties n={n_ties}", ties, tv, rng.integers(0, 4, d).astype(np.float32)))
     for what, m, v, q in cases:
         n = m.shape[0]
         ks = sorted({1, min(7, n), n} | ({2049} if n > 2049 else set()) | ({50} if n == 100 else set()))
@@ -4835,6 +5005,7 @@ def run_vector_edge_cases(dev, reps: int) -> dict:
                 for asc in (True, False):
                     args = (*t, metric, k, asc)
                     got = _twice_identical(lambda: V.topk_distances(*args), f"edge {what}")
+                    k19_planned(f"edge {what} k={k}")
                     _same_topk(got, V.topk_distances_plain(*args), f"edge {what} {metric} k={k} asc={asc}")
                     _same_topk(got, V.topk_distances_plain(*(x.cpu() for x in t), metric, k, asc),
                                f"edge {what} {metric} k={k} asc={asc} (host)")
@@ -6132,6 +6303,8 @@ def main(argv=None) -> int:
             })
             continue
         if name == "topk_distances":
+            from greptimedb_tpu_torch.ops.vector import topk_launch_plan
+
             # K19: its launches on phase 8's vector queries, one per run
             launches = vs["launches"][name]
             if launches == 0:
@@ -6142,6 +6315,7 @@ def main(argv=None) -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "rows": s["rows"], "dim": s["dim"],
                 "per_case": s["per_case"], "large_k": s["large_k"],
+                "launch_plan": {f"k={k}": topk_launch_plan(k) for k in (*VECTOR_KS, 10_000)},
             })
             continue
         if name == "hash_group_slots":
@@ -6167,7 +6341,7 @@ def main(argv=None) -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "legacy_launches": tq["legacy_launches"][name],
                 **{k: s[k] for k in ("k64", "by_series", "form", "tw", "grid", "cells_ms",
-                                     "staged_ms", "order_sensitive", "device_us")
+                                     "staged_ms", "order_sensitive", "device_us", "ms_range")
                    if k in s},
                 **(per_call(tq["k9_calls"], K9_KERNELS, name) if name == _STRIP else {}),
                 **({"launches_by_tw": by_shape(tq["shape_launches"], name)}
@@ -6229,6 +6403,8 @@ def main(argv=None) -> int:
             # shape, split into the kernel's part (device ms - bound ms) and
             # the host's (ms - device ms)
             **(_k1_figures(s["chunk"], by_shape(sl["tile"]["shape_launches"], name))
+               if name == _MASK else {}),
+            **(_k1_figures(s["chunk"], by_shape(sl["tile"]["shape_launches"], name), "upload")
                if name == _MASK else {}),
             **{k: s[k] for k in ("alone_ms", "c1", "c5", "guard_fail", "compact", "int64", "chunk",
                                  "ms_range", "enqueue_us", "device_us",

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import numpy as np
 import torch
@@ -62,6 +63,8 @@ class _MaskGidsArgs(ctypes.Structure):
         ("n_buckets", ctypes.c_int32),
         ("pad_gid", ctypes.c_int32),
         ("id64", ctypes.c_int32),
+        ("head", ctypes.c_int32),
+        ("vec", ctypes.c_int32),
     ]
 
 
@@ -104,7 +107,9 @@ def mask_gids_plain(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.in
     `lits` the literal values, origin and interval are read from that
     table (`literal_table`'s layout), as the kernel reads them."""
     mask = valid.clone()
-    specs = literal_specs([(p.dtype, op, v) for p, op, v in filters]) if lits is not None else None
+    specs = None
+    if lits is not None:
+        specs = k1_layout(filters, gates, tags, bucket, pad_gid, dtype).specs
     for i, (plane, op, value) in enumerate(filters):
         plane, value = _normalize_filter(plane, op, value)
         if specs is not None:
@@ -212,6 +217,97 @@ def literal_table(filters, origin: int = 0, interval: int = 1) -> list[int]:
 # ---- the kernel --------------------------------------------------------------
 
 
+def _nonintegral(v) -> bool:
+    return isinstance(v, float) and not (math.isfinite(v) and v == int(v))
+
+
+def _filter_key(dtype: torch.dtype, op: str, value) -> tuple:
+    """What of one filter a K1 call's structure holds: the plane's dtype,
+    the op, the literal count and whether an integer plane compares in
+    float64 (a non-integral literal, `_normalize_literals`' rule)."""
+    if op in ("in", "not in"):
+        return dtype, op, len(value), any(_nonintegral(v) for v in value)
+    return dtype, op, 1, _nonintegral(value)
+
+
+# K1Layout packs the struct's per-call fields in one call: n and six
+# pointers, then the pointer arrays back to back
+_F = _MaskGidsArgs
+if (_F.fplane.offset, _F.gate.offset, _F.tag.offset) != (48, 176, 304):
+    raise ImportError("_MaskGidsArgs' pointer arrays moved; K1Layout.pack packs them at 48")
+
+
+class K1Layout:
+    """The structure of a K1 call, built once and reused: the argument
+    struct with every field but the row count and the pointers filled
+    (kinds, ops, literal offsets and counts, cards, bucket count, pad id,
+    id width), the literal specs, the dtype each filter plane is converted
+    to (None: taken as it is), the packer of the per-call fields (`pack`:
+    n, the six pointers, then those of the filters, gates and tags; `tail`:
+    head and vec) and the launch function."""
+
+    __slots__ = ("template", "specs", "convert", "n_lits", "dtype", "pack", "tail", "fn")
+
+    def __init__(self, filters, n_gates: int, cards: tuple, n_buckets, pad_gid, dtype):
+        if len(filters) > MAX_FILTERS or n_gates > MAX_GATES or len(cards) > MAX_TAGS:
+            raise ValueError(
+                f"mask_gids takes at most {MAX_FILTERS} filters, {MAX_GATES} gates, "
+                f"{MAX_TAGS} tags"
+            )
+        self.specs = literal_specs(filters)
+        self.n_lits = 2 + sum(c for *_x, c in self.specs)
+        self.convert = tuple(
+            None if _normalize_literals(dt, op, v)[0] == dt
+            else _normalize_literals(dt, op, v)[0]
+            for dt, op, v in filters)
+        a = _MaskGidsArgs()
+        for i, (kind, op, off, cnt) in enumerate(self.specs):
+            a.fkind[i], a.fop[i], a.flit_off[i], a.flit_cnt[i] = kind, op, off + 2, cnt
+        a.n_filters, a.n_gates, a.n_tags = len(filters), n_gates, len(cards)
+        for i, card in enumerate(cards):
+            a.card[i] = card
+        a.n_buckets = 0 if n_buckets is None else n_buckets
+        a.id64 = int(dtype == torch.int64)
+        a.pad_gid = 0 if a.id64 else int(pad_gid)
+        self.template, self.dtype, self.fn = bytes(a), dtype, None
+        nf, nt = len(filters), len(cards)
+        self.pack = struct.Struct(
+            f"<q5Q{nf}Q{(MAX_FILTERS - nf) * 8}x{n_gates}Q{(MAX_GATES - n_gates) * 8}x{nt}Q")
+        self.tail = struct.Struct("<ii")
+
+
+_LAYOUTS: dict[tuple, K1Layout] = {}
+_MAX_LAYOUTS = 256
+
+
+def k1_layout(filters, gates, tags, bucket, pad_gid, dtype=torch.int32) -> K1Layout:
+    """The cached `K1Layout` of a call's structure (`mask_gids`'
+    arguments): the literal values, the bucket's origin and interval and
+    the operands themselves are not part of it."""
+    key = (tuple(_filter_key(p.dtype, op, v) for p, op, v in filters), len(gates),
+           tuple(int(card) for _codes, card in tags),
+           None if bucket is None else int(bucket[3]),
+           None if dtype == torch.int64 else int(pad_gid), dtype)
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        lay = K1Layout([(p.dtype, op, v) for p, op, v in filters], len(gates), key[2], key[3],
+                       pad_gid, dtype)
+        if len(_LAYOUTS) >= _MAX_LAYOUTS:
+            _LAYOUTS.clear()
+        _LAYOUTS[key] = lay
+    return lay
+
+
+# Rows to skip so that a plane at address p % 16 lies on its vector width
+# (16 B; 4 B for byte planes) at row `head`: bit h set where head = h works
+def _head_bits(size: int, p16: int) -> int:
+    align = 4 if size == 1 else 16
+    return sum(1 << h for h in range(4) if (p16 + h * size) % align == 0)
+
+
+_HEAD_BITS = {size: tuple(_head_bits(size, r) for r in range(16)) for size in (1, 4, 8)}
+
+
 def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32, lits=None):
     """Predicate mask and mixed-radix group ids over one tile.
 
@@ -232,7 +328,8 @@ def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32, l
              table is built from them and uploaded.
 
     Returns (gids [n] of `dtype`, mask bool [n]).  A CUDA tile runs kernel
-    K1 (csrc/mask_gids.cu); a CPU tile runs `mask_gids_plain`."""
+    K1 (csrc/mask_gids.cu); a CPU tile runs `mask_gids_plain`.  The call's
+    structure (`k1_layout`) is built once and reused."""
     if dtype not in (torch.int32, torch.int64):
         raise ValueError(f"mask_gids ids are int32 or int64, not {dtype}")
     if valid.device.type == "cpu":
@@ -241,71 +338,98 @@ def mask_gids(valid, filters, gates, tags, bucket, pad_gid, dtype=torch.int32, l
 
 
 def _mask_gids_cuda(valid, filters, gates, tags, bucket, pad_gid, dtype, lits):
-    from ..kernels._build import launch, upload_table
+    lay = k1_layout(filters, gates, tags, bucket, pad_gid, dtype)
+    if lay.fn is None:
+        from ..kernels._build import load
 
+        lay.fn = load("mask_gids").gt_mask_gids
     dev = valid.device
     n = int(valid.shape[0])
-    if len(filters) > MAX_FILTERS or len(gates) > MAX_GATES or len(tags) > MAX_TAGS:
-        raise ValueError(
-            f"mask_gids takes at most {MAX_FILTERS} filters, {MAX_GATES} gates, "
-            f"{MAX_TAGS} tags"
-        )
     keep = []  # tensors the launch reads: alive until it is enqueued
-    args = _MaskGidsArgs()
-    args.n = n
-    _check(valid, torch.bool, n, dev)
-    args.valid = valid.data_ptr()
-    specs = literal_specs([(p.dtype, op, v) for p, op, v in filters])
-    for i, (plane, op, value) in enumerate(filters):
-        plane, _value = _normalize_filter(plane, op, value)
-        plane = plane.contiguous()
-        _check(plane, plane.dtype, n, dev)
-        keep.append(plane)
-        args.fplane[i] = plane.data_ptr()
-        args.fkind[i], args.fop[i], off, cnt = specs[i]
-        args.flit_off[i] = off + 2
-        args.flit_cnt[i] = cnt
-    args.n_filters = len(filters)
-    for i, g in enumerate(gates):
-        _check(g, torch.bool, n, dev)
-        args.gate[i] = g.data_ptr()
-    args.n_gates = len(gates)
-    for i, (codes, card) in enumerate(tags):
-        _check(codes, torch.int32, n, dev)
-        args.tag[i] = codes.data_ptr()
-        args.card[i] = int(card)
-    args.n_tags = len(tags)
-    origin, interval = 0, 1
+    vptr = _operand(valid, torch.bool, n, dev)
+    heads = _HEAD_BITS[1][vptr & 15]
+    ts, ts_ptr = None, 0
     if bucket is not None:
-        ts, origin, interval, n_buckets = bucket
-        _check(ts, torch.int64, n, dev)
-        args.ts = ts.data_ptr()
-        args.n_buckets = int(n_buckets)
-    else:
-        args.ts = None
+        ts = bucket[0]
+        ts_ptr = _operand(ts, torch.int64, n, dev)
+        heads &= _HEAD_BITS[8][ts_ptr & 15]
+    ptrs = []
+    for (plane, _op, _value), conv in zip(filters, lay.convert):
+        if plane is ts:  # a time-range filter: checked above
+            ptrs.append(ts_ptr)
+            continue
+        src = plane
+        if conv is not None:
+            if plane.dtype == torch.bool:
+                plane = plane.view(torch.uint8)
+            if plane.dtype != conv:
+                plane = plane.to(conv)
+        if not plane.is_contiguous():
+            plane = plane.contiguous()
+        if plane is not src:
+            keep.append(plane)
+        ptr = _operand(plane, plane.dtype, n, dev)
+        ptrs.append(ptr)
+        heads &= _HEAD_BITS[plane.element_size()][ptr & 15]
+    for g in gates:
+        ptr = _operand(g, torch.bool, n, dev)
+        ptrs.append(ptr)
+        heads &= _HEAD_BITS[1][ptr & 15]
+    for codes, _card in tags:
+        ptr = _operand(codes, torch.int32, n, dev)
+        ptrs.append(ptr)
+        heads &= _HEAD_BITS[4][ptr & 15]
     if lits is None:
+        from ..kernels._build import upload_table
+
+        origin, interval = (0, 1) if bucket is None else (bucket[1], bucket[2])
         if bucket is not None and int(interval) == 0:
             raise ValueError("time bucket interval must be non-zero")
         table = literal_table([(p.dtype, op, v) for p, op, v in filters], origin, interval)
         lits = upload_table(table, dev)
     elif lits.device != dev or lits.dtype != torch.int64 or lits.dim() != 1 \
-            or not lits.is_contiguous() or lits.shape[0] < 2 + sum(c for *_x, c in specs):
+            or not lits.is_contiguous() or lits.shape[0] < lay.n_lits:
         raise ValueError("mask_gids lits must be a contiguous int64 literal table on "
-                         f"{dev} of at least {2 + sum(c for *_x, c in specs)} entries")
+                         f"{dev} of at least {lay.n_lits} entries")
     keep.append(lits)
-    args.lits = lits.data_ptr()
-    gids = torch.empty(n, dtype=dtype, device=dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    args.gids_out = gids.data_ptr()
-    args.mask_out = mask.data_ptr()
-    args.id64 = int(dtype == torch.int64)
-    args.pad_gid = 0 if args.id64 else int(pad_gid)
+    # the first row at which every operand lies on its vector width
+    head = max((heads & -heads).bit_length() - 1, 0)
+    if head == 0:
+        gids = torch.empty(n, dtype=dtype, device=dev)
+        mask = torch.empty(n, dtype=torch.bool, device=dev)
+        gptr, mptr = gids.data_ptr(), mask.data_ptr()
+    else:
+        # views at an odd row: the ids and the mask of one allocation,
+        # placed so that row `head` lies on its vector width too
+        size = 8 if dtype == torch.int64 else 4
+        goff = -head * size & 15
+        moff = ((goff + n * size + 15) & ~15) + (-head & 3)
+        out = torch.empty(moff + n, dtype=torch.uint8, device=dev)
+        gids, mask = out[goff:goff + n * size].view(dtype), out[moff:].view(torch.bool)
+        gptr, mptr = out.data_ptr() + goff, out.data_ptr() + moff
+    args = _MaskGidsArgs.from_buffer_copy(lay.template)
+    lay.pack.pack_into(args, 0, n, vptr, ts_ptr, lits.data_ptr(), gptr, mptr, *ptrs)
+    lay.tail.pack_into(args, _F.head.offset, head, int(heads != 0 and n >= head + 4))
     mask_gids.launches += 1
-    launch("mask_gids", "gt_mask_gids", args, torch.cuda.current_stream(dev).cuda_stream)
+    _launch(lay.fn, args, torch.cuda.current_stream(dev).cuda_stream)
     return gids, mask
 
 
 mask_gids.launches = 0
+
+
+def _launch(fn, args: _MaskGidsArgs, stream: int) -> None:
+    """K1's one launch (`gt_mask_gids` with its argument struct and the
+    stream); raises on a launch error."""
+    err = fn(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"mask_gids.gt_mask_gids: CUDA launch failed with error {err}")
+
+
+def _operand(t: torch.Tensor, dtype, n: int, dev) -> int:
+    """The pointer of a checked kernel operand."""
+    _check(t, dtype, n, dev)
+    return t.data_ptr()
 
 
 def _check(t: torch.Tensor, dtype, n: int, dev) -> None:

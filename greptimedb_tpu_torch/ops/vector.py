@@ -77,6 +77,18 @@ def _sqrt_rn(x):
 def topk_distances_plain(mat, valid, q, metric: str = "cos", k: int = 10,
                          ascending: bool = True):
     """Torch-op version of K19: -> (dist f32 [k], idx int64 [k])."""
+    bits, hi = score_bits(mat, valid, q, metric, ascending)
+    row = torch.arange(mat.shape[0], dtype=torch.int64, device=mat.device)
+    keys = hi * (1 << 32) + ((1 << 32) - 1 - row)
+    _top, idx = torch.topk(keys, int(k))
+    return bits[idx].view(torch.float32), idx
+
+
+def score_bits(mat, valid, q, metric: str = "cos", ascending: bool = True):
+    """(bits int32 [N], hi int64 [N]): each row's distance as K19 ranks
+    it (invalid rows at the losing end, a NaN's bits by the rule above)
+    and its score's bits under the total-order flip, the high half of
+    the row's key (larger ranks first)."""
     _check_metric(metric)
     n, d = mat.shape
     # XLA's dot of one component is the product itself (a -0 stays -0)
@@ -99,31 +111,48 @@ def topk_distances_plain(mat, valid, q, metric: str = "cos", k: int = 10,
     bits = torch.where(valid, bits, _POS_INF if ascending else _NEG_INF)
     score = bits ^ _SIGN if ascending else bits
     hi = torch.where(score < 0, score ^ 0x7FFFFFFF, score).to(torch.int64)
-    row = torch.arange(n, dtype=torch.int64, device=mat.device)
-    keys = hi * (1 << 32) + ((1 << 32) - 1 - row)
-    _top, idx = torch.topk(keys, int(k))
-    return bits[idx].view(torch.float32), idx
+    return bits, hi
 
 
 class _TopkArgs(ctypes.Structure):
     # mirrored field for field by TopkArgs in csrc/topk_distances.cu
     _fields_ = [
         ("n", ctypes.c_int64), ("k", ctypes.c_int64), ("mat", ctypes.c_void_p),
-        ("valid", ctypes.c_void_p), ("q", ctypes.c_void_p), ("keys", ctypes.c_void_p),
-        ("sel", ctypes.c_void_p), ("state", ctypes.c_void_p), ("hist", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p), ("q", ctypes.c_void_p), ("hi", ctypes.c_void_p),
+        ("cand", ctypes.c_void_p), ("sel", ctypes.c_void_p), ("state", ctypes.c_void_p),
         ("dist", ctypes.c_void_p), ("idx", ctypes.c_void_p), ("d", ctypes.c_int32),
         ("metric", ctypes.c_int32), ("ascending", ctypes.c_int32), ("vec4", ctypes.c_int32),
+        ("kernels", ctypes.c_int32), ("memsets", ctypes.c_int32),
         ("sort_plan", _RadixPlan), ("sort", _RadixScratch),
     ]
+
+
+# bytes of the select's state (TopkState in csrc/topk_distances.cu: two
+# 4096-bin histograms, six 32-bit words, the k-th key), zeroed by the
+# kernel's memset; the candidates' keys follow it at a 256-byte offset
+_STATE_BYTES = 2 * 4096 * 4 + 6 * 4 + 8
+_CAND_AT = -(-_STATE_BYTES // 256) * 256
+
+
+def topk_launch_plan(k: int) -> dict:
+    """The kernels and memsets one K19 call launches at `k` (`n` >= `k`):
+    at k <= SMALL_K the distance pass with the first digit's histogram,
+    the candidates' compaction and the one-CTA final select and sort, after
+    the state's memset; past it also the compaction of the k largest and
+    the radix sort (its memset, histogram and one kernel a pass)."""
+    if k <= SMALL_K:
+        return {"kernels": 3, "memsets": 1}
+    return {"kernels": 4 + 1 + radix_plan((1 << 64) - 1).n_passes, "memsets": 2}
 
 
 def topk_distances(mat, valid, q, metric: str = "cos", k: int = 10, ascending: bool = True):
     """K19: -> (dist f32 [k], idx int64 [k]), the k best rows of `mat`
     [N, d] f32 (invalid rows zero-filled) by distance to `q` [d] f32, in
     `lax.top_k`'s order; `valid` [N] bool pushes the other rows to the
-    losing end.  A CUDA tensor launches csrc/topk_distances.cu (past k =
-    2048 what its radix sort ran lands in `topk_distances.last_sort`); a
-    CPU tensor runs `topk_distances_plain`."""
+    losing end.  A CUDA tensor launches csrc/topk_distances.cu (the kernels
+    and memsets it launched land in `topk_distances.last_launches`; past
+    k = 2048 what its radix sort ran in `topk_distances.last_sort`); a CPU
+    tensor runs `topk_distances_plain`."""
     if mat.device.type == "cpu":
         return topk_distances_plain(mat, valid, q, metric, k, ascending)
     from ..kernels._build import launch
@@ -144,10 +173,11 @@ def topk_distances(mat, valid, q, metric: str = "cos", k: int = 10, ascending: b
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"topk_distances: {name} must be a contiguous {dtype} {shape} "
                              f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    keys = torch.empty(n, dtype=torch.int64, device=dev)
-    sel = torch.empty(k, dtype=torch.int64, device=dev)
-    state = torch.empty(4, dtype=torch.int64, device=dev)
-    hist = torch.empty(256, dtype=torch.int32, device=dev)
+    # one scratch buffer: the state, the candidates' keys (8 B a row), each
+    # row's flipped score (4 B), and past SMALL_K the k largest keys
+    sel_at = -(-(_CAND_AT + 12 * n) // 256) * 256
+    scratch = torch.empty(sel_at + (8 * k if k > SMALL_K else 0), dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
     dist = torch.empty(k, dtype=torch.float32, device=dev)
     idx = torch.empty(k, dtype=torch.int64, device=dev)
     # past the one-block sort, the survivors' full 64-bit keys by radix.cuh
@@ -156,20 +186,22 @@ def topk_distances(mat, valid, q, metric: str = "cos", k: int = 10, ascending: b
         plan = radix_plan((1 << 64) - 1)
         keep, sort = radix_scratch(k, plan, dev)
     vec4 = d % 4 == 0 and mat.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
-    a = _TopkArgs(n, k, mat.data_ptr(), valid.data_ptr(), q.data_ptr(), keys.data_ptr(),
-                  sel.data_ptr(), state.data_ptr(), hist.data_ptr(), dist.data_ptr(),
-                  idx.data_ptr(), d, METRICS[metric], int(bool(ascending)), int(vec4),
-                  _RadixPlan() if plan is None else plan_struct(plan), sort)
+    a = _TopkArgs(n, k, mat.data_ptr(), valid.data_ptr(), q.data_ptr(), base + _CAND_AT + 8 * n,
+                  base + _CAND_AT, base + sel_at if k > SMALL_K else None, base,
+                  dist.data_ptr(), idx.data_ptr(), d, METRICS[metric], int(bool(ascending)),
+                  int(vec4), 0, 0, _RadixPlan() if plan is None else plan_struct(plan), sort)
     topk_distances.launches += 1
     launch("topk_distances", "gt_topk_distances", a, torch.cuda.current_stream(dev).cuda_stream)
+    topk_distances.last_launches = {"k": k, "kernels": a.kernels, "memsets": a.memsets}
     topk_distances.last_sort = None if plan is None else sort_record(plan, a.sort.kernels)
     # the scratch is freed into the caching allocator and reused only by
     # work queued after these launches on the same stream
-    del keys, sel, state, hist, keep
+    del scratch, keep
     return dist, idx
 
 
 topk_distances.launches = 0
+topk_distances.last_launches = None
 topk_distances.last_sort = None
 
 

@@ -448,6 +448,134 @@ def test_time_bucket_floors_negative_offsets():
     assert got == ref
 
 
+# K1's time bucket on the card (csrc/mask_gids.cu `floor_div_of`, `floor_div`):
+# a magic reciprocal of |interval| per CTA, then a multiply-high, an add and
+# two shifts a row, emulated here in Python integers
+M64 = (1 << 64) - 1
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _wrap64(x: int) -> int:
+    return (x + (1 << 63) & M64) - (1 << 63)
+
+
+def _magic(v: int):
+    """(m, sh1, sh2, v > 0) of the interval v, as `floor_div_of` makes them."""
+    u = -v & M64 if v < 0 else v
+    if u <= 1:
+        return 0, 0, 0, v > 0
+    l = (u - 1).bit_length()  # 64 - __clzll(u - 1)
+    r, q = (1 << l) - u, 0
+    for _ in range(64):
+        r, q = r << 1, q << 1
+        if r >= u:
+            r, q = r - u, q | 1
+    return (q + 1) & M64, 1, l - 1, v > 0
+
+
+def _bucket_emulated(ts: int, origin: int, magic) -> int:
+    """K1's bucket of one row: the wrapped offset floor-divided by the
+    magic, then the wrapping int32 cast."""
+    m, sh1, sh2, pos = magic
+    d = _wrap64(ts - origin)
+    du = d & M64
+    if pos:
+        flip, num = d < 0, ~du & M64 if d < 0 else du
+    else:
+        flip, num = d > 0, (du - 1) & M64 if d > 0 else -du & M64
+    t = (m * num) >> 64
+    q = (t + ((num - t) >> sh1)) >> sh2
+    assert q <= M64
+    if flip:
+        q = ~q & M64
+    return (q + (1 << 31) & 0xFFFFFFFF) - (1 << 31)
+
+
+K1_INTERVALS = (1, -1, 2, 3, 7, -7, 1000, 60_000, 3_600_000, -3_600_000, 1 << 32, -(1 << 32),
+                (1 << 32) + 1, -(1 << 32) - 7, (1 << 62) + 3, -(1 << 63), I64_MAX)
+
+
+@pytest.mark.parametrize("interval", K1_INTERVALS)
+def test_k1_bucket_division_emulation_matches_reference(interval):
+    """The kernel's division, emulated, equals the reference's time_bucket
+    (and the port's plain one) for every sign of the offset and the
+    interval, |interval| past 2^32, quotients past int32 (they wrap) and
+    ts and the origin at the int64 ends."""
+    rng = np.random.default_rng(abs(interval) % 9973)
+    magic = _magic(interval)
+    for origin in (0, T0, -T0, I64_MIN, I64_MAX):
+        ts = [I64_MIN, I64_MIN + 1, -1, 0, 1, I64_MAX - 1, I64_MAX,
+              _wrap64(origin + (1 << 31) + 5), _wrap64(origin - (1 << 40) - 3)]
+        for j in range(-3, 4):
+            for e in (-1, 0, 1):
+                ts.append(_wrap64(origin + j * min(abs(interval), 1 << 61) + e))
+        ts += [int(x) for x in rng.integers(I64_MIN, I64_MAX, 40, dtype=np.int64, endpoint=True)]
+        got = [_bucket_emulated(x, origin, magic) for x in ts]
+        ref = np.asarray(jagg.time_bucket(jnp.asarray(np.array(ts, np.int64)), origin, interval))
+        assert got == ref.tolist(), f"origin {origin}"
+        # the port's plain form (torch's floor division traps on -2^63 // -1)
+        ok = [x for x in ts if not (interval == -1 and _wrap64(x - origin) == I64_MIN)]
+        plain = tflt.time_bucket(torch.tensor(ok, dtype=torch.int64), origin, interval)
+        assert plain.tolist() == [_bucket_emulated(x, origin, magic) for x in ok], f"origin {origin}"
+
+
+def _k1_reference(cols, valid, present, filters, tags, bucket):
+    """compute_partial_states' mask / group-id prologue of the reference."""
+    origin, interval, nb = bucket
+    cards = [c for _t, c in tags]
+    G = int(np.prod(cards)) * nb
+    plan = DistGroupByPlan(group_tags=tuple(t for t, _c in tags), tag_cards=tuple(cards),
+                           bucket_col="ts", bucket_origin=origin, bucket_interval=interval,
+                           n_buckets=nb, agg_specs=(), filters=tuple(filters))
+    jcols = {k: jnp.asarray(v) for k, v in cols.items()}
+    jmask = _apply_filters(plan, jcols, jnp.asarray(valid)) & jnp.asarray(present)
+    comps = [(jcols[t], c) for t, c in tags] + [(jagg.time_bucket(jcols["ts"], origin, interval), nb)]
+    jg, in_range = jagg.raw_group_ids(comps, shape=valid.shape)
+    return jnp.where(jnp.asarray(valid), jg, G - 1), jmask & in_range
+
+
+def test_k1_layout_reused_across_literal_values():
+    """K1's cached structure: calls with the same structure and other
+    literal values, origin and interval in `lits` (the tile program's
+    form) reuse one layout and each match the reference; another
+    structure (an IN-list of another length, a non-integral literal on an
+    integer plane) builds its own."""
+    rng = np.random.default_rng(17)
+    n = 5000 + 3
+    cols = {"code": rng.integers(-1, 40, n).astype(np.int32),
+            "ts": (T0 + rng.integers(-10**8, 10**8, n)).astype(np.int64),
+            "f": rng.uniform(0, 100, n), "i": rng.integers(0, 12, n).astype(np.int32)}
+    valid, present = np.arange(n) < n - 7, rng.random(n) < 0.9
+    tcols = {k: _t(v) for k, v in cols.items()}
+    tags = [("code", 64)]
+
+    def run(filters, bucket, lit_filters=None):
+        lit_filters = filters if lit_filters is None else lit_filters
+        lits = _t(np.array(tflt.literal_table([(tcols[c].dtype, op, v) for c, op, v in lit_filters],
+                                              bucket[0], bucket[1]), np.int64))
+        structure = [(tcols[c], op, v) for c, op, v in filters]
+        # the structure's values and bucket stand in; lits carries the real ones
+        got = tflt.mask_gids(_t(valid), structure, [_t(present)], [(tcols["code"], 64)],
+                             (tcols["ts"], 0, 1, bucket[2]), 64 * bucket[2] - 1, lits=lits)
+        ref = _k1_reference(cols, valid, present, lit_filters, tags, bucket)
+        _close(got[0], ref[0], True, f"{lit_filters} gids")
+        _close(got[1], ref[1], True, f"{lit_filters} mask")
+        return tflt.k1_layout(structure, [_t(present)], [(tcols["code"], 64)],
+                              (tcols["ts"], 0, 1, bucket[2]), 64 * bucket[2] - 1)
+
+    tflt._LAYOUTS.clear()
+    a = [("f", ">", 10.0), ("code", "in", (3, 5, 7)), ("i", "<", 9)]
+    b = [("f", ">", 55.5), ("code", "in", (1, 2, 39)), ("i", "<", 4)]
+    first = run(a, (T0, 3_600_000, 16))
+    again = run(a, (T0 - 7 * 3_600_000, -900_000, 16), lit_filters=b)
+    assert again is first and len(tflt._LAYOUTS) == 1
+    longer = run([("f", ">", 10.0), ("code", "in", (3, 5)), ("i", "<", 9)], (T0, 60_000, 16))
+    frac = run([("f", ">", 10.0), ("code", "in", (3, 5, 7)), ("i", "<", 8.5)], (T0, 60_000, 16))
+    assert len({id(first), id(longer), id(frac)}) == 3 and len(tflt._LAYOUTS) == 3
+    assert frac.convert[2] == torch.float64 and first.convert == (None, None, None)
+    assert [sp[3] for sp in longer.specs] == [1, 2, 1]
+
+
 # ---- tiles and carried state -------------------------------------------------------------
 
 

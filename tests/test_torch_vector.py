@@ -18,6 +18,8 @@ cancellation, and its distinct distances further apart than 1e-6, so the
 indices are held exactly.  Rank ties go to the lower index in both
 packages, so exact duplicates rank alike."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -208,6 +210,94 @@ def test_topk_distances_boundaries(case):
             for k in ks:
                 _same_bits(_port_topk(mat, valid, q, metric, k, asc),
                            _jax_topk(mat, valid, q, metric, k, asc), f"{case} {metric} k={k}")
+
+
+# K19's select on the card (csrc/topk_distances.cu), emulated in numpy on
+# the rows' flipped scores: a 12-bit first digit counted in the distance
+# pass, the candidates at or above its pick, a 12-bit second digit, 8-bit
+# passes over the candidates while the bin reached holds more keys than
+# are wanted, then the keys >= the k-th's prefix, largest first
+def _pick(hist, wanted: int):
+    """(bin, count above it, its count): the bin at which the count from
+    the top reaches `wanted` (`pick_digit`)."""
+    above = 0
+    for b in range(hist.size - 1, -1, -1):
+        if above + int(hist[b]) >= wanted:
+            return b, above, int(hist[b])
+        above += int(hist[b])
+    raise AssertionError("fewer keys than wanted")
+
+
+def _select_emulated(hi: np.ndarray, k: int) -> np.ndarray:
+    """The k largest keys (hi << 32 | ~row), largest first."""
+    rows = np.arange(hi.size, dtype=np.uint64)
+    keys = (hi.astype(np.uint64) << np.uint64(32)) | (~rows & np.uint64(0xFFFFFFFF))
+    first = hi >> np.uint32(20)
+    d1, above1, _c = _pick(np.bincount(first, minlength=4096), k)
+    cand = keys[first >= d1]  # the candidate buffer (the kernel's is in no order)
+    rng = np.random.default_rng(hi.size)
+    cand = cand[rng.permutation(cand.size)]
+    second = (hi[first == d1] >> np.uint32(8)) & np.uint32(4095)
+    d2, above2, count = _pick(np.bincount(second, minlength=4096), k - above1)
+    prefix, bits, wanted = (d1 << 12) | d2, 24, k - above1 - above2
+    while wanted != count and bits < 64:
+        shift = 64 - bits - 8
+        at = cand[(cand >> np.uint64(shift + 8)) == np.uint64(prefix)]
+        digit = ((at >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
+        dig, above, count = _pick(np.bincount(digit, minlength=256), wanted)
+        prefix, bits, wanted = (prefix << 8) | dig, bits + 8, wanted - above
+    kth = np.uint64(prefix if bits >= 64 else prefix << (64 - bits))
+    top = np.sort(cand[cand >= kth])[::-1]
+    assert top.size == k
+    return top
+
+
+def _select_case(case: str):
+    rng = np.random.default_rng(len(case))
+    n, d = 3000, 8
+    if case == "ties":  # three distinct rows, each a thousand times
+        mat = rng.integers(0, 4, (3, d)).astype(np.float32)[rng.integers(0, 3, n)]
+        valid = rng.random(n) < 0.95
+    elif case == "special":  # NaN and +-inf scores beside finite ones
+        mat = rng.integers(0, 256, (n, d)).astype(np.float32)
+        mat[rng.choice(n, 40, replace=False), 2] = NAN
+        mat[rng.choice(n, 40, replace=False), 5] = NEG_NAN
+        mat[rng.choice(n, 40, replace=False), 1] = np.inf
+        mat[rng.choice(n, 40, replace=False), 3] = -np.inf
+        valid = rng.random(n) < 0.9
+    elif case == "all_invalid":
+        mat, valid = rng.integers(0, 256, (n, d)).astype(np.float32), np.zeros(n, bool)
+    else:  # real-valued: the k-th bin resolves within the second digit
+        mat, valid = rng.random((n, d), dtype=np.float32), np.ones(n, bool)
+    mat[~valid] = 0.0
+    return mat, valid, rng.integers(0, 4, d).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 7, 2049, 3000])
+@pytest.mark.parametrize("case", ["ties", "special", "all_invalid", "real"])
+def test_topk_select_emulation_matches_reference(case, k):
+    """The score-first select, emulated, gives lax.top_k's rows and bits:
+    tie-heavy rows (the lower rows win at the k-th score), NaN and +-inf
+    scores, every row invalid, k = 1, past the one-block sort and k = N."""
+    mat, valid, q = _select_case(case)
+    for metric in METRICS:
+        for asc in (True, False):
+            bits, hi = pvec.score_bits(torch.from_numpy(mat), torch.from_numpy(valid),
+                                       torch.from_numpy(q), metric, asc)
+            hi = ((hi.numpy() & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint32)  # the card's hi
+            top = _select_emulated(hi, k)
+            idx = (~top & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            got = (bits.numpy()[idx].view(np.float32), idx)
+            # lax.top_k over the same scores (the rows' bits, negated when
+            # ascending); on integer rows also the reference's whole search
+            # (real rows add in another order: tests above)
+            score = (bits.numpy() ^ np.int32(-(1 << 31)) if asc else bits.numpy()).view(np.float32)
+            _top, ref_idx = jax.lax.top_k(jnp.asarray(score), k)
+            ref_idx = np.asarray(ref_idx).astype(np.int64)
+            _same_bits(got, (bits.numpy()[ref_idx].view(np.float32), ref_idx),
+                       f"{case} {metric} asc={asc} lax.top_k")
+            if case != "real":
+                _same_bits(got, _jax_topk(mat, valid, q, metric, k, asc), f"{case} {metric} asc={asc}")
 
 
 def test_topk_distances_rejects_bad_metric():

@@ -68,6 +68,21 @@ call a plane, with each plane's time alone and their sum.  K4's blocked
 form at lastpoint's shape (G = 4096) and on the falling-bases planes
 (G = 16), each held byte for byte against its plain version.
 
+`--set mask_topk`: K1 `mask_gids` and K19 `topk_distances`.  K1 at the
+tile path's two chunk shapes (the 2^24-row chunk and the 503,808-row tail
+of the TSBS planes, double-groupby's filters), each as the tile program
+calls it (`lits` a view of one uploaded literal buffer) and with
+`lits=None` (the table built and uploaded each call, as phase 3b timed
+it); at the table-fed shape; its int64 form at H1's inputs in both forms.
+Each K1 time is the median of five readings (`ms_range` their range), and
+each output is also held byte for byte against the plain version.  K19 at
+1,000,000 x 128, k = 10, for l2sq, cos and dot beside `torch.mv` +
+`torch.topk`; on uniform [0, 1) rows at k = 100 (bytes only: the
+distances' bits depend on the add order); at k = 10,000 of 100,000.  The
+first turn of each tree also prints the SASS of csrc/mask_gids.cu: each
+kernel's instructions and `CALL.REL.NOINC` (subroutine calls, such as a
+64-bit division's), the listing in <--out>/sass_<tree>_mask_gids.txt.
+
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
 
@@ -88,10 +103,11 @@ and a last line with the ms of each checkout (mean of its two turns) and
 whether every output's bytes agreed.
 
     python3 tools/kernel_ab.py --other DIR
-                               [--set blocked|range_hll|fold|pack_scatter|strip_hash|gather_last]
+                               [--set blocked|range_hll|fold|pack_scatter|strip_hash|gather_last|
+                                      mask_topk]
                                [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
-                               [--profile]
+                               [--profile] [--out DIR]
 """
 
 from __future__ import annotations
@@ -113,7 +129,8 @@ SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_l
            "fold": ("fold_states", "series_fold"),
            "pack_scatter": ("pack_result", "segment_reduce_scatter"),
            "strip_hash": ("strip_counter_resets", "hash_group_slots", "gather_planes"),
-           "gather_last": ("gather_planes", "segment_last")}
+           "gather_last": ("gather_planes", "segment_last"),
+           "mask_topk": ("mask_gids", "topk_distances")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -962,6 +979,140 @@ def gather_last_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, de
         torch.cuda.empty_cache()
 
 
+def _tile_lits(flt, filters, origin: int, interval: int, n_views: int, dev):
+    """`n_views` views of one uploaded int64 buffer, each K1's literal table
+    of `filters` (given as (plane dtype, op, value)): the form the tile
+    program hands each source (`TileProgram.run_with`)."""
+    from greptimedb_tpu_torch.kernels._build import upload_table
+
+    table = flt.literal_table(filters, origin, interval)
+    buf = upload_table(table * n_views + [0], dev)  # a HAVING literal after them
+    return [buf[i * len(table):(i + 1) * len(table)] for i in range(n_views)]
+
+
+def mask_topk_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -> None:
+    """K1 `mask_gids` at the tile path's chunk shapes (the 2^24-row chunk
+    and the tail of the TSBS planes, double-groupby's filters), each as the
+    tile program calls it (`lits` a view of one uploaded literal buffer) and
+    as phase 3b called it (`lits=None`: the table built and uploaded each
+    call); at the table-fed shape (phase 3); its int64 form at H1's inputs
+    (phase 3e) in both forms.  K19 `topk_distances` at phase 8's shape
+    (1,000,000 x 128, k = 10) for every metric beside `torch.mv` +
+    `torch.topk`, on real-valued rows (uniform [0, 1): the distances'
+    bits depend on the add order) and at k = 10,000 of 100,000 (the radix
+    sort's path).  Each K1 time is the median of five readings with their
+    range."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import filter as flt
+    from greptimedb_tpu_torch.ops import vector as V
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+    from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
+
+    def case(name, fn, outs, timed=None, **kw):
+        emit(name, **(timed or {"ms": c._timed(fn, reps)}), digest=_digest(outs),
+             enqueue_us=_enqueue_us(fn, reps), **kw, **(_profiled(fn) if prof else {}))
+
+    def k1_case(name, args, lits, rows, bound_ms):
+        fn = lambda: flt.mask_gids(*args, lits=lits)  # noqa: E731
+        got = fn()
+        want = flt.mask_gids_plain(*args)
+        plain = all(c._same_bytes(a, b) for a, b in zip(got, want))
+        case(name, fn, list(got), timed=c._timed_runs(fn, reps), rows=rows, bound_ms=bound_ms,
+             plain_bytes=plain)
+
+    n, codes, ts, valid, _vals = c.tsbs_planes(hosts, hours, 0, dev)
+    card = 1 << (max(hosts, 1) - 1).bit_length()
+    G = card * hours
+    lo, hi = c.T0, c.T0 + hours * c.H3600
+
+    # table-fed: phase 3's unpadded planes, the table uploaded a call
+    b, _by = c.bound(n * (1 + 8 + 4) + n * (4 + 1), n * 8)
+    k1_case("K1 table-fed", (valid, [(ts, ">=", lo), (ts, "<", hi)], [], [(codes, card)],
+                            (ts, c.T0, c.H3600, hours), G - 1), None, n, b)
+
+    # the tile path's chunks: the planes padded to 4096 rows, cut at 2^24
+    npad = pad_rows(n)
+    codes, ts = c._padded(codes, npad, 0), c._padded(ts, npad, 0)
+    valid = c._padded(valid, npad, False)
+    spans = list(range(0, npad, TILE_CHUNK_ROWS))
+    views = _tile_lits(flt, [(torch.int64, ">=", lo), (torch.int64, "<", hi)], c.T0, c.H3600,
+                       len(spans), dev)
+    for o, lits in zip(spans, views):
+        v_c, t_c, c_c = (x[o:o + TILE_CHUNK_ROWS] for x in (valid, ts, codes))
+        rows = int(v_c.shape[0])
+        args = (v_c, [(t_c, ">=", lo), (t_c, "<", hi)], [], [(c_c, card)],
+                (t_c, c.T0, c.H3600, hours), G - 1)
+        b, _by = c.bound(rows * (1 + 8 + 4) + rows * (4 + 1), rows * 8)
+        k1_case(f"K1 chunk {rows} tile", args, lits, rows, b)
+        k1_case(f"K1 chunk {rows} upload", args, None, rows, b)
+    del codes, ts, valid, views
+    torch.cuda.empty_cache()
+
+    # the wrapper's output allocation on the host, per call: two tensors,
+    # or one allocation cut into the ids and the mask (two views)
+    rows = TILE_CHUNK_ROWS
+
+    def two_allocations():
+        return (torch.empty(rows, dtype=torch.int32, device=dev),
+                torch.empty(rows, dtype=torch.bool, device=dev))
+
+    def one_allocation():
+        out = torch.empty(5 * rows, dtype=torch.uint8, device=dev)
+        return out[:4 * rows].view(torch.int32), out[4 * rows:].view(torch.bool)
+
+    for name, fn in (("two allocations", two_allocations), ("one allocation", one_allocation)):
+        us = _enqueue_us(fn, 20 * reps)
+        emit(f"host: K1 outputs, {name}", us / 1e3, None, enqueue_us=us)
+
+    # int64 ids at H1's inputs (phase 3e), both forms
+    _n, args = c.h1_group_ids(c.CM_HOURS, dev)
+    rows = int(args[0].shape[0])
+    b, _by = c.bound(rows * (1 + 8 + 3 * 4) + rows * (8 + 1), rows * 12)
+    (lits,) = _tile_lits(flt, [(torch.int64, ">=", c.T0),
+                               (torch.int64, "<", c.T0 + c.CM_HOURS * c.H3600)],
+                         c.T0, c.CM_BUCKET_MS, 1, dev)
+    k1_case("K1 int64 H1 tile", args, lits, rows, b)
+    k1_case("K1 int64 H1 upload", args, None, rows, b)
+    del args, lits
+    torch.cuda.empty_cache()
+
+    # K19 at phase 8's shape: integer rows (one in 4099 invalid), then
+    # uniform [0, 1) rows, whose distances carry rounding
+    rows, dim = c.SIFT_ROWS, c.SIFT_DIM
+    base, queries = c.sift_data(rows, dim)
+    valid_np = np.ones(rows, dtype=bool)
+    valid_np[::4099] = False
+    base[~valid_np] = 0.0
+    mat = torch.from_numpy(base).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    q = torch.from_numpy(queries[0]).to(dev)
+    rng = np.random.default_rng(c.SEED + 9)
+    real = torch.from_numpy(rng.random((rows, dim), dtype=np.float32)).to(dev)
+    qr = torch.from_numpy(rng.random(dim, dtype=np.float32)).to(dev)
+    lib = c._timed(lambda: torch.topk(torch.mv(mat, q), 10, largest=False), reps)
+    for metric in ("l2sq", "cos", "dot"):
+        fn = lambda m=metric: V.topk_distances(mat, valid, q, m, 10, True)  # noqa: E731
+        got = fn()
+        b, _by = c._vector_bound(rows, dim, 10, metric)
+        case(f"K19 {metric} k=10", fn, list(got), rows=rows, dim=dim, bound_ms=b,
+             library_ms=lib,
+             plain_bytes=all(c._same_bytes(x, y) for x, y in
+                             zip(got, V.topk_distances_plain(mat, valid, q, metric, 10, True))))
+        fr = lambda m=metric: V.topk_distances(real, valid, qr, m, 100, m != "dot")  # noqa: E731
+        case(f"K19 {metric} k=100 real", fr, list(fr()), rows=rows, dim=dim)
+    del mat, valid, real
+    torch.cuda.empty_cache()
+    base, queries = c.sift_data(rows // 10, dim)
+    big = torch.from_numpy(base).to(dev)
+    ones = torch.ones(base.shape[0], dtype=torch.bool, device=dev)
+    q = torch.from_numpy(queries[0]).to(dev)
+    fn = lambda: V.topk_distances(big, ones, q, "l2sq", 10_000, True)  # noqa: E731
+    b, _by = c._vector_bound(base.shape[0], dim, 10_000, "l2sq")
+    case("K19 l2sq k=10000 of 100000", fn, list(fn()), rows=base.shape[0], dim=dim, bound_ms=b,
+         library_ms=c._timed(lambda: torch.topk(torch.mv(big, q), 10_000, largest=False), reps))
+
+
 def tql_cases(c, hosts: int, hours: int, emit) -> None:
     """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
@@ -1005,6 +1156,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
         strip_hash_cases(c, hosts, hours, reps, prof, emit, dev)
     elif kset == "gather_last":
         gather_last_cases(c, hosts, hours, reps, prof, emit, dev)
+    elif kset == "mask_topk":
+        mask_topk_cases(c, hosts, hours, reps, prof, emit, dev)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:
@@ -1025,6 +1178,38 @@ def resource_usage(root: str, kset: str) -> dict:
     return out
 
 
+def sass_counts(root: str, label: str, out_dir: str, name: str = "mask_gids") -> dict:
+    """{kernel: (SASS instructions, CALL.REL.NOINC count)} of csrc/<name>.cu
+    in root (`cuobjdump -sass` of its cubin); the listing itself goes to
+    out_dir/sass_<label>_<name>.txt."""
+    import re
+
+    from greptimedb_tpu_torch.kernels._build import NVCC_FLAGS, nvcc_path
+
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    src = os.path.join(root, "greptimedb_tpu_torch", "csrc", f"{name}.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, f"{name}.cubin")
+        subprocess.run([nvcc_path(), *flags, "-cubin", "-o", cubin, src], check=True,
+                       capture_output=True, text=True)
+        cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True,
+                              text=True).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"sass_{label}_{name}.txt"), "w") as f:
+        f.write(sass)
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[fn][0] += 1
+            counts[fn][1] += "CALL.REL.NOINC" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout (the root of its tree)")
@@ -1035,6 +1220,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--tql", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"),
+                    help="where --set mask_topk writes its SASS listings")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -1054,6 +1241,9 @@ def main() -> int:
     for label, root in turns[:2]:
         print(json.dumps({"tree": label, "resource_usage": resource_usage(root, args.kset)}),
               flush=True)
+        if args.kset == "mask_topk":
+            print(json.dumps({"tree": label, "sass": sass_counts(root, label, args.out)}),
+                  flush=True)
     ms: dict[str, dict[str, list]] = {}
     digests: dict[str, set] = {}
     for i, (label, root) in enumerate(turns):
