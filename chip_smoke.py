@@ -507,11 +507,17 @@ def _rows_bucket(n: int) -> str:
     return f"2^{max(int(n) - 1, 0).bit_length()}"
 
 
+def _k7_shape(a) -> str | None:
+    """K7's calls by their G: a call's first launch (the one over every
+    group) counts, a merge launch does not."""
+    return None if a.cand else f"G<={_rows_bucket(a.num_groups)}"
+
+
 # Launches per shape of the kernels whose time depends on it: (kernel, C
 # entry point) -> the shape of one launch, from its argument struct.  Each
 # wrapper launches that entry point once a call (K2 and K6 once per 32 and
 # 16 columns; K22 once a merge, or as its launch plan splits it; K12 per
-# form: tw = 0 the cell form).
+# form: tw = 0 the cell form; K13 once a call, by G; K7 its calls, by G).
 SHAPED = {
     ("mask_gids", "gt_mask_gids"): lambda a: f"rows<={_rows_bucket(a.n)}",
     ("segment_reduce_blocked", "gt_blocked_partials"): lambda a: f"C={a.n_cols}",
@@ -522,6 +528,9 @@ SHAPED = {
                                                   f"rows<={_rows_bucket(a.total_rows)}"),
     ("series_fold", "gt_series_fold"): lambda a: f"tw={a.tw}",
     ("segment_sort", "gt_segment_sort"): lambda a: f"rows<={_rows_bucket(a.n)}",
+    ("having_mask", "gt_having_mask"): lambda a: f"G<={_rows_bucket(a.num_groups)}",
+    **{("topk_select", entry): _k7_shape
+       for entry in ("gt_topk_select", "gt_topk_round", "gt_topk_compact")},
 }
 SHAPES: dict[str, int] = {}
 # The arguments of each SHAPED entry point's last launch, and K22's
@@ -572,8 +581,10 @@ def count_shapes() -> None:
     def counted_shape(name, fn, args):
         shape = SHAPED.get((name, fn))
         if shape is not None:
-            key = f"{name} {shape(args)}"
-            SHAPES[key] = SHAPES.get(key, 0) + 1
+            what = shape(args)
+            if what is not None:
+                key = f"{name} {what}"
+                SHAPES[key] = SHAPES.get(key, 0) + 1
             LAST_ARGS[name] = args
 
     def counted(name, fn, args, stream):
@@ -649,9 +660,16 @@ def count_shapes() -> None:
         counted_shape("mask_gids", "gt_mask_gids", args)
         k1_launch(fn, args, stream)
 
+    launch_cached = agg._launch_cached
+
+    def cached(name, fn, args, stream):  # K7 and K13: entry points taken once
+        counted_shape(name, fn.__name__, args)
+        launch_cached(name, fn, args, stream)
+
     counted.counts_shapes = True
     _build.launch = counted
     flt._launch = k1
+    agg._launch_cached = cached
     agg._fold_on_card = merge
     agg._pack_on_card = pack
     perm._gather_on_card = gather
@@ -1397,7 +1415,11 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     out["limb_segment_sums"] = dict(k6[10], c1=k6[1], c5=k6[5], guard_fail=guard_fail)
 
     # K7 at groupby-orderby-limit's shape (minute buckets, one int key,
-    # descending, cap 5) and lastpoint's (hosts, no key, cap ~ hosts)
+    # descending, cap 5), at the live HAVING query's (G = 4096 x 14, cap 10,
+    # the f64 max with NaN as NULL, K13's mask as the survivors) and at
+    # lastpoint's (hosts, no key, cap ~ hosts), each a median of five.  The
+    # bound is bytes alone, whatever implements the select: the gate and
+    # each key's planes read once, the `cap` ids and the count written
     from greptimedb_tpu_torch.parallel.tile_planner import quantize_soft
 
     Gm = quantize_soft(n_min)
@@ -1410,27 +1432,47 @@ def run_tile_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     _compare(kn, pn, True, "topk keyed.n_out")
     fkey = vals[0][:Gm].contiguous()
     lib7 = _timed(lambda: torch.topk(fkey, 5), reps)
-    k7b, k7by = bound(Gm * (1 + 8) + 5 * 4 + 4, Gm * 10 * 11 / 2)  # bitonic compare-exchanges
+    k7b, k7by = bound(Gm * (1 + 8) + 5 * 4 + 4, 0)
+    states = select_states(dev)
+    G_live, pres_live, mu_live, _asys = states
+    _prog, _args, (live_mask, live_keys, _cap) = select_inputs("having-or-orderby-limit", dev, states)
+    ks3, kn3 = _twice_identical(lambda: agg.topk_group_select(live_mask, live_keys, 10),
+                                "topk keyed live")
+    ps3, pn3 = agg.topk_group_select_plain(live_mask, live_keys, 10)
+    _compare(ks3, ps3, True, "topk keyed live.sel")
+    _compare(kn3, pn3, True, "topk keyed live.n_out")
+    # the mask, the f64 key and its NULL plane read; 10 ids and the count written
+    k7lb, k7lby = bound(G_live * (1 + 8 + 1) + 10 * 4 + 4, 0)
     cap_l = quantize_soft(n_hosts)
     surv_l = torch.arange(card, device=dev) < n_hosts
     ks2, kn2 = _twice_identical(lambda: agg.topk_group_select(surv_l, [], cap_l), "topk compact")
     ps2, pn2 = agg.topk_group_select_plain(surv_l, [], cap_l)
     _compare(ks2, ps2, True, "topk compact.sel")
     _compare(kn2, pn2, True, "topk compact.n_out")
-    k7cb, k7cby = bound(card + cap_l * 4 + 4, card)
+    k7cb, k7cby = bound(card + cap_l * 4 + 4, 0)
     # the same compaction as one PyTorch call: the survivors' indices
     lib7c = _timed(lambda: torch.nonzero(surv_l), reps)
     out["topk_select"] = dict(
-        max_abs_err=0.0,
-        ms=_timed(lambda: agg.topk_group_select(surv, keys, 5), reps),
+        max_abs_err=0.0, groups=Gm, cap=5,
+        **_timed_runs(lambda: agg.topk_group_select(surv, keys, 5), reps),
         plain_ms=_timed(lambda: agg.topk_group_select_plain(surv, keys, 5), reps),
         bound_ms=k7b, bound_by=k7by, library_ms=lib7,
+        live=dict(
+            groups=G_live, cap=10,
+            **_timed_runs(lambda: agg.topk_group_select(live_mask, live_keys, 10), reps),
+            plain_ms=_timed(lambda: agg.topk_group_select_plain(live_mask, live_keys, 10), reps),
+            bound_ms=k7lb, bound_by=k7lby,
+            library_ms=_timed(lambda: torch.topk(mu_live, 10), reps),
+        ),
         compact=dict(
-            ms=_timed(lambda: agg.topk_group_select(surv_l, [], cap_l), reps),
+            groups=card, cap=cap_l,
+            **_timed_runs(lambda: agg.topk_group_select(surv_l, [], cap_l), reps),
             plain_ms=_timed(lambda: agg.topk_group_select_plain(surv_l, [], cap_l), reps),
             bound_ms=k7cb, bound_by=k7cby, library_ms=lib7c,
         ),
+        select_stage=run_select_stage(dev, reps, states),
     )
+    del states, live_mask, live_keys, pres_live, mu_live, _asys, _args, _prog
 
     # K8 dense at G = 4096 x 12: bit-packed presence, 10 f32 avg rows, the
     # verdict over 10 limb columns (double-groupby-all's layout); compact
@@ -1544,6 +1586,32 @@ def run_tile_edge_cases(dev) -> None:
         ks = agg.topk_group_select(m, [], cap)
         ps = agg.topk_group_select_plain(m, [], cap)
         _compare(ks[0], ps[0], True, f"edge topk compact cap={cap}")
+    # the select's forms: keys read from the states (a count plane NULL at
+    # 0 with NaN as NULL, a dim coordinate), a count plane as the gate, one
+    # launch and (past TOPK_ONE_LAUNCH_GROUPS) a grid and a merge; int64
+    # ends descending, every key equal, no survivor; caps on both sides of
+    # the select's 32
+    for G in (1, 31, 768, agg.TOPK_ONE_LAUNCH_GROUPS + 4099):
+        v = rng.uniform(0, 9, G).round(1)
+        v[rng.random(G) < 0.05] = np.nan
+        i64 = rng.integers(-3, 3, G).astype(np.int64)
+        i64[rng.random(G) < 0.02] = np.iinfo(np.int64).min
+        i64[rng.random(G) < 0.02] = np.iinfo(np.int64).max
+        cnt = t(rng.integers(0, 3, G).astype(np.int32))
+        cases = {
+            "refs": [(agg.HavingRef(values=t(v), counts=cnt, nan_null=True), False, True),
+                     (agg.HavingRef(div=7, card=11), True, False)],
+            "int64 ends": [(t(i64), None, False, False)],
+            "all equal": [(t(np.zeros(G)), None, True, True), (agg.HavingRef(div=G, card=1), False, True)],
+        }
+        for gate_name, gate in (("count", cnt), ("none", t(np.zeros(G, bool)))):
+            for name, keys in cases.items():
+                for cap in sorted({1, min(10, G), min(32, G), min(33, G)}):
+                    what = f"edge topk G={G} {name} gate={gate_name} cap={cap}"
+                    ks = _twice_identical(lambda: agg.topk_group_select(gate, keys, cap), what)
+                    ps = agg.topk_group_select_plain(gate, keys, cap)
+                    _compare(ks[0], ps[0], True, what)
+                    _compare(ks[1], ps[1], True, what + " n_out")
     w = np.array([5e-324, -5e-324, 1e-310, np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5,
                   -2.2250738585072014e-308, 123.456] * 250)
     wv = t(w)
@@ -2011,20 +2079,40 @@ def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     )
     del patch, positions, spread, dv, db_, di, f64_c, codes_c, valid_c, ts_c
 
-    # K13 at G = 4096 x 16 with every op, NULL and NaN
+    # K13 at G = 4096 x 16 with every op, NULL and NaN, and at the live
+    # HAVING queries' shape (their trees over G = 4096 x 14); each a median
+    # of five.  Bound: the planes the refs name and presence read once, a
+    # byte a group written
     G = 4096 * 16
     tree, refs, lits, presence = having_case(G, dev, SEED)
     k = _twice_identical(lambda: agg.having_mask(tree, refs, lits, presence), "having_mask")
     _compare(k, agg.having_mask_plain(tree, refs, lits, presence), True, "having_mask")
     planes = {id(t): t for r in refs.values() for t in (r.values, r.counts) if t is not None}
-    k13b, k13by = bound(sum(t.numel() * t.element_size() for t in planes.values())
-                        + presence.numel() * 4 + G, G * 12)
+    planes[id(presence)] = presence
+    k13b, k13by = bound(sum(t.numel() * t.element_size() for t in planes.values()) + G, 0)
+    live = {}
+    g_live, pres_live, mu_live, as_live = select_states(dev)
+    live_refs = {SELECT_MU: agg.HavingRef(values=mu_live, nan_null=True),
+                 SELECT_AS: agg.HavingRef(values=as_live, nan_null=True),
+                 SELECT_N: agg.HavingRef(values=pres_live)}
+    for q, q_tree in HAVING_TREES.items():
+        hv = torch.tensor(HAVING_LITERALS[q], dtype=torch.float64, device=dev)
+        fn = lambda q_tree=q_tree, hv=hv: agg.having_mask(q_tree, live_refs, hv, pres_live)  # noqa: E731
+        k = _twice_identical(fn, f"having_mask {q}")
+        _compare(k, agg.having_mask_plain(q_tree, live_refs, hv, pres_live), True,
+                 f"having_mask {q}")
+        used = {id(live_refs[r].values): live_refs[r].values for r in agg.having_refs(q_tree)}
+        used[id(pres_live)] = pres_live
+        lb, lby = bound(sum(t.numel() * t.element_size() for t in used.values()) + g_live, 0)
+        live[q] = dict(groups=g_live, **_timed_runs(fn, reps), enqueue_us=_enqueue_us(fn, reps),
+                       bound_ms=lb, bound_by=lby)
     out["having_mask"] = dict(
         max_abs_err=0.0, groups=G,
-        ms=_timed(lambda: agg.having_mask(tree, refs, lits, presence), reps),
+        **_timed_runs(lambda: agg.having_mask(tree, refs, lits, presence), reps),
         plain_ms=_timed(lambda: agg.having_mask_plain(tree, refs, lits, presence), reps),
-        bound_ms=k13b, bound_by=k13by, library_ms=None,
+        bound_ms=k13b, bound_by=k13by, library_ms=None, live=live,
     )
+    del live_refs, pres_live, mu_live, as_live
     torch.cuda.empty_cache()
     run_plane_edge_cases(dev)
     return out
@@ -2065,6 +2153,146 @@ def having_case(G: int, dev, seed: int):
                 ("and", ("cmp", "!=", ("dim", 0), 5), ("cmp", "=", mu, 4)))))))
     lits = t(np.array([99.5, 60.0, 2.0, 3.0, np.nan, 5.0]))
     return tree, refs, lits, t(presence)
+
+
+# The select stage (TileProgram.device_select: K13, then K7) at the main
+# path's query shapes.  The live HAVING queries (`having_queries` on the
+# live phase's region): 4000 + LIVE_NEW_HOSTS hosts, a tag card of 4096,
+# over a 12 h window ending LIVE_MINUTES past the hour, 13 hour buckets (14
+# after quantize_soft): G = 4096 x 14.  groupby-orderby-limit: 720 minute
+# buckets (768), ORDER BY minute DESC LIMIT 5, no HAVING.
+SELECT_CARD, SELECT_BUCKETS = 4096, 14
+SELECT_MU, SELECT_AS, SELECT_N = (("agg", "usage_user", "max"), ("agg", "usage_system", "avg"),
+                                  ("agg", "__count_star", "count"))
+SELECT_QUERIES = ("groupby-orderby-limit", "having-or-orderby-limit", "having-and-not")
+HAVING_TREES = {
+    "having-or-orderby-limit": ("or", ("cmp", ">", SELECT_MU, 0), ("cmp", "<", SELECT_N, 1)),
+    "having-and-not": ("and", ("cmp", ">", SELECT_MU, 0),
+                       ("not", ("cmp", ">=", SELECT_AS, 1))),
+}
+HAVING_LITERALS = {"having-or-orderby-limit": (99.0, 300.0), "having-and-not": (99.5, 60.0)}
+
+
+def select_states(dev, seed: int = SEED):
+    """Finalized [G] states of the live HAVING queries' shape: presence
+    (360 rows a full host-hour, 180 in the partial ones, 0 in the padded
+    groups, a few at random), max(usage_user) and avg(usage_system) (f64,
+    NaN in a few groups and the empty ones; no count plane: the columns
+    are not nullable).  Returns (G, presence, mu, asys)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    G = SELECT_CARD * SELECT_BUCKETS
+    host, bucket = np.arange(G) // SELECT_BUCKETS, np.arange(G) % SELECT_BUCKETS
+    presence = np.where((bucket == 0) | (bucket == 12), 180, 360)
+    presence[(bucket == 13) | (host >= 4000 + LIVE_NEW_HOSTS)] = 0
+    presence = np.where(rng.random(G) < 0.01, rng.integers(1, 300, G), presence).astype(np.int32)
+    mu = np.round(rng.uniform(90, 100, G), 1)
+    mu[rng.random(G) < 0.002] = np.nan
+    asys = rng.uniform(0, 100, G)
+    asys[rng.random(G) < 0.002] = np.nan
+    mu[presence == 0], asys[presence == 0] = np.nan, np.nan
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return G, t(presence), t(mu), t(asys)
+
+
+def select_program(kind: str):
+    """A TileProgram whose device_select is the one of query `kind`."""
+    from greptimedb_tpu_torch.parallel.executor import DistGroupByPlan
+    from greptimedb_tpu_torch.parallel.tile_program import TileProgram
+    from greptimedb_tpu_torch.query.device_finalize import DeviceFinalizeSpec
+
+    if kind == "groupby-orderby-limit":
+        plan = DistGroupByPlan(group_tags=(), tag_cards=(), bucket_col="ts", bucket_origin=0,
+                               bucket_interval=60_000, n_buckets=768,
+                               agg_specs=(("max", "usage_user"),), ts_col="ts")
+        spec = DeviceFinalizeSpec(order=((("dim", 0), False, True),), limit=5, cap=5)
+        return TileProgram(plan, (), spec)
+    plan = DistGroupByPlan(group_tags=("hostname",), tag_cards=(SELECT_CARD,), bucket_col="ts",
+                           bucket_origin=0, bucket_interval=H3600, n_buckets=SELECT_BUCKETS,
+                           agg_specs=(("max", "usage_user"), ("avg", "usage_system"),
+                                      ("count", "__count_star")), ts_col="ts")
+    if kind == "having-or-orderby-limit":
+        spec = DeviceFinalizeSpec(order=((SELECT_MU, False, True),), having=HAVING_TREES[kind],
+                                  n_having_values=2, limit=10, cap=10)
+    else:  # no LIMIT: the cap bounds the non-empty groups (quantize_soft(4096 x 13))
+        spec = DeviceFinalizeSpec(having=HAVING_TREES[kind], n_having_values=2,
+                                  cap=SELECT_CARD * SELECT_BUCKETS)
+    return TileProgram(plan, (), spec)
+
+
+class _NoCounts:
+    """A merged state without a count plane (a column that is not nullable)."""
+
+    counts = None
+
+
+def select_inputs(kind: str, dev, states=None):
+    """(program, its device_select's arguments (merged, outs, presence,
+    hv), the plain version's (mask, keys, cap)) of query `kind`."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    prog = select_program(kind)
+    spec = prog.spec
+    hv = torch.tensor(HAVING_LITERALS.get(kind, (0.0,)), dtype=torch.float64, device=dev)
+    if kind == "groupby-orderby-limit":
+        pres = torch.where(torch.arange(768, device=dev) < 690, 360, 0).to(torch.int32)
+        merged = {"usage_user": _NoCounts(), "__presence": _NoCounts()}
+        outs = {"__presence": {"count": pres},
+                "usage_user": {"max": torch.zeros(768, dtype=torch.float64, device=dev)}}
+        keys = [(torch.arange(768, dtype=torch.int64, device=dev), None, False, True)]
+        return prog, (merged, outs, pres, hv), (pres > 0, keys, spec.cap)
+    _g, pres, mu, asys = states if states is not None else select_states(dev)
+    merged = {"usage_user": _NoCounts(), "usage_system": _NoCounts(), "__presence": _NoCounts()}
+    outs = {"__presence": {"count": pres}, "usage_user": {"max": mu}, "usage_system": {"avg": asys}}
+    refs = {SELECT_MU: agg.HavingRef(values=mu, nan_null=True),
+            SELECT_AS: agg.HavingRef(values=asys, nan_null=True),
+            SELECT_N: agg.HavingRef(values=pres)}
+    mask = agg.having_mask_plain(spec.having, refs, hv, pres)
+    keys = [(mu, torch.isnan(mu), asc, nf) for _ref, asc, nf in spec.order]
+    return prog, (merged, outs, pres, hv), (mask, keys, spec.cap)
+
+
+# The select stage's kernels, by their names on the card
+SELECT_KERNELS = ("having_kernel", "topk_select_kernel", "topk_compact_kernel",
+                  "topk_round_kernel")
+
+
+def run_select_stage(dev, reps: int, states) -> dict:
+    """TileProgram.device_select at SELECT_QUERIES' shapes, as the tile
+    program calls it: each output byte for byte its plain version (twice),
+    the time a median of five with its device split and host enqueue.
+    Fails unless one call puts on the card exactly the kernels planned —
+    K13 where there is a HAVING, then K7 as `topk_launch_plan` launches it
+    — and no memset, no copy and no other kernel."""
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
+    out = {}
+    for q in SELECT_QUERIES:
+        prog, args, (mask, keys, cap) = select_inputs(q, dev, states)
+        fn = lambda prog=prog, args=args: prog.device_select(*args)  # noqa: E731
+        ks, kn = _twice_identical(fn, f"device_select {q}")
+        ps, pn = agg.topk_group_select_plain(mask, keys, cap)
+        _compare(ks, ps, True, f"device_select {q}.sel")
+        _compare(kn, pn, True, f"device_select {q}.n_out")
+        g = int(mask.shape[0])
+        planned = int(prog.spec.having is not None) + len(
+            agg.topk_launch_plan(g, cap, len(prog.spec.order)))
+        api = _runtime_calls(fn)
+        ops = _device_ops(fn, calls=3)
+        launched = sum(n for key, (_us, n) in ops.items() if _kernel_name(key) in SELECT_KERNELS)
+        other = [key for key in ops if _kernel_name(key) not in SELECT_KERNELS]
+        if other or launched != 3 * planned or sum(api.values()) != planned \
+                or any(not key.startswith("cudaLaunch") for key in api):
+            raise AssertionError(f"device_select {q}: {planned} kernels planned a call; runtime "
+                                 f"calls {api}, device ops of 3 calls {ops}")
+        out[q] = dict(groups=g, cap=cap, kernels_per_call=planned, **_timed_runs(fn, reps),
+                      enqueue_us=_enqueue_us(fn, reps),
+                      device_us={_kernel_name(k): us / n for k, (us, n) in ops.items() if n})
+        emit({"phase": "select_stage", "query": q, **out[q]})
+    return out
 
 
 def run_plane_edge_cases(dev) -> None:
@@ -3601,7 +3829,8 @@ def run_live_phase(db, tsbs: Tsbs, is_cuda: bool, full_size: bool,
             emit({"phase": "live_query", "name": name, **per_query[name]})
     finally:
         tile_planner.plan_device_finalize = real_plan
-    totals = launch_counts()  # the live phase's launches end here
+    totals, shapes = launch_counts(), shape_counts()  # the live phase's launches end here
+    having_tick = run_having_tick(db, live, is_cuda)
     # K15's launches here: the gathers of the rebuilt time-major copies,
     # one call a build as planned, and the delta route's remaps
     k15 = dict(K15_PLANNED)
@@ -3610,8 +3839,46 @@ def run_live_phase(db, tsbs: Tsbs, is_cuda: bool, full_size: bool,
     rebuild = check_against_rebuild(db, "public.cpu", ["hostname"], "ts", is_cuda)
     out = {"rows": rows, "append_s": append_s, "delta": delta, **rebuild,
            "seconds": time.perf_counter() - t0, "queries": per_query, "launches": totals,
-           "k15_calls": k15}
+           "shape_launches": shapes, "k15_calls": k15, "having_tick": having_tick}
     emit({"phase": "live", **{k: v for k, v in out.items() if k != "queries"}})
+    return out
+
+
+def run_having_tick(db, tsbs: Tsbs, is_cuda: bool, n_ticks: int = 2) -> dict:
+    """The two HAVING queries as one dashboard tick (K13 and K7 inside the
+    tick program's CUDA graph), then the same with their HAVING literals
+    changed: the second series must replay the first's program (no new
+    capture) with the literals rewritten in its input buffer, and every
+    result must equal its solo run's bytes — and at least one differs from
+    the first series', so the rewrite is seen."""
+    eng = db.query_engine
+    bc = db.config.batch
+    tile = eng.tile_executor()
+    named = having_queries(tsbs)
+    moved = [(f"{name} (literals moved)",
+              sql.replace("> 99.5 AND", "> 99.2 AND").replace(">= 60)", ">= 55)")
+              .replace("> 99 OR", "> 101 OR"))
+             for name, sql in named]
+    if any(a == b for (_n, a), (_m, b) in zip(named, moved)):
+        raise AssertionError("the HAVING tick's moved literals did not change a query")
+    bc.window_ms, bc.max_members, bc.fuse_programs = 0.0, 16, True
+    refs, _ms = _solo_refs(db, named, is_cuda, reps=1)
+    moved_refs, _ms = _solo_refs(db, moved, is_cuda, reps=1)
+    if all(refs[a] == moved_refs[b] for (_n, a), (_m, b) in zip(named, moved)):
+        raise AssertionError("the moved HAVING literals give the same results")
+    bc.window_ms = TICK_WINDOW_MS
+    try:
+        first = _tick_series(db, named, refs, n_ticks, "having")
+        program = tile.last_tick
+        second = _tick_series(db, moved, moved_refs, n_ticks, "having, literals moved")
+    finally:
+        bc.window_ms = 0.0
+    captured = [t["new_programs"] for t in first + second]
+    if captured != [1] + [0] * (2 * n_ticks - 1) or tile.last_tick is not program:
+        raise AssertionError(f"HAVING tick programs built: {captured} (expected one, then none)")
+    out = {"ticks": len(captured), "captures": sum(captured),
+           "replay_ms": [t["stage_ms"]["replay"] for t in first[1:] + second]}
+    emit({"phase": "having_tick", **out})
     return out
 
 
@@ -6249,6 +6516,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    from greptimedb_tpu_torch.ops import aggregate as agg
+
     kernels = []
     tick = sl["tick"]
     # B19: the tick program, one CUDA graph replay per tick (phase 5c); its
@@ -6366,8 +6635,11 @@ def main(argv=None) -> int:
                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "tile_launches": tile_launches, "live_launches": live_launches,
                 **{k: s[k] for k in ("remap", "multi", "passes", "key_bytes", "sort_launches",
-                                     "jittered")
+                                     "jittered", "groups", "ms_range", "live")
                    if k in s},
+                # K13: its calls by G on the live phase's HAVING queries
+                **({"launches_by_groups": {"live": by_shape(sl["live"]["shape_launches"], name)}}
+                   if name == _HAVING else {}),
                 # K15's gathers: one multi-plane call a time-major build, its
                 # launches as its plan makes them (tile phase, live phase)
                 **({"gather_calls": {"tile": sl["tile"]["k15_calls"],
@@ -6406,8 +6678,19 @@ def main(argv=None) -> int:
                if name == _MASK else {}),
             **(_k1_figures(s["chunk"], by_shape(sl["tile"]["shape_launches"], name), "upload")
                if name == _MASK else {}),
+            # K7: its calls by G on the tile path, the ticks and the live
+            # phase (its HAVING queries)
+            **({"launches_by_groups": {
+                "tile": by_shape(sl["tile"]["shape_launches"], name),
+                "tick": by_shape(tick["shape_launches"], name),
+                "live": by_shape(sl["live"]["shape_launches"], name)},
+                "launch_plans": {f"G={g} cap={cap} keys={n}": agg.topk_launch_plan(g, cap, n)
+                                 for g, cap, n in ((768, 5, 1), (SELECT_CARD * SELECT_BUCKETS, 10, 1),
+                                                   (4096, 4096, 0))}}
+               if name == _TOPK else {}),
             **{k: s[k] for k in ("alone_ms", "c1", "c5", "guard_fail", "compact", "int64", "chunk",
-                                 "ms_range", "enqueue_us", "device_us",
+                                 "ms_range", "enqueue_us", "device_us", "live", "select_stage",
+                                 "groups", "cap",
                                  "hash_slots", "predicated", "falling", "passes", "key_bytes",
                                  "sort_launches")
                if k in s},

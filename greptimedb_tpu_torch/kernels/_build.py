@@ -141,7 +141,7 @@ _EXPORTS = {
     "segment_last": ("gt_last_partials", "gt_last_fold", "gt_last_sorted"),
     "quantize_limbs": ("gt_quantize_limbs",),
     "limb_segment_sums": ("gt_limb_partials", "gt_limb_fold", "gt_limb_runs"),
-    "topk_select": ("gt_topk_round", "gt_topk_compact"),
+    "topk_select": ("gt_topk_select", "gt_topk_round", "gt_topk_compact"),
     "pack_result": ("gt_pack_result",),
     "strip_counter_resets": ("gt_strip_counter_resets",),
     "range_windows": ("gt_range_layout", "gt_range_windows"),

@@ -1594,6 +1594,14 @@ def unpack_f64_bits(hilo) -> np.ndarray:
 TOPK_MAX_KEYS = 4
 # keyed selection keeps `cap` of every 1024-candidate chunk per round
 TOPK_MAX_KEYED_CAP = 512
+# keyed caps up to this take the select (csrc/topk_select.cu): one launch of
+# a cluster of CTAs up to TOPK_ONE_LAUNCH_GROUPS groups, past it a grid of
+# _TOPK_GRID_UNITS clusters and one merge launch (tools/select_variants.py
+# on the H100: one cluster was fastest up to 2^16 groups and even at 2^17,
+# eight from 2^18 to 2^22); larger caps the bitonic rounds
+TOPK_SELECT_CAP = 32
+TOPK_ONE_LAUNCH_GROUPS = 1 << 17
+_TOPK_GRID_UNITS = 8
 _I64_MAX = int(np.iinfo(np.int64).max)
 
 
@@ -1616,12 +1624,24 @@ def _order_key(values: torch.Tensor, isnull, ascending: bool) -> torch.Tensor:
     return v if ascending else -v  # torch int64 negation wraps
 
 
+def _resolved_key(key, g: int, dev) -> tuple:
+    """(values, isnull, ascending, nulls_first) of an ORDER BY key given
+    either so or as (HavingRef, ascending, nulls_first)."""
+    if len(key) == 3:
+        ref, ascending, nulls_first = key
+        values, isnull = ref.resolve(g, dev)
+        return values, isnull, ascending, nulls_first
+    return key
+
+
 def topk_group_select_plain(mask, order_keys, cap: int):
     """Torch-op version of K7: stable sorts, least significant key first."""
     G = mask.shape[0]
     dev = mask.device
+    if mask.dtype != torch.bool:
+        mask = mask > 0
     keys = [torch.where(mask, 0, 1).to(torch.int64)]
-    for values, isnull, ascending, nulls_first in order_keys:
+    for values, isnull, ascending, nulls_first in (_resolved_key(k, G, dev) for k in order_keys):
         if isnull is not None:
             keys.append(torch.where(isnull, -1 if nulls_first else 1, 0).to(torch.int64))
         keys.append(_order_key(values, isnull, ascending))
@@ -1631,96 +1651,257 @@ def topk_group_select_plain(mask, order_keys, cap: int):
     return perm[:cap].to(torch.int32), mask.sum().to(torch.int32).reshape(1)
 
 
-class _TopkKeys(ctypes.Structure):
+# ---- the select stage's per-group operands (csrc/group_ref.cuh), K7 and K13 ----------
+
+_GROUP_VTYPE = {torch.float64: 0, torch.float32: 1, torch.int32: 2, torch.int64: 3,
+                torch.bool: 4, torch.uint8: 4}
+_NULL_PLANE = 1
+_COUNT_NTYPE = {torch.int32: 2, torch.int64: 3}
+_U31 = (1 << 31) - 1
+
+
+class _GroupRef(ctypes.Structure):
     _fields_ = [
-        ("mask", ctypes.c_void_p),
-        ("values", ctypes.c_void_p * TOPK_MAX_KEYS),
-        ("isnull", ctypes.c_void_p * TOPK_MAX_KEYS),
-        ("is_float", ctypes.c_int32 * TOPK_MAX_KEYS),
-        ("ascending", ctypes.c_int32 * TOPK_MAX_KEYS),
-        ("nulls_first", ctypes.c_int32 * TOPK_MAX_KEYS),
-        ("n_keys", ctypes.c_int32), ("num_groups", ctypes.c_int32),
+        ("values", ctypes.c_void_p), ("nulls", ctypes.c_void_p), ("vtype", ctypes.c_int32),
+        ("ntype", ctypes.c_int32), ("nan_null", ctypes.c_int32), ("card", ctypes.c_uint32),
+        ("div_mul", ctypes.c_uint32), ("div_shift", ctypes.c_uint32),
+        ("card_mul", ctypes.c_uint32), ("card_shift", ctypes.c_uint32),
     ]
 
 
-class _TopkRound(ctypes.Structure):
-    _fields_ = [
-        ("keys", _TopkKeys), ("cand", ctypes.c_void_p), ("n_cand", ctypes.c_int64),
-        ("out", ctypes.c_void_p), ("n_out", ctypes.c_void_p),
-        ("cap", ctypes.c_int32), ("reserved", ctypes.c_int32),
-    ]
+# a _GroupRef's two pointers, packed in one call at its offset in an array
+_REF_PTRS = struct.Struct("<QQ")
+_REF_SIZE = ctypes.sizeof(_GroupRef)
 
 
-class _CompactArgs(ctypes.Structure):
+def _div_magic(d: int) -> tuple[int, int]:
+    """(mul, shift) with n // d == (n * mul) >> shift for every 0 <= n <
+    2^31 and 1 <= d < 2^31 (Granlund-Montgomery thm 4.2, N = 31: mul =
+    floor(2^(31 + l) / d) + 1 with l = ceil(log2 d), below 2^32)."""
+    if not 1 <= d <= _U31:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    lg = (d - 1).bit_length()
+    return (1 << (31 + lg)) // d + 1, 31 + lg
+
+
+def _ref_structure(ref: "HavingRef") -> tuple:
+    """What of a HavingRef a cached K7 / K13 structure depends on."""
+    if ref.values is None:
+        return ("dim", int(ref.div), max(int(ref.card), 1))
+    return (ref.values.dtype, None if ref.counts is None else ref.counts.dtype,
+            bool(ref.nan_null) and ref.values.is_floating_point())
+
+
+def _fill_group_ref(c: _GroupRef, structure: tuple) -> None:
+    """A _GroupRef's fields but its pointers, from `_ref_structure` (or a
+    key's (values dtype, "plane" or None, False))."""
+    if structure[0] == "dim":
+        div, card = (min(x, _U31) for x in structure[1:])
+        c.card = card
+        c.div_mul, c.div_shift = _div_magic(div)
+        c.card_mul, c.card_shift = _div_magic(card)
+        return
+    vdtype, nulls, nan_null = structure
+    if vdtype not in _GROUP_VTYPE:
+        raise ValueError(f"select-stage operand of dtype {vdtype}")
+    c.vtype = _GROUP_VTYPE[vdtype]
+    if nulls == "plane":
+        c.ntype = _NULL_PLANE
+    elif nulls is not None:
+        if nulls not in _COUNT_NTYPE:
+            raise ValueError(f"count plane of dtype {nulls}")
+        c.ntype = _COUNT_NTYPE[nulls]
+    c.nan_null = int(nan_null)
+
+
+def _rows_ptr(t: torch.Tensor, g: int, dev) -> int:
+    _check_rows(t, t.dtype, g, dev)
+    return t.data_ptr()
+
+
+class _TopkArgs(ctypes.Structure):
     _fields_ = [
-        ("mask", ctypes.c_void_p), ("sel", ctypes.c_void_p), ("n_out", ctypes.c_void_p),
-        ("num_groups", ctypes.c_int64), ("cap", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("keys", _GroupRef * TOPK_MAX_KEYS), ("gate", ctypes.c_void_p), ("cand", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("n_out", ctypes.c_void_p), ("counts_out", ctypes.c_void_p),
+        ("counts_in", ctypes.c_void_p), ("gate_type", ctypes.c_int32), ("n_keys", ctypes.c_int32),
+        ("ascending", ctypes.c_int32), ("nulls_first", ctypes.c_int32), ("n_cand", ctypes.c_int32),
+        ("cap", ctypes.c_int32), ("n_counts_in", ctypes.c_int32), ("units", ctypes.c_int32),
+        ("num_groups", ctypes.c_int32), ("reserved", ctypes.c_int32),
     ]
 
 
 _TOPK_CHUNK = 1024
+_GATE_TYPE = {torch.bool: 4, torch.uint8: 4, torch.int32: 2, torch.int64: 3}
+
+
+def topk_launch_plan(num_groups: int, cap: int, n_keys: int) -> list[tuple[str, int]]:
+    """The launches of one K7 call, in order: (entry point, grid units) —
+    "compact" (one CTA), "select" (clusters of 8 CTAs) or "round" (a CTA
+    a chunk of 1024 candidates)."""
+    if n_keys == 0:
+        return [("gt_topk_compact", 1)]
+    if cap <= TOPK_SELECT_CAP:
+        if num_groups <= TOPK_ONE_LAUNCH_GROUPS:
+            return [("gt_topk_select", 1)]
+        return [("gt_topk_select", _TOPK_GRID_UNITS), ("gt_topk_select", 1)]
+    plan, n = [], num_groups
+    while True:
+        chunks = -(-n // _TOPK_CHUNK)
+        plan.append(("gt_topk_round", chunks))
+        if chunks == 1:
+            return plan
+        n = chunks * cap
+
+
+class _TopkLayout:
+    """The structure of a K7 call, built once and reused: the argument
+    struct with every field but the pointers and the per-launch counts,
+    the launch plan and its entry points."""
+
+    __slots__ = ("template", "plan", "fns", "converts")
+
+    def __init__(self, gate_dtype, structures, cap: int, g: int):
+        a = _TopkArgs()
+        if gate_dtype not in _GATE_TYPE:
+            raise ValueError(f"topk survivor gate of dtype {gate_dtype}")
+        a.gate_type = _GATE_TYPE[gate_dtype]
+        a.n_keys, a.cap, a.num_groups = len(structures), cap, g
+        self.converts = []
+        for i, (structure, ascending, nulls_first) in enumerate(structures):
+            vdtype = structure[0]
+            convert = None
+            if vdtype != "dim" and vdtype not in _GROUP_VTYPE:
+                # taken as the parent took every key: f64 or int64
+                convert = torch.float64 if vdtype.is_floating_point else torch.int64
+                structure = (convert, *structure[1:])
+            self.converts.append(convert)
+            _fill_group_ref(a.keys[i], structure)
+            a.ascending |= int(bool(ascending)) << i
+            a.nulls_first |= int(bool(nulls_first)) << i
+        self.template = bytes(a)
+        self.plan = topk_launch_plan(g, cap, len(structures))
+        self.fns = None
+
+
+_TOPK_LAYOUTS: dict[tuple, _TopkLayout] = {}
+_MAX_LAYOUTS = 256
+
+
+def _key_structure(key) -> tuple:
+    """(GroupRef structure, ascending, nulls_first) of an ORDER BY key."""
+    if len(key) == 3:
+        ref, ascending, nulls_first = key
+        return _ref_structure(ref), bool(ascending), bool(nulls_first)
+    values, isnull, ascending, nulls_first = key
+    return ((values.dtype, None if isnull is None else "plane", False), bool(ascending),
+            bool(nulls_first))
+
+
+def _key_planes(key, convert) -> tuple:
+    """(values or None, NULL or count plane or None) a key's GroupRef reads."""
+    if len(key) == 3:
+        ref = key[0]
+        values, nulls = ref.values, ref.counts
+    else:
+        values, nulls = key[0], key[1]
+    if convert is not None:
+        values = values.to(convert)
+    return values, nulls
+
+
+def topk_layout(gate_dtype, order_keys: list, cap: int, g: int) -> _TopkLayout:
+    """The cached `_TopkLayout` of a K7 call's structure: the gate's dtype,
+    each key's form, dtypes, NULL rule, direction and dim divisors, the cap
+    and G; the operands themselves are not part of it."""
+    structures = tuple(_key_structure(k) for k in order_keys)
+    key = (gate_dtype, structures, int(cap), int(g))
+    lay = _TOPK_LAYOUTS.get(key)
+    if lay is None:
+        lay = _TopkLayout(gate_dtype, structures, int(cap), int(g))
+        if len(_TOPK_LAYOUTS) >= _MAX_LAYOUTS:
+            _TOPK_LAYOUTS.clear()
+        _TOPK_LAYOUTS[key] = lay
+    return lay
+
+
+def _launch_cached(name: str, fn, args, stream: int) -> None:
+    """One launch through an entry point a cached layout took once (K7,
+    K13); raises on a launch error."""
+    err = fn(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 def topk_group_select(mask: torch.Tensor, order_keys: list, cap: int):
     """K7: the first `cap` groups ordered survivors first, then by each
-    key (values [G], isnull [G] bool or None, ascending, nulls_first) with
-    an explicit null bucket, ties broken by group id ascending — the order
-    of the reference's multi-operand lax.sort.  Returns (sel int32 [cap],
-    n_out int32 [1], the survivor count).  A CUDA tensor launches
-    csrc/topk_select.cu (keyed caps above TOPK_MAX_KEYED_CAP raise); a CPU
-    tensor runs `topk_group_select_plain`."""
+    key with an explicit null bucket, ties broken by group id ascending —
+    the order of the reference's multi-operand lax.sort.  `mask` is the
+    survivor gate: bool [G], or a count plane (int32 / int64 [G], a
+    survivor where > 0).  Each key is (values [G], isnull [G] bool or
+    None, ascending, nulls_first), or (HavingRef, ascending, nulls_first):
+    the kernel then reads the ref's planes as they lie (its count plane
+    NULL where 0, NaN as NULL, or a dim coordinate of the group id).
+    Returns (sel int32 [cap], n_out int32 [1], the survivor count).  A CUDA
+    tensor launches csrc/topk_select.cu as `topk_launch_plan` says (keyed
+    caps above TOPK_MAX_KEYED_CAP raise); the call's structure is built
+    once and reused.  A CPU tensor runs `topk_group_select_plain`."""
     if mask.device.type == "cpu":
         return topk_group_select_plain(mask, order_keys, cap)
-    from ..kernels._build import launch
-
     dev = mask.device
     G = int(mask.shape[0])
     cap = int(cap)
     if not 0 < cap <= G:
         raise ValueError(f"topk cap {cap} outside (0, {G}]")
-    _check_rows(mask, torch.bool, G, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sel = torch.empty(cap, dtype=torch.int32, device=dev)
-    n_out = torch.zeros(1, dtype=torch.int32, device=dev)
-    if not order_keys:
-        a = _CompactArgs(mask.data_ptr(), sel.data_ptr(), n_out.data_ptr(), G, cap, 0)
-        topk_group_select.launches += 1
-        launch("topk_select", "gt_topk_compact", a, stream)
-        return sel, n_out
-    if len(order_keys) > TOPK_MAX_KEYS or cap > TOPK_MAX_KEYED_CAP:
+    if G > _U31:
+        raise ValueError(f"topk over {G} groups: at most 2^31 - 1")
+    if len(order_keys) > TOPK_MAX_KEYS or (order_keys and cap > TOPK_MAX_KEYED_CAP):
         raise ValueError(
             f"topk_select takes at most {TOPK_MAX_KEYS} keys and a keyed cap of "
             f"{TOPK_MAX_KEYED_CAP}; got {len(order_keys)} keys, cap {cap}"
         )
-    keep = []
-    K = _TopkKeys()
-    K.mask = mask.data_ptr()
-    for i, (values, isnull, ascending, nulls_first) in enumerate(order_keys):
-        v = values.to(torch.float64 if values.is_floating_point() else torch.int64).contiguous()
-        _check_rows(v, v.dtype, G, dev)
-        keep.append(v)
-        K.values[i] = v.data_ptr()
-        if isnull is not None:
-            _check_rows(isnull, torch.bool, G, dev)
-            K.isnull[i] = isnull.data_ptr()
-        K.is_float[i] = int(v.is_floating_point())
-        K.ascending[i] = int(bool(ascending))
-        K.nulls_first[i] = int(bool(nulls_first))
-    K.n_keys = len(order_keys)
-    K.num_groups = G
-    cand, n_cand, first = None, G, True
-    topk_group_select.launches += 1  # one per call, however many rounds
-    while True:
-        chunks = -(-n_cand // _TOPK_CHUNK)
-        out = torch.empty(chunks * cap, dtype=torch.int32, device=dev)
-        r = _TopkRound(K, 0 if cand is None else cand.data_ptr(), n_cand, out.data_ptr(),
-                       n_out.data_ptr() if first else 0, cap, 0)
-        launch("topk_select", "gt_topk_round", r, stream)
-        keep.append(out)
-        cand, n_cand, first = out, chunks * cap, False
-        if chunks == 1:
-            break
-    sel.copy_(cand[:cap])
+    lay = topk_layout(mask.dtype, order_keys, cap, G)
+    if lay.fns is None:
+        from ..kernels._build import load
+
+        lib = load("topk_select")
+        lay.fns = [getattr(lib, fn) for fn, _units in lay.plan]
+    a = _TopkArgs.from_buffer_copy(lay.template)
+    a.gate = _rows_ptr(mask, G, dev)
+    keep = []  # converted planes: alive until the launches are enqueued
+    for i, (key, convert) in enumerate(zip(order_keys, lay.converts)):
+        values, nulls = _key_planes(key, convert)
+        if convert is not None:
+            keep.append(values)
+        _REF_PTRS.pack_into(a, i * _REF_SIZE, 0 if values is None else _rows_ptr(values, G, dev),
+                            0 if nulls is None else _rows_ptr(nulls, G, dev))
+    sel = torch.empty(cap, dtype=torch.int32, device=dev)
+    n_out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    topk_group_select.launches += 1  # one per call, however many launches
+    plan = lay.plan
+    if len(plan) == 1:
+        a.out, a.n_out, a.n_cand, a.units = sel.data_ptr(), n_out.data_ptr(), G, plan[0][1]
+        _launch_cached("topk_select", lay.fns[0], a, stream)
+        return sel, n_out
+    # more launches: the first over every group writes a list of `cap` a
+    # unit and the unit's survivor count; each later one merges the lists
+    first = plan[0][1]
+    lists = [first * cap]
+    for _fn, units in plan[1:-1]:
+        lists.append(units * cap)
+    scratch = torch.empty(sum(lists) + first, dtype=torch.int32, device=dev)
+    base, counts = scratch.data_ptr(), scratch.data_ptr() + 4 * sum(lists)
+    cand, n_cand, off = 0, G, 0
+    for i, ((_fn, units), fn) in enumerate(zip(plan, lay.fns)):
+        last = i == len(plan) - 1
+        a.cand, a.n_cand, a.units = cand, n_cand, units
+        a.out = sel.data_ptr() if last else base + 4 * off
+        a.n_out = n_out.data_ptr() if last else 0
+        a.counts_out = counts if i == 0 else 0
+        a.counts_in, a.n_counts_in = (counts, first) if i > 0 else (0, 0)
+        _launch_cached("topk_select", fn, a, stream)
+        if not last:
+            cand, n_cand, off = base + 4 * off, lists[i], off + lists[i]
     del keep
     return sel, n_out
 
@@ -2120,37 +2301,25 @@ def having_mask_plain(tree, refs: dict, values: torch.Tensor, presence: torch.Te
     return v & valid & (presence > 0)
 
 
-class _HavingRefC(ctypes.Structure):
-    _fields_ = [
-        ("values", ctypes.c_void_p), ("counts", ctypes.c_void_p), ("vtype", ctypes.c_int32),
-        ("ctype", ctypes.c_int32), ("nan_null", ctypes.c_int32), ("reserved", ctypes.c_int32),
-        ("div", ctypes.c_int64), ("card", ctypes.c_int64),
-    ]
-
-
-class _HavingProgram(ctypes.Structure):
-    _fields_ = [
-        ("refs", _HavingRefC * _HAVING_MAX_REFS),
-        ("code", (ctypes.c_int32 * 4) * _HAVING_MAX_CODE),
-        ("n_code", ctypes.c_int32), ("n_refs", ctypes.c_int32),
-    ]
-
-
 class _HavingArgs(ctypes.Structure):
     _fields_ = [
-        ("prog", ctypes.c_void_p), ("literals", ctypes.c_void_p), ("presence", ctypes.c_void_p),
-        ("ptype", ctypes.c_int32), ("reserved", ctypes.c_int32), ("out", ctypes.c_void_p),
-        ("num_groups", ctypes.c_int64),
+        ("refs", _GroupRef * _HAVING_MAX_REFS),
+        ("code", (ctypes.c_int16 * 4) * _HAVING_MAX_CODE),
+        ("literals", ctypes.c_void_p), ("presence", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("ptype", ctypes.c_int32), ("n_code", ctypes.c_int32), ("num_groups", ctypes.c_int32),
+        ("reserved", ctypes.c_int32),
     ]
 
 
-_HAVING_VTYPE = {torch.float64: 0, torch.float32: 1, torch.int32: 2, torch.int64: 3,
-                 torch.bool: 4, torch.uint8: 4}
+_HAVING_TAIL = struct.Struct("<QQQ")  # literals, presence, out
+_HAVING_TAIL_AT = _HavingArgs.literals.offset
 
 
-def _having_program(tree) -> tuple[list, list]:
-    """Postfix code [(op, a, b, c)] and the refs it indexes, in order of
-    first use; raises when the tree exceeds the kernel's fixed tables."""
+@functools.lru_cache(maxsize=256)
+def _having_program(tree) -> tuple[tuple, tuple]:
+    """Postfix code ((op, a, b, c), ...) and the refs it indexes, in order
+    of first use; raises when the tree exceeds the kernel's fixed tables.
+    Built once per tree."""
     order = having_refs(tree)
     ref_index = order.index
     code: list = []
@@ -2182,13 +2351,14 @@ def _having_program(tree) -> tuple[list, list]:
 
     emit(tree)
     if len(code) > _HAVING_MAX_CODE or len(order) > _HAVING_MAX_REFS \
-            or depth_of(tree) > _HAVING_MAX_STACK:
+            or depth_of(tree) > _HAVING_MAX_STACK or any(not 0 <= w < 1 << 15 for c in code
+                                                         for w in c):
         raise ValueError(
             f"HAVING program of {len(code)} ops over {len(order)} refs exceeds K13's "
             f"tables ({_HAVING_MAX_CODE} ops, {_HAVING_MAX_REFS} refs, stack "
-            f"{_HAVING_MAX_STACK})"
+            f"{_HAVING_MAX_STACK}, literal slots below 2^15)"
         )
-    return code, order
+    return tuple(code), tuple(order)
 
 
 def having_fits(tree) -> bool:
@@ -2201,61 +2371,85 @@ def having_fits(tree) -> bool:
     return True
 
 
+class _HavingLayout:
+    """The structure of a K13 call, built once and reused: the argument
+    struct with its program, the refs' kinds and dim multipliers and the
+    presence type filled in (every field but the pointers and G), and the
+    refs in the program's order."""
+
+    __slots__ = ("template", "order", "fn")
+
+    def __init__(self, tree, structures: tuple, presence_dtype):
+        code, self.order = _having_program(tree)
+        a = _HavingArgs()
+        for i, structure in enumerate(structures):
+            _fill_group_ref(a.refs[i], structure)
+        for i, ins in enumerate(code):
+            for j, w in enumerate(ins):
+                a.code[i][j] = w
+        if presence_dtype not in _COUNT_NTYPE:
+            raise ValueError(f"presence of dtype {presence_dtype}")
+        a.ptype, a.n_code = _GROUP_VTYPE[presence_dtype], len(code)
+        self.template = bytes(a)
+        self.fn = None
+
+
+_HAVING_LAYOUTS: dict[tuple, _HavingLayout] = {}
+
+
+def having_layout(tree, refs: dict, presence_dtype) -> _HavingLayout:
+    """The cached `_HavingLayout` of a K13 call's structure: the tree and,
+    for each of its refs, its form, dtypes, NULL rule and dim divisors; the
+    literals and the operands themselves are not part of it."""
+    order = _having_program(tree)[1]
+    key = (tree, presence_dtype, tuple(_ref_structure(refs[r]) for r in order))
+    lay = _HAVING_LAYOUTS.get(key)
+    if lay is None:
+        lay = _HavingLayout(tree, key[2], presence_dtype)
+        if len(_HAVING_LAYOUTS) >= _MAX_LAYOUTS:
+            _HAVING_LAYOUTS.clear()
+        _HAVING_LAYOUTS[key] = lay
+    return lay
+
+
 def having_mask(tree, refs: dict, values: torch.Tensor, presence: torch.Tensor):
     """K13: bool [G] keep mask of the encoded HAVING tree (the reference's
     query/device_finalize.py encoding: cmp / cmpref / isnull / not / and /
     or) with SQL's three-valued logic, ANDed with presence > 0 — the
     survivor mask K7 takes.  `refs` maps each ref to a HavingRef; `values`
-    holds the literals by slot.  A CUDA tensor launches
-    csrc/having_mask.cu with the tree as a postfix program; a CPU tensor
+    holds the literals by slot (read on the card where it lies).  A CUDA
+    tensor launches csrc/having_mask.cu with the tree as a postfix program
+    passed by value, its structure built once and reused; a CPU tensor
     runs `having_mask_plain`."""
     if presence.device.type == "cpu":
         return having_mask_plain(tree, refs, values, presence)
-    from ..kernels._build import launch, upload_table
-
     dev = presence.device
     g = int(presence.shape[0])
-    code, order = _having_program(tree)
-    prog = _HavingProgram()
-    keep = []
-    for i, ref in enumerate(order):
-        r = refs[ref]
-        c = prog.refs[i]
-        c.div, c.card = int(r.div), max(int(r.card), 1)
-        if r.values is None:
-            continue
-        v = r.values.contiguous()
-        _check_rows(v, v.dtype, g, dev)
-        if v.dtype not in _HAVING_VTYPE:
-            raise ValueError(f"HAVING ref of dtype {v.dtype}")
-        c.values, c.vtype, c.nan_null = v.data_ptr(), _HAVING_VTYPE[v.dtype], int(bool(r.nan_null))
-        keep.append(v)
-        if r.counts is not None:
-            n = r.counts.contiguous()
-            _check_rows(n, n.dtype, g, dev)
-            if n.dtype not in (torch.int32, torch.int64):
-                raise ValueError(f"HAVING count plane of dtype {n.dtype}")
-            c.counts, c.ctype = n.data_ptr(), _HAVING_VTYPE[n.dtype]
-            keep.append(n)
-    for i, ins in enumerate(code):
-        for j, w in enumerate(ins):
-            prog.code[i][j] = w
-    prog.n_code, prog.n_refs = len(code), len(order)
-    if presence.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"presence of dtype {presence.dtype}")
-    presence = presence.contiguous()
-    _check_rows(presence, presence.dtype, g, dev)
-    lits = values.to(device=dev, dtype=torch.float64).contiguous()
+    if g > _U31:
+        raise ValueError(f"HAVING over {g} groups: at most 2^31 - 1")
+    lay = having_layout(tree, refs, presence.dtype)
+    if lay.fn is None:
+        from ..kernels._build import load
+
+        lay.fn = load("having_mask").gt_having_mask
+    a = _HavingArgs.from_buffer_copy(lay.template)
+    for i, name in enumerate(lay.order):
+        r = refs[name]
+        if r.values is not None:
+            _REF_PTRS.pack_into(a, i * _REF_SIZE, _rows_ptr(r.values, g, dev),
+                                0 if r.counts is None else _rows_ptr(r.counts, g, dev))
+    lits = values
+    if lits.device != dev or lits.dtype != torch.float64 or not lits.is_contiguous():
+        lits = values.to(device=dev, dtype=torch.float64).contiguous()
     if lits.numel() == 0:
         lits = torch.zeros(1, dtype=torch.float64, device=dev)
-    prog_t = upload_table(prog, dev)
-    out = torch.empty(g, dtype=torch.uint8, device=dev)
-    a = _HavingArgs(prog_t.data_ptr(), lits.data_ptr(), presence.data_ptr(),
-                    _HAVING_VTYPE[presence.dtype], 0, out.data_ptr(), g)
+    out = torch.empty(g, dtype=torch.bool, device=dev)  # one byte a group, 0 or 1
+    _HAVING_TAIL.pack_into(a, _HAVING_TAIL_AT, lits.data_ptr(), _rows_ptr(presence, g, dev),
+                           out.data_ptr())
+    a.num_groups = g
     having_mask.launches += 1
-    launch("having_mask", "gt_having_mask", a, torch.cuda.current_stream(dev).cuda_stream)
-    del keep, prog_t
-    return out.view(torch.bool)
+    _launch_cached("having_mask", lay.fn, a, torch.cuda.current_stream(dev).cuda_stream)
+    return out
 
 
 having_mask.launches = 0

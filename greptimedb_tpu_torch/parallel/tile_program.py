@@ -131,8 +131,10 @@ class TileProgram:
         # avg is computed by K8; before it only for an ORDER BY key of K7
         # or a HAVING ref of K13
         refs = [ref for ref, _asc, _nf in (spec.order if spec is not None else ())]
+        self.having_ref_list = ()
         if spec is not None and spec.having is not None:
-            refs += having_refs(spec.having)
+            self.having_ref_list = tuple(having_refs(spec.having))
+            refs += self.having_ref_list
         self.key_avg_cols = frozenset(
             ref[1] for ref in refs if ref[0] != "dim" and ref[2] == "avg"
         )
@@ -189,10 +191,11 @@ class TileProgram:
 
     def device_select(self, merged, outs, presence, hv):
         """HAVING (K13) ANDed with presence > 0, then ORDER BY keys over
-        the finalized states -> K7.  Returns (sel int32 [cap], n_out
-        int32 [1])."""
+        the finalized states -> K7.  The refs go to the kernels as the
+        states hold them (K7 reads presence > 0 itself where there is no
+        HAVING), so nothing else runs on the card.  Returns (sel int32
+        [cap], n_out int32 [1])."""
         plan, spec = self.plan, self.spec
-        g = presence.shape[0]
         dims = list(plan.tag_cards)
         if plan.bucket_col is not None:
             dims.append(plan.n_buckets)
@@ -216,15 +219,11 @@ class TileProgram:
                 return HavingRef(values=counts if counts is not None else presence)
             return HavingRef(values=outs[col][agg], counts=counts, nan_null=True)
 
+        mask = presence
         if spec.having is not None:
-            refs = {ref: ref_planes(ref) for ref in having_refs(spec.having)}
+            refs = {ref: ref_planes(ref) for ref in self.having_ref_list}
             mask = having_mask(spec.having, refs, hv, presence)
-        else:
-            mask = presence > 0
-        order_keys = []
-        for ref, asc, nulls_first in spec.order:
-            v, isn = ref_planes(ref).resolve(g, presence.device)
-            order_keys.append((v, isn, asc, nulls_first))
+        order_keys = [(ref_planes(ref), asc, nulls_first) for ref, asc, nulls_first in spec.order]
         return topk_group_select(mask, order_keys, spec.cap)
 
     def final(self, merged, hv, table_keys=None):

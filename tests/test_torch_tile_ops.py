@@ -321,6 +321,228 @@ def test_topk_group_select_without_keys_compacts(cap):
     assert int(p_n[0]) == int(r_n)
 
 
+# ---- K7's kernels, emulated (csrc/topk_select.cu) -----------------------------------
+
+_I64_MIN, _I64_MAX = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+_NO_ENT = (0xFFFFFFFF,)  # after every group: the kernel's empty entry
+_SELECT_WARPS, _CLUSTER_CTAS = 16, 8
+
+
+def _order_key_emulated(values: np.ndarray, null: np.ndarray, ascending: bool) -> np.ndarray:
+    """group_ref.cuh `group_order_key`'s value order: floats widened to f64
+    and canonicalized by `float_order`, integers widened to int64 and
+    negated with wrapping; a NULL's value 0."""
+    if values.dtype.kind == "f":
+        x = np.where(null, 0.0, values.astype(np.float64))
+        y = x if ascending else -x
+        bits = y.view(np.int64)
+        out = np.where(bits >= 0, bits, bits ^ _I64_MAX)
+        out = np.where(y == 0, 0, out)
+        return np.where(np.isnan(y), 0x7FF8000000000000, out)
+    x = np.where(null, 0, values.astype(np.int64)).astype(np.int64)
+    return x if ascending else (np.uint64(0) - x.view(np.uint64)).view(np.int64)
+
+
+def _k7_entries(gate: np.ndarray, keys: list) -> list:
+    """Every group's entry of the select as a tuple in the kernel's compare
+    order: h = (not a survivor) << 2 | (key 0's null bucket + 1), key 0's
+    value, then per later key its null bucket + 1 and value, then the id.
+    `keys` holds (values, isnull | None, ascending, nulls_first)."""
+    surv = gate > 0 if gate.dtype != bool else gate
+    g = gate.size
+    cols = []
+    for i, (values, isnull, ascending, nulls_first) in enumerate(keys):
+        null = np.zeros(g, bool) if isnull is None else isnull
+        nb = np.where(null, 0 if nulls_first else 2, 1)
+        if i == 0:
+            cols.append(np.where(surv, 0, 4) | nb)
+        else:
+            cols.append(nb)
+        cols.append(_order_key_emulated(values, null, ascending))
+    cols.append(np.arange(g))
+    return list(zip(*[c.tolist() for c in cols]))
+
+
+def _k7_select_emulated(ents: list, cand, n_cand: int, cap: int, units: int) -> list:
+    """One select launch of `units` clusters over candidates 0..n_cand-1
+    (or the ids `cand`, -1 none): warp w takes batches w, w + n_warps, ...
+    of 32; a batch's entries not below the warp's cap-th best drop, the
+    rest join its best 32; the warps' lists, then the CTAs', merge keeping
+    32.  Returns each unit's first `cap` ids (-1 where it holds fewer)."""
+    n_warps = units * _CLUSTER_CTAS * _SELECT_WARPS
+    lists = []
+    for w in range(n_warps):
+        best: list = []
+        for b in range(w, -(-n_cand // 32), n_warps):
+            batch = []
+            for i in range(b * 32, min(b * 32 + 32, n_cand)):
+                gid = i if cand is None else cand[i]
+                if gid >= 0:
+                    batch.append(ents[gid])
+            thr = best[cap - 1] if len(best) >= cap else _NO_ENT
+            batch = [e for e in batch if e < thr]
+            if batch:
+                best = sorted(best + batch)[:32]
+        lists.append(best)
+    out = []
+    per_unit = _CLUSTER_CTAS * _SELECT_WARPS
+    for u in range(units):
+        mine = lists[u * per_unit:(u + 1) * per_unit]
+        while len(mine) > 1:  # pairwise, as the warps and then the CTAs merge
+            mine = [sorted(mine[i] + mine[i + 1])[:32] for i in range(0, len(mine), 2)]
+        ids = [e[-1] for e in mine[0][:cap]]
+        out.extend(ids + [-1] * (cap - len(ids)))
+    return out
+
+
+def _k7_rounds_emulated(ents: list, g: int, cap: int) -> list:
+    """The bitonic rounds: a chunk of 1024 candidates sorted, its first
+    `cap` kept (-1 past its candidates), until one chunk is left."""
+    cand = list(range(g))
+    while True:
+        nxt = []
+        for c0 in range(0, len(cand), 1024):
+            chunk = sorted(ents[i] for i in cand[c0:c0 + 1024] if i >= 0)
+            ids = [e[-1] for e in chunk[:cap]]
+            nxt.extend(ids + [-1] * (cap - len(ids)))
+        if len(cand) <= 1024:
+            return nxt
+        cand = nxt
+
+
+def _k7_compact_emulated(surv: np.ndarray, cap: int) -> list:
+    """The compaction's cluster: each CTA a contiguous range, the ranges'
+    survivor counts summed before it, then tiles of 8192 groups until no
+    position below `cap` is left; a survivor g goes to sb(g), the
+    survivors before it, any other group to total + g - sb(g)."""
+    g = surv.size
+    per_cta = -(-(-(-g // _CLUSTER_CTAS)) // 8) * 8
+    total = int(surv.sum())
+    out = np.full(cap, -7, np.int64)
+    for rank in range(_CLUSTER_CTAS):
+        lo, hi = min(g, rank * per_cta), min(g, (rank + 1) * per_cta)
+        run = int(surv[:lo].sum())
+        t0 = lo
+        while t0 < hi and (run < cap or total + (t0 - run) < cap):
+            tile = surv[t0:min(t0 + 8192, hi)]
+            sb = run + np.concatenate([[0], np.cumsum(tile)[:-1]]).astype(np.int64)
+            ids = np.arange(t0, t0 + tile.size)
+            pos = np.where(tile, sb, total + ids - sb)
+            keep = pos < cap
+            out[pos[keep]] = ids[keep]
+            run += int(tile.sum())
+            t0 += 8192
+    return out.tolist()
+
+
+def k7_emulated(gate: np.ndarray, keys: list, cap: int) -> tuple[list, int]:
+    """K7 as `topk_launch_plan` launches it, emulated: (sel, n_out)."""
+    g = gate.size
+    surv = gate > 0 if gate.dtype != bool else gate
+    plan = P.topk_launch_plan(g, cap, len(keys))
+    if not keys:
+        return _k7_compact_emulated(surv, cap), int(surv.sum())
+    ents = _k7_entries(gate, keys)
+    if plan[0][0] == "gt_topk_round":
+        return _k7_rounds_emulated(ents, g, cap), int(surv.sum())
+    cand, n_cand = None, g
+    for _fn, units in plan:
+        cand = _k7_select_emulated(ents, cand, n_cand, cap, units)
+        n_cand = len(cand)
+    return cand, int(surv.sum())
+
+
+def _k7_case(kind: str, g: int, seed: int):
+    """(gate, keys as (values, isnull | None, ascending, nulls_first)) of
+    one emulation case."""
+    rng = np.random.default_rng(seed)
+    gate = rng.random(g) < 0.6
+    if kind == "int64_ends_desc":
+        v = rng.integers(-4, 4, g).astype(np.int64)
+        v[rng.integers(0, g, max(g // 16, 1))] = _I64_MIN
+        v[rng.integers(0, g, max(g // 16, 1))] = _I64_MAX
+        return gate, [(v, None, False, False)]
+    if kind == "f64_specials":
+        v = rng.integers(0, 4, g).astype(np.float64)
+        for val in (np.nan, -0.0, 0.0, np.inf, -np.inf):
+            v[rng.integers(0, g, max(g // 10, 1))] = val
+        second = rng.integers(-2, 2, g).astype(np.int32)
+        return gate, [(v, rng.random(g) < 0.1, False, True), (second, None, True, False)]
+    if kind == "nulls_last":
+        v = rng.uniform(-1, 1, g).astype(np.float32)
+        return rng.integers(0, 3, g).astype(np.int32), [(v, rng.random(g) < 0.3, True, False)]
+    if kind == "all_equal":
+        return gate, [(np.zeros(g), None, True, True), (np.ones(g, np.int64), None, False, True),
+                      (np.zeros(g, np.int32), np.zeros(g, bool), True, True),
+                      (np.zeros(g, np.uint8), None, False, False)]
+    if kind == "no_survivors":
+        return np.zeros(g, bool), [(rng.uniform(0, 9, g), rng.random(g) < 0.2, False, True)]
+    raise ValueError(kind)
+
+
+K7_SHAPES = [(g, cap) for g in (1, 31, 768, 1025, 49_152) for cap in (1, 5, 10, 32, 33, 512)
+             if cap <= g]
+
+
+@pytest.mark.parametrize("kind", ["int64_ends_desc", "f64_specials", "nulls_last", "all_equal",
+                                  "no_survivors"])
+@pytest.mark.parametrize("g,cap", K7_SHAPES)
+def test_topk_kernel_emulation_matches_reference(g, cap, kind):
+    """K7's select (per-warp best lists behind a cap-th-best threshold,
+    merged pairwise), its bitonic rounds past cap 32 and, at the largest
+    G, the select's two-launch form, emulated, equal the reference's
+    lax.sort selection and the port's plain version: int64 keys at both
+    ends descending, f64 NaN / +-0 / +-inf, NULLs first and last, every key
+    equal, no survivor."""
+    gate, keys = _k7_case(kind, g, g * 31 + cap)
+    r_sel, r_n = R.topk_group_select(
+        jnp.asarray(gate > 0 if gate.dtype != bool else gate),
+        [(jnp.asarray(v), None if n is None else jnp.asarray(n), a, f) for v, n, a, f in keys], cap)
+    sel, n_out = k7_emulated(gate, keys, cap)
+    assert sel == np.asarray(r_sel).tolist() and n_out == int(r_n)
+    p_sel, p_n = P.topk_group_select_plain(
+        _t(gate), [(_t(v), None if n is None else _t(n), a, f) for v, n, a, f in keys], cap)
+    assert p_sel.tolist() == sel and int(p_n[0]) == n_out
+    if g == 49_152 and cap <= P.TOPK_SELECT_CAP:
+        # the select's grid of clusters and merge launch (past
+        # TOPK_ONE_LAUNCH_GROUPS on the card)
+        ents = _k7_entries(gate, keys)
+        lists = _k7_select_emulated(ents, None, g, cap, P._TOPK_GRID_UNITS)
+        assert _k7_select_emulated(ents, lists, len(lists), cap, 1) == sel
+
+
+@pytest.mark.parametrize("g,cap", [(1, 1), (31, 5), (4096, 4096), (57_344, 57_344),
+                                   (57_344, 10), (70_001, 65_537)])
+def test_topk_compaction_emulation_matches_reference(g, cap):
+    """K7 without a key, its cluster's ranges and tiles emulated: the
+    reference's order (survivors, then the rest, each by group id) for a
+    cap below, at and past the survivors."""
+    gate = np.random.default_rng(g + cap).integers(0, 3, g).astype(np.int32)
+    r_sel, r_n = R.topk_group_select(jnp.asarray(gate > 0), [], cap)
+    sel, n_out = k7_emulated(gate, [], cap)
+    assert sel == np.asarray(r_sel).tolist() and n_out == int(r_n)
+
+
+def test_topk_layout_is_built_once_per_structure():
+    """K7's structure is cached by the gate's and keys' forms, cap and G;
+    new planes of the same forms reuse it, a new form or cap does not."""
+    from greptimedb_tpu_torch.ops.aggregate import HavingRef
+
+    g = 768
+    v = _t(np.random.default_rng(1).uniform(0, 1, g))
+    keys = [(HavingRef(values=v, nan_null=True), False, True), (HavingRef(div=1, card=g), True,
+                                                                True)]
+    lay = P.topk_layout(torch.int32, keys, 5, g)
+    keys2 = [(HavingRef(values=v.clone(), nan_null=True), False, True),
+             (HavingRef(div=1, card=g), True, True)]
+    assert P.topk_layout(torch.int32, keys2, 5, g) is lay
+    assert P.topk_layout(torch.int32, keys2, 6, g) is not lay
+    assert P.topk_layout(torch.bool, keys2, 5, g) is not lay
+    a = P._TopkArgs.from_buffer_copy(lay.template)
+    assert (a.n_keys, a.cap, a.num_groups, a.ascending, a.nulls_first) == (2, 5, g, 2, 3)
+    assert a.keys[0].nan_null == 1 and a.keys[1].card == g and lay.plan == [("gt_topk_select", 1)]
+
+
 # ---- f64 words -------------------------------------------------------------------------
 
 

@@ -83,6 +83,20 @@ first turn of each tree also prints the SASS of csrc/mask_gids.cu: each
 kernel's instructions and `CALL.REL.NOINC` (subroutine calls, such as a
 64-bit division's), the listing in <--out>/sass_<tree>_mask_gids.txt.
 
+`--set having_topk`: K13 `having_mask` and K7 `topk_group_select`, the
+device half of HAVING and ORDER BY / LIMIT.  K13 at phase 3d's
+`having_case(4096 * 16)` and at the live HAVING queries' plan shape (their
+refs and trees over 4096 hosts x 14 hour buckets); K7 keyed at
+groupby-orderby-limit's shape (G = 768, cap 5, an int64 minute key,
+descending) and at the live query's (G = 57,344, cap 10, the f64 max with
+NaN as NULL, K13's mask as the survivors); K7's compaction at lastpoint's
+(4096 groups, cap 4096); `TileProgram.device_select` whole at
+groupby-orderby-limit and both live HAVING queries.  Each time is the
+median of five readings, each output held byte for byte against its plain
+version; with --profile each case also gives the kernels, memsets and
+copies one call puts on the card.  The first turn of each tree prints the
+SASS counts of both sources (listings in <--out>).
+
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
 
@@ -104,7 +118,7 @@ whether every output's bytes agreed.
 
     python3 tools/kernel_ab.py --other DIR
                                [--set blocked|range_hll|fold|pack_scatter|strip_hash|gather_last|
-                                      mask_topk]
+                                      mask_topk|having_topk]
                                [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
                                [--profile] [--out DIR]
@@ -130,7 +144,8 @@ SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_l
            "pack_scatter": ("pack_result", "segment_reduce_scatter"),
            "strip_hash": ("strip_counter_resets", "hash_group_slots", "gather_planes"),
            "gather_last": ("gather_planes", "segment_last"),
-           "mask_topk": ("mask_gids", "topk_distances")}
+           "mask_topk": ("mask_gids", "topk_distances"),
+           "having_topk": ("having_mask", "topk_select")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -1113,6 +1128,115 @@ def mask_topk_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev)
          library_ms=c._timed(lambda: torch.topk(torch.mv(big, q), 10_000, largest=False), reps))
 
 
+def _smoke_here():
+    """This checkout's chip_smoke.py, loaded apart from the turn's own: the
+    select stage's shapes (`select_inputs`), whichever tree a turn times.
+    Its functions import the port of the turn's tree."""
+    import importlib.util
+
+    mod = sys.modules.get("chip_smoke_here")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                      os.path.join(ROOT, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke_here"] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def _ops_per_call(prof: dict) -> dict:
+    """{"kernels", "memsets", "copies"}: what one call put on the card, from
+    `_profiled`'s per-call launch counts."""
+    out = {"kernels": 0.0, "memsets": 0.0, "copies": 0.0}
+    for name, n in prof["device_calls"].items():
+        kind = ("memsets" if name.startswith("Memset") else
+                "copies" if name.startswith("Memcpy") else "kernels")
+        out[kind] += n
+    return out
+
+
+def having_topk_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, dev) -> None:
+    """K13 `having_mask` and K7 `topk_group_select`, the device half of
+    HAVING and ORDER BY / LIMIT, at the main path's shapes: K13 at phase
+    3d's case (`having_case(4096 * 16)`, every op) and at the live HAVING
+    queries' plan shape (their refs and trees, G = 4096 x 14); K7 keyed at
+    groupby-orderby-limit's shape (G = 768, cap 5, an int64 minute key,
+    descending) and at the live query's (G = 4096 x 14, cap 10, the f64
+    max with NaN as NULL, descending, NULLs first, K13's mask as the
+    survivors); K7's compaction at lastpoint's (4096 groups, cap 4096); and
+    `TileProgram.device_select` whole at groupby-orderby-limit and the two
+    live HAVING queries, as the tile program calls it.  Each time is the
+    median of five readings (`ms_range` their range); each output is held
+    byte for byte against its plain version."""
+    import torch
+
+    from greptimedb_tpu_torch.ops import aggregate as agg
+    from greptimedb_tpu_torch.ops.aggregate import HavingRef
+
+    def case(name, fn, outs, plain, **kw):
+        got = fn()
+        extra = {}
+        if prof:
+            p = _profiled(fn)
+            extra = {**p, **_ops_per_call(p)}
+        emit(name, **c._timed_runs(fn, reps), digest=_digest(outs),
+             enqueue_us=_enqueue_us(fn, reps),
+             plain_bytes=all(c._same_bytes(a, b) for a, b in zip(got, plain)), **kw, **extra)
+
+    # K13 at phase 3d's case
+    G = 4096 * 16
+    tree, refs, lits, presence = c.having_case(G, dev, c.SEED)
+    fn = lambda: (agg.having_mask(tree, refs, lits, presence),)  # noqa: E731
+    case("K13 having_case 65536", fn, list(fn()),
+         [agg.having_mask_plain(tree, refs, lits, presence)], groups=G)
+
+    # the live HAVING queries' states; K13 at their trees
+    h = _smoke_here()
+    states = h.select_states(dev)
+    G, presence, mu, asys = states
+    live_refs = {h.SELECT_MU: HavingRef(values=mu, nan_null=True),
+                 h.SELECT_AS: HavingRef(values=asys, nan_null=True),
+                 h.SELECT_N: HavingRef(values=presence)}
+    masks = {}
+    for q, tree in h.HAVING_TREES.items():
+        hv = torch.tensor(h.HAVING_LITERALS[q], dtype=torch.float64, device=dev)
+        fn = lambda tree=tree, hv=hv: (agg.having_mask(tree, live_refs, hv, presence),)  # noqa: E731
+        masks[q] = fn()[0]
+        case(f"K13 {q} G={G}", fn, [masks[q]],
+             [agg.having_mask_plain(tree, live_refs, hv, presence)], groups=G)
+
+    # K7 keyed at groupby-orderby-limit's shape, as phase 3b holds it
+    n_min = hours * 60
+    Gm = 768
+    surv = torch.arange(Gm, device=dev) < n_min - 30
+    keys = [(torch.arange(Gm, dtype=torch.int64, device=dev), None, False, True)]
+    fn = lambda: agg.topk_group_select(surv, keys, 5)  # noqa: E731
+    case("K7 keyed G=768 cap=5", fn, list(fn()), agg.topk_group_select_plain(surv, keys, 5),
+         groups=Gm, library_ms=c._timed(lambda: torch.topk(keys[0][0], 5), reps))
+
+    # K7 keyed at the live query's shape: the f64 max, NaN as NULL
+    lkeys = [(mu, torch.isnan(mu), False, True)]
+    m = masks["having-or-orderby-limit"]
+    fn = lambda: agg.topk_group_select(m, lkeys, 10)  # noqa: E731
+    case(f"K7 keyed G={G} cap=10", fn, list(fn()), agg.topk_group_select_plain(m, lkeys, 10),
+         groups=G, library_ms=c._timed(lambda: torch.topk(mu, 10), reps))
+
+    # K7's compaction at lastpoint's shape
+    card = 1 << (max(hosts, 1) - 1).bit_length()
+    surv_l = torch.arange(card, device=dev) < hosts
+    fn = lambda: agg.topk_group_select(surv_l, [], card)  # noqa: E731
+    case(f"K7 compact G={card} cap={card}", fn, list(fn()),
+         agg.topk_group_select_plain(surv_l, [], card), groups=card,
+         library_ms=c._timed(lambda: torch.nonzero(surv_l), reps))
+
+    # device_select whole, as TileProgram.final calls it
+    for q in h.SELECT_QUERIES:
+        prog, args, (mask, pkeys, cap) = h.select_inputs(q, dev, states)
+        fn = lambda prog=prog, args=args: prog.device_select(*args)  # noqa: E731
+        case(f"device_select {q}", fn, list(fn()), agg.topk_group_select_plain(mask, pkeys, cap),
+             groups=int(mask.shape[0]), cap=cap)
+
+
 def tql_cases(c, hosts: int, hours: int, emit) -> None:
     """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
@@ -1158,6 +1282,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
         gather_last_cases(c, hosts, hours, reps, prof, emit, dev)
     elif kset == "mask_topk":
         mask_topk_cases(c, hosts, hours, reps, prof, emit, dev)
+    elif kset == "having_topk":
+        having_topk_cases(c, hosts, hours, reps, prof, emit, dev)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:
@@ -1221,7 +1347,7 @@ def main() -> int:
     ap.add_argument("--tql", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"),
-                    help="where --set mask_topk writes its SASS listings")
+                    help="where --set mask_topk and having_topk write their SASS listings")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -1241,9 +1367,10 @@ def main() -> int:
     for label, root in turns[:2]:
         print(json.dumps({"tree": label, "resource_usage": resource_usage(root, args.kset)}),
               flush=True)
-        if args.kset == "mask_topk":
-            print(json.dumps({"tree": label, "sass": sass_counts(root, label, args.out)}),
-                  flush=True)
+        if args.kset in ("mask_topk", "having_topk"):
+            for name in ("mask_gids",) if args.kset == "mask_topk" else SOURCES[args.kset]:
+                print(json.dumps({"tree": label, "source": name,
+                                  "sass": sass_counts(root, label, args.out, name)}), flush=True)
     ms: dict[str, dict[str, list]] = {}
     digests: dict[str, set] = {}
     for i, (label, root) in enumerate(turns):
