@@ -85,8 +85,11 @@ Phases, each printing one JSON line:
              rows at the front, the back and interleaved, K13 at G = 4096
              x 16 with every op, NULL and NaN), K14-K16 byte for byte and
              K13 exactly, and on edge cases (K14 spans either side of 2^32,
-             INT64_MIN/MAX, no valid row, no row), twice each; K14 timed
-             again on the same rows with each ts moved by 0-9999 ms.
+             INT64_MIN/MAX, no valid row, no row; K16 over chunks of a
+             tile, one chunk and 5000 rows, a delta run across a tile
+             bound), twice each; K14 timed again on the same rows with each
+             ts moved by 0-9999 ms; K16 timed on the f64 (interleaved,
+             front, back), int32 and bool planes.
    3c (TQL kernels) — K9-K12 against their plain versions at the TQL main
              path's shapes (17.28 M rows in two chunks, S_pad 4096, W_pad
              1024, k = 8 and 64, NaN values, NULLs, invalid rows) and on
@@ -182,10 +185,11 @@ Phases, each printing one JSON line:
              rows (--hosts x --sketch-hours, in (hostname, ts) order):
              K20 over hll_inputs(hash64(usage_user)) by host at p = 12 and
              14 and by hour, K21 over udd_bucket_ids(usage_user) at B = 128
-             and 1024 by host, one row in 100 masked; timed beside the plain
-             version and the library call (`scatter_reduce_` amax /
-             `index_add_` over the flat ids), K20's path (ordered or atomic,
-             decided on the card) checked and printed beside each time;
+             and 1024 by host and 1024 by hour, one row in 100 masked;
+             timed beside the plain version and the library call
+             (`scatter_reduce_` amax / `index_add_` over the flat ids), each
+             call's path (ordered or atomic, decided on the card) checked
+             and printed beside each time;
              K20's registers equal the host `hll_build_grouped`.  The main path: the rows as 4 host-range
              shards, K20/K21 per shard folded in shard order (torch.maximum,
              +), equal to the single pass; the estimates against the seed
@@ -194,7 +198,9 @@ Phases, each printing one JSON line:
              G * width past 2^31; K20's paths: sorted gids with empty
              groups, a decreasing gid at a tile's first row, m at the
              shared-memory budget and above it, long runs over helper
-             blocks).  Then the slice: the TSBS table through
+             blocks; K21's: masked rows and a masked bucket of B, an
+             unmasked bucket of B or -1, a decreasing gid, a gid of G,
+             windows of several groups, long runs).  Then the slice: the TSBS table through
              Database.write (WAL on), flushed, and S1-S5 (active hosts per
              hour, per-host p99, per-host HLL states, the table's hosts and
              median, the hourly states stored in a BINARY table and merged)
@@ -1639,18 +1645,23 @@ def _device_ops(fn, calls: int = 1) -> dict[str, tuple[float, int]]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        if evt.device_type is None or "cuda" not in str(evt.device_type).lower():
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        out[evt.key[:80]] = (us, evt.count)
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for evt in prof.key_averages():
+            if evt.device_type is None or "cuda" not in str(evt.device_type).lower():
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            out[evt.key[:80]] = (us, evt.count)
+        # every fn profiled here launches a kernel: a trace with none lost
+        # the tracer's records (seen once on the card), so it is taken again
+        if any(not k.startswith(("Memset", "Memcpy")) for k in out):
+            break
     return out
 
 
@@ -1714,7 +1725,8 @@ def _k8_k3_ops(fn, what: str, k8_launches: int = 0) -> dict[str, int]:
         raise AssertionError(f"{what}: host-to-device copies {h2d}")
     packs = sum(n for k, n in ops.items() if "pack_kernel" in k)
     if k8_launches and packs != k8_launches:
-        raise AssertionError(f"{what}: {packs} pack kernels, its plan makes {k8_launches}")
+        raise AssertionError(f"{what}: {packs} pack kernels, its plan makes {k8_launches}; "
+                             f"device ops {ops}")
     return ops
 
 
@@ -2071,11 +2083,23 @@ def run_plane_kernel_phase(n_hosts: int, hours: int, reps: int) -> dict:
     # per f64 plane: old rows read, the delta and its positions read, the
     # new plane written
     k16b, k16by = bound(n * 8 + n_delta * (8 + 4) + new_pad * 8, 0)
+    # the int32 and bool planes interleaved, the f64 plane with the delta
+    # at the front and at the back
+    per_plane = {}
+    for what, planes, d, where in (("int32", codes_c, di, "interleaved"),
+                                   ("bool", valid_c, db_, "interleaved"),
+                                   ("f64 front", f64_c, dv, "front"),
+                                   ("f64 back", f64_c, dv, "back")):
+        args = (planes, n, d, positions[where], new_pad, TILE_CHUNK_ROWS)
+        esize = planes[0].element_size()
+        per_plane[what] = dict(ms=_timed(lambda: P.delta_patch(*args), reps),
+                               bound_ms=bound(n * esize + n_delta * (esize + 4)
+                                              + new_pad * esize, 0)[0])
     out["delta_patch"] = dict(
         max_abs_err=0.0, rows=new_pad, delta_rows=n_delta,
         ms=_timed(lambda: P.delta_patch(*patch), reps),
         plain_ms=_timed(lambda: P.delta_patch_plain(*patch), 1),
-        bound_ms=k16b, bound_by=k16by, library_ms=None,
+        bound_ms=k16b, bound_by=k16by, library_ms=None, per_plane=per_plane,
     )
     del patch, positions, spread, dv, db_, di, f64_c, codes_c, valid_c, ts_c
 
@@ -2301,7 +2325,9 @@ def run_plane_edge_cases(dev) -> None:
     interleaved invalid rows over two uneven chunks (up to 8 radix
     passes), no valid row; element sizes 1/4/8 gathered over small
     chunks; codes in [-n-2, n+2) remapped; deltas at the edges of chunks
-    and of the old rows; a HAVING tree of one node of each kind."""
+    and of the old rows and in a run across a tile bound, over chunks of a
+    tile, one chunk and 5000 rows (not a multiple of the tile); a HAVING
+    tree of one node of each kind."""
     import torch
 
     from greptimedb_tpu_torch.ops import aggregate as agg
@@ -2382,22 +2408,32 @@ def run_plane_edge_cases(dev) -> None:
         old = t(rng.uniform(-1, 1, old_n + 7))
         for n_delta in (0, 1, 4095, 5000):
             d = t(rng.uniform(-1, 1, n_delta))
-            for kind in ("random", "front", "back", "boundary"):
+            for kind in ("random", "front", "back", "boundary", "tile run"):
                 if kind == "random":
                     p = np.sort(rng.integers(0, old_n + 1, n_delta))
                 elif kind == "front":
                     p = np.zeros(n_delta, np.int64)
                 elif kind == "back":
                     p = np.full(n_delta, old_n, np.int64)
-                else:
+                elif kind == "boundary":
                     p = np.sort(rng.choice([0, 1, 4095, 4096, old_n], n_delta)).clip(0, old_n)
+                else:  # the delta rows one run from output row 4000 on, across a tile bound
+                    p = np.full(n_delta, min(4000, old_n), np.int64)
                 pos = t(p.astype(np.int32))
                 new_pad = -(-(old_n + n_delta) // 4096) * 4096 + 4096
-                for chunk in (4096, 1 << 24):
-                    args = (_chunked(old, chunk), old_n, d, pos, new_pad, chunk)
-                    k = _twice_identical_chunks(lambda: P.delta_patch(*args), "edge patch")
-                    _same_chunks(k, P.delta_patch_plain(*args),
-                                 f"edge delta_patch old={old_n} delta={n_delta} {kind}")
+                # chunks of a tile and one chunk (f64); chunks no multiple
+                # of the tile, the last tile of each chunk shorter, at every
+                # element size (a bool chunk starts off the 16 B vector)
+                for chunk, planes in ((4096, ((old, d),)), (1 << 24, ((old, d),)),
+                                      (5000, ((old, d), ((old * 1e6).to(torch.int32),
+                                                         (d * 1e6).to(torch.int32)),
+                                              (old > 0, d > 0)))):
+                    for o_plane, d_plane in planes:
+                        args = (_chunked(o_plane, chunk), old_n, d_plane, pos, new_pad, chunk)
+                        k = _twice_identical_chunks(lambda: P.delta_patch(*args), "edge patch")
+                        _same_chunks(k, P.delta_patch_plain(*args),
+                                     f"edge delta_patch old={old_n} delta={n_delta} {kind} "
+                                     f"chunk={chunk} {o_plane.dtype}")
     for G in (1, 255, 257, 5000):
         tree, refs, lits, presence = having_case(G, dev, G)
         subtrees = [tree, tree[1], tree[2], tree[1][2], tree[2][1][2],
@@ -5296,6 +5332,9 @@ SHARDS = 4  # the two-step merge: host ranges, folded in shard order
 # the path K20 must take on the card (csrc/segment_hll.cu): rows in group
 # runs take the ordered path, the rest the atomic one
 HLL_PATHS = {"hll host p=12": "ordered", "hll hour p=12": "atomic", "hll host p=14": "ordered"}
+# ... and K21's (csrc/segment_udd.cu), the same rule
+UDD_PATHS = {"udd host B=128": "ordered", "udd host B=1024": "ordered",
+             "udd hour B=1024": "atomic"}
 HLL_BAR, UDD_BAR = 0.05, 0.10  # tests/test_sketch.py's bars: hll_count, uddsketch_calc
 
 
@@ -5362,6 +5401,16 @@ def _hll_path(want: str, what: str) -> str:
     return got
 
 
+def _udd_path(want: str, what: str) -> str:
+    """The path of the last K21 call on the card, which must be `want`."""
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    got = sk.last_udd_path()
+    if got != want:
+        raise AssertionError(f"{what}: K21 took the {got} path, expected {want}")
+    return got
+
+
 def _hll_path_cases(rng, n_rows: int):
     """(name, path, gids, reg_idx, G, m) of K20's path edges on the card:
     sorted gids with empty groups between their runs, one decreasing gid at
@@ -5387,17 +5436,56 @@ def _hll_path_cases(rng, n_rows: int):
     ]
 
 
+def _udd_path_cases(rng, n_rows: int):
+    """(name, path, gids, bucket_ids, mask, G, B) of K21's path edges on the
+    card: sorted gids with empty groups between their runs and masked rows,
+    a masked row whose bucket is B (ordered: it adds nothing), an unmasked
+    bucket of B and of -1 (atomic: its int32 id aliases into a neighbour),
+    one decreasing gid at a tile's first row, a gid of G inside a run,
+    windows of several groups (few rows a group), and long runs split over
+    helper blocks."""
+    n = min(n_rows, 1 << 21)
+    g = 5000
+    sorted_gids = np.sort(rng.integers(0, g, n)) // 3 * 3  # two empty groups in three
+    buckets = rng.integers(0, 1024, n).astype(np.int32)
+    mask = rng.random(n) > 0.01
+    masked_b = buckets.copy()
+    masked_b[~mask] = 1024
+    at = 1 << 16 if n > 1 << 16 else n // 2 & ~31
+    bad_b, neg_b = buckets.copy(), buckets.copy()
+    bad_b[at + 5], neg_b[at + 7] = 1024, -1
+    mask_ok = mask.copy()
+    mask_ok[at + 5] = mask_ok[at + 7] = True
+    down = sorted_gids.copy()
+    down[at] = down[at - 1] - 1
+    past = sorted_gids.copy()
+    past[at + 3] = g
+    small = np.sort(rng.integers(0, n // 8, n))  # 8 rows a group: windows of 4 groups
+    long_runs = np.repeat(np.arange(3, dtype=np.int64), -(-n // 3))[:n]
+    return [
+        ("sorted, empty groups, masked rows", "ordered", sorted_gids, buckets, mask, g, 1024),
+        ("masked bucket = B", "ordered", sorted_gids, masked_b, mask, g, 1024),
+        ("unmasked bucket = B", "atomic", sorted_gids, bad_b, mask_ok, g, 1024),
+        ("unmasked bucket = -1", "atomic", sorted_gids, neg_b, mask_ok, g, 1024),
+        ("decreasing gid at a tile boundary", "atomic", down, buckets, mask, g, 1024),
+        ("gid G in a run", "atomic", past, buckets, mask, g, 1024),
+        ("windows of several groups", "ordered", small, buckets, mask, n // 8, 1024),
+        ("long runs, B = 128", "ordered", long_runs, buckets % 128, mask, 3, 128),
+    ]
+
+
 def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
     """K20 and K21 against their plain versions on `dev` (on the card also
     against the host's), twice each: seeded ids, empty groups, rho <= 0,
     negative and out-of-range gids with the int32 wrap (gid 2^20 at
     m = 4096 lands on group 0, gid 2^19 wraps negative), masked rows,
-    G = 1, N = 0; K20's path edges (`_hll_path_cases`, timed on the card);
-    every one of `n_rows` rows on one register / bucket (the worst
-    contention, timed on the card); and on the card a width past 2^31
-    (G = 2^19 + 1 at m = 4096, G = 2^21 + 1 at B = 1024: 8.6 GB), where
-    the last group's rows wrap negative and are dropped.  On the card each
-    K20 case also checks the path it took (ordered or atomic)."""
+    G = 1, N = 0; K20's and K21's path edges (`_hll_path_cases`,
+    `_udd_path_cases`, timed on the card); every one of `n_rows` rows on
+    one register / bucket (the worst contention, timed on the card); and on
+    the card a width past 2^31 (G = 2^19 + 1 at m = 4096, G = 2^21 + 1 at
+    B = 1024: 8.6 GB), where the last group's rows wrap negative and are
+    dropped.  On the card each K20 and K21 case also checks the path it
+    took (ordered or atomic)."""
     import torch
 
     is_cuda = dev.type == "cuda"
@@ -5419,7 +5507,7 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    out = {"hll_paths": {}}
+    out = {"hll_paths": {}, "udd_paths": {}}
     for what, gids, g, width in cases:
         n = gids.shape[0]
         cols = up(rng.integers(0, width, n).astype(np.int32))
@@ -5431,6 +5519,9 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
             out["hll_paths"][what] = _hll_path(
                 "ordered" if what in ("G=1", "N=0") else "atomic", f"edge hll {what}")
         _sketch_check("udd", (cols, gt, mask, g, width), f"edge udd {what}", is_cuda, is_cuda)
+        if is_cuda:
+            out["udd_paths"][what] = _udd_path(
+                "ordered" if what in ("G=1", "N=0") else "atomic", f"edge udd {what}")
     for what, path, gids, regs, g, width in _hll_path_cases(rng, n_rows):
         args = (up(regs.astype(np.int32)), up(rng.integers(-3, 64, gids.shape[0]).astype(np.int32)),
                 up(gids), g, width)
@@ -5440,6 +5531,15 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
 
             out["hll_paths"][what] = {"path": _hll_path(path, f"edge hll {what}"),
                                       "ms": _timed(lambda: sk.segment_hll(*args), reps)}
+        del args
+    for what, path, gids, buckets, mask, g, width in _udd_path_cases(rng, n_rows):
+        args = (up(buckets), up(gids), up(mask), g, width)
+        _sketch_check("udd", args, f"edge udd {what}", is_cuda)
+        if is_cuda:
+            from greptimedb_tpu_torch.ops import sketch as sk
+
+            out["udd_paths"][what] = {"path": _udd_path(path, f"edge udd {what}"),
+                                      "ms": _timed(lambda: sk.segment_udd(*args), reps)}
         del args
 
     zeros = torch.zeros(n_rows, dtype=torch.int32, device=dev)
@@ -5451,6 +5551,7 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
         out["hll_paths"]["one register"] = _hll_path("ordered", "edge hll one register")
     _sketch_check("udd", udd_args, "edge udd one bucket", is_cuda)
     if is_cuda:
+        out["udd_paths"]["one bucket"] = _udd_path("ordered", "edge udd one bucket")
         from greptimedb_tpu_torch.ops import sketch as sk
 
         out["one_register_ms"] = _timed(lambda: sk.segment_hll(*hll_args), reps)
@@ -5469,6 +5570,8 @@ def run_sketch_edge_cases(dev, n_rows: int, reps: int) -> dict:
             got = _sketch_check(kind, args, f"edge {kind} G*width >= 2^31", is_cuda)
             if kind == "hll":
                 out["hll_paths"]["G*m >= 2^31"] = _hll_path("atomic", "edge hll G*m >= 2^31")
+            else:
+                out["udd_paths"]["G*B >= 2^31"] = _udd_path("atomic", "edge udd G*B >= 2^31")
             if bool(got[g - 1].any()) or not bool(got[g - 2].any()):
                 raise AssertionError(f"edge {kind} G*width >= 2^31: the last group's rows "
                                      f"were not dropped")
@@ -5485,7 +5588,8 @@ def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) ->
     hll_inputs(hash64(usage_user)) of the TSBS rows in (hostname, ts)
     order, grouped by host (p = 12 and 14) and by hour (p = 12); K21
     `segment_udd` over udd_bucket_ids(usage_user, gamma(0.01), B), B = 128
-    and 1024, by host, one row in 100 masked.  Each against its plain
+    and 1024 by host and B = 1024 by hour, one row in 100 masked.  On the
+    card each case's path (ordered or atomic) is asserted.  Each against its plain
     version byte for byte and twice; on the card the kernel, the plain
     version and the library call are timed.  The tie to the SQL path: K20's
     host registers as uint8 equal the host `hll_build_grouped` of the same
@@ -5530,6 +5634,7 @@ def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) ->
         "hll host p=14": ("hll", (idx[14], rho[14], host, n_hosts, 1 << 14)),
         "udd host B=128": ("udd", (bid[128], host, mask, n_hosts, 128)),
         "udd host B=1024": ("udd", (bid[1024], host, mask, n_hosts, 1024)),
+        "udd hour B=1024": ("udd", (bid[1024], hour, mask, hours, 1024)),
     }
     out = {"rows": n, "hosts": n_hosts, "hours": hours, "host_s": host_s, "per_case": {}}
     single = {}
@@ -5537,8 +5642,9 @@ def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) ->
         single[name] = _sketch_check(kind, args, name, is_cuda)
         b, by = _sketch_bound(kind, n, args[-2] * args[-1])
         rec = {"bound_ms": b, "bound_by": by}
-        if is_cuda and kind == "hll":
-            rec["path"] = _hll_path(HLL_PATHS[name], name)
+        if is_cuda:
+            rec["path"] = (_hll_path(HLL_PATHS[name], name) if kind == "hll"
+                           else _udd_path(UDD_PATHS[name], name))
         if is_cuda:
             kernel, plain = ((sk.segment_hll, sk.segment_hll_plain) if kind == "hll"
                              else (sk.segment_udd, sk.segment_udd_plain))
@@ -5561,15 +5667,24 @@ def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) ->
     reset_counts()  # phase 9's main path starts here
     t5 = time.perf_counter()
     regs = counts = None
+    verdicts = []  # each shard's kept verdict words, read after the timing
     for lo, hi in zip(cut[:-1], cut[1:]):
         r = sk.segment_hll(idx[12][lo:hi], rho[12][lo:hi], host[lo:hi], n_hosts, 1 << 12)
         c = sk.segment_udd(bid[1024][lo:hi], host[lo:hi], mask[lo:hi], n_hosts, 1024)
+        verdicts.append((sk.segment_hll.last_verdict, sk.segment_udd.last_verdict))
         regs = r if regs is None else torch.maximum(regs, r)
         counts = c if counts is None else counts + c
     if is_cuda:
         torch.cuda.synchronize()
     out["two_step_ms"] = (time.perf_counter() - t5) * 1e3
     out["launches"] = launch_counts()  # ... and ends here
+    if is_cuda:  # every shard's rows are host runs: both kernels' ordered path
+        for s, (v_hll, v_udd) in enumerate(verdicts):
+            for kernel, v in (("K20", v_hll), ("K21", v_udd)):
+                if sk.path_of(v) != "ordered":
+                    raise AssertionError(f"two-step shard {s}: {kernel} took the "
+                                         f"{sk.path_of(v)} path, expected ordered")
+        out["two_step_paths"] = "ordered"
     for got, name in ((regs, "hll host p=12"), (counts, "udd host B=1024")):
         if not _same_bytes(got, single[name]):
             raise AssertionError(f"two-step {name}: the folded shards differ from the single pass")
@@ -5602,8 +5717,8 @@ def run_sketch_kernel_phase(device: str, n_hosts: int, hours: int, reps: int) ->
     out["edge"] = run_sketch_edge_cases(dev, n, reps)
     out["regs_by_host"] = regs_by_host
     emit({"phase": "sketch_kernels", "ok": True, "rows": n, "host_s": host_s,
-          "two_step_ms": out["two_step_ms"], "hll_max_rel_err": out["hll_max_rel_err"],
-          "hll_host_max_rel_err": out["hll_host_max_rel_err"],
+          "two_step_ms": out["two_step_ms"], "two_step_paths": out.get("two_step_paths"),
+          "hll_max_rel_err": out["hll_max_rel_err"], "hll_host_max_rel_err": out["hll_host_max_rel_err"],
           "udd_p99_max_rel_err": out["udd_p99_max_rel_err"]})
     return out
 
@@ -6635,7 +6750,7 @@ def main(argv=None) -> int:
                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "tile_launches": tile_launches, "live_launches": live_launches,
                 **{k: s[k] for k in ("remap", "multi", "passes", "key_bytes", "sort_launches",
-                                     "jittered", "groups", "ms_range", "live")
+                                     "jittered", "groups", "ms_range", "live", "per_plane")
                    if k in s},
                 # K13: its calls by G on the live phase's HAVING queries
                 **({"launches_by_groups": {"live": by_shape(sl["live"]["shape_launches"], name)}}

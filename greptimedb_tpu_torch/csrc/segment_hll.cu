@@ -26,43 +26,30 @@
 // arrive in group runs (the TSBS scan's (host, ts) order), so each
 // group's register row can have one owner, in shared memory.
 //
-// * The run pass reads gids once (a warp 256 rows at a time) and sets the
-//   `verdict` word (0 = ordered) where a gid lies outside [0, G) or below
-//   the gid of the row before it; it records each window's first and last
-//   row by plain stores from the one row where the window's run starts
-//   or ends, and stops once the verdict is set.  A window is `cap`
-//   consecutive groups of m registers (ops/sketch.py::hll_layout: 4096
-//   registers below m = 4096, else one group).  The host keeps the
+// * The ordered path (csrc/group_runs.cuh, shared with K21): the run pass
+//   sets the verdict and each window's first and last row; a window is
+//   `cap` consecutive groups of m registers (ops/sketch.py::hll_layout:
+//   4096 registers below m = 4096, else one group).  The host keeps the
 //   ordered path off when G * m >= 2^31 (the int32 wrap) or m >
-//   kMaxOrderedM (the shared-memory budget).
-// * The ordered path.  An owner block per window zeroes the window's
-//   registers in shared memory, takes its first `tile_rows` rows with a
-//   shared atomicMax (after a plain read; registers only grow), and
-//   stores the whole row, empty registers and empty groups included, with
-//   coalesced 16-byte stores: no global atomic and no zero fill.  A longer
-//   run (one group's rows, or every row on one register) is split over
-//   helper blocks, one per tile_rows rows of the extra part, each storing
-//   its partial row to scratch; the fold kernel then takes the max of the
-//   owner's row and the partials, each helper block of the window folding
-//   a slice of its columns.  A reg_idx outside [0, m) also sets the
-//   verdict (the row is skipped, and the atomic path redoes the call).
+//   kMaxOrderedM (the shared-memory budget).  An owner block per window
+//   zeroes the window's registers in shared memory, takes its first
+//   `tile_rows` rows with a shared atomicMax (after a plain read;
+//   registers only grow), and stores the whole row, empty registers and
+//   empty groups included, with coalesced 16-byte stores: no global
+//   atomic and no zero fill.  Helper blocks and the fold (max) take the
+//   rest of a longer run.  A reg_idx outside [0, m) also sets the verdict
+//   (the row is skipped, and the atomic path redoes the call).
 // * The atomic path (verdict set: by-hour gids in host order, ids out of
 //   range, the wrap): a fill kernel zeroes the registers, then one thread
 //   a row reads the register through L2 and calls a global atomicMax only
 //   where its rho is larger.
 // Every kernel of the path not taken returns at once (a Gate, as K18's).
 // A max is order free, so every run gives the same bytes.
-#include "common.cuh"
+#include "group_runs.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kOwnThreads = 512;
-constexpr int kRunRows = 8;  // rows in flight a lane in the run pass
-constexpr int kBlocksPerSm = 8;
-constexpr int kSms = 132;
 constexpr int kMaxOrderedM = 1 << 15;     // 128 KB of registers in shared memory
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
 // Mirrored field for field by _HllArgs in ops/sketch.py (ctypes).
 struct HllArgs {
@@ -73,7 +60,8 @@ struct HllArgs {
   const int32_t* gids;  // [n]
   int32_t* regs;        // [total] out
   int32_t* verdict;     // [1] 0 = ordered path, else the atomic path
-  int64_t* windows;     // [2 * n_windows] first row + 1, last row + 1 (0 = none)
+  int64_t* windows;     // [2 * n_windows] first row + 1, last row + 1 (0 = none), after
+                        // the verdict word's line in one span
   int32_t* scratch;     // [n_tiles * stride] the helpers' partial rows
   int64_t groups;       // G
   int64_t n_windows;    // ceil(G / cap)
@@ -86,63 +74,10 @@ struct HllArgs {
   int32_t reserved;
 };
 
-__device__ __forceinline__ void set_atomic_path(const HllArgs& a) {
-  *(volatile int32_t*)a.verdict = 1;
-}
-
 // ---- the run pass ----
 
-__global__ void __launch_bounds__(kThreads) run_kernel(const HllArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x * kRunRows;
-  int64_t* first = a.windows;
-  int64_t* last = a.windows + a.n_windows;
-  // a warp takes 32 * kRunRows rows at once, all loaded before any is
-  // checked; the loop is warp-uniform (every lane takes part in the
-  // shuffles)
-  for (int64_t r0 = ((int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31)) * kRunRows; r0 < a.n;
-       r0 += stride) {
-    // one round trip a chunk: its gids, the rows on either side of it and
-    // the verdict word are loaded together
-    int32_t gg[kRunRows], prev[kRunRows], next[kRunRows];
-#pragma unroll
-    for (int u = 0; u < kRunRows; ++u) {
-      const int64_t r = r0 + 32 * u + lane;
-      gg[u] = r < a.n ? a.gids[r] : 0;
-    }
-    const int64_t r_end = r0 + 32 * kRunRows;
-    const int32_t before = lane == 0 && r0 > 0 ? a.gids[r0 - 1] : 0;
-    const int32_t after = lane == 31 && r_end < a.n ? a.gids[r_end] : 0;
-    // once a row breaks the order nothing here is read: stop (this also
-    // keeps unordered rows from storing run ends into a few hot words)
-    if (__any_sync(0xffffffffu, lane == 0 && *(volatile const int32_t*)a.verdict != 0)) break;
-    bool bad = false;
-#pragma unroll
-    for (int u = 0; u < kRunRows; ++u) {
-      const int64_t r = r0 + 32 * u + lane;
-      prev[u] = __shfl_up_sync(0xffffffffu, gg[u], 1);
-      next[u] = __shfl_down_sync(0xffffffffu, gg[u], 1);
-      // the neighbours across this chunk's groups of 32 rows
-      const int32_t last_of_prev = __shfl_sync(0xffffffffu, gg[u > 0 ? u - 1 : 0], 31);
-      const int32_t first_of_next = __shfl_sync(0xffffffffu, gg[u + 1 < kRunRows ? u + 1 : u], 0);
-      if (lane == 0) prev[u] = u > 0 ? last_of_prev : before;
-      if (lane == 31) next[u] = u + 1 < kRunRows ? first_of_next : after;
-      if (r < a.n) bad |= gg[u] < 0 || (int64_t)gg[u] >= a.groups || (r > 0 && gg[u] < prev[u]);
-    }
-    if (__any_sync(0xffffffffu, bad)) {
-      if (lane == 0) set_atomic_path(a);
-      break;
-    }
-#pragma unroll
-    for (int u = 0; u < kRunRows; ++u) {
-      const int64_t r = r0 + 32 * u + lane;
-      const bool head = r == 0 || prev[u] != gg[u], tail = r + 1 == a.n || next[u] != gg[u];
-      if (r >= a.n || !(head || tail)) continue;  // inside a group's run: no division
-      const int32_t w = gg[u] / a.cap;
-      if (r == 0 || (head && prev[u] / a.cap != w)) first[w] = r + 1;
-      if (r + 1 == a.n || (tail && next[u] / a.cap != w)) last[w] = r + 1;
-    }
-  }
+__global__ void __launch_bounds__(kRunThreads) run_kernel(const HllArgs a) {
+  run_pass_any(a.gids, a.n, a.groups, a.cap, a.verdict, a.windows, a.windows + a.n_windows);
 }
 
 // ---- the ordered path ----
@@ -151,10 +86,7 @@ __global__ void __launch_bounds__(kThreads) run_kernel(const HllArgs a) {
 // registers in shared memory.
 __device__ void own_rows(const HllArgs& a, int32_t* sreg, int64_t width, int64_t ga, int64_t lo,
                          int64_t hi, int32_t* dst, bool vec) {
-  const int64_t w4 = vec ? width / 4 : 0;
-  int4* s4 = (int4*)sreg;
-  for (int64_t i = threadIdx.x; i < w4; i += blockDim.x) s4[i] = make_int4(0, 0, 0, 0);
-  for (int64_t i = 4 * w4 + threadIdx.x; i < width; i += blockDim.x) sreg[i] = 0;
+  zero_row(sreg, width, vec);
   __syncthreads();
   bool bad = false;
   auto take = [&](int32_t reg, int32_t rho, int32_t g) {
@@ -180,112 +112,38 @@ __device__ void own_rows(const HllArgs& a, int32_t* sreg, int64_t width, int64_t
     for (int u = 0; u < 4; ++u) take(rg[u], rh[u], gg[u]);
   }
   for (; r < hi; r += step) take(a.reg[r], a.rho[r], a.cap > 1 ? a.gids[r] : (int32_t)ga);
-  if (bad) set_atomic_path(a);
+  if (bad) set_atomic_path(a.verdict);
   __syncthreads();
-  int4* d4 = (int4*)dst;
-  for (int64_t i = threadIdx.x; i < w4; i += blockDim.x) d4[i] = s4[i];
-  for (int64_t i = 4 * w4 + threadIdx.x; i < width; i += blockDim.x) dst[i] = sreg[i];
-}
-
-// A window's rows: [first, last] (first > last when it has none).
-__device__ __forceinline__ void window_rows(const HllArgs& a, int64_t w, int64_t& f, int64_t& l) {
-  f = a.windows[w] - 1;
-  l = a.windows[a.n_windows + w] - 1;
-  if (f < 0) l = -2;
+  store_row(sreg, width, dst, vec);
 }
 
 __global__ void __launch_bounds__(kOwnThreads) own_kernel(const HllArgs a, const Gate gate) {
   extern __shared__ int4 smem4[];
-  if (gate_shut(gate)) return;
+  if (block_gate_shut(gate)) return;
   int32_t* sreg = (int32_t*)smem4;
-  const int64_t b = blockIdx.x;
-  int64_t w, lo, hi;
-  int32_t* dst;
-  if (b < a.n_windows) {  // the owner of window b
-    w = b;
-    int64_t f, l;
-    window_rows(a, w, f, l);
-    lo = f < 0 ? 0 : f;
-    hi = f < 0 ? 0 : min64(f + a.tile_rows, l + 1);
-    dst = a.regs + w * a.cap * a.m;
-  } else {  // a helper: the extra part of the window holding its tile's first row
-    const int64_t h = b - a.n_windows;
-    const int64_t hs = h * a.tile_rows;
-    w = a.gids[hs] / a.cap;
-    int64_t f, l;
-    window_rows(a, w, f, l);
-    lo = max64(hs, f + a.tile_rows);
-    hi = min64(hs + a.tile_rows, l + 1);
-    if (lo >= hi) return;
-    dst = a.scratch + h * a.stride;
-  }
+  BlockRows br;
+  if (!block_rows(blockIdx.x, a.gids, a.windows, a.n_windows, a.tile_rows, a.cap, br)) return;
+  const int64_t w = br.w, lo = br.lo, hi = br.hi;
+  int32_t* dst = br.owner ? a.regs + w * a.cap * a.m
+                          : a.scratch + ((int64_t)blockIdx.x - a.n_windows) * a.stride;
   const int64_t ga = w * a.cap;
   const int64_t width = min64(a.cap, a.groups - ga) * a.m;
   own_rows(a, sreg, width, ga, lo, hi, dst, (a.m & 3) == 0);
 }
 
 // The windows longer than tile_rows: the max of the owner's row and every
-// helper's partial, helper tile h folding its share of the columns.
+// helper's partial (group_runs.cuh).
 __global__ void __launch_bounds__(kThreads) fold_kernel(const HllArgs a, const Gate gate) {
   __shared__ int4 part[kThreads];
-  if (gate_shut(gate)) return;
-  const int64_t h = blockIdx.x;
-  const int64_t hs = h * a.tile_rows;
-  const int64_t w = a.gids[hs] / a.cap;
-  int64_t f, l;
-  window_rows(a, w, f, l);
-  if (max64(hs, f + a.tile_rows) >= min64(hs + a.tile_rows, l + 1)) return;  // not a helper
-  const int64_t h0 = (f + a.tile_rows) / a.tile_rows, h1 = l / a.tile_rows;
-  const int64_t ga = w * a.cap;
-  const int64_t width = min64(a.cap, a.groups - ga) * a.m;
-  const int64_t width4 = (width + 3) / 4;
-  const int64_t per = (width4 + (h1 - h0)) / (h1 - h0 + 1);
-  const int64_t c_lo = (h - h0) * per, c_hi = min64(width4, c_lo + per);
-  // lanes: `cl` columns of 16 bytes x `hl` helpers, cl a power of two
-  int cl = 1;
-  while (cl < 32 && cl < per) cl <<= 1;
-  const int hl = kThreads / cl;
-  const int col = threadIdx.x % cl, hlane = threadIdx.x / cl;
-  const int4* sc = (const int4*)a.scratch;
-  const int64_t stride4 = a.stride / 4;
-  int32_t* dst = a.regs + ga * a.m;
-  for (int64_t c0 = c_lo; c0 < c_hi; c0 += cl) {
-    const int64_t c = c0 + col;
-    int4 acc = make_int4(0, 0, 0, 0);
-    if (c < c_hi) {
-#pragma unroll 4
-      for (int64_t hh = h0 + hlane; hh <= h1; hh += hl) {
-        const int4 v = __ldcg(sc + hh * stride4 + c);
-        acc.x = max(acc.x, v.x);
-        acc.y = max(acc.y, v.y);
-        acc.z = max(acc.z, v.z);
-        acc.w = max(acc.w, v.w);
-      }
-    }
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    if (hlane == 0 && c < c_hi) {
-      for (int j = 1; j < hl; ++j) {
-        const int4 v = part[j * cl + col];
-        acc.x = max(acc.x, v.x);
-        acc.y = max(acc.y, v.y);
-        acc.z = max(acc.z, v.z);
-        acc.w = max(acc.w, v.w);
-      }
-      const int32_t got[4] = {acc.x, acc.y, acc.z, acc.w};
-      for (int j = 0; j < 4 && 4 * c + j < width; ++j) {
-        int32_t* p = dst + 4 * c + j;
-        *p = max(*p, got[j]);
-      }
-    }
-    __syncthreads();
-  }
+  if (block_gate_shut(gate)) return;
+  fold_window<kThreads>(a.gids, a.windows, a.n_windows, a.tile_rows, a.cap, a.groups, a.m,
+                        a.scratch, a.stride, a.regs, part, FoldMax());
 }
 
 // ---- the atomic path ----
 
 __global__ void __launch_bounds__(kThreads) fill_kernel(const HllArgs a, const Gate gate) {
-  if (gate_shut(gate)) return;
+  if (block_gate_shut(gate)) return;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t t4 = a.total / 4;
   int4* r4 = (int4*)a.regs;
@@ -296,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) fill_kernel(const HllArgs a, const G
 }
 
 __global__ void __launch_bounds__(kThreads) hll_kernel(const HllArgs a, const Gate gate) {
-  if (gate_shut(gate)) return;
+  if (block_gate_shut(gate)) return;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
     const int32_t r = a.rho[i];
@@ -308,33 +166,25 @@ __global__ void __launch_bounds__(kThreads) hll_kernel(const HllArgs a, const Ga
   }
 }
 
-static int grid_for(int64_t items) {
-  const int64_t want = (items + kThreads - 1) / kThreads;
-  return (int)(want < 1 ? 1 : (want < kSms * kBlocksPerSm ? want : kSms * kBlocksPerSm));
-}
-
 GT_EXPORT int gt_segment_hll(const HllArgs* a, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Gate ordered{a->verdict, 0, 0}, atomic{a->verdict, 1, 0};
   if (a->ordered) {
     static bool allowed[64] = {false};
-    int dev = -1;
-    cudaGetDevice(&dev);
-    if (dev < 0 || dev >= 64 || !allowed[dev]) {
-      cudaFuncSetAttribute(own_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxOrderedM * 4);
-      if (dev >= 0 && dev < 64) allowed[dev] = true;
+    allow_smem(own_kernel, allowed, kMaxOrderedM * 4);
+    // the verdict word and the window table are one span (ops/sketch.py
+    // `_run_buffers`): one memset clears both
+    cudaMemsetAsync(a->verdict, 0, (char*)(a->windows + 2 * a->n_windows) - (char*)a->verdict, s);
+    if (a->n > 0) {
+      run_kernel<<<run_pass_grid(a->n), kRunThreads, 0, s>>>(*a);
     }
-    cudaMemsetAsync(a->verdict, 0, sizeof(int32_t), s);
-    cudaMemsetAsync(a->windows, 0, 2 * a->n_windows * sizeof(int64_t), s);
-    if (a->n > 0) run_kernel<<<grid_for((a->n + kRunRows - 1) / kRunRows), kThreads, 0, s>>>(*a);
     const int smem = (int)(a->cap * a->m * 4);
     own_kernel<<<(unsigned)(a->n_windows + a->n_tiles), kOwnThreads, smem, s>>>(*a, ordered);
     if (a->n_tiles > 0) fold_kernel<<<(unsigned)a->n_tiles, kThreads, 0, s>>>(*a, ordered);
   } else {
     cudaMemsetAsync(a->verdict, 0xff, sizeof(int32_t), s);
   }
-  fill_kernel<<<grid_for(a->total / 4 + 1), kThreads, 0, s>>>(*a, atomic);
-  hll_kernel<<<grid_for(a->n), kThreads, 0, s>>>(*a, atomic);
+  fill_kernel<<<run_grid(a->total / 4 + 1, kThreads), kThreads, 0, s>>>(*a, atomic);
+  hll_kernel<<<run_grid(a->n, kThreads), kThreads, 0, s>>>(*a, atomic);
   return (int)cudaGetLastError();
 }

@@ -355,11 +355,40 @@ def delta_patch_plain(old_chunks, old_n: int, delta: torch.Tensor, pos: torch.Te
 
 
 class _PatchArgs(ctypes.Structure):
+    # mirrored field for field by PatchArgs in csrc/delta_patch.cu
     _fields_ = [
         ("old_rows", _ChunkTable), ("dst", _ChunkTable), ("delta", ctypes.c_void_p),
         ("pos", ctypes.c_void_p), ("old_n", ctypes.c_int64), ("n_delta", ctypes.c_int64),
-        ("new_pad", ctypes.c_int64), ("esize", ctypes.c_int32), ("reserved", ctypes.c_int32),
+        ("new_pad", ctypes.c_int64), ("esize", ctypes.c_int32), ("old_shift", ctypes.c_int32),
+        ("tiles_per_chunk", ctypes.c_uint32), ("n_tiles", ctypes.c_uint32),
+        ("vec_old", ctypes.c_int32), ("vec_dst", ctypes.c_int32),
     ]
+
+
+PATCH_TILE = 4096  # output rows a CTA of K16 builds (kTile)
+
+
+def patch_tiles(new_pad: int, chunk_rows: int) -> tuple[int, int]:
+    """(tiles a destination chunk, tiles in all) of K16's grid over a
+    `new_pad`-row plane cut every `chunk_rows` rows: each tile PATCH_TILE
+    rows inside one chunk, a chunk's last tile shorter where PATCH_TILE
+    does not divide it."""
+    rows = min(int(chunk_rows), int(new_pad))
+    if rows <= 0:
+        return 1, 0
+    tpc = -(-rows // PATCH_TILE)
+    n_chunks = -(-int(new_pad) // rows)
+    last = int(new_pad) - (n_chunks - 1) * rows
+    return tpc, (n_chunks - 1) * tpc + -(-last // PATCH_TILE)
+
+
+def _vector_aligned(chunks, elems: int) -> bool:
+    """Whether 16 B copies of the chunked plane line up: every chunk
+    pointer on a 16 B boundary, and a chunk's first row at a vector's
+    start (one chunk, or chunk rows a multiple of `elems` = 16 / element
+    size)."""
+    rows = int(chunks[0].shape[0])
+    return all(c.data_ptr() % 16 == 0 for c in chunks) and (len(chunks) == 1 or rows % elems == 0)
 
 
 def delta_patch(old_chunks, old_n: int, delta: torch.Tensor, pos: torch.Tensor,
@@ -369,8 +398,10 @@ def delta_patch(old_chunks, old_n: int, delta: torch.Tensor, pos: torch.Tensor,
     at the merge positions `pos` (int32 [n_delta], non-decreasing: the
     old rows before each delta row).  Returns the new plane in chunks of
     `chunk_rows` over `new_pad` rows, zero past old_n + n_delta.  CUDA
-    tensors launch csrc/delta_patch.cu; CPU tensors run
-    `delta_patch_plain`."""
+    tensors launch csrc/delta_patch.cu (one launch: a CTA a tile of
+    `patch_tiles`, its delta rows found by a warp search and placed by a
+    scan of their flags, its old rows copied once into shared memory);
+    CPU tensors run `delta_patch_plain`."""
     if delta.device.type == "cpu":
         return delta_patch_plain(old_chunks, old_n, delta, pos, new_pad, chunk_rows)
     from ..kernels._build import launch
@@ -395,8 +426,13 @@ def delta_patch(old_chunks, old_n: int, delta: torch.Tensor, pos: torch.Tensor,
     out = [torch.empty(b - a, dtype=dtype, device=dev)
            for a, b in chunk_bounds(new_pad, chunk_rows)]
     dst = _chunk_table(out, dtype, dev)
+    tpc, n_tiles = patch_tiles(new_pad, dst.chunk_rows)
+    ocr = int(old_t.chunk_rows)
+    old_shift = ocr.bit_length() - 1 if ocr & (ocr - 1) == 0 else -1
     a = _PatchArgs(old_t, dst, delta.data_ptr(), pos.data_ptr(), int(old_n), n_delta,
-                   int(new_pad), esize, 0)
+                   int(new_pad), esize, old_shift, tpc, n_tiles,
+                   int(_vector_aligned(old_chunks, 16 // esize)),
+                   int(all(c.data_ptr() % 16 == 0 for c in out)))
     delta_patch.launches += 1
     launch("delta_patch", "gt_delta_patch", a, _stream(dev))
     return out

@@ -431,23 +431,48 @@ def segment_hll_plain(reg_idx, rho, gids, num_groups: int, m: int):
     return regs.reshape(int(num_groups), int(m))
 
 
-# K20's two device paths (csrc/segment_hll.cu).  The ordered path keeps a
-# window of HLL_WINDOW_INTS registers (one group from m = HLL_WINDOW_INTS
-# up to HLL_MAX_ORDERED_M) in one block's shared memory; an owner block
-# takes a window's first `tile_rows` rows and helper blocks the rest.
-HLL_WINDOW_INTS = 4096
-HLL_MAX_ORDERED_M = 1 << 15
-HLL_MIN_TILE_ROWS = 1 << 16
-HLL_TILES = 264  # two blocks a streaming multiprocessor of the H100
+# K20's and K21's two device paths (csrc/segment_hll.cu, segment_udd.cu).
+# The ordered path (csrc/group_runs.cuh) keeps a window of RUN_WINDOW_INTS
+# ints (one group's row from a width of RUN_WINDOW_INTS up to
+# RUN_MAX_WIDTH) in one block's shared memory; an owner block takes a
+# window's first `tile_rows` rows and helper blocks the rest.
+RUN_WINDOW_INTS = 4096
+RUN_MAX_WIDTH = 1 << 15
+RUN_MIN_TILE_ROWS = 1 << 16
+RUN_TILES = 264  # two blocks a streaming multiprocessor of the H100
+
+
+def run_layout(n: int, num_groups: int, width: int) -> tuple[bool, int, int]:
+    """(whether the ordered path may run, groups per window, rows an owner
+    or helper block takes) for n rows of `width` ints a group: the ordered
+    path needs G * width below 2^31 (no int32 wrap) and a group's row in
+    shared memory."""
+    ordered = int(num_groups) * int(width) < (1 << 31) and int(width) <= RUN_MAX_WIDTH
+    cap = max(1, RUN_WINDOW_INTS // int(width))
+    tile = max(RUN_MIN_TILE_ROWS, 1 << max(int(n) // RUN_TILES - 1, 0).bit_length())
+    return ordered, cap, tile
 
 
 def hll_layout(n: int, num_groups: int, m: int) -> tuple[bool, int, int]:
-    """(whether the ordered path may run, groups per window, rows an owner
-    or helper block takes) for n rows: the ordered path needs G * m below
-    2^31 (no int32 wrap) and m registers in shared memory."""
-    ordered = int(num_groups) * int(m) < (1 << 31) and int(m) <= HLL_MAX_ORDERED_M
-    cap = max(1, HLL_WINDOW_INTS // int(m))
-    tile = max(HLL_MIN_TILE_ROWS, 1 << max(int(n) // HLL_TILES - 1, 0).bit_length())
+    """K20's `run_layout`, m registers a group."""
+    return run_layout(n, num_groups, m)
+
+
+RUN_GROUP_ROWS = 256  # rows a group from which K21's windows are one group each
+UDD_MIN_TILE_ROWS = 1 << 13
+UDD_TILES = 528  # four blocks a streaming multiprocessor of the H100
+
+
+def udd_layout(n: int, num_groups: int, n_buckets: int) -> tuple[bool, int, int]:
+    """K21's `run_layout`, n_buckets counts a group; a window is one group
+    where the groups average RUN_GROUP_ROWS rows or more (its owner then
+    reads no gids: phase 9's hosts hold 2160 rows each), and a long run is
+    cut into tiles of n / UDD_TILES rows (a power of two, at least
+    UDD_MIN_TILE_ROWS), so its helper blocks fill the card."""
+    ordered, cap, _tile = run_layout(n, num_groups, n_buckets)
+    if int(n) >= int(num_groups) * RUN_GROUP_ROWS:
+        cap = 1
+    tile = max(UDD_MIN_TILE_ROWS, 1 << max(int(n) // UDD_TILES - 1, 0).bit_length())
     return ordered, cap, tile
 
 
@@ -478,7 +503,35 @@ class _UddArgs(ctypes.Structure):
     # mirrored field for field by UddArgs in csrc/segment_udd.cu
     _fields_ = [("n", ctypes.c_int64), ("total", ctypes.c_int64), ("bucket", ctypes.c_void_p),
                 ("gids", ctypes.c_void_p), ("mask", ctypes.c_void_p), ("counts", ctypes.c_void_p),
-                ("n_buckets", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+                ("verdict", ctypes.c_void_p), ("windows", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("groups", ctypes.c_int64),
+                ("n_windows", ctypes.c_int64), ("tile_rows", ctypes.c_int64),
+                ("n_tiles", ctypes.c_int64), ("stride", ctypes.c_int64),
+                ("n_buckets", ctypes.c_int32), ("cap", ctypes.c_int32), ("ordered", ctypes.c_int32),
+                ("reserved", ctypes.c_int32)]
+
+
+_VERDICT_INTS = 32  # the verdict word's own 128-byte line: the run pass polls it
+
+
+def _run_buffers(layout, n: int, num_groups: int, width: int, dev):
+    """The ordered path's fields of a K20 or K21 argument struct for the
+    call's `layout` (n_windows, tile_rows, n_tiles, stride, cap, ordered),
+    its buffers and their pointers (verdict, windows, scratch): `aux`, the
+    int32 verdict word (alone on its 128-byte line, which every warp of the
+    run pass polls while run ends are stored to the window table) and the
+    window table (2 int64 a window, cleared by the same memset), then the
+    helpers' partial rows, apart so that a kept verdict holds no more."""
+    ordered, cap, tile = layout
+    n_windows = -(-int(num_groups) // cap)
+    n_tiles = -(-n // tile) if ordered else 0
+    stride = -(-(cap * int(width)) // 4) * 4
+    table = 4 * n_windows if ordered else 0
+    aux = torch.empty(_VERDICT_INTS + table, dtype=torch.int32, device=dev)
+    scratch = torch.empty(n_tiles * stride, dtype=torch.int32, device=dev)
+    base = aux.data_ptr()
+    ptrs = (base, base + 4 * _VERDICT_INTS, scratch.data_ptr())
+    return (n_windows, tile, n_tiles, stride, cap, int(ordered)), (aux, scratch), ptrs
 
 
 def _int32_rows(name: str, t, n: int, dev):
@@ -487,6 +540,8 @@ def _int32_rows(name: str, t, n: int, dev):
     if t.device != dev or t.dtype not in _INT_TYPES or tuple(t.shape) != (n,):
         raise ValueError(f"{name} must be an integer [{n}] tensor on {dev}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
 
 
@@ -517,20 +572,14 @@ def segment_hll(reg_idx, rho, gids, num_groups: int, m: int):
     r = _int32_rows("segment_hll: rho", rho, n, dev)
     g = _int32_rows("segment_hll: gids", gids, n, dev)
     regs = torch.empty(total, dtype=torch.int32, device=dev)
-    verdict = torch.empty(1, dtype=torch.int32, device=dev)
-    segment_hll.last_verdict = verdict
     if total == 0:
-        verdict.fill_(1)
+        segment_hll.last_verdict = torch.ones(1, dtype=torch.int32, device=dev)
         return regs.reshape(int(num_groups), int(m))
-    ordered, cap, tile = hll_layout(n, num_groups, m)
-    n_windows = -(-int(num_groups) // cap)
-    n_tiles = -(-n // tile) if ordered else 0
-    stride = -(-(cap * int(m)) // 4) * 4
-    windows = torch.empty(2 * n_windows if ordered else 0, dtype=torch.int64, device=dev)
-    scratch = torch.empty(n_tiles * stride, dtype=torch.int32, device=dev)
-    a = _HllArgs(n, total, reg.data_ptr(), r.data_ptr(), g.data_ptr(), regs.data_ptr(),
-                 verdict.data_ptr(), windows.data_ptr(), scratch.data_ptr(), int(num_groups),
-                 n_windows, tile, n_tiles, stride, int(m), cap, int(ordered), 0)
+    (n_windows, tile, n_tiles, stride, cap, ordered), (aux, scratch), ptrs = _run_buffers(
+        hll_layout(n, num_groups, m), n, num_groups, m, dev)
+    segment_hll.last_verdict = aux  # its first word
+    a = _HllArgs(n, total, reg.data_ptr(), r.data_ptr(), g.data_ptr(), regs.data_ptr(), *ptrs,
+                 int(num_groups), n_windows, tile, n_tiles, stride, int(m), cap, ordered, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     segment_hll.launches += 1
     launch("segment_hll", "gt_segment_hll", a, stream)
@@ -541,18 +590,27 @@ segment_hll.launches = 0
 segment_hll.last_verdict = None
 
 
+def path_of(verdict) -> str | None:
+    """The path a K20 or K21 call took, from the verdict it kept
+    (`segment_hll.last_verdict`, `segment_udd.last_verdict`): a host read."""
+    return None if verdict is None else ("ordered" if int(verdict.reshape(-1)[0]) == 0
+                                         else "atomic")
+
+
 def last_hll_path() -> str | None:
     """The path the last `segment_hll` call on the card took, "ordered" or
     "atomic" (a host read of its verdict word: call it after a sync)."""
-    v = segment_hll.last_verdict
-    return None if v is None else ("ordered" if int(v.reshape(-1)[0]) == 0 else "atomic")
+    return path_of(segment_hll.last_verdict)
 
 
 def segment_udd(bucket_ids, gids, mask, num_groups: int, n_buckets: int):
     """K21: [num_groups, n_buckets] int32 histogram of the rows where
     `mask` holds (bucket ids from `udd_bucket_ids`).  Merge partials with
-    `+` (bucket counts add).  A CUDA tensor launches csrc/segment_udd.cu;
-    a CPU tensor runs `segment_udd_plain`."""
+    `+` (bucket counts add).  A CUDA tensor launches csrc/segment_udd.cu:
+    rows in sorted group runs take the ordered path (each window of
+    histograms built once in shared memory), any others the atomic path,
+    decided on the card (`last_udd_path()` reads which); a CPU tensor runs
+    `segment_udd_plain`."""
     if bucket_ids.device.type == "cpu":
         return segment_udd_plain(bucket_ids, gids, mask, num_groups, n_buckets)
     from ..kernels._build import launch
@@ -566,9 +624,16 @@ def segment_udd(bucket_ids, gids, mask, num_groups: int, n_buckets: int):
         raise ValueError(f"segment_udd: mask must be a bool [{n}] tensor on {dev}, "
                          f"got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
     mk = mask.contiguous()
-    counts = torch.zeros(total, dtype=torch.int32, device=dev)
-    a = _UddArgs(n, total, b.data_ptr(), g.data_ptr(), mk.data_ptr(), counts.data_ptr(),
-                 int(n_buckets), 0)
+    counts = torch.empty(total, dtype=torch.int32, device=dev)
+    if total == 0:
+        segment_udd.last_verdict = torch.ones(1, dtype=torch.int32, device=dev)
+        return counts.reshape(int(num_groups), int(n_buckets))
+    (n_windows, tile, n_tiles, stride, cap, ordered), (aux, scratch), ptrs = _run_buffers(
+        udd_layout(n, num_groups, n_buckets), n, num_groups, n_buckets, dev)
+    segment_udd.last_verdict = aux  # its first word
+    a = _UddArgs(n, total, b.data_ptr(), g.data_ptr(), mk.data_ptr(), counts.data_ptr(), *ptrs,
+                 int(num_groups), n_windows, tile, n_tiles, stride, int(n_buckets), cap, ordered,
+                 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     segment_udd.launches += 1
     launch("segment_udd", "gt_segment_udd", a, stream)
@@ -576,3 +641,12 @@ def segment_udd(bucket_ids, gids, mask, num_groups: int, n_buckets: int):
 
 
 segment_udd.launches = 0
+segment_udd.last_verdict = None
+
+
+def last_udd_path() -> str | None:
+    """The path the last `segment_udd` call on the card took, "ordered" or
+    "atomic" (a host read of its verdict word: call it after a sync).  Rows
+    in order with an unmasked bucket outside [0, n_buckets) read "atomic":
+    the owners store their windows and those rows go by global atomics."""
+    return path_of(segment_udd.last_verdict)

@@ -237,3 +237,205 @@ def test_delta_patch_equals_reference(where, dtype):
     got = P.delta_patch(_chunks(full, 4096), old_n, _t(delta), _t(pos), new_pad, 4096)
     assert all(c.shape[0] == 4096 for c in got) and len(got) == new_pad // 4096
     np.testing.assert_array_equal(torch.cat(got).numpy(), want)
+
+
+# ---- K16's tile walk, emulated --------------------------------------------------------
+
+
+def _warp_lower_bound(q, key):
+    """csrc/delta_patch.cu's `warp_lower_bound`: the first j with q[j] >= key
+    by 32-way rounds (a lane probes the last entry of one of 32 equal
+    blocks; the ballot counts the blocks below the key); (answer, rounds)."""
+    lo, hi, rounds = 0, len(q), 0
+    while lo < hi:
+        s = (hi - lo + 31) >> 5
+        starts = lo + np.arange(32) * s
+        valid = starts < hi
+        probes = np.minimum(starts + s, hi) - 1
+        below = valid & (q[np.where(valid, probes, lo)] < key)
+        blocks, cnt = int(valid.sum()), int(below.sum())
+        assert below[:cnt].all() and not below[cnt:].any()  # a prefix of the lanes
+        if cnt == blocks:
+            lo = hi
+        else:
+            nlo = lo + cnt * s
+            lo, hi = nlo, min(nlo + s, hi) - 1
+        rounds += 1
+    return lo, rounds
+
+
+def _copy_rows_cover(cnt, src_off, vec, V, threads=256):
+    """csrc/delta_patch.cu's `copy_rows` split of `cnt` rows from element
+    `src_off` of an aligned chunk: with vec, the rows before the first
+    whole 16 B vector one a thread (threads < head), the whole vectors,
+    then the tail in a thread-strided loop; without, every row in that
+    loop.  Fails unless every row is copied exactly once."""
+    head = nv = 0
+    if vec:
+        head = min((V - src_off % V) % V, cnt)
+        nv = (cnt - head) // V
+    seen = np.zeros(cnt, np.int64)
+    seen[np.arange(min(head, threads))] += 1
+    for q in range(nv):
+        seen[head + q * V:head + (q + 1) * V] += 1
+    seen[head + nv * V:] += 1
+    assert (seen == 1).all()
+
+
+def _patch_emulated(old_chunks, old_n, delta, pos, new_pad, chunk_rows):
+    """csrc/delta_patch.cu's kernel in numpy: tiles of PATCH_TILE rows inside
+    one destination chunk (`patch_tiles`, the chunk from the tile index);
+    the window [lo, hi) of delta rows by two warp searches; the old rows
+    one contiguous range from r0 - lo, copied piece by piece where it
+    crosses an old chunk bound (the chunk by a shift or a division) to
+    buf[sh + ...], whose 16 B copies line up with the source; a flag a
+    delta row, the words' popcounts scanned, and each 16 B unit of output
+    rows built from the unit's first delta count.  Fails unless every
+    output row is written exactly once; returns the new chunks."""
+    dtype = old_chunks[0].dtype
+    esize = np.dtype(dtype).itemsize
+    V = 16 // esize
+    ocr = old_chunks[0].size
+    vec_old = len(old_chunks) == 1 or ocr % V == 0  # numpy buffers: aligned bases
+    old_shift = ocr.bit_length() - 1 if ocr & (ocr - 1) == 0 else -1
+    bounds = [(o, min(o + chunk_rows, new_pad)) for o in range(0, new_pad, chunk_rows)] or [(0, 0)]
+    outs = [np.zeros(b - a, dtype) for a, b in bounds]
+    written = [np.zeros(b - a, np.int64) for a, b in bounds]
+    cr = min(chunk_rows, new_pad)
+    tpc, n_tiles = P.patch_tiles(new_pad, cr)
+    n_delta = len(delta)
+    q = pos.astype(np.int64) + np.arange(n_delta)
+    total = old_n + n_delta
+    max_rounds = 0
+    for tile in range(n_tiles):
+        c = tile // tpc
+        off = (tile - c * tpc) * P.PATCH_TILE
+        rows_c = new_pad - c * cr if c + 1 == len(bounds) else cr
+        length = min(P.PATCH_TILE, rows_c - off)
+        assert length > 0
+        r0 = c * cr + off
+        if n_delta == 0:
+            lo = hi = 0
+        elif r0 >= total:
+            lo = hi = n_delta
+        else:
+            (lo, r1), (hi, r2) = _warp_lower_bound(q, r0), _warp_lower_bound(q, r0 + length)
+            max_rounds = max(max_rounds, r1, r2)
+        m = max(0, min(length, total - r0))
+        n_old = m - (hi - lo)
+        a0 = r0 - lo
+        sh = a0 % V if vec_old else 0
+        buf = np.zeros(P.PATCH_TILE + V, dtype)
+        o, pieces = a0, 0
+        while o < a0 + n_old:
+            ci = o >> old_shift if old_shift >= 0 else o // ocr
+            cbase = ci * ocr
+            stop = min(a0 + n_old, cbase + ocr)
+            src_off = o - cbase
+            head = min((V - src_off % V) % V, stop - o)
+            if vec_old and head < stop - o:  # the first whole vector lines up in buf
+                assert (sh + (o - a0) + head) % V == 0
+            buf[sh + o - a0:sh + stop - a0] = old_chunks[ci][src_off:src_off + stop - o]
+            _copy_rows_cover(stop - o, src_off, vec_old, V)
+            o, pieces = stop, pieces + 1
+        if ocr >= P.PATCH_TILE:
+            assert pieces <= 2  # the old range crosses at most one old chunk bound
+        flags = np.zeros(P.PATCH_TILE, bool)
+        t = q[lo:hi] - r0
+        assert ((t >= 0) & (t < length)).all()
+        flags[t] = True
+        buf[sh + n_old:sh + n_old + hi - lo] = delta[lo:hi]
+        words = (flags.reshape(-1, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+            1).astype(np.uint32)
+        pops = np.bitwise_count(words).astype(np.int64)
+        before = np.concatenate([[0], np.cumsum(pops)[:-1]])
+        i0 = np.arange(0, length, V)
+        below = ((np.uint64(1) << (i0 & 31).astype(np.uint64)) - np.uint64(1)).astype(np.uint32)
+        d0 = before[i0 >> 5] + np.bitwise_count(words[i0 >> 5] & below)
+        i = (i0[:, None] + np.arange(V)).reshape(-1)
+        f = flags[np.minimum(i, P.PATCH_TILE - 1)].reshape(-1, V)
+        d = (d0[:, None] + np.cumsum(f, 1) - f).reshape(-1)
+        idx = np.where(f.reshape(-1), n_old + d, i - d)
+        vals = np.where(i < m, buf[sh + np.clip(idx, 0, P.PATCH_TILE - 1)], np.zeros(1, dtype))
+        keep = i < length
+        outs[c][off + i[keep]] = vals[keep]
+        written[c][off + i[keep]] += 1
+    assert all((w == 1).all() for w in written)
+    if n_delta > 1:
+        assert max_rounds <= int(np.ceil(np.log(n_delta) / np.log(32))) + 1
+    return outs
+
+
+def _patch_case(where, old_n, n_delta, rng):
+    """Sorted merge positions of `n_delta` delta rows into `old_n` old rows."""
+    if where == "front":
+        return np.zeros(n_delta, np.int64)
+    if where == "back":
+        return np.full(n_delta, old_n, np.int64)
+    if where == "runs":  # a tile of delta rows only, runs across tile bounds, tiles with none
+        return np.sort(np.concatenate([np.zeros(4200, np.int64), np.full(300, 3900),
+                                       rng.integers(12_000, old_n + 1, n_delta - 4500)]))
+    return np.sort(rng.integers(0, old_n + 1, n_delta))
+
+
+@pytest.mark.parametrize("where", ["interleaved", "front", "back", "runs", "empty"])
+@pytest.mark.parametrize("chunk_rows", [256, 4096, 5000, 1 << 24])
+@pytest.mark.parametrize("dtype", [np.float64, np.int32, np.bool_])
+def test_delta_patch_tile_walk_emulation_matches_reference(where, chunk_rows, dtype):
+    """csrc/delta_patch.cu's tile walk (`_patch_emulated`) equals the
+    reference's `_delta_patch` and `delta_patch_plain` byte for byte:
+    chunk rows a power of two and not, below and above the tile, one chunk;
+    old_n not a multiple of 4096; the delta at the front, the back,
+    interleaved, and in runs (a tile of delta rows only, a run across a
+    tile bound, tiles with none); an empty delta; new_pad past
+    old_n + n_delta."""
+    rng = np.random.default_rng(19)
+    old_n = 13_333
+    n_delta = 0 if where == "empty" else 6000
+    new_pad = -(-(old_n + n_delta) // 4096) * 4096 + 4096
+    full = np.zeros(-(-old_n // 4096) * 4096, dtype)
+    full[:old_n] = rng.integers(1, 100, old_n).astype(dtype)
+    delta = rng.integers(1, 100, n_delta).astype(dtype)
+    pos = _patch_case(where, old_n, n_delta, rng).astype(np.int32)
+    old = _chunks(full, chunk_rows)
+    want = np.asarray(r_delta_patch(jnp.asarray(full), jnp.asarray(delta), jnp.asarray(pos),
+                                    old_n=old_n, new_pad=new_pad))
+    got = _patch_emulated([c.numpy() for c in old], old_n, delta, pos, new_pad, chunk_rows)
+    plain = P.delta_patch_plain(old, old_n, _t(delta), _t(pos), new_pad, chunk_rows)
+    assert [c.shape[0] for c in got] == [c.shape[0] for c in plain]
+    assert np.concatenate(got).tobytes() == want.tobytes()
+    assert torch.cat(plain).numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("new_pad,chunk_rows,tiles", [
+    (4400 * 4096, 1 << 24, (4096, 4400)), (10_000, 5000, (2, 4)), (1000, 256, (1, 4)),
+    (8192, 4096, (1, 2)), (0, 4096, (1, 0)), (1, 1 << 24, (1, 1)),
+])
+def test_patch_tiles_cover_every_row_once(new_pad, chunk_rows, tiles):
+    """K16's grid: tiles of at most PATCH_TILE rows, each inside one
+    destination chunk, cover every row of the new plane exactly once."""
+    assert P.patch_tiles(new_pad, chunk_rows) == tiles
+    cr = min(chunk_rows, new_pad)
+    tpc, n_tiles = tiles
+    seen = np.zeros(new_pad, np.int64)
+    n_chunks = -(-new_pad // cr) if cr else 0
+    for tile in range(n_tiles):
+        c = tile // tpc
+        off = (tile - c * tpc) * P.PATCH_TILE
+        rows_c = new_pad - c * cr if c + 1 == n_chunks else cr
+        assert 0 <= off < rows_c
+        seen[c * cr + off:c * cr + min(off + P.PATCH_TILE, rows_c)] += 1
+    assert (seen == 1).all()
+
+
+def test_warp_lower_bound_rounds_at_the_live_delta():
+    """The 32-way search finds every tile's window in 4 rounds over the live
+    phase's 737,280 delta rows (the `before` search took about 20)."""
+    rng = np.random.default_rng(20)
+    n_delta, old_n = 737_280, 17_280_000
+    q = np.sort(rng.integers(0, old_n + 1, n_delta)) + np.arange(n_delta)
+    for key in (0, 1, int(q[0]), int(q[n_delta // 2]), int(q[-1]), int(q[-1]) + 1,
+                *rng.integers(0, old_n + n_delta, 50).tolist()):
+        got, rounds = _warp_lower_bound(q, key)
+        assert got == int(np.searchsorted(q, key, side="left"))
+        assert rounds <= 4

@@ -692,3 +692,227 @@ def test_chip_smoke_sketch_phase_rehearsal(tmp_path):
     out = chip_smoke.run_sketch_slice("cpu", 40, 2, 0, str(tmp_path), kern["regs_by_host"])
     assert set(out["queries"]) == {"S1", "S2", "S3", "S4", "S5"}
     assert {"segment_hll", "segment_udd"} <= set(chip_smoke.kernel_table())
+
+
+# ---- K21's ordered path, emulated ---------------------------------------------------
+
+
+def _udd_path(bucket_ids, gids, mask, num_groups: int, n_buckets: int) -> str:
+    """The path K21 (csrc/segment_udd.cu) takes for these rows: "ordered"
+    when the host allows it (`udd_layout`: G * B < 2^31, a group's row
+    within the shared-memory budget), every gid lies in [0, G) and none is
+    below the gid before it (masked rows included: the run pass reads gids
+    alone), and every unmasked bucket lies in [0, B); else "atomic"."""
+    ordered, _cap, _tile = psk.udd_layout(int(gids.shape[0]), num_groups, n_buckets)
+    g = gids.to(torch.int64)
+    b = bucket_ids.to(torch.int64)[mask.to(torch.bool)]
+    ok = (ordered and bool(((g >= 0) & (g < num_groups)).all())
+          and bool((g[1:] >= g[:-1]).all()) and bool(((b >= 0) & (b < n_buckets)).all()))
+    return "ordered" if ok else "atomic"
+
+
+def _udd_ordered(bucket_ids, gids, mask, num_groups: int, n_buckets: int, tile=None):
+    """K21's ordered path in torch ops, for rows that take it: the run pass's
+    window table (each window of `cap` groups: its first and last row), an
+    owner a window that builds the window's histograms from zeros out of
+    its first `tile` rows and stores every count (empty buckets and groups
+    included), helper blocks for the rest of a longer run, each a partial
+    row from zeros, and the fold that adds them to the owner's row.  `tile`
+    stands in for the layout's rows a block (at least 2^16) so that small
+    inputs reach the helpers."""
+    n = int(gids.shape[0])
+    _ordered, cap, layout_tile = psk.udd_layout(n, num_groups, n_buckets)
+    tile = tile or layout_tile
+    g = gids.to(torch.int64)
+    b = bucket_ids.to(torch.int64)
+    keep = mask.to(torch.bool)
+    n_windows = -(-int(num_groups) // cap)
+    first = torch.full((n_windows,), -1, dtype=torch.int64)
+    last = torch.full((n_windows,), -2, dtype=torch.int64)
+    for r in range(n):  # the run pass: a store where a window's run starts or ends
+        w = int(g[r]) // cap
+        if r == 0 or int(g[r - 1]) // cap != w:
+            first[w] = r
+        if r + 1 == n or int(g[r + 1]) // cap != w:
+            last[w] = r
+    counts = torch.empty(int(num_groups) * n_buckets, dtype=torch.int32)
+
+    def build(w, lo, hi):
+        ga = w * cap
+        width = min(cap, int(num_groups) - ga) * n_buckets
+        row = torch.zeros(width, dtype=torch.int32)
+        k = keep[lo:hi]
+        row.index_add_(0, (b[lo:hi][k] + (g[lo:hi][k] - ga) * n_buckets),
+                       torch.ones(int(k.sum()), dtype=torch.int32))
+        return ga, width, row
+
+    taken = torch.zeros(n, dtype=torch.int64)
+    for w in range(n_windows):  # the owners
+        f, l = int(first[w]), int(last[w])
+        lo, hi = (0, 0) if f < 0 else (f, min(f + tile, l + 1))
+        ga, width, row = build(w, lo, hi)
+        taken[lo:hi] += 1
+        counts[ga * n_buckets:ga * n_buckets + width] = row
+    for h in range(-(-n // tile)):  # the helpers, then the fold
+        hs = h * tile
+        w = int(g[hs]) // cap
+        f, l = int(first[w]), int(last[w])
+        lo, hi = max(hs, f + tile), min(hs + tile, l + 1)
+        if lo >= hi:
+            continue
+        ga, width, row = build(w, lo, hi)
+        taken[lo:hi] += 1
+        counts[ga * n_buckets:ga * n_buckets + width] += row
+    assert bool((taken == 1).all())  # every row taken by one block
+    return counts.reshape(int(num_groups), n_buckets)
+
+
+def _udd_path_cases():
+    """(name, path K21 must take, num_groups, B, gids, bucket_ids, mask, tile):
+    the ordered path's decision at its edges (sorted runs of 300 rows) and
+    runs longer than a block's tile (the helpers)."""
+    rng = np.random.default_rng(19)
+    runs = np.repeat(np.array([0, 1, 4, 5, 9, 11], np.int64), 300)  # empty groups between
+    n = runs.shape[0]
+
+    def buckets(nb):
+        return rng.integers(0, nb, n).astype(np.int32)
+
+    mask = rng.random(n) > 0.1
+    masked_b = buckets(64)
+    masked_b[~mask] = 64  # a masked row's bucket of B adds nothing
+    bad_b, neg_b = buckets(64), buckets(64)
+    bad_b[900], neg_b[5] = 64, -1
+    on = mask.copy()
+    on[[5, 900]] = True
+    down = runs.copy()
+    down[-1] = 10  # one decreasing gid at the very end
+    minus = runs.copy()
+    minus[400] = -1  # a gid of -1 inside a sorted run
+    past = runs.copy()
+    past[700] = 12  # a gid of G inside a sorted run
+    off_400 = mask.copy()
+    off_400[400] = False  # the gid of -1 on a masked row: the run pass still reads it
+    return [
+        ("sorted, empty groups, masked rows", "ordered", 12, 64, runs, buckets(64), mask, None),
+        ("masked bucket = B", "ordered", 12, 64, runs, masked_b, mask, None),
+        ("one group a window", "ordered", 12, 1024, runs, buckets(1024), mask, None),
+        ("B at the budget", "ordered", 12, 1 << 15, runs, buckets(1 << 15), mask, None),
+        ("B above the budget", "atomic", 12, 1 << 16, runs, buckets(1 << 16), mask, None),
+        ("unmasked bucket = B", "atomic", 12, 64, runs, bad_b, on, None),
+        ("unmasked bucket = -1", "atomic", 12, 64, runs, neg_b, on, None),
+        ("one decreasing gid at the end", "atomic", 12, 64, down, buckets(64), mask, None),
+        ("gid -1 in a sorted run", "atomic", 12, 64, minus, buckets(64), mask, None),
+        ("gid -1 on a masked row", "atomic", 12, 64, minus, buckets(64), off_400, None),
+        ("gid G in a sorted run", "atomic", 12, 64, past, buckets(64), mask, None),
+        ("runs past a tile (helpers)", "ordered", 12, 64, runs, buckets(64), mask, 128),
+        ("one bucket, one group, helpers", "ordered", 1, 128, np.zeros(n, np.int64),
+         np.zeros(n, np.int32), np.ones(n, bool), 256),
+        ("N=0", "ordered", 4, 16, np.zeros(0, np.int64), np.zeros(0, np.int32),
+         np.zeros(0, bool), None),
+    ]
+
+
+@pytest.mark.parametrize("case", _udd_path_cases(), ids=lambda c: c[0])
+def test_udd_ordered_path_plain_matches_reference(case):
+    """K21's path decision as a plain function, and the ordered path's
+    result built window by window (owners, helpers, the fold) from zeros,
+    against the reference's segment_udd byte for byte (the atomic path's
+    result is `segment_udd_plain`)."""
+    _name, path, g, nb, gids, bids, mask, tile = case
+    t_b, t_g, t_m = (torch.from_numpy(x) for x in (bids, gids, mask))
+    assert _udd_path(t_b, t_g, t_m, g, nb) == path
+    want = np.asarray(jsk.segment_udd(jnp.asarray(bids), jnp.asarray(gids), jnp.asarray(mask),
+                                      g, nb))
+    got = (_udd_ordered(t_b, t_g, t_m, g, nb, tile) if path == "ordered"
+           else psk.segment_udd_plain(t_b, t_g, t_m, g, nb))
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == (g, nb)
+    assert got.numpy().tobytes() == want.astype(np.int32).tobytes()
+    plain = psk.segment_udd(t_b, t_g, t_m, g, nb)  # a CPU tensor: the plain version
+    assert plain.numpy().tobytes() == want.astype(np.int32).tobytes()
+
+
+def _udd_aliased(bucket_ids, gids, mask, num_groups: int, n_buckets: int, tile=None):
+    """K21 for rows in order with unmasked buckets outside [0, B): the
+    owners (and helpers, and the fold) build and store every window without
+    those rows, then the finish kernel adds them alone by their wrapped
+    int32 flat ids, dropping an id outside [0, G * B)."""
+    b = bucket_ids.to(torch.int64)
+    bad = mask.to(torch.bool) & ((b < 0) | (b >= n_buckets))
+    counts = _udd_ordered(bucket_ids, gids, mask.to(torch.bool) & ~bad, num_groups, n_buckets,
+                          tile).reshape(-1)
+    total = int(num_groups) * n_buckets
+    flat, keep = psk._flat_ids(gids[bad], bucket_ids[bad], n_buckets, total)
+    sel = flat[keep]
+    counts.index_add_(0, sel, torch.ones(sel.shape, dtype=torch.int32))
+    return counts.reshape(int(num_groups), n_buckets)
+
+
+def _udd_aliased_cases():
+    """(name, num_groups, B, gids, bucket_ids, mask, tile): sorted runs of
+    300 rows with unmasked buckets outside [0, B) that alias into the next
+    or the previous group's row, fall off the table, or sit in a run past a
+    tile (helpers and the fold beside the adds)."""
+    rng = np.random.default_rng(190)
+    runs = np.repeat(np.array([0, 1, 4, 5, 9, 11], np.int64), 300)
+    n = runs.shape[0]
+    b = rng.integers(0, 64, n).astype(np.int32)
+    mask = rng.random(n) > 0.1
+    on = mask.copy()
+    on[[5, 299, 900, 1799]] = True
+    up, down, off = b.copy(), b.copy(), b.copy()
+    up[[299, 900]] = [64, 200]        # into group 1's and group 6's rows
+    down[[5, 900]] = [-1, -130]       # off the table's front, into group 2's row
+    off[[1799, 1500]] = [64, 1 << 30]  # past the last group, and a wrapping id
+    one = np.zeros(n, np.int32)
+    one[[10, 1000]] = [1, -1]
+    return [
+        ("bucket B into the next group", 12, 64, runs, up, on, None),
+        ("negative buckets", 12, 64, runs, down, on, None),
+        ("off the table and wrapping", 12, 64, runs, off, on, None),
+        ("runs past a tile (helpers)", 12, 64, runs, up, on, 128),
+        ("one group, helpers", 1, 1, np.zeros(n, np.int64), one, np.ones(n, bool), 256),
+    ]
+
+
+@pytest.mark.parametrize("case", _udd_aliased_cases(), ids=lambda c: c[0])
+def test_udd_aliased_buckets_over_stored_windows_match_reference(case):
+    """Rows in order with an aliasing bucket: K21's windows stored without
+    those rows plus their global adds, against the reference's segment_udd
+    byte for byte (the path reads "atomic")."""
+    _name, g, nb, gids, bids, mask, tile = case
+    t_b, t_g, t_m = (torch.from_numpy(x) for x in (bids, gids, mask))
+    assert _udd_path(t_b, t_g, t_m, g, nb) == "atomic"
+    want = np.asarray(jsk.segment_udd(jnp.asarray(bids), jnp.asarray(gids), jnp.asarray(mask),
+                                      g, nb)).astype(np.int32)
+    got = _udd_aliased(t_b, t_g, t_m, g, nb, tile)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == (g, nb)
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_udd_path_past_2_31_is_atomic():
+    """G * B >= 2^31 (the int32 wrap) keeps the ordered path off, however
+    the rows lie."""
+    gids = torch.arange(8, dtype=torch.int64)
+    b = torch.zeros(8, dtype=torch.int32)
+    m = torch.ones(8, dtype=torch.bool)
+    assert _udd_path(b, gids, m, (1 << 21) + 1, 1024) == "atomic"
+    assert _udd_path(b, gids, m, 1 << 21, 1024) == "atomic"  # G * B = 2^31
+    assert _udd_path(b, gids, m, (1 << 21) - 1, 1024) == "ordered"
+
+
+@pytest.mark.parametrize("n,groups,nb,layout", [
+    (8_640_000, 4000, 1024, (True, 1, 1 << 14)),   # phase 9 by host, B = 1024
+    (8_640_000, 4000, 128, (True, 1, 1 << 14)),    # phase 9 by host, B = 128
+    (8_640_000, 6, 1024, (True, 1, 1 << 14)),      # by hour (the run pass finds the disorder)
+    (8_640_000, 1, 128, (True, 1, 1 << 14)),       # one bucket: 528 helper tiles
+    (5000, 40, 64, (True, 64, 1 << 13)),           # 125 rows a group: windows of 4096 counts
+    (2_160_000, 4000, 1024, (True, 1, 1 << 13)),   # a quarter shard of the two-step path
+    (100_000_000, 1, 128, (True, 1, 1 << 18)),
+    (10, 1 << 21, 1024, (False, 4, 1 << 13)),      # the wrap
+])
+def test_udd_layout_at_phase_9_shapes(n, groups, nb, layout):
+    """K21's layout at phase 9's shapes: one group a window where the groups
+    average RUN_GROUP_ROWS rows or more (no gids read by the owners), else
+    windows of 4096 counts; tiles of n / 528 rows, at least 2^13."""
+    assert psk.udd_layout(n, groups, nb) == layout

@@ -97,6 +97,22 @@ version; with --profile each case also gives the kernels, memsets and
 copies one call puts on the card.  The first turn of each tree prints the
 SASS counts of both sources (listings in <--out>).
 
+`--set patch_udd`: K16 `delta_patch` and K21 `segment_udd`.  K16 at phase
+3d's shape: the live phase's delta (30 minutes x 6 scrapes x 4096 hosts =
+737,280 rows, seeded sorted positions) merged into the 17.28 M-row entry
+in 2^24-row chunks, on its f64, int32 and bool planes (interleaved), and
+the f64 plane with the delta at the front and at the back.  K21 at phase
+9's rows (--sketch-hours, usage_user's buckets, one row in 100 masked):
+by host at B = 128 and 1024 (the ordered path where the checkout has
+it), by hour at B = 1024 (hour gids in host order: the atomic path), one
+bucket (every row on one), each beside `index_add_`, and phase 9's
+four-shard two-step path (4 calls and their folds); K20 `segment_hll` at
+phase 9's cases too (by host p = 12 and 14, by hour, one register), as
+the run pass is shared.  Each time is the median of five readings, each
+output held byte for byte against its plain version; the path a K21 or
+K20 call took is read where the checkout says it.  The first turn of each
+tree prints the SASS counts of delta_patch.cu and segment_udd.cu.
+
 With --tql (any set), T2, T3 and T5 through `TQL EVAL` on the warm tile
 route once per checkout (the dispatch stage's p50 beside the query's).
 
@@ -118,7 +134,7 @@ whether every output's bytes agreed.
 
     python3 tools/kernel_ab.py --other DIR
                                [--set blocked|range_hll|fold|pack_scatter|strip_hash|gather_last|
-                                      mask_topk|having_topk]
+                                      mask_topk|having_topk|patch_udd]
                                [--hosts 4000]
                                [--hours 12] [--sketch-hours 12] [--reps 20] [--tql]
                                [--profile] [--out DIR]
@@ -145,7 +161,11 @@ SOURCES = {"blocked": ("segment_reduce_blocked", "limb_segment_sums", "segment_l
            "strip_hash": ("strip_counter_resets", "hash_group_slots", "gather_planes"),
            "gather_last": ("gather_planes", "segment_last"),
            "mask_topk": ("mask_gids", "topk_distances"),
-           "having_topk": ("having_mask", "topk_select")}
+           "having_topk": ("having_mask", "topk_select"),
+           "patch_udd": ("delta_patch", "segment_udd", "segment_hll")}
+# the sets whose first turn of each tree prints the SASS counts of these sources
+SASS_SOURCES = {"mask_topk": ("mask_gids",), "having_topk": SOURCES["having_topk"],
+                "patch_udd": ("delta_patch", "segment_udd")}
 LIBRARY_SORT_NAMES = ("cub", "Radix", "DeviceSort")
 AGGS = ("count", "max", "min", "sum")
 # Hours of the falling-bases planes: at 10 s a host holds 360 rows an hour,
@@ -1237,6 +1257,126 @@ def having_topk_cases(c, hosts: int, hours: int, reps: int, prof: bool, emit, de
              groups=int(mask.shape[0]), cap=cap)
 
 
+def patch_udd_cases(c, hosts: int, hours: int, sketch_hours: int, reps: int, prof: bool,
+                    emit, dev) -> None:
+    """K16 on phase 3d's planes and K21 (with K20 beside it) on phase 9's
+    rows; see the module's docstring."""
+    import numpy as np
+    import torch
+
+    from greptimedb_tpu_torch.ops import permute as perm
+    from greptimedb_tpu_torch.ops import sketch as sk
+    from greptimedb_tpu_torch.ops.tiles import pad_rows
+    from greptimedb_tpu_torch.parallel.tile_planes import TILE_CHUNK_ROWS
+
+    def case(name, fn, outs, plain, **kw):
+        extra = {}
+        if prof:
+            p = _profiled(fn)
+            extra = {**p, **_ops_per_call(p)}
+        emit(name, **c._timed_runs(fn, reps), digest=_digest(outs),
+             enqueue_us=_enqueue_us(fn, reps),
+             plain_bytes=all(c._same_bytes(a, b) for a, b in zip(outs, plain)), **kw, **extra)
+
+    # K16: phase 3d's entry and the live phase's delta
+    n, codes, ts, valid, vals = c.tsbs_planes(hosts, hours, 1, dev)
+    npad = pad_rows(n)
+    planes = {"f64": c._chunked(c._padded(vals[0], npad, 0.0), TILE_CHUNK_ROWS),
+              "int32": c._chunked(c._padded(codes, npad, 0), TILE_CHUNK_ROWS),
+              "bool": c._chunked(c._padded(valid, npad, False), TILE_CHUNK_ROWS)}
+    del codes, ts, valid, vals
+    n_delta = c.LIVE_MINUTES * 6 * (hosts + c.LIVE_NEW_HOSTS)
+    new_pad = pad_rows(n + n_delta)
+    g = torch.Generator(device=dev).manual_seed(c.SEED)
+    deltas = {"f64": torch.rand(n_delta, generator=g, dtype=torch.float64, device=dev)}
+    deltas["bool"] = torch.rand(n_delta, generator=g, device=dev) < 0.5
+    deltas["int32"] = torch.randint(0, 1 << 30, (n_delta,), generator=g, dtype=torch.int32,
+                                    device=dev)
+    spread = torch.sort(torch.randint(0, n + 1, (n_delta,), generator=g, device=dev)).values
+    positions = {"interleaved": spread.to(torch.int32),
+                 "front": torch.zeros(n_delta, dtype=torch.int32, device=dev),
+                 "back": torch.full((n_delta,), n, dtype=torch.int32, device=dev)}
+    shapes = [(name, "interleaved") for name in planes] + [("f64", "front"), ("f64", "back")]
+    for name, where in shapes:
+        args = (planes[name], n, deltas[name], positions[where], new_pad, TILE_CHUNK_ROWS)
+        fn = lambda args=args: perm.delta_patch(*args)  # noqa: E731
+        esize = planes[name][0].element_size()
+        # old rows read, the delta and its positions read, the new plane written
+        b, _by = c.bound(n * esize + n_delta * (esize + 4) + new_pad * esize, 0)
+        case(f"K16 {name} {where}", fn, fn(), perm.delta_patch_plain(*args), rows=new_pad,
+             delta_rows=n_delta, bound_ms=b)
+    del planes, deltas, positions, spread
+    torch.cuda.empty_cache()
+
+    # K21 (and K20) at phase 9's rows
+    import pyarrow as pa
+
+    user = c.tsbs_columns(c.Tsbs(hosts, sketch_hours), ("usage_user",))["usage_user"]
+    rows = user.shape[0]
+    ticks = rows // hosts
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    host = up(np.repeat(np.arange(hosts, dtype=np.int32), ticks))
+    hour = up(np.tile((np.arange(ticks) * c.SCRAPE_S // 3600).astype(np.int32), hosts))
+    mask_np = np.ones(rows, dtype=bool)
+    mask_np[::100] = False
+    mask = up(mask_np)
+    bid = {b: up(sk.udd_bucket_ids(user, c.UDD_GAMMA, b)) for b in (128, 1024)}
+    zeros = torch.zeros(rows, dtype=torch.int32, device=dev)
+    ones = torch.ones(rows, dtype=torch.bool, device=dev)
+    udd_path = getattr(sk, "last_udd_path", lambda: None)
+    udd = {
+        "K21 host B=128": (bid[128], host, mask, hosts, 128),
+        "K21 host B=1024": (bid[1024], host, mask, hosts, 1024),
+        "K21 hour B=1024": (bid[1024], hour, mask, sketch_hours, 1024),
+        "K21 one bucket": (zeros, zeros, ones, 1, 128),
+    }
+    for name, args in udd.items():
+        fn = lambda args=args: (sk.segment_udd(*args),)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        path = udd_path()
+        b, _by = c._sketch_bound("udd", rows, args[-2] * args[-1])
+        case(name, fn, list(got), [sk.segment_udd_plain(*args)], rows=rows, path=path,
+             bound_ms=b, library_ms=c._timed(c._library_call("udd", args, dev), reps))
+        del got
+        torch.cuda.empty_cache()
+    cut = [(s * hosts // c.SHARDS) * ticks for s in range(c.SHARDS + 1)]
+
+    def two_step():
+        counts = None
+        for lo, hi in zip(cut[:-1], cut[1:]):
+            part = sk.segment_udd(bid[1024][lo:hi], host[lo:hi], mask[lo:hi], hosts, 1024)
+            counts = part if counts is None else counts + part
+        return (counts,)
+
+    case("K21 two-step B=1024 (4 shards)", two_step, list(two_step()),
+         [sk.segment_udd_plain(*udd["K21 host B=1024"])], rows=rows, shards=c.SHARDS)
+    del bid, udd
+    torch.cuda.empty_cache()
+
+    hashes = sk.hash64(pa.array(user))
+    inputs = {p: [up(x) for x in sk.hll_inputs(hashes, p)] for p in (12, 14)}
+    hll = {
+        "K20 host p=12": (*inputs[12], host, hosts, 1 << 12),
+        "K20 hour p=12": (*inputs[12], hour, sketch_hours, 1 << 12),
+        "K20 host p=14": (*inputs[14], host, hosts, 1 << 14),
+        "K20 one register": (zeros, inputs[12][1], zeros, 1, 1 << 12),
+    }
+    for name, args in hll.items():
+        fn = lambda args=args: (sk.segment_hll(*args),)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        b, _by = c._sketch_bound("hll", rows, args[-2] * args[-1])
+        case(name, fn, list(got), [sk.segment_hll_plain(*args)], rows=rows,
+             path=sk.last_hll_path(), bound_ms=b,
+             library_ms=c._timed(c._library_call("hll", args, dev), reps))
+        del got
+        torch.cuda.empty_cache()
+
+
 def tql_cases(c, hosts: int, hours: int, emit) -> None:
     """T2, T3 and T5 through TQL EVAL on the warm tile route (p50 of 3)."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as home:
@@ -1284,6 +1424,8 @@ def worker(root: str, kset: str, hosts: int, hours: int, sketch_hours: int, reps
         mask_topk_cases(c, hosts, hours, reps, prof, emit, dev)
     elif kset == "having_topk":
         having_topk_cases(c, hosts, hours, reps, prof, emit, dev)
+    elif kset == "patch_udd":
+        patch_udd_cases(c, hosts, hours, sketch_hours, reps, prof, emit, dev)
     else:
         range_hll_cases(c, hosts, hours, sketch_hours, reps, prof, emit)
     if tql:
@@ -1347,7 +1489,8 @@ def main() -> int:
     ap.add_argument("--tql", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"),
-                    help="where --set mask_topk and having_topk write their SASS listings")
+                    help="where --set mask_topk, having_topk and patch_udd write their SASS "
+                         "listings")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -1367,8 +1510,8 @@ def main() -> int:
     for label, root in turns[:2]:
         print(json.dumps({"tree": label, "resource_usage": resource_usage(root, args.kset)}),
               flush=True)
-        if args.kset in ("mask_topk", "having_topk"):
-            for name in ("mask_gids",) if args.kset == "mask_topk" else SOURCES[args.kset]:
+        if args.kset in SASS_SOURCES:
+            for name in SASS_SOURCES[args.kset]:
                 print(json.dumps({"tree": label, "source": name,
                                   "sass": sass_counts(root, label, args.out, name)}), flush=True)
     ms: dict[str, dict[str, list]] = {}
