@@ -2,6 +2,7 @@
 """Drive the PyTorch + CUDA port (greptimedb_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--hours 12] [--hosts 4000] [--reps 1] [--tile-reps 5] [--tql-reps 5]
+                          [--prom-sql-reps 3]
                           [--container-hours 6] [--container-reps 3] [--tick-reps 5]
                           [--vector-rows 1000000] [--vector-reps 2]
                           [--sketch-hours 6] [--sketch-reps 0]
@@ -114,6 +115,27 @@ Phases, each printing one JSON line:
              (tql.tile off: K9-K11) held against the tile path; T1 of a
              few hosts against a numpy twin; the legacy hour again on the
              CPU backend (plain versions), held against the card.
+6b. prom_sql — on phase 6's database, before its CPU-backend run: SQL
+             panels over the two remote-write tables on the tile path (P1
+             per host and minute over the last hour: the keep plane and a
+             window tile; P2 per host and hour over 12 h: the keep plane
+             on the full planes, the window tile declined on cover; P3 per
+             5 minutes over 12 h: a time-major plan over the keep plane's
+             copy; P4 each host's last value under the keep plane; P5 the
+             gauge's top 10 hosts by the last hour's average: a window
+             tile, K7), once cold and --prom-sql-reps warm, each on the
+             tile route with its passes (`dedup_plane`, `window_tile`,
+             from a pass trace) and EXPECTED_PROM_SQL_PATH's kernels,
+             equal to a numpy ground truth from the generator's samples
+             (keys, counts, max, last exact; avg within rel 1e-7).  Then
+             P1b (P1 two hours earlier) builds a second window tile, a
+             corrected remote write (hosts = 3 mod 16, the last 10
+             minutes, + 0.5) is flushed, and P1, P1b, P3, P4 run again:
+             the entry extended in place (K16), P1's window tile rebuilt,
+             P1b's kept, P4 showing the new values.  P1 and P5 with both
+             passes off (and P5 with the tile cache off) give the same
+             rows on the table-fed route; the corrected rows are then
+             written back as they were.
    3f (guards on the card) — K2 and K6 behind their layout guards with
              no host read (both branches launched, each predicated on the
              guard's word) at 17.28 M rows and C = 10, the guard passing
@@ -236,12 +258,13 @@ Phases, each printing one JSON line:
    launches on 10b and 10c; K10's launches also per k on the TQL routes,
    K2's and K3's per column count C on the tile path; K9's and K17's
    calls, launches a call and kernels a launch from 6's tile run and 7's
-   H1-H4, the kernels as their entry points count them), then the last line
+   H1-H4, the kernels as their entry points count them; every kernel's
+   launches on 6b as `prom_sql_launches`), then the last line
    {"ok": true, "device":
    {...}}.
 
 The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
-and legacy runs, 7's H1-H4, 7c, 8's queries, 9's two-step path and 9's
+and legacy runs, 6b's panels (through the corrected write's reruns), 7's H1-H4, 7c, 8's queries, 9's two-step path and 9's
 queries (which launch nothing), 10b, and 10c's tile, table-fed and TQL
 runs, and read just after each
 (a graph replay launches the kernels it captured without calling their
@@ -3962,14 +3985,16 @@ def tql(promql: str, lo_ms: int, hi_ms: int, step: str) -> str:
     return f"TQL EVAL ({lo_ms // 1000}, {hi_ms // 1000}, '{step}') {promql}"
 
 
-def ingest_prom(db, tsbs: Tsbs) -> tuple[int, dict]:
+def ingest_prom(db, tsbs: Tsbs, samples: dict | None = None) -> tuple[int, dict]:
     """Both metrics through Database.write (WAL on), one pass over the
     ticks, then flush.  Every scrape adds a seeded positive increment to
     each host's counter; one host in 16 restarts once (its counter drops
     to a small value).  Then a remote-write retry re-sends the counter's
     last half hour, identical samples in a new SST that overlaps the last
     one (the dedup keep plane serves it).  Returns (rows written, the
-    counter samples of TWIN_HOSTS: host -> (ts, values))."""
+    counter samples of TWIN_HOSTS: host -> (ts, values)); `samples`, when
+    given, receives every value written as [tick, host] matrices under
+    PROM_GAUGE and PROM_COUNTER (phase 6b's ground truth)."""
     import pyarrow as pa
 
     for name in (PROM_GAUGE, PROM_COUNTER):
@@ -3984,6 +4009,9 @@ def ingest_prom(db, tsbs: Tsbs) -> tuple[int, dict]:
     restart = np.where(np.arange(n_hosts) % 16 == 5, rng.integers(1, ticks_total, n_hosts), -1)
     twin_rows = [h for h in TWIN_HOSTS if h < n_hosts]
     twin = {h: ([], []) for h in twin_rows}
+    if samples is not None:
+        for name in (PROM_GAUGE, PROM_COUNTER):
+            samples[name] = np.empty((ticks_total, n_hosts))
     last_batch = None
     n_rows = 0
     for start in range(0, ticks_total, chunk_ticks):
@@ -4007,6 +4035,8 @@ def ingest_prom(db, tsbs: Tsbs) -> tuple[int, dict]:
                 "greptime_timestamp": pa.array(ts_rows, pa.timestamp("ms")),
             })
             db.write(name, batch)
+            if samples is not None:
+                samples[name][start:start + ticks] = vals
             if name == PROM_COUNTER:
                 last_batch = batch
         for h in twin_rows:
@@ -4092,7 +4122,8 @@ def _tql_run(db, sql: str, is_cuda: bool):
     return out, ms, dict(eng.last_tql_timings), {k: eng.stats[k] - before[k] for k in before}
 
 
-def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str) -> dict:
+def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str,
+                  prom_sql_reps: int = 3) -> dict:
     """Phase 6: TQL on `device` ("cuda" on the card; "cpu" rehearses the
     control flow with the plain versions).  Ingest both metrics, then:
 
@@ -4105,6 +4136,8 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
             scan, upload, K9-K11 on the card, host folds), each held
             against the tile path on the same window;
     twin    T1 of TWIN_HOSTS at the whole load against a numpy twin;
+    6b      SQL panels over the same tables (run_prom_sql_phase,
+            `prom_sql_reps` warm runs);
     cpu     the legacy hour again through Database(device="cpu"), the plain
             versions, held against the card's legacy results."""
     from greptimedb_tpu_torch import Database
@@ -4113,7 +4146,8 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
     is_cuda = device.startswith("cuda")
     db = Database(data_home, device=device)
     t0 = time.perf_counter()
-    n_rows, twin = ingest_prom(db, tsbs)
+    samples: dict = {}
+    n_rows, twin = ingest_prom(db, tsbs, samples)
     ingest_s = time.perf_counter() - t0
     emit({"phase": "tql_ingest", "rows": n_rows, "seconds": ingest_s,
           "rows_per_s": n_rows / ingest_s})
@@ -4209,6 +4243,8 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
                     or legacy_launches[_FOLD]):
         raise AssertionError(f"the legacy path did not launch K9-K11: {legacy_launches}")
     cache = eng.tile_cache.stats()
+    prom_sql = run_prom_sql_phase(db, tsbs, samples, is_cuda, prom_sql_reps)
+    del samples
     db.close()
     del db
 
@@ -4235,8 +4271,376 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
         "legacy": {k: {kk: vv for kk, vv in v.items() if kk != "result"}
                    for k, v in legacy.items()},
         "cpu": cpu, "twin_max_rel_err": twin_err, "cache": cache,
-        "full_size": full_size,
+        "full_size": full_size, "prom_sql": prom_sql,
     }
+
+
+# ---- phase 6b: SQL over the remote-write tables (keep plane, window tiles) ----
+
+PROM_TS, PROM_VAL = "greptime_timestamp", "greptime_value"
+# the corrected remote write: hosts = 3 (mod 16), the last 10 minutes
+OVERWRITE_MOD, OVERWRITE_HOST, OVERWRITE_TICKS, OVERWRITE_DELTA = 16, 3, 60, 0.5
+# the passes each panel's trace must record: fired (True) or declined
+# (False).  Where `dedup_plane` is not named, the panel's in-window files
+# decide: the keep plane fires where they overlap (at 4000 hosts a flush
+# cuts a memtable into SSTs by host range, each over the memtable's whole
+# time range) and must not appear where they do not
+PROM_SQL_PASSES = {
+    "P1": {"dedup_plane": True, "window_tile": True},
+    "P1b": {"window_tile": True},
+    "P2": {"dedup_plane": True, "window_tile": False},
+    "P3": {"dedup_plane": True},
+    "P4": {"dedup_plane": True},
+    "P5": {"window_tile": True},
+}
+# each panel's window [lo, hi) in ms from the load's end (None: the whole
+# table) and its time bucket in ms
+PROM_SQL_WINDOWS = {"P1": ((-H3600, 0), 60_000), "P1b": ((-3 * H3600, -2 * H3600), 60_000),
+                    "P2": ((-12 * H3600, 0), H3600), "P3": ((-12 * H3600, 0), 300_000),
+                    "P4": (None, None), "P5": ((-H3600, 0), None)}
+# the kernels each panel of phase 6b launches at the default size (4000
+# hosts x 12 h), its cold and warm runs together, as the card ran them:
+# "P1'" etc. are the reruns after the corrected write.  A grouped panel
+# runs K2 with K18 + K3 behind its guard (predicated launches), avg
+# through K6 on the limb planes K5 quantizes in the cold run (P1, P1b:
+# the window tile's chunk; P2: the full planes; P5: the gauge's window
+# tile); P3's time-major plan sorts (K14) and gathers its copies with the
+# keep plane's in one K15 call, again after the write; P4 and P5 select
+# on the card (K7), P4 folds last values (K4); P1' extends the entry by
+# K16 first; P1b' reads its kept window tile (no K5).
+_PROM_GROUPED = {_MASK, _BLOCKED, _SCATTER, _SORT, _LIMB, _PACK}
+_PROM_TIME_MAJOR = {_MASK, _SORT, _QUANT, _LIMB, _PACK, _ARGSORT, _GATHER}
+_PROM_LAST = {_MASK, _BLOCKED, _SCATTER, _SORT, _LAST, _TOPK, _PACK}
+EXPECTED_PROM_SQL_PATH: dict[str, set] | None = {
+    "P1": _PROM_GROUPED | {_QUANT}, "P1b": _PROM_GROUPED | {_QUANT},
+    "P2": _PROM_GROUPED | {_QUANT}, "P3": _PROM_TIME_MAJOR, "P4": _PROM_LAST,
+    "P5": {_MASK, _SORT, _QUANT, _LIMB, _TOPK, _PACK},
+    "P1'": _PROM_GROUPED | {_QUANT, _PATCH}, "P1b'": _PROM_GROUPED,
+    "P3'": _PROM_TIME_MAJOR, "P4'": _PROM_LAST,
+}
+
+
+def prom_sql_panels(tsbs: Tsbs) -> list[tuple[str, str, str]]:
+    """(name, table, SQL) of the remote-write dashboard's SQL panels."""
+    def win(name):
+        lo, hi = PROM_SQL_WINDOWS[name][0]
+        return f"WHERE {PROM_TS} >= {tsbs.end + lo} AND {PROM_TS} < {tsbs.end + hi}"
+
+    def per_host(name, aggs):
+        b = {60_000: "1m", H3600: "1h"}[PROM_SQL_WINDOWS[name][1]]
+        return (f"SELECT hostname, time_bucket('{b}', {PROM_TS}) AS tb, {aggs} "
+                f"FROM {PROM_COUNTER} {win(name)} GROUP BY hostname, tb")
+
+    avg_count = f"avg({PROM_VAL}) AS av, count(*) AS c"
+    return [
+        ("P1", PROM_COUNTER, per_host("P1", avg_count)),
+        ("P1b", PROM_COUNTER, per_host("P1b", avg_count)),
+        ("P2", PROM_COUNTER, per_host("P2", f"max({PROM_VAL}) AS mx, " + avg_count)),
+        ("P3", PROM_COUNTER, f"SELECT time_bucket('5m', {PROM_TS}) AS tb, {avg_count} "
+                             f"FROM {PROM_COUNTER} {win('P3')} GROUP BY tb"),
+        ("P4", PROM_COUNTER, f"SELECT hostname, last_value({PROM_VAL}) AS lv "
+                             f"FROM {PROM_COUNTER} GROUP BY hostname"),
+        ("P5", PROM_GAUGE, f"SELECT hostname, avg({PROM_VAL}) AS av FROM {PROM_GAUGE} "
+                           f"{win('P5')} GROUP BY hostname ORDER BY av DESC LIMIT 10"),
+    ]
+
+
+def prom_sql_truth(name: str, samples: dict, tsbs: Tsbs) -> dict:
+    """The numpy ground truth of one panel from the generator's samples
+    ([tick, host], one tick every SCRAPE_S from T0): {key: values}, keys
+    (hostname, bucket ms) / bucket ms / hostname, in the panel's order
+    for P5."""
+    per_tick = SCRAPE_S * 1000
+    _n_ticks, n_hosts = samples[PROM_COUNTER].shape
+    t_end = (tsbs.end - T0) // per_tick
+    hosts = [f"host_{h}" for h in range(n_hosts)]
+    window, bucket = PROM_SQL_WINDOWS[name]
+    if window is not None:
+        lo, hi = (t_end + w // per_tick for w in window)
+        t0 = T0 + lo * per_tick
+        b = (bucket or per_tick) // per_tick
+
+    c = samples[PROM_COUNTER]
+    if name in ("P1", "P1b", "P2"):
+        v = c[lo:hi].reshape(-1, b, n_hosts)
+        out = {}
+        for i in range(v.shape[0]):
+            tb = t0 + i * b * per_tick
+            means, maxes = v[i].mean(axis=0), v[i].max(axis=0)
+            for h in range(n_hosts):
+                vals = (float(means[h]), b) if name != "P2" else (float(maxes[h]), float(means[h]), b)
+                out[(hosts[h], tb)] = vals
+        return out
+    if name == "P3":
+        v = c[lo:hi].reshape(-1, b, n_hosts)
+        return {t0 + i * b * per_tick: (float(v[i].mean()), b * n_hosts) for i in range(v.shape[0])}
+    if name == "P4":
+        return {hosts[h]: (float(c[t_end - 1, h]),) for h in range(n_hosts)}
+    means = samples[PROM_GAUGE][lo:hi].mean(axis=0)
+    top = np.argsort(-means, kind="stable")[:10]
+    return {hosts[h]: (float(means[h]),) for h in top}
+
+
+def check_prom_sql(name: str, table, truth: dict, rel: float = 1e-7) -> float:
+    """A panel's rows against its ground truth: keys and counts exact, max
+    and last exact, avg within `rel` (the limb verdict's bound).  Returns
+    the max relative error of the averages."""
+    import pyarrow as pa
+
+    d = table.to_pydict()
+    for c in table.column_names:
+        if pa.types.is_timestamp(table.schema.field(c).type):
+            d[c] = table[c].cast("int64").to_pylist()
+    if name == "P3":
+        keys = d["tb"]
+        vals = list(zip(d["av"], d["c"]))
+    elif name == "P4":
+        keys = d["hostname"]
+        vals = [(v,) for v in d["lv"]]
+    elif name == "P5":
+        keys = d["hostname"]
+        vals = [(v,) for v in d["av"]]
+        if keys != list(truth):
+            raise AssertionError(f"{name}: top hosts {keys} != {list(truth)}")
+    else:
+        keys = list(zip(d["hostname"], d["tb"]))
+        vals = (list(zip(d["mx"], d["av"], d["c"])) if name == "P2"
+                else list(zip(d["av"], d["c"])))
+    got = dict(zip(keys, vals))
+    if len(got) != len(keys) or set(got) != set(truth):
+        raise AssertionError(f"{name}: {len(keys)} rows, keys differ from the ground truth's "
+                             f"{len(truth)}")
+    worst = 0.0
+    avg_at = {"P1": (0,), "P1b": (0,), "P2": (1,), "P3": (0,), "P5": (0,)}.get(name, ())
+    for k, want in truth.items():
+        have = got[k]
+        for i, (x, y) in enumerate(zip(have, want)):
+            if i in avg_at:
+                err = abs(x - y) / max(abs(y), 1e-300)
+                worst = max(worst, err)
+                if err > rel:
+                    raise AssertionError(f"{name} {k}: avg {x} vs {y} (rel {err})")
+            elif x != y:
+                raise AssertionError(f"{name} {k}: {x} != {y}")
+    return worst
+
+
+def _files_overlap(db, table: str, window) -> bool:
+    """Whether any region of `table` holds SSTs whose time ranges overlap
+    inside `window` ([lo, hi) in ms, None for all time)."""
+    from greptimedb_tpu_torch.parallel.tile_planner import disjoint
+
+    meta = db.catalog.table(table, db.current_database)
+    for rid in meta.region_ids:
+        ranges = [m.time_range for m in db.storage.region(rid).files()
+                  if window is None or (m.time_range[1] >= window[0]
+                                        and m.time_range[0] < window[1])]
+        if not disjoint(ranges):
+            return True
+    return False
+
+
+def prom_sql_passes(db, tsbs: Tsbs, name: str) -> dict:
+    """The pass decisions a panel must record (PROM_SQL_PASSES, the keep
+    plane where the files say)."""
+    want = dict(PROM_SQL_PASSES[name])
+    w = PROM_SQL_WINDOWS[name][0]
+    table = PROM_GAUGE if name == "P5" else PROM_COUNTER
+    overlap = _files_overlap(db, table, None if w is None else (tsbs.end + w[0],
+                                                                tsbs.end + w[1]))
+    if "dedup_plane" in want and want["dedup_plane"] != overlap:
+        raise AssertionError(f"{name}: the in-window files overlap: {overlap}")
+    if overlap:
+        want["dedup_plane"] = True
+    return want
+
+
+def _prom_sql_run(db, sql: str, is_cuda: bool):
+    """(result, host ms through the last sync, stage ms, pass decisions,
+    stats deltas)."""
+    from greptimedb_tpu_torch.query import passes
+
+    eng = db.query_engine
+    before = dict(eng.stats)
+    trace = passes.PassTrace()
+    t1 = time.perf_counter()
+    with passes.use_trace(trace):
+        out = db.sql_one(sql)
+    if is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    decisions = [(d.name, d.fired) for d in trace.decisions
+                 if d.name in ("dedup_plane", "window_tile")]
+    delta = {k: eng.stats.get(k, 0) - before.get(k, 0) for k in eng.stats}
+    return out, ms, dict(eng.last_timings), decisions, delta
+
+
+def _prom_sql_panel(db, tsbs: Tsbs, name: str, sql: str, runs: int, truth: dict,
+                    is_cuda: bool, full_size: bool, key: str | None = None) -> dict:
+    """One panel: `runs` runs (the first cold), each on the tile route with
+    the panel's passes and the ground truth's rows; the kernels of all
+    runs together must be EXPECTED_PROM_SQL_PATH[key]."""
+    key = key or name
+    eng = db.query_engine
+    before = launch_counts()
+    cache0 = eng.tile_cache.stats() if eng.tile_cache is not None else {}
+    times, stages, worst = [], [], 0.0
+    want = prom_sql_passes(db, tsbs, name)
+    for i in range(runs):
+        out, ms, st, decisions, delta = _prom_sql_run(db, sql, is_cuda)
+        if eng.last_path != "tile" or delta.get("tile_dispatches") != 1 \
+                or delta.get("tile_declined"):
+            raise AssertionError(f"{key}: answered by the {eng.last_path!r} path ({delta})")
+        if dict(decisions) != want or len(decisions) != len(want):
+            raise AssertionError(f"{key}: passes {decisions}, expected {want}")
+        if i in (0, runs - 1):
+            worst = max(worst, check_prom_sql(name, out, truth))
+        times.append(ms)
+        stages.append(st)
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v - before[k]}
+    if is_cuda and full_size and EXPECTED_PROM_SQL_PATH is not None \
+            and set(launched) != EXPECTED_PROM_SQL_PATH[key]:
+        raise AssertionError(f"{key}: launched {sorted(launched)}, path is "
+                             f"{sorted(EXPECTED_PROM_SQL_PATH[key])}")
+    cache = eng.tile_cache.stats()
+    warm = stages[1:] or stages
+    rec = {
+        "rows_out": out.num_rows, "cold_ms": times[0], "cold_stage_ms": stages[0],
+        "warm_p50_ms": float(np.median(times[1:] or times)),
+        "warm_stage_p50_ms": {k: float(np.median([st.get(k, 0.0) for st in warm]))
+                              for k in sorted({k for st in warm for k in st})},
+        "max_rel_err": worst, "passes": want, "launches": launched,
+        "cache_delta": {k: cache[k] - cache0.get(k, 0) for k in
+                        ("window_tile_builds", "dedup_keep_builds", "delta_extends", "builds")},
+    }
+    emit({"phase": "prom_sql_query", "name": key, **rec})
+    return {**rec, "result": out}
+
+
+def _overwrite_rows(samples: dict, tsbs: Tsbs, delta: float):
+    """The corrected remote write: the counter's last OVERWRITE_TICKS
+    samples of hosts = OVERWRITE_HOST (mod OVERWRITE_MOD), value + delta."""
+    import pyarrow as pa
+
+    c = samples[PROM_COUNTER]
+    n_ticks, n_hosts = c.shape
+    t_end = (tsbs.end - T0) // (SCRAPE_S * 1000)
+    hs = np.arange(OVERWRITE_HOST, n_hosts, OVERWRITE_MOD)
+    ticks = np.arange(t_end - OVERWRITE_TICKS, t_end)
+    vals = c[np.ix_(ticks, hs)] + delta
+    return pa.table({
+        "hostname": pa.array(np.tile([f"host_{h}" for h in hs], len(ticks))),
+        "greptime_value": pa.array(vals.reshape(-1), pa.float64()),
+        "greptime_timestamp": pa.array(np.repeat(T0 + ticks * SCRAPE_S * 1000, len(hs)),
+                                       pa.timestamp("ms")),
+    }), ticks, hs
+
+
+def run_prom_sql_phase(db, tsbs: Tsbs, samples: dict, is_cuda: bool, reps: int) -> dict:
+    """Phase 6b: SQL panels over phase 6's remote-write tables (not
+    append_mode; the counter's retried half hour overlaps its last SST) on
+    the tile path: P1-P5 once cold and `reps` times warm, each on the tile
+    route with its PROM_SQL_PASSES (dedup_plane, window_tile) and the
+    numpy ground truth's rows.  Then P1b builds a second window tile on
+    the counter's entry, a corrected remote write lands (hosts = 3 mod 16,
+    the last 10 minutes, + 0.5) and is flushed: P1 must extend the entry
+    in place (K16) and rebuild its window tile, P1b keep its own, P3
+    rebuild its time-major copies, P4 show the new values.  The launch
+    counts are set to 0 before and read after these runs.  Then P1 and
+    P5 with both passes disabled (P1 declines to the table-fed route; P5,
+    with no overlap, takes the full planes, and with the tile cache off
+    the table-fed route), each giving the same rows; then the corrected
+    rows are written back as they were (phase 6's CPU backend reads these
+    files after this phase)."""
+    eng = db.query_engine
+    full_size = tsbs.n_hosts == 4000 and tsbs.hours == 12
+    panels = {name: (table, sql) for name, table, sql in prom_sql_panels(tsbs)}
+    t_start = time.perf_counter()
+    reset_counts()  # phase 6b's main path starts here
+    out: dict = {"queries": {}}
+    for name in ("P1", "P2", "P3", "P4", "P5", "P1b"):
+        out["queries"][name] = _prom_sql_panel(
+            db, tsbs, name, panels[name][1], 1 + reps, prom_sql_truth(name, samples, tsbs),
+            is_cuda, full_size)
+    # the corrected remote write
+    extends0 = eng.tile_cache.stats()["delta_extends"]
+    batch, ticks, hs = _overwrite_rows(samples, tsbs, OVERWRITE_DELTA)
+    t0 = time.perf_counter()
+    db.write(PROM_COUNTER, batch)
+    db.flush()
+    write_ms = (time.perf_counter() - t0) * 1e3
+    samples[PROM_COUNTER][np.ix_(ticks, hs)] += OVERWRITE_DELTA
+    before = launch_counts()
+    builds0 = eng.tile_cache.stats()["window_tile_builds"]
+    for name in ("P1", "P1b", "P3", "P4"):
+        key = name + "'"
+        out["queries"][key] = _prom_sql_panel(
+            db, tsbs, name, panels[name][1], 1 + reps, prom_sql_truth(name, samples, tsbs),
+            is_cuda, full_size, key=key)
+        if name == "P1b":
+            rebuilt = eng.tile_cache.stats()["window_tile_builds"] - builds0
+            if rebuilt != 1:
+                raise AssertionError(f"window tiles built over P1' and P1b': {rebuilt}, "
+                                     "expected P1's alone")
+    extends = eng.tile_cache.stats()["delta_extends"] - extends0
+    patched = launch_counts()["delta_patch"] - before["delta_patch"]
+    if extends != 1 or (is_cuda and not patched):
+        raise AssertionError(f"the corrected write: delta_extends +{extends}, K16 x {patched}")
+    p4 = out["queries"]["P4'"]["result"]
+    lv = dict(zip(p4["hostname"].to_pylist(), p4["lv"].to_pylist()))
+    c = samples[PROM_COUNTER]
+    new_values = {f"host_{h}": lv[f"host_{h}"] for h in hs[:4]}
+    if any(lv[f"host_{h}"] != c[ticks[-1], h] for h in hs):
+        raise AssertionError("P4': an overwritten host does not show its corrected value")
+    out["launches"] = launch_counts()  # phase 6b's main path ends here
+    out["shape_launches"] = shape_counts()
+    emit({"phase": "prom_sql_overwrite", "rows": batch.num_rows, "write_flush_ms": write_ms,
+          "delta_extends": extends, "k16_launches": patched,
+          "window_tile_builds": {k: out["queries"][k]["cache_delta"]["window_tile_builds"]
+                                 for k in ("P1'", "P1b'")},
+          "p4_new_values": new_values,
+          "stage_ms": out["queries"]["P1'"]["cold_stage_ms"]})
+
+    # the table-fed comparisons (outside the counted runs): with both
+    # passes off a panel over overlapping files declines to the table-fed
+    # route; the gauge's, where its files do not overlap, takes the full
+    # planes, and with the tile cache off the table-fed route
+    saved = db.config.query.disabled_passes
+    compare = {}
+    p5_dedup = "dedup_plane" in out["queries"]["P5"]["passes"]
+    try:
+        db.config.query.disabled_passes = ("dedup_plane", "window_tile")
+        for name, tile_cache in (("P1", True), ("P5", True)) + ((("P5", False),)
+                                                                 if not p5_dedup else ()):
+            db.config.query.tile_cache_enable = tile_cache
+            res, ms, _st, _dec, delta = _prom_sql_run(db, panels[name][1], is_cuda)
+            route = eng.last_path
+            # the full planes serve only the gauge with no overlap, with the cache on
+            want_route = "tile" if tile_cache and name == "P5" and not p5_dedup else "table"
+            declined = want_route == "table" and tile_cache
+            if route != want_route or declined != bool(delta.get("tile_declined")):
+                raise AssertionError(f"{name} with both passes off (tile cache {tile_cache}) "
+                                     f"took the {route!r} route")
+            tile_key = "P1'" if name == "P1" else "P5"
+            compare_tables(out["queries"][tile_key]["result"], res, f"{name} {route}", tol=1e-7,
+                           inexact=("av",))
+            compare[f"{name} {route}"] = ms
+    finally:
+        db.config.query.disabled_passes = saved
+        db.config.query.tile_cache_enable = True
+    emit({"phase": "prom_sql_compare", "ms": compare})
+    # write the corrected rows back as they were
+    restore, _t, _h = _overwrite_rows(samples, tsbs, -OVERWRITE_DELTA)
+    db.write(PROM_COUNTER, restore)
+    db.flush()
+    samples[PROM_COUNTER][np.ix_(ticks, hs)] -= OVERWRITE_DELTA
+    for q in out["queries"].values():
+        q.pop("result")
+    out.update(compare_ms=compare, seconds=time.perf_counter() - t_start,
+               cache=eng.tile_cache.stats())
+    return out
 
 
 def prom_planes(n_hosts: int, hours: int, dev, seed: int = SEED):
@@ -6476,6 +6880,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-reps", type=int, default=5, help="warm runs per query, tile path")
     ap.add_argument("--kernel-reps", type=int, default=10, help="timed launches per kernel")
     ap.add_argument("--tql-reps", type=int, default=5, help="warm runs per TQL query, tile path")
+    ap.add_argument("--prom-sql-reps", type=int, default=3,
+                    help="warm runs per SQL panel over the remote-write tables (phase 6b)")
     ap.add_argument("--container-hours", type=int, default=CM_HOURS,
                     help="hours of the container table (phase 7)")
     ap.add_argument("--container-reps", type=int, default=3,
@@ -6566,7 +6972,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tq = run_tql_slice("cuda", args.hosts, args.hours, args.tql_reps,
-                           os.path.join(work, "tql"))
+                           os.path.join(work, "tql"), prom_sql_reps=args.prom_sql_reps)
         emit({"phase": "tql", "seconds": time.perf_counter() - t0, "rows": tq["rows"],
               "card": smi,
               "tile_warm_p50_ms": {k: v["warm_p50_ms"] for k, v in tq["queries"].items()},
@@ -6574,6 +6980,11 @@ def main(argv=None) -> int:
               "legacy_ms": {k: v["ms"] for k, v in tq["legacy"].items()},
               "cpu_ms": {k: v["ms"] for k, v in tq["cpu"].items()},
               "twin_max_rel_err": tq["twin_max_rel_err"], "tile_cache": tq["cache"]})
+        ps = tq["prom_sql"]
+        emit({"phase": "prom_sql", "seconds": ps["seconds"], "card": smi,
+              "cold_ms": {k: v["cold_ms"] for k, v in ps["queries"].items()},
+              "warm_p50_ms": {k: v["warm_p50_ms"] for k, v in ps["queries"].items()},
+              "table_fed_ms": ps["compare_ms"], "tile_cache": ps["cache"]})
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -6815,6 +7226,14 @@ def main(argv=None) -> int:
                 / max(sl["tile"]["k8_calls"]["calls"], 1)}
                if name == _PACK else {}),
         })
+    # phase 6b: each kernel's launches on the SQL panels over the
+    # remote-write tables (the keep plane, window tiles, the corrected write)
+    prom_sql_kernels = set().union(*EXPECTED_PROM_SQL_PATH.values()) \
+        if EXPECTED_PROM_SQL_PATH is not None and tq["full_size"] else set()
+    for k in kernels:
+        k["prom_sql_launches"] = tq["prom_sql"]["launches"].get(k["name"], 0)
+        if k["name"] in prom_sql_kernels and k["prom_sql_launches"] == 0:
+            raise AssertionError(f"kernel {k['name']} never launched on phase 6b")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

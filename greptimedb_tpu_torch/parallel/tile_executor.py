@@ -5,13 +5,15 @@ Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor`:
 `_encode_mem` (the memtable tail), `_fetch_result`, `_finalize`,
 `_decode_result`, the `_assemble_*` helpers and `_mesh_attempt`, for
 the configuration the port implements (the "sort" and "hash"
-strategies, the mesh of `tile.mesh_devices` slots, no host fast path,
-no cold host serve, no fused or batched builds, no dedup plane, no
-window tiles, no streamed spill).  A query:
+strategies, the mesh of `tile.mesh_devices` slots, the dedup keep plane,
+window tiles, no host fast path, no cold host serve, no fused or batched
+builds, no streamed spill).  A query:
 
   1. snapshots each region's (files, memtables) and checks that the
-     tile path may aggregate raw file rows (append-mode table, or
-     pairwise-disjoint sources; no delete tombstones in the window);
+     tile path may aggregate raw file rows: no delete tombstones in the
+     window and, on a non-append table, no memtable overlapping another
+     memtable or a file in the window; a region whose in-window files
+     overlap reads the last-write-wins keep plane (`dedup_plane`);
   2. updates the table dictionary with the memtable tails, fetches (or
      builds and uploads, or extends by a flushed delta) each region's
      super-tile, and repairs the code planes a dictionary growth moved
@@ -22,7 +24,8 @@ window tiles, no streamed spill).  A query:
      plan must fit the dense bounds (`query.max_groups` * 64 output
      groups, `query.max_internal_groups` stage-1 groups);
   4. runs one tile program over every chunk and tail — of the
-     time-major copies for a bucket-only group-by — (parallel/
+     time-major copies for a bucket-only group-by, of the compact window
+     tile for a query bounded on both sides (`window_tile`) — (parallel/
      tile_program.py) and reads the packed result back once.  With
      `tile.mesh_devices` > 0 the program runs over the mesh instead
      (`mesh_run`: per-slot partials, K22's fold on the first slot,
@@ -49,11 +52,14 @@ Per-call state is thread-local (the members of a tick run on their own
 threads): `timings` holds the host ms per stage of the calling thread's
 last query: build and upload (cold entries only), delta_host and
 delta_device (a flushed delta merged into a cached entry: host encode
-and merge, then the K16 patches through a sync), time_major (K14 and
-the K15 copies through a sync; near zero once cached), quantize (K5,
-through a sync; near zero once the limb planes are cached), plan (everything else
-before the dispatch), dispatch (the program through its last sync),
-readback, decode.
+and merge, then the K16 patches through a sync), keep (the dedup keep
+plane; near zero once built), window_gather, window_upload and
+window_quantize (a window tile's build or extension: host gather,
+upload, K5 through a sync), time_major (K14 and the K15 copies through
+a sync; near zero once cached), quantize (K5, through a sync; near zero
+once the limb planes are cached), plan (everything else before the
+dispatch), dispatch (the program through its last sync), readback,
+decode.
 """
 
 from __future__ import annotations
@@ -354,6 +360,7 @@ class TileExecutor:
 
         # 1. snapshot + safety gate; the region stays pinned until dispatch
         region_sources = []  # (region, [FileMeta], [mem pa.Table])
+        dedup_regions: set[int] = set()  # regions whose in-window files overlap
         for region in ctx.regions:
             region.pin_scan()
             pinned.append(region)
@@ -395,13 +402,19 @@ class TileExecutor:
                     mem_ranges.append((0, 0))
                 mem_tables.append(mem_table)
             if not ctx.append_mode:
-                # a memtable version of a row beats file versions: any
-                # memtable overlap stays on the scan path; overlapping files
-                # need the dedup plane, which is not ported
+                # a memtable version of a row beats file versions, and
+                # other memtables hold later writes still: a memtable that
+                # overlaps another memtable or a file stays on the scan
+                # path.  Overlapping files read the keep plane (a region
+                # holds each pk, so regions never overlap each other)
                 if mem_ranges and not disjoint(mem_ranges + file_ranges):
-                    return None
+                    if not disjoint(mem_ranges):
+                        return None
+                    for mlo, mhi in mem_ranges:
+                        if any(fhi >= mlo and flo <= mhi for flo, fhi in file_ranges):
+                            return None
                 if not disjoint(file_ranges):
-                    return None
+                    dedup_regions.add(region.region_id)
             region_sources.append((region, all_files, mem_tables))
         if not any(fs or ms for _r, fs, ms in region_sources):
             return None  # empty table: the normal path shapes the output
@@ -455,47 +468,25 @@ class TileExecutor:
         elif not self._dense_fits(plan):
             return None  # group space too large for dense [G] states
 
-        # 4. the device sources: chunks of each super-tile, then the tails
+        # 4. the device sources: chunks of each super-tile (or of its window
+        # tile), then the tails
         need_cols = plan_cols(plan)
         limb_need = limb_sum_cols(plan)
         device_sources = []
         # each source's mesh slot (its chunk's placement; time-major copies
         # and memtable tails live on slot 0, as in the reference)
         source_slots = []
-        q_ms = tm_ms = 0.0
+        stage_ms: dict[str, float] = {}
         for region, _metas, mem_tables in region_sources:
             s = entries.get(region.region_id)
             if s is not None:
-                # a tick member keeps the other members' planes: the tick
-                # reads all of them at once, and a release would re-upload
-                # them (and rebuild the tick's graph) on every tick
-                if s.nbytes > self.cache.budget // 2 and not (capture_active()
-                                                               or defer_active()):
-                    self.cache.release_unneeded(s, need_cols)
-                if plan.time_major:
-                    t0 = time.perf_counter()
-                    cols, valid, nulls = self.cache.ensure_time_major(s, use_ts, need_cols)
-                    self._sync()
-                    tm_ms += (time.perf_counter() - t0) * 1e3
-                else:
-                    cols = {k: v for k, v in s.cols.items() if k in need_cols}
-                    valid = s.valid
-                    nulls = {k: v for k, v in s.nulls.items() if k in need_cols}
-                t0 = time.perf_counter()
-                limbs = (self.cache.ensure_limbs(s, limb_need, plan.time_major, pinned_ids)
-                         if limb_need else {})
-                self._sync()
-                q_ms += (time.perf_counter() - t0) * 1e3
-                if any(c not in limbs and c not in s.cols for c in limb_need):
+                got = self._entry_sources(s, plan, window, use_ts, need_cols, limb_need,
+                                          region.region_id in dedup_regions, ctx,
+                                          pinned_ids, stage_ms)
+                if got is None:
                     return None
-                for i in range(len(valid)):
-                    device_sources.append((
-                        {k: v[i] for k, v in cols.items()},
-                        valid[i],
-                        {k: v[i] for k, v in nulls.items()},
-                        {k: v[i] for k, v in limbs.items()},
-                    ))
-                    source_slots.append(0 if plan.time_major else s.chunk_slot(i))
+                device_sources.extend(got[0])
+                source_slots.extend(got[1])
             for mt in mem_tables:
                 src = self._encode_mem(ctx.dictionary, mt, all_tag_cols, use_ts, value_cols)
                 if src is None:
@@ -521,9 +512,9 @@ class TileExecutor:
             "bucket_interval": int(dyn_host["bucket_interval"]),
             "having_values": tuple(dyn_host.get("having_values", ())),
         }
-        self.timings.update(build_t, quantize=q_ms)
+        self.timings.update(build_t, quantize=stage_ms.pop("quantize", 0.0), **stage_ms)
         if plan.time_major:
-            self.timings["time_major"] = tm_ms
+            self.timings.setdefault("time_major", 0.0)
         self.timings["plan"] = (time.perf_counter() - t_start) * 1e3 - sum(self.timings.values())
         ndev = len(self.cache.devices)
         placed = ndev > 1 and passes.enabled("chunk_placement", self.config)
@@ -585,6 +576,78 @@ class TileExecutor:
             else:
                 self.count(limb_reruns=1)
         return None
+
+    def _entry_sources(self, s: _SuperTiles, plan, window, use_ts, need_cols, limb_need,
+                       dedup: bool, ctx: TileContext, pinned_ids, stage_ms: dict):
+        """One region's entry as device sources: (sources, mesh slots), or
+        None to decline.  A region whose in-window files overlap reads the
+        keep plane (`dedup_plane`; the keep plane cannot be built: decline,
+        the merge scan owns the dedup); a plan that is not time-major over
+        a window bounded on both sides reads the window tile where it
+        qualifies (`window_tile`); otherwise the entry's chunks, or their
+        time-major copies.  `stage_ms` gains keep, the window tile's
+        stages, time_major and quantize (each through a sync)."""
+        def add_ms(stage, t0):
+            stage_ms[stage] = stage_ms.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        if dedup:
+            enabled = passes.enabled("dedup_plane", self.config)
+            t0 = time.perf_counter()
+            if not enabled or not self.cache.ensure_dedup_keep(s):
+                passes.note("dedup_plane", False,
+                            "keep plane unavailable: merge scan owns dedup" if enabled
+                            else "pass disabled")
+                return None
+            self._sync()
+            add_ms("keep", t0)
+            passes.note("dedup_plane", True,
+                        "overlapping-SST LWW dedup lowered to a device keep mask",
+                        region=s.region_id)
+        if (not plan.time_major and window is not None and use_ts
+                and window[0] > -(1 << 61) and window[1] < (1 << 61)
+                and passes.enabled("window_tile", self.config)):
+            # a windowed query over deep retention: only the in-window
+            # (and dedup-surviving) rows, gathered into a compact tile
+            wsrc = self.cache.ensure_window_tile(s, window, use_ts, need_cols, set(limb_need),
+                                                 dedup, ctx.dictionary, timings=stage_ms)
+            if wsrc is not None:
+                passes.note("window_tile", True, "in-window rows gathered into a compact tile",
+                            region=s.region_id, sources=len(wsrc[0]))
+                return wsrc
+            passes.note("window_tile", False,
+                        "window covers most of retention (or tile build declined): "
+                        "full-tile scan with device masking")
+        # a tick member keeps the other members' planes: the tick reads
+        # all of them at once, and a release would re-upload them (and
+        # rebuild the tick's graph) on every tick
+        if s.nbytes > self.cache.budget // 2 and not (capture_active() or defer_active()):
+            self.cache.release_unneeded(s, need_cols, keep_dedup=dedup)
+        if plan.time_major:
+            t0 = time.perf_counter()
+            cols, valid, nulls = self.cache.ensure_time_major(s, use_ts, need_cols, dedup=dedup)
+            self._sync()
+            add_ms("time_major", t0)
+        else:
+            cols = {k: v for k, v in s.cols.items() if k in need_cols}
+            valid = s.valid_dedup if dedup else s.valid
+            nulls = {k: v for k, v in s.nulls.items() if k in need_cols}
+        t0 = time.perf_counter()
+        limbs = (self.cache.ensure_limbs(s, limb_need, plan.time_major, pinned_ids)
+                 if limb_need else {})
+        self._sync()
+        add_ms("quantize", t0)
+        if any(c not in limbs and c not in s.cols for c in limb_need):
+            return None
+        sources, slots = [], []
+        for i in range(len(valid)):
+            sources.append((
+                {k: v[i] for k, v in cols.items()},
+                valid[i],
+                {k: v[i] for k, v in nulls.items()},
+                {k: v[i] for k, v in limbs.items()},
+            ))
+            slots.append(0 if plan.time_major else s.chunk_slot(i))
+        return sources, slots
 
     def _mesh_attempt(self, program, device_sources, source_slots, dyn):
         """The multi-device dispatch (`tile.mesh_devices` > 0, the

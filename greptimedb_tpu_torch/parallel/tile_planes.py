@@ -38,11 +38,21 @@ Keeping the planes current, as the reference does at its defaults:
   (`ensure_limbs(..., time_major=True)`, keyed "tm:<column>");
 * limb planes (K5) are cached per column and evicted first under budget
   pressure, then whole entries;
-* the dedup keep plane (`ensure_dedup_keep`): the last-write-wins keep
-  mask of a non-append region whose SSTs overlap, built on the host from
-  the sorted host copies of the (pk..., ts) columns kept beside each
-  entry, then uploaded; the TQL path serves such regions through it
-  (the SQL path still declines overlapping files);
+* the dedup keep plane (`ensure_dedup_keep`, the `dedup_plane` pass):
+  the last-write-wins keep mask of a non-append region whose SSTs
+  overlap, built on the host from the sorted host copies of the
+  (pk..., ts) columns kept beside each entry (`keep_host`), then
+  uploaded; the SQL and TQL tile paths read it in place of the valid
+  plane, and time-major plans read its ts-ascending copy
+  (`tm_valid_dedup`, gathered in the same K15 launch as the other
+  copies);
+* window tiles (`ensure_window_tile`, the `window_tile` pass; reference
+  `tile_cache.py:2310-2575`): a compact tile of the rows inside one
+  query window (and surviving the keep plane), gathered on the host from
+  the sorted host copies or the per-file encodes, padded with zeros to a
+  2^22-row grid, uploaded in chunks of that size (K5 quantizes its limb
+  columns), keyed by (wlo, whi, dedup) beside the entry and extended
+  with the columns a wider query adds;
 * the fold CSRs of the fused TQL aggregations (`group_csr`), kept per
   (radices, kept tags);
 * chunk placement (the `chunk_placement` pass; reference
@@ -55,8 +65,8 @@ Keeping the planes current, as the reference does at its defaults:
   by index, never by device identity (one device may fill several
   slots).  Time-major copies and memtable tails live on slot 0, as in
   the reference;
-* not ported: persistence of consolidated encodes, window tiles, the
-  pipelined and fused builds.  Limb-only columns keep their f64 plane
+* not ported: persistence of consolidated encodes, the pipelined and
+  fused builds.  Limb-only columns keep their f64 plane
   (the reference skips that upload).
 
 Padding keeps the port's rule (`ops/tiles.py::pad_rows`, a multiple of
@@ -171,8 +181,12 @@ class _SuperTiles:
     nulls: dict[str, list] = field(default_factory=dict)
     epochs: dict[str, int] = field(default_factory=dict)  # tag col -> dict epoch
     valid: list | None = None
-    # last-write-wins keep plane (valid and not superseded), per chunk
+    # last-write-wins keep plane (valid and not superseded): its host
+    # copy over the real rows in (pk, ts) order, the device plane per
+    # chunk, and its ts-ascending copy for time-major plans
+    keep_host: np.ndarray | None = None
     valid_dedup: list | None = None
+    tm_valid_dedup: list | None = None
     # the stable ts-ascending permutation (K14), int32 [pad], and the
     # time-major copies gathered through it (K15), per chunk
     perm: torch.Tensor | None = None
@@ -182,7 +196,18 @@ class _SuperTiles:
     # cached K5 planes per value column, keyed "" | "tm:" + column for the
     # two row orders: per chunk (limbs, scale)
     limb_cols: dict[str, list] = field(default_factory=dict)
+    # window tiles by (wlo, whi, dedup): dicts of "cols" and "limbs" (name
+    # -> per-chunk planes; a nullable column declines the tile), "valid",
+    # "rows", "epoch" (the dictionary epoch of their codes), "placement"
+    # and "nbytes"
+    window_tiles: dict[tuple, dict] = field(default_factory=dict)
+    # window keys whose rows were none or more than the cover allows: the
+    # answer holds while the file set does
+    window_declines: set = field(default_factory=set)
     nbytes: int = 0
+    # host bytes held beside the host encode cache (the keep plane's host
+    # copy), counted in the cache's host bytes
+    host_nbytes: int = 0
     # in-place delta merges absorbed since the entry was built
     delta_extends: int = 0
     # chunk placement: chunk i lives on mesh slot (base + i) % modulus,
@@ -209,13 +234,14 @@ def _entry_device_bytes(entry: _SuperTiles) -> int:
     for d in (entry.cols, entry.nulls, entry.tm_cols, entry.tm_nulls):
         for chunks in d.values():
             total += _nbytes(chunks)
-    for planes in (entry.valid, entry.valid_dedup, entry.tm_valid):
+    for planes in (entry.valid, entry.valid_dedup, entry.tm_valid, entry.tm_valid_dedup):
         if planes is not None:
             total += _nbytes(planes)
     if entry.perm is not None:
         total += _nbytes((entry.perm,))
     for chunks in entry.limb_cols.values():
         total += _limb_nbytes(chunks)
+    total += sum(wt["nbytes"] for wt in entry.window_tiles.values())
     return total
 
 
@@ -265,8 +291,10 @@ class TileCacheManager:
         self._bad_files: set[tuple[int, str]] = set()
         # the fused TQL folds' device CSRs, per (radices, kept tags)
         self._group_csrs: OrderedDict[tuple, tuple] = OrderedDict()
-        # counters: entries built, warm hits, host file decodes, evictions
-        self.stats_counts = {"builds": 0, "hits": 0, "decodes": 0, "evictions": 0}
+        # counters: entries built, warm hits, host file decodes, evictions,
+        # window tiles built or extended, dedup keep planes built
+        self.stats_counts = {"builds": 0, "hits": 0, "decodes": 0, "evictions": 0,
+                             "window_tile_builds": 0, "dedup_keep_builds": 0}
         # called with a region id whenever a plane of its entry is replaced
         # or freed: the tile executor drops the tick programs (CUDA graphs)
         # that read it
@@ -333,8 +361,7 @@ class TileCacheManager:
             if entry is not None and (
                 keep_file_ids is None or not set(entry.file_ids) <= keep_file_ids
             ):
-                self._used -= self._super.pop(region_id).nbytes
-                self._planes_changed(region_id)
+                self._drop_entry_locked(region_id)
             self._region_versions.pop(region_id, None)
         if self.result_cache is not None:
             self.result_cache.purge_region(region_id)
@@ -390,6 +417,24 @@ class TileCacheManager:
                         ).astype(codes.dtype)
                     entry.host_epochs[tag] = dictionary.epoch
 
+    def _drop_entry_locked(self, region_id: int) -> _SuperTiles:
+        """Forget a cached entry: its device and host bytes leave the
+        budgets, and the planes' listeners hear of it."""
+        entry = self._super.pop(region_id)
+        self._used -= entry.nbytes
+        self._host_used -= entry.host_nbytes
+        self._planes_changed(region_id)
+        return entry
+
+    def _drop_window_tile_locked(self, entry: _SuperTiles, key) -> int:
+        """Forget one window tile of an entry; returns its device bytes."""
+        freed = entry.window_tiles.pop(key)["nbytes"]
+        entry.nbytes -= freed
+        if self._super.get(entry.region_id) is entry:
+            self._used -= freed
+        self._planes_changed(entry.region_id)
+        return freed
+
     def _reserve_locked(self, est: int, pinned_regions: set[int]):
         """Make room for `est` bytes about to allocate on the device."""
         if est and self._used > self.plane_budget - est:
@@ -399,9 +444,13 @@ class TileCacheManager:
             finally:
                 self.budget = saved
 
-    def release_unneeded(self, entry: _SuperTiles, keep_cols: set[str]) -> int:
+    def release_unneeded(self, entry: _SuperTiles, keep_cols: set[str],
+                         keep_dedup: bool = True) -> int:
         """Drop this entry's planes of columns the current query does not
-        touch (whole-entry eviction cannot help a one-entry deployment)."""
+        touch (whole-entry eviction cannot help a one-entry deployment),
+        its window tiles that lack one of them, and, when the query does
+        not read the keep plane (`keep_dedup` False), the keep plane's
+        time-major copy."""
         with self._lock:
             freed = 0
             for d in (entry.cols, entry.nulls):
@@ -416,6 +465,13 @@ class TileCacheManager:
             for key in list(entry.limb_cols):
                 if key.split(":", 1)[-1] not in keep_cols:
                     freed += _limb_nbytes(entry.limb_cols.pop(key))
+            if not keep_dedup and entry.tm_valid_dedup is not None:
+                freed += _nbytes(entry.tm_valid_dedup)
+                entry.tm_valid_dedup = None
+            for key in list(entry.window_tiles):
+                wt = entry.window_tiles[key]
+                if not all(c in wt["cols"] or c in wt["limbs"] for c in keep_cols):
+                    freed += entry.window_tiles.pop(key)["nbytes"]
             entry.nbytes -= freed
             if self._super.get(entry.region_id) is entry:
                 self._used -= freed
@@ -424,8 +480,9 @@ class TileCacheManager:
             return freed
 
     def _evict_locked(self, pinned_regions: set[int]):
-        # limb planes first (a quantize pass rebuilds them), then whole
-        # unpinned entries (a Parquet decode rebuilds those)
+        # limb planes first (a quantize pass rebuilds them), then window
+        # tiles (a host gather and an upload), then whole unpinned entries
+        # (a Parquet decode rebuilds those)
         for entry in list(self._super.values()):
             for key in list(entry.limb_cols):
                 if self._used <= self.plane_budget:
@@ -434,12 +491,16 @@ class TileCacheManager:
                 entry.nbytes -= freed
                 self._used -= freed
                 self._planes_changed(entry.region_id)
+        for entry in list(self._super.values()):
+            for key in list(entry.window_tiles):
+                if self._used <= self.plane_budget:
+                    break
+                self._drop_window_tile_locked(entry, key)
         while self._used > self.plane_budget and len(self._super) > len(pinned_regions):
             for rid in list(self._super):
                 if rid not in pinned_regions:
-                    self._used -= self._super.pop(rid).nbytes
+                    self._drop_entry_locked(rid)
                     self.stats_counts["evictions"] += 1
-                    self._planes_changed(rid)
                     break
             else:
                 break
@@ -578,8 +639,7 @@ class TileCacheManager:
                     passes.note("incremental_tile", False, why, region=rid)
                     with self._lock:
                         if self._super.get(rid) is entry:
-                            self._used -= self._super.pop(rid).nbytes
-                            self._planes_changed(rid)
+                            self._drop_entry_locked(rid)
                     entry = None
                 else:
                     entry = extended
@@ -647,10 +707,10 @@ class TileCacheManager:
             added, t_up = acc
             entry.nbytes += added
             with self._lock:
-                old = self._super.pop(rid, None)
+                old = self._super.get(rid)
                 if old is not None and old is not entry:
-                    self._used -= old.nbytes
-                    self._planes_changed(rid)
+                    self._drop_entry_locked(rid)
+                self._super.pop(rid, None)
                 self._super[rid] = entry
                 self._used += added
                 self._evict_locked(pinned_regions | {rid})
@@ -671,7 +731,9 @@ class TileCacheManager:
         whole), and patch every resident plane on the card with K16, so
         only the positions and the delta values cross to the device.
         Re-derivable planes (time-major copies, the permutation, limb
-        planes, the dedup keep plane) drop and rebuild lazily.  Returns
+        planes, the dedup keep plane and its copies) drop and rebuild
+        lazily, as do the window tiles whose window a delta row can fall
+        in; the others stay as they are.  Returns
         the entry, or None when the delta cannot merge (the caller
         rebuilds, the reference's semantics); a device failure raises.
         `timings` gains "delta_host" (encode + merge) and "delta_device"
@@ -803,6 +865,9 @@ class TileCacheManager:
             entry.order = new_order
             entry.sorted_host = new_sorted
             entry.host_epochs = {c: dictionary.epoch for c in sort_cols if c != ts_col}
+            self._host_used -= entry.host_nbytes
+            entry.host_nbytes = 0
+            entry.keep_host = None
             entry.valid_dedup = None
             if new_valid is not None:
                 entry.cols = patched_cols
@@ -812,8 +877,18 @@ class TileCacheManager:
                 entry.cols, entry.nulls, entry.valid, entry.epochs = {}, {}, None, {}
             # re-derivable planes rebuild lazily from the patched planes
             entry.tm_cols, entry.tm_nulls, entry.tm_valid = {}, {}, None
+            entry.tm_valid_dedup = None
             entry.perm = None
             entry.limb_cols = {}
+            # window tiles whose window cannot hold a delta row keep their
+            # bytes; the others rebuild on their next query
+            if ts_col in delta_cats and delta_rows:
+                dmin, dmax = int(delta_cats[ts_col].min()), int(delta_cats[ts_col].max())
+            else:
+                dmin, dmax = -(1 << 62), 1 << 62
+            for key in [k for k in entry.window_tiles if dmax >= k[0] and dmin < k[1]]:
+                del entry.window_tiles[key]
+            entry.window_declines = set()
             entry.nbytes = _entry_device_bytes(entry)
             self._planes_changed(rid)
             self._used += entry.nbytes - old_dev
@@ -890,8 +965,11 @@ class TileCacheManager:
         """Build (once per file set) the last-write-wins keep plane from the
         sorted host copies: a row survives unless the next row holds the
         same (pk..., ts) — the stable lexsort orders duplicates by flush
-        sequence, so the newest version sits last in its run.  Returns
-        False when the entry lacks its sorted host copies."""
+        sequence (and the delta merge ties to the old run), so the newest
+        version sits last in its run.  Keeps the host copy (`keep_host`,
+        counted in the cache's host bytes; window tiles read it) and the
+        device plane.  Returns False when the entry lacks its sorted host
+        copies."""
         with self._lock:
             if entry.valid_dedup is not None:
                 return True
@@ -905,12 +983,229 @@ class TileCacheManager:
                 for arr in entry.sorted_host.values():
                     same &= arr[:-1] == arr[1:]
                 keep[: n - 1] &= ~same
+            entry.keep_host = keep[:n]
             entry.valid_dedup = self._up_chunks(keep, chunk_bounds(entry.pad, self.chunk_rows),
                                                 entry.placement)
             entry.nbytes += entry.pad
+            entry.host_nbytes += entry.keep_host.nbytes
             if self._super.get(entry.region_id) is entry:
                 self._used += entry.pad
+                self._host_used += entry.keep_host.nbytes
+            self.stats_counts["dedup_keep_builds"] += 1
             return True
+
+    # window tiles engage when the window covers less than this share of
+    # the entry's rows (above it the full super-tile is cheaper than a
+    # nearly as large copy), and only on entries of this many rows or more
+    # (below it the full scan is cheap)
+    _WINDOW_TILE_MAX_COVER = 0.5
+    _WINDOW_TILE_MIN_ROWS = 1 << 22
+
+    def ensure_window_tile(self, entry: _SuperTiles, window: tuple[int, int], ts_name: str,
+                           need_cols, limb_cols, dedup: bool, dictionary: TableDictionary,
+                           timings: dict | None = None):
+        """Build (or fetch, or extend with missing columns) the compact
+        tile of one query window: `flatnonzero` of the window mask over
+        the sorted ts on the host (AND `keep_host` with `dedup`, so stale
+        versions never upload), a host gather of each needed column from
+        the sorted host copies or the per-file encodes, zero padding to
+        the 2^22-row grid, an upload in chunks of `min(chunk_rows, 2^22)`
+        rows onto the slots of the region's placement, and K5 over the
+        gathered chunks of the limb columns (their f64 plane stays).
+        Rows keep their (pk, ts) order.  Returns (sources, slots) — one
+        (cols, valid, nulls, limbs) source per chunk and its mesh slot —
+        or None when the window does not qualify: a small entry, no
+        rows, more than half the entry's rows (both remembered for the
+        file set, so a warm query does not mask the entry again), a
+        nullable column, a host encode no longer cached.  `timings`
+        gains the host ms of "window_gather", "window_upload" and
+        "window_quantize" (through a sync)."""
+        if entry.num_rows < self._WINDOW_TILE_MIN_ROWS or ts_name not in entry.sorted_host:
+            return None
+        key = (int(window[0]), int(window[1]), bool(dedup))
+        if key in entry.window_declines:
+            return None
+        cols_needed = list(dict.fromkeys([c for c in need_cols if c != ts_name] + [ts_name]))
+        epoch = dictionary.epoch
+        with self._lock:
+            wt = entry.window_tiles.get(key)
+            if wt is not None and wt["epoch"] != epoch:
+                # tag codes moved: drop it and build at the current epoch
+                self._drop_window_tile_locked(entry, key)
+                wt = None
+            snap = None
+            if wt is not None:
+                missing = [c for c in cols_needed if c not in wt["cols"]]
+                missing_limbs = [c for c in limb_cols
+                                 if c in need_cols and c not in wt["limbs"] and c not in missing]
+                if not missing and not missing_limbs:
+                    return self._window_sources(wt, need_cols, limb_cols)
+                # extend the cached tile: build only the missing planes and
+                # merge them in; the snapshot keeps the existing planes for
+                # the commit, should the tile be evicted meanwhile
+                snap = {"cols": dict(wt["cols"]), "limbs": dict(wt["limbs"]),
+                        "valid": wt["valid"], "rows": wt["rows"], "placement": wt["placement"]}
+            else:
+                missing = list(cols_needed)
+                missing_limbs = []
+
+        t0 = time.perf_counter()
+        n = snap["rows"] if snap is not None else -1
+        idx = None
+        if missing:
+            ts_sorted = entry.sorted_host[ts_name]
+            mask = (ts_sorted >= window[0]) & (ts_sorted < window[1])
+            if dedup:
+                if not self.ensure_dedup_keep(entry):
+                    return None
+                mask &= entry.keep_host
+            idx = np.flatnonzero(mask)
+            if snap is not None and len(idx) != snap["rows"]:
+                # the row set changed under the same epoch: build it anew
+                snap = None
+                missing = list(cols_needed)
+                missing_limbs = []
+            n = len(idx)
+            if n == 0 or n > entry.num_rows * self._WINDOW_TILE_MAX_COVER:
+                with self._lock:
+                    entry.window_declines.add(key)
+                return None
+        # a 2^22-row grid: one chunk shape a tile, stable across column
+        # extensions (cached and new planes chunk alike)
+        grid = 1 << 22
+        pad = -(-n // grid) * grid
+        bounds = chunk_bounds(pad, min(self.chunk_rows, grid))
+        # a nullable column has no host null plane here: the full
+        # super-tile path owns it (every decline comes before the
+        # reservation, so an aborted build evicts nothing)
+        for name in missing:
+            if name in entry.nulls:
+                return None
+
+        # gather every host buffer first (host memory only)
+        host_bufs: dict[str, np.ndarray] = {}
+        for name in missing:
+            src = entry.sorted_host.get(name)
+            rows = src[idx] if src is not None else self._host_rows(entry, name, idx, dictionary)
+            if rows is None:
+                return None  # a host encode was evicted or holds nulls
+            buf = np.zeros(pad, dtype=rows.dtype)
+            buf[:n] = rows
+            host_bufs[name] = buf
+        gather_ms = (time.perf_counter() - t0) * 1e3
+
+        limb_build = set(missing_limbs) | (set(limb_cols) & set(missing))
+        est = sum(buf.nbytes for buf in host_bufs.values())
+        est += len(limb_build) * (pad * 8 + (pad // BLOCK_ROWS) * 8)
+        if snap is None:
+            est += pad
+        with self._lock:
+            self._reserve_locked(est, {entry.region_id})
+
+        placement = snap["placement"] if snap is not None else self.placement(entry.region_id)
+        t_up = time.perf_counter()
+        cols_dev: dict[str, list] = {}
+        for name in missing:
+            cols_dev[name] = self._up_chunks(host_bufs[name], bounds, placement)
+        valid = snap["valid"] if snap is not None else None
+        if valid is None:
+            v = np.zeros(pad, bool)
+            v[:n] = True
+            valid = self._up_chunks(v, bounds, placement)
+        up_ms = (time.perf_counter() - t_up) * 1e3
+        t_q = time.perf_counter()
+        limbs_dev: dict[str, list] = {}
+        for name in sorted(limb_build):
+            # the new columns from their gathered chunks, the others from
+            # the tile's resident chunks (no host gather)
+            chunks = cols_dev[name] if name in cols_dev else snap["cols"][name]
+            limbs_dev[name] = [quantize_limbs(x) for x in chunks]
+        for dev in {lb.device for planes in limbs_dev.values() for lb, _sc in planes}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        q_ms = (time.perf_counter() - t_q) * 1e3
+
+        def plane_bytes(kind: str, chunks) -> int:
+            return _limb_nbytes(chunks) if kind == "limbs" else _nbytes(chunks)
+
+        built = {"cols": cols_dev, "limbs": limbs_dev}
+        with self._lock:
+            race = entry.window_tiles.get(key)
+            if race is not None and race["epoch"] == epoch and race["rows"] == n:
+                # merge the new planes (and the snapshot's) into the live
+                # tile, charging only the planes it lacks
+                added = 0
+                for kind, d in built.items():
+                    merged = {**snap[kind], **d} if snap is not None else d
+                    for c, chunks in merged.items():
+                        if c not in race[kind]:
+                            race[kind][c] = chunks
+                            added += plane_bytes(kind, chunks)
+                race["nbytes"] += added
+                entry.nbytes += added
+                if self._super.get(entry.region_id) is entry:
+                    self._used += added
+                wt = race
+            else:
+                if race is not None:
+                    self._drop_window_tile_locked(entry, key)
+                merged = {kind: {**(snap[kind] if snap is not None else {}), **d}
+                          for kind, d in built.items()}
+                wt = {**merged, "valid": valid, "rows": n, "epoch": epoch,
+                      "placement": placement}
+                wt["nbytes"] = (sum(plane_bytes(kind, chunks) for kind, d in merged.items()
+                                    for chunks in d.values()) + _nbytes(valid))
+                entry.window_tiles[key] = wt
+                entry.nbytes += wt["nbytes"]
+                if self._super.get(entry.region_id) is entry:
+                    self._used += wt["nbytes"]
+            self.stats_counts["window_tile_builds"] += 1
+        if timings is not None:
+            for stage, ms in (("window_gather", gather_ms), ("window_upload", up_ms),
+                              ("window_quantize", q_ms)):
+                timings[stage] = timings.get(stage, 0.0) + ms
+        return self._window_sources(wt, need_cols, limb_cols)
+
+    @staticmethod
+    def _window_sources(wt: dict, need_cols, limb_cols) -> tuple[list, list]:
+        """A window tile's (sources, slots): a (cols, valid, nulls, limbs)
+        source per chunk, and the chunk's mesh slot."""
+        base, modulus = wt["placement"]
+        sources, slots = [], []
+        for i in range(len(wt["valid"])):
+            sources.append((
+                {c: wt["cols"][c][i] for c in need_cols if c in wt["cols"]},
+                wt["valid"][i],
+                {},
+                {c: wt["limbs"][c][i] for c in limb_cols if c in wt["limbs"]},
+            ))
+            slots.append((base + i) % modulus)
+        return sources, slots
+
+    def _host_rows(self, entry: _SuperTiles, name: str, idx: np.ndarray,
+                   dictionary: TableDictionary) -> np.ndarray | None:
+        """One column at rows `idx` of the entry's (pk, ts) order, taken
+        from the per-file host encodes (the rows `super_tiles` uploads,
+        without assembling the whole column), or None when an encode is no
+        longer cached, lacks the column or holds NULLs."""
+        with self._lock:
+            tiles = [self._host.get((entry.region_id, fid)) for fid in entry.file_ids]
+            if any(t is None for t in tiles):
+                return None
+            if any(name not in t.cols or name in t.nulls for t in tiles):
+                return None
+            for t in tiles:
+                self._repair_host_locked(t, dictionary)
+            cols = [t.cols[name] for t in tiles]
+        # each row's place in the concatenation of the files, then its file
+        pos = entry.order[idx]
+        offs = np.cumsum([0] + [len(c) for c in cols])
+        which = np.searchsorted(offs, pos, side="right") - 1
+        out = np.empty(len(pos), np.result_type(*cols))
+        for k, c in enumerate(cols):
+            sel = which == k
+            out[sel] = c[pos[sel] - offs[k]]
+        return out
 
     def group_csr(self, radices: tuple, keep_idx: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         """The device CSR (offsets, members) of a fused TQL fold's series ->
@@ -945,12 +1240,15 @@ class TileCacheManager:
                     self._used += entry.pad * 4
             return entry.perm
 
-    def ensure_time_major(self, entry: _SuperTiles, ts_name: str, cols_needed):
+    def ensure_time_major(self, entry: _SuperTiles, ts_name: str, cols_needed,
+                          dedup: bool = False):
         """ts-ascending copies of the needed planes (once per (entry, file
         set, column); the planes a call adds in one K15 launch, as
         `gather_planes_multi` plans it), so time-major dispatches gather
         nothing.  Returns (cols, valid, nulls) views limited to
-        `cols_needed`."""
+        `cols_needed`; with `dedup` the valid planes are the keep plane's
+        copy (`ensure_dedup_keep` must have run), gathered in the same
+        launch as the others."""
         perm = self.ensure_perm(entry, ts_name)
         added = 0
         with self._lock:
@@ -962,11 +1260,15 @@ class TileCacheManager:
                     est += entry.pad
             if entry.tm_valid is None:
                 est += entry.pad
+            if dedup and entry.tm_valid_dedup is None:
+                est += entry.pad
             self._reserve_locked(est, {entry.region_id})
             # (where the copy goes, its column, the plane) for each copy made
             todo = []
             if entry.tm_valid is None:
-                todo.append((None, None, entry.valid))
+                todo.append((None, "valid", entry.valid))
+            if dedup and entry.tm_valid_dedup is None:
+                todo.append((None, "valid_dedup", entry.valid_dedup))
             for c in dict.fromkeys(cols_needed):
                 if c in entry.cols and c not in entry.tm_cols:
                     todo.append((entry.tm_cols, c, entry.cols[c]))
@@ -975,7 +1277,7 @@ class TileCacheManager:
             copies = gather_planes_multi([plane for _d, _c, plane in todo], perm)
             for (dest, c, _plane), copy in zip(todo, copies):
                 if dest is None:
-                    entry.tm_valid = copy
+                    setattr(entry, "tm_" + c, copy)
                 else:
                     dest[c] = copy
                 added += _nbytes(copy)
@@ -985,7 +1287,7 @@ class TileCacheManager:
                     self._used += added
             return (
                 {c: entry.tm_cols[c] for c in cols_needed if c in entry.tm_cols},
-                entry.tm_valid,
+                entry.tm_valid_dedup if dedup else entry.tm_valid,
                 {c: entry.tm_nulls[c] for c in cols_needed if c in entry.tm_nulls},
             )
 

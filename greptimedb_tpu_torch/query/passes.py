@@ -2,12 +2,11 @@
 switchable.
 
 Counterpart of `greptimedb_tpu/query/passes.py`, holding only the passes
-the port implements and whose decision points consult `enabled()`.  A
-pass the reference has and the port does not (window tiles, the dedup
-plane on the SQL path, the host fast path, the fused build, ...) does
-not exist here, so `enabled()` reports it off: the port
-behaves as the reference does with that pass in
-`query.disabled_passes`.
+the port implements and whose decision points consult `enabled()` (10 of
+the reference's 19).  A pass the reference has and the port does not
+(the host fast path, the cold host serve, the fused build, ...) does not
+exist here, so `enabled()` reports it off: the port behaves as the
+reference does with that pass in `query.disabled_passes`.
 
 `note()` records a decision (a pass taken or declined, and why) into
 the trace of the current context, when a caller opened one with
@@ -27,8 +26,12 @@ PASSES = {
                     "mixed-radix states exploiting the (pk, ts) sort, or a hash table "
                     "sized to the distinct-key estimate when the padded group space is "
                     "sparse (the hash/sort winner flips with group cardinality)",
+    "dedup_plane": "lower last-write-wins dedup of overlapping SSTs to a device-side "
+                   "keep mask instead of falling back to the merge scan",
     "limb_quantize": "accumulate sum/avg through fixed-point base-256 digit planes (K5 "
                      "quantize, K6 integer segment sums) with a per-group error bound",
+    "window_tile": "gather only in-window (dedup-surviving) rows into a compact device "
+                   "tile so kernels scan the window, not the retention",
     "incremental_tile": "extend an existing super-tile IN PLACE when a flush appends files: "
                         "delta encode + merge of sorted runs + on-device plane patch (K16), "
                         "so post-flush cold cost is O(delta rows) instead of a full rebuild",

@@ -35,9 +35,8 @@ from greptimedb_tpu_torch.utils.errors import ConfigError
 
 # the reference's passes the port has not ported (tests/test_torch_tile.py)
 UNPORTED_PASSES = (
-    "cold_host_serve", "fused_build", "pipelined_build", "window_tile",
-    "dedup_plane", "stream_spill", "chunk_placement", "mesh_dispatch",
-    "streamed_readback", "host_fast_path", "cost_route",
+    "cold_host_serve", "fused_build", "pipelined_build", "stream_spill",
+    "chunk_placement", "mesh_dispatch", "streamed_readback", "host_fast_path", "cost_route",
 )
 _WIN = 120.0
 _N_ROWS = 2_500  # covers the slid windows below (ts reaches ~41 min)

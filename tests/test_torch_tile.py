@@ -36,9 +36,8 @@ from greptimedb_tpu_torch.utils.errors import ConfigError
 # the reference's passes the port has not ported: its configuration here
 # (time_major and incremental_tile run on both sides, at their defaults)
 UNPORTED_PASSES = (
-    "cold_host_serve", "fused_build", "pipelined_build", "window_tile",
-    "dedup_plane", "stream_spill", "chunk_placement", "mesh_dispatch",
-    "streamed_readback", "host_fast_path", "cost_route",
+    "cold_host_serve", "fused_build", "pipelined_build", "stream_spill",
+    "chunk_placement", "mesh_dispatch", "streamed_readback", "host_fast_path", "cost_route",
 )
 TSBS = chip_smoke.Tsbs(40, 12, n_metrics=3)
 NAMES = [name for name, _sql in TSBS.queries()]
