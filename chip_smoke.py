@@ -54,6 +54,27 @@ Phases, each printing one JSON line:
              than K7 takes, a bucket-only avg/sum (limbs over the
              time-major copies), and a minute-bucket query with the
              time_major pass off (K2's guard fails, K3 on the tile path).
+5d. host_routes — the tile path's host routing ladder at the defaults
+             (`cost_route`, `host_fast_path`, `cold_host_serve`; every
+             other phase's Database names them in query.disabled_passes,
+             `HOST_ROUTES`, so its kernel asserts, launch counts and cold
+             timings read the card's path) on phase 4's data, in fresh
+             Databases over the same data home (cold entries): the 15
+             queries once cold (each query's route from its pass trace,
+             its launches, host ms and the device bytes it added: a host
+             route launches nothing and uploads nothing), the cold-served
+             ones again (the card), then --tile-reps warm runs each (the
+             eight pk-equality queries host-served, cpu-max-all-8 on the
+             card once its planes are warm; each host-served p50 beside
+             phase 5's tile p50); then, in another fresh Database with
+             `tpu_min_rows` just above single-groupby-1-1-1's estimate,
+             that query on the CPU executor, `Database.prewarm()` (K5 over
+             the non-null numeric fields: none, TSBS's DOUBLE fields are
+             nullable), double-groupby-1 on the card with
+             no cold serve and no build, and single-groupby-1-1-1 back on
+             the tile path.  Every result against phase 4's CPU backend
+             (within rel 1e-7), double-groupby-1 also against the ground
+             truth.
 5c. tick   — on phase 5's resident region: the 15 queries as the
              dashboard tick (`batch.window_ms` 120, `max_members` 16; 15
              threads released by one barrier): --tick-reps ticks, then
@@ -259,11 +280,12 @@ Phases, each printing one JSON line:
    K2's and K3's per column count C on the tile path; K9's and K17's
    calls, launches a call and kernels a launch from 6's tile run and 7's
    H1-H4, the kernels as their entry points count them; every kernel's
-   launches on 6b as `prom_sql_launches`), then the last line
+   launches on 6b as `prom_sql_launches`, on 5d as `host_routes_launches`),
+   then the last line
    {"ok": true, "device":
    {...}}.
 
-The launch counts are set to 0 just before phases 4, 5, 5c, 5b, 6's tile
+The launch counts are set to 0 just before phases 4, 5, 5d, 5c, 5b, 6's tile
 and legacy runs, 6b's panels (through the corrected write's reruns), 7's H1-H4, 7c, 8's queries, 9's two-step path and 9's
 queries (which launch nothing), 10b, and 10c's tile, table-fed and TQL
 runs, and read just after each
@@ -441,6 +463,34 @@ EXPECTED_TILE_PATH = {
     "high-cpu-all": {_BLOCKED, _PACK},
     "high-cpu-1": {_BLOCKED, _PACK},
 }
+
+
+# The tile path's host routes (parallel/tile_host.py, the engine's cost
+# route).  Every phase but 5d names them in query.disabled_passes: its
+# kernel asserts, launch counts and cold timings read the card's path.
+HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
+# the TSBS queries with a pk equality and no group tag: host-served by the
+# host fast path, cold or warm (a slice of 360-4,320 rows)
+PK_EQUALITY = (
+    "cpu-max-all-1", "single-groupby-1-1-1", "single-groupby-1-1-12", "single-groupby-1-8-1",
+    "single-groupby-5-1-1", "single-groupby-5-1-12", "single-groupby-5-8-1", "high-cpu-1",
+)
+# each query's route on phase 5d's cold pass, in the queries' order: the
+# first grouped query is cold-served (once per entry), the next ones build
+# the planes; cpu-max-all-8's 8 x 2,880 rows x 10 columns pass
+# _HOST_PATH_MAX_CELLS, so it takes the card once its planes are warm
+COLD_ROUTES = {"double-groupby-1": "cold_host_serve",
+               **{name: "host_fast_path" for name in PK_EQUALITY}}
+WARM_ROUTES = {name: "host_fast_path" for name in PK_EQUALITY}
+
+
+def device_route_config():
+    """A Config whose lowered queries take the card: the host routes off."""
+    from greptimedb_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.query.disabled_passes = HOST_ROUTES
+    return cfg
 
 
 def emit(obj: dict) -> None:
@@ -3244,17 +3294,18 @@ def check_ground_truth(table, gt: dict, tsbs: Tsbs, tol: float = 1e-12) -> None:
 
 def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, tick_reps: int = 5,
               tile_reps: int | None = None) -> dict:
-    """Phases 4, 5, 5c, 5b and 10b on `device` ("cuda" on the card; "cpu"
+    """Phases 4, 5, 5d, 5c, 5b and 10b on `device` ("cuda" on the card; "cpu"
     to rehearse the control flow with the plain versions): ingest, the
     table-fed path (tile cache off), the tile path on the same region,
-    the tick, the live append on it, then the region at mesh_devices 1.
+    the host routes in fresh Databases over its data, the tick, the live
+    append on it, then the region at mesh_devices 1.
     Returns the slice record."""
     from greptimedb_tpu_torch import Database
 
     tsbs = Tsbs(n_hosts, hours)
     # the storage defaults (64 MiB region / 512 MiB global write buffer,
     # two flush-encode threads): the load flushes as it goes, into many SSTs
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config())
     db.config.query.tile_cache_enable = False  # phase 4 is the table-fed path
     is_cuda = device.startswith("cuda")
     if is_cuda:
@@ -3324,14 +3375,17 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
         raise AssertionError(f"{db.query_engine.stats['declined']} queries declined by try_lower")
     tile = run_tile_phase(db, tsbs, reps if tile_reps is None else tile_reps, cpu_results, gt,
                           is_cuda, full_size)
+    host_routes = run_host_routes_phase(data_home, device, tsbs,
+                                        reps if tile_reps is None else tile_reps, cpu_results, gt,
+                                        tile["queries"])
     tick = run_tick_phase(db, tsbs, is_cuda, tick_reps)
     live = run_live_phase(db, tsbs, is_cuda, full_size)
     mesh = run_mesh_region(db, Tsbs(tsbs.n_hosts, tsbs.hours, len(tsbs.metrics),
                                     end=tsbs.end + LIVE_MINUTES * 60_000), is_cuda)
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
-            "launches": totals, "shape_launches": shapes, "tile": tile, "tick": tick,
-            "live": live, "mesh": mesh}
+            "launches": totals, "shape_launches": shapes, "tile": tile,
+            "host_routes": host_routes, "tick": tick, "live": live, "mesh": mesh}
 
 
 # Host seconds spent in TileProgram.final and, inside it, in K8's wrapper
@@ -3460,6 +3514,200 @@ def run_tile_phase(db, tsbs: Tsbs, reps: int, cpu_results: dict, gt: dict, is_cu
     return {"queries": per_query, "launches": totals, "shape_launches": shapes, "k8_calls": k8,
             "k15_calls": k15, "edge_launches": edge, "edge_shape_launches": shape_counts(),
             "cache": eng.tile_cache.stats(), "limb_reruns": eng.tile_executor().limb_reruns}
+
+
+def _routed_run(db, sql: str, is_cuda: bool) -> dict:
+    """One query under a pass trace: its result, host ms through a sync,
+    route (the host route that fired, else `last_path`: "tile", "table" or
+    "cpu"), the kernels it launched, and the device bytes and builds it
+    added to the tile cache."""
+    from greptimedb_tpu_torch.query import passes
+
+    eng = db.query_engine
+
+    def cache_stats():
+        return eng.tile_cache.stats() if eng.tile_cache is not None else {"bytes": 0, "builds": 0}
+
+    c0, before, trace = cache_stats(), launch_counts(), passes.PassTrace()
+    t0 = time.perf_counter()
+    with passes.use_trace(trace):
+        result = db.sql_one(sql)
+    if is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after, c1 = launch_counts(), cache_stats()
+    fired = [d.name for d in trace.decisions if d.fired and d.name in HOST_ROUTES]
+    return {"result": result, "ms": ms, "route": fired[-1] if fired else eng.last_path,
+            "stage_ms": dict(eng.last_timings),
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+            "bytes_added": c1["bytes"] - c0["bytes"], "builds": c1["builds"] - c0["builds"],
+            "decisions": [(d.name, d.fired, d.why) for d in trace.decisions
+                          if d.name in HOST_ROUTES]}
+
+
+def _free(db) -> None:
+    """Close a Database and give its planes back to the card."""
+    import gc
+
+    import torch
+
+    db.close()
+    del db
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def run_host_routes_phase(data_home: str, device: str, tsbs: Tsbs, reps: int, cpu_results: dict,
+                          gt: dict, tile_queries: dict) -> dict:
+    """Phase 5d: the host routing ladder at the defaults, on phase 4's data
+    in fresh Databases over the same data home (the phase's Database stays
+    open and idle: nothing here writes).  Steps: cold (the 15 queries once,
+    routes as COLD_ROUTES says), second touch (the cold-served queries on
+    the card), warm (`reps` runs each, routes as WARM_ROUTES says, host
+    p50 beside phase 5's tile p50), then cost_route + prewarm in another
+    fresh Database.  A host-routed run must launch no kernel and add no
+    device byte; every result is held against phase 4's CPU backend."""
+    from greptimedb_tpu_torch import Database
+    from greptimedb_tpu_torch.query.device_exec import try_lower
+    from greptimedb_tpu_torch.query.planner import plan_query
+    from greptimedb_tpu_torch.query.sql_parser import parse_sql
+
+    is_cuda = device.startswith("cuda")
+    queries = dict(tsbs.queries())
+    t_phase = time.perf_counter()
+    reset_counts()  # phase 5d's run starts here
+
+    def check(name: str, run: dict, want: str, what: str, same_as=None) -> None:
+        """The run's route, no launch or upload on a host route, and its
+        result against the CPU backend (or the bytes of `same_as`, an
+        earlier run of the same query that was)."""
+        if run["route"] != want:
+            raise AssertionError(f"{what} {name}: the {run['route']!r} route, expected {want!r} "
+                                 f"({run['decisions']})")
+        if want in HOST_ROUTES and (run["launches"] or run["bytes_added"] or run["builds"]):
+            raise AssertionError(f"{what} {name} ({want}) launched {run['launches']}, added "
+                                 f"{run['bytes_added']} device bytes, {run['builds']} builds")
+        if same_as is not None:
+            if not run["result"].equals(same_as["result"]):
+                raise AssertionError(f"{what} {name}: a warm run changed the result")
+            return
+        compare_tables(run["result"], cpu_results[name], f"{what} {name}", tol=1e-7)
+        if name == "double-groupby-1":
+            check_ground_truth(run["result"], gt, tsbs, tol=1e-7)
+
+    def line(run: dict) -> dict:
+        return {k: run[k] for k in ("route", "ms", "stage_ms", "launches", "bytes_added",
+                                    "builds")}
+
+    # 1. cold: a fresh Database, every entry cold
+    t0 = time.perf_counter()
+    db = Database(data_home, device=device)
+    cold = {}
+    for name, sql in queries.items():
+        run = _routed_run(db, sql, is_cuda)
+        check(name, run, COLD_ROUTES.get(name, "tile"), "cold")
+        cold[name] = line(run)
+    stats = db.query_engine.stats
+    emit({"phase": "host_routes", "step": "cold", "seconds": time.perf_counter() - t0,
+          "queries": cold, "host_fast_path": stats.get("host_fast_path", 0),
+          "cold_serves": stats.get("cold_serves", 0)})
+
+    # 2. second touch: the cold-served queries on the card
+    t0 = time.perf_counter()
+    second = {}
+    for name in [n for n, r in cold.items() if r["route"] == "cold_host_serve"]:
+        run = _routed_run(db, queries[name], is_cuda)
+        check(name, run, "tile", "second touch")
+        if is_cuda and tsbs.n_hosts == 4000 and tsbs.hours == 12:
+            # the planes of its columns are resident since a later cold query
+            # built them (K5 included): the kernels of its plan but K5
+            need = EXPECTED_TILE_PATH[name] - {_QUANT}
+            if not need <= set(run["launches"]):
+                raise AssertionError(f"second touch {name}: launched {run['launches']}, needs "
+                                     f"{sorted(need)}")
+        second[name] = line(run)
+    emit({"phase": "host_routes", "step": "second_touch", "seconds": time.perf_counter() - t0,
+          "queries": second})
+
+    # 3. warm
+    t0 = time.perf_counter()
+    warm = {}
+    for name, sql in queries.items():
+        runs = []
+        for _ in range(max(reps, 1)):
+            run = _routed_run(db, sql, is_cuda)
+            check(name, run, WARM_ROUTES.get(name, "tile"), "warm", runs[0] if runs else None)
+            runs.append(run)
+        warm[name] = {"route": runs[0]["route"],
+                      "p50_ms": float(np.median([r["ms"] for r in runs])),
+                      "tile_p50_ms": tile_queries[name]["warm_p50_ms"],
+                      "launches": _summed(*[r["launches"] for r in runs])}
+        if name == "cpu-max-all-8" and not any(
+                not fired and "tile dispatch beats" in why
+                for _n, fired, why in runs[0]["decisions"]):
+            raise AssertionError(f"cpu-max-all-8 left the host path for another reason: "
+                                 f"{runs[0]['decisions']}")
+    emit({"phase": "host_routes", "step": "warm", "seconds": time.perf_counter() - t0,
+          "reps": max(reps, 1),
+          "host_served": {n: {k: w[k] for k in ("p50_ms", "tile_p50_ms")}
+                          for n, w in warm.items() if w["route"] in HOST_ROUTES},
+          "card": {n: w["p50_ms"] for n, w in warm.items() if w["route"] not in HOST_ROUTES}})
+    _free(db)
+
+    # 4 + 5. cost_route, then prewarm, in another fresh Database
+    t0 = time.perf_counter()
+    probe = "single-groupby-1-1-1"
+    db = Database(data_home, device=device)
+    eng = db.query_engine
+    plan, schema = plan_query(parse_sql(queries[probe])[0], eng.schema_of, db.current_database)
+    est = eng._estimate_scan_rows(try_lower(plan, schema).scan, schema)
+    db.config.query.tpu_min_rows = est + 1
+    routed = _routed_run(db, queries[probe], is_cuda)
+    check(probe, routed, "cost_route", "cost route")
+    if eng.last_path != "cpu" or eng.stats.get("routed_to_cpu", 0) != 1:
+        raise AssertionError(f"cost route: last_path {eng.last_path!r}, {eng.stats}")
+    before = launch_counts()
+    t1 = time.perf_counter()
+    warmed = db.prewarm()
+    if is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    prewarm_ms = (time.perf_counter() - t1) * 1e3
+    k5 = launch_counts()[_QUANT] - before[_QUANT]
+    table_key = f"{db.current_database}.cpu"
+    if warmed.get(table_key, {}).get("regions_built") != 1:
+        raise AssertionError(f"prewarm built {warmed}")
+    # K5 runs over the non-null numeric fields; TSBS's DOUBLE fields are
+    # nullable (the reference's rule), so the first sum/avg quantizes
+    cache = eng.tile_cache.stats()
+    first = _routed_run(db, queries["double-groupby-1"], is_cuda)
+    check("double-groupby-1", first, "tile", "after prewarm")
+    if first["builds"] or eng.stats.get("cold_serves", 0):
+        raise AssertionError(f"after prewarm double-groupby-1 rebuilt or was cold-served: {first}")
+    back = _routed_run(db, queries[probe], is_cuda)
+    check(probe, back, "host_fast_path", "after prewarm")
+    if back["decisions"][0] != ("cost_route", False,
+                                "scan large enough (or tiles resident) for the device path"):
+        raise AssertionError(f"cost route after prewarm: {back['decisions']}")
+    emit({"phase": "host_routes", "step": "cost_route_prewarm", "seconds": time.perf_counter() - t0,
+          "estimate": est, "tpu_min_rows": est + 1, "routed": line(routed),
+          "prewarm": warmed.get(table_key), "prewarm_ms": prewarm_ms, "prewarm_k5_launches": k5,
+          "device_bytes_after_prewarm": cache["bytes"], "first_query": line(first),
+          "back_on_tile_path": line(back)})
+    _free(db)
+    totals, shapes = launch_counts(), shape_counts()  # the phase's launches end here
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "host_routes", "seconds": seconds,
+          "launches": {k: v for k, v in totals.items() if v}})
+    return {"seconds": seconds, "cold": cold, "second_touch": second, "warm": warm,
+            "cost_route": {"estimate": est, "routed": line(routed), "back": line(back)},
+            "prewarm": {"stats": warmed.get(table_key), "ms": prewarm_ms, "k5_launches": k5,
+                        "first_query": line(first)},
+            "launches": totals, "shape_launches": shapes}
 
 
 def _tile_against_cpu(db, sql: str, what: str, tol: float = 1e-7, inexact=()):
@@ -4144,7 +4392,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
 
     tsbs = Tsbs(n_hosts, hours)
     is_cuda = device.startswith("cuda")
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config())
     t0 = time.perf_counter()
     samples: dict = {}
     n_rows, twin = ingest_prom(db, tsbs, samples)
@@ -4249,7 +4497,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
     del db
 
     # -- the CPU backend (plain versions) over the same hour --
-    cpu_db = Database(data_home, device="cpu")
+    cpu_db = Database(data_home, device="cpu", config=device_route_config())
     cpu_db.config.tql.tile = False
     cpu = {}
     try:
@@ -4611,7 +4859,7 @@ def run_prom_sql_phase(db, tsbs: Tsbs, samples: dict, is_cuda: bool, reps: int) 
     compare = {}
     p5_dedup = "dedup_plane" in out["queries"]["P5"]["passes"]
     try:
-        db.config.query.disabled_passes = ("dedup_plane", "window_tile")
+        db.config.query.disabled_passes = tuple(saved) + ("dedup_plane", "window_tile")
         for name, tile_cache in (("P1", True), ("P5", True)) + ((("P5", False),)
                                                                  if not p5_dedup else ()):
             db.config.query.tile_cache_enable = tile_cache
@@ -5221,7 +5469,7 @@ def run_container_slice(device: str, hours: int, reps: int, data_home: str) -> d
     is_cuda = device.startswith("cuda")
     if is_cuda:
         import torch
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config())
     eng = db.query_engine
     t0 = time.perf_counter()
     n_rows = ingest_containers(db, hours)
@@ -5465,7 +5713,7 @@ def run_vector_slice(device: str, rows: int, dim: int, reps: int, data_home: str
     is_cuda = device.startswith("cuda")
     if is_cuda:
         import torch
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config())
     base, queries = sift_data(rows, dim)
     db.sql(f"CREATE TABLE {SIFT_TABLE} (ts TIMESTAMP TIME INDEX, id BIGINT, emb VECTOR({dim}))")
     t0 = time.perf_counter()
@@ -6215,7 +6463,7 @@ def run_sketch_slice(device: str, n_hosts: int, hours: int, reps: int, data_home
 
     from greptimedb_tpu_torch import Database
 
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config())
     tsbs = Tsbs(n_hosts, hours)
     t0 = time.perf_counter()
     n_rows, _gt = ingest(db, tsbs)
@@ -6628,7 +6876,7 @@ def run_mesh_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: 
     is_cuda = device.startswith("cuda")
     if is_cuda:
         import torch
-    db = Database(data_home, device=[device] * MESH_SLOTS)
+    db = Database(data_home, device=[device] * MESH_SLOTS, config=device_route_config())
     eng = db.query_engine
     tsbs = Tsbs(n_hosts, hours)
     t0 = time.perf_counter()
@@ -6961,6 +7209,7 @@ def main(argv=None) -> int:
               "tile_warm_p50_ms": {k: v["warm_p50_ms"]
                                    for k, v in sl["tile"]["queries"].items()},
               "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"],
+              "host_routes_s": sl["host_routes"]["seconds"],
               "tick": {k: v for k, v in sl["tick"].items()
                        if k not in ("ticks", "slid_ticks", "launches")},
               "live": {k: v for k, v in sl["live"].items() if k not in ("queries", "launches")}})
@@ -7232,6 +7481,8 @@ def main(argv=None) -> int:
         if EXPECTED_PROM_SQL_PATH is not None and tq["full_size"] else set()
     for k in kernels:
         k["prom_sql_launches"] = tq["prom_sql"]["launches"].get(k["name"], 0)
+        # phase 5d: the host routes' runs (the card's queries among them)
+        k["host_routes_launches"] = sl["host_routes"]["launches"].get(k["name"], 0)
         if k["name"] in prom_sql_kernels and k["prom_sql_launches"] == 0:
             raise AssertionError(f"kernel {k['name']} never launched on phase 6b")
     emit({"kernels": kernels})

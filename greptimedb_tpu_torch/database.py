@@ -6,7 +6,8 @@ slice runs: catalog + TimeSeriesEngine (WAL -> memtable -> Parquet SSTs)
 and the per-table tag dictionaries (data_home/dicts/) the device tile
 cache encodes with.  Statements: CREATE DATABASE, CREATE TABLE,
 DROP TABLE, INSERT ... VALUES, SELECT, and TQL EVAL (PromQL,
-query/promql/).  `ORDER BY vec_*_distance(col, literal) LIMIT k` over a
+query/promql/); `prewarm()` builds the tile path's planes off the query
+path.  `ORDER BY vec_*_distance(col, literal) LIMIT k` over a
 bare scan is answered by `_vector_search` (per-SST IVF candidates on
 append-mode tables, then `ops/vector.py::topk_host` on this Database's
 device; `last_vector_timings` holds its host ms per stage).  Everything
@@ -346,6 +347,30 @@ class Database:
             regions=regions,
             append_mode=any(r.append_mode for r in regions),
         )
+
+    def prewarm(self, tables=None, database: str | None = None) -> dict:
+        """Build the tile path's super-tiles of flushed data off the query
+        path (`TileExecutor.prewarm`: host consolidation, the upload of every
+        numeric field, K5 over the non-null ones), so the first query of a
+        family finds its planes resident.  `tables` restricts it to the
+        named tables (bare or database-qualified), `database` to one
+        database.  Returns {"db.table": {"regions_built", "ms"}}; {} with
+        the tile cache off.  A failed build, upload or kernel raises."""
+        te = self.query_engine.tile_executor()
+        if te is None:
+            return {}
+        out: dict = {}
+        want = set(tables) if tables else None
+        for db in [database] if database else self.catalog.databases():
+            for meta in self.catalog.tables(db):
+                key = f"{db}.{meta.name}"
+                if want is not None and meta.name not in want and key not in want:
+                    continue
+                ctx = self._tile_context(TableScan(table=meta.name, database=db))
+                if ctx is None:
+                    continue
+                out[key] = te.prewarm(ctx, self._schema_of(meta.name, db))
+        return out
 
     def _time_bounds(self, table: str, database: str) -> tuple[int, int]:
         """Min/max time over a table, from SST metadata + memtable ranges."""

@@ -1,13 +1,14 @@
 """The tile executor: a lowered query over the cached super-tiles.
 
 Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor`:
-`execute`, `_try_execute_impl`, the warm branch of `_locked_execute`,
-`_encode_mem` (the memtable tail), `_fetch_result`, `_finalize`,
-`_decode_result`, the `_assemble_*` helpers and `_mesh_attempt`, for
-the configuration the port implements (the "sort" and "hash"
-strategies, the mesh of `tile.mesh_devices` slots, the dedup keep plane,
-window tiles, no host fast path, no cold host serve, no fused or batched
-builds, no streamed spill).  A query:
+`execute`, `_try_execute_impl`, `_locked_execute` with the legacy
+cold-serve ladder, `_encode_mem` (the memtable tail), `_fetch_result`,
+`_finalize`, `_decode_result`, the `_assemble_*` helpers, `_mesh_attempt`
+and `prewarm`, for the configuration the port implements (the "sort" and
+"hash" strategies, the mesh of `tile.mesh_devices` slots, the dedup keep
+plane, window tiles, the host fast path and the cold host serve of
+parallel/tile_host.py, no fused or pipelined builds, no streamed spill).
+A query:
 
   1. snapshots each region's (files, memtables) and checks that the
      tile path may aggregate raw file rows: no delete tombstones in the
@@ -15,14 +16,21 @@ builds, no streamed spill).  A query:
      memtable or a file in the window; a region whose in-window files
      overlap reads the last-write-wins keep plane (`dedup_plane`);
   2. updates the table dictionary with the memtable tails, fetches (or
-     builds and uploads, or extends by a flushed delta) each region's
-     super-tile, and repairs the code planes a dictionary growth moved
-     (`repair_super`);
+     builds on the host, or extends by a flushed delta) each region's
+     super-tile without uploading, and repairs the code planes a
+     dictionary growth moved (`repair_super`);
   3. picks the group-by strategy (`choose_agg_strategy`: hash when the
      padded group space is sparse against the distinct keys) and builds
      the plan and its runtime values (parallel/tile_planner.py); a sort
      plan must fit the dense bounds (`query.max_groups` * 64 output
-     groups, `query.max_internal_groups` stage-1 groups);
+     groups, `query.max_internal_groups` stage-1 groups).  Over a dense
+     output space the host routes come next: the host fast path
+     (`host_fast_path`: a pk-equality slice folded with numpy, counted in
+     `host_fast_path`), then the cold serve (`cold_host_serve`: a grouped
+     aggregate over planes not yet resident, answered once per entry from
+     the host consolidation, counted in `cold_serves`).  A route that
+     answers returns before any upload or launch; only when both decline
+     do the entries upload what the host-only build deferred;
   4. runs one tile program over every chunk and tail — of the
      time-major copies for a bucket-only group-by, of the compact window
      tile for a query bounded on both sides (`window_tile`) — (parallel/
@@ -50,7 +58,8 @@ at the dispatch site and answered by one `TickProgram` (B19,
 
 Per-call state is thread-local (the members of a tick run on their own
 threads): `timings` holds the host ms per stage of the calling thread's
-last query: build and upload (cold entries only), delta_host and
+last query: build and upload (cold entries only), host (the fold of a
+host route that answered; such a query has no later stage), delta_host and
 delta_device (a flushed delta merged into a cached entry: host encode
 and merge, then the K16 patches through a sync), keep (the dedup keep
 plane; near zero once built), window_gather, window_upload and
@@ -89,11 +98,13 @@ from .batcher import (
     region_versions,
 )
 from .executor import COUNT_STAR, GroupByResult, _FUNC_TO_KERNEL
+from .tile_host import HostRoutes
 from .tile_planes import TileCacheManager, TileContext, _encode_host_tiles, _SuperTiles
 from .tile_planner import (
     build_plan,
     choose_agg_strategy,
     choose_layout,
+    config_acc_dtype,
     disjoint,
     plan_cols,
 )
@@ -136,7 +147,7 @@ class Counters(dict):
                 self[k] = self.get(k, 0) + v
 
 
-class TileExecutor:
+class TileExecutor(HostRoutes):
     """Aggregation over cached device super-tiles; returns None when not
     applicable so the caller can take the table-fed path."""
 
@@ -429,9 +440,10 @@ class TileExecutor:
         entries: dict[int, _SuperTiles] = {}
 
         def fetch(region, metas):
+            # host-only: the host routes below may answer without the card
             entry, excluded = self.cache.super_tiles(
                 region, ctx.dictionary, metas, all_tag_cols, ts_name or use_ts,
-                value_cols, pinned_ids, pk, timings=build_t,
+                value_cols, pinned_ids, pk, timings=build_t, device_upload=False,
             )
             if any(in_window(*m.time_range) for m in excluded):
                 return False
@@ -467,6 +479,24 @@ class TileExecutor:
                         stats=agg_probe["stats_src"])
         elif not self._dense_fits(plan):
             return None  # group space too large for dense [G] states
+
+        # 3b. the host routes, over a dense output space: answered before
+        # the device is chosen, with no upload and no launch
+        routed = self._host_routes(plan, dyn_host, entries, region_sources, ctx, use_ts, pk,
+                                   value_cols, all_tag_cols, dedup_regions, window, build_t)
+        if routed is not None:
+            return routed
+        # the device path: upload what the host-only build deferred (an
+        # entry whose planes are resident is a hit)
+        for region, metas, _mems in region_sources:
+            if metas:
+                up, _excluded = self.cache.super_tiles(
+                    region, ctx.dictionary, metas, all_tag_cols, ts_name or use_ts,
+                    value_cols, pinned_ids, pk, timings=build_t,
+                )
+                if up is None:
+                    return None
+                entries[region.region_id] = up
 
         # 4. the device sources: chunks of each super-tile (or of its window
         # tile), then the tails
@@ -576,6 +606,45 @@ class TileExecutor:
             else:
                 self.count(limb_reruns=1)
         return None
+
+    def _host_routes(self, plan, dyn_host, entries, region_sources, ctx, use_ts, pk, value_cols,
+                     all_tag_cols, dedup_regions, window, build_t):
+        """The host fast path, then the cold serve (parallel/tile_host.py),
+        each noted in the pass trace with the reference's wording: the
+        answer, or None when both decline."""
+        t0 = time.perf_counter()
+        dense_host_ok = plan.num_groups <= self.config.max_groups * 64
+        super_entries = list(entries.values())
+        mem_slots = [(r, mt) for r, _f, ms in region_sources for mt in ms]
+        hfp_enabled = passes.enabled("host_fast_path", self.config) and dense_host_ok
+        table = None
+        hints: dict = {}
+        if hfp_enabled:
+            table = self.host_execute(plan, dyn_host, super_entries, mem_slots, ctx, use_ts, pk,
+                                      value_cols, all_tag_cols, dedup_regions, hints=hints)
+        if table is not None:
+            self.count(host_fast_path=1)
+            # `wide_cold`: served only because the planes are cold (the
+            # reference's fused ladder would warm them in the background)
+            passes.note("host_fast_path", True, "pk-equality slice served from sorted host planes",
+                        rows_out=table.num_rows, **hints)
+        else:
+            passes.note("host_fast_path", False,
+                        "query not selective enough for the sorted-host binary search"
+                        if hfp_enabled else "pass disabled")
+            if dense_host_ok:
+                table = self.host_cold_grouped(plan, dyn_host, super_entries, mem_slots, ctx,
+                                               use_ts, value_cols, all_tag_cols, dedup_regions,
+                                               window)
+            if table is None:
+                return None
+            self.count(cold_serves=1)
+            passes.note("cold_host_serve", True,
+                        "grouped aggregate served from the host consolidation; device tiles "
+                        "build on the next touch", rows_out=table.num_rows)
+        self.timings.update(build_t)
+        self._add_ms("host", t0)
+        return table
 
     def _entry_sources(self, s: _SuperTiles, plan, window, use_ts, need_cols, limb_need,
                        dedup: bool, ctx: TileContext, pinned_ids, stage_ms: dict):
@@ -707,6 +776,46 @@ class TileExecutor:
             return self._decode_result(fetched, program, plan, lowering, ctx, dyn_host)
         finally:
             self._add_ms("decode", t0)
+
+    # -- prewarm -----------------------------------------------------------------
+    def prewarm(self, ctx: TileContext, schema) -> dict:
+        """Build a table's super-tiles off the query path (the reference's
+        non-fused `prewarm`): per region, under the table lock, the host
+        consolidation and the upload of every numeric field, then (with
+        limb accumulation on) K5 over the non-null ones.  A
+        region with no files, or whose build yields no entry, is skipped;
+        any other failure raises.  Returns {"regions_built", "ms"}."""
+        t0 = time.perf_counter()
+        built = 0
+        pk = [c.name for c in schema.tag_columns()]
+        ts_name = schema.time_index.name if schema.time_index else None
+        value_cols = [c.name for c in schema.field_columns() if c.data_type.is_numeric()]
+        nonnull = [c for c in value_cols
+                   if schema.has_column(c) and not schema.column(c).nullable]
+        limb_wanted = config_acc_dtype(self.config) == "limb"
+        pinned_ids = {r.region_id for r in ctx.regions}
+        # the table lock is taken a region at a time: a query waits for one
+        # region's build at most
+        for region in ctx.regions:
+            with ctx.dictionary.table_lock:
+                region.pin_scan()
+                try:
+                    metas, _mems, version = region.tile_snapshot()
+                    self.cache.invalidate_region_if_changed(
+                        region.region_id, {m.file_id for m in metas}, version)
+                    if not metas:
+                        continue
+                    entry, _excluded = self.cache.super_tiles(
+                        region, ctx.dictionary, metas, pk, ts_name, value_cols, pinned_ids, pk)
+                    if entry is None:
+                        continue
+                    built += 1
+                    if limb_wanted and nonnull:
+                        self.cache.ensure_limbs(entry, nonnull, False, pinned_ids)
+                        self._sync()
+                finally:
+                    region.unpin_scan()
+        return {"regions_built": built, "ms": round((time.perf_counter() - t0) * 1e3, 1)}
 
     # -- the batch tick --------------------------------------------------------
     def fetch_leaves(self, per_member: list) -> list[tuple]:

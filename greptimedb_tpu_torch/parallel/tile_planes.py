@@ -173,10 +173,17 @@ class _SuperTiles:
     num_rows: int  # real rows (sum of file rows)
     pad: int  # padded total length (a multiple of 4096)
     order: np.ndarray | None = None  # (pk, ts) sort of the file concat
-    # the (pk..., ts) columns in `order`, on the host (the keep plane's and
-    # the delta merge's input), and the dictionary epoch of their codes
+    # the (pk..., ts) columns in `order`, on the host (the keep plane's,
+    # the delta merge's and the host routes' input), and the dictionary
+    # epoch of their codes
     sorted_host: dict[str, np.ndarray] = field(default_factory=dict)
     host_epochs: dict[str, int] = field(default_factory=dict)
+    # the first row of each file in the concatenation `order` indexes
+    # (len(file_ids) + 1 offsets): the host routes' value gathers
+    file_row_offsets: np.ndarray | None = None
+    # the cold serve answered from the host consolidation once: the next
+    # grouped query builds device planes (parallel/tile_host.py)
+    cold_served: bool = False
     cols: dict[str, list] = field(default_factory=dict)
     nulls: dict[str, list] = field(default_factory=dict)
     epochs: dict[str, int] = field(default_factory=dict)  # tag col -> dict epoch
@@ -211,7 +218,8 @@ class _SuperTiles:
     # in-place delta merges absorbed since the entry was built
     delta_extends: int = 0
     # chunk placement: chunk i lives on mesh slot (base + i) % modulus,
-    # decided when the valid plane uploads (TileCacheManager.placement)
+    # decided when the first device plane (valid, or the keep plane of a
+    # host-only entry) uploads (TileCacheManager.placement)
     placement: tuple[int, int] = (0, 1)
 
     def chunk_slot(self, i: int) -> int:
@@ -346,6 +354,12 @@ class TileCacheManager:
                 "delta_extends": sum(e.delta_extends for e in self._super.values()),
                 **self.stats_counts,
             }
+
+    def has_region(self, region_id: int) -> bool:
+        """A super-tile of the region is cached (host-only or uploaded): the
+        `cost_route` pass leaves a query on the tile path then."""
+        with self._lock:
+            return region_id in self._super
 
     def invalidate_region(self, region_id: int, keep_file_ids: set[str] | None = None):
         """Drop host tiles of files no longer in the region's manifest and
@@ -588,13 +602,21 @@ class TileCacheManager:
         pinned_regions: set[int],
         pk_cols: list[str],
         timings: dict | None = None,
+        device_upload: bool = True,
     ) -> tuple[_SuperTiles | None, list[FileMeta]]:
         """Cached (or freshly consolidated and uploaded) planes of one
         region's SST set.  Returns (entry, excluded): `excluded` lists files
         that cannot join the super-tile — the caller declines when any of
         them intersects the query window.  `pk_cols` + `ts_col` define the
         global sort order.  `timings` (optional) accumulates host ms of the
-        "build" (decode, encode, sort, consolidate) and "upload" stages."""
+        "build" (decode, encode, sort, consolidate) and "upload" stages.
+
+        With `device_upload` False the build stops on the host (the host
+        routes may answer without the card): the per-file encodes, the
+        (pk, ts) order and the sorted host copies, the entry committed to
+        the cache under the host budget, and no upload.  A later call with
+        uploads finds the entry and uploads what it lacks.  Only calls with
+        uploads count `hits` and `builds`."""
         need = list(dict.fromkeys(tag_cols + ([ts_col] if ts_col else []) + value_cols))
         sort_cols = list(dict.fromkeys(pk_cols + ([ts_col] if ts_col else [])))
         host_need = list(dict.fromkeys(sort_cols + need))
@@ -649,7 +671,8 @@ class TileCacheManager:
                                     pad=pad_rows(max(total, 1)))
             missing = [c for c in need if c not in entry.cols]
             if not missing and entry.valid is not None:
-                self.stats_counts["hits"] += 1
+                if device_upload:
+                    self.stats_counts["hits"] += 1
                 return entry, excluded
 
             host_tiles: list[_FileHostTiles] = []
@@ -682,6 +705,22 @@ class TileCacheManager:
                 entry.host_epochs = {
                     name: dictionary.epoch for name in sort_cols if name != ts_col
                 }
+                entry.file_row_offsets = np.concatenate(
+                    [[0], np.cumsum([ht.num_rows for ht in host_tiles])]).astype(np.int64)
+
+            if not device_upload:
+                # host-only: commit the consolidation, keep the host budget
+                with self._lock:
+                    old = self._super.get(rid)
+                    if old is not None and old is not entry:
+                        self._drop_entry_locked(rid)
+                    self._super.pop(rid, None)
+                    self._super[rid] = entry
+                    self._evict_locked(pinned_regions | {rid})
+                if timings is not None:
+                    timings["build"] = (timings.get("build", 0.0)
+                                        + (time.perf_counter() - t_start) * 1e3)
+                return entry, excluded
 
             est = 0
             for name in missing:
@@ -698,7 +737,7 @@ class TileCacheManager:
                 v = np.zeros(entry.pad, bool)
                 v[: entry.num_rows] = True
                 t0 = time.perf_counter()
-                entry.placement = self.placement(rid)
+                self._decide_placement(entry)
                 entry.valid = self._up_chunks(v, bounds, entry.placement)
                 acc[0] += v.nbytes
                 acc[1] += time.perf_counter() - t0
@@ -795,6 +834,9 @@ class TileCacheManager:
             arr[old_global] = old_sorted[c]
             arr[delta_global] = delta_sorted[c].astype(old_sorted[c].dtype)
             new_sorted[c] = arr
+        new_offsets = np.concatenate([
+            entry.file_row_offsets, old_n + np.cumsum([ht.num_rows for ht in delta_tiles])
+        ]).astype(np.int64)
         host_ms = (time.perf_counter() - t_start) * 1e3
 
         # 4. patch the resident planes on the card (K16): old rows read
@@ -865,6 +907,9 @@ class TileCacheManager:
             entry.order = new_order
             entry.sorted_host = new_sorted
             entry.host_epochs = {c: dictionary.epoch for c in sort_cols if c != ts_col}
+            entry.file_row_offsets = new_offsets
+            # a new file set: the cold serve may answer once more
+            entry.cold_served = False
             self._host_used -= entry.host_nbytes
             entry.host_nbytes = 0
             entry.keep_host = None
@@ -961,6 +1006,44 @@ class TileCacheManager:
             out.append(t[a:b].to(dev).contiguous() if dev.type != "cpu" else t[a:b].clone())
         return out
 
+    def _decide_placement(self, entry: _SuperTiles) -> None:
+        """Fix an entry's chunk placement with its first device plane: the
+        valid plane, or the keep plane of an entry built host-only."""
+        if entry.valid is None and entry.valid_dedup is None:
+            entry.placement = self.placement(entry.region_id)
+
+    def gather_host_values(self, entry: _SuperTiles, col: str, positions: np.ndarray):
+        """One value column at `positions` of the file concatenation (rows
+        of `order`), from the per-file host encodes: (values, present), the
+        present mask None when every row holds a value (a file that
+        predates the column, or its NULLs, clear it), or None when an
+        encode is no longer cached (the host routes then decline)."""
+        offs = entry.file_row_offsets
+        with self._lock:
+            tiles = [self._host.get((entry.region_id, fid)) for fid in entry.file_ids]
+        if offs is None or any(t is None for t in tiles):
+            return None
+        fidx = np.searchsorted(offs, positions, side="right") - 1
+        rows = positions - offs[fidx]
+        dtype = next((t.cols[col].dtype for t in tiles if col in t.cols), np.float64)
+        out = np.zeros(len(positions), dtype=dtype)
+        present: np.ndarray | None = None
+        for i, t in enumerate(tiles):
+            m = fidx == i
+            if not m.any():
+                continue
+            if col in t.absent or col not in t.cols:
+                if present is None:
+                    present = np.ones(len(positions), bool)
+                present[m] = False
+                continue
+            out[m] = t.cols[col][rows[m]]
+            if col in t.nulls:
+                if present is None:
+                    present = np.ones(len(positions), bool)
+                present[m] = t.nulls[col][rows[m]]
+        return out, present
+
     def ensure_dedup_keep(self, entry: _SuperTiles) -> bool:
         """Build (once per file set) the last-write-wins keep plane from the
         sorted host copies: a row survives unless the next row holds the
@@ -984,6 +1067,7 @@ class TileCacheManager:
                     same &= arr[:-1] == arr[1:]
                 keep[: n - 1] &= ~same
             entry.keep_host = keep[:n]
+            self._decide_placement(entry)
             entry.valid_dedup = self._up_chunks(keep, chunk_bounds(entry.pad, self.chunk_rows),
                                                 entry.placement)
             entry.nbytes += entry.pad
@@ -1008,8 +1092,9 @@ class TileCacheManager:
         tile of one query window: `flatnonzero` of the window mask over
         the sorted ts on the host (AND `keep_host` with `dedup`, so stale
         versions never upload), a host gather of each needed column from
-        the sorted host copies or the per-file encodes, zero padding to
-        the 2^22-row grid, an upload in chunks of `min(chunk_rows, 2^22)`
+        the sorted host copies or the per-file encodes
+        (`gather_host_values`), zero padding to the 2^22-row grid, an
+        upload in chunks of `min(chunk_rows, 2^22)`
         rows onto the slots of the region's placement, and K5 over the
         gathered chunks of the limb columns (their f64 plane stays).
         Rows keep their (pk, ts) order.  Returns (sources, slots) — one
@@ -1086,9 +1171,13 @@ class TileCacheManager:
         host_bufs: dict[str, np.ndarray] = {}
         for name in missing:
             src = entry.sorted_host.get(name)
-            rows = src[idx] if src is not None else self._host_rows(entry, name, idx, dictionary)
-            if rows is None:
-                return None  # a host encode was evicted or holds nulls
+            if src is not None:
+                rows = src[idx]
+            else:
+                got = self.gather_host_values(entry, name, entry.order[idx])
+                if got is None or (got[1] is not None and not got[1].all()):
+                    return None  # a host encode was evicted, or a row is NULL
+                rows = got[0]
             buf = np.zeros(pad, dtype=rows.dtype)
             buf[:n] = rows
             host_bufs[name] = buf
@@ -1181,31 +1270,6 @@ class TileCacheManager:
             ))
             slots.append((base + i) % modulus)
         return sources, slots
-
-    def _host_rows(self, entry: _SuperTiles, name: str, idx: np.ndarray,
-                   dictionary: TableDictionary) -> np.ndarray | None:
-        """One column at rows `idx` of the entry's (pk, ts) order, taken
-        from the per-file host encodes (the rows `super_tiles` uploads,
-        without assembling the whole column), or None when an encode is no
-        longer cached, lacks the column or holds NULLs."""
-        with self._lock:
-            tiles = [self._host.get((entry.region_id, fid)) for fid in entry.file_ids]
-            if any(t is None for t in tiles):
-                return None
-            if any(name not in t.cols or name in t.nulls for t in tiles):
-                return None
-            for t in tiles:
-                self._repair_host_locked(t, dictionary)
-            cols = [t.cols[name] for t in tiles]
-        # each row's place in the concatenation of the files, then its file
-        pos = entry.order[idx]
-        offs = np.cumsum([0] + [len(c) for c in cols])
-        which = np.searchsorted(offs, pos, side="right") - 1
-        out = np.empty(len(pos), np.result_type(*cols))
-        for k, c in enumerate(cols):
-            sel = which == k
-            out[sel] = c[pos[sel] - offs[k]]
-        return out
 
     def group_csr(self, radices: tuple, keep_idx: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         """The device CSR (offsets, members) of a fused TQL fold's series ->

@@ -10,6 +10,13 @@ A device-path failure (a kernel build or launch, a malformed operand)
 raises: a lowered query is never served from the CPU executor instead,
 so a broken device path cannot hide behind correct CPU answers.
 
+The `cost_route` pass (reference `engine.py:118-151`), with
+`query.tpu_min_rows` > 0: a lowered query whose row estimate
+(`_estimate_scan_rows`: file rows in the window plus memtable rows,
+scaled by the tag equalities' selectivity from the dictionary) falls
+below it runs on the CPU executor while no super-tile of its table is
+resident (`_tiles_resident`); counted in `routed_to_cpu`.
+
 With `query.tile_cache_enable` (the default) and a tile context
 provider, a lowered query tries the device-resident super-tile path first
 (parallel/tile_executor.py); the cache and its executor live on the
@@ -21,9 +28,14 @@ queries whose padded group space reaches 2^31 — the int32 ids cannot
 hold it),
 `tile_dispatches` (lowered queries the tile path answered) and
 `tile_declined` (lowered queries it declined, answered by the table-fed
-path), and, per query the tile path dispatched, the strategy of its
-first plan, `agg_hash` or `agg_sort`, and `agg_hash_overflow` (hash
-dispatches whose slot table overflowed) — the reference's
+path), from the first one on (read them with `stats.get`)
+`host_fast_path` and `cold_serves` (tile-path queries a host route
+answered, with no upload and no launch: the reference's
+TILE_HOST_FAST_PATH and TILE_COLD_SERVES) and `routed_to_cpu` (lowered
+queries `cost_route` sent to the CPU executor), and, per query the tile
+path dispatched, the strategy of its first plan, `agg_hash` or
+`agg_sort`, and `agg_hash_overflow` (hash dispatches whose slot table
+overflowed) — the reference's
 AGG_STRATEGY_TOTAL{strategy} and AGG_HASH_OVERFLOW; `limb_reruns`
 (tile queries rerun in f64 after a failed limb verdict); and the
 dashboard tick (parallel/batcher.py, the reference's QUERY_BATCH_*):
@@ -39,7 +51,8 @@ TILE_MESH_DISPATCHES; read it with `stats.get`).  The counters are bumped
 under a lock: the members of a tick run on their own threads.
 `last_timings` holds the per-stage host wall ms of the calling thread's
 last lowered query and `last_path` which path answered its last query:
-"tile", "table", or "cpu" where the device executor declined it.
+"tile", "table", or "cpu" where the device executor declined it (or
+`cost_route` sent it there).
 
 PromQL (query/promql/) counts its range evaluations here too:
 `tql_tile_dispatches` (answered by the warm tile program),
@@ -57,9 +70,10 @@ import pyarrow as pa
 
 from ..datatypes.schema import Schema
 from ..utils.config import BatchConfig, QueryConfig, TileConfig
+from . import passes
 from .cpu_exec import CpuExecutor
 from .device_exec import DeviceExecutor, try_lower
-from .logical_plan import LogicalPlan
+from .logical_plan import LogicalPlan, TableScan
 from .planner import plan_query
 from .sql_parser import SelectStmt
 
@@ -175,6 +189,10 @@ class QueryEngine:
             self.stats.add(declined=1)
             self.last_path = "cpu"
             return self.cpu.execute(plan)
+        if self._cost_routed(lowering, schema):
+            self.stats.add(routed_to_cpu=1)
+            self.last_path = "cpu"
+            return self.cpu.execute(plan)
         scan = lowering.scan
         tile = self.tile_executor()
         if tile is not None:
@@ -201,6 +219,63 @@ class QueryEngine:
         self.last_timings = device.timings
         self.last_path = device.path
         return table
+
+    def _cost_routed(self, lowering, schema: Schema) -> bool:
+        """The `cost_route` pass: True when the scan's estimate is under
+        `tpu_min_rows` and no super-tile of its table is resident (a
+        resident one serves a small query faster on the tile path)."""
+        if (self.config.tpu_min_rows <= 0 or self._tile_ctx is None
+                or not passes.enabled("cost_route", self.config)):
+            return False
+        est = self._estimate_scan_rows(lowering.scan, schema)
+        if est is not None and est < self.config.tpu_min_rows \
+                and not self._tiles_resident(lowering.scan):
+            passes.note("cost_route", True,
+                        f"estimated {est} rows < tpu_min_rows={self.config.tpu_min_rows} and "
+                        "tiles not resident: local CPU path", est_rows=est)
+            return True
+        passes.note("cost_route", False,
+                    "scan large enough (or tiles resident) for the device path", est_rows=est)
+        return False
+
+    def _tiles_resident(self, scan: TableScan) -> bool:
+        """Every region of the scanned table has a cached super-tile."""
+        if self.tile_cache is None:
+            return False
+        ctx = self._tile_ctx(scan)
+        if ctx is None or not ctx.regions:
+            return False
+        return all(self.tile_cache.has_region(r.region_id) for r in ctx.regions)
+
+    def _estimate_scan_rows(self, scan: TableScan, schema: Schema) -> int | None:
+        """The routing estimate: file rows intersecting the time window plus
+        memtable rows, scaled by the selectivity of tag equalities (`=`:
+        1 / cardinality, `IN`: n / cardinality) from the dictionary; None
+        when the scan has no table to tile."""
+        ctx = self._tile_ctx(scan)
+        if ctx is None:
+            return None
+        window = scan.time_range
+        rows = 0
+        for region in ctx.regions:
+            files, mems, _v = region.tile_snapshot()
+            for meta in files:
+                lo, hi = meta.time_range
+                if window is None or (hi >= window[0] and lo < window[1]):
+                    rows += meta.num_rows
+            for mem in mems:
+                rows += mem.num_rows
+        sel = 1.0
+        if ctx.dictionary is not None:
+            tag_names = {c.name for c in schema.tag_columns()}
+            for name, op, value in scan.filters:
+                if name in tag_names:
+                    card = max(ctx.dictionary.cardinality(name), 1)
+                    if op == "=":
+                        sel /= card
+                    elif op == "in":
+                        sel *= min(len(value) / card, 1.0)
+        return int(rows * sel)
 
     def explain(self, stmt: SelectStmt, database: str = "public") -> pa.Table:
         plan, schema = plan_query(stmt, self.schema_of, database)

@@ -2,11 +2,13 @@
 switchable.
 
 Counterpart of `greptimedb_tpu/query/passes.py`, holding only the passes
-the port implements and whose decision points consult `enabled()` (10 of
-the reference's 19).  A pass the reference has and the port does not
-(the host fast path, the cold host serve, the fused build, ...) does not
-exist here, so `enabled()` reports it off: the port behaves as the
-reference does with that pass in `query.disabled_passes`.
+the port implements and whose decision points consult `enabled()` (13 of
+the reference's 19), in the reference's run order.  A pass the reference
+has and the port does not (the fused build, the pipelined build, the
+streamed readback, ...) does not exist here, so `enabled()` reports it
+off: the port behaves as the reference does with that pass in
+`query.disabled_passes` (for `fused_build`: the legacy cold-serve ladder
+of `cold_host_serve`).
 
 `note()` records a decision (a pass taken or declined, and why) into
 the trace of the current context, when a caller opened one with
@@ -22,6 +24,16 @@ from dataclasses import dataclass, field
 
 # name -> what the pass does, in run order
 PASSES = {
+    "cost_route": "route sub-threshold scans to the local CPU path (device round-trip "
+                  "dwarfs a small local aggregation)",
+    "host_fast_path": "serve highly selective pk-equality aggregates from (pk,ts)-sorted "
+                      "host planes via binary search — no device dispatch",
+    "cold_host_serve": "serve a COLD grouped aggregate straight from the host consolidation "
+                       "(bounded numpy pass: bincount folds) instead of paying plane "
+                       "uploads; the next query builds the device planes",
+    "tql_tile": "evaluate PromQL range functions (rate/increase/delta, *_over_time, the "
+                "by-label sum/avg/min/max/count fold) as one program (K9-K12) over the "
+                "resident super-tile planes, with a compacted [series_out, steps] readback",
     "agg_strategy": "pick the device group-by strategy per query from table stats: dense "
                     "mixed-radix states exploiting the (pk, ts) sort, or a hash table "
                     "sized to the distinct-key estimate when the padded group space is "
@@ -40,9 +52,6 @@ PASSES = {
                        "O(rows_out)",
     "time_major": "permute value planes time-major (K14 sort, K15 gathers) so bucket-only "
                   "group-bys reduce over contiguous runs",
-    "tql_tile": "evaluate PromQL range functions (rate/increase/delta, *_over_time, the "
-                "by-label sum/avg/min/max/count fold) as one program (K9-K12) over the "
-                "resident super-tile planes, with a compacted [series_out, steps] readback",
     "chunk_placement": "place super-tile chunks round-robin over the device slots (from the "
                        "region's co-located slot when tile.mesh_devices is on); disabled, "
                        "every chunk lives on the first slot",

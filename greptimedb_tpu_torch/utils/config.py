@@ -20,14 +20,17 @@ that matter:
   reference's, at the configuration the port implements: the passes it
   has not ported do not exist (`query/passes.py`) and behave as disabled.
   `agg_strategy` is "auto" (hash or sort per query), "hash" or "sort",
-  as in the reference.  Persistence of super-tiles, the streamed spill
-  has no knobs here.
+  as in the reference; `tpu_min_rows` is the `cost_route` threshold (0,
+  the default, turns it off).  Persistence of super-tiles, the streamed
+  spill has no knobs here.
 * `BatchConfig` is the reference's `batch` section: the dashboard batch
   tick (parallel/batcher.py) and the windowed result cache, off by
   default.
 * `TileConfig` holds `incremental` (delta maintenance of the planes on
-  flush) and `mesh_devices` (multi-device tile execution); the prewarm,
-  pipelined and fused builds are not ported.  `Config.validate()` checks
+  flush) and `mesh_devices` (multi-device tile execution); the prewarm
+  knobs (`prewarm_on_flush`, `prewarm_tables`, `prewarm_limbs`: an explicit
+  `Database.prewarm()` always quantizes), the pipelined and fused builds
+  are not ported.  `Config.validate()` checks
   `mesh_devices` against the listed slots, as the reference checks it
   against the local devices.
 
@@ -97,6 +100,10 @@ class QueryConfig:
     # auto considers hash only when the padded group space is at least
     # this large: below it dense [G] states are trivially cheap
     agg_hash_min_group_space: int = 1 << 16
+    # cost-based routing (the `cost_route` pass): a lowerable plan whose
+    # row estimate falls below this runs on the CPU executor while no
+    # super-tile of its table is resident; 0 turns the routing off
+    tpu_min_rows: int = 0
 
     def __post_init__(self):
         self.validate()
@@ -125,6 +132,11 @@ class QueryConfig:
                 "query.agg_hash_min_group_space must be >= 1024 groups (below "
                 "that the dense path is always cheaper than a hash table); "
                 f"got {self.agg_hash_min_group_space!r}"
+            )
+        if not isinstance(self.tpu_min_rows, int) or self.tpu_min_rows < 0:
+            raise ConfigError(
+                "query.tpu_min_rows must be an int >= 0 (0 turns cost-based "
+                f"routing off); got {self.tpu_min_rows!r}"
             )
         if self.tile_acc_dtype not in ("limb", "float64"):
             raise ConfigError(

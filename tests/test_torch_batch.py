@@ -33,6 +33,8 @@ from greptimedb_tpu_torch.parallel.batcher import WindowedResultCache
 from greptimedb_tpu_torch.utils.config import BatchConfig, Config
 from greptimedb_tpu_torch.utils.errors import ConfigError
 
+# the port's host routes, off where the reference's are (tests/test_torch_tile.py)
+HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
 # the reference's passes the port has not ported (tests/test_torch_tile.py)
 UNPORTED_PASSES = (
     "cold_host_serve", "fused_build", "pipelined_build", "stream_spill",
@@ -96,6 +98,7 @@ def _mk_db(home, *, strategy="sort", window_ms=0.0, cache_mb=0, fuse=True) -> Da
     cfg.batch.window_ms = window_ms
     cfg.batch.result_cache_mb = cache_mb
     cfg.batch.fuse_programs = fuse
+    cfg.query.disabled_passes = HOST_ROUTES
     return Database(str(home), device="cpu", config=cfg)
 
 

@@ -40,7 +40,7 @@ from greptimedb_tpu_torch.parallel.tile_planes import TileCacheManager
 from greptimedb_tpu_torch.query import passes
 from greptimedb_tpu_torch.utils.config import Config
 from test_torch_batch import _ser, _solo, _tick
-from test_torch_tile import UNPORTED_PASSES, _assert_same
+from test_torch_tile import HOST_ROUTES, UNPORTED_PASSES, _assert_same
 
 DDL = ("CREATE TABLE cpu (host STRING, region STRING, ts TIMESTAMP TIME INDEX,"
        " usage_user DOUBLE, usage_system DOUBLE, PRIMARY KEY (host, region))")
@@ -83,6 +83,7 @@ class Pair:
         pcfg = Config()
         pcfg.query.agg_strategy = strategy
         pcfg.batch.window_ms = window_ms
+        pcfg.query.disabled_passes = HOST_ROUTES
         self.port = Database(str(tmp_path / "port"), device=devices, config=pcfg)
 
     def sql(self, text):
@@ -98,7 +99,7 @@ class Pair:
         self.ref.storage.flush_all()
 
     def disable(self, *names):
-        self.port.config.query.disabled_passes = names
+        self.port.config.query.disabled_passes = HOST_ROUTES + names
         self.ref.config.query.disabled_passes = UNPORTED_PASSES + names
 
     @property

@@ -44,7 +44,7 @@ from greptimedb_tpu_torch.ops import aggregate as tagg
 from greptimedb_tpu_torch.ops import filter as tflt
 from greptimedb_tpu_torch.parallel import executor as texec
 from greptimedb_tpu_torch.parallel.tile_planner import HASH_GID_LIMIT
-from test_torch_tile import UNPORTED_PASSES
+from test_torch_tile import HOST_ROUTES, UNPORTED_PASSES
 
 T0 = 1_767_225_600_000
 STRATEGIES = ("auto", "hash", "sort")
@@ -346,6 +346,7 @@ class _Pair:
     def __init__(self, tmp):
         self.ref = _jax_db(str(tmp / "jax"))
         self.port = Database(str(tmp / "port"), device="cpu")
+        self.port.config.query.disabled_passes = HOST_ROUTES
 
     def close(self):
         self.port.close()
@@ -768,7 +769,7 @@ def test_disabled_pass_forces_sort(tmp_path):
         pair.set(agg_strategy="sort")
         t1 = pair.port.sql_one(PARITY_Q)
         pair.set(agg_strategy="hash")
-        pair.port.config.query.disabled_passes = ("agg_strategy",)
+        pair.port.config.query.disabled_passes = HOST_ROUTES + ("agg_strategy",)
         h0 = pair.port.query_engine.stats["agg_hash"]
         t2 = pair.port.sql_one(PARITY_Q)
         assert pair.port.query_engine.stats["agg_hash"] == h0

@@ -24,7 +24,7 @@ from greptimedb_tpu_torch.ops.aggregate import (
     having_mask,
     having_mask_plain,
 )
-from test_torch_tile import TSBS, _assert_same, _jax_db, _JaxWriter, _run_pair
+from test_torch_tile import TSBS, _assert_same, _jax_db, _JaxWriter, _port_db, _run_pair
 
 MU, AS, N, CW = ("agg", "u", "max"), ("agg", "s", "avg"), ("agg", "__count_star", "count"), \
     ("agg", "w", "count")
@@ -122,10 +122,8 @@ def test_having_mask_equals_reference(name, g):
 
 @pytest.fixture(scope="module")
 def tsbs_pair(tmp_path_factory):
-    from greptimedb_tpu_torch import Database
-
     ref = _jax_db(str(tmp_path_factory.mktemp("having_jax")))
-    port = Database(str(tmp_path_factory.mktemp("having_port")), device="cpu")
+    port = _port_db(str(tmp_path_factory.mktemp("having_port")))
     try:
         chip_smoke.ingest(_JaxWriter(ref), TSBS)
         chip_smoke.ingest(port, TSBS)

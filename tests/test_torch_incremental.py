@@ -24,9 +24,8 @@ import chip_smoke
 from greptimedb_tpu.utils import metrics
 from greptimedb_tpu.utils.config import Config as JaxConfig
 from greptimedb_tpu.database import Database as JaxDatabase
-from greptimedb_tpu_torch import Database
 from greptimedb_tpu_torch.query import passes
-from test_torch_tile import UNPORTED_PASSES, _assert_same, _run_pair
+from test_torch_tile import UNPORTED_PASSES, _assert_same, _port_db, _run_pair
 
 DDL = ("CREATE TABLE t (host STRING, region STRING, ts TIMESTAMP(3) TIME INDEX, v DOUBLE,"
        " w DOUBLE, PRIMARY KEY (host, region)) WITH (append_mode = 'true')")
@@ -105,7 +104,7 @@ def _assert_matches_reference(pe, re):
 def test_delta_extended_planes_equal_rebuild_and_reference(tmp_path, seed):
     rng = np.random.default_rng(seed)
     ref = _jax_db(str(tmp_path / "jax"), incremental=True)
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
         for db in (port, ref):
             db.sql(DDL)
@@ -142,7 +141,7 @@ def test_incremental_off_restores_the_rebuild_path(tmp_path):
     batches = [_batch(np.random.default_rng(7), step) for step in range(3)]
     results = {}
     for incremental in (True, False):
-        port = Database(str(tmp_path / f"port_{incremental}"), device="cpu")
+        port = _port_db(str(tmp_path / f"port_{incremental}"))
         port.config.tile.incremental = incremental
         try:
             port.sql(DDL)
@@ -174,7 +173,7 @@ def test_incremental_off_restores_the_rebuild_path(tmp_path):
 
 
 def test_a_file_set_that_is_not_an_append_rebuilds(tmp_path):
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
         port.sql(DDL)
         rng = np.random.default_rng(5)

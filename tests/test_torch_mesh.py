@@ -674,6 +674,7 @@ def _jax_mesh_db(home) -> JaxDatabase:
 
 def _port_mesh_db(home, slots=8) -> Database:
     d = Database(str(home), device=["cpu"] * slots)
+    d.config.query.disabled_passes = ("cold_host_serve", "host_fast_path")
     d.config.query.tile_chunk_rows = 4096
     return d
 

@@ -42,7 +42,7 @@ from greptimedb_tpu.utils.config import Config as JaxConfig
 from greptimedb_tpu_torch import Database
 from greptimedb_tpu_torch.ops import sketch as psk
 from greptimedb_tpu_torch.utils.errors import PlanError
-from test_torch_tile import UNPORTED_PASSES
+from test_torch_tile import HOST_ROUTES, UNPORTED_PASSES
 
 GAMMA = (1 + 0.01) / (1 - 0.01)
 
@@ -479,6 +479,7 @@ class _Pair:
     def __init__(self, tmp, tile: bool = True):
         self.ref = _jax_db(str(tmp / "jax"))
         self.port = Database(str(tmp / "port"), device="cpu")
+        self.port.config.query.disabled_passes = HOST_ROUTES
         for db in (self.ref, self.port):
             db.config.query.tile_cache_enable = tile
 

@@ -39,6 +39,10 @@ UNPORTED_PASSES = (
     "cold_host_serve", "fused_build", "pipelined_build", "stream_spill",
     "chunk_placement", "mesh_dispatch", "streamed_readback", "host_fast_path", "cost_route",
 )
+# the port's host routes (parallel/tile_host.py): these tests check the
+# card's path, so the port names them in query.disabled_passes as the
+# reference side above does
+HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
 TSBS = chip_smoke.Tsbs(40, 12, n_metrics=3)
 NAMES = [name for name, _sql in TSBS.queries()]
 
@@ -60,6 +64,13 @@ def _jax_db(home: str) -> JaxDatabase:
     cfg.query.tile_persist_enable = False
     cfg.query.fallback_to_cpu = False
     return JaxDatabase(config=cfg, data_home=home)
+
+
+def _port_db(home: str) -> Database:
+    """The port's Database with its host routes off (`HOST_ROUTES`)."""
+    db = Database(home, device="cpu")
+    db.config.query.disabled_passes = HOST_ROUTES
+    return db
 
 
 class _JaxWriter:
@@ -115,7 +126,7 @@ def _assert_same(got: pa.Table, want: pa.Table, sql: str, ordered: bool):
 @pytest.fixture(scope="module")
 def tsbs_pair(tmp_path_factory):
     ref = _jax_db(str(tmp_path_factory.mktemp("tile_jax")))
-    port = Database(str(tmp_path_factory.mktemp("tile_port")), device="cpu")
+    port = _port_db(str(tmp_path_factory.mktemp("tile_port")))
     try:
         chip_smoke.ingest(_JaxWriter(ref), TSBS)
         _rows, gt = chip_smoke.ingest(port, TSBS)
@@ -186,7 +197,7 @@ def _load_t(port, ref, flush=True):
 @pytest.fixture(scope="module")
 def t_pair(tmp_path_factory):
     ref = _jax_db(str(tmp_path_factory.mktemp("t_jax")))
-    port = Database(str(tmp_path_factory.mktemp("t_port")), device="cpu")
+    port = _port_db(str(tmp_path_factory.mktemp("t_port")))
     try:
         _load_t(port, ref)
         yield port, ref
@@ -347,7 +358,7 @@ _W_QUERY = ("SELECT host, time_bucket('30s', ts) AS tb, avg(u) AS au, count(*) A
 @pytest.mark.parametrize("write", ["memtable_tail", "flush", "new_tag_value"])
 def test_write_after_warm_query_changes_the_answer(tmp_path, write):
     ref = _jax_db(str(tmp_path / "jax"))
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
         _load_t(port, ref)
         warm, _ = _run_pair(port, ref, _W_QUERY)
@@ -384,7 +395,7 @@ def test_limb_verdict_reruns_in_exact_f64(tmp_path):
         "v": pa.array(vals),
     })
     ref = _jax_db(str(tmp_path / "jax"))
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
         for db in (port, ref):
             db.sql(_T_DDL)
@@ -424,7 +435,7 @@ def test_packed_readback_large_group_space(tmp_path, with_count):
         "v": pa.array(rng.uniform(0, 100, hosts * ticks)),
     })
     ref = _jax_db(str(tmp_path / "jax"))
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
         for db in (port, ref):
             db.sql(_T_DDL)
@@ -472,9 +483,9 @@ def test_agg_strategy_config_values(knobs, ok):
 
 
 def test_disabled_limb_pass_accumulates_in_f64(tmp_path):
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
-        port.config.query.disabled_passes = ("limb_quantize",)
+        port.config.query.disabled_passes = HOST_ROUTES + ("limb_quantize",)
         port.sql(_T_DDL)
         port.sql("INSERT INTO t VALUES " + ",".join(_t_rows()))
         port.flush()
@@ -488,7 +499,7 @@ def test_disabled_limb_pass_accumulates_in_f64(tmp_path):
 
 
 def test_drop_table_releases_the_planes(tmp_path):
-    port = Database(str(tmp_path / "port"), device="cpu")
+    port = _port_db(str(tmp_path / "port"))
     try:
         port.sql(_T_DDL)
         port.sql("INSERT INTO t VALUES " + ",".join(_t_rows()))

@@ -15,8 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
-from greptimedb_tpu_torch import Database
-from test_torch_tile import TSBS, _jax_db, _JaxWriter, _run_pair
+from test_torch_tile import TSBS, _jax_db, _JaxWriter, _port_db, _run_pair
 
 LO, HI = TSBS.w12
 BUCKET_AVG = (f"SELECT time_bucket('1h', ts) AS tb, avg(usage_user) AS avg_usage_user, "
@@ -37,7 +36,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def tsbs_pair(tmp_path_factory):
     ref = _jax_db(str(tmp_path_factory.mktemp("tm_jax")))
-    port = Database(str(tmp_path_factory.mktemp("tm_port")), device="cpu")
+    port = _port_db(str(tmp_path_factory.mktemp("tm_port")))
     try:
         chip_smoke.ingest(_JaxWriter(ref), TSBS)
         chip_smoke.ingest(port, TSBS)
