@@ -55,10 +55,11 @@ Phases, each printing one JSON line:
              time-major copies), and a minute-bucket query with the
              time_major pass off (K2's guard fails, K3 on the tile path).
 5d. host_routes — the tile path's host routing ladder at the defaults
-             (`cost_route`, `host_fast_path`, `cold_host_serve`; every
-             other phase's Database names them in query.disabled_passes,
-             `HOST_ROUTES`, so its kernel asserts, launch counts and cold
-             timings read the card's path) on phase 4's data, in fresh
+             but the fused build (`cost_route`, `host_fast_path`,
+             `cold_host_serve`'s legacy ladder: `fused_build` named in
+             query.disabled_passes; every other phase but 5e names all four
+             there, `HOST_ROUTES`, so its kernel asserts, launch counts and
+             cold timings read the card's path) on phase 4's data, in fresh
              Databases over the same data home (cold entries): the 15
              queries once cold (each query's route from its pass trace,
              its launches, host ms and the device bytes it added: a host
@@ -75,6 +76,28 @@ Phases, each printing one JSON line:
              the tile path.  Every result against phase 4's CPU backend
              (within rel 1e-7), double-groupby-1 also against the ground
              truth.
+5e. fused_ladder — the fused family build and the cold serve's fused
+             ladder at the defaults, on phase 4's data in fresh Databases:
+             the 15 queries once cold in FUSED_COLD_ORDER (each on its
+             FUSED_COLD_ROUTES host route from its pass trace: the eight
+             pk-equality queries and cpu-max-all-8, served as `wide_cold`
+             and scheduling its family's build, on the host fast path; the
+             six others fused cold serves, lastpoint included; no upload or
+             dispatch stage on the query's thread), the builder drained (its
+             union builds, manifests, regions, one file decode a SST, no
+             failure, the kernels it launched: K5, K14 and K15 among them),
+             --tile-reps warm runs each (pk-equality on the host, the seven
+             others on the card with no build and no byte added, each
+             launching EXPECTED_TILE_PATH but K5; p50 beside phases 5 and
+             5d), then `Database.prewarm()` host-only (no device byte, no
+             launch) and double-groupby-1 as a fused cold serve.  Every
+             result against phase 4's CPU backend (rel 1e-7),
+             double-groupby-1 also against the ground truth.  Its TQL step
+             runs after phase 6b on phase 6's tables (a fresh Database at
+             the defaults): T2 over the last hour at '15s' answered by the
+             legacy scan on its first touch, then after the drain by the
+             tile route (K9-K12), both against phase 6's legacy result
+             (rel 1e-12).
 5c. tick   — on phase 5's resident region: the 15 queries as the
              dashboard tick (`batch.window_ms` 120, `max_members` 16; 15
              threads released by one barrier): --tick-reps ticks, then
@@ -280,12 +303,15 @@ Phases, each printing one JSON line:
    K2's and K3's per column count C on the tile path; K9's and K17's
    calls, launches a call and kernels a launch from 6's tile run and 7's
    H1-H4, the kernels as their entry points count them; every kernel's
-   launches on 6b as `prom_sql_launches`, on 5d as `host_routes_launches`),
+   launches on 6b as `prom_sql_launches`, on 5d as `host_routes_launches`,
+   on 5e as `fused_ladder_launches` — of them the builder's, first touch to
+   drain, as `fused_builder_launches` — and on 5e's TQL step after its
+   drain as `tql_first_touch_launches`),
    then the last line
    {"ok": true, "device":
    {...}}.
 
-The launch counts are set to 0 just before phases 4, 5, 5d, 5c, 5b, 6's tile
+The launch counts are set to 0 just before phases 4, 5, 5d, 5e, 5c, 5b, 6's tile
 and legacy runs, 6b's panels (through the corrected write's reruns), 7's H1-H4, 7c, 8's queries, 9's two-step path and 9's
 queries (which launch nothing), 10b, and 10c's tile, table-fed and TQL
 runs, and read just after each
@@ -466,9 +492,13 @@ EXPECTED_TILE_PATH = {
 
 
 # The tile path's host routes (parallel/tile_host.py, the engine's cost
-# route).  Every phase but 5d names them in query.disabled_passes: its
-# kernel asserts, launch counts and cold timings read the card's path.
-HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
+# route) and the fused family build, whose background builder launches
+# kernels beside the query's.  Every phase but 5d and 5e names them in
+# query.disabled_passes: its kernel asserts, launch counts and cold timings
+# read the card's path.  Phase 5d names `fused_build` alone (the legacy
+# ladder, LEGACY_LADDER); 5e runs at the defaults.
+HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve", "fused_build")
+LEGACY_LADDER = ("fused_build",)
 # the TSBS queries with a pk equality and no group tag: host-served by the
 # host fast path, cold or warm (a slice of 360-4,320 rows)
 PK_EQUALITY = (
@@ -482,14 +512,29 @@ PK_EQUALITY = (
 COLD_ROUTES = {"double-groupby-1": "cold_host_serve",
                **{name: "host_fast_path" for name in PK_EQUALITY}}
 WARM_ROUTES = {name: "host_fast_path" for name in PK_EQUALITY}
+# phase 5e's cold pass under the fused build (the reference's decisions on
+# the same queries, tests/test_torch_fused_build.py): the pk-equality
+# queries first, so no family build has warmed a plane before
+# cpu-max-all-8 runs (its slice is host-served while its planes are cold,
+# `wide_cold`, and schedules its family's build); then the six other
+# families' first touches, each a fused cold serve (lastpoint included)
+FUSED_COLD_ORDER = (
+    "cpu-max-all-1", "cpu-max-all-8", "single-groupby-1-1-1", "single-groupby-1-1-12",
+    "single-groupby-1-8-1", "single-groupby-5-1-1", "single-groupby-5-1-12",
+    "single-groupby-5-8-1", "high-cpu-1", "double-groupby-1", "double-groupby-5",
+    "double-groupby-all", "groupby-orderby-limit", "lastpoint", "high-cpu-all",
+)
+FUSED_COLD_ROUTES = {name: "host_fast_path" if name in PK_EQUALITY + ("cpu-max-all-8",)
+                     else "cold_host_serve" for name in FUSED_COLD_ORDER}
 
 
-def device_route_config():
-    """A Config whose lowered queries take the card: the host routes off."""
+def device_route_config(disabled=HOST_ROUTES):
+    """A Config whose lowered queries take the card: the host routes and
+    the fused build off (`disabled`: the passes to name)."""
     from greptimedb_tpu_torch.utils.config import Config
 
     cfg = Config()
-    cfg.query.disabled_passes = HOST_ROUTES
+    cfg.query.disabled_passes = tuple(disabled)
     return cfg
 
 
@@ -3294,11 +3339,11 @@ def check_ground_truth(table, gt: dict, tsbs: Tsbs, tol: float = 1e-12) -> None:
 
 def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, tick_reps: int = 5,
               tile_reps: int | None = None) -> dict:
-    """Phases 4, 5, 5d, 5c, 5b and 10b on `device` ("cuda" on the card; "cpu"
-    to rehearse the control flow with the plain versions): ingest, the
-    table-fed path (tile cache off), the tile path on the same region,
-    the host routes in fresh Databases over its data, the tick, the live
-    append on it, then the region at mesh_devices 1.
+    """Phases 4, 5, 5d, 5e, 5c, 5b and 10b on `device` ("cuda" on the card;
+    "cpu" to rehearse the control flow with the plain versions): ingest,
+    the table-fed path (tile cache off), the tile path on the same region,
+    the host routes and the fused ladder in fresh Databases over its data,
+    the tick, the live append on it, then the region at mesh_devices 1.
     Returns the slice record."""
     from greptimedb_tpu_torch import Database
 
@@ -3378,6 +3423,9 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
     host_routes = run_host_routes_phase(data_home, device, tsbs,
                                         reps if tile_reps is None else tile_reps, cpu_results, gt,
                                         tile["queries"])
+    fused = run_fused_ladder_phase(data_home, device, tsbs,
+                                   reps if tile_reps is None else tile_reps, cpu_results, gt,
+                                   tile["queries"], host_routes)
     tick = run_tick_phase(db, tsbs, is_cuda, tick_reps)
     live = run_live_phase(db, tsbs, is_cuda, full_size)
     mesh = run_mesh_region(db, Tsbs(tsbs.n_hosts, tsbs.hours, len(tsbs.metrics),
@@ -3385,7 +3433,8 @@ def run_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: str, 
     db.close()
     return {"rows": n_rows, "ingest_s": ingest_s, "ssts": ssts, "queries": per_query,
             "launches": totals, "shape_launches": shapes, "tile": tile,
-            "host_routes": host_routes, "tick": tick, "live": live, "mesh": mesh}
+            "host_routes": host_routes, "fused": fused, "tick": tick, "live": live,
+            "mesh": mesh}
 
 
 # Host seconds spent in TileProgram.final and, inside it, in K8's wrapper
@@ -3538,8 +3587,9 @@ def _routed_run(db, sql: str, is_cuda: bool) -> dict:
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     after, c1 = launch_counts(), cache_stats()
-    fired = [d.name for d in trace.decisions if d.fired and d.name in HOST_ROUTES]
-    return {"result": result, "ms": ms, "route": fired[-1] if fired else eng.last_path,
+    fired = [d for d in trace.decisions if d.fired and d.name in HOST_ROUTES]
+    return {"result": result, "ms": ms, "route": fired[-1].name if fired else eng.last_path,
+            "route_attrs": dict(fired[-1].attrs) if fired else {},
             "stage_ms": dict(eng.last_timings),
             "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
             "bytes_added": c1["bytes"] - c0["bytes"], "builds": c1["builds"] - c0["builds"],
@@ -3562,7 +3612,9 @@ def _free(db) -> None:
 
 def run_host_routes_phase(data_home: str, device: str, tsbs: Tsbs, reps: int, cpu_results: dict,
                           gt: dict, tile_queries: dict) -> dict:
-    """Phase 5d: the host routing ladder at the defaults, on phase 4's data
+    """Phase 5d: the host routing ladder at the defaults but the fused
+    build (`fused_build` named in query.disabled_passes: the legacy
+    ladder; phase 5e runs the fused one), on phase 4's data
     in fresh Databases over the same data home (the phase's Database stays
     open and idle: nothing here writes).  Steps: cold (the 15 queries once,
     routes as COLD_ROUTES says), second touch (the cold-served queries on
@@ -3602,9 +3654,10 @@ def run_host_routes_phase(data_home: str, device: str, tsbs: Tsbs, reps: int, cp
         return {k: run[k] for k in ("route", "ms", "stage_ms", "launches", "bytes_added",
                                     "builds")}
 
-    # 1. cold: a fresh Database, every entry cold
+    # 1. cold: a fresh Database, every entry cold (the legacy ladder: the
+    # fused build off, phase 5e runs it)
     t0 = time.perf_counter()
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config(LEGACY_LADDER))
     cold = {}
     for name, sql in queries.items():
         run = _routed_run(db, sql, is_cuda)
@@ -3660,7 +3713,7 @@ def run_host_routes_phase(data_home: str, device: str, tsbs: Tsbs, reps: int, cp
     # 4 + 5. cost_route, then prewarm, in another fresh Database
     t0 = time.perf_counter()
     probe = "single-groupby-1-1-1"
-    db = Database(data_home, device=device)
+    db = Database(data_home, device=device, config=device_route_config(LEGACY_LADDER))
     eng = db.query_engine
     plan, schema = plan_query(parse_sql(queries[probe])[0], eng.schema_of, db.current_database)
     est = eng._estimate_scan_rows(try_lower(plan, schema).scan, schema)
@@ -3708,6 +3761,224 @@ def run_host_routes_phase(data_home: str, device: str, tsbs: Tsbs, reps: int, cp
             "prewarm": {"stats": warmed.get(table_key), "ms": prewarm_ms, "k5_launches": k5,
                         "first_query": line(first)},
             "launches": totals, "shape_launches": shapes}
+
+
+def fused_drain(db, timeout_s: float = 600.0) -> float:
+    """Wait until the fused build's background builder has no queued or
+    running family (tests/test_fused_build.py's `_drain_fused`); the
+    seconds waited.  Raises if a build failed (`fused_build_errors`)."""
+    te = db.query_engine.tile_executor()
+    t0 = time.perf_counter()
+    while te.fused_pending():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"the fused builder did not drain in {timeout_s} s")
+        time.sleep(0.01)
+    errors = db.query_engine.stats.get("fused_build_errors", 0)
+    if errors:
+        raise AssertionError(f"{errors} fused build failure(s): {te.last_fused_error!r}")
+    return time.perf_counter() - t0
+
+
+def _first_touch_stages(name: str, run: dict, what: str) -> None:
+    """A host-served first touch: no upload and no dispatch on the query's
+    own thread (its stages are thread-local; the builder's are its own)."""
+    for stage in ("upload", "dispatch", "quantize", "time_major"):
+        if stage in run["stage_ms"]:
+            raise AssertionError(f"{what} {name}: a {stage!r} stage on the query's thread: "
+                                 f"{run['stage_ms']}")
+
+
+def run_fused_ladder_phase(data_home: str, device: str, tsbs: Tsbs, reps: int,
+                           cpu_results: dict, gt: dict, tile_queries: dict,
+                           host_routes: dict) -> dict:
+    """Phase 5e: the fused family build and the cold serve's fused ladder,
+    at the defaults, on phase 4's data in fresh Databases over the same data
+    home.  Steps: cold (the 15 queries once, in FUSED_COLD_ORDER, each on
+    its FUSED_COLD_ROUTES host route, read from its pass trace, with no
+    upload or dispatch stage on its thread), drain (the builder's record:
+    union builds, manifests, regions, file decodes — one a SST —,
+    coalesced waits, no failure, and the kernels it launched: K5, K14 and
+    K15 among them), warm (`reps` runs each: the pk-equality queries on the
+    host, the seven others on the card with no build and no byte added,
+    each launching its EXPECTED_TILE_PATH kernels but K5; p50 beside phase
+    5's and 5d's), then prewarm in another fresh Database (host-only: no
+    device byte, no launch) and double-groupby-1 as a fused cold serve.
+    Every result against phase 4's CPU backend (within rel 1e-7),
+    double-groupby-1 also against the ground truth."""
+    from greptimedb_tpu_torch import Database
+
+    is_cuda = device.startswith("cuda")
+    full_size = tsbs.n_hosts == 4000 and tsbs.hours == 12
+    queries = dict(tsbs.queries())
+    t_phase = time.perf_counter()
+
+    def against_cpu(name: str, run: dict, what: str) -> None:
+        compare_tables(run["result"], cpu_results[name], f"{what} {name}", tol=1e-7)
+        if name == "double-groupby-1":
+            check_ground_truth(run["result"], gt, tsbs, tol=1e-7)
+
+    def line(run: dict) -> dict:
+        return {k: run[k] for k in ("route", "route_attrs", "ms", "stage_ms")}
+
+    # 1. cold: a fresh Database at the defaults, every entry and family cold
+    t0 = time.perf_counter()
+    db = Database(data_home, device=device)
+    eng = db.query_engine
+    reset_counts()  # the builder's launches, from the first touch to the drain
+    cold = {}
+    for name in FUSED_COLD_ORDER:
+        run = _routed_run(db, queries[name], is_cuda)
+        want = FUSED_COLD_ROUTES[name]
+        if run["route"] != want:
+            raise AssertionError(f"fused cold {name}: the {run['route']!r} route, expected "
+                                 f"{want!r} ({run['decisions']})")
+        if want == "cold_host_serve" and run["route_attrs"].get("fused") is not True:
+            raise AssertionError(f"fused cold {name}: not the fused ladder: {run['decisions']}")
+        if name == "cpu-max-all-8" and not run["route_attrs"].get("wide_cold"):
+            raise AssertionError(f"fused cold {name}: not served as wide_cold: "
+                                 f"{run['route_attrs']}")
+        _first_touch_stages(name, run, "fused cold")
+        against_cpu(name, run, "fused cold")
+        cold[name] = line(run)
+    cold_s = time.perf_counter() - t0
+    emit({"phase": "fused_ladder", "step": "cold", "seconds": cold_s, "queries": cold,
+          "host_fast_path": eng.stats.get("host_fast_path", 0),
+          "cold_serves": eng.stats.get("cold_serves", 0)})
+
+    # 2. drain: the builder's record
+    drain_s = fused_drain(db)
+    if is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    built = {k: v for k, v in launch_counts().items() if v}
+    cache = eng.tile_cache.stats()
+    ssts = sum(len(r.files()) for r in (db.storage.region(rid)
+                                        for rid in db.storage.region_ids()))
+    if cache["file_decodes"] != ssts:
+        raise AssertionError(f"fused build: {cache['file_decodes']} file decodes for {ssts} SSTs")
+    if is_cuda and not all(built.get(k) for k in (_QUANT, _ARGSORT, _GATHER)):
+        raise AssertionError(f"the builder did not launch K5, K14 and K15: {built}")
+    record = {k: cache[k] for k in ("fused_builds", "fused_manifests", "fused_regions_built",
+                                     "file_decodes", "fused_decodes_saved",
+                                     "fused_encodes_saved", "build_coalesced", "builds",
+                                     "bytes")}
+    record.update(ssts=ssts, fused_build_errors=eng.stats.get("fused_build_errors", 0))
+    emit({"phase": "fused_ladder", "step": "drain", "seconds": drain_s,
+          "since_first_touch_s": time.perf_counter() - t0, "builder": record,
+          "launches": built})
+
+    # 3. warm: the families the builder warmed, on the card
+    t0 = time.perf_counter()
+    warm = {}
+    for name, sql in queries.items():
+        runs = []
+        for _ in range(max(reps, 1)):
+            run = _routed_run(db, sql, is_cuda)
+            want = WARM_ROUTES.get(name, "tile")
+            if run["route"] != want:
+                raise AssertionError(f"fused warm {name}: the {run['route']!r} route, expected "
+                                     f"{want!r} ({run['decisions']})")
+            if want == "tile" and (run["builds"] or run["bytes_added"]):
+                raise AssertionError(f"fused warm {name}: {run['builds']} builds, "
+                                     f"{run['bytes_added']} device bytes added")
+            if runs and not run["result"].equals(runs[0]["result"]):
+                raise AssertionError(f"fused warm {name}: a warm run changed the result")
+            runs.append(run)
+        against_cpu(name, runs[0], "fused warm")
+        launched = _summed(*[r["launches"] for r in runs])
+        if is_cuda and full_size and want == "tile":
+            need = EXPECTED_TILE_PATH[name] - {_QUANT}
+            if not need <= set(launched):
+                raise AssertionError(f"fused warm {name}: launched {launched}, needs "
+                                     f"{sorted(need)}")
+        warm[name] = {"route": runs[0]["route"],
+                      "p50_ms": float(np.median([r["ms"] for r in runs])),
+                      "tile_p50_ms": tile_queries[name]["warm_p50_ms"],
+                      "host_routes_p50_ms": host_routes["warm"][name]["p50_ms"],
+                      "launches": launched}
+    emit({"phase": "fused_ladder", "step": "warm", "seconds": time.perf_counter() - t0,
+          "reps": max(reps, 1), "queries": warm})
+    _free(db)
+
+    # 4. prewarm: host-only, then a fused cold serve
+    t0 = time.perf_counter()
+    db = Database(data_home, device=device)
+    eng = db.query_engine
+    before = launch_counts()
+    t1 = time.perf_counter()
+    warmed = db.prewarm()
+    prewarm_ms = (time.perf_counter() - t1) * 1e3
+    table_key = f"{db.current_database}.cpu"
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    cache = eng.tile_cache.stats()
+    if warmed.get(table_key, {}).get("regions_built") != 1 or launched or cache["bytes"]:
+        raise AssertionError(f"fused prewarm: {warmed}, launched {launched}, "
+                             f"{cache['bytes']} device bytes")
+    first = _routed_run(db, queries["double-groupby-1"], is_cuda)
+    if first["route"] != "cold_host_serve" or first["route_attrs"].get("fused") is not True:
+        raise AssertionError(f"after the fused prewarm double-groupby-1: {first['decisions']}")
+    _first_touch_stages("double-groupby-1", first, "after the fused prewarm")
+    against_cpu("double-groupby-1", first, "after the fused prewarm")
+    prewarm_drain_s = fused_drain(db)
+    emit({"phase": "fused_ladder", "step": "prewarm", "seconds": time.perf_counter() - t0,
+          "prewarm": warmed.get(table_key), "prewarm_ms": prewarm_ms,
+          "device_bytes_after_prewarm": cache["bytes"], "prewarm_launches": launched,
+          "file_decodes": cache["file_decodes"], "first_query": line(first),
+          "drain_s": prewarm_drain_s})
+    _free(db)
+    totals = launch_counts()  # the phase's launches end here
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "fused_ladder", "seconds": seconds,
+          "launches": {k: v for k, v in totals.items() if v}})
+    return {"seconds": seconds, "launches": totals, "cold": cold, "cold_s": cold_s,
+            "drain_s": drain_s,
+            "builder": record, "builder_launches": built, "warm": warm,
+            "prewarm": {"stats": warmed.get(table_key), "ms": prewarm_ms,
+                        "first_query": line(first)}}
+
+
+def run_tql_first_touch(data_home: str, device: str, tsbs: Tsbs, legacy_t2) -> dict:
+    """Phase 5e's TQL step, on phase 6's tables in a fresh Database at the
+    defaults: T2 (`sum(rate(...))`) over the last hour at '15s', a family
+    not yet touched with the fused build on, is declined by the tile route
+    on its first touch (the legacy scan answers; its build is queued), then
+    after the drain runs on the tile route (K9-K12).  Both against phase
+    6's legacy result of the same window (rel 1e-12, TQL_ULP)."""
+    from greptimedb_tpu_torch import Database
+
+    is_cuda = device.startswith("cuda")
+    hi = tsbs.end
+    sql = tql(dict(tql_queries(tsbs.n_hosts))["T2"], hi - H3600, hi, "15s")
+    t0 = time.perf_counter()
+    db = Database(data_home, device=device)
+    try:
+        first, first_ms, first_st, d1 = _tql_run(db, sql, is_cuda)
+        cold = db.query_engine.stats.get("tql_tile_cold_serves", 0)
+        if cold != 1 or d1["tql_tile_dispatches"] or d1["tql_legacy"] != 1:
+            raise AssertionError(f"TQL first touch: not served by the legacy scan: {d1}, "
+                                 f"cold serves {cold}")
+        compare_tql(first, legacy_t2, "TQL first touch vs phase 6's legacy", 1e-12)
+        drain_s = fused_drain(db)
+        before = launch_counts()
+        again, again_ms, again_st, d2 = _tql_run(db, sql, is_cuda)
+        launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        if d2["tql_tile_dispatches"] != 1 or d2["tql_legacy"] or d2["tql_tile_declined"]:
+            raise AssertionError(f"TQL after the drain: not the tile route: {d2}")
+        if is_cuda and set(launched) != EXPECTED_TQL_PATH["T2"]:
+            raise AssertionError(f"TQL after the drain launched {launched}, path is "
+                                 f"{sorted(EXPECTED_TQL_PATH['T2'])}")
+        rel = compare_tql(again, legacy_t2, "TQL tile route after the drain vs legacy", 1e-12)
+        out = {"seconds": time.perf_counter() - t0, "first_ms": first_ms,
+               "first_stage_ms": first_st, "first_delta": {k: v for k, v in d1.items() if v},
+               "cold_serves": cold, "drain_s": drain_s, "tile_ms": again_ms,
+               "tile_stage_ms": again_st, "launches": launched, "max_rel_err": rel,
+               "builder": {k: v for k, v in db.query_engine.tile_cache.stats().items()
+                           if k.startswith("fused") or k == "file_decodes"}}
+        emit({"phase": "fused_ladder", "step": "tql_first_touch", **out})
+        return out
+    finally:
+        _free(db)
 
 
 def _tile_against_cpu(db, sql: str, what: str, tol: float = 1e-7, inexact=()):
@@ -4493,8 +4764,10 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
     cache = eng.tile_cache.stats()
     prom_sql = run_prom_sql_phase(db, tsbs, samples, is_cuda, prom_sql_reps)
     del samples
-    db.close()
+    _free(db)
     del db
+    # phase 5e's TQL step: a first touch under the fused build
+    first_touch = run_tql_first_touch(data_home, device, tsbs, legacy["T2"]["result"])
 
     # -- the CPU backend (plain versions) over the same hour --
     cpu_db = Database(data_home, device="cpu", config=device_route_config())
@@ -4519,7 +4792,7 @@ def run_tql_slice(device: str, n_hosts: int, hours: int, reps: int, data_home: s
         "legacy": {k: {kk: vv for kk, vv in v.items() if kk != "result"}
                    for k, v in legacy.items()},
         "cpu": cpu, "twin_max_rel_err": twin_err, "cache": cache,
-        "full_size": full_size, "prom_sql": prom_sql,
+        "full_size": full_size, "prom_sql": prom_sql, "first_touch": first_touch,
     }
 
 
@@ -7210,6 +7483,7 @@ def main(argv=None) -> int:
                                    for k, v in sl["tile"]["queries"].items()},
               "tile_cache": sl["tile"]["cache"], "limb_reruns": sl["tile"]["limb_reruns"],
               "host_routes_s": sl["host_routes"]["seconds"],
+              "fused_ladder_s": sl["fused"]["seconds"],
               "tick": {k: v for k, v in sl["tick"].items()
                        if k not in ("ticks", "slid_ticks", "launches")},
               "live": {k: v for k, v in sl["live"].items() if k not in ("queries", "launches")}})
@@ -7483,6 +7757,11 @@ def main(argv=None) -> int:
         k["prom_sql_launches"] = tq["prom_sql"]["launches"].get(k["name"], 0)
         # phase 5d: the host routes' runs (the card's queries among them)
         k["host_routes_launches"] = sl["host_routes"]["launches"].get(k["name"], 0)
+        # phase 5e: the fused build's builder (first touch to drain) and
+        # the warm runs, and the TQL first touch's tile run after its drain
+        k["fused_ladder_launches"] = sl["fused"]["launches"].get(k["name"], 0)
+        k["fused_builder_launches"] = sl["fused"]["builder_launches"].get(k["name"], 0)
+        k["tql_first_touch_launches"] = tq["first_touch"]["launches"].get(k["name"], 0)
         if k["name"] in prom_sql_kernels and k["prom_sql_launches"] == 0:
             raise AssertionError(f"kernel {k['name']} never launched on phase 6b")
     emit({"kernels": kernels})

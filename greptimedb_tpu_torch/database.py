@@ -101,6 +101,10 @@ class Database:
         return self.config.query.slots
 
     def close(self):
+        # the fused build's background builder first: it reads the storage
+        te = self.query_engine._tile_executor
+        if te is not None:
+            te.shutdown_fused()
         self.storage.close()
 
     # ---- SQL entry --------------------------------------------------------
@@ -350,12 +354,19 @@ class Database:
 
     def prewarm(self, tables=None, database: str | None = None) -> dict:
         """Build the tile path's super-tiles of flushed data off the query
-        path (`TileExecutor.prewarm`: host consolidation, the upload of every
-        numeric field, K5 over the non-null ones), so the first query of a
-        family finds its planes resident.  `tables` restricts it to the
-        named tables (bare or database-qualified), `database` to one
-        database.  Returns {"db.table": {"regions_built", "ms"}}; {} with
-        the tile cache off.  A failed build, upload or kernel raises."""
+        path (`TileExecutor.prewarm`).  Under the fused build (the default:
+        `tile.fused_build` and its pass on) the fused branch runs: the
+        table's base manifest is recorded and its union build runs
+        host-only — the Parquet decode, encodes and (pk, ts) sort the host
+        routes read, no device plane and no launch; the device planes come
+        with each family's background build.  Otherwise the legacy branch:
+        the host consolidation, the upload of every numeric field and K5
+        over the non-null ones, so the first query of a family finds its
+        planes resident.  `tables` restricts it to the named tables (bare
+        or database-qualified), `database` to one database.  Returns
+        {"db.table": {"regions_built", "ms"}} (with "coalesced" when a
+        concurrent build led); {} with the tile cache off.  A failed build,
+        upload or kernel raises."""
         te = self.query_engine.tile_executor()
         if te is None:
             return {}

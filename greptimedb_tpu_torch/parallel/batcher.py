@@ -20,7 +20,9 @@ this module answers them as one tick:
     other's math: each result is byte-identical to the member's solo run.
     A member whose decoded result is a rerun verdict (the limb bound
     byte, the hash overflow byte) runs solo on its own thread, walking the
-    full attempt ladder.  A failing capture or replay raises to the
+    full attempt ladder.  A member answered on a host route returns its
+    table before the dispatch site, outside the tick; the fused build's
+    ghost runs never join one (the builder calls `execute_direct`).  A failing capture or replay raises to the
     callers: there is no catch-all degrade.
 
   * `WindowedResultCache` — finished results keyed on (literal-

@@ -328,6 +328,32 @@ def fold_partials(partials: list[dict], dev) -> dict[str, AggState]:
     return fold_state_dicts(partials, 1, range(len(partials)), rule="psum", dev=dev)
 
 
+def host_last_winners(g, t, v, lexsort_cap: int = 1 << 22):
+    """The numpy twin of the `last_value` kernel (K4) for ONE source range:
+    one (gid, ts, value) winner per gid present in `g`, the winner being
+    the max-ts row, a ts tie going to the LAST row in scan order (K4's
+    highest-row-index rule; the layout is (pk, ts, write order) sorted, so
+    that is last write wins).
+
+    Rows already in runs (gid non-decreasing, ts non-decreasing within a
+    gid run) take the run-boundary path; other rows are put in runs by a
+    stable lexsort, which keeps the same tie rule.  Returns None when such
+    rows number more than `lexsort_cap` (the caller declines to the device
+    path).  Merging across sources is the caller's: fold winners in source
+    order, a ts tie going to the later source."""
+    if not len(g):
+        return g[:0], t[:0], v[:0]
+    runs_ok = bool(np.all(g[1:] >= g[:-1])) and bool(
+        np.all((g[1:] != g[:-1]) | (t[1:] >= t[:-1])))
+    if not runs_ok:
+        if len(g) > lexsort_cap:
+            return None
+        order = np.lexsort((t, g))
+        g, t, v = g[order], t[order], v[order]
+    ends = np.append(np.flatnonzero(g[1:] != g[:-1]), len(g) - 1)
+    return g[ends], t[ends], v[ends]
+
+
 @dataclass
 class GroupByResult:
     """Finalized aggregates plus the host-side group key decode."""

@@ -1,13 +1,14 @@
 """The tile executor: a lowered query over the cached super-tiles.
 
 Counterpart of `greptimedb_tpu/parallel/tile_cache.py` `TileExecutor`:
-`execute`, `_try_execute_impl`, `_locked_execute` with the legacy
-cold-serve ladder, `_encode_mem` (the memtable tail), `_fetch_result`,
-`_finalize`, `_decode_result`, the `_assemble_*` helpers, `_mesh_attempt`
-and `prewarm`, for the configuration the port implements (the "sort" and
-"hash" strategies, the mesh of `tile.mesh_devices` slots, the dedup keep
-plane, window tiles, the host fast path and the cold host serve of
-parallel/tile_host.py, no fused or pipelined builds, no streamed spill).
+`execute`, `_try_execute_impl`, `_locked_execute` with the cold-serve
+ladders, `_encode_mem` (the memtable tail), `_fetch_result`, `_finalize`,
+`_decode_result`, the `_assemble_*` helpers, `_mesh_attempt`, the fused
+family build (`_fused_*`, `shutdown_fused`) and `prewarm`, for the
+configuration the port implements (the "sort" and "hash" strategies, the
+mesh of `tile.mesh_devices` slots, the dedup keep plane, window tiles,
+the host fast path and the cold host serve of parallel/tile_host.py, the
+fused build; no pipelined build, no streamed spill).
 A query:
 
   1. snapshots each region's (files, memtables) and checks that the
@@ -27,8 +28,10 @@ A query:
      output space the host routes come next: the host fast path
      (`host_fast_path`: a pk-equality slice folded with numpy, counted in
      `host_fast_path`), then the cold serve (`cold_host_serve`: a grouped
-     aggregate over planes not yet resident, answered once per entry from
-     the host consolidation, counted in `cold_serves`).  A route that
+     aggregate answered from the host consolidation, counted in
+     `cold_serves` — under the fused build a family's first touch, with
+     its build scheduled; on the legacy ladder a query over planes not
+     yet resident, once per entry).  A route that
      answers returns before any upload or launch; only when both decline
      do the entries upload what the host-only build deferred;
   4. runs one tile program over every chunk and tail — of the
@@ -46,6 +49,23 @@ A query:
      and otherwise declines, so the table-fed path answers.  A hash
      result decodes from the slot table: occupied slots in ascending gid
      order, the order of the dense path's rows.
+
+The fused family build (`tile.fused_build` and the `fused_build` pass,
+both on by default): a query family (`plan_fp`: the plan without its
+literals) touched for the first time answers on a host route — the cold
+serve's fused ladder, or the host fast path of a wide slice whose planes
+are cold (`wide_cold`) — and records its plane manifest; a background
+thread (`_fused_worker`, one for the executor) then runs one union build
+of the table's manifests (`TileCacheManager.fused_union_build`, under
+`build_gate`) and a ghost run of each queued family: a normal
+`execute_direct` inside `fused_build_scope()` whose result is thrown
+away, so the family's planes are built and its path primed.  Inside the
+scope the host routes decline, the result cache is not probed and no
+tick is joined.  A query of a family whose build is in flight waits for
+it (`_fused_join`, before any lock).  A failed build never fails a
+query: it is counted in `fused_build_errors`, kept in
+`last_fused_error` and on the family's record, and the next touch builds
+on its own thread.
 
 `execute` returns None when the query does not apply, and the caller
 takes the table-fed path.  Before the dispatch path it probes the windowed
@@ -73,6 +93,8 @@ decode.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 import threading
@@ -99,7 +121,13 @@ from .batcher import (
 )
 from .executor import COUNT_STAR, GroupByResult, _FUNC_TO_KERNEL
 from .tile_host import HostRoutes
-from .tile_planes import TileCacheManager, TileContext, _encode_host_tiles, _SuperTiles
+from .tile_planes import (
+    PlaneManifest,
+    TileCacheManager,
+    TileContext,
+    _encode_host_tiles,
+    _SuperTiles,
+)
 from .tile_planner import (
     build_plan,
     choose_agg_strategy,
@@ -115,8 +143,61 @@ from .tile_program import (
     limb_sum_cols,
     mesh_run,
     np_dtype,
+    on_device,
     tile_program,
 )
+
+
+# ---- the fused family build's thread scope -------------------------------------
+# The background builder re-enters the normal execution path to build a
+# family's planes and prime its path (the "ghost" run).  Inside the scope
+# the host routes decline, so the ghost builds instead of answering from
+# the host, and no family build is waited on, so it never waits on itself.
+_FUSED_BUILD = threading.local()
+
+
+@contextlib.contextmanager
+def fused_build_scope():
+    """Mark the calling thread as the fused background builder."""
+    prev = getattr(_FUSED_BUILD, "depth", 0)
+    _FUSED_BUILD.depth = prev + 1
+    try:
+        yield
+    finally:
+        _FUSED_BUILD.depth = prev
+
+
+def in_fused_build() -> bool:
+    return getattr(_FUSED_BUILD, "depth", 0) > 0
+
+
+class _FamilyBuild:
+    """One family's queued or running build: queries of the family wait on
+    `event`; `error` is the build's failure (the waiters proceed and build
+    on their own thread: they never inherit it)."""
+
+    __slots__ = ("event", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.error = None
+
+
+@dataclasses.dataclass
+class _FusedItem:
+    """One queued family build.  A SQL family carries its lowering (a copy:
+    the ghost run sets its `post_done`) for `execute_direct`; another
+    engine (the TQL tile path) passes `run`, a callable that builds and
+    primes its family."""
+
+    fp: tuple
+    rec: _FamilyBuild | None
+    lowering: object
+    schema: object
+    time_bounds: object
+    ctx: TileContext
+    manifest: PlaneManifest
+    run: object = None
 
 
 class _CallState(threading.local):
@@ -151,8 +232,11 @@ class TileExecutor(HostRoutes):
     """Aggregation over cached device super-tiles; returns None when not
     applicable so the caller can take the table-fed path."""
 
-    # warm families remembered (an LRU), as the reference's _fused_done
+    # families remembered in each of the fused build's LRUs, and the most
+    # family builds queued at once (past it a family takes the legacy
+    # ladder)
     _FAMILIES_MAX = 4096
+    _FUSED_QUEUE_MAX = 128
 
     def __init__(self, cache: TileCacheManager, config, batch_config=None, stats=None):
         self.cache = cache
@@ -162,7 +246,22 @@ class TileExecutor(HostRoutes):
         self.stats = stats if stats is not None else Counters()
         self._call = _CallState()
         self._lock = threading.Lock()
-        self._warm: OrderedDict = OrderedDict()  # plan fingerprints answered on the card
+        # the fused family build, per family fingerprint (`plan_fp`):
+        # `served` holds families answered on a host route on their first
+        # touch (their build scheduled), `done` families whose path is warm
+        # (answered without such a serve, or built by a ghost run), `builds`
+        # the queued or running build each query of the family waits on
+        self._fused_lock = threading.Lock()
+        self._fused_served: OrderedDict = OrderedDict()
+        self._fused_done: OrderedDict = OrderedDict()
+        self._fused_builds: dict = {}
+        self._fused_queue: list = []
+        self._fused_thread: threading.Thread | None = None
+        self._fused_worker_live = False
+        self._fused_stop = False
+        # the last failure of a background build (counted in the stats'
+        # `fused_build_errors`)
+        self.last_fused_error: BaseException | None = None
         self._batcher = QueryBatcher(self)
         self.result_cache: WindowedResultCache | None = None
         # tick programs by (member keys, input signatures, source identity),
@@ -215,13 +314,17 @@ class TileExecutor(HostRoutes):
     # -- public entry --------------------------------------------------------
     def execute(self, lowering, schema, time_bounds, ctx: TileContext):
         """The result cache, the batch tick of a warm family, or the solo
-        path."""
+        path; a family whose fused build is in flight first waits for it."""
         self._reset_call()
         bc = self.batch_config
         if bc is not None:
             bc.validate()
+        ghost = in_fused_build()
         fp = self.plan_fp(lowering, ctx)
-        rc = self._result_cache(bc)
+        if not ghost and self._fused_enabled():
+            # before any lock: the builder takes the table lock
+            self._fused_join(fp)
+        rc = None if ghost else self._result_cache(bc)
         ck = None
         if rc is not None:
             ck = WindowedResultCache.key_for(fp, lowering, schema, ctx)
@@ -234,18 +337,18 @@ class TileExecutor(HostRoutes):
                 table, lowering.post_done = hit
                 self.count(result_cache_hits=1)
                 return table
-        with self._lock:
-            warm = fp in self._warm
-        if bc is not None and bc.window_ms > 0 and warm:
+        with self._fused_lock:
+            warm = fp in self._fused_done
+        if bc is not None and bc.window_ms > 0 and warm and not ghost:
             out = self._batcher.submit(lowering, schema, time_bounds, ctx, bc)
         else:
             out = self.execute_direct(lowering, schema, time_bounds, ctx)
         if out is not None:
-            with self._lock:
-                self._warm[fp] = None
-                self._warm.move_to_end(fp)
-                while len(self._warm) > self._FAMILIES_MAX:
-                    self._warm.popitem(last=False)
+            with self._fused_lock:
+                if fp not in self._fused_served:
+                    # answered with no first-touch host serve: the family is
+                    # warm (a served one becomes so when its ghost run ends)
+                    self._mark_fused_locked(self._fused_done, fp)
             # the dispatch may have read data newer than the key's snapshot
             # (the leader sleeps out the window): store only a current key
             if rc is not None and region_versions(ctx) == ck[3]:
@@ -301,6 +404,166 @@ class TileExecutor(HostRoutes):
             tuple(lowering.agg_specs), lowering.group_exprs, lowering.agg_exprs,
             tuple(TileExecutor._post_op_fp(op) for op in lowering.post_ops),
         )), region_versions(ctx))
+
+    # -- the fused family build -------------------------------------------------
+    def _fused_enabled(self) -> bool:
+        """`tile.fused_build` and the `fused_build` pass both on."""
+        return bool(getattr(self.cache.tile_config, "fused_build", True)
+                    and passes.enabled("fused_build", self.config))
+
+    def _mark_fused_locked(self, od: OrderedDict, fp) -> None:
+        od[fp] = None
+        od.move_to_end(fp)
+        while len(od) > self._FAMILIES_MAX:
+            od.popitem(last=False)
+
+    def fused_first_touch_fp(self, fp) -> bool:
+        """`fp` was never served on a first touch, built nor queued."""
+        with self._fused_lock:
+            return (fp not in self._fused_served and fp not in self._fused_done
+                    and fp not in self._fused_builds)
+
+    def _fused_first_touch(self, lowering, ctx: TileContext) -> bool:
+        """The query's family is new: a host route answers it and schedules
+        its background build (never inside the builder)."""
+        if in_fused_build() or not self._fused_enabled():
+            return False
+        return self.fused_first_touch_fp(self.plan_fp(lowering, ctx))
+
+    def _fused_join(self, fp) -> None:
+        """Wait for the in-flight build of this family, if any (counted in
+        `build_coalesced`).  Should it fail, the caller proceeds and builds
+        on its own thread."""
+        with self._fused_lock:
+            rec = self._fused_builds.get(fp)
+        if rec is None:
+            return
+        self.cache.count(build_coalesced=1)
+        rec.event.wait()
+
+    def _fused_schedule(self, lowering, schema, time_bounds, ctx: TileContext,
+                        manifest: PlaneManifest) -> None:
+        """Record the family's manifest and queue its build: the worker's
+        union build, then a ghost run of a copy of the lowering."""
+        ghost = copy.copy(lowering)
+        ghost.post_done = frozenset()
+        self._fused_enqueue(_FusedItem(
+            fp=self.plan_fp(lowering, ctx), rec=None, lowering=ghost, schema=schema,
+            time_bounds=time_bounds, ctx=ctx, manifest=manifest))
+
+    def fused_schedule_custom(self, fp, manifest: PlaneManifest, ctx: TileContext, schema,
+                              run) -> None:
+        """Queue a family build of another engine (the TQL tile path): the
+        same manifest ring and union build, with `run` as the ghost run."""
+        self._fused_enqueue(_FusedItem(fp=fp, rec=None, lowering=None, schema=schema,
+                                       time_bounds=None, ctx=ctx, manifest=manifest, run=run))
+
+    def _fused_enqueue(self, item: _FusedItem) -> None:
+        self.cache.record_manifest(item.manifest)
+        start = False
+        with self._fused_lock:
+            self._mark_fused_locked(self._fused_served, item.fp)
+            if (self._fused_stop or item.fp in self._fused_builds
+                    or item.fp in self._fused_done
+                    or len(self._fused_queue) >= self._FUSED_QUEUE_MAX):
+                return
+            item.rec = self._fused_builds[item.fp] = _FamilyBuild()
+            self._fused_queue.append(item)
+            if not self._fused_worker_live:
+                self._fused_worker_live = True
+                self._fused_thread = threading.Thread(
+                    target=self._fused_worker, name="tile-fused-build", daemon=True)
+                start = True
+        if start:
+            self._fused_thread.start()
+
+    def fused_pending(self) -> int:
+        """Family builds queued or running (0: the builder is drained)."""
+        with self._fused_lock:
+            return len(self._fused_builds) + len(self._fused_queue)
+
+    def _fused_failed(self, err: BaseException) -> None:
+        self.last_fused_error = err
+        self.count(fused_build_errors=1)
+
+    def _fused_worker(self) -> None:
+        """The background builder: takes the queued families in batches;
+        per table one union build of the ring's manifests and the queued
+        ones (under `build_gate`, so a concurrent prewarm or builder leads
+        or waits), then each family's ghost run, on the cache's device.  A
+        failure is recorded (`_fused_failed`, the family's record) and the
+        next build goes on; a family is done only when its ghost run
+        succeeded."""
+        while True:
+            with self._fused_lock:
+                items, self._fused_queue = self._fused_queue, []
+                if not items or self._fused_stop:
+                    self._fused_worker_live = False
+                    stopped = self._abandon_locked(items)
+                    break
+            by_table: dict[str, list] = {}
+            for it in items:
+                by_table.setdefault(it.ctx.table_key, []).append(it)
+            for tkey, group in by_table.items():
+                union_err = None
+                try:
+                    with fused_build_scope(), on_device(self.device):
+                        manifests = list(dict.fromkeys(
+                            self.cache.family_manifests(tkey) + [it.manifest for it in group]))
+                        with self.cache.build_gate(tkey) as leader:
+                            if leader:
+                                self.cache.fused_union_build(group[0].ctx, group[0].schema,
+                                                             manifests)
+                except Exception as e:  # recorded; the ghost runs build what it missed
+                    union_err = e
+                    self._fused_failed(e)
+                for it in group:
+                    err = None
+                    with self._fused_lock:
+                        stop = self._fused_stop
+                    if stop:
+                        err = RuntimeError("fused builder stopped")
+                    else:
+                        try:
+                            with fused_build_scope(), on_device(self.device):
+                                if it.run is not None:
+                                    it.run()
+                                else:
+                                    self.execute_direct(it.lowering, it.schema,
+                                                        it.time_bounds, it.ctx)
+                        except Exception as e:  # recorded; never a query's failure
+                            err = e
+                            self._fused_failed(e)
+                    with self._fused_lock:
+                        it.rec.error = err or union_err
+                        if err is None:
+                            self._mark_fused_locked(self._fused_done, it.fp)
+                        self._fused_builds.pop(it.fp, None)
+                    it.rec.event.set()
+        for it in stopped:
+            it.rec.event.set()
+
+    def _abandon_locked(self, items: list) -> list:
+        """Drop queued builds (the builder stopping): their records carry an
+        error and leave `builds`; the caller wakes their waiters."""
+        for it in items:
+            it.rec.error = RuntimeError("fused builder stopped")
+            self._fused_builds.pop(it.fp, None)
+        return items
+
+    def shutdown_fused(self, timeout: float | None = None) -> None:
+        """Stop the background builder (Database.close): queued builds are
+        abandoned and their waiters woken; a running ghost run ends first
+        (up to `timeout` s, None waits for it)."""
+        with self._fused_lock:
+            self._fused_stop = True
+            items, self._fused_queue = self._fused_queue, []
+            self._abandon_locked(items)
+            t = self._fused_thread
+        for it in items:
+            it.rec.event.set()
+        if t is not None and t.is_alive() and t is not threading.current_thread():
+            t.join(timeout)
 
     def execute_direct(self, lowering, schema, time_bounds, ctx: TileContext):
         """The solo path: one query over the planes, under the table lock.
@@ -482,14 +745,17 @@ class TileExecutor(HostRoutes):
 
         # 3b. the host routes, over a dense output space: answered before
         # the device is chosen, with no upload and no launch
-        routed = self._host_routes(plan, dyn_host, entries, region_sources, ctx, use_ts, pk,
-                                   value_cols, all_tag_cols, dedup_regions, window, build_t)
+        routed = self._host_routes(lowering, schema, time_bounds, plan, dyn_host, entries,
+                                   region_sources, ctx, use_ts, pk, value_cols, all_tag_cols,
+                                   dedup_regions, window, build_t)
         if routed is not None:
             return routed
         # the device path: upload what the host-only build deferred (an
         # entry whose planes are resident is a hit)
+        uploaded: set[int] = set()
         for region, metas, _mems in region_sources:
             if metas:
+                before = build_t.get("upload")
                 up, _excluded = self.cache.super_tiles(
                     region, ctx.dictionary, metas, all_tag_cols, ts_name or use_ts,
                     value_cols, pinned_ids, pk, timings=build_t,
@@ -497,6 +763,8 @@ class TileExecutor(HostRoutes):
                 if up is None:
                     return None
                 entries[region.region_id] = up
+                if build_t.get("upload") != before:
+                    uploaded.add(region.region_id)
 
         # 4. the device sources: chunks of each super-tile (or of its window
         # tile), then the tails
@@ -512,7 +780,7 @@ class TileExecutor(HostRoutes):
             if s is not None:
                 got = self._entry_sources(s, plan, window, use_ts, need_cols, limb_need,
                                           region.region_id in dedup_regions, ctx,
-                                          pinned_ids, stage_ms)
+                                          pinned_ids, stage_ms, region.region_id in uploaded)
                 if got is None:
                     return None
                 device_sources.extend(got[0])
@@ -607,47 +875,83 @@ class TileExecutor(HostRoutes):
                 self.count(limb_reruns=1)
         return None
 
-    def _host_routes(self, plan, dyn_host, entries, region_sources, ctx, use_ts, pk, value_cols,
-                     all_tag_cols, dedup_regions, window, build_t):
+    def _host_routes(self, lowering, schema, time_bounds, plan, dyn_host, entries,
+                     region_sources, ctx, use_ts, pk, value_cols, all_tag_cols, dedup_regions,
+                     window, build_t):
         """The host fast path, then the cold serve (parallel/tile_host.py),
         each noted in the pass trace with the reference's wording: the
-        answer, or None when both decline."""
+        answer, or None when both decline.  A family's first touch under
+        the fused build takes the cold serve's fused ladder and schedules
+        the family's build, as does a wide host fast path slice served
+        only because its planes are cold.  Inside the builder both
+        decline: the ghost run builds."""
         t0 = time.perf_counter()
+        ghost = in_fused_build()
         dense_host_ok = plan.num_groups <= self.config.max_groups * 64
         super_entries = list(entries.values())
         mem_slots = [(r, mt) for r, _f, ms in region_sources for mt in ms]
-        hfp_enabled = passes.enabled("host_fast_path", self.config) and dense_host_ok
+        hfp_enabled = (passes.enabled("host_fast_path", self.config) and dense_host_ok
+                       and not ghost)
         table = None
         hints: dict = {}
         if hfp_enabled:
             table = self.host_execute(plan, dyn_host, super_entries, mem_slots, ctx, use_ts, pk,
                                       value_cols, all_tag_cols, dedup_regions, hints=hints)
+
+        def manifest(window_geometry=None) -> PlaneManifest:
+            return PlaneManifest(
+                table_key=ctx.table_key, tag_cols=tuple(all_tag_cols), ts_col=use_ts,
+                value_cols=tuple(value_cols), limb_cols=tuple(limb_sum_cols(plan)),
+                time_major=bool(plan.time_major), window=window_geometry,
+                dedup=bool(dedup_regions))
+
         if table is not None:
             self.count(host_fast_path=1)
-            # `wide_cold`: served only because the planes are cold (the
-            # reference's fused ladder would warm them in the background)
+            if hints.get("wide_cold") and self._fused_first_touch(lowering, ctx):
+                # a wide multi-key slice served only because its planes are
+                # cold: warm them in the background, so the warm runs take
+                # the tile dispatch
+                self._fused_schedule(lowering, schema, time_bounds, ctx, manifest())
             passes.note("host_fast_path", True, "pk-equality slice served from sorted host planes",
                         rows_out=table.num_rows, **hints)
         else:
             passes.note("host_fast_path", False,
                         "query not selective enough for the sorted-host binary search"
                         if hfp_enabled else "pass disabled")
-            if dense_host_ok:
+            fused_serve = self._fused_first_touch(lowering, ctx)
+            if (dense_host_ok or fused_serve) and not ghost:
                 table = self.host_cold_grouped(plan, dyn_host, super_entries, mem_slots, ctx,
                                                use_ts, value_cols, all_tag_cols, dedup_regions,
-                                               window)
+                                               window, fused=fused_serve)
             if table is None:
                 return None
             self.count(cold_serves=1)
-            passes.note("cold_host_serve", True,
-                        "grouped aggregate served from the host consolidation; device tiles "
-                        "build on the next touch", rows_out=table.num_rows)
+            if fused_serve:
+                geometry = None
+                if (not plan.time_major and window is not None and use_ts
+                        and window[0] > -(1 << 61) and window[1] < (1 << 61)
+                        and passes.enabled("window_tile", self.config)):
+                    geometry = (int(window[0]), int(window[1]))
+                self._fused_schedule(lowering, schema, time_bounds, ctx, manifest(geometry))
+                passes.note("fused_build", True,
+                            "family manifest recorded; fused background build scheduled "
+                            "(waiters coalesce onto it)",
+                            window=bool(geometry), time_major=bool(plan.time_major))
+                passes.note("cold_host_serve", True,
+                            "grouped aggregate served from the host consolidation while the "
+                            "fused family build warms device planes in the background",
+                            rows_out=table.num_rows, fused=True)
+            else:
+                passes.note("cold_host_serve", True,
+                            "grouped aggregate served from the host consolidation; device tiles "
+                            "build on the next touch", rows_out=table.num_rows)
         self.timings.update(build_t)
         self._add_ms("host", t0)
         return table
 
     def _entry_sources(self, s: _SuperTiles, plan, window, use_ts, need_cols, limb_need,
-                       dedup: bool, ctx: TileContext, pinned_ids, stage_ms: dict):
+                       dedup: bool, ctx: TileContext, pinned_ids, stage_ms: dict,
+                       uploaded: bool = False):
         """One region's entry as device sources: (sources, mesh slots), or
         None to decline.  A region whose in-window files overlap reads the
         keep plane (`dedup_plane`; the keep plane cannot be built: decline,
@@ -655,7 +959,8 @@ class TileExecutor(HostRoutes):
         a window bounded on both sides reads the window tile where it
         qualifies (`window_tile`); otherwise the entry's chunks, or their
         time-major copies.  `stage_ms` gains keep, the window tile's
-        stages, time_major and quantize (each through a sync)."""
+        stages, time_major and quantize (each through a sync).  `uploaded`:
+        the query uploaded planes of this entry."""
         def add_ms(stage, t0):
             stage_ms[stage] = stage_ms.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
 
@@ -686,10 +991,17 @@ class TileExecutor(HostRoutes):
             passes.note("window_tile", False,
                         "window covers most of retention (or tile build declined): "
                         "full-tile scan with device masking")
-        # a tick member keeps the other members' planes: the tick reads
-        # all of them at once, and a release would re-upload them (and
-        # rebuild the tick's graph) on every tick
-        if s.nbytes > self.cache.budget // 2 and not (capture_active() or defer_active()):
+        # an entry past half the budget makes room for the planes this
+        # query adds by dropping the ones it does not read (whole-entry
+        # eviction cannot: the entry is pinned).  A query that adds none
+        # keeps them all: the other families' planes (a fused build's union
+        # among them) stay warm.  A tick member keeps the other members'
+        # planes: the tick reads all of them at once, and a release would
+        # re-upload them (and rebuild the tick's graph) on every tick
+        adds = uploaded or self.cache.lacks_derived(s, need_cols, limb_need, plan.time_major,
+                                                    dedup)
+        if (adds and s.nbytes > self.cache.budget // 2
+                and not (capture_active() or defer_active())):
             self.cache.release_unneeded(s, need_cols, keep_dedup=dedup)
         if plan.time_major:
             t0 = time.perf_counter()
@@ -779,12 +1091,18 @@ class TileExecutor(HostRoutes):
 
     # -- prewarm -----------------------------------------------------------------
     def prewarm(self, ctx: TileContext, schema) -> dict:
-        """Build a table's super-tiles off the query path (the reference's
-        non-fused `prewarm`): per region, under the table lock, the host
-        consolidation and the upload of every numeric field, then (with
-        limb accumulation on) K5 over the non-null ones.  A
-        region with no files, or whose build yields no entry, is skipped;
-        any other failure raises.  Returns {"regions_built", "ms"}."""
+        """Build a table's super-tiles off the query path.  Under the fused
+        build (the reference's fused `prewarm`): record the table's base
+        manifest and run its union build host-only (`fused_union_build(...,
+        device=False)`: the host consolidation the host routes read; no
+        device plane, no launch) under `build_gate` — when another builder
+        leads, wait for it and return {"regions_built": 0, "coalesced":
+        True, ...}.  Otherwise (the reference's non-fused `prewarm`): per
+        region, under the table lock, the host consolidation and the upload
+        of every numeric field, then (with limb accumulation on) K5 over
+        the non-null ones.  A region with no files, or whose build yields
+        no entry, is skipped; any other failure raises.  Returns
+        {"regions_built", "ms"}."""
         t0 = time.perf_counter()
         built = 0
         pk = [c.name for c in schema.tag_columns()]
@@ -793,6 +1111,19 @@ class TileExecutor(HostRoutes):
         nonnull = [c for c in value_cols
                    if schema.has_column(c) and not schema.column(c).nullable]
         limb_wanted = config_acc_dtype(self.config) == "limb"
+        if self._fused_enabled():
+            manifest = PlaneManifest(
+                table_key=ctx.table_key, tag_cols=tuple(pk), ts_col=ts_name,
+                value_cols=tuple(value_cols), limb_cols=tuple(nonnull) if limb_wanted else ())
+            self.cache.record_manifest(manifest)
+            with self.cache.build_gate(ctx.table_key) as leader:
+                if leader:
+                    out = self.cache.fused_union_build(ctx, schema, [manifest], device=False)
+                else:
+                    out = {"regions_built": 0, "coalesced": True}
+            return {"regions_built": out["regions_built"],
+                    "ms": round((time.perf_counter() - t0) * 1e3, 1),
+                    **({"coalesced": True} if out.get("coalesced") else {})}
         pinned_ids = {r.region_id for r in ctx.regions}
         # the table lock is taken a region at a time: a query waits for one
         # region's build at most

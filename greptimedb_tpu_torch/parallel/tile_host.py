@@ -2,11 +2,11 @@
 before the card is chosen.
 
 Counterpart of the host section of `greptimedb_tpu/parallel/tile_cache.py`
-(`TileExecutor._host_execute`, the `fused=False` branch of
-`_host_cold_grouped`, the `_HOST_PATH_*` / `_COLD_COMPACT_GROUPS`
-bounds, `_np_filter`).  `TileExecutor` (parallel/tile_executor.py) mixes
-`HostRoutes` in and calls its two routes after the plan is built and
-before any plane is uploaded:
+(`TileExecutor._host_execute`, `_host_cold_grouped` with both its
+ladders, the `_HOST_PATH_*` / `_COLD_*` bounds, `_np_filter`).
+`TileExecutor` (parallel/tile_executor.py) mixes `HostRoutes` in and
+calls its two routes after the plan is built and before any plane is
+uploaded:
 
 * `host_execute` (the `host_fast_path` pass): a pk-equality aggregate
   with no group tags (scalar or time-bucketed) binary-searches each pk
@@ -15,32 +15,44 @@ before any plane is uploaded:
   minimum.at, maximum.at), memtable tails included.  It declines a slice
   over `_HOST_PATH_MAX_ROWS` rows, and a multi-key slice over
   `_HOST_PATH_MAX_CELLS` rows x value columns once every value column is
-  resident on the card (the warm tile dispatch takes it);
-* `host_cold_grouped` (the `cold_host_serve` pass, the reference's
-  legacy ladder): a grouped aggregate whose planes are not resident
-  answers once per entry (`_SuperTiles.cold_served`) with dense bincount
-  folds over the whole consolidation; the next query builds the planes.
-  It declines `last_value`, group spaces past `_COLD_COMPACT_GROUPS`,
-  warm planes or a warm window tile, and memtable-only sources.
+  resident on the card (the warm tile dispatch takes it); served while
+  the planes are cold, such a slice carries the `wide_cold` hint (the
+  executor then schedules the family's fused build);
+* `host_cold_grouped` (the `cold_host_serve` pass), two ladders.  The
+  legacy one (`tile.fused_build` off): a grouped aggregate whose planes
+  are not resident answers once per entry (`_SuperTiles.cold_served`)
+  with dense bincount folds over the whole consolidation, and the next
+  query builds the planes; it declines `last_value`, group spaces past
+  `_COLD_COMPACT_GROUPS` and warm planes or a warm window tile.  The fused
+  one (a family's first touch, its build then warming the planes in the
+  background): every family — `last_value` from run boundaries
+  (`host_last_winners`), a hash-scale group space folded
+  unique-compacted, and a large source folded in ranges on a pool of up
+  to 4 threads, merged in range order.  Both decline memtable-only
+  sources.
 
 Both build the [G] finals the device decode builds and assemble them with
-the executor's `_assemble_result`, so a host answer and a card answer of
-the same query are the same bytes up to the accumulation order.  They
-never catch an error: a route either declines (returns None) before the
-device path is chosen, or answers.  The bounds are class attributes, so a
-test may lower them on an executor instance.
+the executor's `_assemble_result` (a compacted fold with
+`_append_agg_columns`), so a host answer and a card answer of the same
+query are the same bytes up to the accumulation order.  They never catch
+an error: a route either declines (returns None) before the device path
+is chosen, or answers.  The bounds are class attributes, so a test may
+lower them on an executor instance.
 
-Not carried over: the fused ladder (`last_value` from run boundaries,
-unique-compacted hash-scale spaces, chunk-parallel folds, the background
-family build the `wide_cold` hint schedules), persisted consolidations.
+Not carried over: persisted consolidations (the mmap'd columns the
+reference's cold serve pages from).
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import pyarrow as pa
 
 from ..query import passes
-from .executor import COUNT_STAR, _FUNC_TO_KERNEL
+from .executor import COUNT_STAR, _FUNC_TO_KERNEL, host_last_winners
 from .tile_planes import _encode_host_tiles
 from .tile_planner import plan_cols
 
@@ -109,17 +121,22 @@ def _mem_getter(mcols: dict, mnulls: dict):
 
 
 class HostRoutes:
-    """The host fast path and the legacy cold serve (see the module
-    docstring).  The host needs `self.cache` (TileCacheManager),
-    `self.config` (QueryConfig) and `self._assemble_result`."""
+    """The host fast path and the cold serve (see the module docstring).
+    The host needs `self.cache` (TileCacheManager), `self.config`
+    (QueryConfig), `self._assemble_result`, `self._group_key_columns` and
+    `self._append_agg_columns`."""
 
     # the host fast path's slice bound, and the rows x value columns past
     # which a multi-key slice leaves it once its planes are warm
     _HOST_PATH_MAX_ROWS = 4 << 20
     _HOST_PATH_MAX_CELLS = 1 << 17
-    # past this many groups the cold serve declines (the reference's fused
-    # ladder folds such spaces unique-compacted)
+    # the cold serve's shape bounds: past _COLD_COMPACT_GROUPS groups the
+    # legacy ladder declines and the fused one folds unique-compacted (at
+    # most _COLD_COMPACT_MAX_ROWS rows); the fused ladder folds a source of
+    # 2 x _COLD_PAR_ROWS rows or more in ranges of _COLD_PAR_ROWS on a pool
     _COLD_COMPACT_GROUPS = 1 << 22
+    _COLD_PAR_ROWS = 1 << 23
+    _COLD_COMPACT_MAX_ROWS = 1 << 26
 
     def host_execute(self, plan, dyn_host, super_entries, mem_slots, ctx, use_ts, pk,
                      value_cols, all_tag_cols, dedup_regions=frozenset(), hints=None):
@@ -324,36 +341,53 @@ class HostRoutes:
         return self._assemble_result(finals, plan, ctx, dyn_host)
 
     def host_cold_grouped(self, plan, dyn_host, super_entries, mem_slots, ctx, use_ts,
-                          value_cols, all_tag_cols, dedup_regions, window):
-        """The legacy cold serve: a grouped aggregate whose planes are not
-        resident answers from the host consolidation (dense bincount folds
-        over every row, no upload) once per entry; None to decline."""
+                          value_cols, all_tag_cols, dedup_regions, window, fused: bool = False):
+        """The cold serve: a grouped aggregate answers from the host
+        consolidation with no upload; None to decline.
+
+        The legacy ladder (`fused` False): dense bincount folds over every
+        row, once per entry while its planes are not resident; declines
+        `last_value` and group spaces past `_COLD_COMPACT_GROUPS`.
+
+        The fused ladder (`fused` True, a family's first touch): every
+        family — `last_value` from run boundaries (group tags, no bucket),
+        a group space past `_COLD_COMPACT_GROUPS` folded unique-compacted
+        (ranges of `_COLD_PAR_ROWS` rows, at most `_COLD_COMPACT_MAX_ROWS`
+        rows in all, stitched in ascending gid order), and a source of at
+        least 2 x `_COLD_PAR_ROWS` rows over at most 2^20 groups folded in
+        ranges of `_COLD_PAR_ROWS` rows on up to 4 threads, the partials
+        merged in range order (the same bytes for any thread count)."""
         if not passes.enabled("cold_host_serve", self.config):
             return None
-        if any(_FUNC_TO_KERNEL[f] == "last" for f, _ in plan.agg_specs):
+        kernels = {_FUNC_TO_KERNEL[f] for f, _ in plan.agg_specs}
+        compact = plan.num_groups > self._COLD_COMPACT_GROUPS
+        if "last" in kernels and not (fused and not compact and plan.bucket_col is None
+                                      and plan.group_tags):
             return None
-        if plan.num_groups > self._COLD_COMPACT_GROUPS:
+        if compact and not fused:
             return None
         need_cols = plan_cols(plan)
         win_bounds = (int(window[0]), int(window[1])) if window is not None else None
         cold_entries = []
         for entry in super_entries:
-            dedup = entry.region_id in dedup_regions
-            wt = entry.window_tiles.get((*win_bounds, dedup)) if win_bounds else None
-            wt_warm = wt is not None and all(
-                c in wt["cols"] or c in wt["limbs"] for c in need_cols)
-            planes_warm = all(c in entry.cols or c in entry.limb_cols
-                              for c in need_cols if c != COUNT_STAR)
-            if wt_warm or planes_warm:
-                return None  # the device path is warm: it wins
-            if entry.cold_served:
-                return None  # second touch: the device planes build
+            if not fused:
+                dedup = entry.region_id in dedup_regions
+                wt = entry.window_tiles.get((*win_bounds, dedup)) if win_bounds else None
+                wt_warm = wt is not None and all(
+                    c in wt["cols"] or c in wt["limbs"] for c in need_cols)
+                planes_warm = all(c in entry.cols or c in entry.limb_cols
+                                  for c in need_cols if c != COUNT_STAR)
+                if wt_warm or planes_warm:
+                    return None  # the device path is warm: it wins
+                if entry.cold_served:
+                    return None  # second touch: the device planes build
             if entry.order is None:
                 return None
             cold_entries.append(entry)
         if not cold_entries:
-            # memtable-only sources: with no entry to carry the flag the
-            # route would answer forever and the card never engage
+            # memtable-only sources: with no entry to carry the flag (or a
+            # family build to warm) the route would answer forever and the
+            # card never engage
             return None
 
         n_buckets = max(plan.n_buckets, 1) if plan.bucket_col else 1
@@ -361,41 +395,74 @@ class HostRoutes:
         interval = dyn_host["bucket_interval"]
         num_groups = plan.num_groups
         per_col_aggs = _per_col_aggs(plan)
-        finals = _new_finals(per_col_aggs, num_groups)
+        # dense [G] states, never in compact mode (num_groups is then a
+        # hash-scale bound the compacted fold exists to avoid allocating)
+        finals = {} if compact else _new_finals(per_col_aggs, num_groups)
         filters = list(zip(plan.filters, dyn_host["filter_values"]))
+        # the state keys each column's aggregates need
+        want_aggs: dict[str, set] = {}
+        for col, aggs in per_col_aggs.items():
+            want_aggs[col] = {"count"} | {"sum" if a in ("sum", "avg") else a
+                                          for a in aggs if a != "count"}
+        # last_value's dense states: each group's (ts, value, has) winner,
+        # merged in source and range order, a ts tie going to the later
+        last_cols = [c for c, aggs in per_col_aggs.items() if "last" in aggs]
+        last_state = {c: (np.full(num_groups, np.iinfo(np.int64).min, np.int64),
+                          np.full(num_groups, np.nan), np.zeros(num_groups, bool))
+                      for c in last_cols}
+        bail = object()
 
-        def fold(get_col, ts_arr, keep, n) -> bool:
-            """Fold every row of one source into finals; False when the
-            source cannot serve (an evicted host encode, a code outside its
-            dimension)."""
+        def merge_last(col_name, w) -> None:
+            wg, wt, wv = w
+            if not len(wg):
+                return
+            lt, lv, lh = last_state[col_name]
+            take = (~lh[wg]) | (wt >= lt[wg])
+            tg = wg[take]
+            lt[tg] = wt[take]
+            lv[tg] = wv[take]
+            lh[tg] = True
+
+        def fold_range(get_col, ts_arr, keep, a, b, part=None):
+            """Fold rows [a, b) of one source.  With `part` None (and not
+            compact) into the finals in place — the legacy fold's order of
+            operations; else into a fresh partial (dense, or
+            unique-compacted with its keys) that the caller merges in range
+            order.  `bail` when the source cannot serve (an evicted host
+            encode, a code outside its dimension, unsorted rows past the
+            last_value lexsort cap)."""
+            ts_r = ts_arr[a:b]
             if window is not None and use_ts:
-                mask = (ts_arr >= window[0]) & (ts_arr < window[1])
+                mask = (ts_r >= window[0]) & (ts_r < window[1])
             else:
-                mask = np.ones(n, bool)
+                mask = np.ones(b - a, bool)
             if keep is not None:
-                mask = mask & keep
+                mask = mask & keep[a:b]
             for (name, op, _a), val in filters:
                 if name == use_ts:
-                    col = ts_arr
+                    col = ts_r
                 else:
                     got = get_col(name)
                     if got is None:
-                        return False
+                        return bail
                     col, pres = got
+                    col = col[a:b]
                     if pres is not None:
-                        mask = mask & pres
+                        mask = mask & pres[a:b]
                 mask = np_filter(mask, col, op, val)
             if not mask.any():
-                return True
+                return {}
             idx = np.flatnonzero(mask)
+            if a:
+                idx = idx + a
             gid = np.zeros(len(idx), np.int64)
             for tag, card in zip(plan.group_tags, plan.tag_cards):
                 got = get_col(tag)
                 if got is None:
-                    return False
+                    return bail
                 codes = got[0][idx]
                 if (codes < 0).any() or (codes >= card).any():
-                    return False  # an out-of-range code: the device path owns it
+                    return bail  # an out-of-range code: the device path owns it
                 gid = gid * card + codes.astype(np.int64)
             if plan.bucket_col is not None:
                 bucket = ((ts_arr[idx] - origin) // interval).astype(np.int64)
@@ -403,15 +470,33 @@ class HostRoutes:
                     in_b = (bucket >= 0) & (bucket < n_buckets)
                     idx, gid, bucket = idx[in_b], gid[in_b], bucket[in_b]
                 gid = gid * n_buckets + bucket
-            pb = np.bincount(gid, minlength=num_groups).astype(np.int64)
-            finals["__presence"]["count"] += pb
-            for col_name, aggs in per_col_aggs.items():
+            inplace = part is None and not compact
+            if part is None:
+                part = {}
+            part["rows"] = len(gid)
+            if compact:
+                ukeys, gid = np.unique(gid, return_inverse=True)
+                part["keys"] = ukeys
+                size = len(ukeys)
+            else:
+                size = num_groups
+            pb = np.bincount(gid, minlength=size).astype(np.int64)
+            if inplace:
+                finals["__presence"]["count"] += pb
+            else:
+                part["presence"] = pb
+            cols_part = part["cols"] = {}
+            for col_name in per_col_aggs:
+                want = want_aggs[col_name]
                 if col_name == COUNT_STAR:
-                    finals[col_name]["count"] += pb
+                    if inplace:
+                        finals[col_name]["count"] += pb
+                    else:
+                        cols_part[col_name] = {"count": pb}
                     continue
                 got = get_col(col_name)
                 if got is None:
-                    return False
+                    return bail
                 vals, pres = got
                 vsel = vals[idx].astype(np.float64)
                 g = gid
@@ -424,15 +509,96 @@ class HostRoutes:
                         sel = ~nan
                 if sel is not None:
                     vsel, g = vsel[sel], g[sel]
-                d = finals[col_name]
-                d["count"] += np.bincount(g, minlength=num_groups).astype(np.int64)
-                if aggs & {"sum", "avg"}:
-                    d["sum"] += np.bincount(g, weights=vsel, minlength=num_groups)
-                if "min" in aggs:
-                    np.minimum.at(d["min"], g, vsel)
-                if "max" in aggs:
-                    np.maximum.at(d["max"], g, vsel)
-            return True
+                d: dict = finals[col_name] if inplace else {}
+                cb = np.bincount(g, minlength=size).astype(np.int64)
+                if inplace:
+                    d["count"] += cb
+                else:
+                    d["count"] = cb
+                if "sum" in want:
+                    sb = np.bincount(g, weights=vsel, minlength=size)
+                    if inplace:
+                        d["sum"] += sb
+                    else:
+                        d["sum"] = sb
+                for agg, fill, ufunc in (("min", np.inf, np.minimum), ("max", -np.inf, np.maximum)):
+                    if agg in want:
+                        if not inplace:
+                            d[agg] = np.full(size, fill)
+                        ufunc.at(d[agg], g, vsel)
+                if "last" in want:
+                    t_sel = ts_arr[idx]
+                    if sel is not None:
+                        t_sel = t_sel[sel]
+                    w = host_last_winners(g, t_sel, vsel)
+                    if w is None:
+                        return bail
+                    if inplace:
+                        merge_last(col_name, w)
+                    else:
+                        d["last"] = w
+                if not inplace:
+                    cols_part[col_name] = d
+            return part
+
+        def merge_dense(part) -> None:
+            """Fold one range's partial into the finals (called in source
+            and range order)."""
+            if not part:
+                return
+            finals["__presence"]["count"] += part["presence"]
+            for col_name, d in part["cols"].items():
+                tgt = finals[col_name]
+                if "count" in d and "count" in tgt:
+                    tgt["count"] += d["count"]
+                if "sum" in d:
+                    tgt["sum"] += d["sum"]
+                if "min" in d:
+                    np.minimum(tgt["min"], d["min"], out=tgt["min"])
+                if "max" in d:
+                    np.maximum(tgt["max"], d["max"], out=tgt["max"])
+                if "last" in d:
+                    merge_last(col_name, d["last"])
+
+        parts_compact: list = []
+        compact_rows = [0]
+
+        def fold_source(get_col, ts_arr, keep, n, parallel_ok) -> bool:
+            """Fold one whole source; False declines."""
+            step = self._COLD_PAR_ROWS
+            if compact:
+                for a in range(0, max(n, 1), step):
+                    part = fold_range(get_col, ts_arr, keep, a, min(a + step, n), part={})
+                    if part is bail:
+                        return False
+                    if part.get("rows"):
+                        compact_rows[0] += part["rows"]
+                        if compact_rows[0] > self._COLD_COMPACT_MAX_ROWS:
+                            return False  # too many rows to fold compacted
+                        parts_compact.append(part)
+                return True
+            if fused and parallel_ok and n >= 2 * step and num_groups <= (1 << 20):
+                # ranges on a small pool (numpy releases the GIL), the
+                # shared columns fetched first on this thread so the
+                # workers find them cached
+                prefetch = list(dict.fromkeys(
+                    [f[0][0] for f in filters if f[0][0] != use_ts] + list(plan.group_tags)
+                    + [c for c in per_col_aggs if c != COUNT_STAR]))
+                for name in prefetch:
+                    if get_col(name) is None:
+                        return False
+                ranges = [(a, min(a + step, n)) for a in range(0, n, step)]
+                workers = min(4, os.cpu_count() or 1, len(ranges))
+                with ThreadPoolExecutor(max_workers=workers,
+                                        thread_name_prefix="cold-serve") as pool:
+                    parts = list(pool.map(
+                        lambda r: fold_range(get_col, ts_arr, keep, *r, part={}), ranges))
+                if any(p is bail for p in parts):
+                    return False
+                for p in parts:
+                    merge_dense(p)
+                return True
+            return fold_range(get_col, ts_arr, keep, 0, n) is not bail
 
         for entry in cold_entries:
             if use_ts and use_ts not in entry.sorted_host:
@@ -455,7 +621,7 @@ class HostRoutes:
                             _e, name, np.asarray(_e.order, np.int64))
                 return _cache[name]
 
-            if not fold(get_col, ts_arr, keep, n):
+            if not fold_source(get_col, ts_arr, keep, n, True):
                 return None
 
         for _region, mem_table in mem_slots:
@@ -471,10 +637,41 @@ class HostRoutes:
             mcols, mnulls, _e, _b = built
             n = mem_table.num_rows
             ts_arr = mcols[use_ts] if use_ts else np.zeros(n, np.int64)
-            if not fold(_mem_getter(mcols, mnulls), ts_arr, None, n):
+            if not fold_source(_mem_getter(mcols, mnulls), ts_arr, None, n, False):
                 return None
 
-        _finish_avg(finals, per_col_aggs)
         for entry in cold_entries:
             entry.cold_served = True
+        if compact:
+            return self._stitch_compact(parts_compact, per_col_aggs, want_aggs, plan, ctx,
+                                        dyn_host)
+        _finish_avg(finals, per_col_aggs)
+        for col in last_cols:
+            finals[col]["last"] = last_state[col][1]
         return self._assemble_result(finals, plan, ctx, dyn_host)
+
+    def _stitch_compact(self, parts, per_col_aggs, want_aggs, plan, ctx, dyn_host):
+        """The unique-compacted partials of a hash-scale group space as one
+        result, rows in ascending gid order (the hash assembly's order;
+        empty groups never exist)."""
+        allk = (np.unique(np.concatenate([p["keys"] for p in parts])) if parts
+                else np.zeros(0, np.int64))
+        finals = _new_finals({c: {a for a in want_aggs[c] if a != "count"}
+                              for c in per_col_aggs}, len(allk))
+        for p in parts:
+            pos = np.searchsorted(allk, p["keys"])
+            finals["__presence"]["count"][pos] += p["presence"]
+            for col_name, d in p["cols"].items():
+                tgt = finals[col_name]
+                if "count" in d and "count" in tgt:
+                    tgt["count"][pos] += d["count"]
+                if "sum" in d:
+                    tgt["sum"][pos] += d["sum"]
+                if "min" in d:
+                    tgt["min"][pos] = np.minimum(tgt["min"][pos], d["min"])
+                if "max" in d:
+                    tgt["max"][pos] = np.maximum(tgt["max"][pos], d["max"])
+        _finish_avg(finals, per_col_aggs)
+        nz = np.flatnonzero(finals["__presence"]["count"] > 0)
+        cols = self._group_key_columns(plan, ctx, dyn_host, allk[nz])
+        return pa.table(self._append_agg_columns(cols, finals, plan, nz))

@@ -65,9 +65,17 @@ Keeping the planes current, as the reference does at its defaults:
   by index, never by device identity (one device may fill several
   slots).  Time-major copies and memtable tails live on slot 0, as in
   the reference;
-* not ported: persistence of consolidated encodes, the pipelined and
-  fused builds.  Limb-only columns keep their f64 plane
-  (the reference skips that upload).
+* the fused family build (`fused_union_build`, the `fused_build` pass;
+  reference `tile_cache.py:2706-2856`): the plane manifests of a table's
+  query families (`PlaneManifest`, a ring of 64 a table,
+  `record_manifest`) are unioned into one build a region — the host
+  consolidation first, then the keep plane, one upload of the union's
+  full-plane columns, K5, the time-major copies (K14, K15) and each
+  window's tile — under `build_gate`, which makes concurrent builders of
+  a table wait for the leader's build;
+* not ported: persistence of consolidated encodes, the pipelined build.
+  Limb-only columns keep their f64 plane (the reference skips that
+  upload).
 
 Padding keeps the port's rule (`ops/tiles.py::pad_rows`, a multiple of
 4096, not the reference's next power of two); chunks are cut at the same
@@ -77,6 +85,7 @@ reference's and partials merge in the same order.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import OrderedDict
@@ -227,6 +236,24 @@ class _SuperTiles:
         return (base + i) % modulus
 
 
+@dataclass(frozen=True)
+class PlaneManifest:
+    """One query family's (or a prewarm's) device-plane requirements: the
+    unit the fused build unions.  Each family's first touch records one;
+    `fused_union_build` builds the union of a table's manifests in one
+    pass, so each SST file is decoded once and each column encoded and
+    uploaded once for the whole family."""
+
+    table_key: str
+    tag_cols: tuple = ()  # tag code planes (group, filter and layout tags)
+    ts_col: str | None = None
+    value_cols: tuple = ()  # f64 value planes (or window-tile columns)
+    limb_cols: tuple = ()  # K5 limb planes (sum/avg columns)
+    time_major: bool = False  # ts-ascending copies and the permutation
+    window: tuple | None = None  # (lo, hi): a window tile's geometry
+    dedup: bool = False  # the last-write-wins keep plane
+
+
 def _nbytes(chunks) -> int:
     return sum(int(x.numel()) * x.element_size() for x in chunks)
 
@@ -299,10 +326,23 @@ class TileCacheManager:
         self._bad_files: set[tuple[int, str]] = set()
         # the fused TQL folds' device CSRs, per (radices, kept tags)
         self._group_csrs: OrderedDict[tuple, tuple] = OrderedDict()
-        # counters: entries built, warm hits, host file decodes, evictions,
-        # window tiles built or extended, dedup keep planes built
-        self.stats_counts = {"builds": 0, "hits": 0, "decodes": 0, "evictions": 0,
-                             "window_tile_builds": 0, "dedup_keep_builds": 0}
+        # counters: entries built, warm hits, Parquet decodes of SST files
+        # (`file_decodes`), evictions, window tiles built or extended, dedup
+        # keep planes built; under `tile.fused_build` the host requests the
+        # per-file encode cache answered whole (`fused_decodes_saved`) and
+        # the column encodes it saved (`fused_encodes_saved`), the
+        # manifests recorded, the union builds run and the regions they
+        # built, and the builders that waited for another's build
+        # (`build_coalesced`)
+        self.stats_counts = {"builds": 0, "hits": 0, "file_decodes": 0, "evictions": 0,
+                             "window_tile_builds": 0, "dedup_keep_builds": 0,
+                             "fused_decodes_saved": 0, "fused_encodes_saved": 0,
+                             "fused_manifests": 0, "fused_builds": 0, "fused_regions_built": 0,
+                             "build_coalesced": 0}
+        # the fused build's plane manifests, a ring per table, and the
+        # in-flight build of each (table, kind) (`build_gate`)
+        self._manifests: dict[str, OrderedDict] = {}
+        self._build_events: dict[tuple, threading.Event] = {}
         # called with a region id whenever a plane of its entry is replaced
         # or freed: the tile executor drops the tick programs (CUDA graphs)
         # that read it
@@ -311,6 +351,60 @@ class TileCacheManager:
         self.graph_bytes = 0
         # the executor's windowed result cache, purged per region here
         self.result_cache = None
+
+    def count(self, **deltas) -> None:
+        """Add to the counters of `stats()` (the query and builder threads
+        both count)."""
+        with self._lock:
+            for k, v in deltas.items():
+                self.stats_counts[k] += v
+
+    # ---- the fused build's manifests and gate ------------------------------------
+    _MANIFESTS_PER_TABLE = 64
+
+    def record_manifest(self, manifest: PlaneManifest) -> bool:
+        """Add one family's plane requirements to its table's ring (the 64
+        most recent); True when the manifest is new for the table."""
+        with self._lock:
+            d = self._manifests.setdefault(manifest.table_key, OrderedDict())
+            if manifest in d:
+                d.move_to_end(manifest)
+                return False
+            d[manifest] = None
+            while len(d) > self._MANIFESTS_PER_TABLE:
+                d.popitem(last=False)
+            self.stats_counts["fused_manifests"] += 1
+        return True
+
+    def family_manifests(self, table_key: str) -> list[PlaneManifest]:
+        with self._lock:
+            return list(self._manifests.get(table_key, ()))
+
+    @contextlib.contextmanager
+    def build_gate(self, table_key: str, kind: str = "fused"):
+        """One whole-table build at a time: the first caller leads (yields
+        True) and builds; a caller that comes while it runs waits for it
+        and yields False (counted in `build_coalesced`), then finds the
+        leader's planes cached.  No deadline: a waiter waits for the
+        leader's end."""
+        key = (table_key, kind)
+        with self._lock:
+            ev = self._build_events.get(key)
+            leader = ev is None
+            if leader:
+                ev = self._build_events[key] = threading.Event()
+            else:
+                self.stats_counts["build_coalesced"] += 1
+        if leader:
+            try:
+                yield True
+            finally:
+                with self._lock:
+                    self._build_events.pop(key, None)
+                ev.set()
+            return
+        ev.wait()
+        yield False
 
     # ---- placement -----------------------------------------------------------
     def mesh(self, n_devices: int) -> tuple:
@@ -493,6 +587,20 @@ class TileCacheManager:
                 self._planes_changed(entry.region_id)
             return freed
 
+    def lacks_derived(self, entry: _SuperTiles, cols, limb_cols, time_major: bool,
+                      dedup: bool) -> bool:
+        """A time-major copy or a limb plane a query reads over the entry's
+        full planes is not cached yet (the query would add it)."""
+        with self._lock:
+            if time_major:
+                if entry.tm_valid is None or (dedup and entry.tm_valid_dedup is None):
+                    return True
+                if any((c in entry.cols and c not in entry.tm_cols)
+                       or (c in entry.nulls and c not in entry.tm_nulls) for c in cols):
+                    return True
+            prefix = "tm:" if time_major else ""
+            return any(prefix + c not in entry.limb_cols for c in limb_cols)
+
     def _evict_locked(self, pinned_regions: set[int]):
         # limb planes first (a quantize pass rebuilds them), then window
         # tiles (a host gather and an upload), then whole unpinned entries
@@ -514,7 +622,7 @@ class TileCacheManager:
             for rid in list(self._super):
                 if rid not in pinned_regions:
                     self._drop_entry_locked(rid)
-                    self.stats_counts["evictions"] += 1
+                    self.count(evictions=1)
                     break
             else:
                 break
@@ -541,8 +649,14 @@ class TileCacheManager:
         if entry is None:
             entry = _FileHostTiles(num_rows=meta.num_rows)
         missing = [c for c in columns if c not in entry.cols and c not in entry.absent]
+        fused_on = getattr(self.tile_config, "fused_build", True)
         if missing:
-            self.stats_counts["decodes"] += 1
+            # one Parquet decode of the file: the fused build's contract is
+            # one a file for a whole family
+            self.count(file_decodes=1)
+            if fused_on and len(missing) < len(columns):
+                # columns an earlier family member already encoded
+                self.count(fused_encodes_saved=len(columns) - len(missing))
             table = region.sst_reader.read(meta, None, columns=missing)
             if table.num_rows != meta.num_rows:
                 with self._lock:
@@ -575,6 +689,10 @@ class TileCacheManager:
                     self._host_used -= old.nbytes
                 self._host[key] = entry
                 self._host_used += nbytes
+        elif fused_on and entry.cols:
+            # the whole request from the per-file encode cache: a decode and
+            # every column's encode saved by the shared pass
+            self.count(fused_decodes_saved=1, fused_encodes_saved=len(columns))
         return entry
 
     def _repair_host_locked(self, entry: _FileHostTiles, dictionary: TableDictionary):
@@ -672,7 +790,7 @@ class TileCacheManager:
             missing = [c for c in need if c not in entry.cols]
             if not missing and entry.valid is not None:
                 if device_upload:
-                    self.stats_counts["hits"] += 1
+                    self.count(hits=1)
                 return entry, excluded
 
             host_tiles: list[_FileHostTiles] = []
@@ -753,7 +871,7 @@ class TileCacheManager:
                 self._super[rid] = entry
                 self._used += added
                 self._evict_locked(pinned_regions | {rid})
-            self.stats_counts["builds"] += 1
+            self.count(builds=1)
             if timings is not None:
                 total_ms = (time.perf_counter() - t_start) * 1e3
                 timings["upload"] = timings.get("upload", 0.0) + t_up * 1e3
@@ -1075,7 +1193,7 @@ class TileCacheManager:
             if self._super.get(entry.region_id) is entry:
                 self._used += entry.pad
                 self._host_used += entry.keep_host.nbytes
-            self.stats_counts["dedup_keep_builds"] += 1
+            self.count(dedup_keep_builds=1)
             return True
 
     # window tiles engage when the window covers less than this share of
@@ -1248,7 +1366,7 @@ class TileCacheManager:
                 entry.nbytes += wt["nbytes"]
                 if self._super.get(entry.region_id) is entry:
                     self._used += wt["nbytes"]
-            self.stats_counts["window_tile_builds"] += 1
+            self.count(window_tile_builds=1)
         if timings is not None:
             for stage, ms in (("window_gather", gather_ms), ("window_upload", up_ms),
                               ("window_quantize", q_ms)):
@@ -1407,6 +1525,98 @@ class TileCacheManager:
                     self._used += added
                 self._evict_locked(pinned_regions | {entry.region_id})
         return out
+
+    # ---- the fused family build ------------------------------------------------
+    def fused_union_build(self, ctx: TileContext, schema, manifests, device: bool = True) -> dict:
+        """One build for a table's query families: the union of their plane
+        manifests, made in one pass a region — the host consolidation
+        (each SST file decoded once: the first read takes every numeric
+        field; each column encoded once; the (pk, ts) sort), then with
+        `device` the keep plane, ONE upload of the union's full-plane
+        columns, K5 over the limb columns among them, the time-major copies
+        (K14, K15) and each window geometry's tile.  `device=False` stops
+        after the host consolidation and the sorted host copies (what the
+        host routes read): the prewarm form.  The table lock is taken a
+        region at a time.  Any failure raises (the reference skips the
+        region).  Callers serialize whole-table builds through
+        `build_gate`.  Returns {"regions_built", "manifests", "ms"}."""
+        t0 = time.perf_counter()
+        pk = [c.name for c in schema.tag_columns()]
+        ts_name = schema.time_index.name if schema.time_index else None
+        tag_union = list(dict.fromkeys([t for m in manifests for t in m.tag_cols] + pk))
+
+        def values(ms):
+            return list(dict.fromkeys(c for m in ms for c in m.value_cols
+                                      if schema.has_column(c) and c != ts_name))
+
+        value_union = values(manifests)
+        limb_union = list(dict.fromkeys(c for m in manifests for c in m.limb_cols
+                                        if schema.has_column(c)))
+        # families with no window geometry scan the whole super-tile: their
+        # columns ride full planes, and time-major families' copies too
+        full_cols = values([m for m in manifests if m.window is None])
+        tm_cols = values([m for m in manifests if m.time_major])
+        tm_dedup = any(m.dedup for m in manifests if m.time_major)
+        windows: dict[tuple, dict] = {}
+        for m in manifests:
+            if m.window is None:
+                continue
+            w = windows.setdefault((int(m.window[0]), int(m.window[1]), bool(m.dedup)),
+                                   {"cols": set(), "limbs": set()})
+            w["cols"].update(m.tag_cols)
+            w["cols"].update(m.value_cols)
+            if m.ts_col:
+                w["cols"].add(m.ts_col)
+            w["limbs"].update(m.limb_cols)
+        dedup_any = any(m.dedup for m in manifests)
+        built = 0
+        pinned_ids = {r.region_id for r in ctx.regions}
+        for region in ctx.regions:
+            with ctx.dictionary.table_lock:
+                region.pin_scan()
+                try:
+                    metas, _mems, version = region.tile_snapshot()
+                    self.invalidate_region_if_changed(
+                        region.region_id, {m.file_id for m in metas}, version)
+                    if not metas:
+                        continue
+                    entry, _excluded = self.super_tiles(
+                        region, ctx.dictionary, metas, tag_union, ts_name, value_union,
+                        pinned_ids, pk, device_upload=False)
+                    if entry is None:
+                        continue
+                    built += 1
+                    if not device:
+                        continue
+                    if dedup_any:
+                        self.ensure_dedup_keep(entry)
+                    if full_cols or tm_cols:
+                        entry, _excluded = self.super_tiles(
+                            region, ctx.dictionary, metas, tag_union, ts_name,
+                            list(dict.fromkeys(full_cols + tm_cols)), pinned_ids, pk)
+                        if entry is None:
+                            continue
+                    if limb_union and full_cols:
+                        self.ensure_limbs(entry, [c for c in limb_union if c in full_cols],
+                                          False, pinned_ids)
+                    if tm_cols and ts_name:
+                        if tm_dedup:
+                            self.ensure_dedup_keep(entry)
+                        self.ensure_time_major(entry, ts_name, set(tm_cols) | {ts_name},
+                                               dedup=tm_dedup)
+                    for (wlo, whi, wd), want in windows.items():
+                        self.ensure_window_tile(
+                            entry, (wlo, whi), ts_name,
+                            {c for c in want["cols"] if c == ts_name or schema.has_column(c)},
+                            set(want["limbs"]), wd, ctx.dictionary)
+                    for dev in dict.fromkeys(self.devices):
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                finally:
+                    region.unpin_scan()
+        self.count(fused_builds=1, fused_regions_built=built)
+        return {"regions_built": built, "manifests": len(manifests),
+                "ms": round((time.perf_counter() - t0) * 1e3, 1)}
 
 
 def _encode_host_tiles(

@@ -57,9 +57,12 @@ last lowered query and `last_path` which path answered its last query:
 PromQL (query/promql/) counts its range evaluations here too:
 `tql_tile_dispatches` (answered by the warm tile program),
 `tql_tile_declined` (the tile path declined a shape and the legacy path
-answered) and `tql_legacy` (evaluations on the legacy path, declined or
-with `tql.tile` off); `last_tql_timings` holds the host ms per stage of
-the last TQL statement.
+answered), `tql_tile_cold_serves` (a family's first touch under the fused
+build: the legacy path answered and the family's build was queued) and
+`tql_legacy` (evaluations on the legacy path, declined, cold-served or
+with `tql.tile` off; the fused builder's ghost runs count none of these);
+`last_tql_timings` holds the host ms per stage of the calling thread's
+last TQL statement.
 """
 
 from __future__ import annotations
@@ -124,8 +127,6 @@ class QueryEngine:
             "tick_graph_captures": 0, "tick_graph_replays": 0, "result_cache_hits": 0,
         })
         self._local = threading.local()
-        # per-stage host wall ms of the last TQL statement (query/promql/)
-        self.last_tql_timings: dict[str, float] = {}
 
     # per-stage host wall ms of the calling thread's last lowered query
     # (DeviceExecutor), and which path answered it
@@ -136,6 +137,19 @@ class QueryEngine:
     @last_timings.setter
     def last_timings(self, value) -> None:
         self._local.timings = value
+
+    # per-stage host wall ms of the calling thread's last TQL statement
+    # (query/promql/)
+    @property
+    def last_tql_timings(self) -> dict[str, float]:
+        t = getattr(self._local, "tql_timings", None)
+        if t is None:
+            t = self._local.tql_timings = {}
+        return t
+
+    @last_tql_timings.setter
+    def last_tql_timings(self, value) -> None:
+        self._local.tql_timings = value
 
     @property
     def last_path(self) -> str:

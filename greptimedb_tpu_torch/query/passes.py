@@ -2,13 +2,13 @@
 switchable.
 
 Counterpart of `greptimedb_tpu/query/passes.py`, holding only the passes
-the port implements and whose decision points consult `enabled()` (13 of
+the port implements and whose decision points consult `enabled()` (14 of
 the reference's 19), in the reference's run order.  A pass the reference
-has and the port does not (the fused build, the pipelined build, the
-streamed readback, ...) does not exist here, so `enabled()` reports it
+has and the port does not (the pipelined build, the streamed readback,
+the streamed spill, ...) does not exist here, so `enabled()` reports it
 off: the port behaves as the reference does with that pass in
-`query.disabled_passes` (for `fused_build`: the legacy cold-serve ladder
-of `cold_host_serve`).
+`query.disabled_passes` (for `pipelined_build`: no encode/upload overlap
+and no shape-only compile ahead of the uploads).
 
 `note()` records a decision (a pass taken or declined, and why) into
 the trace of the current context, when a caller opened one with
@@ -29,8 +29,14 @@ PASSES = {
     "host_fast_path": "serve highly selective pk-equality aggregates from (pk,ts)-sorted "
                       "host planes via binary search — no device dispatch",
     "cold_host_serve": "serve a COLD grouped aggregate straight from the host consolidation "
-                       "(bounded numpy pass: bincount folds) instead of paying plane "
-                       "uploads; the next query builds the device planes",
+                       "(bounded numpy pass — bincount folds, run-boundary last_value, "
+                       "unique-compacted hash-scale group spaces) instead of paying plane "
+                       "uploads; with tile.fused_build the fused family build then warms the "
+                       "device planes in the background, otherwise the next query builds them",
+    "fused_build": "consolidate the family's plane-requirement manifests into ONE cold "
+                   "build pass: decode each SST file once, host-encode each column once, "
+                   "batch uploads through the pipelined producer/consumer, and coalesce "
+                   "concurrent cold builds onto one in-flight future",
     "tql_tile": "evaluate PromQL range functions (rate/increase/delta, *_over_time, the "
                 "by-label sum/avg/min/max/count fold) as one program (K9-K12) over the "
                 "resident super-tile planes, with a compacted [series_out, steps] readback",

@@ -19,8 +19,17 @@ and reads back only the [series_out, steps] or [groups, steps] result.
 Routing (the `tql_tile` pass, switch `tql.tile`):
 
   warm     every region's needed planes are resident -> one program;
-  cold     the planes build synchronously first (the port has no fused
-           background build: the reference with `tile.fused_build` off);
+  cold     under the fused build (`tile.fused_build` and its pass) a
+           family's first touch declines: the legacy path answers it and
+           the family's build is queued on the SQL executor's background
+           builder (one union build of the table's manifests, then a ghost
+           run of the query, which builds what the union missed), counted
+           in `tql_tile_cold_serves`; a query of a family whose build is
+           in flight waits for it.  The statement's other evaluations
+           (a by-label query's per-series one) then take the legacy path
+           too.  A known family gone stale (a flush),
+           or any family with the fused build off, builds its planes
+           synchronously first;
   decline  a shape the tile path does not express — memtable rows in the
            fetch window, tombstones, a file that cannot tile, the
            `tql.max_cells` bound, last_non_null merge mode, an empty grid
@@ -49,8 +58,8 @@ K9/K10 run on its co-located mesh slot and K11/K12 on the first slot
 `_partial_program` and `_merge_program`), counted in the engine's
 `mesh_dispatches`.
 
-Not ported: the fused and cold-serve builds, the flight recorder,
-tracing spans, fault points and the degrade counters.
+Not ported: the flight recorder, tracing spans, fault points and the
+degrade counters.
 """
 
 from __future__ import annotations
@@ -71,9 +80,13 @@ from ...ops.rate import (
     strip_counter_resets,
 )
 from ...parallel.mesh import region_device_index
+from ...parallel.tile_executor import in_fused_build
+from ...parallel.tile_planes import PlaneManifest
 from ...parallel.tile_program import on_device
 from .. import passes
 from ..logical_plan import TableScan
+
+_RATE_KINDS = ("rate", "increase")
 
 def _pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
@@ -82,6 +95,11 @@ def _pow2(n: int) -> int:
 class _Ineligible(Exception):
     """A query or table shape the tile path does not express: the legacy
     path answers it."""
+
+
+class _ColdServe(Exception):
+    """A family's first touch under the fused build: its build is queued,
+    the legacy path answers this evaluation."""
 
 
 def region_stats(src: RowSource, grid: RangeGrid, func: str):
@@ -151,6 +169,11 @@ class TqlTileExecutor:
         self.db = db
         self.qe = db.query_engine
         self.cache = self.qe.tile_executor().cache
+        # a family's first touch was cold-served in this statement: its
+        # other evaluations (a by-label query's per-series one) stay on the
+        # legacy path, so one statement takes one route and never races
+        # the build it queued
+        self.cold_statement = False
 
     # ---- public entry ------------------------------------------------------
     def try_range_eval(self, func, sel, range_ms, start, end, step, agg=None):
@@ -163,12 +186,22 @@ class TqlTileExecutor:
             return None
         if not passes.enabled("tql_tile", self.db.config.query):
             return None
+        ghost = in_fused_build()
+        if self.cold_statement and not ghost:
+            passes.note("tql_tile", False, "cold statement: legacy scan path")
+            return None
         try:
             out = self._attempt(func, sel, range_ms, start, end, step, agg)
-        except _Ineligible:
-            self.qe.stats.add(tql_tile_declined=1)
+        except _ColdServe:
+            self.cold_statement = True
+            self.qe.stats.add(tql_tile_cold_serves=1)
             return None
-        self.qe.stats.add(tql_tile_dispatches=1)
+        except _Ineligible:
+            if not ghost:
+                self.qe.stats.add(tql_tile_declined=1)
+            return None
+        if not ghost:
+            self.qe.stats.add(tql_tile_dispatches=1)
         return out
 
     def _add_ms(self, stage: str, t0: float) -> None:
@@ -226,6 +259,12 @@ class TqlTileExecutor:
         lo_nat = (start - range_ms - offset) * 1_000_000 // unit_ns
         hi_nat = (end - offset) * 1_000_000 // unit_ns + 1
 
+        executor = self.qe.tile_executor()
+        fused = executor._fused_enabled() and not in_fused_build()
+        fp = self._family_fp(ctx, value_col, func, agg, eq_matchers, regex_matchers)
+        if fused:
+            # before the table lock, which the builder takes
+            executor._fused_join(fp)
         dictionary = ctx.dictionary
         pinned = []
         with dictionary.table_lock:
@@ -233,7 +272,18 @@ class TqlTileExecutor:
                 items = self._acquire_regions(ctx, lo_nat, hi_nat, ts_name, pinned)
                 self._add_ms("acquire", t0)
                 if not all(self._warm_entry(s, tags, ts_name, value_col) for s in items):
-                    # cold (or stale after a flush): build synchronously
+                    if fused and executor.fused_first_touch_fp(fp):
+                        # the family's first touch: the legacy scan answers
+                        # now, the planes build in the background
+                        self._schedule_build(executor, fp, ctx, schema, items, value_col,
+                                             ts_name, (func, sel, range_ms, start, end, step,
+                                                       agg))
+                        passes.note("tql_tile", False,
+                                    "cold: served from the legacy scan; background family "
+                                    "build scheduled", cold=True)
+                        raise _ColdServe()
+                    # a known family gone stale (a flush), the fused build
+                    # off, or the ghost run itself: build synchronously
                     self._build_sync(ctx, schema, items, value_col, ts_name, lo_nat, hi_nat)
                     items = self._acquire_regions(ctx, lo_nat, hi_nat, ts_name, pinned)
                     if not all(self._warm_entry(s, tags, ts_name, value_col) for s in items):
@@ -304,6 +354,32 @@ class TqlTileExecutor:
         if any(c not in entry.cols for c in list(tags) + [ts_name, value_col]):
             return False
         return not (item["dedup"] and entry.valid_dedup is None)
+
+    def _family_fp(self, ctx, value_col, func, agg, eq_matchers, regex_matchers) -> tuple:
+        """The family of an evaluation without its literals: the matchers'
+        (label, op) structure stays, their values and the window do not,
+        so a dashboard swapping a host or sliding its window stays warm."""
+        structure = tuple(sorted((m.label, m.op) for m in eq_matchers + regex_matchers))
+        agg_fp = None if agg is None else (
+            agg[0], None if agg[1] is None else tuple(agg[1]),
+            None if agg[2] is None else tuple(agg[2]))
+        return (ctx.table_key, ctx.append_mode,
+                ("tql", value_col, func in _RATE_KINDS, structure, agg_fp))
+
+    @staticmethod
+    def _manifest(ctx, schema, value_col, ts_name, dedup) -> PlaneManifest:
+        return PlaneManifest(table_key=ctx.table_key,
+                             tag_cols=tuple(c.name for c in schema.tag_columns()),
+                             ts_col=ts_name, value_cols=(value_col,), dedup=dedup)
+
+    def _schedule_build(self, executor, fp, ctx, schema, items, value_col, ts_name, args):
+        """Queue the family's build: the union build of the table's
+        manifests, then this evaluation again as the ghost run (inside the
+        builder's scope: it builds what is missing and runs the program)."""
+        manifest = self._manifest(ctx, schema, value_col, ts_name,
+                                  any(s["dedup"] for s in items))
+        executor.fused_schedule_custom(fp, manifest, ctx, schema,
+                                       lambda: self.try_range_eval(*args))
 
     def _build_sync(self, ctx, schema, items, value_col, ts_name, lo_nat, hi_nat):
         """Build (or complete) each region's planes and, where its files

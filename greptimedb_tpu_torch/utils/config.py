@@ -27,12 +27,13 @@ that matter:
   tick (parallel/batcher.py) and the windowed result cache, off by
   default.
 * `TileConfig` holds `incremental` (delta maintenance of the planes on
-  flush) and `mesh_devices` (multi-device tile execution); the prewarm
-  knobs (`prewarm_on_flush`, `prewarm_tables`, `prewarm_limbs`: an explicit
-  `Database.prewarm()` always quantizes), the pipelined and fused builds
-  are not ported.  `Config.validate()` checks
-  `mesh_devices` against the listed slots, as the reference checks it
-  against the local devices.
+  flush), `mesh_devices` (multi-device tile execution) and `fused_build`
+  (the fused family build and the cold serve's fused ladder, on by
+  default as in the reference); the prewarm knobs (`prewarm_on_flush`,
+  `prewarm_tables`, `prewarm_limbs`: an explicit `Database.prewarm()`
+  always quantizes), `fused_build_timeout_s` and the pipelined build are
+  not ported.  `Config.validate()` checks `mesh_devices` against the
+  listed slots, as the reference checks it against the local devices.
 
 The TOML/env layering, the other sections and the JAX probe are cut
 (listed in ROADMAP.md).
@@ -172,11 +173,27 @@ class TileConfig:
     # rejected by `Config.validate`.  Unlike the reference, a failure in
     # the mesh run raises instead of degrading to the single device.
     mesh_devices: int = 0
+    # Fused family builds (parallel/tile_executor.py, the `fused_build`
+    # pass): a NEW query family answers from the host consolidation at
+    # once (the cold serve's fused ladder: every grouped family, last_value
+    # and group spaces past 2^22 included) while one background build —
+    # the union of the table's plane manifests: each SST decoded once,
+    # each column encoded once, one upload of the union's full planes —
+    # warms the device planes, then a ghost run of each family primes its
+    # path; a query of a family whose build is in flight waits for it.
+    # False restores the legacy ladder: a cold serve at most once per
+    # entry, the device planes built on the next touch, no builder thread.
+    fused_build: bool = True
 
     def validate(self, slots: int | None = None) -> None:
         """`slots`: the number of mesh slots the device list holds."""
         from .errors import ConfigError
 
+        if not isinstance(self.fused_build, bool):
+            raise ConfigError(
+                "tile.fused_build must be a boolean (fused one-pass family "
+                f"cold builds + universal cold-serve); got {self.fused_build!r}"
+            )
         n = self.mesh_devices
         if not isinstance(n, int) or isinstance(n, bool):
             raise ConfigError(

@@ -33,8 +33,9 @@ from greptimedb_tpu_torch.parallel.batcher import WindowedResultCache
 from greptimedb_tpu_torch.utils.config import BatchConfig, Config
 from greptimedb_tpu_torch.utils.errors import ConfigError
 
-# the port's host routes, off where the reference's are (tests/test_torch_tile.py)
-HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
+# the port's host routes and fused family build, off where the reference's
+# are (tests/test_torch_tile.py)
+HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve", "fused_build")
 # the reference's passes the port has not ported (tests/test_torch_tile.py)
 UNPORTED_PASSES = (
     "cold_host_serve", "fused_build", "pipelined_build", "stream_spill",
@@ -746,9 +747,9 @@ def test_counters_lose_no_update_under_threads():
 
 def test_tick_keeps_its_members_planes_past_half_the_budget(tmp_path):
     """An entry past half the tile budget releases the planes a solo query
-    does not read; inside a tick it must not, or each member would drop
-    the next member's planes and every tick would re-upload them and build
-    a new tick program."""
+    that adds planes does not read; inside a tick it must not, or each
+    member would drop the next member's planes and every tick would
+    re-upload them and build a new tick program."""
     db = _mk_db(tmp_path / "half", window_ms=_WIN)
     try:
         _load(db, 12, n=_N_ROWS)
@@ -756,6 +757,9 @@ def test_tick_keeps_its_members_planes_past_half_the_budget(tmp_path):
         cache = db.query_engine.tile_executor().cache
         entry = next(iter(cache._super.values()))
         cache.budget = entry.nbytes * 3 // 2  # past half the budget, inside it
+        # every plane dropped: each solo query below adds its planes and
+        # releases the others'
+        cache.release_unneeded(entry, set())
         solo = _solo(db, _QUERIES[:4])
         _tick(db, _QUERIES[:4])
         results, d = _tick(db, _QUERIES[:4])

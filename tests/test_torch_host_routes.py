@@ -6,7 +6,7 @@ same writes.
 The reference runs at its defaults with the passes the port lacks
 switched off (`fused_build` among them, so its cold serve takes the
 legacy ladder), no tile persistence and no CPU fallback; the port at its
-defaults.  The cases mirror the reference's tests/test_tile_cache.py
+defaults with `fused_build` switched off too.  The cases mirror the reference's tests/test_tile_cache.py
 (`test_host_fast_path_selective_queries`,
 `test_host_fast_path_includes_memtable`,
 `test_cold_host_serve_then_device_build`) and
@@ -47,9 +47,12 @@ from greptimedb_tpu_torch.utils.errors import ConfigError
 from test_torch_batch import _concurrent, _delta, _solo
 from test_torch_tile import HOST_ROUTES, UNPORTED_PASSES, _assert_same
 
-# the reference's passes the port still lacks
-REF_DISABLED = tuple(p for p in UNPORTED_PASSES if p not in HOST_ROUTES)
-ROUTES = HOST_ROUTES
+# the legacy ladder: the reference's passes the port still lacks and its
+# fused build off (the port names `fused_build` too, `PORT_DISABLED`);
+# tests/test_torch_fused_build.py holds the fused ladder
+ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
+REF_DISABLED = tuple(p for p in UNPORTED_PASSES if p not in ROUTES)
+PORT_DISABLED = ("fused_build",)
 # the three bounds, lowered on both sides' executors
 BOUNDS = ("_HOST_PATH_MAX_ROWS", "_HOST_PATH_MAX_CELLS", "_COLD_COMPACT_GROUPS")
 
@@ -82,6 +85,7 @@ class Pair:
         cfg.storage.compaction_background_enable = False
         self.ref = JaxDatabase(config=cfg, data_home=str(tmp_path / "jax"))
         pcfg = Config()
+        pcfg.query.disabled_passes = PORT_DISABLED
         pcfg.query.agg_strategy = strategy
         pcfg.query.tpu_min_rows = tpu_min_rows
         pcfg.batch.window_ms = window_ms
@@ -355,7 +359,7 @@ def test_disabling_host_fast_path_still_serves(pair):
            " WHERE host = 'host_1' AND ts >= 10000 AND ts < 100000")
     on, decisions = pair.query(sql)
     assert route_of(decisions) == "host_fast_path"
-    pair.port.config.query.disabled_passes = ("host_fast_path",)
+    pair.port.config.query.disabled_passes = PORT_DISABLED + ("host_fast_path",)
     pair.ref.config.query.disabled_passes = REF_DISABLED + ("host_fast_path",)
     off, decisions = pair.query(sql)
     assert ("host_fast_path", False, "pass disabled") in decisions

@@ -39,10 +39,10 @@ UNPORTED_PASSES = (
     "cold_host_serve", "fused_build", "pipelined_build", "stream_spill",
     "chunk_placement", "mesh_dispatch", "streamed_readback", "host_fast_path", "cost_route",
 )
-# the port's host routes (parallel/tile_host.py): these tests check the
-# card's path, so the port names them in query.disabled_passes as the
-# reference side above does
-HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve")
+# the port's host routes (parallel/tile_host.py) and its fused family
+# build: these tests check the card's path, so the port names them in
+# query.disabled_passes as the reference side above does
+HOST_ROUTES = ("cost_route", "host_fast_path", "cold_host_serve", "fused_build")
 TSBS = chip_smoke.Tsbs(40, 12, n_metrics=3)
 NAMES = [name for name, _sql in TSBS.queries()]
 
